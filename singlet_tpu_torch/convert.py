@@ -48,5 +48,6 @@ def providers_from_numpy(A_data, At_data, nonempty_cells, nonempty_genes,
         data=_f32(At_data, device),
         nonempty=torch.tensor(np.asarray(nonempty_genes, bool), device=device),
         rows_true=int(cols_true), cols_true=int(rows_true),
-        cols_are_cells=False, block=np.shape(At_data)[1])
+        cols_are_cells=False, block=np.shape(At_data)[1],
+        mask_cache=A.mask_cache)
     return A, At

@@ -1,6 +1,6 @@
 """Device and precision policy of the PyTorch port.
 
-Counterpart of ``singlet_tpu/utils.py`` for what the plain fit needs. The
+Counterpart of ``singlet_tpu/utils.py`` for what the port needs. The
 JAX package runs every f32 product at ``Precision.HIGHEST``
 (``singlet_tpu/ops/linalg.py:29-33``) because the CD-NNLS recurrence
 diverges under single-pass bf16; the port therefore turns TF32 off for
@@ -42,3 +42,9 @@ def is_scipy_sparse(A) -> bool:
         return sp.issparse(A)
     except ImportError:
         return False
+
+
+def vprint(verbose: int, level: int, *args) -> None:
+    """Print when ``verbose >= level`` (a copy of ``singlet_tpu.utils``)."""
+    if verbose >= level:
+        print(*args, flush=True)

@@ -1,16 +1,23 @@
-"""Dense helpers of the plain fit: Gram matrix, column rescale, convergence
-metric.
+"""Dense helpers: Gram matrix, column rescale, convergence metric, and the
+packed per-column Grams of the masked fit.
 
 Port of ``singlet_tpu/ops/linalg.py`` (``gram``, ``scale_columns``,
-``cor_distance``). These are small dense ops that XLA fused on the TPU; no
-Pallas kernel stood behind them, so they stay plain PyTorch. Float32
-products run at full precision (``device.set_precision_policy``).
+``cor_distance``, ``triu_pairs``, ``packed_outer_products``, the three
+``unpack_sym*`` and ``mask_dot_t``). These are dense ops that XLA ran on the
+TPU; no Pallas kernel stood behind them on the dense path, so they stay
+plain PyTorch. Float32 products run at full precision
+(``device.set_precision_policy``), the mask products included: that is what
+the JAX package computes on the CPU and under
+``SINGLET_TPU_MASK_MM_PRECISION=highest``. Its TPU default (single-pass bf16
+with an f32 output) has no torch equivalent, since a bf16 ``torch.matmul``
+rounds its output to bf16.
 
 Layouts as in the JAX package: W (genes, k), H (cells, k).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,3 +51,69 @@ def cor_distance(x: torch.Tensor, y: torch.Tensor,
     denom = torch.sqrt((n * sum_x2 - sum_x * sum_x)
                        * (n * sum_y2 - sum_y * sum_y))
     return 1.0 - (n * sum_xy - sum_x * sum_y) / denom
+
+
+def triu_pairs(k: int):
+    """Static upper-triangle index pair (i, j) arrays for k x k, i <= j."""
+    return np.triu_indices(k)
+
+
+def _sym_pos(k: int, iu) -> np.ndarray:
+    """(k, k) map from matrix position to packed-triangle index."""
+    npairs = iu[0].shape[0]
+    pos = np.zeros((k, k), np.int64)
+    ar = np.arange(npairs, dtype=np.int64)
+    pos[iu[0], iu[1]] = ar
+    pos[iu[1], iu[0]] = ar
+    return pos
+
+
+def packed_outer_products(X: torch.Tensor, iu) -> torch.Tensor:
+    """Columns of all pairwise products X[:, i] * X[:, j] for i <= j.
+
+    For a 0/1 mask tile M (cols x rows) the per-column Gram correction
+    sum_{j in mask_c} X_j X_j^T is ``unpack(M @ P)`` with P this matrix: the
+    reference's per-column ``submat`` + ``AAt`` loop
+    (reference:src/singlet.cpp:447-462) as one matmul.
+    """
+    i = torch.as_tensor(iu[0], device=X.device)
+    j = torch.as_tensor(iu[1], device=X.device)
+    return X[:, i] * X[:, j]
+
+
+def _pos_index(k: int, iu, device) -> torch.Tensor:
+    return torch.as_tensor(_sym_pos(k, iu).reshape(-1), device=device)
+
+
+def unpack_sym(packed: torch.Tensor, k: int, iu) -> torch.Tensor:
+    """Inverse of the triangular packing: (..., npairs) -> (..., k, k); the
+    (i, j) entry reads the packed position of its sorted pair."""
+    up = torch.index_select(packed, -1, _pos_index(k, iu, packed.device))
+    return up.reshape(packed.shape[:-1] + (k, k))
+
+
+def unpack_sym_t(packed: torch.Tensor, k: int, iu,
+                 a_full: torch.Tensor) -> torch.Tensor:
+    """Per-column Grams ``a_full - unpack(packed_c)`` in the coordinate-tile
+    layout ``at[i, j, c] = a_c[j, i]``, shape (k, k, n), from ``packed``
+    (n, npairs)."""
+    return unpack_sym_from_t(packed.T, k, iu, a_full)
+
+
+def unpack_sym_from_t(packed_t: torch.Tensor, k: int, iu,
+                      a_full: torch.Tensor) -> torch.Tensor:
+    """Per-column Grams ``a_full - unpack(packed_c)`` in the coordinate-tile
+    layout (k, k, n) from TRANSPOSED packed corrections ``packed_t``
+    (npairs, n): a row gather, contiguous over columns, which is the layout
+    kernel B2 reads."""
+    up = torch.index_select(packed_t, 0, _pos_index(k, iu, packed_t.device))
+    return (a_full.reshape(k * k, 1) - up).reshape(k, k, packed_t.shape[1])
+
+
+def mask_dot_t(P: torch.Tensor, m: torch.Tensor,
+               m_contract_dim: int) -> torch.Tensor:
+    """Contract dim 0 of the packed-product matrix ``P`` (rows, npairs)
+    against ``m_contract_dim`` of the 0/1 mask ``m``, giving (npairs, n):
+    the orientation ``unpack_sym_from_t`` consumes. One full-f32 matmul."""
+    m = m.to(P.dtype)
+    return P.T @ (m.T if m_contract_dim == 1 else m)

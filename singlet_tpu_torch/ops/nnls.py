@@ -4,8 +4,9 @@ Port of ``singlet_tpu/ops/nnls.py``: solve ``a x = b`` for ``x >= 0`` by
 Gauss-Seidel coordinate descent with residual tracking and clamp-at-zero,
 warm-started from the previous ALS iteration's factor values
 (reference:src/singlet.cpp:229-250). ``nnls_batch`` is the plain PyTorch
-version over all columns at once; ``solve_nnls`` sends CUDA calls with a
-shared Gram to the hand-written kernel B1 (``ops/nnls_cuda.py``).
+version over all columns at once; ``solve_nnls`` and ``solve_nnls_packed*``
+send CUDA calls to the hand-written kernels of ``ops/nnls_cuda.py``: B1 for
+a shared Gram, B2 for one Gram per column (the masked fit).
 
 Exact reference semantics per column, as in the JAX package:
   - ``diff = b_i / a_ii - L1 + L2 * x_i``, ``delta = max(diff, -x_i)``,
@@ -162,27 +163,92 @@ def nnls_batch(
     return X
 
 
+def _check_cuda_problem(B, L1):
+    """On CUDA the kernels take a float32 problem with scalar L1; (n, k) L1
+    (batch mode) raises rather than run the plain loop on the card."""
+    if isinstance(L1, torch.Tensor) and L1.dim() == 2:
+        raise NotImplementedError(
+            "on CUDA the CD-NNLS kernels take a scalar L1; (n, k) L1 (batch "
+            "mode) is not ported yet")
+    if B.dtype != torch.float32:
+        raise NotImplementedError(
+            f"on CUDA the CD-NNLS kernels take float32, got {B.dtype}")
+
+
 def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                max_sweeps: int = CD_MAX_SWEEPS, n_coord=None, sweep_cap=None):
-    """Dispatcher: kernel B1 for CUDA tensors, the plain version on the CPU.
+    """Dispatcher: the kernels for CUDA tensors, the plain version on the
+    CPU.
 
-    On CUDA only a float32 problem with a shared (k, k) Gram and scalar L1
-    has a kernel yet; per-column Grams (kernel B2, the masked path) and
-    (n, k) L1 (batch mode) raise there rather than run the plain loop.
+    On CUDA a shared (k, k) Gram goes to kernel B1 and per-column (n, k, k)
+    Grams to kernel B2 (in its (k, k, n) layout, as the JAX dispatcher
+    sends them to ``nnls_batch_pallas_batched_a``); a float32 problem with
+    scalar L1 only: (n, k) L1 (batch mode) raises there rather than run the
+    plain loop.
     """
     if B.device.type == "cuda":
-        l1_is_array = isinstance(L1, torch.Tensor) and L1.dim() == 2
-        if a.dim() != 2 or l1_is_array or B.dtype != torch.float32:
-            raise NotImplementedError(
-                "on CUDA, solve_nnls takes a float32 problem with a shared "
-                "(k, k) Gram and scalar L1; per-column Grams (kernel B2, the "
-                "masked path) and (n, k) L1 (batch mode) are not ported yet")
-        from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda
+        _check_cuda_problem(B, L1)
+        from singlet_tpu_torch.ops import nnls_cuda
 
-        return nnls_batch_cuda(a, B, X0, L1=L1, L2=L2,
-                               update_mask=update_mask,
-                               max_sweeps=max_sweeps, n_coord=n_coord,
-                               sweep_cap=sweep_cap)
+        if a.dim() == 3:
+            return nnls_cuda.nnls_batch_cuda_batched_at(
+                a.permute(2, 1, 0).contiguous(), B, X0, L1=L1, L2=L2,
+                update_mask=update_mask, max_sweeps=max_sweeps,
+                n_coord=n_coord, sweep_cap=sweep_cap)
+        return nnls_cuda.nnls_batch_cuda(a, B, X0, L1=L1, L2=L2,
+                                         update_mask=update_mask,
+                                         max_sweeps=max_sweeps,
+                                         n_coord=n_coord,
+                                         sweep_cap=sweep_cap)
     return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
                       max_sweeps=max_sweeps, n_coord=n_coord,
                       sweep_cap=sweep_cap)
+
+
+def solve_nnls_packed(a_full, packed, iu, B, X0, L1=0.0, L2=0.0,
+                      update_mask=None, max_sweeps: int = CD_MAX_SWEEPS,
+                      n_coord=None, sweep_cap=None):
+    """Per-column NNLS where each column's Gram is ``a_full`` minus a
+    packed-triangle correction (the masked-CV formulation,
+    reference:src/singlet.cpp:460-464: ``a_i = AAt(w) - AAt(w[:, idx])``).
+
+    ``packed``: (n, npairs) accumulated masked outer products. On CUDA the
+    Grams are emitted in kernel B2's (k, k, n) layout (``unpack_sym_t``);
+    on the CPU this is ``nnls_batch(a_full[None] - unpack_sym(packed))``.
+    """
+    from singlet_tpu_torch.ops.linalg import unpack_sym, unpack_sym_t
+
+    k = B.shape[1]
+    if B.device.type == "cuda":
+        _check_cuda_problem(B, L1)
+        from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda_batched_at
+
+        return nnls_batch_cuda_batched_at(
+            unpack_sym_t(packed, k, iu, a_full), B, X0, L1=L1, L2=L2,
+            update_mask=update_mask, max_sweeps=max_sweeps, n_coord=n_coord,
+            sweep_cap=sweep_cap)
+    a = a_full[None] - unpack_sym(packed, k, iu)
+    return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
+                      max_sweeps=max_sweeps, n_coord=n_coord,
+                      sweep_cap=sweep_cap)
+
+
+def solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.0, L2=0.0,
+                        update_mask=None, max_sweeps: int = CD_MAX_SWEEPS,
+                        n_coord=None, sweep_cap=None):
+    """:func:`solve_nnls_packed` with the packed corrections TRANSPOSED,
+    ``packed_t`` (npairs, n), the orientation ``linalg.mask_dot_t`` emits.
+    The (k, k, n) Grams come from one row gather (``unpack_sym_from_t``);
+    kernel B2 on CUDA, the plain version with ``a = at.permute(2, 1, 0)``
+    on the CPU.
+    """
+    from singlet_tpu_torch.ops.linalg import unpack_sym_from_t
+    from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda_batched_at
+
+    if B.device.type == "cuda":
+        _check_cuda_problem(B, L1)
+    at = unpack_sym_from_t(packed_t, B.shape[1], iu, a_full)
+    return nnls_batch_cuda_batched_at(at, B, X0, L1=L1, L2=L2,
+                                      update_mask=update_mask,
+                                      max_sweeps=max_sweeps, n_coord=n_coord,
+                                      sweep_cap=sweep_cap)

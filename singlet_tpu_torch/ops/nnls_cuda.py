@@ -1,16 +1,22 @@
-"""Kernel B1: batched CD-NNLS against one shared Gram, hand-written in CUDA.
+"""Kernels B1 and B2: batched CD-NNLS, hand-written in CUDA.
 
-Replaces ``singlet_tpu/ops/pallas_nnls.py`` ``nnls_batch_pallas`` (body
-``_nnls_kernel``), the kernel that solves every column of both ALS
-half-updates. The source is ``csrc/nnls_cd.cu``; its header note gives the
-design (one warp per column, Gram staged transposed in shared memory) and
-what bounds it on the card. ``_build.py`` compiles it with nvcc at first
-use and this module binds it with ctypes.
+B1 (``nnls_batch_cuda``) solves against one shared Gram and replaces
+``singlet_tpu/ops/pallas_nnls.py`` ``nnls_batch_pallas`` (body
+``_nnls_kernel``), the kernel of both plain ALS half-updates; its source is
+``csrc/nnls_cd.cu`` (one warp per column, Gram staged transposed in shared
+memory). B2 (``nnls_batch_cuda_batched_at``) solves against one Gram per
+column and replaces ``nnls_batch_pallas_batched_at`` (body
+``_nnls_kernel_batched``), the kernel of the masked half-updates; its source
+is ``csrc/nnls_cd_batched.cu`` (a column per lane, its coordinates shared
+by eight warps, Gram rows streamed through a cp.async ring). Each source's
+header note gives its design and
+what bounds it on the card. ``_build.py`` compiles them with nvcc at first
+use and this module binds them with ctypes.
 
-On a CUDA tensor ``nnls_batch_cuda`` launches the kernel or raises; on a
-CPU tensor it runs the plain version ``ops.nnls.nnls_batch``, because there
-is no card to launch on. Importing this module needs neither nvcc nor a
-card: the library is built and loaded at the first launch.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
+no card to launch on. Importing this module needs neither nvcc nor a card:
+the libraries are built and loaded at the first launch.
 """
 
 from __future__ import annotations
@@ -21,35 +27,48 @@ import torch
 
 from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS, nnls_batch
 
-# kernel launches (one per call on a CUDA tensor); read by chip_smoke.py to
-# show that a fit went through the kernel
+# kernel launches (one per call on a CUDA tensor) of B1 and of B2; read by
+# chip_smoke.py to show that a fit went through the kernels
 LAUNCHES = 0
+LAUNCHES_BATCHED = 0
 
-# coordinates per lane are a template parameter of 1..7, so k <= 7 * 32;
+# B1: coordinates per lane are a template parameter of 1..7, so k <= 7 * 32;
 # the (k, k) Gram plus 1/diag then take at most 201,600 bytes of shared
 # memory, under the 232,448 a Hopper block may use
 MAX_K = 224
+# B2: eight warps share a block's coordinates, up to 28 each in registers
+# (a template parameter), so k <= 8 * 28; the same limit as B1, which the
+# final plain fit of a rank search runs at the chosen rank
+MAX_K_BATCHED = 224
 
-_FN = None
+# the C entry points of B1 and B2 take the same arguments: six pointers,
+# n, k, L1, L2, k_div, cap, max_sweeps and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 6
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p])
+_BOUND: dict = {}
 
 
-def _kernel():
-    """The bound C entry point, building and loading the library once."""
-    global _FN
-    if _FN is None:
+def _kernel(source: str = "nnls_cd", symbol: str = "nnls_cd_shared"):
+    """(entry point, error-string function) of ``csrc/<source>.cu``,
+    building and loading the library once."""
+    if symbol not in _BOUND:
         from singlet_tpu_torch import _build
 
-        lib = _build.load("nnls_cd")
-        fn = lib.nnls_cd_shared
-        fn.argtypes = ([ctypes.c_void_p] * 6
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
+        lib = _build.load(source)
+        fn = getattr(lib, symbol)
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        lib.nnls_cd_error_string.argtypes = [ctypes.c_int]
-        lib.nnls_cd_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.nnls_cd_error_string)
-    return _FN
+        err_str = getattr(lib, f"{source}_error_string")
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _BOUND[symbol] = (fn, err_str)
+    return _BOUND[symbol]
+
+
+def _kernel_batched():
+    return _kernel("nnls_cd_batched", "nnls_cd_batched")
 
 
 def _check(name, t, shape, dtype, device):
@@ -78,33 +97,88 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                           sweep_cap=sweep_cap)
     global LAUNCHES
     n, k = B.shape
-    dev = B.device
     if k > MAX_K:
         raise NotImplementedError(f"kernel B1 takes k <= {MAX_K}, got {k}")
-    _check("a", a, (k, k), torch.float32, dev)
-    _check("B", B, (n, k), torch.float32, dev)
-    _check("X0", X0, (n, k), torch.float32, dev)
-    if update_mask is not None:
-        _check("update_mask", update_mask, (n,), torch.bool, dev)
-    if isinstance(L1, torch.Tensor) and L1.dim() > 0:
-        raise TypeError("kernel B1 takes a scalar L1")
+    _check("a", a, (k, k), torch.float32, B.device)
+    _check_common(B, X0, update_mask, L1, "B1")
     k_div = float(k if n_coord is None else n_coord)
-    cap = float(max_sweeps) if sweep_cap is None else \
-        min(float(sweep_cap), float(max_sweeps))
+    cap = _cap(max_sweeps, sweep_cap)
 
     inv_diag = 1.0 / torch.diagonal(a)       # as in the plain version
     X = torch.empty_like(B)
     if n == 0:
         return X
-    fn, err_str = _kernel()
+    _launch(_kernel(), "nnls_cd_shared", a, inv_diag, B, X0, update_mask,
+            X, L1, L2, k_div, cap, max_sweeps)
+    LAUNCHES += 1
+    return X
+
+
+def _check_common(B, X0, update_mask, L1, name):
+    n, k = B.shape
+    dev = B.device
+    _check("B", B, (n, k), torch.float32, dev)
+    _check("X0", X0, (n, k), torch.float32, dev)
+    if update_mask is not None:
+        _check("update_mask", update_mask, (n,), torch.bool, dev)
+    if isinstance(L1, torch.Tensor) and L1.dim() > 0:
+        raise TypeError(f"kernel {name} takes a scalar L1")
+
+
+def _launch(bound, symbol, gram, inv_diag, B, X0, update_mask, X, L1, L2,
+            k_div, cap, max_sweeps):
+    """Launch a bound kernel on the current stream of B's device; raise if
+    the launch was refused."""
+    fn, err_str = bound
+    n, k = B.shape
     mask_ptr = None if update_mask is None else update_mask.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), inv_diag.data_ptr(), B.data_ptr(),
+    with torch.cuda.device(B.device):
+        stream = torch.cuda.current_stream(B.device).cuda_stream
+        err = fn(gram.data_ptr(), inv_diag.data_ptr(), B.data_ptr(),
                  X0.data_ptr(), mask_ptr, X.data_ptr(), n, k, float(L1),
                  float(L2), k_div, cap, int(max_sweeps), stream)
     if err != 0:
         raise RuntimeError(
-            f"nnls_cd_shared launch failed: {err_str(err).decode()} ({err})")
-    LAUNCHES += 1
+            f"{symbol} launch failed: {err_str(err).decode()} ({err})")
+
+
+def _cap(max_sweeps, sweep_cap) -> float:
+    """The kernels' cap: the adaptive sweep cap clamped to max_sweeps."""
+    if sweep_cap is None:
+        return float(max_sweeps)
+    return min(float(sweep_cap), float(max_sweeps))
+
+
+def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
+                               max_sweeps: int = CD_MAX_SWEEPS, n_coord=None,
+                               sweep_cap=None) -> torch.Tensor:
+    """``nnls_batch`` for per-column float32 Grams in the coordinate-tile
+    layout ``at`` (k, k, n), ``at[i, j, c] = a_c[j, i]``, and scalar L1/L2.
+
+    B, X0: (n, k); update_mask: bool (n,) or None. Returns X (n, k); rows
+    with update_mask False equal X0 bit for bit. On the CPU this is the
+    plain version with ``a = at.permute(2, 1, 0)``.
+    """
+    if B.device.type != "cuda":
+        return nnls_batch(at.permute(2, 1, 0), B, X0, L1=L1, L2=L2,
+                          update_mask=update_mask, max_sweeps=max_sweeps,
+                          n_coord=n_coord, sweep_cap=sweep_cap)
+    global LAUNCHES_BATCHED
+    n, k = B.shape
+    if k > MAX_K_BATCHED:
+        raise NotImplementedError(
+            f"kernel B2 takes k <= {MAX_K_BATCHED}, got {k}")
+    _check("at", at, (k, k, n), torch.float32, B.device)
+    _check_common(B, X0, update_mask, L1, "B2")
+    k_div = float(k if n_coord is None else n_coord)
+    # 1 / a_c[i, i] as the plain version computes it: row i * (k + 1) of
+    # the (k * k, n) view is at[i, i, :]
+    inv_diag = 1.0 / at.reshape(k * k, n)[:: k + 1]
+    X = torch.empty_like(B)
+    if n == 0:
+        return X
+    _launch(_kernel_batched(), "nnls_cd_batched", at, inv_diag, B, X0,
+            update_mask, X, L1, L2, k_div, _cap(max_sweeps, sweep_cap),
+            max_sweeps)
+    LAUNCHES_BATCHED += 1
     return X

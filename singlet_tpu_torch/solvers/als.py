@@ -1,14 +1,25 @@
-"""The alternating-least-squares NMF engine, plain (unmasked) path.
+"""The alternating-least-squares NMF engine: plain and masked updates.
 
-Port of the plain half of ``singlet_tpu/solvers/als.py``
-(reference:src/singlet.cpp:639-666). Each half-update is a Gram, one
-``P^T X`` product, the batched CD-NNLS over all columns (kernel B1 on
-CUDA), and a column rescale; the convergence metric is 1 - Pearson of W
-against the previous iterate on the true (unpadded) rows.
+Port of ``singlet_tpu/solvers/als.py`` (reference:src/singlet.cpp:639-666).
+Each plain half-update is a Gram, one ``P^T X`` product, the batched
+CD-NNLS over all columns (kernel B1 on CUDA), and a column rescale; the
+convergence metric is 1 - Pearson of W against the previous iterate on the
+true (unpadded) rows.
+
+Masked (cross-validation) half-updates loop over column blocks
+(``P.block``: 2048 cells, 4096 genes from ``make_dense_providers``), so
+memory stays bounded at large n. Per block: the test-mask tile, the
+training product of the masked operand, the per-column Gram corrections
+``a_c = X^T X - sum_{masked j} X_j X_j^T`` (reference:src/singlet.cpp:
+447-464) from one packed-outer-product matmul, and one CD-NNLS over the
+block's columns with a Gram per column (kernel B2 on CUDA).
 
 Semantics kept from the JAX package:
   * warm-started NNLS + column rescale => damped (EMA-like) ALS updates;
   * empty columns are skipped, retaining their previous values;
+  * the masked test-set MSE counts all masked entries, zeros included,
+    averaged per column, then over the true columns
+    (reference:src/singlet.cpp:536-568);
   * tol starts at 1.0, so a ``tol_target >= 1`` runs no iteration; the
     adaptive sweep latch is fed the previous iteration's tol; the tol trace
     is kept.
@@ -27,9 +38,12 @@ import numpy as np
 import torch
 
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device
-from singlet_tpu_torch.ops.linalg import cor_distance, gram, scale_columns
+from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
+                                          packed_outer_products,
+                                          scale_columns, triu_pairs)
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
-                                        solve_nnls, sweep_cap_update)
+                                        solve_nnls, solve_nnls_packed_t,
+                                        sweep_cap_update)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix, _round_up
 
 
@@ -50,7 +64,8 @@ def make_dense_providers(A, cell_block: int = 2048, gene_block: int = 4096,
 
     scipy-sparse inputs ship only their COO triplets to the device and are
     densified there by one scatter-add. At's data is the transposed VIEW
-    of A's (no second copy of the operand; the matmuls read it transposed).
+    of A's (no second copy of the operand; the matmuls read it transposed),
+    and the two share one test-mask cache.
     """
     device = resolve_device(device)
     genes, cells = A.shape
@@ -75,7 +90,8 @@ def make_dense_providers(A, cell_block: int = 2048, gene_block: int = 4096,
     Ap = DenseMatrix(data=data, nonempty=nz.any(dim=0), rows_true=genes,
                      cols_true=cells, cols_are_cells=True, block=cb)
     Atp = DenseMatrix(data=data.T, nonempty=nz.any(dim=1), rows_true=cells,
-                      cols_true=genes, cols_are_cells=False, block=gb)
+                      cols_true=genes, cols_are_cells=False, block=gb,
+                      mask_cache=Ap.mask_cache)
     return Ap, Atp
 
 
@@ -96,6 +112,48 @@ def _half_update(P: DenseMatrix, X, Y_warm, L1, L2, link=None,
                       max_sweeps=max_sweeps, sweep_cap=sweep_cap)
 
 
+def _half_update_masked(P: DenseMatrix, X, Y_warm, seed, L1, L2,
+                        inv_density: int, block: int, sweep_cap=None,
+                        max_sweeps: int = CD_MAX_SWEEPS):
+    """Masked half-update over column blocks (reference:src/singlet.cpp:
+    436-466): one kernel-B2 solve per block of ``block`` columns."""
+    k = X.shape[1]
+    a_full = gram(X)
+    iu = triu_pairs(k)
+    P_pairs = packed_outer_products(X, iu)          # (rows_pad, npairs)
+    if P.cols_pad % block:
+        raise ValueError(f"block {block} does not divide {P.cols_pad}")
+    Ys = []
+    for col_start in range(0, P.cols_pad, block):
+        m = P.mask_tile(seed, col_start, block, inv_density)   # (blk, rows)
+        tile = P.col_block(col_start, block)                   # (rows, blk)
+        B = torch.where(m, 0.0, tile.T) @ X                    # (blk, k)
+        packed_t = mask_dot_t(P_pairs, m, 1)                   # (np, blk)
+        cols = slice(col_start, col_start + block)
+        Ys.append(solve_nnls_packed_t(
+            a_full, packed_t, iu, B, Y_warm[cols], L1=L1, L2=L2,
+            update_mask=P.nonempty[cols], max_sweeps=max_sweeps,
+            sweep_cap=sweep_cap))
+    return torch.cat(Ys)
+
+
+def mse_test(A: DenseMatrix, W, d, H, seed, inv_density: int, block: int):
+    """Held-out test-set MSE (reference:src/singlet.cpp:536-568): the mean
+    over true cells of (sum over masked genes of (w d h - A)^2 / n_masked).
+    A 0-d tensor on the fit's device."""
+    Wd = W * d[None, :]
+    total = torch.zeros((), dtype=W.dtype, device=W.device)
+    for col_start in range(0, A.cols_pad, block):
+        m = A.mask_tile(seed, col_start, block, inv_density)    # (blk, genes)
+        tile = A.col_block(col_start, block)                    # (genes, blk)
+        pred = H[col_start:col_start + block] @ Wd.T            # (blk, genes)
+        diff2 = torch.square(pred - tile.T)
+        s = torch.where(m, diff2, 0.0).sum(dim=1)
+        n = m.sum(dim=1)
+        total = total + torch.where(n > 0, s / n.clamp(min=1), 0.0).sum()
+    return total / A.cols_true
+
+
 def als_step(A: DenseMatrix, At: DenseMatrix, W, H, L1_h, L1_w, L2_h, L2_w,
              link_h=None, link_w=None, sweep_cap=None,
              max_sweeps: int = CD_MAX_SWEEPS):
@@ -107,6 +165,22 @@ def als_step(A: DenseMatrix, At: DenseMatrix, W, H, L1_h, L1_w, L2_h, L2_w,
     H, d = scale_columns(H)
     W_new = _half_update(At, H, W, L1_w, L2_w, link=link_w,
                          sweep_cap=sweep_cap, max_sweeps=max_sweeps)
+    W_new, d = scale_columns(W_new)
+    tol = cor_distance(W_new[: At.cols_true], W[: At.cols_true])
+    return W_new, H, d, tol
+
+
+def als_step_masked(A: DenseMatrix, At: DenseMatrix, W, H, seed, L1, L2,
+                    inv_density: int, cell_block: int, gene_block: int,
+                    sweep_cap=None, max_sweeps: int = CD_MAX_SWEEPS):
+    """One masked ALS iteration (reference:src/singlet.cpp:1107-1114).
+    Returns (W, H, d, tol) with tol a 0-d tensor on the fit's device."""
+    H = _half_update_masked(A, W, H, seed, L1, L2, inv_density, cell_block,
+                            sweep_cap=sweep_cap, max_sweeps=max_sweeps)
+    H, d = scale_columns(H)
+    W_new = _half_update_masked(At, H, W, seed, L1, L2, inv_density,
+                                gene_block, sweep_cap=sweep_cap,
+                                max_sweeps=max_sweeps)
     W_new, d = scale_columns(W_new)
     tol = cor_distance(W_new[: At.cols_true], W[: At.cols_true])
     return W_new, H, d, tol
@@ -182,6 +256,19 @@ def _padded(x, rows: int, k: int, device) -> torch.Tensor:
     return out
 
 
+def fit_providers(A, At, device):
+    """(A, At, device) of a fit: ``A`` with ``At`` is a prebuilt provider
+    pair, whose device is then the fit's; otherwise ``A`` is a genes x cells
+    array made into dense providers on ``device`` (default ``"cuda"``)."""
+    if At is not None:
+        if device is not None and \
+                resolve_device(device).type != A.device.type:
+            raise ValueError(f"providers are on {A.device}, device={device}")
+        return A, At, resolve_device(A.device)
+    dev = resolve_device(device)
+    return (*make_dense_providers(np.asarray(A), device=dev), dev)
+
+
 def nmf_fit(
     A: Union[np.ndarray, DenseMatrix],
     k: int,
@@ -210,16 +297,7 @@ def nmf_fit(
     if checkpoint is not None:
         raise NotImplementedError("checkpoint= is not ported to "
                                   "singlet_tpu_torch yet")
-    if At is not None:
-        Ap, Atp = A, At        # caller-built providers
-        if device is not None and \
-                resolve_device(device).type != Ap.device.type:
-            raise ValueError(f"providers are on {Ap.device}, device={device}")
-        dev = resolve_device(Ap.device)
-    else:
-        dev = resolve_device(device)
-        Ap, Atp = make_dense_providers(np.asarray(A), device=dev)
-
+    Ap, Atp, dev = fit_providers(A, At, device)
     genes_pad = Ap.rows_pad
     cells_pad = Ap.cols_pad
     if w_init is None:

@@ -1,0 +1,171 @@
+"""Masked (cross-validation) ALS fit with overfit early stopping.
+
+Port of ``singlet_tpu/solvers/ard.py`` (``c_ard_nmf_base``,
+reference:src/singlet.cpp:1091-1152): the ALS loop runs with the speckled
+test set masked out of both half-updates; every ``trace_test_mse``
+iterations the held-out MSE is evaluated and an overfit score
+``(err - min_err) / (err + min_err)`` is tracked; the fit stops early when
+the score exceeds ``overfit_threshold``.
+
+The JAX fit loop (``_ard_loop_device``) is one ``lax.while_loop`` so that a
+fit costs one sync with a remote TPU. Here it is a host loop that syncs
+once per iteration (the tol, and the test MSE at a trace iteration, in one
+read), with the same schedule: the trace is taken at ``it % trace == 0``
+with ``it`` counted from 0 before its increment, scores are compared in
+float32, and on a stop ``it`` is not incremented (the reference breaks
+before ``it++``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from singlet_tpu_torch.device import vprint
+from singlet_tpu_torch.ops.nnls import SweepSettings, sweep_cap_update
+from singlet_tpu_torch.ops.rngmask import seed_pair
+from singlet_tpu_torch.solvers.als import (_padded, als_step_masked,
+                                           fit_providers, init_w, mse_test)
+from singlet_tpu_torch.sparse.matrix import DenseMatrix
+
+
+@dataclasses.dataclass
+class ArdFitResult:
+    w: np.ndarray           # (genes, k)
+    d: np.ndarray           # (k,)
+    h: np.ndarray           # (k, cells)
+    test_mse: List[float]
+    iter: List[int]
+    tol: List[float]
+    score_overfit: List[float]
+
+
+def _score(err, min_err):
+    """The overfit score in float32, as the JAX loop computes it on device
+    (0/0 gives NaN there too)."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return (err - min_err) / (err + min_err)
+
+
+def _ard_loop(Ap, Atp, W, H, sp, L1, L2, inv_density: int, cell_block: int,
+              gene_block: int, tol_target, overfit_threshold, maxit: int,
+              trace_every: int, settings: SweepSettings, verbose: int = 0):
+    """The masked fit loop with the trace and early-stop policy of
+    ``_ard_loop_device``. Returns (W, H, d, it, stopped, test_mse, iters,
+    scores, tols) with ``tols`` the tol of every step taken."""
+    target = np.float32(tol_target)
+    threshold = np.float32(overfit_threshold)
+    d = torch.ones(W.shape[1], dtype=W.dtype, device=W.device)
+    tolv = np.float32(1.0)
+    min_err = np.float32(np.inf)
+    exact = stopped = False
+    it = 0
+    tols: List[float] = []
+    tmse: List[float] = []
+    t_iters: List[int] = []
+    scores: List[float] = []
+    while not stopped and it < maxit and tolv > target:
+        cap, exact = sweep_cap_update(exact, tolv, target, masked=True,
+                                      settings=settings)
+        W, H, d, t = als_step_masked(Ap, Atp, W, H, sp, L1, L2, inv_density,
+                                     cell_block, gene_block, sweep_cap=cap,
+                                     max_sweeps=settings.max_sweeps)
+        traced = it % trace_every == 0
+        if traced:
+            err_t = mse_test(Ap, W, d, H, sp, inv_density, cell_block)
+            tv, ev = torch.stack([t, err_t]).tolist()     # the one sync
+        else:
+            tv = t.item()
+        tolv = np.float32(tv)
+        tols.append(float(tolv))
+        if traced:
+            err = np.float32(ev)
+            min_err = min(min_err, err)
+            score = _score(err, min_err)
+            tmse.append(float(err))
+            t_iters.append(it)
+            scores.append(float(score))
+            stopped = bool(score > threshold)
+            vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} | {score:8.2e}")
+        else:
+            vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} |        -")
+        if not stopped:
+            it += 1
+    return W, H, d, it, stopped, tmse, t_iters, scores, tols
+
+
+def ard_nmf_fit(
+    A: Union[np.ndarray, DenseMatrix],
+    k: int,
+    At: Optional[DenseMatrix] = None,
+    w_init=None,
+    mask_seed: int = 0,
+    inv_density: int = 20,
+    tol: float = 1e-4,
+    maxit: int = 100,
+    L1: float = 0.01,
+    L2: float = 0.0,
+    overfit_threshold: float = 1e-3,
+    trace_test_mse: int = 1,
+    verbose: int = 0,
+    init_seed: int = 0,
+    checkpoint=None,
+    k_bucket: int = 8,
+    device=None,
+) -> ArdFitResult:
+    """One masked fit at fixed rank k, returning factor matrices + traces.
+
+    The trace schedule, overfit score, early stop and tail trace follow
+    reference:src/singlet.cpp:1106-1141; the trace vectors feed the
+    ``cross_validate_nmf_data`` frame (reference:R/ard_nmf.R:118). ``A``
+    and ``device`` are taken as ``nmf_fit`` takes them.
+
+    ``k_bucket`` is accepted for the JAX signature and does nothing: it
+    pads the factor count so that the rank searches share compiled XLA
+    programs, and the padded fit equals the unpadded one up to
+    reassociation (tests/test_drivers.py::test_rank_bucketing_is_exact).
+    Eager PyTorch compiles nothing per rank. ``checkpoint`` is not ported
+    yet and raises.
+    """
+    if checkpoint is not None:
+        raise NotImplementedError("checkpoint= is not ported to "
+                                  "singlet_tpu_torch yet")
+    Ap, Atp, dev = fit_providers(A, At, device)
+    genes_pad, cells_pad = Ap.rows_pad, Ap.cols_pad
+    sp = seed_pair(mask_seed)
+    if w_init is None:
+        W = init_w(k, genes_pad, Ap.rows_true, init_seed, device=dev)
+    else:
+        W = _padded(w_init, genes_pad, k, dev)
+    H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
+
+    W, H, d, it, stopped, test_mse_t, iter_t, score_t, tols = _ard_loop(
+        Ap, Atp, W, H, sp, float(L1), float(L2), int(inv_density), Ap.block,
+        Atp.block, tol, overfit_threshold, int(maxit), int(trace_test_mse),
+        SweepSettings.from_env(), verbose=verbose)
+    tol_t = [tols[i] for i in iter_t]
+    # a stopped step wrote tols[it] (it was not incremented)
+    last_idx = it if stopped else it - 1
+    tol_ = tols[last_idx] if last_idx >= 0 else 1.0
+
+    if (it % trace_test_mse != 0 and not stopped
+            and (not iter_t or iter_t[-1] != it)):
+        err = float(mse_test(Ap, W, d, H, sp, int(inv_density), Ap.block))
+        test_mse_t.append(err)
+        iter_t.append(it)
+        tol_t.append(tol_)
+        min_err = min(test_mse_t)
+        score_t.append((err - min_err) / (err + min_err))
+
+    return ArdFitResult(
+        w=W[: Ap.rows_true].cpu().numpy(),
+        d=d.cpu().numpy(),
+        h=H[: Ap.cols_true].T.cpu().numpy(),
+        test_mse=test_mse_t,
+        iter=iter_t,
+        tol=tol_t,
+        score_overfit=score_t,
+    )

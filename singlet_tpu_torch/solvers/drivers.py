@@ -1,23 +1,32 @@
-"""Matrix-in / model-out driver of the plain fit: ``run_nmf``.
+"""Matrix-in / model-out drivers: ``run_nmf``, ``cross_validate_nmf``,
+``GetBestRank`` and the ``ard_nmf`` rank search.
 
-Port of ``run_nmf``, ``_finalize``, ``_providers`` and ``_coerce_dense`` of
-``singlet_tpu/solvers/drivers.py`` (reference:R/run_nmf.R:18-77), with a
-``device=`` argument. Dense numpy input, and scipy input up to
-``SPARSE_THRESHOLD`` dense entries, become dense providers on the device.
-Everything the JAX package sends to its blocked-ELL engine (larger scipy
-input, chunk lists, staged directories, ``mesh=``) raises here: that engine
-is not ported yet, and densifying such input silently could exhaust the card.
+Port of ``singlet_tpu/solvers/drivers.py`` (reference:R/run_nmf.R:18-77,
+reference:R/cross_validate_nmf.R:18-105, reference:R/GetBestRank.R:8-46,
+reference:R/ard_nmf.R:31-193), with a ``device=`` argument. Dense numpy
+input, and scipy input up to ``SPARSE_THRESHOLD`` dense entries, become
+dense providers on the device, built once and shared by every fit of a
+rank search. Everything the JAX package sends to its blocked-ELL engine
+(larger scipy input, chunk lists, staged directories, ``mesh=``) raises
+here: that engine is not ported yet, and densifying such input silently
+could exhaust the card. The CV trace frame (columns k, rep, test_error,
+iter, tol[, overfit_score]) is the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import math
+import warnings
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import pandas as pd
 
-from singlet_tpu_torch.device import is_scipy_sparse, resolve_device
+from singlet_tpu_torch.device import is_scipy_sparse, resolve_device, vprint
 from singlet_tpu_torch.model import NMFModel
-from singlet_tpu_torch.solvers.als import make_dense_providers, nmf_fit
+from singlet_tpu_torch.solvers.als import (init_w, make_dense_providers,
+                                           nmf_fit)
+from singlet_tpu_torch.solvers.ard import ard_nmf_fit
 from singlet_tpu_torch.sparse.matrix import DenseMatrix
 
 # scipy-sparse inputs with more dense entries than this go to the blocked-ELL
@@ -54,13 +63,26 @@ def _providers(A, mesh, device) -> Tuple[DenseMatrix, DenseMatrix]:
     return make_dense_providers(_coerce_dense(A), device=device)
 
 
-def _finalize(w, d, h, gene_names=None, cell_names=None,
+def _fit_masked(P, k, **kw):
+    """A masked (trace-producing) fit on dense providers: ArdFitResult."""
+    Ap, Atp = P
+    return ard_nmf_fit(Ap, k, At=Atp, **kw)
+
+
+def _finalize(w, d, h, gene_names=None, cell_names=None, cv_data=None,
               reduction_key: str = "NMF_") -> NMFModel:
     """Sort factors by decreasing d and attach names
     (reference:R/run_nmf.R:65-76)."""
     model = NMFModel(w=w, d=d, h=h, gene_names=gene_names,
-                     cell_names=cell_names, reduction_key=reduction_key)
+                     cell_names=cell_names, cv_data=cv_data,
+                     reduction_key=reduction_key)
     return model.sorted_by_d()
+
+
+def _check_density(test_density: float) -> None:
+    if test_density > 0.2 or test_density < 0.01:
+        warnings.warn("'test_density' should not be greater than 0.2 or less "
+                      "than 0.01, as a general rule of thumb")
 
 
 def run_nmf(
@@ -98,3 +120,286 @@ def run_nmf(
     res = nmf_fit(Ap, int(rank), At=Atp, w_init=w_init, tol=tol, maxit=maxit,
                   L1=L1, L2=L2, seed=seed, verbose=bool(verbose))
     return _finalize(res.w, res.d, res.h, gene_names, cell_names)
+
+
+# ---------------------------------------------------------------------------
+# GetBestRank — the rank-selection rule (pandas, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def get_best_rank(df: pd.DataFrame, tol_overfit: float = 1e-4) -> int:
+    """Select the best rank from CV traces (reference:R/GetBestRank.R:8-46).
+
+    Per replicate: cap max_rank at the smallest rank whose running-min
+    normalized error trace rises by more than tol_overfit; below the cap,
+    condense each (rep, k) to its last trace point and take the k minimizing
+    test error; floor of the mean across replicates.
+    """
+    if len(df) == 0:
+        # e.g. the very first fit of a search already overfit: nothing below
+        # the cap — fall back to the minimum rank (mirrors the empty-cap
+        # branch below; R would propagate NaN here)
+        return 2
+    best_ranks = []
+    for rep in sorted(df["rep"].unique()):
+        df_rep = df[df["rep"] == rep]
+        max_rank = int(df_rep["k"].max()) + 1
+        for rank in pd.unique(df_rep["k"]):
+            if rank < max_rank:
+                err = df_rep[df_rep["k"] == rank]["test_error"].to_numpy()
+                if err.size > 1:
+                    v2 = err[1:]
+                    v1 = err[:-1].copy()
+                    # running min, exactly as the reference's in-place loop
+                    for pos in range(1, v1.size):
+                        if v1[pos] > v1[pos - 1]:
+                            v1[pos] = v1[pos - 1]
+                    rise = np.max(np.concatenate([[0.0], (v2 - v1) / (v2 + v1)]))
+                    if rise > tol_overfit:
+                        max_rank = int(rank)
+        df_cap = df_rep[df_rep["k"] < max_rank]
+        if len(df_cap) == 0:
+            best_ranks.append(2)
+        elif len(df) == 1:  # quirk preserved: tests the FULL frame's length
+            best_ranks.append(int(df_cap["k"].iloc[0]))
+        else:
+            condensed = (
+                df_cap.sort_values("iter").groupby("k", as_index=False).last()
+            )
+            best_ranks.append(
+                int(condensed["k"].iloc[condensed["test_error"].to_numpy().argmin()])
+            )
+    return int(math.floor(float(np.mean(best_ranks))))
+
+
+# R-style alias (public surface name)
+GetBestRank = get_best_rank
+
+
+# ---------------------------------------------------------------------------
+# cross_validate_nmf — fixed-grid CV
+# ---------------------------------------------------------------------------
+
+def cross_validate_nmf(
+    A,
+    ranks: Sequence[int],
+    n_replicates: int = 3,
+    tol: float = 1e-4,
+    maxit: int = 100,
+    verbose: int = 1,
+    L1: float = 0.01,
+    L2: float = 0.0,
+    test_density: float = 0.05,
+    tol_overfit: float = 1e-4,
+    trace_test_mse: int = 5,
+    seed: int = 0,
+    mesh=None,
+    config=None,
+    device=None,
+) -> pd.DataFrame:
+    """Masked CV over a (rank, replicate) grid
+    (reference:R/cross_validate_nmf.R:18-105).
+
+    Each replicate shares one nested w_init (the rank-k fit uses its first
+    k columns) and a deterministic per-replicate mask seed. Returns the tidy
+    trace frame of class ``cross_validate_nmf_data``. ``A`` and ``device``
+    are taken as ``run_nmf`` takes them; ``mesh`` raises. ``config`` (an
+    NMFConfig) supplies the hyperparameters, taking precedence over the
+    per-argument defaults.
+    """
+    if config is not None:
+        n_replicates, maxit, verbose = (config.reps, config.maxit,
+                                        config.verbose)
+        tol = config.cv_tol_effective
+        L1, L2, seed = config.L1, config.L2, config.seed
+        test_density = config.test_set_density
+        tol_overfit, trace_test_mse = (config.tol_overfit,
+                                       config.trace_test_mse)
+    if L1 >= 1:
+        raise ValueError("L1 penalty must be strictly in the range [0, 1)")
+    _check_density(test_density)
+    P = _providers(A, mesh, device)
+    genes_pad, genes_true, dev = P[0].rows_pad, P[0].rows_true, P[0].device
+    k_top = int(max(ranks))
+    inv_density = round(1.0 / test_density)
+
+    w_inits = [
+        init_w(k_top, genes_pad, genes_true, seed=seed * 1000 + rep,
+               device=dev)
+        for rep in range(1, n_replicates + 1)
+    ]
+
+    rows = []
+    # expand.grid(k, rep) varies k fastest: rep-major outer, k inner
+    grid = [(int(k), rep) for rep in range(1, n_replicates + 1) for k in ranks]
+    for idx, (k, rep) in enumerate(grid):
+        vprint(verbose, 2, f"k = {k}, rep = {rep} ({idx + 1}/{len(grid)}):")
+        res = _fit_masked(
+            P, k, w_init=w_inits[rep - 1][:, :k],
+            mask_seed=seed + rep, inv_density=inv_density, tol=tol,
+            maxit=maxit, L1=L1, L2=L2, overfit_threshold=tol_overfit,
+            trace_test_mse=trace_test_mse, verbose=verbose,
+        )
+        for e, i, t in zip(res.test_mse, res.iter, res.tol):
+            rows.append(dict(k=k, rep=rep, test_error=e, iter=i, tol=t))
+        vprint(verbose, 2, f"test set error: {res.test_mse[-1]:.4e}\n")
+
+    df = pd.DataFrame(rows)
+    df.attrs["class"] = "cross_validate_nmf_data"
+    return df
+
+
+# ---------------------------------------------------------------------------
+# ard_nmf — adaptive rank search
+# ---------------------------------------------------------------------------
+
+def ard_nmf(
+    A,
+    k_init: Optional[int] = 2,
+    k_max: int = 100,
+    k_min: int = 2,
+    n_replicates: int = 1,
+    tol: float = 1e-5,
+    cv_tol: float = 1e-4,
+    maxit: int = 100,
+    verbose: int = 1,
+    L1: float = 0.01,
+    L2: float = 0.0,
+    test_density: float = 0.05,
+    learning_rate: float = 1.0,
+    tol_overfit: float = 1e-3,
+    trace_test_mse: int = 1,
+    seed: int = 0,
+    gene_names=None,
+    cell_names=None,
+    max_fits: int = 100,
+    mesh=None,
+    config=None,
+    checkpoint=None,
+    device=None,
+) -> NMFModel:
+    """Automatic rank determination (reference:R/ard_nmf.R:31-193).
+
+    Replicated adaptive search: exponential step growth while the best rank
+    is the largest fit so far, bisection between bracketing ranks otherwise;
+    k_max shrinks to any rank that overfits; stops when the bracketing
+    neighbors are within 1. Then refits unmasked at the chosen rank (kernel
+    B1 on CUDA; the masked fits run kernel B2).
+
+    ``max_fits`` is a safety valve (no reference counterpart) against
+    pathological search oscillation. ``config`` (an NMFConfig) supplies the
+    hyperparameters, taking precedence over per-argument defaults. ``A``
+    and ``device`` are taken as ``run_nmf`` takes them; ``mesh`` and
+    ``checkpoint`` (the search-state checkpoint) are not ported yet and
+    raise.
+    """
+    if checkpoint is not None:
+        raise NotImplementedError("checkpoint= (the ard_nmf search-state "
+                                  "checkpoint) is not ported to "
+                                  "singlet_tpu_torch yet")
+    if config is not None:
+        k_init, k_max, k_min = config.k_init, config.k_max, config.k_min
+        n_replicates, tol, maxit = config.reps, config.tol, config.maxit
+        cv_tol = config.cv_tol_effective
+        L1, L2, seed, verbose = (config.L1, config.L2, config.seed,
+                                 config.verbose)
+        test_density = config.test_set_density
+        learning_rate, tol_overfit = (config.learning_rate,
+                                      config.tol_overfit)
+        trace_test_mse = config.trace_test_mse
+    if L1 >= 1:
+        raise ValueError("L1 penalty must be strictly in the range [0, 1)")
+    _check_density(test_density)
+    if k_init is None or k_init < k_min:
+        k_init = k_min
+    if k_min < 2:
+        raise ValueError("k_min cannot be less than 2")
+
+    P = _providers(A, mesh, device)
+    genes_pad, genes_true, dev = P[0].rows_pad, P[0].rows_true, P[0].device
+    inv_density = round(1.0 / test_density)
+    test_seed = seed
+
+    w_inits = [
+        init_w(k_max, genes_pad, genes_true, seed=seed * 1000 + rep,
+               device=dev)
+        for rep in range(1, n_replicates + 1)
+    ]
+
+    rows = []
+    n_fits = 0
+    for curr_rep in range(1, n_replicates + 1):
+        if verbose >= 1 and n_replicates > 1:
+            print(f"\nREPLICATE {curr_rep}/{n_replicates}")
+        step_size = 1.0
+        curr_rank = int(k_init)
+        this_k_max = k_max
+        while (step_size >= 1 and curr_rank <= this_k_max
+               and curr_rank >= k_min and n_fits < max_fits):
+            vprint(verbose, 1, f"k = {curr_rank} , rep = {curr_rep}")
+            res = _fit_masked(
+                P, curr_rank,
+                w_init=w_inits[curr_rep - 1][:, :curr_rank],
+                mask_seed=test_seed + curr_rep, inv_density=inv_density,
+                tol=cv_tol, maxit=maxit, L1=L1, L2=L2,
+                overfit_threshold=tol_overfit,
+                trace_test_mse=trace_test_mse, verbose=verbose,
+            )
+            n_fits += 1
+            overfit_score = res.score_overfit[-1]
+            for e, i, t in zip(res.test_mse, res.iter, res.tol):
+                rows.append(dict(k=int(curr_rank), rep=int(curr_rep),
+                                 test_error=float(e), iter=int(i),
+                                 tol=float(t),
+                                 overfit_score=float(overfit_score)))
+            vprint(verbose, 2, f"   test_error = {res.test_mse[-1]:.4e}")
+            if overfit_score >= tol_overfit:
+                this_k_max = curr_rank
+
+            df_rep = pd.DataFrame([r for r in rows if r["rep"] == curr_rep])
+            df_rep = df_rep.sort_values("k", kind="stable")
+            # NOTE: the reference calls GetBestRank with its *default*
+            # tol.overfit here (reference:R/ard_nmf.R:129), not tol_overfit.
+            best_rank = get_best_rank(df_rep[df_rep["k"] < this_k_max])
+            condensed = (
+                df_rep.sort_values("iter").groupby("k", as_index=False).last()
+            ).sort_values("k").reset_index(drop=True)
+            vprint(verbose, 2, f"   best rank in replicate = {best_rank}\n")
+            kvals = condensed["k"].tolist()
+            if best_rank not in kvals:
+                # can occur only via the empty-frame fallback of
+                # get_best_rank; step outward from it
+                curr_rank = best_rank + int(step_size)
+                step_size *= (1 + learning_rate)
+                continue
+            rank_ind = kvals.index(best_rank)
+            if rank_ind == len(kvals) - 1:
+                step_size *= (1 + learning_rate)
+                curr_rank = best_rank + int(step_size)
+            elif rank_ind == 0:
+                if int(step_size) < best_rank:
+                    curr_rank = best_rank - int(step_size)
+                    step_size *= (learning_rate + 1)
+                else:
+                    curr_rank = best_rank // 2
+            else:
+                next_lower = kvals[rank_ind - 1]
+                next_higher = kvals[rank_ind + 1]
+                diff_lower = best_rank - next_lower
+                diff_higher = next_higher - best_rank
+                if diff_lower <= 1 and diff_higher <= 1:
+                    break
+                elif diff_lower >= diff_higher:
+                    curr_rank = best_rank - diff_lower // 2
+                else:
+                    curr_rank = best_rank + diff_higher // 2
+
+    df = pd.DataFrame(rows)
+    df.attrs["class"] = "cross_validate_nmf_data"
+    best_rank = get_best_rank(df, tol_overfit)
+
+    vprint(verbose, 1, f"\nFitting final model at k = {best_rank}")
+    Ap, Atp = P
+    res = nmf_fit(Ap, best_rank, At=Atp, w_init=w_inits[0][:, :best_rank],
+                  tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
+                  verbose=verbose > 2)
+    return _finalize(res.w, res.d, res.h, gene_names, cell_names, cv_data=df)

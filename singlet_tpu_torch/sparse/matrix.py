@@ -7,9 +7,20 @@ densified on the fit's device, rows x cols, zero-padded, with
   * ``nonempty``    -> bool (cols,) columns with any nonzero
   * padding bookkeeping: true row/col counts vs padded shapes.
 
+  * ``mask_tile(seed, ...)`` -> the cross-validation test mask of a column
+    block, from the counter RNG (``ops/rngmask.py``).
+
 A is (genes x cells) -> ``cols_are_cells=True``; its transpose At is
-(cells x genes) -> ``cols_are_cells=False``. ``mask_tile`` (the masked
-cross-validation path) needs the counter-RNG mask and comes with it.
+(cells x genes) -> ``cols_are_cells=False``.
+
+The JAX package recomputes the mask at every access, because XLA fuses the
+hash into the consuming product. Eager PyTorch does not fuse it: the hash
+is some 50 elementwise int64 passes per entry. So the port builds the whole
+(cells_pad, genes_pad) bool mask once per (seed, inv_density) and serves
+every tile of every block, iteration and fit of one search replicate from
+it. A and At of one operand share the cache (``mask_cache``), which holds
+one mask: cells_pad x genes_pad bytes on the operand's device. The answers
+are those of the recomputed mask, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +32,10 @@ import numpy as np
 import torch
 
 from singlet_tpu_torch.device import resolve_device
+from singlet_tpu_torch.ops.rngmask import mask_block
+
+# entries of the int64 hash temporaries per chunk of the mask build
+_MASK_CHUNK = 1 << 24
 
 
 def _round_up(x: int, m: int) -> int:
@@ -38,6 +53,8 @@ class DenseMatrix:
     cols_are_cells: bool
     # column-block size for masked/blocked updates; divides data.shape[1]
     block: int = 0
+    # the test mask of the last (seed, inv_density), shared by A and At
+    mask_cache: dict = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------- factory
     @classmethod
@@ -67,10 +84,10 @@ class DenseMatrix:
     def pair_from_array(cls, arr, **kw) -> Tuple["DenseMatrix", "DenseMatrix"]:
         """(A, At) providers from a genes x cells array."""
         arr = np.asarray(arr)
-        return (
-            cls.from_array(arr, cols_are_cells=True, **kw),
-            cls.from_array(arr.T, cols_are_cells=False, **kw),
-        )
+        A = cls.from_array(arr, cols_are_cells=True, **kw)
+        At = cls.from_array(arr.T, cols_are_cells=False, **kw)
+        At.mask_cache = A.mask_cache
+        return A, At
 
     # ----------------------------------------------------------- geometry
     @property
@@ -106,3 +123,40 @@ class DenseMatrix:
     def col_block(self, col_start: int, col_block: int) -> torch.Tensor:
         """(rows_pad, col_block) slice of the operand."""
         return self.data[:, col_start:col_start + col_block]
+
+    # ------------------------------------------------------------ masking
+    def test_mask(self, seed: torch.Tensor, inv_density: int) -> torch.Tensor:
+        """The whole test mask, bool (cells_pad, genes_pad), keyed (cell,
+        gene); True = held out. Padding is never masked, so it adds nothing
+        to Gram corrections or test counts. Built on the operand's device
+        at the first call for (seed, inv_density), then cached."""
+        if self.cols_are_cells:
+            cells, genes = self.cols_pad, self.rows_pad
+            cells_true, genes_true = self.cols_true, self.rows_true
+        else:
+            cells, genes = self.rows_pad, self.cols_pad
+            cells_true, genes_true = self.rows_true, self.cols_true
+        key = (int(seed[0]), int(seed[1]), int(inv_density), cells, genes,
+               cells_true, genes_true)
+        if key not in self.mask_cache:
+            self.mask_cache.clear()
+            dev = self.device
+            full = torch.zeros((cells, genes), dtype=torch.bool, device=dev)
+            gene_ids = torch.arange(genes_true, device=dev)
+            chunk = max(1, _MASK_CHUNK // max(genes_true, 1))
+            for c0 in range(0, cells_true, chunk):
+                c1 = min(c0 + chunk, cells_true)
+                full[c0:c1, :genes_true] = mask_block(
+                    seed, torch.arange(c0, c1, device=dev), gene_ids,
+                    inv_density)
+            self.mask_cache[key] = full
+        return self.mask_cache[key]
+
+    def mask_tile(self, seed: torch.Tensor, col_start: int, col_block: int,
+                  inv_density: int) -> torch.Tensor:
+        """Test-set mask of a column block, bool (col_block, rows_pad): a
+        view of :meth:`test_mask`. True = held out; padding never is."""
+        full = self.test_mask(seed, inv_density)
+        if self.cols_are_cells:
+            return full[col_start:col_start + col_block]
+        return full[:, col_start:col_start + col_block].T

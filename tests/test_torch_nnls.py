@@ -126,3 +126,41 @@ def test_sweep_settings_read_when_asked(monkeypatch):
     monkeypatch.setenv("SINGLET_TPU_MAX_SWEEPS", "60")
     assert tnnls.sweep_cap_update(False, 1.0, 0.0) == (4.0, False)
     assert tnnls.sweep_cap_update(False, 1e-5, 0.0) == (60.0, True)
+
+
+def _masked_problem(rng, n, k, rows=48):
+    """Per-column Grams as a masked half-update makes them: a_full minus
+    the packed Gram of each column's masked rows; B from the kept rows."""
+    from singlet_tpu_torch.ops import linalg as tlinalg
+
+    X = rng.random((rows, k)).astype(np.float32)
+    m = rng.random((n, rows)) < 0.2
+    iu = tlinalg.triu_pairs(k)
+    P = tlinalg.packed_outer_products(torch.as_tensor(X), iu)
+    packed_t = tlinalg.mask_dot_t(P, torch.as_tensor(m), 1).numpy()
+    a_full = (X.T @ X + 1e-15 * np.eye(k)).astype(np.float32)
+    G = rng.random((n, rows)).astype(np.float32)
+    B = (np.where(m, 0.0, G) @ X).astype(np.float32)
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    return a_full, packed_t, iu, B, X0, mask
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_masked_solve_matches_jax(rng, transposed):
+    """solve_nnls_packed(_t) against the JAX package's XLA path, with the
+    adaptive cap and update mask of a masked half-update."""
+    a_full, packed_t, iu, B, X0, mask = _masked_problem(rng, 96, 6)
+    packed = packed_t if transposed else np.ascontiguousarray(packed_t.T)
+    t_fn = tnnls.solve_nnls_packed_t if transposed else tnnls.solve_nnls_packed
+    j_fn = jnnls.solve_nnls_packed_t if transposed else jnnls.solve_nnls_packed
+    for cap in (32.0, 100.0):
+        kw = dict(L1=0.01, L2=0.001, sweep_cap=cap)
+        got = t_fn(*_t(a_full, packed), iu, *_t(B, X0),
+                   update_mask=torch.as_tensor(mask), **kw).numpy()
+        want = np.asarray(j_fn(*_j(a_full, packed), iu, *_j(B, X0),
+                               update_mask=jnp.asarray(mask),
+                               sweep_cap=jnp.float32(cap), L1=0.01,
+                               L2=0.001))
+        np.testing.assert_allclose(got, want, rtol=5e-3, atol=1e-6)
+        np.testing.assert_array_equal(got[~mask], X0[~mask])

@@ -1,5 +1,5 @@
-"""Kernel B1 (``singlet_tpu_torch/ops/nnls_cuda.py``) on the card against its
-plain PyTorch version on the same inputs.
+"""Kernels B1 and B2 (``singlet_tpu_torch/ops/nnls_cuda.py``) on the card
+against their plain PyTorch version on the same inputs.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one. On a machine with a card (and without jax, which
@@ -24,7 +24,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernel B1 has no CPU mode")
+        pytest.skip("needs a CUDA device: kernels B1 and B2 have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -74,8 +75,9 @@ def test_solve_nnls_launches_kernel_only(cuda):
 
 def test_solve_nnls_raises_off_the_kernel(cuda):
     a, B, X0, _ = _problem(64, 5, 4, cuda)
-    with pytest.raises(NotImplementedError, match="B2"):
-        nnls.solve_nnls(a.expand(64, 5, 5).contiguous(), B, X0)
+    with pytest.raises(NotImplementedError, match="batch"):
+        nnls.solve_nnls(a.expand(64, 5, 5).contiguous(), B, X0,
+                        L1=torch.full_like(B, 0.01))
     with pytest.raises(NotImplementedError, match="batch"):
         nnls.solve_nnls(a, B, X0, L1=torch.full_like(B, 0.01))
     with pytest.raises(NotImplementedError):
@@ -105,4 +107,96 @@ def test_run_nmf_on_card_matches_cpu(cuda):
     m_cpu = stt.run_nmf(A, device="cpu", **kw)
     for f in ("w", "h", "d"):
         np.testing.assert_allclose(getattr(m_gpu, f), getattr(m_cpu, f),
+                                   rtol=5e-3, atol=5e-4)
+
+
+# ------------------------------------------------------------- kernel B2
+
+def _masked_problem(n, k, seed, device):
+    """Per-column Grams as a masked half-update makes them, in B2's
+    (k, k, n) layout: a_full minus the packed Gram of 5% masked rows."""
+    from singlet_tpu_torch.ops import linalg
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = max(128, 2 * k)
+    F = torch.rand((rows, k), generator=g, device=device)
+    iu = linalg.triu_pairs(k)
+    m = torch.rand((n, rows), generator=g, device=device) < 0.05
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m, 1)
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device=device)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    G = torch.rand((n, rows), generator=g, device=device)
+    B = torch.where(m, 0.0, G) @ F
+    X0 = (torch.rand((n, k), generator=g, device=device)
+          * (torch.rand((n, k), generator=g, device=device) < 0.5))
+    mask = torch.rand(n, generator=g, device=device) < 0.9
+    return at, B, X0, mask
+
+
+@pytest.mark.parametrize("n,k", [(256, 9), (1500, 10), (2048, 50),
+                                 (1024, 100), (130, 224)])
+@pytest.mark.parametrize("sweep_cap", [None, 32.0])
+def test_batched_kernel_matches_plain(cuda, n, k, sweep_cap):
+    at, B, X0, mask = _masked_problem(n, k, n + k, cuda)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=sweep_cap)
+    before = nnls_cuda.LAUNCHES_BATCHED
+    Xk = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert nnls_cuda.LAUNCHES_BATCHED == before + 1
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+
+
+def test_batched_kernel_n_coord_and_no_mask(cuda):
+    at, B, X0, _ = _masked_problem(512, 12, 7, cuda)
+    kw = dict(L1=0.02, n_coord=5.0, max_sweeps=40)
+    Xk = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+
+
+def test_batched_kernel_refuses_large_k(cuda):
+    k = nnls_cuda.MAX_K_BATCHED + 1
+    at = torch.ones((k, k, 4), device=cuda)
+    B = torch.ones((4, k), device=cuda)
+    with pytest.raises(NotImplementedError, match="B2"):
+        nnls_cuda.nnls_batch_cuda_batched_at(at, B, torch.zeros_like(B))
+
+
+def test_solve_nnls_sends_per_column_grams_to_b2(cuda):
+    at, B, X0, mask = _masked_problem(333, 6, 3, cuda)
+    a = at.permute(2, 1, 0).contiguous()       # (n, k, k)
+    counts = (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+              nnls.PLAIN_CALLS)
+    X = nnls.solve_nnls(a, B, X0, L1=0.01, update_mask=mask, sweep_cap=32.0)
+    assert (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+            nnls.PLAIN_CALLS) == (counts[0], counts[1] + 1, counts[2])
+    Xp = nnls.nnls_batch(a, B, X0, L1=0.01, update_mask=mask, sweep_cap=32.0)
+    np.testing.assert_allclose(X.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+
+
+def test_masked_fit_on_card_matches_cpu(cuda):
+    import singlet_tpu_torch as stt
+
+    rng = np.random.default_rng(12)
+    A = (rng.random((300, 200)) < 0.2) * rng.random((300, 200))
+    w_init = rng.random((300, 6)).astype(np.float32)
+    # overfit_threshold 1 keeps the early stop off: 4 iterations
+    kw = dict(w_init=w_init, tol=0.0, maxit=4, trace_test_mse=1,
+              inv_density=10, overfit_threshold=1.0)
+    counts = (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+              nnls.PLAIN_CALLS)
+    r_gpu = stt.ard_nmf_fit(A, 6, device="cuda", **kw)
+    # one block per side at this size: two B2 launches per iteration
+    assert (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+            nnls.PLAIN_CALLS) == (counts[0], counts[1] + 8, counts[2])
+    r_cpu = stt.ard_nmf_fit(A, 6, device="cpu", **kw)
+    assert r_gpu.iter == r_cpu.iter
+    np.testing.assert_allclose(r_gpu.test_mse, r_cpu.test_mse, rtol=5e-3)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(r_gpu, f), getattr(r_cpu, f),
                                    rtol=5e-3, atol=5e-4)

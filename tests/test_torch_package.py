@@ -25,7 +25,8 @@ def _python(code, env=None):
 
 def test_import_leaves_jax_out():
     out = _python("import sys, singlet_tpu_torch, singlet_tpu_torch.convert, "
-                  "singlet_tpu_torch.ops.nnls_cuda; "
+                  "singlet_tpu_torch.ops.nnls_cuda, "
+                  "singlet_tpu_torch.ops.rngmask; "
                   "assert 'jax' not in sys.modules, 'jax imported'; "
                   "assert 'singlet_tpu' not in sys.modules")
     assert out.returncode == 0, out.stderr
@@ -36,7 +37,7 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     out = _python(
         "from singlet_tpu_torch import _build\n"
         "from singlet_tpu_torch.ops import nnls_cuda\n"
-        "assert nnls_cuda.LAUNCHES == 0\n"
+        "assert nnls_cuda.LAUNCHES == nnls_cuda.LAUNCHES_BATCHED == 0\n"
         "try:\n"
         "    _build.find_nvcc()\n"
         "except RuntimeError as e:\n"
@@ -70,12 +71,18 @@ def test_cpu_tensors_take_the_plain_version(rng, batched):
         a = a.expand(n, k, k).contiguous()
     B = torch.as_tensor(rng.random((n, k)).astype(np.float32))
     X0 = torch.zeros(n, k)
-    launches, plain = nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS
+    launches = (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED)
+    plain = nnls.PLAIN_CALLS
     X = nnls.solve_nnls(a, B, X0, L1=0.01)
-    nnls_cuda.nnls_batch_cuda(a[0] if batched else a, B, X0)
-    assert nnls_cuda.LAUNCHES == launches
+    if batched:
+        Xk = nnls_cuda.nnls_batch_cuda_batched_at(a.permute(2, 1, 0), B, X0,
+                                                  L1=0.01)
+    else:
+        Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, L1=0.01)
+    assert (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED) == launches
     assert nnls.PLAIN_CALLS == plain + 2
     torch.testing.assert_close(X, nnls.nnls_batch(a, B, X0, L1=0.01))
+    torch.testing.assert_close(Xk, X, rtol=0, atol=0)
 
 
 def test_run_nmf_config_and_checks(rng):
@@ -90,9 +97,18 @@ def test_run_nmf_config_and_checks(rng):
         stt.run_nmf(A, 3, L1=1.0, device="cpu")
 
 
+_ENTRY_POINTS = {
+    "run_nmf": lambda A, **kw: stt.run_nmf(A, 3, **kw),
+    "cross_validate_nmf": lambda A, **kw: stt.cross_validate_nmf(
+        A, ranks=[2, 3], verbose=0, **kw),
+    "ard_nmf": lambda A, **kw: stt.ard_nmf(A, k_max=4, verbose=0, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 @pytest.mark.parametrize("what", ["mesh", "list", "dir", "big_scipy",
                                   "checkpoint"])
-def test_unported_routes_raise(rng, what, monkeypatch):
+def test_unported_routes_raise(rng, what, entry, monkeypatch):
     from singlet_tpu_torch.solvers import drivers
 
     A = rng.random((30, 20)).astype(np.float32)
@@ -106,9 +122,17 @@ def test_unported_routes_raise(rng, what, monkeypatch):
     elif what == "big_scipy":
         monkeypatch.setattr(drivers, "SPARSE_THRESHOLD", 100)
         A = sp.csr_matrix(A)
+    fit = _ENTRY_POINTS[entry]
     if what == "checkpoint":
+        # run_nmf has no checkpoint=; its engine nmf_fit (and the masked
+        # fit ard_nmf_fit) do
         with pytest.raises(NotImplementedError, match="checkpoint"):
-            stt.nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
+            if entry == "run_nmf":
+                stt.nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
+            elif entry == "ard_nmf":
+                fit(A, checkpoint="ckpt/", device="cpu")
+            else:
+                stt.ard_nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="blocked-ELL"):
-            stt.run_nmf(A, 3, device="cpu", **kw)
+            fit(A, device="cpu", **kw)
