@@ -1,0 +1,507 @@
+"""The blocked-ELL sparse engine on one CUDA card: the route of every scipy
+input above ``SPARSE_THRESHOLD`` dense entries.
+
+Port of ``singlet_tpu/parallel/sharded_ell.py`` with the mesh cut to one
+device. The operand is held only as blocked-ELL A-planes, no transpose:
+each cell's nonzeros are split by gene block and stored as fixed-width
+planes of LOCAL gene ids (pad -1) and values (pad 0), gb-major, in the 2-D
+layout ``(n_gb * width, cells_pad)`` with cells contiguous. The h-update
+right-hand sides come from kernel B3 (``ops/bell.py`` ``bell_spmm``), the
+w-update right-hand sides from kernel B4 (``bell_spmm_t``) over the same
+planes, and the NNLS solves from kernels B1 (shared Gram) and B2
+(per-column Grams, the masked fit).
+
+What differs from the JAX engine, and why:
+
+  * no mesh, shard_map or psum: one device holds all cells;
+  * the fit loops are host loops with one sync per iteration (as
+    ``solvers/als.py`` and ``solvers/ard.py``), not one fused device
+    program;
+  * the plain step and the projection launch B3, B1 and B4 ONCE over all
+    cells, and both steps solve all genes in one B1 or B2 launch. The JAX
+    code blocks cells and genes only to bound TPU memory, and every NNLS
+    column exits on its own (``ops/nnls.py``), so the results are the same
+    up to the order of sums;
+  * the masked step runs the route the JAX engine takes on the CPU and
+    under ``SINGLET_TPU_MASK_MM_PRECISION=highest``: B3 and B4 hash the
+    keep factor in-kernel at the nonzeros, the test mask of each block is
+    built per block and the mask products run in full f32
+    (``linalg.mask_dot_t``). The packed pair axis is not padded to a lane
+    multiple (``pad_pairs``): the padding exists for the TPU's lanes and
+    no consumer reads it. The bit-packed int8/bf16 route (kernels B5-B9)
+    is the next slice (ROADMAP A.7b);
+  * ``checkpoint=`` and ``chunk_iters`` raise (ROADMAP A.4a); ``gcnmf_fit``
+    and ``batch_fit`` are absent (A.9); the ingest metric event waits for
+    tracing (A.4a); multi-host, chunk-list and staged-directory ingest wait
+    for A.7b and A.8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from singlet_tpu_torch.device import resolve_device
+from singlet_tpu_torch.native import csc_to_bell
+from singlet_tpu_torch.ops.bell import bell_spmm, bell_spmm_t, densify_planes
+from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
+                                          packed_outer_products,
+                                          scale_columns, triu_pairs)
+from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
+                                        solve_nnls, solve_nnls_packed_t)
+from singlet_tpu_torch.ops.rngmask import mask_block, seed_pair
+from singlet_tpu_torch.solvers.als import _as_pair, _fit_loop, _padded, init_w
+from singlet_tpu_torch.solvers.ard import ArdFitResult, run_ard
+
+__all__ = ["ShardedEllData", "ShardedEllEngine", "shard_ell_data",
+           "ell_geometry", "sharded_ell_nmf_fit"]
+
+_NOT_PORTED = "{what} is not ported to singlet_tpu_torch yet (ROADMAP {item})"
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class ShardedEllData:
+    """Blocked-ELL A-planes of a genes x cells operand on one device.
+
+    ``b_li[gb * width + w, c]`` is the local gene id (``gene - gb *
+    gene_block``, pad -1) of slot w of gene block gb of cell c, ``b_val``
+    its value (pad 0), at one uniform width (the max per-(cell, block)
+    count, rounded up to 8). Cells are contiguous.
+    """
+
+    b_li: torch.Tensor           # (n_gb * width, cells_pad) int32
+    b_val: torch.Tensor          # (n_gb * width, cells_pad) float32
+    b_width: int
+    nonempty: torch.Tensor       # (cells_pad,) bool
+    gene_nonempty: torch.Tensor  # (genes_pad,) bool
+    device: torch.device
+    genes_true: int
+    cells_true: int
+    genes_pad: int
+    cells_pad: int
+    cell_block: int
+    gene_block: int
+
+    @property
+    def n_gb(self) -> int:
+        return self.genes_pad // self.gene_block
+
+
+def bell_widths(A: sp.csc_matrix, n_gb: int, gene_block: int) -> np.ndarray:
+    """Per-gene-block max nonzero count over the columns of CSC ``A``: the
+    (unrounded) blocked-ELL plane widths."""
+    cols = A.shape[1]
+    if A.nnz == 0 or cols == 0:
+        return np.zeros(n_gb, np.int64)
+    gb_of = A.indices.astype(np.int64) // gene_block
+    col_of = np.repeat(np.arange(cols, dtype=np.int64), np.diff(A.indptr))
+    counts = np.bincount(col_of * n_gb + gb_of,
+                         minlength=cols * n_gb).reshape(cols, n_gb)
+    return counts.max(axis=0)
+
+
+def bell_width(widths: np.ndarray) -> int:
+    """Uniform plane width: the max per-(cell, gene-block) count, rounded
+    up to a multiple of 8 (min 8)."""
+    m = int(np.asarray(widths).max()) if np.asarray(widths).size else 0
+    return max(_round_up(m, 8), 8)
+
+
+def _log_bell_ingest(width: int, nnz: int, cells: int, n_gb: int,
+                     cells_pad: int) -> None:
+    """Warn when the uniform width (a global max) is inflated by a few
+    anomalously dense cells: the planes' memory scales with width."""
+    mean = nnz / max(cells * n_gb, 1)
+    gib = 2 * n_gb * cells_pad * width * 4 / 2 ** 30
+    if width > 16 and width > 8 * max(mean, 1.0):
+        warnings.warn(
+            f"blocked-ELL plane width {width} is {width / max(mean, 1e-9):.0f}x "
+            f"the mean per-(cell, gene-block) nonzero count ({mean:.1f}): a few "
+            f"anomalously dense cells are inflating the operand to "
+            f"{gib:.2f} GiB. Consider filtering outlier cells or raising "
+            f"gene_block.")
+
+
+def planes_to_device_layout(planes: np.ndarray) -> np.ndarray:
+    """Packer planes (n_gb, cells, width) -> the engine's 2-D layout
+    (n_gb * width, cells), cells contiguous."""
+    n_gb, cells, width = planes.shape
+    return np.ascontiguousarray(planes.transpose(0, 2, 1)).reshape(
+        n_gb * width, cells)
+
+
+def ell_geometry(genes: int, cells: int, cell_block: int = 2048,
+                 gene_block: int = 512) -> Tuple[int, int, int, int]:
+    """(genes_pad, cells_pad, cell_block, gene_block) of an ELL operand:
+    the JAX package's geometry on a one-device mesh."""
+    cell_block = min(cell_block, _round_up(max(cells, 1), 256))
+    cells_pad = _round_up(cells, cell_block)
+    gene_block = min(gene_block, _round_up(genes, 256))
+    genes_pad = _round_up(genes, gene_block)
+    return genes_pad, cells_pad, cell_block, gene_block
+
+
+def shard_ell_data(A: sp.spmatrix, device=None, cell_block: int = 2048,
+                   gene_block: int = 512) -> ShardedEllData:
+    """Blocked-ELL planes of a genes x cells scipy matrix, on ``device``
+    (default ``"cuda"``). No transpose is built."""
+    device = resolve_device(device)
+    A = sp.csc_matrix(A)
+    genes, cells = A.shape
+    genes_pad, cells_pad, cell_block, gene_block = ell_geometry(
+        genes, cells, cell_block, gene_block)
+    n_gb = genes_pad // gene_block
+    width = bell_width(bell_widths(A, n_gb, gene_block))
+    _log_bell_ingest(width, A.nnz, cells, n_gb, cells_pad)
+    b_li, b_val = csc_to_bell(A, cells_pad, gene_block, n_gb, width)
+
+    ne = np.zeros(cells_pad, bool)
+    ne[:cells] = np.diff(A.indptr) > 0
+    gne = np.zeros(genes_pad, bool)
+    gne[:genes] = np.asarray((A != 0).sum(axis=1)).ravel() > 0
+    to = lambda x: torch.from_numpy(x).to(device)      # noqa: E731
+    return ShardedEllData(
+        b_li=to(planes_to_device_layout(b_li)),
+        b_val=to(planes_to_device_layout(b_val)),
+        b_width=width, nonempty=to(ne), gene_nonempty=to(gne),
+        device=device, genes_true=genes, cells_true=cells,
+        genes_pad=genes_pad, cells_pad=cells_pad, cell_block=cell_block,
+        gene_block=gene_block)
+
+
+def _build_local_fns(data: ShardedEllData, inv_density: int):
+    """The engine's steps over ``data``: ``plain``, ``masked``, ``mse`` and
+    ``project`` (the JAX ``_build_local_fns``). Environment knobs are read
+    here, when a fit is built."""
+    cell_block, gene_block, n_gb = data.cell_block, data.gene_block, data.n_gb
+    genes_pad, cells_pad = data.genes_pad, data.cells_pad
+    genes_true, cells_true = data.genes_true, data.cells_true
+    b_li, b_val, dev = data.b_li, data.b_val, data.device
+    block_gib = float(os.environ.get("SINGLET_TPU_MASKED_BLOCK_GIB", "0"))
+
+    def planes(start: int, size: int):
+        return b_li[:, start:start + size], b_val[:, start:start + size]
+
+    def masked_block(k: int) -> int:
+        """Masked compute-block size, a multiple of ``cell_block`` dividing
+        ``cells_pad``: one storage block unless
+        ``SINGLET_TPU_MASKED_BLOCK_GIB`` sets a budget for the per-block
+        temporaries (the JAX ``_masked_block``)."""
+        budget = int(block_gib * (1 << 30))
+        if budget <= 0:
+            return cell_block
+        np_pad = _round_up(k * (k + 1) // 2, 128)
+        per_col = 4 * (3 * genes_pad + 2 * k * k + 2 * np_pad)
+        n_base = max(cells_pad // cell_block, 1)
+        f_cap = max(1, min(n_base, budget // per_col // cell_block))
+        f = max(d for d in range(1, f_cap + 1) if n_base % d == 0)
+        return f * cell_block
+
+    def mask_of(seed, start: int, size: int) -> torch.Tensor:
+        """Test mask of cells [start, start + size), bool (size, genes_pad),
+        with the validity clamps: padded cells and genes are never held
+        out."""
+        m = torch.zeros((size, genes_pad), dtype=torch.bool, device=dev)
+        n_valid = max(0, min(size, cells_true - start))
+        if n_valid:
+            m[:n_valid, :genes_true] = mask_block(
+                seed, torch.arange(start, start + n_valid, device=dev),
+                torch.arange(genes_true, device=dev), inv_density)
+        return m
+
+    def _plain(W, H, L1_h, L1_w, L2_h, L2_w, link_h=None, link_w=None,
+               sweep_cap=None, max_sweeps: int = CD_MAX_SWEEPS):
+        # one fused pass: B3 gives B, B1 the unnormalised H, B4 the w-side
+        # right-hand sides from it; the column rescale by d is applied
+        # after the pass (Bw is linear and the H Gram bilinear in H)
+        k = W.shape[1]
+        B = bell_spmm(b_li, b_val, W, gene_block=gene_block)
+        if link_h is not None:
+            B = B * link_h
+        Hb = solve_nnls(gram(W), B, H, L1=L1_h, L2=L2_h,
+                        update_mask=data.nonempty, max_sweeps=max_sweeps,
+                        sweep_cap=sweep_cap)
+        Bw = bell_spmm_t(b_li, b_val, Hb, gene_block=gene_block, n_gb=n_gb)
+        d = Hb.sum(dim=0) + 1e-15
+        a_h = (Hb.T @ Hb) / (d[:, None] * d[None, :])
+        a_h = a_h + 1e-15 * torch.eye(k, dtype=W.dtype, device=dev)
+        Bw = Bw / d[None, :]
+        if link_w is not None:
+            Bw = Bw * link_w
+        W_new = solve_nnls(a_h, Bw, W, L1=L1_w, L2=L2_w,
+                           update_mask=data.gene_nonempty,
+                           max_sweeps=max_sweeps, sweep_cap=sweep_cap)
+        W_new, d_w = scale_columns(W_new)
+        tol = cor_distance(W_new[:genes_true], W[:genes_true])
+        return W_new, Hb / d[None, :], d_w, tol
+
+    def _masked(W, H, seed, L1_h, L1_w, L2_h, L2_w, k_true, sweep_cap=None,
+                max_sweeps: int = CD_MAX_SWEEPS):
+        k = W.shape[1]
+        iu = triu_pairs(k)
+        n_coord = float(k_true)
+        mblock = masked_block(k)
+        a_full = gram(W)
+        Pw = packed_outer_products(W, iu)              # (genes_pad, npairs)
+        Bw = torch.zeros((genes_pad, k), dtype=W.dtype, device=dev)
+        Pk_t = torch.zeros((iu[0].shape[0], genes_pad), dtype=W.dtype,
+                           device=dev)
+        Hsum = torch.zeros((k,), dtype=W.dtype, device=dev)
+        Hgram = torch.zeros((k, k), dtype=W.dtype, device=dev)
+        Hs = []
+        # one fused pass over cell blocks; the w-side accumulators take the
+        # unnormalised H_b and are rescaled after it: Bw by 1/d per column,
+        # the packed H Gram corrections by 1/(d_i d_j) per pair
+        for start in range(0, cells_pad, mblock):
+            li, lv = planes(start, mblock)
+            m = mask_of(seed, start, mblock).to(W.dtype)
+            B = bell_spmm(li, lv, W, seed, start, gene_block=gene_block,
+                          inv_density=inv_density)
+            packed_t = mask_dot_t(Pw, m, 1)             # (npairs, mblock)
+            Hb = solve_nnls_packed_t(
+                a_full, packed_t, iu, B, H[start:start + mblock], L1=L1_h,
+                L2=L2_h, update_mask=data.nonempty[start:start + mblock],
+                max_sweeps=max_sweeps, n_coord=n_coord, sweep_cap=sweep_cap)
+            Bw += bell_spmm_t(li, lv, Hb, seed, start, gene_block=gene_block,
+                              n_gb=n_gb, inv_density=inv_density)
+            Pk_t += mask_dot_t(packed_outer_products(Hb, iu), m, 0)
+            Hsum += Hb.sum(dim=0)
+            Hgram += Hb.T @ Hb
+            Hs.append(Hb)
+        d = Hsum + 1e-15
+        H_new = torch.cat(Hs) / d[None, :]
+        a_h = Hgram / (d[:, None] * d[None, :])
+        a_h = a_h + 1e-15 * torch.eye(k, dtype=W.dtype, device=dev)
+        Bw = Bw / d[None, :]
+        i0 = torch.as_tensor(iu[0], device=dev)
+        i1 = torch.as_tensor(iu[1], device=dev)
+        Pk_t = Pk_t / (d[i0] * d[i1])[:, None]
+        W_new = solve_nnls_packed_t(
+            a_h, Pk_t, iu, Bw, W, L1=L1_w, L2=L2_w,
+            update_mask=data.gene_nonempty, max_sweeps=max_sweeps,
+            n_coord=n_coord, sweep_cap=sweep_cap)
+        W_new, d_w = scale_columns(W_new)
+        tol = cor_distance(W_new[:genes_true], W[:genes_true],
+                           genes_true * np.float32(k_true))
+        return W_new, H_new, d_w, tol
+
+    def _project(W, L1, L2):
+        """One cold-start h half-update against the column-normalised
+        frozen W at full sweeps (``c_project_model``). Returns (H, d)."""
+        k = W.shape[1]
+        Wn = W / (W.sum(dim=0) + 1e-15)[None, :]
+        B = bell_spmm(b_li, b_val, Wn, gene_block=gene_block)
+        H = solve_nnls(gram(Wn), B,
+                       torch.zeros((cells_pad, k), dtype=W.dtype, device=dev),
+                       L1=L1, L2=L2, update_mask=data.nonempty)
+        d = H.sum(dim=0) + 1e-15
+        return H / d[None, :], d
+
+    def _mse(W, d, H, seed):
+        """Held-out test MSE (reference:src/singlet.cpp:536-568): per cell,
+        the squared error summed over its test-masked genes over their
+        count (cells with none add 0), averaged over the true cells."""
+        Wd = W * d[None, :]
+        acc = torch.zeros((), dtype=W.dtype, device=dev)
+        for start in range(0, cells_pad, cell_block):
+            li, lv = planes(start, cell_block)
+            m = mask_of(seed, start, cell_block)
+            dense = densify_planes(li, lv, gene_block, n_gb)
+            pred = H[start:start + cell_block] @ Wd.T
+            s = torch.where(m, torch.square(pred - dense), 0.0).sum(dim=1)
+            n = m.sum(dim=1)
+            acc = acc + torch.where(n > 0, s / n.clamp(min=1), 0.0).sum()
+        return acc / cells_true
+
+    return dict(plain=_plain, masked=_masked, mse=_mse, project=_project)
+
+
+class ShardedEllEngine:
+    """Dataset-resident sparse NMF engine on one device: the planes stay on
+    the card for every fit of a rank search (the reference keeps A and At
+    alive the same way, reference:R/ard_nmf.R:57-97). The drivers route
+    large scipy input here."""
+
+    def __init__(self, A: Optional[sp.spmatrix], device=None,
+                 cell_block: int = 2048, gene_block: int = 512,
+                 data: Optional[ShardedEllData] = None) -> None:
+        self.data = data if data is not None else shard_ell_data(
+            A, device, cell_block=cell_block, gene_block=gene_block)
+
+    # driver-facing geometry (mirrors the provider protocol)
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def rows_pad(self) -> int:
+        return self.data.genes_pad
+
+    @property
+    def rows_true(self) -> int:
+        return self.data.genes_true
+
+    @property
+    def cols_true(self) -> int:
+        return self.data.cells_true
+
+    def _state(self, k: int, w_init, seed: int):
+        """W (genes_pad, k) from ``w_init`` or a seeded ``torch.Generator``
+        (``init_w``: the JAX engine draws from threefry, so one seed gives
+        another W), and H zeros (cells_pad, k)."""
+        data = self.data
+        if w_init is None:
+            W = init_w(k, data.genes_pad, data.genes_true, seed,
+                       device=data.device)
+        else:
+            W = _padded(w_init, data.genes_pad, k, data.device)
+        H = torch.zeros((data.cells_pad, k), dtype=torch.float32,
+                        device=data.device)
+        return W, H
+
+    def _link(self, link, rows_true: int, rows_pad: int, k: int, name: str):
+        ones = torch.ones((rows_pad, k), dtype=torch.float32,
+                          device=self.device)
+        if link is None:
+            return ones
+        link = np.asarray(link, np.float32)
+        if link.shape != (rows_true, k):
+            what = "cells" if name == "link_h" else "genes"
+            raise ValueError(f"{name} must be ({what}, k) = ({rows_true}, "
+                             f"{k}), got {link.shape}")
+        ones[:rows_true] = torch.as_tensor(link, device=self.device)
+        return ones
+
+    # ---------------------------------------------------------------- fits
+    def fit(self, k: int, tol: float = 1e-4, maxit: int = 100, L1=0.01,
+            L2=0.0, seed: int = 0, verbose: bool = False, w_init=None,
+            masked: bool = False, inv_density: int = 20, mask_seed: int = 0,
+            checkpoint=None, chunk_iters: Optional[int] = None,
+            link_h=None, link_w=None):
+        """Plain (or masked, without traces) fit; returns the dict of the
+        JAX ``ShardedEllEngine.fit``: w (genes, k), d (k,), h (k, cells),
+        tol_trace, and test_mse when masked. L1/L2 may be scalars or (w, h)
+        pairs. ``link_h`` (cells, k) / ``link_w`` (genes, k) are 0/1
+        linking masks of the plain fit (``c_linked_nmf``,
+        reference:src/singlet.cpp:1059-1086)."""
+        if checkpoint is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="checkpoint=", item="A.4a"))
+        if chunk_iters is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="chunk_iters", item="A.4a"))
+        k = int(k)
+        data = self.data
+        linked = link_h is not None or link_w is not None
+        if linked and masked:
+            raise ValueError("linked NMF has no masked (CV) variant "
+                             "(reference c_ard_nmf takes no link matrices)")
+        fns = _build_local_fns(data, int(inv_density))
+        W, H = self._state(k, w_init, seed)
+        sp_ = seed_pair(mask_seed)
+        L1_w, L1_h = _as_pair(L1)
+        L2_w, L2_h = _as_pair(L2)
+        settings = SweepSettings.from_env()
+        if masked:
+            def step(W, H, cap):
+                return fns["masked"](W, H, sp_, L1_h, L1_w, L2_h, L2_w, k,
+                                     sweep_cap=cap,
+                                     max_sweeps=settings.max_sweeps)
+        else:
+            lh = lw = None
+            if linked:
+                lh = self._link(link_h, data.cells_true, data.cells_pad, k,
+                                "link_h")
+                lw = self._link(link_w, data.genes_true, data.genes_pad, k,
+                                "link_w")
+
+            def step(W, H, cap):
+                return fns["plain"](W, H, L1_h, L1_w, L2_h, L2_w, link_h=lh,
+                                    link_w=lw, sweep_cap=cap,
+                                    max_sweeps=settings.max_sweeps)
+
+        W, H, d, traces = _fit_loop(step, W, H, tol, maxit, settings,
+                                    masked=bool(masked), verbose=verbose)
+        out = dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
+                   h=H[:data.cells_true].T.cpu().numpy(), tol_trace=traces)
+        if masked:
+            out["test_mse"] = float(fns["mse"](W, d, H, sp_))
+        return out
+
+    def ard_fit(self, k: int, w_init=None, mask_seed: int = 0,
+                inv_density: int = 20, tol: float = 1e-4, maxit: int = 100,
+                L1: float = 0.01, L2: float = 0.0,
+                overfit_threshold: float = 1e-3, trace_test_mse: int = 1,
+                verbose: int = 0, init_seed: int = 0, checkpoint=None,
+                k_bucket: int = 8) -> ArdFitResult:
+        """Masked fit with test-MSE traces and overfit early stop
+        (reference:src/singlet.cpp:1106-1141), the engine twin of
+        ``solvers.ard.ard_nmf_fit``, consumed by the drivers' rank
+        searches. ``k_bucket`` is accepted and inert, as there."""
+        if checkpoint is not None:
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="checkpoint=", item="A.4a"))
+        k = int(k)
+        data = self.data
+        fns = _build_local_fns(data, int(inv_density))
+        W, H = self._state(k, w_init, init_seed)
+        sp_ = seed_pair(mask_seed)
+        settings = SweepSettings.from_env()
+        L1, L2 = float(L1), float(L2)
+
+        def step(W, H, cap):
+            return fns["masked"](W, H, sp_, L1, L1, L2, L2, k, sweep_cap=cap,
+                                 max_sweeps=settings.max_sweeps)
+
+        def mse(W, d, H):
+            return fns["mse"](W, d, H, sp_)
+
+        return run_ard(step, mse, W, H, k, data.genes_true, data.cells_true,
+                       tol, overfit_threshold, maxit, trace_test_mse,
+                       settings, verbose=verbose)
+
+    def project(self, w, L1: float = 0.01, L2: float = 0.0):
+        """Project the dataset's cells onto a frozen factor model
+        (``c_project_model``, reference:src/singlet.cpp:405-413): normalise
+        w's columns, one cold-start NNLS h half-update over the planes,
+        rescale. ``w`` is (genes, k) or (k, genes). Returns (h (k, cells),
+        d (k,)) as numpy."""
+        data = self.data
+        w = np.array(w, np.float32)
+        if w.shape[0] != data.genes_true:
+            if w.shape[1] == data.genes_true:
+                w = w.T
+            else:
+                raise ValueError("'w' must share a common edge with the "
+                                 "gene axis of the dataset")
+        W = _padded(w, data.genes_pad, w.shape[1], data.device)
+        H, d = _build_local_fns(data, 20)["project"](W, float(L1), float(L2))
+        return H[:data.cells_true].T.cpu().numpy(), d.cpu().numpy()
+
+
+def sharded_ell_nmf_fit(A: sp.spmatrix, k: int, device=None,
+                        tol: float = 1e-4, maxit: int = 100, L1=0.01,
+                        L2=0.0, seed: int = 0, masked: bool = False,
+                        inv_density: int = 20, mask_seed: int = 0,
+                        verbose: bool = False, w_init=None,
+                        data: Optional[ShardedEllData] = None,
+                        checkpoint=None, chunk_iters: Optional[int] = None,
+                        link_h=None, link_w=None):
+    """Sparse NMF fit on the blocked-ELL engine (``ShardedEllEngine.fit``);
+    ``device`` (default ``"cuda"``) in place of the JAX ``mesh``."""
+    engine = ShardedEllEngine(A, device=device, data=data)
+    return engine.fit(k, tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
+                      verbose=verbose, w_init=w_init, masked=masked,
+                      inv_density=inv_density, mask_seed=mask_seed,
+                      checkpoint=checkpoint, chunk_iters=chunk_iters,
+                      link_h=link_h, link_w=link_w)

@@ -186,11 +186,13 @@ def als_step_masked(A: DenseMatrix, At: DenseMatrix, W, H, seed, L1, L2,
     return W_new, H, d, tol
 
 
-def _fit_loop(A: DenseMatrix, At: DenseMatrix, W, H, L1_h, L1_w, L2_h, L2_w,
-              link_h, link_w, tol_target: float, maxit: int,
-              settings: SweepSettings, verbose: bool = False):
+def _fit_loop(step, W, H, tol_target: float, maxit: int,
+              settings: SweepSettings, masked: bool = False,
+              verbose: bool = False):
     """The ALS loop with the JAX ``_fit_loop_device`` semantics, one
-    ``.item()`` sync per iteration. Returns (W, H, d, tol_trace)."""
+    ``.item()`` sync per iteration. ``step(W, H, sweep_cap)`` is one
+    iteration, returning (W, H, d, tol); ``masked`` selects the masked
+    fast-phase cap. Returns (W, H, d, tol_trace)."""
     k = W.shape[1]
     d = torch.ones(k, dtype=W.dtype, device=W.device)
     target = np.float32(tol_target)
@@ -198,10 +200,9 @@ def _fit_loop(A: DenseMatrix, At: DenseMatrix, W, H, L1_h, L1_w, L2_h, L2_w,
     exact = False
     tols = []
     while len(tols) < maxit and tolv > target:
-        cap, exact = sweep_cap_update(exact, tolv, target, settings=settings)
-        W, H, d, t = als_step(A, At, W, H, L1_h, L1_w, L2_h, L2_w,
-                              link_h, link_w, sweep_cap=cap,
-                              max_sweeps=settings.max_sweeps)
+        cap, exact = sweep_cap_update(exact, tolv, target, masked=masked,
+                                      settings=settings)
+        W, H, d, t = step(W, H, cap)
         tolv = np.float32(t.item())
         tols.append(float(tolv))
         if verbose:
@@ -313,9 +314,15 @@ def nmf_fit(
     if link_w is not None:
         link_w = _padded(link_w, genes_pad, k, dev)
 
-    W, H, d, tol_trace = _fit_loop(
-        Ap, Atp, W, H, L1_h, L1_w, L2_h, L2_w, link_h, link_w, tol, maxit,
-        SweepSettings.from_env(), verbose=verbose)
+    settings = SweepSettings.from_env()
+
+    def step(W, H, cap):
+        return als_step(Ap, Atp, W, H, L1_h, L1_w, L2_h, L2_w, link_h,
+                        link_w, sweep_cap=cap,
+                        max_sweeps=settings.max_sweeps)
+
+    W, H, d, tol_trace = _fit_loop(step, W, H, tol, maxit, settings,
+                                   verbose=verbose)
     return FitResult(
         w=W[: Ap.rows_true].cpu().numpy(),
         d=d.cpu().numpy(),

@@ -50,12 +50,13 @@ def _score(err, min_err):
         return (err - min_err) / (err + min_err)
 
 
-def _ard_loop(Ap, Atp, W, H, sp, L1, L2, inv_density: int, cell_block: int,
-              gene_block: int, tol_target, overfit_threshold, maxit: int,
+def _ard_loop(step, mse, W, H, tol_target, overfit_threshold, maxit: int,
               trace_every: int, settings: SweepSettings, verbose: int = 0):
     """The masked fit loop with the trace and early-stop policy of
-    ``_ard_loop_device``. Returns (W, H, d, it, stopped, test_mse, iters,
-    scores, tols) with ``tols`` the tol of every step taken."""
+    ``_ard_loop_device``. ``step(W, H, sweep_cap)`` is one masked iteration,
+    returning (W, H, d, tol); ``mse(W, d, H)`` the test MSE, a 0-d tensor.
+    Returns (W, H, d, it, stopped, test_mse, iters, scores, tols) with
+    ``tols`` the tol of every step taken."""
     target = np.float32(tol_target)
     threshold = np.float32(overfit_threshold)
     d = torch.ones(W.shape[1], dtype=W.dtype, device=W.device)
@@ -70,12 +71,10 @@ def _ard_loop(Ap, Atp, W, H, sp, L1, L2, inv_density: int, cell_block: int,
     while not stopped and it < maxit and tolv > target:
         cap, exact = sweep_cap_update(exact, tolv, target, masked=True,
                                       settings=settings)
-        W, H, d, t = als_step_masked(Ap, Atp, W, H, sp, L1, L2, inv_density,
-                                     cell_block, gene_block, sweep_cap=cap,
-                                     max_sweeps=settings.max_sweeps)
+        W, H, d, t = step(W, H, cap)
         traced = it % trace_every == 0
         if traced:
-            err_t = mse_test(Ap, W, d, H, sp, inv_density, cell_block)
+            err_t = mse(W, d, H)
             tv, ev = torch.stack([t, err_t]).tolist()     # the one sync
         else:
             tv = t.item()
@@ -95,6 +94,41 @@ def _ard_loop(Ap, Atp, W, H, sp, L1, L2, inv_density: int, cell_block: int,
         if not stopped:
             it += 1
     return W, H, d, it, stopped, tmse, t_iters, scores, tols
+
+
+def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
+            tol, overfit_threshold, maxit: int, trace_test_mse: int,
+            settings: SweepSettings, verbose: int = 0) -> ArdFitResult:
+    """:func:`_ard_loop`, then the tail trace (a test MSE after the last
+    step when the schedule did not trace it), as an ``ArdFitResult`` of the
+    true rows, columns and factors. Shared by the dense masked fit and the
+    blocked-ELL engine."""
+    W, H, d, it, stopped, test_mse_t, iter_t, score_t, tols = _ard_loop(
+        step, mse, W, H, tol, overfit_threshold, int(maxit),
+        int(trace_test_mse), settings, verbose=verbose)
+    tol_t = [tols[i] for i in iter_t]
+    # a stopped step wrote tols[it] (it was not incremented)
+    last_idx = it if stopped else it - 1
+    tol_ = tols[last_idx] if last_idx >= 0 else 1.0
+
+    if (it % trace_test_mse != 0 and not stopped
+            and (not iter_t or iter_t[-1] != it)):
+        err = float(mse(W, d, H))
+        test_mse_t.append(err)
+        iter_t.append(it)
+        tol_t.append(tol_)
+        min_err = min(test_mse_t)
+        score_t.append((err - min_err) / (err + min_err))
+
+    return ArdFitResult(
+        w=W[:rows_true, :k].cpu().numpy(),
+        d=d[:k].cpu().numpy(),
+        h=H[:cols_true, :k].T.cpu().numpy(),
+        test_mse=test_mse_t,
+        iter=iter_t,
+        tol=tol_t,
+        score_overfit=score_t,
+    )
 
 
 def ard_nmf_fit(
@@ -142,30 +176,17 @@ def ard_nmf_fit(
         W = _padded(w_init, genes_pad, k, dev)
     H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
 
-    W, H, d, it, stopped, test_mse_t, iter_t, score_t, tols = _ard_loop(
-        Ap, Atp, W, H, sp, float(L1), float(L2), int(inv_density), Ap.block,
-        Atp.block, tol, overfit_threshold, int(maxit), int(trace_test_mse),
-        SweepSettings.from_env(), verbose=verbose)
-    tol_t = [tols[i] for i in iter_t]
-    # a stopped step wrote tols[it] (it was not incremented)
-    last_idx = it if stopped else it - 1
-    tol_ = tols[last_idx] if last_idx >= 0 else 1.0
+    settings = SweepSettings.from_env()
+    cell_block, gene_block = Ap.block, Atp.block
 
-    if (it % trace_test_mse != 0 and not stopped
-            and (not iter_t or iter_t[-1] != it)):
-        err = float(mse_test(Ap, W, d, H, sp, int(inv_density), Ap.block))
-        test_mse_t.append(err)
-        iter_t.append(it)
-        tol_t.append(tol_)
-        min_err = min(test_mse_t)
-        score_t.append((err - min_err) / (err + min_err))
+    def step(W, H, cap):
+        return als_step_masked(Ap, Atp, W, H, sp, float(L1), float(L2),
+                               int(inv_density), cell_block, gene_block,
+                               sweep_cap=cap, max_sweeps=settings.max_sweeps)
 
-    return ArdFitResult(
-        w=W[: Ap.rows_true].cpu().numpy(),
-        d=d.cpu().numpy(),
-        h=H[: Ap.cols_true].T.cpu().numpy(),
-        test_mse=test_mse_t,
-        iter=iter_t,
-        tol=tol_t,
-        score_overfit=score_t,
-    )
+    def mse(W, d, H):
+        return mse_test(Ap, W, d, H, sp, int(inv_density), cell_block)
+
+    return run_ard(step, mse, W, H, k, Ap.rows_true, Ap.cols_true, tol,
+                   overfit_threshold, maxit, trace_test_mse, settings,
+                   verbose=verbose)

@@ -5,12 +5,13 @@ Port of ``singlet_tpu/solvers/drivers.py`` (reference:R/run_nmf.R:18-77,
 reference:R/cross_validate_nmf.R:18-105, reference:R/GetBestRank.R:8-46,
 reference:R/ard_nmf.R:31-193), with a ``device=`` argument. Dense numpy
 input, and scipy input up to ``SPARSE_THRESHOLD`` dense entries, become
-dense providers on the device, built once and shared by every fit of a
-rank search. Everything the JAX package sends to its blocked-ELL engine
-(larger scipy input, chunk lists, staged directories, ``mesh=``) raises
-here: that engine is not ported yet, and densifying such input silently
-could exhaust the card. The CV trace frame (columns k, rep, test_error,
-iter, tol[, overfit_score]) is the JAX package's.
+dense providers on the device; larger scipy input goes to the blocked-ELL
+engine (``parallel/sharded_ell.py``) on the device. Either is built once
+and shared by every fit of a rank search, and a ``ShardedEllEngine`` passes
+through. Chunk lists and staged directories (ROADMAP A.7b) and ``mesh=``
+(A.8) raise: densifying such input silently could exhaust the card. The CV
+trace frame (columns k, rep, test_error, iter, tol[, overfit_score]) is the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -21,20 +22,21 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import pandas as pd
+import scipy.sparse as sp
 
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device, vprint
 from singlet_tpu_torch.model import NMFModel
+from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 from singlet_tpu_torch.solvers.als import (init_w, make_dense_providers,
                                            nmf_fit)
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
-from singlet_tpu_torch.sparse.matrix import DenseMatrix
 
 # scipy-sparse inputs with more dense entries than this go to the blocked-ELL
-# engine in the JAX package; smaller ones are densified
+# engine; smaller ones are densified
 SPARSE_THRESHOLD = 64e6
 
-_ELL_NOT_PORTED = ("{what} runs on the blocked-ELL sparse engine, which is "
-                   "not ported to singlet_tpu_torch yet (ROADMAP A.7)")
+_NOT_PORTED = ("{what} runs on the {engine}, which is not ported to "
+               "singlet_tpu_torch yet (ROADMAP {item})")
 
 
 def _coerce_dense(A) -> np.ndarray:
@@ -42,31 +44,67 @@ def _coerce_dense(A) -> np.ndarray:
     return np.asarray(A, dtype=np.float32)
 
 
-def _providers(A, mesh, device) -> Tuple[DenseMatrix, DenseMatrix]:
-    """Dense (A, At) providers on ``device``, or a prebuilt provider pair
-    passed through; raises for every input of the blocked-ELL engine."""
+def _engine_or_providers(A, mesh, device):
+    """Route the input to a compute backend: a ``ShardedEllEngine`` or a
+    prebuilt ``(A, At)`` provider pair passes through; scipy input above
+    ``SPARSE_THRESHOLD`` dense entries becomes a ``ShardedEllEngine`` on
+    ``device``; everything else dense providers on ``device``. Chunk lists,
+    staged directories and ``mesh=`` raise."""
+    if isinstance(A, ShardedEllEngine):
+        return A
     if isinstance(A, tuple) and len(A) == 2 and hasattr(A[0], "t_matmul"):
         return A
     if mesh is not None:
-        raise NotImplementedError(_ELL_NOT_PORTED.format(what="mesh="))
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="mesh=", engine="multi-device blocked-ELL engine",
+            item="A.8"))
     if isinstance(A, str):
-        raise NotImplementedError(_ELL_NOT_PORTED.format(
-            what="a staged chunk directory"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="a staged chunk directory",
+            engine="streaming blocked-ELL ingest", item="A.7b"))
     if isinstance(A, (list, tuple)):
-        raise NotImplementedError(_ELL_NOT_PORTED.format(what="a chunk list"))
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="a chunk list", engine="streaming blocked-ELL ingest",
+            item="A.7b"))
     device = resolve_device(device)
     if is_scipy_sparse(A):
         if A.shape[0] * A.shape[1] > SPARSE_THRESHOLD:
-            raise NotImplementedError(_ELL_NOT_PORTED.format(
-                what=f"scipy input above {SPARSE_THRESHOLD:.0e} entries"))
+            return ShardedEllEngine(sp.csc_matrix(A), device=device)
         return make_dense_providers(A, device=device)
     return make_dense_providers(_coerce_dense(A), device=device)
 
 
+def _fit_plain(P, k, *, w_init, tol, maxit, L1, L2, seed, verbose):
+    """A plain fit on the engine or on dense providers: (w, d, h)."""
+    if isinstance(P, ShardedEllEngine):
+        out = P.fit(k, tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
+                    verbose=bool(verbose), w_init=w_init)
+        return out["w"], out["d"], out["h"]
+    Ap, Atp = P
+    res = nmf_fit(Ap, int(k), At=Atp, w_init=w_init, tol=tol, maxit=maxit,
+                  L1=L1, L2=L2, seed=seed, verbose=bool(verbose))
+    return res.w, res.d, res.h
+
+
 def _fit_masked(P, k, **kw):
-    """A masked (trace-producing) fit on dense providers: ArdFitResult."""
+    """A masked (trace-producing) fit on the engine or on dense providers:
+    ArdFitResult."""
+    if isinstance(P, ShardedEllEngine):
+        return P.ard_fit(k, **kw)
     Ap, Atp = P
     return ard_nmf_fit(Ap, k, At=Atp, **kw)
+
+
+def _rows_pad_of(P) -> int:
+    return P.rows_pad if isinstance(P, ShardedEllEngine) else P[0].rows_pad
+
+
+def _rows_true_of(P) -> int:
+    return P.rows_true if isinstance(P, ShardedEllEngine) else P[0].rows_true
+
+
+def _device_of(P):
+    return P.device if isinstance(P, ShardedEllEngine) else P[0].device
 
 
 def _finalize(w, d, h, gene_names=None, cell_names=None, cv_data=None,
@@ -108,18 +146,20 @@ def run_nmf(
     defaults to ``"cuda"`` and raises without a card. ``config`` (an
     :class:`~singlet_tpu_torch.config.NMFConfig`) supplies the solver
     hyperparameters, taking precedence over the per-argument defaults.
-    ``mesh`` is accepted for the JAX signature and raises: the multi-chip
-    engine is not ported yet.
+    scipy input above ``SPARSE_THRESHOLD`` dense entries, or a
+    ``ShardedEllEngine``, fits on the blocked-ELL engine. ``mesh`` is
+    accepted for the JAX signature and raises: the multi-device engine is
+    not ported yet.
     """
     if config is not None:
         tol, maxit, L1, L2, seed = (config.tol, config.maxit, config.L1,
                                     config.L2, config.seed)
     if np.isscalar(L1) and L1 >= 1:
         raise ValueError("L1 penalty must be strictly in the range [0, 1)")
-    Ap, Atp = _providers(A, mesh, device)
-    res = nmf_fit(Ap, int(rank), At=Atp, w_init=w_init, tol=tol, maxit=maxit,
-                  L1=L1, L2=L2, seed=seed, verbose=bool(verbose))
-    return _finalize(res.w, res.d, res.h, gene_names, cell_names)
+    P = _engine_or_providers(A, mesh, device)
+    w, d, h = _fit_plain(P, int(rank), w_init=w_init, tol=tol, maxit=maxit,
+                         L1=L1, L2=L2, seed=seed, verbose=verbose)
+    return _finalize(w, d, h, gene_names, cell_names)
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +257,9 @@ def cross_validate_nmf(
     if L1 >= 1:
         raise ValueError("L1 penalty must be strictly in the range [0, 1)")
     _check_density(test_density)
-    P = _providers(A, mesh, device)
-    genes_pad, genes_true, dev = P[0].rows_pad, P[0].rows_true, P[0].device
+    P = _engine_or_providers(A, mesh, device)
+    genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
+                                  _device_of(P))
     k_top = int(max(ranks))
     inv_density = round(1.0 / test_density)
 
@@ -314,8 +355,9 @@ def ard_nmf(
     if k_min < 2:
         raise ValueError("k_min cannot be less than 2")
 
-    P = _providers(A, mesh, device)
-    genes_pad, genes_true, dev = P[0].rows_pad, P[0].rows_true, P[0].device
+    P = _engine_or_providers(A, mesh, device)
+    genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
+                                  _device_of(P))
     inv_density = round(1.0 / test_density)
     test_seed = seed
 
@@ -398,8 +440,7 @@ def ard_nmf(
     best_rank = get_best_rank(df, tol_overfit)
 
     vprint(verbose, 1, f"\nFitting final model at k = {best_rank}")
-    Ap, Atp = P
-    res = nmf_fit(Ap, best_rank, At=Atp, w_init=w_inits[0][:, :best_rank],
-                  tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
-                  verbose=verbose > 2)
-    return _finalize(res.w, res.d, res.h, gene_names, cell_names, cv_data=df)
+    w, d, h = _fit_plain(P, best_rank, w_init=w_inits[0][:, :best_rank],
+                         tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
+                         verbose=verbose > 2)
+    return _finalize(w, d, h, gene_names, cell_names, cv_data=df)

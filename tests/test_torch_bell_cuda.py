@@ -1,0 +1,211 @@
+"""Kernels B3 and B4 (``singlet_tpu_torch/ops/bell_cuda.py``) on the card
+against their plain PyTorch versions on the same inputs.
+
+A CUDA kernel has no CPU mode, so every test here needs a card and skips
+without one. On a machine with a card (and without jax, which
+``tests/conftest.py`` imports), run:
+
+    python -m pytest --noconftest tests/test_torch_bell_cuda.py -q
+
+Tolerance: max abs error <= 1e-5 * max |output|. Kernel and plain version
+form the same float32 products and differ only in the order of the sums
+(the plain version densifies each gene block and multiplies densely). With
+0/1 values and a 0/1 W every sum is a small integer, exact in any order,
+so there the two must be equal: one wrong mask bit would show.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from singlet_tpu_torch.ops import bell, bell_cuda
+from singlet_tpu_torch.ops.rngmask import seed_pair
+
+pytestmark = pytest.mark.cuda
+
+GENE_BLOCK = 256
+N_GB = 3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels B3 and B4 have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def _planes(width, cells, seed, device, ones=False):
+    """Random blocked-ELL planes (N_GB * width, cells): per (gene block,
+    cell) a random count of distinct local ids in random slot order, the
+    rest pad (-1 / 0)."""
+    rng = np.random.default_rng(seed)
+    order = np.argsort(rng.random((N_GB, cells, GENE_BLOCK)), axis=2)
+    li = order[:, :, :width].astype(np.int32)
+    count = rng.integers(0, width + 1, (N_GB, cells, 1))
+    live = np.arange(width)[None, None, :] < count
+    li = np.where(live, li, -1)
+    lv = np.where(live, 1.0 if ones else rng.random(li.shape) + 0.1, 0.0)
+    to2d = lambda x: np.ascontiguousarray(                     # noqa: E731
+        x.transpose(0, 2, 1)).reshape(N_GB * width, cells)
+    return (torch.as_tensor(to2d(li), device=device),
+            torch.as_tensor(to2d(lv).astype(np.float32), device=device))
+
+
+def _close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()) + 1e-30, err
+
+
+CASES = [(w, k) for w in (8, 32, 136) for k in (3, 50, 100, 224)]
+CELLS = 1000      # no multiple of 256
+
+
+@pytest.mark.parametrize("width,k", CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_b3_matches_plain(cuda, width, k, masked):
+    li, lv = _planes(width, CELLS, width + k, cuda)
+    W = torch.rand((N_GB * GENE_BLOCK, k), device=cuda)
+    seed = seed_pair(77) if masked else None
+    before = bell_cuda.LAUNCHES_SPMM
+    got = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 4096,
+                                   gene_block=GENE_BLOCK, inv_density=20)
+    assert bell_cuda.LAUNCHES_SPMM == before + 1
+    want = bell.bell_spmm_plain(li, lv, W, seed, 4096,
+                                gene_block=GENE_BLOCK, inv_density=20)
+    _close(got, want)
+    again = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 4096,
+                                     gene_block=GENE_BLOCK, inv_density=20)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("width,k", CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_b4_matches_plain(cuda, width, k, masked):
+    li, lv = _planes(width, CELLS, 2 * width + k, cuda)
+    H = torch.rand((CELLS, k), device=cuda)
+    seed = seed_pair(78) if masked else None
+    before = bell_cuda.LAUNCHES_SPMM_T
+    got = bell_cuda.bell_spmm_t_cuda(li, lv, H, seed, 123,
+                                     gene_block=GENE_BLOCK, n_gb=N_GB,
+                                     inv_density=20)
+    assert bell_cuda.LAUNCHES_SPMM_T == before + 1
+    want = bell.bell_spmm_t_plain(li, lv, H, seed, 123,
+                                  gene_block=GENE_BLOCK, n_gb=N_GB,
+                                  inv_density=20)
+    _close(got, want)
+    again = bell_cuda.bell_spmm_t_cuda(li, lv, H, seed, 123,
+                                       gene_block=GENE_BLOCK, n_gb=N_GB,
+                                       inv_density=20)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("inv_density", [1, 3, 20])
+def test_mask_bits_exact_on_indicator(cuda, inv_density):
+    """Values 1.0 and W / H 0/1 indicators: integer sums, so kernel and
+    plain version must be equal, mask bit for mask bit."""
+    li, lv = _planes(32, CELLS, 5, cuda, ones=True)
+    genes = N_GB * GENE_BLOCK
+    k = 7
+    W = torch.zeros((genes, k), device=cuda)
+    W[torch.arange(genes), torch.arange(genes) % k] = 1.0
+    H = torch.zeros((CELLS, k), device=cuda)
+    H[torch.arange(CELLS), torch.arange(CELLS) % k] = 1.0
+    seed = seed_pair(2 ** 40 + 3)
+    kw = dict(gene_block=GENE_BLOCK, inv_density=inv_density)
+    assert torch.equal(
+        bell_cuda.bell_spmm_cuda(li, lv, W, seed, 99, **kw),
+        bell.bell_spmm_plain(li, lv, W, seed, 99, **kw))
+    assert torch.equal(
+        bell_cuda.bell_spmm_t_cuda(li, lv, H, seed, 99, n_gb=N_GB, **kw),
+        bell.bell_spmm_t_plain(li, lv, H, seed, 99, n_gb=N_GB, **kw))
+
+
+def test_column_slice_of_planes(cuda):
+    """The engine passes column slices of its planes (row stride > cells)."""
+    li, lv = _planes(16, 2048, 9, cuda)
+    W = torch.rand((N_GB * GENE_BLOCK, 20), device=cuda)
+    H = torch.rand((512, 20), device=cuda)
+    seed = seed_pair(4)
+    sl = slice(1024, 1536)
+    got = bell_cuda.bell_spmm_cuda(li[:, sl], lv[:, sl], W, seed, 1024,
+                                   gene_block=GENE_BLOCK)
+    want = bell.bell_spmm_plain(li[:, sl], lv[:, sl], W, seed, 1024,
+                                gene_block=GENE_BLOCK)
+    _close(got, want)
+    got_t = bell_cuda.bell_spmm_t_cuda(li[:, sl], lv[:, sl], H, seed, 1024,
+                                       gene_block=GENE_BLOCK, n_gb=N_GB)
+    want_t = bell.bell_spmm_t_plain(li[:, sl], lv[:, sl], H, seed, 1024,
+                                    gene_block=GENE_BLOCK, n_gb=N_GB)
+    _close(got_t, want_t)
+
+
+def test_dispatchers_launch_kernels_only(cuda):
+    li, lv = _planes(8, 300, 3, cuda)
+    W = torch.rand((N_GB * GENE_BLOCK, 5), device=cuda)
+    counts = (bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_T,
+              bell.PLAIN_CALLS)
+    B = bell.bell_spmm(li, lv, W, gene_block=GENE_BLOCK)
+    bell.bell_spmm_t(li, lv, B, gene_block=GENE_BLOCK, n_gb=N_GB)
+    assert (bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_T,
+            bell.PLAIN_CALLS) == (counts[0] + 1, counts[1] + 1, counts[2])
+
+
+def test_wrappers_refuse(cuda):
+    li, lv = _planes(8, 300, 4, cuda)
+    W = torch.rand((N_GB * GENE_BLOCK, 5), device=cuda)
+    H = torch.rand((300, 5), device=cuda)
+    kw = dict(gene_block=GENE_BLOCK)
+    with pytest.raises(TypeError):
+        bell_cuda.bell_spmm_cuda(li.long(), lv, W, **kw)
+    with pytest.raises(TypeError):
+        bell_cuda.bell_spmm_t_cuda(li, lv, H.double(), n_gb=N_GB, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        bell_cuda.bell_spmm_cuda(li.cpu(), lv.cpu(), W, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        bell_cuda.bell_spmm_t_cuda(li, lv.cpu(), H, n_gb=N_GB, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bell_cuda.bell_spmm_cuda(li.T.contiguous().T, lv.T.contiguous().T,
+                                 W, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bell_cuda.bell_spmm_cuda(li, lv, W.T.contiguous().T, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bell_cuda.bell_spmm_t_cuda(li, lv, H.T.contiguous().T, n_gb=N_GB,
+                                   **kw)
+    with pytest.raises(NotImplementedError, match="B3"):
+        bell_cuda.bell_spmm_cuda(li, lv, torch.rand(
+            (N_GB * GENE_BLOCK, bell_cuda.MAX_K + 1), device=cuda), **kw)
+
+
+def test_engine_fit_on_card_matches_cpu(cuda):
+    """The ELL engine's plain and masked fit on the card, through B1-B4
+    only, against the same fit on the CPU (tolerance of the fit tests)."""
+    import scipy.sparse as sp
+
+    from singlet_tpu_torch.ops import nnls, nnls_cuda
+    from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
+
+    rng = np.random.default_rng(13)
+    A = sp.random(600, 700, density=0.1, random_state=3, format="csc",
+                  dtype=np.float32)
+    w0 = rng.random((600, 6)).astype(np.float32)
+    kw = dict(w_init=w0, tol=0.0, maxit=4)
+    gpu = ShardedEllEngine(A, device="cuda", cell_block=256, gene_block=256)
+    cpu = ShardedEllEngine(A, device="cpu", cell_block=256, gene_block=256)
+    for masked in (False, True):
+        counts = [nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+                  bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_T]
+        plain = (nnls.PLAIN_CALLS, bell.PLAIN_CALLS)
+        g = gpu.fit(6, masked=masked, inv_density=10, mask_seed=2, **kw)
+        assert (nnls.PLAIN_CALLS, bell.PLAIN_CALLS) == plain
+        new = [nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_BATCHED,
+               bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_T]
+        # plain: B1, B3, B4 once per half-update or pass; masked: 3 cell
+        # blocks of 256, each a B3, B2 and B4 launch, plus the w-side B2
+        want = ([8, 0, 4, 4] if not masked else [0, 16, 12, 12])
+        assert [b - a for a, b in zip(counts, new)] == want
+        c = cpu.fit(6, masked=masked, inv_density=10, mask_seed=2, **kw)
+        for f in ("w", "h", "d"):
+            np.testing.assert_allclose(g[f], c[f], rtol=5e-3, atol=5e-4)
+        np.testing.assert_allclose(g["tol_trace"], c["tol_trace"],
+                                   rtol=5e-3, atol=5e-4)

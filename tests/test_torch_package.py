@@ -1,6 +1,7 @@
 """The port's package contract, on the CPU: it never imports jax, never runs
-on the CPU unasked, imports its kernel module without nvcc, dispatches CPU
-tensors to the plain version only, and refuses what it has not ported."""
+on the CPU unasked, imports its kernel modules without nvcc, dispatches CPU
+tensors to the plain version only, routes large scipy input to the
+blocked-ELL engine, and refuses what it has not ported."""
 
 import os
 import subprocess
@@ -18,6 +19,17 @@ from singlet_tpu_torch.ops import nnls, nnls_cuda
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread in this module: the suite runs one worker
+    process per core, and a thread pool per worker oversubscribes them
+    (the plain versions here are many small ops)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _python(code, env=None):
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -26,7 +38,9 @@ def _python(code, env=None):
 def test_import_leaves_jax_out():
     out = _python("import sys, singlet_tpu_torch, singlet_tpu_torch.convert, "
                   "singlet_tpu_torch.ops.nnls_cuda, "
-                  "singlet_tpu_torch.ops.rngmask; "
+                  "singlet_tpu_torch.ops.rngmask, "
+                  "singlet_tpu_torch.ops.bell_cuda, "
+                  "singlet_tpu_torch.parallel.sharded_ell; "
                   "assert 'jax' not in sys.modules, 'jax imported'; "
                   "assert 'singlet_tpu' not in sys.modules")
     assert out.returncode == 0, out.stderr
@@ -36,8 +50,9 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path))
     out = _python(
         "from singlet_tpu_torch import _build\n"
-        "from singlet_tpu_torch.ops import nnls_cuda\n"
+        "from singlet_tpu_torch.ops import bell_cuda, nnls_cuda\n"
         "assert nnls_cuda.LAUNCHES == nnls_cuda.LAUNCHES_BATCHED == 0\n"
+        "assert bell_cuda.LAUNCHES_SPMM == bell_cuda.LAUNCHES_SPMM_T == 0\n"
         "try:\n"
         "    _build.find_nvcc()\n"
         "except RuntimeError as e:\n"
@@ -106,22 +121,18 @@ _ENTRY_POINTS = {
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
-@pytest.mark.parametrize("what", ["mesh", "list", "dir", "big_scipy",
-                                  "checkpoint"])
-def test_unported_routes_raise(rng, what, entry, monkeypatch):
-    from singlet_tpu_torch.solvers import drivers
-
+@pytest.mark.parametrize("what", ["mesh", "list", "dir", "checkpoint"])
+def test_unported_routes_raise(rng, what, entry):
     A = rng.random((30, 20)).astype(np.float32)
     kw = {}
+    item = "A.7b"
     if what == "mesh":
         kw["mesh"] = object()
+        item = "A.8"
     elif what == "list":
         A = [A[:, :10], A[:, 10:]]
     elif what == "dir":
         A = "staged_chunks/"
-    elif what == "big_scipy":
-        monkeypatch.setattr(drivers, "SPARSE_THRESHOLD", 100)
-        A = sp.csr_matrix(A)
     fit = _ENTRY_POINTS[entry]
     if what == "checkpoint":
         # run_nmf has no checkpoint=; its engine nmf_fit (and the masked
@@ -134,5 +145,36 @@ def test_unported_routes_raise(rng, what, entry, monkeypatch):
             else:
                 stt.ard_nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="blocked-ELL"):
+        with pytest.raises(NotImplementedError,
+                           match=f"blocked-ELL.*ROADMAP {item}"):
             fit(A, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_big_scipy_reaches_the_ell_engine(rng, entry, monkeypatch):
+    """scipy input above SPARSE_THRESHOLD dense entries is fitted on a
+    ShardedEllEngine on the fit's device, and not densified."""
+    from singlet_tpu_torch.solvers import drivers
+
+    made = []
+    real = drivers.ShardedEllEngine
+
+    class Spy(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(drivers, "SPARSE_THRESHOLD", 100)
+    monkeypatch.setattr(drivers, "ShardedEllEngine", Spy)
+    monkeypatch.setattr(drivers, "make_dense_providers", None)
+    A = sp.csr_matrix(rng.random((30, 20)).astype(np.float32)
+                      * (rng.random((30, 20)) < 0.5))
+    out = _ENTRY_POINTS[entry](A, device="cpu", maxit=5)
+    assert len(made) == 1 and made[0].device.type == "cpu"
+    assert (made[0].rows_true, made[0].cols_true) == (30, 20)
+    if entry == "cross_validate_nmf":
+        assert sorted(out["k"].unique()) == [2, 3]
+        assert np.isfinite(out["test_error"]).all()
+    else:
+        assert out.w.shape[0] == 30 and out.h.shape[1] == 20
+        assert np.isfinite(out.w).all() and (np.diff(out.d) <= 0).all()
