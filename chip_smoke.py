@@ -37,19 +37,36 @@ Phases; any failure raises and the script exits non-zero:
    on the card, plain and masked (inv_density 20), on the ELL planes of the
    bench operand given as scipy (k=50) and on a slice of 4 cell blocks of
    the large operand (k=100): max abs error within 1e-5 x max |output|,
-   the same bits on a second run, an exact 0/1 case; times of both;
+   the same bits on a second run, an exact 0/1 case; then kernels B5-B9
+   (``ops/bell_cuda.py``, ``ops/maskgram_cuda.py``) on the same planes
+   with their packed test mask: B5 and B6 the same bits as masked B3 and
+   B4, B7's sums within rtol 2e-4 and its counts equal, B8 (one block) and
+   B9 (4 quantization groups) on int8 the same bits as their plain
+   versions and on bf16 within 1e-5 x max |output|; and once more on an
+   edge geometry (40 gene blocks, 3 groups of 1000 cells). Times of
+   kernel, plain version and library call (torch.sparse.mm on a CSR copy
+   for B3-B6, torch._int_mm on the unpacked int8 mask for B8/B9), and
+   each kernel's bound;
 10. the ELL engine against the dense providers on the bench operand from
-   one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` (equal
-   ``iter`` lists), within the fit tolerance;
+   one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` on the
+   f32 route (equal ``iter`` lists), within the fit tolerance; then the
+   engine's default masked route on the card, the bits route (int8 and
+   bf16), against its f32 route: the same traced iterations, test-MSE
+   traces within rtol 1e-3, and the launches of B2 and B5-B9 alone;
 11. the large operand of benchmarks/largescale.py generated on the card
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
    and B4 launches, no plain call), ``project`` of all cells, one plain
-   step under torch.profiler, then the masked ``ard_fit`` for 2 traced
-   iterations, and one masked step and one test MSE under the profiler;
-12. the user's entry points on the ELL route: the planted rank-10 operand
-   as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
-   ``cross_validate_nmf`` at ranks 5, 10 and 20.
+   step under torch.profiler; the masked ``ard_fit`` on the f32 route for
+   1 traced iteration, with one f32 masked step and test MSE under the
+   profiler; then the bits route: the test mask packed (seconds, GiB), the
+   masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
+   B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
+   and one test MSE timed and under the profiler;
+12. the user's entry points on the ELL route: the planted rank-10
+   operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
+   ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
+   default bits route.
 
 Each counted run sets every launch counter to 0 just before it and reads
 them just after. After the phases come three lines: ``results: {...}`` with
@@ -60,6 +77,7 @@ device the script exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -97,13 +115,22 @@ BENCH = dict(genes=16384, cells=8192, k=50, density=0.07, seed=42)
 MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
-SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm")
+SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
+           "bell_mse_bits")
+# the H100 SXM's published peaks (on-chip-measurement guide), for the
+# kernels' bounds: device memory, float32 outside the tensor cores, and the
+# dense int8 and bf16 tensor-core rates
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 # kernels B3 and B4 against their plain versions: only the order of the
 # sums differs
 BELL_TOL = 1e-5
 # benchmarks/largescale.py: cells x genes, nonzeros per cell, k; width 32
 LARGE = dict(genes=16384, cells=524288, nnz=824, k=100, maxit=10,
-             masked_maxit=2, gene_block=512, cell_block=2048)
+             masked_maxit=2, masked_maxit_f32=1, gene_block=512,
+             cell_block=2048)
 # the large operand's slice for the kernel checks: 4 cell blocks of 2048
 # at full gene width, at a cell offset inside the operand
 LARGE_SLICE = (262144, 4 * 2048)
@@ -187,29 +214,57 @@ def _median_ms(torch, fn, runs: int) -> float:
     return statistics.median(times)
 
 
+COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "plain",
+          "plain_bell", "plain_maskgram")
+
+
+def _launches(**nonzero):
+    """A full launch-count dict: the given counts, every other one 0."""
+    assert set(nonzero) <= set(COUNTS), nonzero
+    return {key: nonzero.get(key, 0) for key in COUNTS}
+
+
 def _counted(torch, fn):
     """Run ``fn`` with every launch counter set to 0 just before it; return
-    (its result, wall seconds, {B1, B2, B3, B4, plain, plain_bell} counts
-    read just after)."""
-    from singlet_tpu_torch.ops import bell, bell_cuda, nnls, nnls_cuda
+    (its result, wall seconds, the counts of COUNTS read just after: kernel
+    launches of B1-B9 and calls of the plain versions)."""
+    from singlet_tpu_torch.ops import (bell, bell_cuda, maskgram,
+                                       maskgram_cuda, nnls, nnls_cuda)
 
-    nnls_cuda.LAUNCHES = 0
-    nnls_cuda.LAUNCHES_BATCHED = 0
-    bell_cuda.LAUNCHES_SPMM = 0
-    bell_cuda.LAUNCHES_SPMM_T = 0
-    nnls.PLAIN_CALLS = 0
-    bell.PLAIN_CALLS = 0
+    counters = ((nnls_cuda, "LAUNCHES"), (nnls_cuda, "LAUNCHES_BATCHED"),
+                (bell_cuda, "LAUNCHES_SPMM"), (bell_cuda, "LAUNCHES_SPMM_T"),
+                (bell_cuda, "LAUNCHES_SPMM_BITS"),
+                (bell_cuda, "LAUNCHES_SPMM_T_BITS"),
+                (bell_cuda, "LAUNCHES_MSE_BITS"),
+                (maskgram_cuda, "LAUNCHES_MPW_BITS"),
+                (maskgram_cuda, "LAUNCHES_MPH_BITS"),
+                (nnls, "PLAIN_CALLS"), (bell, "PLAIN_CALLS"),
+                (maskgram, "PLAIN_CALLS"))
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return out, secs, {"B1": nnls_cuda.LAUNCHES,
-                       "B2": nnls_cuda.LAUNCHES_BATCHED,
-                       "B3": bell_cuda.LAUNCHES_SPMM,
-                       "B4": bell_cuda.LAUNCHES_SPMM_T,
-                       "plain": nnls.PLAIN_CALLS,
-                       "plain_bell": bell.PLAIN_CALLS}
+    return out, secs, {key: getattr(mod, attr)
+                       for key, (mod, attr) in zip(COUNTS, counters)}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set for the block (the fits read them when
+    they are built), restored after it."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
 
 
 def _nnls_problem(torch, n, k, seed):
@@ -227,6 +282,15 @@ def _nnls_problem(torch, n, k, seed):
             torch.as_tensor(X0, device=dev), torch.as_tensor(mask, device=dev))
 
 
+def _nnls_bound(sweeps, n, k, gram_floats):
+    """Bound of a CD-NNLS call: the Gram(s), B, X0 and the mask read and X
+    written once; per column sweep and coordinate the step (about 8 float32
+    operations) and the residual downdate (2k), for the sweeps each column
+    ran (the plain version counts them on the same inputs)."""
+    ops = int(sweeps.sum()) * k * (2 * k + 8)
+    return _bound(4 * (gram_floats + 3 * n * k) + n, ops, F32_OPS_S)
+
+
 def phase_kernel(torch, card):
     from singlet_tpu_torch.ops import nnls
     from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda
@@ -238,7 +302,7 @@ def phase_kernel(torch, card):
             kw = dict(L1=0.01, L2=0.001, update_mask=mask,
                       sweep_cap=float(cap))
             Xk = nnls_batch_cuda(a, B, X0, **kw)
-            Xp = nnls.nnls_batch(a, B, X0, **kw)
+            Xp, sweeps = nnls.nnls_batch(a, B, X0, return_sweeps=True, **kw)
             torch.cuda.synchronize()
             np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
                                        rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
@@ -251,7 +315,8 @@ def phase_kernel(torch, card):
             plain_ms = _median_ms(torch, lambda: nnls.nnls_batch(
                 a, B, X0, **kw), runs=3)
             rows.append(dict(n=n, k=k, sweep_cap=cap, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms))
+                             ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **_nnls_bound(sweeps, n, k, k * k)))
             print(f"kernel B1 n={n} k={k} cap={cap}: max|err|={err:.3e} "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
                   f"({card})", flush=True)
@@ -305,7 +370,8 @@ def phase_kernel_b2(torch, card, Ap, Atp, W0):
             kw = dict(L1=0.01, L2=0.001, update_mask=mask,
                       sweep_cap=float(cap))
             Xk = nnls_batch_cuda_batched_at(at, B, X0, **kw)
-            Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+            Xp, sweeps = nnls.nnls_batch(at.permute(2, 1, 0), B, X0,
+                                         return_sweeps=True, **kw)
             torch.cuda.synchronize()
             np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
                                        rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
@@ -318,7 +384,8 @@ def phase_kernel_b2(torch, card, Ap, Atp, W0):
             plain_ms = _median_ms(torch, lambda: nnls.nnls_batch(
                 at.permute(2, 1, 0), B, X0, **kw), runs=2)
             rows.append(dict(n=n, k=k, sweep_cap=cap, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms))
+                             ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **_nnls_bound(sweeps, n, k, k * k * n)))
             print(f"kernel B2 n={n} k={k} cap={cap}: max|err|={err:.3e} "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
                   f"({card})", flush=True)
@@ -574,6 +641,11 @@ def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     gen = torch.Generator(device="cuda").manual_seed(k)
     W = torch.rand((genes, k), generator=gen, device="cuda")
     H = torch.rand((cells, k), generator=gen, device="cuda")
+    # the library call's operands: CSR copies of the operand, unmasked and
+    # keep-masked (the hashed mask at the nonzeros is the packed one there)
+    words = _slice_words(torch, cell_offset, cells, genes, gene_block)
+    csr = {False: _csr_pair(torch, li, lv, gene_block, n_gb),
+           True: _csr_pair(torch, li, lv, gene_block, n_gb, words)}
     kernels = (("B3", bell_cuda.bell_spmm_cuda, bell.bell_spmm_plain, {}),
                ("B4", bell_cuda.bell_spmm_t_cuda, bell.bell_spmm_t_plain,
                 {"n_gb": n_gb}))
@@ -599,14 +671,24 @@ def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                      "runs differ")
             ms = _median_ms(torch, lambda: call(kern), runs=20)
             plain_ms = _median_ms(torch, lambda: call(plain), runs=3)
+            library_ms, nnz, lib_err = _spmm_library(torch, csr[masked],
+                                                     name, X, got)
+            if not lib_err <= BELL_TOL * scale:
+                raise AssertionError(f"{name} {label} masked={masked}: the "
+                                     f"library call differs by {lib_err}")
             rows.append(dict(shape=label, kernel=name, masked=masked,
                              cells=cells, k=k, width=width,
                              max_abs_err=err, max_abs_out=scale, ms=ms,
-                             plain_ms=plain_ms))
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             **_bound(2 * li.numel() * 4
+                                      + (genes + cells) * k * 4,
+                                      2 * nnz * k, F32_OPS_S)))
             print(f"kernel {name} {label} cells={cells} k={k} width={width} "
                   f"masked={masked}: max|err|={err:.3e} (max|out| "
                   f"{scale:.3e}), same bits twice, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.3f} ms ({card})", flush=True)
+                  f"plain {plain_ms:.3f} ms, torch.sparse.mm "
+                  f"{library_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
+                  f"({card})", flush=True)
 
     # values 1.0 at the live slots; a contiguous copy of the ids, since
     # the kernels take both planes with one row stride
@@ -629,6 +711,260 @@ def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     return rows
 
 
+def _csr_pair(torch, li, lv, gene_block, n_gb, words=None):
+    """The (keep-masked, with ``words``) operand of planes ``li``/``lv`` as
+    CSR copies, (cells, genes) and (genes, cells), and its nonzero count:
+    the operands of the library call (torch.sparse.mm), built outside the
+    timing."""
+    width = li.shape[0] // n_gb
+    r, c = torch.nonzero(li >= 0, as_tuple=True)
+    gb = r // width
+    local = li[r, c].long()
+    if words is not None:
+        w = words[c, (gb // 32) * gene_block + local].long() & 0xFFFFFFFF
+        keep = ((w >> (gb % 32)) & 1) == 0
+        r, c, gb, local = r[keep], c[keep], gb[keep], local[keep]
+    gene = gb * gene_block + local
+    vals = lv[r, c]
+    cells, genes = li.shape[1], n_gb * gene_block
+    coo = torch.sparse_coo_tensor(torch.stack([c, gene]), vals,
+                                  (cells, genes)).coalesce()
+    coo_t = torch.sparse_coo_tensor(torch.stack([gene, c]), vals,
+                                    (genes, cells)).coalesce()
+    return coo.to_sparse_csr(), coo_t.to_sparse_csr(), int(vals.numel())
+
+
+def _bound(bytes_, ops, peak):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type
+    (on-chip-measurement guide, H100 SXM at 700 W)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, ops / peak
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(bytes_), ops=int(ops))
+
+
+def _slice_words(torch, cell_offset, cells, genes, gene_block,
+                 cells_true=None, genes_true=None):
+    """The packed test mask (MASKED's seed and density) of cells
+    [cell_offset, cell_offset + cells) of an operand, all genes."""
+    from singlet_tpu_torch.ops.maskbits import pack_mask_words
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+
+    return pack_mask_words(
+        seed_pair(MASKED["mask_seed"]),
+        torch.arange(cell_offset, cell_offset + cells, device="cuda"),
+        genes_pad=genes, gene_block=gene_block,
+        inv_density=MASKED["inv_density"],
+        cells_true=cell_offset + cells if cells_true is None else cells_true,
+        genes_true=genes if genes_true is None else genes_true)
+
+
+def _spmm_library(torch, csr, name, X, got):
+    """torch.sparse.mm on the CSR copy for B3/B5 (operand @ W) or B4/B6
+    (operand^T @ H): (median ms, nonzeros, max abs difference to the
+    kernel's ``got``)."""
+    A_csr, A_csr_t, nnz = csr
+    mat = A_csr if name in ("B3", "B5") else A_csr_t
+
+    def lib():
+        return torch.sparse.mm(mat, X)
+
+    err = float((lib() - got).abs().max())
+    return _median_ms(torch, lib, runs=10), nnz, err
+
+
+def _int_mm_library(torch, m_i8, P_i8):
+    """One torch._int_mm of an unpacked int8 mask operand with an int8
+    packed operand (both prepared outside the timing), padded to its
+    multiples of 8: median ms."""
+    pad = (-P_i8.shape[1]) % 8
+    if pad:
+        P_i8 = torch.nn.functional.pad(P_i8, (0, pad))
+    return _median_ms(torch, lambda: torch._int_mm(m_i8, P_i8), runs=10)
+
+
+def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
+                       cell_offset, block=2048, timed=True):
+    """Kernels B5-B9 against their plain versions on the card, on planes
+    ``li``/``lv`` (a column slice at ``cell_offset`` of an operand's planes)
+    and the packed test mask of those cells: B5 and B6 against masked B3
+    and B4 (the same bits) and their plain versions; B7 (its sums within
+    rtol 2e-4, atol 1e-5, its counts equal); B8 on the first ``block``
+    cells and B9 over all of them in groups of ``block`` (each group its
+    own quantization, as the engine batches them), on int8 (the same bits
+    as the plain versions) and bf16 (within 1e-5 x max |out|). With
+    ``timed``, the times of kernel, plain version and library call, and
+    each kernel's bound."""
+    from singlet_tpu_torch.ops import bell, bell_cuda, maskgram, maskgram_cuda
+    from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
+    from singlet_tpu_torch.ops.maskbits import unpack_all
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+
+    cells = li.shape[1]
+    genes = n_gb * gene_block
+    width = li.shape[0] // n_gb
+    G = gene_block
+    gen = torch.Generator(device="cuda").manual_seed(k + 1)
+    W = torch.rand((genes, k), generator=gen, device="cuda")
+    H = torch.rand((cells, k), generator=gen, device="cuda")
+    Wd = W / k
+    words = _slice_words(torch, cell_offset, cells, genes, G)
+    seed = seed_pair(MASKED["mask_seed"])
+    inv = MASKED["inv_density"]
+    plane_bytes = 2 * li.numel() * 4
+    word_bytes = words.numel() * 4
+    rows = []
+
+    def record(name, err, scale, ms=None, plain_ms=None, library_ms=None,
+               bound=None, **extra):
+        row = dict(shape=label, kernel=name, cells=cells, k=k, width=width,
+                   n_gb=n_gb, max_abs_err=err, max_abs_out=scale, **extra)
+        if timed:
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **bound)
+        rows.append(row)
+        times = "" if not timed else (
+            f", kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        print(f"kernel {name} {label} cells={cells} k={k} n_gb={n_gb} "
+              f"{extra}: max|err|={err:.3e} (max|out| {scale:.3e}){times} "
+              f"({card})", flush=True)
+
+    def timing(kern, plain, runs=20, plain_runs=3):
+        if not timed:
+            return {}
+        return dict(ms=_median_ms(torch, kern, runs=runs),
+                    plain_ms=_median_ms(torch, plain, runs=plain_runs))
+
+    # B5 and B6: the same bits as masked B3 and B4, close to the plain
+    # versions
+    csr = _csr_pair(torch, li, lv, G, n_gb, words) if timed else None
+    for name, kern, plain, hashed, X, extra in (
+            ("B5", bell_cuda.bell_spmm_bits_cuda, bell.bell_spmm_bits_plain,
+             lambda: bell_cuda.bell_spmm_cuda(li, lv, W, seed, cell_offset,
+                                              gene_block=G, inv_density=inv),
+             W, {}),
+            ("B6", bell_cuda.bell_spmm_t_bits_cuda,
+             bell.bell_spmm_t_bits_plain,
+             lambda: bell_cuda.bell_spmm_t_cuda(li, lv, H, seed, cell_offset,
+                                                gene_block=G, n_gb=n_gb,
+                                                inv_density=inv),
+             H, {"n_gb": n_gb})):
+        def call(f, X=X, extra=extra):
+            return f(li, lv, X, words, gene_block=G, **extra)
+
+        got, want = call(kern), call(plain)
+        if not torch.equal(got, hashed()):
+            raise AssertionError(f"{name} {label}: differs from the masked "
+                                 "hashed kernel")
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= BELL_TOL * scale:
+            raise AssertionError(f"{name} {label}: max abs err {err} > "
+                                 f"{BELL_TOL} x {scale}")
+        t = timing(lambda: call(kern), lambda: call(plain))
+        if timed:
+            library_ms, nnz, lib_err = _spmm_library(torch, csr, name, X,
+                                                     got)
+            if not lib_err <= BELL_TOL * scale:
+                raise AssertionError(f"{name} {label}: the library call "
+                                     f"differs by {lib_err}")
+            t.update(library_ms=library_ms, bound=_bound(
+                plane_bytes + word_bytes + (genes + cells) * k * 4,
+                2 * nnz * k, F32_OPS_S))
+        record(name, err, scale, **t)
+
+    # B7: sums close, counts equal, the same bits twice
+    def mse(f):
+        return f(li, lv, words, Wd, H, gene_block=G)
+
+    got, want = mse(bell_cuda.bell_mse_bits_cuda), mse(bell.bell_mse_bits_plain)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    if not (torch.equal(got[1], want[1])
+            and torch.equal(got, mse(bell_cuda.bell_mse_bits_cuda))):
+        raise AssertionError(f"B7 {label}: counts differ or two runs differ")
+    t = timing(lambda: mse(bell_cuda.bell_mse_bits_cuda),
+               lambda: mse(bell.bell_mse_bits_plain))
+    held = int(got[1].sum())
+    if timed:
+        t["bound"] = _bound(plane_bytes + word_bytes
+                            + (genes + cells) * k * 4 + 2 * cells * 4,
+                            held * (2 * k + 3), F32_OPS_S)
+    record("B7", float((got[0] - want[0]).abs().max()),
+           float(want[0].abs().max()), held_out=held, **t)
+
+    # B8 on one block, B9 over the groups of blocks
+    iu = triu_pairs(k)
+    npairs = iu[0].shape[0]
+    b = min(block, cells)
+    w_blk = words[:b]
+    Pw = packed_outer_products(W, iu)
+    groups = [H[c0:c0 + b] for c0 in range(0, cells, b)]
+    acc0 = torch.rand((npairs, genes), generator=gen, device="cuda")
+    for dtype in ("int8", "bf16"):
+        if dtype == "int8":
+            Pw_op, Pw_s = maskgram.quantize_pairs(Pw, axis=0)
+            q = [maskgram.quantize_pairs(packed_outer_products(Hg, iu))
+                 for Hg in groups]
+        else:
+            Pw_op = Pw.to(torch.bfloat16)
+            Pw_s = torch.ones(npairs, device="cuda")
+            q = [(packed_outer_products(Hg, iu).to(torch.bfloat16), Pw_s)
+                 for Hg in groups]
+        Ph_op = torch.cat([x for x, _ in q])
+        Ph_s = torch.stack([x for _, x in q], dim=1).contiguous()
+        esz = 1 if dtype == "int8" else 2
+        peak = INT8_OPS_S if dtype == "int8" else BF16_OPS_S
+
+        def b8(f, acc=None):
+            return f(Pw_op, Pw_s, w_blk, gene_block=G)
+
+        def b9(f, acc=None):
+            # the carry is updated in place: a fresh copy for the checks,
+            # one reused buffer for the timings
+            return f(Ph_op, Ph_s, words, acc0.clone() if acc is None else acc,
+                     gene_block=G, scale_block=b)
+
+        for name, call, kern, plain, nnz_words, bytes_ in (
+                ("B8", b8, maskgram_cuda.mask_packed_w_t_bits_cuda,
+                 maskgram.mask_packed_w_t_bits_plain, w_blk,
+                 genes * npairs * esz + npairs * 4 + w_blk.numel() * 4
+                 + npairs * b * 4),
+                ("B9", b9, maskgram_cuda.mask_packed_h_t_bits_cuda,
+                 maskgram.mask_packed_h_t_bits_plain, words,
+                 cells * npairs * esz + Ph_s.numel() * 4 + word_bytes
+                 + 2 * npairs * genes * 4)):
+            got, want = call(kern), call(plain)
+            err, scale = float((got - want).abs().max()), \
+                float(want.abs().max())
+            if dtype == "int8" and not torch.equal(got, want):
+                raise AssertionError(f"{name} {label} int8: max abs err "
+                                     f"{err}, want the same bits")
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"{name} {label} {dtype}: max abs err "
+                                     f"{err} > 1e-5 x {scale}")
+            buf = acc0.clone()
+            t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
+                       runs=10, plain_runs=2)
+            if timed:
+                m = unpack_all(nnz_words, genes, G)
+                nnz = int(m.sum())
+                library_ms = None
+                if dtype == "int8":
+                    # the same int32 sums by torch._int_mm on the unpacked
+                    # mask (unpacking and dequantizing outside the timing)
+                    m8 = m.to(torch.int8)
+                    library_ms = (_int_mm_library(torch, m8, Pw_op)
+                                  if name == "B8" else _int_mm_library(
+                                      torch, Ph_op.T.contiguous(), m8))
+                t.update(library_ms=library_ms,
+                         bound=_bound(bytes_, 2 * nnz * npairs, peak))
+            record(name, err, scale, dtype=dtype, **t)
+    return rows
+
+
 def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
     """The ELL engine (the bench operand given as scipy) against the dense
     providers (given as numpy) from one W0: 5 plain iterations and a
@@ -639,7 +975,7 @@ def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
     res_e, secs_e, n_e = _counted(torch, lambda: eng.fit(
         k, w_init=W0, tol=0.0, maxit=5))
     res_d = stt.nmf_fit(Ap, k, At=Atp, w_init=W0, tol=0.0, maxit=5)
-    want = {"B1": 10, "B2": 0, "B3": 5, "B4": 5, "plain": 0, "plain_bell": 0}
+    want = _launches(B1=10, B3=5, B4=5)
     if n_e != want:
         raise AssertionError(f"ELL plain fit launches {n_e}, want {want}")
     for f in ("w", "h", "d"):
@@ -650,11 +986,12 @@ def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
     fit_kw = dict(w_init=W0, mask_seed=MASKED["mask_seed"],
                   inv_density=MASKED["inv_density"], tol=0.0, maxit=5,
                   trace_test_mse=1, overfit_threshold=1.0)
-    r_e, secs_m, n_m = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
+    # the f32 route, the arithmetic of the dense providers' masked fit
+    with _env(SINGLET_TPU_MASKGRAM="xla"):
+        r_e, secs_m, n_m = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
     r_d = stt.ard_nmf_fit(Ap, k, At=Atp, **fit_kw)
     blocks = eng.data.cells_pad // eng.data.cell_block
-    want = {"B1": 0, "B2": 5 * (blocks + 1), "B3": 5 * blocks,
-            "B4": 5 * blocks, "plain": 0, "plain_bell": 0}
+    want = _launches(B2=5 * (blocks + 1), B3=5 * blocks, B4=5 * blocks)
     if n_m != want:
         raise AssertionError(f"ELL masked fit launches {n_m}, want {want}")
     if r_e.iter != r_d.iter:
@@ -666,7 +1003,8 @@ def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
                                    rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=f)
     print(f"ELL vs dense, bench operand k={k}: 5 plain iterations in "
           f"{secs_e:.3f} s ({secs_e * 200:.2f} ms/iteration) and a 5-iteration "
-          f"masked ard_fit in {secs_m:.3f} s on the ELL engine agree with the "
+          f"masked ard_fit (f32 route) in {secs_m:.3f} s on the ELL engine "
+          f"agree with the "
           f"dense providers within rtol={FIT_RTOL} atol={FIT_ATOL}; iter "
           f"{r_e.iter}; test mse {r_e.test_mse} ({card})", flush=True)
     return dict(plain_s=secs_e, plain_launches=n_e, masked_s=secs_m,
@@ -674,6 +1012,47 @@ def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
                 test_mse_ell=r_e.test_mse, test_mse_dense=r_d.test_mse,
                 tol_trace_ell=res_e["tol_trace"],
                 tol_trace_dense=res_d.tol_trace)
+
+
+def phase_bits_vs_f32(torch, card, eng, W0):
+    """The ELL engine's bits route (its default on the card), int8 and
+    bf16, against its f32 route on the bench operand from one W0: the same
+    traced iterations and test-MSE traces within rtol 1e-3; B5-B9 and B2
+    launched as the route prescribes, and nothing else."""
+    k = BENCH["k"]
+    fit_kw = dict(w_init=W0, mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"], tol=0.0, maxit=5,
+                  trace_test_mse=1, overfit_threshold=1.0)
+    blocks = eng.data.cells_pad // eng.data.cell_block
+    with _env(SINGLET_TPU_MASKGRAM="xla"):
+        r_f, secs_f, n_f = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
+    if n_f != _launches(B2=5 * (blocks + 1), B3=5 * blocks, B4=5 * blocks):
+        raise AssertionError(f"f32 route launches {n_f}")
+    out = dict(f32=dict(wall_s=secs_f, test_mse=r_f.test_mse,
+                        iter=r_f.iter, launches=n_f))
+    for mode in ("int8", "bf16"):
+        with _env(SINGLET_TPU_MASKGRAM=mode):
+            r_b, secs_b, n_b = _counted(torch,
+                                        lambda: eng.ard_fit(k, **fit_kw))
+        # F = the 4 blocks: one B9 flush per iteration
+        want = _launches(B2=5 * (blocks + 1), B5=5 * blocks, B6=5 * blocks,
+                         B7=5, B8=5 * blocks, B9=5)
+        if n_b != want:
+            raise AssertionError(f"bits route ({mode}) launches {n_b}, want "
+                                 f"{want}")
+        if r_b.iter != r_f.iter:
+            raise AssertionError(f"bits route ({mode}) traced {r_b.iter}, "
+                                 f"the f32 route {r_f.iter}")
+        np.testing.assert_allclose(r_b.test_mse, r_f.test_mse, rtol=1e-3)
+        rel = float(np.max(np.abs(np.subtract(r_b.test_mse, r_f.test_mse))
+                           / np.abs(r_f.test_mse)))
+        out[mode] = dict(wall_s=secs_b, test_mse=r_b.test_mse,
+                         iter=r_b.iter, launches=n_b, max_rel_test_mse=rel)
+        print(f"ELL bits route ({mode}) vs f32 route, bench operand k={k}, 5 "
+              f"traced iterations: {secs_b:.3f} s against {secs_f:.3f} s; "
+              f"iter {r_b.iter}; test mse within {rel:.2e} relative "
+              f"(rtol 1e-3); launches {n_b} ({card})", flush=True)
+    return out
 
 
 def phase_large(torch, card):
@@ -716,13 +1095,15 @@ def phase_large(torch, card):
     kernel_rows = phase_bell_kernels(torch, card, "large slice", sl_li,
                                      sl_lv, k, L["gene_block"], data.n_gb,
                                      c0)
+    bits_rows = phase_bits_kernels(torch, card, "large slice", sl_li, sl_lv,
+                                   k, L["gene_block"], data.n_gb, c0,
+                                   block=L["cell_block"])
 
     torch.cuda.reset_peak_memory_stats()
     res, secs, n_fit = _counted(torch, lambda: eng.fit(
         k, tol=0.0, maxit=L["maxit"], seed=0))
     iters = len(res["tol_trace"])
-    want = {"B1": 2 * iters, "B2": 0, "B3": iters, "B4": iters, "plain": 0,
-            "plain_bell": 0}
+    want = _launches(B1=2 * iters, B3=iters, B4=iters)
     if iters != L["maxit"] or n_fit != want:
         raise AssertionError(f"large plain fit: {iters} iterations, "
                              f"launches {n_fit}; want {want}")
@@ -737,8 +1118,7 @@ def phase_large(torch, card):
           f"{peak:.2f} GiB ({card})", flush=True)
     (h, d), proj_s, n_proj = _counted(torch, lambda: eng.project(res["w"]))
     if h.shape != (k, cells) or not np.isfinite(h).all() or (h < 0).any() \
-            or n_proj["B3"] != 1 or n_proj["B1"] != 1 \
-            or n_proj["plain"] or n_proj["plain_bell"]:
+            or n_proj != _launches(B1=1, B3=1):
         raise AssertionError(f"project: h {h.shape}, launches {n_proj}")
     print(f"large project of {cells} cells: {proj_s:.3f} s, launches "
           f"{n_proj} ({card})", flush=True)
@@ -752,49 +1132,116 @@ def phase_large(torch, card):
         W, H, 0.01, 0.01, 0.0, 0.0, sweep_cap=float(settings.fast)),
         label=f"large plain ELL step (sweep cap {settings.fast})")
 
-    torch.cuda.reset_peak_memory_stats()
-    r, msecs, n_m = _counted(torch, lambda: eng.ard_fit(
-        k, maxit=L["masked_maxit"], tol=0.0, trace_test_mse=1,
-        overfit_threshold=1.0, mask_seed=MASKED["mask_seed"],
-        inv_density=MASKED["inv_density"]))
-    steps = len(r.iter)
-    blocks = cells // L["cell_block"]
-    want = {"B1": 0, "B2": steps * (blocks + 1), "B3": steps * blocks,
-            "B4": steps * blocks, "plain": 0, "plain_bell": 0}
-    if steps != L["masked_maxit"] or n_m != want:
-        raise AssertionError(f"large masked fit: {steps} steps, launches "
-                             f"{n_m}; want {want}")
-    if not (np.isfinite(r.test_mse).all() and min(r.test_mse) > 0):
-        raise AssertionError(f"large masked fit: test mse {r.test_mse}")
-    _check_fit(r.w, r.d, r.h, (genes, k), (k, cells))
-    mpeak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"large masked ELL ard_fit k={k} {steps} iterations, each traced: "
-          f"{msecs:.3f} s, {msecs * 1e3 / steps:.1f} ms per masked iteration "
-          f"with its test MSE, launches {n_m}, test mse {r.test_mse}, peak "
-          f"{mpeak:.2f} GiB ({card})", flush=True)
-    # one masked step at the masked fast-phase cap and one test MSE, each
-    # under the profiler, from the masked fit's factors
     seed = seed_pair(MASKED["mask_seed"])
-    W = torch.as_tensor(r.w, device="cuda")
-    H = torch.as_tensor(r.h.T.copy(), device="cuda")
-    d = torch.as_tensor(r.d, device="cuda")
-    masked_profile = _profile(torch, card, lambda: fns["masked"](
+    blocks = cells // L["cell_block"]
+    ard_kw = dict(tol=0.0, trace_test_mse=1, overfit_threshold=1.0,
+                  mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"])
+
+    def masked_fit(label, maxit, want_of):
+        torch.cuda.reset_peak_memory_stats()
+        r, msecs, n_m = _counted(torch, lambda: eng.ard_fit(
+            k, maxit=maxit, **ard_kw))
+        steps = len(r.iter)
+        if steps != maxit or n_m != want_of(steps):
+            raise AssertionError(f"large masked fit ({label}): {steps} "
+                                 f"steps, launches {n_m}; want "
+                                 f"{want_of(steps)}")
+        if not (np.isfinite(r.test_mse).all() and min(r.test_mse) > 0):
+            raise AssertionError(f"large masked fit ({label}): test mse "
+                                 f"{r.test_mse}")
+        _check_fit(r.w, r.d, r.h, (genes, k), (k, cells))
+        mpeak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"large masked ELL ard_fit ({label}) k={k} {steps} "
+              f"iterations, each traced: {msecs:.3f} s, "
+              f"{msecs * 1e3 / steps:.1f} ms per masked iteration with its "
+              f"test MSE, launches {n_m}, test mse {r.test_mse}, peak "
+              f"{mpeak:.2f} GiB ({card})", flush=True)
+        out = dict(steps=steps, wall_s=msecs, ms_per_iter=msecs * 1e3 / steps,
+                   launches=n_m, test_mse=r.test_mse, peak_mem_gib=mpeak)
+        W = torch.as_tensor(r.w, device="cuda")
+        H = torch.as_tensor(r.h.T.copy(), device="cuda")
+        d = torch.as_tensor(r.d, device="cuda")
+        return out, (W, H, d)
+
+    # the f32 route (SINGLET_TPU_MASKGRAM=xla): one traced iteration, then
+    # one masked step at the masked fast-phase cap and one test MSE, each
+    # under the profiler, from its factors
+    with _env(SINGLET_TPU_MASKGRAM="xla"):
+        fns_f32 = _build_local_fns(data, MASKED["inv_density"])
+        masked, (W, H, d) = masked_fit("f32 route", L["masked_maxit_f32"],
+                                       lambda steps: _launches(
+                                           B2=steps * (blocks + 1),
+                                           B3=steps * blocks,
+                                           B4=steps * blocks))
+    masked["profile"] = _profile(torch, card, lambda: fns_f32["masked"](
         W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
         sweep_cap=float(settings.fast_masked)),
-        label=f"large masked ELL step (sweep cap {settings.fast_masked})")
-    mse_profile = _profile(torch, card, lambda: fns["mse"](W, d, H, seed),
-                           label="large test MSE")
+        label=f"large masked ELL step, f32 route (sweep cap "
+              f"{settings.fast_masked})")
+    masked["mse_profile"] = _profile(
+        torch, card, lambda: fns_f32["mse"](W, d, H, seed),
+        label="large test MSE, f32 route")
+
+    # the bits route, the default on the card: the pack once per fit, the
+    # fit with its exact launch counts (per iteration a B5, B6, B8 and B2 per
+    # block, a B9 per group of 16 blocks, one B2 over all genes, one B7),
+    # then one step and one test MSE timed and under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bits = fns["prepare_bits"](seed)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    words_gib = bits[0].numel() * 4 / 2**30
+    print(f"large test mask packed into bitplane words: {pack_s:.3f} s, "
+          f"{words_gib:.3f} GiB ({card})", flush=True)
+    F = 16
+    bits_fit, (W, H, d) = masked_fit(
+        "bits route, int8", L["masked_maxit"], lambda steps: _launches(
+            B2=steps * (blocks + 1), B5=steps * blocks, B6=steps * blocks,
+            B7=steps, B8=steps * blocks, B9=steps * blocks // F))
+
+    def step():
+        return fns["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
+                             sweep_cap=float(settings.fast_masked),
+                             bits=bits)
+
+    def mse():
+        return fns["mse"](W, d, H, seed, bits=bits)
+
+    _, step_s, n_step = _counted(torch, step)
+    _, mse_s, n_mse = _counted(torch, mse)
+    if n_step != _launches(B2=blocks + 1, B5=blocks, B6=blocks, B8=blocks,
+                           B9=blocks // F) or n_mse != _launches(B7=1):
+        raise AssertionError(f"large bits step launches {n_step}, test MSE "
+                             f"{n_mse}")
+    # B7 alone over all cells, by CUDA events (the profiler has shown no
+    # device time for it: see PERF.md)
+    from singlet_tpu_torch.ops.bell_cuda import bell_mse_bits_cuda
+
+    Wd = W * d[None, :]
+    b7_ms = _median_ms(torch, lambda: bell_mse_bits_cuda(
+        li, lv, bits[0], Wd, H, gene_block=L["gene_block"]), runs=5)
+    print(f"large bits route: one masked step {step_s * 1e3:.1f} ms (sweep "
+          f"cap {settings.fast_masked}), one test MSE {mse_s * 1e3:.1f} ms, "
+          f"of which kernel B7 over all {cells} cells {b7_ms:.3f} ms "
+          f"({card})", flush=True)
+    bits_fit.update(
+        pack_s=pack_s, words_gib=words_gib, step_ms=step_s * 1e3,
+        mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms,
+        profile=_profile(torch, card, step, label=f"large masked ELL step, "
+                         f"bits route (sweep cap {settings.fast_masked})"),
+        mse_profile=_profile(torch, card, mse,
+                             label="large test MSE, bits route (B7)"))
     return dict(
         genes=genes, cells=cells, nnz=nnz, width=width, k=k,
         gen_s=gen_s, planes_gib=planes_gib, kernels=kernel_rows,
+        bits_kernels=bits_rows,
         plain=dict(iters=iters, wall_s=secs, ms_per_iter=ms_it,
                    cells_per_s=cells * 1e3 / ms_it, launches=n_fit,
                    final_tol=res["tol_trace"][-1], peak_mem_gib=peak),
         project=dict(wall_s=proj_s, launches=n_proj), profile=profile,
-        masked=dict(steps=steps, wall_s=msecs,
-                    ms_per_iter=msecs * 1e3 / steps, launches=n_m,
-                    test_mse=r.test_mse, peak_mem_gib=mpeak,
-                    profile=masked_profile, mse_profile=mse_profile))
+        masked=masked, bits=bits_fit)
 
 
 def phase_ell_entry(torch, card):
@@ -818,8 +1265,11 @@ def phase_ell_entry(torch, card):
     if abs(model.k - rank) > 2:
         raise AssertionError(f"ELL ard_nmf selected rank {model.k}, planted "
                              f"{rank}; fitted ranks {ranks}")
-    if not (n["B1"] and n["B2"] and n["B3"] and n["B4"]) or n["plain"] \
-            or n["plain_bell"]:
+    # the masked fits of the search on the default bits route (B2, B5-B9),
+    # the final fit at the chosen rank on the plain one (B1, B3, B4)
+    if not all(n[key] for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
+                                  "B8", "B9")) \
+            or n["plain"] or n["plain_bell"] or n["plain_maskgram"]:
         raise AssertionError(f"ELL ard_nmf launches {n}")
     print(f"ard_nmf on the planted rank-{rank} {g}x{c} operand as scipy CSC "
           f"({A.nnz} nonzeros, ELL route): selected rank {model.k} after fits "
@@ -831,8 +1281,9 @@ def phase_ell_entry(torch, card):
     if sorted(df["k"].unique()) != CV_RANKS or \
             not np.isfinite(df["test_error"]).all():
         raise AssertionError(f"ELL cross_validate_nmf frame:\n{df}")
-    if not (n_cv["B2"] and n_cv["B3"] and n_cv["B4"]) or n_cv["B1"] \
-            or n_cv["plain"] or n_cv["plain_bell"]:
+    if not all(n_cv[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+            or any(n_cv[key] for key in ("B1", "B3", "B4", "plain",
+                                         "plain_bell", "plain_maskgram")):
         raise AssertionError(f"ELL cross_validate_nmf launches {n_cv}")
     best = stt.GetBestRank(df)
     print(f"cross_validate_nmf ranks {CV_RANKS} maxit=20 on the ELL route: "
@@ -883,7 +1334,7 @@ def _profile(torch, card, fn, label="race"):
 def phase_build():
     """Build every kernel source, one nvcc each, started together."""
     from singlet_tpu_torch import _build
-    from singlet_tpu_torch.ops import bell_cuda, nnls_cuda
+    from singlet_tpu_torch.ops import bell_cuda, maskgram_cuda, nnls_cuda
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -892,6 +1343,8 @@ def phase_build():
     nnls_cuda._kernel()
     nnls_cuda._kernel_batched()
     bell_cuda._lib()
+    bell_cuda._mse_lib()
+    maskgram_cuda._lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
         print("\n".join(ln for ln in log.splitlines() if "ptxas" in ln),
@@ -944,12 +1397,25 @@ def main() -> int:
     bell_rows = phase_bell_kernels(torch, card, "bench", eng.data.b_li,
                                    eng.data.b_val, BENCH["k"],
                                    eng.data.gene_block, eng.data.n_gb, 0)
+    bits_rows = phase_bits_kernels(torch, card, "bench", eng.data.b_li,
+                                   eng.data.b_val, BENCH["k"],
+                                   eng.data.gene_block, eng.data.n_gb, 0,
+                                   block=eng.data.cell_block)
+    # an edge geometry: 40 gene blocks (a second word group), 3 quantization
+    # groups of 1000 cells for B9, a cell offset
+    eli, elv, _ = synth_bell_planes_torch(1280, 3000, 400, 32)
+    bits_rows += phase_bits_kernels(torch, card, "edge", eli, elv, 7, 32, 40,
+                                    12345, block=1000, timed=False)
+    del eli, elv
     results["ell_vs_dense"] = phase_ell_vs_dense(torch, card, eng, Ap, Atp,
                                                  W0)
+    results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
     del A, Ap, Atp, eng
     results["ard"] = phase_ard(torch, card)
     results["large"] = phase_large(torch, card)
     results["bell_kernels"] = bell_rows + results["large"].pop("kernels")
+    results["bits_kernels"] = bits_rows + results["large"].pop(
+        "bits_kernels")
     results["ell_entry"] = phase_ell_entry(torch, card)
     results["wall_s"] = time.perf_counter() - T_START
 
@@ -959,53 +1425,69 @@ def main() -> int:
                   if (r["n"], r["k"], r["sweep_cap"]) == B2_REPORTED)
     bell_row = {r["kernel"]: r for r in results["bell_kernels"]
                 if r["shape"] == "large slice" and not r["masked"]}
+    bell_row.update({r["kernel"]: r for r in results["bits_kernels"]
+                     if r["shape"] == "large slice"
+                     and r.get("dtype", "int8") == "int8"})
     bench, masked = results["bench"], results["masked"]
+    large = results["large"]
     ell_runs = [results["ell_vs_dense"]["plain_launches"],
                 results["ell_vs_dense"]["masked_launches"],
-                results["large"]["plain"]["launches"],
-                results["large"]["project"]["launches"],
-                results["large"]["masked"]["launches"],
+                results["bits_vs_f32"]["f32"]["launches"],
+                results["bits_vs_f32"]["int8"]["launches"],
+                results["bits_vs_f32"]["bf16"]["launches"],
+                large["plain"]["launches"], large["project"]["launches"],
+                large["masked"]["launches"], large["bits"]["launches"],
                 results["ell_entry"]["ard"]["launches"],
                 results["ell_entry"]["cv"]["launches"]]
     print("results: " + json.dumps(results))
     print("kernel times below: B1 at n=16384 k=50 sweep_cap=8, B2 at "
-          "n=4096 k=50 sweep_cap=32, B3 and B4 unmasked at k=100 on 8192 "
-          "cells of the large operand (16384 genes, width 32); launches: B1 "
-          "over the two bench-scale nmf_fit runs, B2 over the bench-scale "
-          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3 and B4 over "
-          "the ELL engine's counted runs")
-    print(json.dumps({"kernels": [{
-        "name": "nnls_cd_shared",
-        "route": "cuda",
-        "source": "singlet_tpu_torch/csrc/nnls_cd.cu",
-        "replaces": "singlet_tpu/ops/pallas_nnls.py:266",
-        "launches": bench["fixed10"]["launches"] + bench["race"]["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in results["kernel"]),
-        "ms": b1_row["ms"],
-        "plain_ms": b1_row["plain_ms"],
-    }, {
-        "name": "nnls_cd_batched",
-        "route": "cuda",
-        "source": "singlet_tpu_torch/csrc/nnls_cd_batched.cu",
-        "replaces": "singlet_tpu/ops/pallas_nnls.py:195",
-        "launches": (masked["fit"]["launches"]["B2"]
-                     + masked["cv"]["launches"]["B2"]
-                     + results["ard"]["launches"]["B2"]),
-        "max_abs_err": max(r["max_abs_err"] for r in results["kernel_b2"]),
-        "ms": b2_row["ms"],
-        "plain_ms": b2_row["plain_ms"],
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "singlet_tpu_torch/csrc/bell_spmm.cu",
-        "replaces": f"singlet_tpu/ops/pallas_bell.py:{line}",
-        "launches": sum(n[key] for n in ell_runs),
-        "max_abs_err": max(r["max_abs_err"] for r in results["bell_kernels"]
-                           if r["kernel"] == key),
-        "ms": bell_row[key]["ms"],
-        "plain_ms": bell_row[key]["plain_ms"],
-    } for name, key, line in (("bell_spmm", "B3", 162),
-                              ("bell_spmm_t", "B4", 416))]}))
+          "n=4096 k=50 sweep_cap=32; B3 and B4 unmasked, B5, B6 and B7 at "
+          "k=100 on 8192 cells of the large operand (16384 genes, width "
+          "32), B8 (int8) on the first 2048-cell block of them and B9 (int8) "
+          "over all of them as 4 quantization groups; launches: B1 over the "
+          "two bench-scale nmf_fit runs, B2 over the bench-scale "
+          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B9 over the "
+          "ELL engine's counted runs; bound_ms: the larger of the bytes over "
+          "3.35 TB/s and the operations this run's data needs over the "
+          "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s)")
+
+    def entry(name, source, replaces, launches, row, err):
+        return {"name": name, "route": "cuda",
+                "source": f"singlet_tpu_torch/csrc/{source}",
+                "replaces": f"singlet_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    def ell_entry(name, key, source, replaces):
+        rows = results["bell_kernels"] + results["bits_kernels"]
+        return entry(name, source, replaces,
+                     sum(n[key] for n in ell_runs), bell_row[key],
+                     max(r["max_abs_err"] for r in rows
+                         if r["kernel"] == key))
+
+    print(json.dumps({"kernels": [
+        entry("nnls_cd_shared", "nnls_cd.cu", "pallas_nnls.py:266",
+              bench["fixed10"]["launches"] + bench["race"]["launches"],
+              b1_row, max(r["max_abs_err"] for r in results["kernel"])),
+        entry("nnls_cd_batched", "nnls_cd_batched.cu", "pallas_nnls.py:195",
+              masked["fit"]["launches"]["B2"] + masked["cv"]["launches"]["B2"]
+              + results["ard"]["launches"]["B2"], b2_row,
+              max(r["max_abs_err"] for r in results["kernel_b2"])),
+        ell_entry("bell_spmm", "B3", "bell_spmm.cu", "pallas_bell.py:162"),
+        ell_entry("bell_spmm_t", "B4", "bell_spmm.cu", "pallas_bell.py:416"),
+        ell_entry("bell_spmm_bits", "B5", "bell_spmm.cu",
+                  "pallas_bell.py:260"),
+        ell_entry("bell_spmm_t_bits", "B6", "bell_spmm.cu",
+                  "pallas_bell.py:298"),
+        ell_entry("bell_mse_bits", "B7", "bell_mse_bits.cu",
+                  "pallas_bell.py:370"),
+        ell_entry("mask_packed_w_t_bits", "B8", "maskgram_bits.cu",
+                  "pallas_maskgram.py:480"),
+        ell_entry("mask_packed_h_t_bits", "B9", "maskgram_bits.cu",
+                  "pallas_maskgram.py:712"),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-// Blocked-ELL SpMM in both directions: kernels B3 and B4 of the port, for
-// sm_90a.
+// Blocked-ELL SpMM in both directions: kernels B3 and B4 of the port, and
+// with the keep factor read from bitplane words B5 and B6, for sm_90a.
 //
 // B3 (`bell_spmm`) replaces singlet_tpu/ops/pallas_bell.py `bell_spmm`
 // (kernel body `_spmm_kernel`), B4 (`bell_spmm_t`) replaces `bell_spmm_t`
-// (`_spmm_t_kernel`). On planes (n_gb * width, cells) of LOCAL gene ids li
+// (`_spmm_t_kernel`); the same entry points with keep mode 2 are B5
+// (`bell_spmm_bits`, `_spmm_bits_kernel`) and B6 (`bell_spmm_t_bits`,
+// `_spmm_t_bits_kernel`). On planes (n_gb * width, cells) of LOCAL gene ids li
 // (pad -1) and values lv (pad 0), cells contiguous with row stride `ld`:
 //
 //   B3:  B[c, :]  = sum over live slots (gb, w) of cell c of
@@ -11,11 +13,17 @@
 //   B4:  Bw[g, :] = sum over the cells c with a live slot at gene g of
 //                   lv * keep * H[c, :]                      (n_gb * GB, k)
 //
-// keep is 1, or with `masked` 1 - testmask(seed, cell_offset + c, g): the
-// counter hash of singlet_tpu_torch/ops/rngmask.py `mask_block`, bit for bit
-// (rand(i) per cell, then the j-mix, the 64-bit add, the final xorshifts
-// and `x % inv_density == 0`), on native uint64. Pad slots are skipped:
-// the TPU kernel multiplies them out, hashing a bogus gene id.
+// keep is 1 (`masked` 0); or 1 - testmask(seed, cell_offset + c, g)
+// (`masked` 1): the counter hash of singlet_tpu_torch/ops/rngmask.py
+// `mask_block`, bit for bit (rand(i) per cell, then the j-mix, the 64-bit
+// add, the final xorshifts and `x % inv_density == 0`), on native uint64;
+// or (`masked` 2, B5 and B6) 1 - the test bit of (c, g) in the packed words
+// of singlet_tpu_torch/ops/maskbits.py, words[c, (gb >> 5) * GB + li] >>
+// (gb & 31) & 1, one load and one shift per slot in place of the hash.
+// Pad slots are skipped: the TPU kernel multiplies them out, hashing a
+// bogus gene id. The three modes differ only in which slots are skipped,
+// so B5 gives the bits of B3 with the hash, and B6 those of B4, whenever
+// the words hold the same mask.
 //
 // Design, and what bounds it. The TPU densifies each (gene block, 256
 // cells) tile by a one-hot multiply-compare-sum because it has no gather,
@@ -91,17 +99,26 @@ __device__ __forceinline__ uint64_t cell_hash(uint64_t seed,
   return hash_i(seed, (uint64_t)(uint32_t)cell_id);
 }
 
+// keep mode 2: whether the packed words hold cell c's test bit at gene
+// block gb, local gene l (`wrow` is cell c's row of words)
+__device__ __forceinline__ bool word_bit(const uint32_t* __restrict__ wrow,
+                                         int gb, int gene_block, int l) {
+  return (wrow[(gb >> 5) * gene_block + l] >> (gb & 31)) & 1u;
+}
+
 template <int NPL>  // output columns per lane: k <= 32 * NPL
 __global__ void __launch_bounds__(kWarps * 32)
 bell_spmm_kernel(const int32_t* __restrict__ li, const float* __restrict__ lv,
                  long long ld, int n_gb, int width, int cells,
                  int gene_block, const float* __restrict__ W, int k,
                  float* __restrict__ B, int masked, uint64_t seed,
-                 long long cell_offset, uint64_t inv_density) {
+                 long long cell_offset, uint64_t inv_density,
+                 const uint32_t* __restrict__ words, long long wld) {
   const int lane = threadIdx.x & 31;
   const long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (c >= cells) return;  // whole warps only
-  const uint64_t xi = masked ? cell_hash(seed, cell_offset + c) : 0;
+  const uint64_t xi = masked == 1 ? cell_hash(seed, cell_offset + c) : 0;
+  const uint32_t* wrow = masked == 2 ? words + c * wld : nullptr;
   float acc[NPL];
 #pragma unroll
   for (int s = 0; s < NPL; ++s) acc[s] = 0.f;
@@ -117,7 +134,9 @@ bell_spmm_kernel(const int32_t* __restrict__ li, const float* __restrict__ lv,
         if (l >= 0) {
           g = gb * gene_block + l;
           v = lv[off];
-          if (masked && held_out(xi, (uint64_t)(uint32_t)g, inv_density)) {
+          if ((masked == 1 &&
+               held_out(xi, (uint64_t)(uint32_t)g, inv_density)) ||
+              (masked == 2 && word_bit(wrow, gb, gene_block, l))) {
             g = -1;  // held out: keep = 0, the entry adds nothing
           }
         }
@@ -152,7 +171,8 @@ bell_spmm_t_kernel(const int32_t* __restrict__ li,
                    const float* __restrict__ H, int k,
                    float* __restrict__ out, int chunk, int masked,
                    uint64_t seed, long long cell_offset,
-                   uint64_t inv_density) {
+                   uint64_t inv_density, const uint32_t* __restrict__ words,
+                   long long wld) {
   extern __shared__ float smem[];
   float* acc = smem;                                   // (gene_block, 32)
   int* s_l = reinterpret_cast<int*>(acc + gene_block * 32);  // (32, 32)
@@ -177,8 +197,9 @@ bell_spmm_t_kernel(const int32_t* __restrict__ li,
     // staging: thread (warp, lane) takes cell c0 + lane, slots warp + 16 i
     const long long c = c0 + lane;
     const bool c_ok = c < c_end;
-    const uint64_t xi = (masked && c_ok) ? cell_hash(seed, cell_offset + c)
-                                         : 0;
+    const uint64_t xi = (masked == 1 && c_ok)
+                            ? cell_hash(seed, cell_offset + c) : 0;
+    const uint32_t* wrow = (masked == 2 && c_ok) ? words + c * wld : nullptr;
     __syncthreads();  // the previous H tile is consumed, acc is zeroed
 #pragma unroll
     for (int i = 0; i < 32 / kWarpsT; ++i) {
@@ -199,9 +220,10 @@ bell_spmm_t_kernel(const int32_t* __restrict__ li,
           l = li[off];
           if (l >= 0) {
             v = lv[off];
-            if (masked &&
-                held_out(xi, (uint64_t)(uint32_t)(gb * gene_block + l),
-                         inv_density)) {
+            if ((masked == 1 &&
+                 held_out(xi, (uint64_t)(uint32_t)(gb * gene_block + l),
+                          inv_density)) ||
+                (masked == 2 && word_bit(wrow, gb, gene_block, l))) {
               l = -1;
             }
           }
@@ -250,11 +272,12 @@ cudaError_t launch_b3(const int32_t* li, const float* lv, long long ld,
                       int n_gb, int width, int cells, int gene_block,
                       const float* W, int k, float* B, int masked,
                       uint64_t seed, long long cell_offset,
-                      uint64_t inv_density, cudaStream_t stream) {
+                      uint64_t inv_density, const uint32_t* words,
+                      long long wld, cudaStream_t stream) {
   const int blocks = (cells + kWarps - 1) / kWarps;
   bell_spmm_kernel<NPL><<<blocks, kWarps * 32, 0, stream>>>(
       li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed,
-      cell_offset, inv_density);
+      cell_offset, inv_density, words, wld);
   return cudaGetLastError();
 }
 
@@ -263,24 +286,30 @@ cudaError_t launch_b3(const int32_t* li, const float* lv, long long ld,
 extern "C" {
 
 // Device pointers: li int32 / lv float32 planes, row r at r * ld; W
-// (n_gb * gene_block, k) and B (cells, k) contiguous float32. Returns the
+// (n_gb * gene_block, k) and B (cells, k) contiguous float32. `masked`: 0
+// keep all, 1 hash (seed, cell_offset, inv_density), 2 words (cells rows of
+// row stride `wld`, the packed test mask of these cells). Returns the
 // cudaError_t of the launch (0 on success).
 int bell_spmm(const int32_t* li, const float* lv, long long ld, int n_gb,
               int width, int cells, int gene_block, const float* W, int k,
               float* B, int masked, uint64_t seed, long long cell_offset,
-              int inv_density, void* stream) {
+              int inv_density, const uint32_t* words, long long wld,
+              void* stream) {
   if (cells <= 0 || k <= 0) return cudaSuccess;
-  if (inv_density < 1) return cudaErrorInvalidValue;
+  if (inv_density < 1 || masked < 0 || masked > 2 ||
+      (masked == 2 && words == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint64_t d = (uint64_t)inv_density;
   switch ((k + 31) / 32) {
-    case 1: return launch_b3<1>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 2: return launch_b3<2>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 3: return launch_b3<3>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 4: return launch_b3<4>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 5: return launch_b3<5>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 6: return launch_b3<6>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
-    case 7: return launch_b3<7>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, s);
+    case 1: return launch_b3<1>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 2: return launch_b3<2>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 3: return launch_b3<3>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 4: return launch_b3<4>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 5: return launch_b3<5>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 6: return launch_b3<6>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
+    case 7: return launch_b3<7>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -294,9 +323,11 @@ int bell_spmm_t(const int32_t* li, const float* lv, long long ld, int n_gb,
                 int width, int cells, int gene_block, const float* H, int k,
                 float* partials, int n_chunks, int chunk, float* Bw,
                 int masked, uint64_t seed, long long cell_offset,
-                int inv_density, void* stream) {
+                int inv_density, const uint32_t* words, long long wld,
+                void* stream) {
   if (k <= 0 || n_gb <= 0) return cudaSuccess;
-  if (inv_density < 1 || n_chunks < 1 || chunk % 32 != 0) {
+  if (inv_density < 1 || n_chunks < 1 || chunk % 32 != 0 || masked < 0 ||
+      masked > 2 || (masked == 2 && words == nullptr)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -312,7 +343,7 @@ int bell_spmm_t(const int32_t* li, const float* lv, long long ld, int n_gb,
   const dim3 grid(n_gb, (k + 31) / 32, n_chunks);
   bell_spmm_t_kernel<<<grid, kWarpsT * 32, smem, s>>>(
       li, lv, ld, n_gb, width, cells, gene_block, H, k, first, chunk, masked,
-      seed, cell_offset, (uint64_t)inv_density);
+      seed, cell_offset, (uint64_t)inv_density, words, wld);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return err;
   const long long size = (long long)n_gb * gene_block * k;

@@ -1,11 +1,17 @@
-"""Kernels B3 and B4: blocked-ELL SpMM, hand-written in CUDA.
+"""Kernels B3-B7: blocked-ELL SpMM and the fused test MSE, hand-written in
+CUDA.
 
 B3 (``bell_spmm_cuda``) replaces ``singlet_tpu/ops/pallas_bell.py``
 ``bell_spmm`` and B4 (``bell_spmm_t_cuda``) replaces ``bell_spmm_t``, both
-in their plain and in their masked (in-kernel hashed keep factor) forms.
-Their source is ``csrc/bell_spmm.cu``, whose header note gives the design
-and what bounds it on the card; ``_build.py`` compiles it with nvcc at first
-use and this module binds it with ctypes.
+in their plain and in their masked (in-kernel hashed keep factor) forms; B5
+(``bell_spmm_bits_cuda``) and B6 (``bell_spmm_t_bits_cuda``) replace
+``bell_spmm_bits`` and ``bell_spmm_t_bits``: the same two kernels with the
+keep factor read from the packed test-mask words. Their source is
+``csrc/bell_spmm.cu``. B7 (``bell_mse_bits_cuda``) replaces
+``bell_mse_bits``; its source is ``csrc/bell_mse_bits.cu``. Each source's
+header note gives the design and what bounds it on the card; ``_build.py``
+compiles them with nvcc at first use and this module binds them with
+ctypes.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (``ops/bell.py``), because there is no
@@ -18,19 +24,29 @@ import ctypes
 
 import torch
 
-from singlet_tpu_torch.ops.bell import bell_spmm_plain, bell_spmm_t_plain
+from singlet_tpu_torch.ops.bell import (bell_mse_bits_plain,
+                                        bell_spmm_bits_plain,
+                                        bell_spmm_plain,
+                                        bell_spmm_t_bits_plain,
+                                        bell_spmm_t_plain)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
 # kernel launches (one per wrapper call on CUDA tensors) of B3 and of B4;
 # read by chip_smoke.py to show that a fit went through the kernels
 LAUNCHES_SPMM = 0
 LAUNCHES_SPMM_T = 0
+# likewise B5, B6 and B7
+LAUNCHES_SPMM_BITS = 0
+LAUNCHES_SPMM_T_BITS = 0
+LAUNCHES_MSE_BITS = 0
 
 # B3 keeps a cell's k outputs in registers, up to 7 per lane
 MAX_K = 224
 # B4 keeps a (gene_block, 32) float tile and three 32 x 32 staging tiles
 # in shared memory, within the 232,448 bytes a Hopper block may use
 MAX_GENE_BLOCK = (232448 // 4 - 3 * 32 * 32) // 32
+# B7 keeps one dense float row of gene_block per warp, eight warps
+MAX_GENE_BLOCK_MSE = 232448 // (8 * 4)
 # B4 splits the cells into chunks until the grid has about this many
 # blocks (a function of the shapes only, so the sums are always the same)
 _B4_TARGET_BLOCKS = 1024
@@ -47,8 +63,11 @@ def _lib():
         common = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.c_void_p, ctypes.c_int]
+        # keep mode, seed, cell offset, inv_density, words, words' row
+        # stride, stream
         tail = [ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p]
         lib.bell_spmm.argtypes = common + [ctypes.c_void_p] + tail
         lib.bell_spmm.restype = ctypes.c_int
         lib.bell_spmm_t.argtypes = common + [
@@ -59,6 +78,21 @@ def _lib():
         lib.bell_spmm_error_string.restype = ctypes.c_char_p
         _LIB["lib"] = lib
     return _LIB["lib"]
+
+
+def _mse_lib():
+    if "mse" not in _LIB:
+        from singlet_tpu_torch import _build
+
+        lib = _build.load("bell_mse_bits")
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bell_mse_bits.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp, cl, vp,
+                                      vp, ci, vp, vp]
+        lib.bell_mse_bits.restype = ci
+        lib.bell_mse_bits_error_string.argtypes = [ci]
+        lib.bell_mse_bits_error_string.restype = ctypes.c_char_p
+        _LIB["mse"] = lib
+    return _LIB["mse"]
 
 
 def _check_planes(b_li, b_val, n_gb, device):
@@ -89,10 +123,58 @@ def _seed_args(seed, inv_density):
     return 1, ((hi & 0xFFFFFFFF) << 32) | (lo & 0xFFFFFFFF)
 
 
-def _raise_on(err, symbol):
+def _check_words(words, cells, n_gb, gene_block, device):
+    """The packed test-mask words of the planes' cells: (cells, n_t *
+    gene_block) int32, rows contiguous (a row slice of the engine's words
+    is)."""
+    wcols = -(-n_gb // 32) * gene_block
+    if words.device != device:
+        raise ValueError(f"words is on {words.device}, expected {device}")
+    if words.dtype != torch.int32:
+        raise TypeError(f"words has dtype {words.dtype}, expected "
+                        "torch.int32")
+    if tuple(words.shape) != (cells, wcols) or not words.is_contiguous():
+        raise ValueError(f"words must be contiguous ({cells}, {wcols}), got "
+                         f"{tuple(words.shape)}")
+
+
+def _raise_on(err, symbol, error_string=None):
     if err != 0:
-        msg = _lib().bell_spmm_error_string(err).decode()
+        error_string = error_string or _lib().bell_spmm_error_string
+        msg = error_string(err).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
+
+
+def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
+               words, *, gene_block: int, name: str) -> torch.Tensor:
+    """One launch of bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or
+    1, B5 with mode 2); checks its arguments and returns B (cells, k)."""
+    rows_w, k = W.shape
+    if rows_w % gene_block:
+        raise ValueError(f"W has {rows_w} rows, not a multiple of "
+                         f"gene_block {gene_block}")
+    if k > MAX_K:
+        raise NotImplementedError(f"kernel {name} takes k <= {MAX_K}, got "
+                                  f"{k}")
+    n_gb = rows_w // gene_block
+    _check("W", W, (rows_w, k), torch.float32, W.device)
+    _check_planes(b_li, b_val, n_gb, W.device)
+    cells = b_li.shape[1]
+    if words is not None:
+        _check_words(words, cells, n_gb, gene_block, W.device)
+    B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
+    if cells == 0:
+        return B
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = _lib().bell_spmm(
+            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
+            b_li.shape[0] // n_gb, cells, gene_block, W.data_ptr(), k,
+            B.data_ptr(), mode, seed64, int(cell_offset), int(inv_density),
+            None if words is None else words.data_ptr(),
+            0 if words is None else words.stride(0), stream)
+    _raise_on(err, "bell_spmm")
+    return B
 
 
 def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
@@ -105,29 +187,25 @@ def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
                                gene_block=gene_block,
                                inv_density=inv_density)
     global LAUNCHES_SPMM
-    rows_w, k = W.shape
-    if rows_w % gene_block:
-        raise ValueError(f"W has {rows_w} rows, not a multiple of "
-                         f"gene_block {gene_block}")
-    if k > MAX_K:
-        raise NotImplementedError(f"kernel B3 takes k <= {MAX_K}, got {k}")
-    n_gb = rows_w // gene_block
-    _check("W", W, (rows_w, k), torch.float32, W.device)
-    _check_planes(b_li, b_val, n_gb, W.device)
     masked, seed64 = _seed_args(seed, inv_density)
-    cells = b_li.shape[1]
-    B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
-    if cells == 0:
-        return B
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = _lib().bell_spmm(
-            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
-            b_li.shape[0] // n_gb, cells, gene_block, W.data_ptr(), k,
-            B.data_ptr(), masked, seed64, int(cell_offset),
-            int(inv_density), stream)
-    _raise_on(err, "bell_spmm")
+    B = _launch_b3(b_li, b_val, W, masked, seed64, cell_offset, inv_density,
+                   None, gene_block=gene_block, name="B3")
     LAUNCHES_SPMM += 1
+    return B
+
+
+def bell_spmm_bits_cuda(b_li, b_val, W, words, *,
+                        gene_block: int) -> torch.Tensor:
+    """Kernel B5: B3 keep-masked by the test bits of ``words`` (cells, n_t *
+    gene_block) int32, the packed mask of the planes' cells. On CPU
+    tensors, the plain version."""
+    if W.device.type != "cuda":
+        return bell_spmm_bits_plain(b_li, b_val, W, words,
+                                    gene_block=gene_block)
+    global LAUNCHES_SPMM_BITS
+    B = _launch_b3(b_li, b_val, W, 2, 0, 0, 1, words, gene_block=gene_block,
+                   name="B5")
+    LAUNCHES_SPMM_BITS += 1
     return B
 
 
@@ -141,26 +219,21 @@ def b4_chunks(cells: int, n_gb: int, k: int):
     return -(-max(cells, 1) // chunk), chunk
 
 
-def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
-                     gene_block: int, n_gb: int,
-                     inv_density: int = 20) -> torch.Tensor:
-    """Kernel B4: Bw (n_gb * gene_block, k) = the (keep-masked) transposed
-    product of the planes with H (cells, k), deterministic. On CPU tensors,
-    the plain version."""
-    if H.device.type != "cuda":
-        return bell_spmm_t_plain(b_li, b_val, H, seed, cell_offset,
-                                 gene_block=gene_block, n_gb=n_gb,
-                                 inv_density=inv_density)
-    global LAUNCHES_SPMM_T
+def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
+               *, gene_block: int, n_gb: int, name: str) -> torch.Tensor:
+    """One call of bell_spmm.cu's ``bell_spmm_t`` (B4 with keep mode 0 or
+    1, B6 with mode 2; a second launch sums the cell chunks); returns Bw
+    (n_gb * gene_block, k)."""
     if gene_block > MAX_GENE_BLOCK:
         raise NotImplementedError(
-            f"kernel B4 takes gene_block <= {MAX_GENE_BLOCK}, got "
+            f"kernel {name} takes gene_block <= {MAX_GENE_BLOCK}, got "
             f"{gene_block}")
     cells = b_li.shape[1]
     k = H.shape[1]
     _check("H", H, (cells, k), torch.float32, H.device)
     _check_planes(b_li, b_val, n_gb, H.device)
-    masked, seed64 = _seed_args(seed, inv_density)
+    if words is not None:
+        _check_words(words, cells, n_gb, gene_block, H.device)
     genes = n_gb * gene_block
     Bw = torch.empty((genes, k), dtype=torch.float32, device=H.device)
     if cells == 0:
@@ -174,8 +247,82 @@ def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
             b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
             b_li.shape[0] // n_gb, cells, gene_block, H.data_ptr(), k,
             None if partials is None else partials.data_ptr(), n_chunks,
-            chunk, Bw.data_ptr(), masked, seed64, int(cell_offset),
-            int(inv_density), stream)
+            chunk, Bw.data_ptr(), mode, seed64, int(cell_offset),
+            int(inv_density), None if words is None else words.data_ptr(),
+            0 if words is None else words.stride(0), stream)
     _raise_on(err, "bell_spmm_t")
+    return Bw
+
+
+def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
+                     gene_block: int, n_gb: int,
+                     inv_density: int = 20) -> torch.Tensor:
+    """Kernel B4: Bw (n_gb * gene_block, k) = the (keep-masked) transposed
+    product of the planes with H (cells, k), deterministic. On CPU tensors,
+    the plain version."""
+    if H.device.type != "cuda":
+        return bell_spmm_t_plain(b_li, b_val, H, seed, cell_offset,
+                                 gene_block=gene_block, n_gb=n_gb,
+                                 inv_density=inv_density)
+    global LAUNCHES_SPMM_T
+    masked, seed64 = _seed_args(seed, inv_density)
+    Bw = _launch_b4(b_li, b_val, H, masked, seed64, cell_offset, inv_density,
+                    None, gene_block=gene_block, n_gb=n_gb, name="B4")
     LAUNCHES_SPMM_T += 1
     return Bw
+
+
+def bell_spmm_t_bits_cuda(b_li, b_val, H, words, *, gene_block: int,
+                          n_gb: int) -> torch.Tensor:
+    """Kernel B6: B4 keep-masked by the test bits of ``words``. On CPU
+    tensors, the plain version."""
+    if H.device.type != "cuda":
+        return bell_spmm_t_bits_plain(b_li, b_val, H, words,
+                                      gene_block=gene_block, n_gb=n_gb)
+    global LAUNCHES_SPMM_T_BITS
+    Bw = _launch_b4(b_li, b_val, H, 2, 0, 0, 1, words,
+                    gene_block=gene_block, n_gb=n_gb, name="B6")
+    LAUNCHES_SPMM_T_BITS += 1
+    return Bw
+
+
+def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
+                       gene_block: int) -> torch.Tensor:
+    """Kernel B7: (2, cells) float32, per cell the squared error summed
+    over its held-out genes (row 0) and their count (row 1), the mask read
+    from ``words``; Wd (n_gb * gene_block, k), H (cells, k). On CPU
+    tensors, the plain version."""
+    if H.device.type != "cuda":
+        return bell_mse_bits_plain(b_li, b_val, words, Wd, H,
+                                   gene_block=gene_block)
+    global LAUNCHES_MSE_BITS
+    rows_w, k = Wd.shape
+    if rows_w % gene_block:
+        raise ValueError(f"Wd has {rows_w} rows, not a multiple of "
+                         f"gene_block {gene_block}")
+    if k > MAX_K:
+        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K}, got {k}")
+    if gene_block > MAX_GENE_BLOCK_MSE:
+        raise NotImplementedError(f"kernel B7 takes gene_block <= "
+                                  f"{MAX_GENE_BLOCK_MSE}, got {gene_block}")
+    n_gb = rows_w // gene_block
+    cells = b_li.shape[1]
+    dev = H.device
+    _check("Wd", Wd, (rows_w, k), torch.float32, dev)
+    _check("H", H, (cells, k), torch.float32, dev)
+    _check_planes(b_li, b_val, n_gb, dev)
+    _check_words(words, cells, n_gb, gene_block, dev)
+    out = torch.empty((2, cells), dtype=torch.float32, device=dev)
+    if cells == 0:
+        return out
+    lib = _mse_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bell_mse_bits(
+            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
+            b_li.shape[0] // n_gb, cells, gene_block, words.data_ptr(),
+            words.stride(0), Wd.data_ptr(), H.data_ptr(), k, out.data_ptr(),
+            stream)
+    _raise_on(err, "bell_mse_bits", lib.bell_mse_bits_error_string)
+    LAUNCHES_MSE_BITS += 1
+    return out

@@ -6,19 +6,41 @@ Port of ``singlet_tpu/ops/linalg.py`` (``gram``, ``scale_columns``,
 ``unpack_sym*`` and ``mask_dot_t``). These are dense ops that XLA ran on the
 TPU; no Pallas kernel stood behind them on the dense path, so they stay
 plain PyTorch. Float32 products run at full precision
-(``device.set_precision_policy``), the mask products included: that is what
+(``device.set_precision_policy``), and so does ``mask_dot_t``: that is what
 the JAX package computes on the CPU and under
-``SINGLET_TPU_MASK_MM_PRECISION=highest``. Its TPU default (single-pass bf16
-with an f32 output) has no torch equivalent, since a bf16 ``torch.matmul``
-rounds its output to bf16.
+``SINGLET_TPU_MASK_MM_PRECISION=highest``. Its TPU default for the dense
+path (single-pass bf16 with an f32 output) has no torch equivalent, since a
+bf16 ``torch.matmul`` rounds its output to bf16.
 
 Layouts as in the JAX package: W (genes, k), H (cells, k).
+
+``mask_mm_precision`` is the JAX package's ``MASK_MM_PRECISION`` choice,
+read from ``SINGLET_TPU_MASK_MM_PRECISION`` when a fit is built, not at
+import. At "default" the ELL engine on the card takes its bit-packed
+int8/bf16 route (``parallel/sharded_ell.py``); "high" and "highest" keep
+the f32 products.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+_MASK_MM_PRECISIONS = {"default": "default", "": "default", "high": "high",
+                       "highest": "highest"}
+
+
+def mask_mm_precision() -> str:
+    """"default", "high" or "highest", from
+    ``SINGLET_TPU_MASK_MM_PRECISION`` (unset or empty: "default"). An unknown
+    value raises, as the JAX package's table lookup does."""
+    raw = os.environ.get("SINGLET_TPU_MASK_MM_PRECISION", "").lower()
+    if raw not in _MASK_MM_PRECISIONS:
+        raise ValueError(f"SINGLET_TPU_MASK_MM_PRECISION={raw!r}: expected "
+                         "one of default, high, highest")
+    return _MASK_MM_PRECISIONS[raw]
 
 
 def gram(X: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,174 @@
+"""The masked packed-Gram products of the ELL engine's bits route, with the
+test mask read from bitplane words (``ops/maskbits.py``).
+
+Port of the bit-packed half of ``singlet_tpu/ops/pallas_maskgram.py``:
+``maskgram_mode``, ``quantize_pairs`` and kernels B8
+(``mask_packed_w_t_bits``) and B9 (``mask_packed_h_t_bits``):
+
+  * B8, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]      (np, block)
+  * B9, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]      (np, genes)
+
+Both emit the product transposed, the orientation the per-column Gram
+unpack (``linalg.unpack_sym_from_t``) reads. The operand P is either int8,
+quantized per pair by ``quantize_pairs`` (int32 sums, exact, then one
+dequantizing multiply per pair), or bf16 (f32 sums). B9's ``scale_block``
+batches several independently quantized cell blocks into one call: the
+scales are then (np, block // scale_block), one column per block, and the
+int32 partial of each cell sub-block is dequantized with its own block's
+column and added into ``acc`` in sub-block order, exactly as the JAX
+kernel does; so one batched call gives the bits of the same calls made
+block by block.
+
+Left out, because they lay the operand out for the TPU's VMEM and change
+nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
+VMEM budgets, and the pair axis padded to a lane multiple (``pad_pairs``);
+here the pair axis has its true length. ``SINGLET_TPU_MPH_NOALIAS`` and
+``SINGLET_TPU_I8_DIRECT`` choose TPU memory layouts and are not read. The
+hash-mode kernels B10/B11 and the prebuilt-int8-mask kernels B13/B14 are
+not ported (ROADMAP B); the engine raises on their routes.
+
+The plain versions below are the CPU path and the reference of the CUDA
+kernels (``ops/maskgram_cuda.py``); the dispatchers send CUDA tensors to
+the kernels.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from singlet_tpu_torch.ops.maskbits import unpack_all
+
+# calls of the plain versions of B8 and B9 (the kernels count their own
+# launches)
+PLAIN_CALLS = 0
+
+_MODES = ("int8", "bf16", "hash", "xla")
+# B9's cell sub-block: the grain of its int32 partials (JAX _CELL_SUBBLOCK)
+_CELL_SUBBLOCK = 1024
+
+
+def maskgram_mode() -> str:
+    """The masked-product route, from ``SINGLET_TPU_MASKGRAM`` (read when a
+    fit is built): int8 (the default), bf16, hash or xla. Unknown values
+    mean int8, as in JAX."""
+    mode = os.environ.get("SINGLET_TPU_MASKGRAM", "int8").lower()
+    return mode if mode in _MODES else "int8"
+
+
+def quantize_pairs(P: torch.Tensor, axis: int = 0):
+    """Symmetric per-pair int8 quantization of a packed-outer-product
+    operand, bit for bit the JAX package's: ``axis`` is the reduction
+    (gene or cell) axis, the other the pair axis whose max |.| / 127 sets
+    the scale (floored at 1e-30, so a zero column stays exact); values
+    round half to even and clip to +-127. Returns (q int8, scales f32)."""
+    s = P.abs().amax(dim=axis) / 127.0
+    s = torch.clamp(s, min=1e-30)
+    sb = s[None, :] if axis == 0 else s[:, None]
+    q = torch.clamp(torch.round(P / sb), -127, 127).to(torch.int8)
+    return q, s.to(torch.float32)
+
+
+def _sub_block(block: int) -> int:
+    bc = min(_CELL_SUBBLOCK, block)
+    while block % bc:
+        bc //= 2
+    return bc
+
+
+def b9_sub_block(block: int, scale_block: int) -> int:
+    """Cells per int32 partial of B9: JAX's ``min(_sub_block(block),
+    _sub_block(scale_block))``. JAX then clamps it to at least 8, which
+    leaves cells out where the halving ends below 8 (a block that is no
+    multiple of 8); the port raises there instead."""
+    if scale_block <= 0 or block % scale_block:
+        raise ValueError(f"scale_block {scale_block} does not divide the "
+                         f"{block} cells")
+    bc = min(_sub_block(block), _sub_block(scale_block))
+    if bc < 8:
+        raise ValueError(
+            f"mask_packed_h_t_bits: {block} cells (scale_block "
+            f"{scale_block}) do not split into sub-blocks of >= 8 cells; "
+            "the JAX kernel would leave cells out here")
+    return bc
+
+
+def _is_int8(P_op: torch.Tensor) -> bool:
+    if P_op.dtype == torch.int8:
+        return True
+    if P_op.dtype != torch.bfloat16:
+        raise TypeError(f"the packed operand must be int8 or bfloat16, got "
+                        f"{P_op.dtype}")
+    return False
+
+
+def mask_packed_w_t_bits_plain(P_op, scales, words, *,
+                               gene_block: int) -> torch.Tensor:
+    """The plain version of kernel B8: (np, block) float32 from P_op
+    (genes_pad, np) int8 with ``scales`` (np,) or bf16 (``scales``
+    unused), and the block's words (block, n_t * gene_block). The int8
+    sums run in float64, where every partial sum is an exact integer."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    m_t = unpack_all(words, P_op.shape[0], gene_block).T  # (genes, block)
+    if _is_int8(P_op):
+        part = P_op.to(torch.float64).T @ m_t.to(torch.float64)
+        return part.to(torch.float32) * scales.to(torch.float32)[:, None]
+    return P_op.to(torch.float32).T @ m_t.to(torch.float32)
+
+
+def mask_packed_h_t_bits_plain(P_op, scales, words, acc, *, gene_block: int,
+                               scale_block: Optional[int] = None):
+    """The plain version of kernel B9: ``acc`` (np, genes_pad) float32 +=
+    the dequantized (mask^T @ P)^T, updated in place and returned. P_op
+    (cells, np) int8 with ``scales`` (np, cells // scale_block), or bf16;
+    words (cells, n_t * gene_block). Per cell sub-block (``b9_sub_block``)
+    one exact partial, dequantized with its block's scale column, added
+    into ``acc`` in sub-block order."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    cells = P_op.shape[0]
+    scale_block = cells if scale_block is None else scale_block
+    bc = b9_sub_block(cells, scale_block)
+    int8 = _is_int8(P_op)
+    genes_pad = acc.shape[1]
+    for c0 in range(0, cells, bc):
+        m = unpack_all(words[c0:c0 + bc], genes_pad, gene_block)
+        if int8:
+            part = (P_op[c0:c0 + bc].to(torch.float64).T
+                    @ m.to(torch.float64)).to(torch.float32)
+            d = part * scales[:, c0 // scale_block][:, None]
+        else:
+            d = P_op[c0:c0 + bc].to(torch.float32).T @ m.to(torch.float32)
+        acc += d
+    return acc
+
+
+def mask_packed_w_t_bits(P_op, scales, words, *,
+                         gene_block: int) -> torch.Tensor:
+    """Dispatcher of B8: the kernel for CUDA tensors, the plain version on
+    the CPU."""
+    if P_op.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_w_t_bits_cuda(
+            P_op, scales, words, gene_block=gene_block)
+    return mask_packed_w_t_bits_plain(P_op, scales, words,
+                                      gene_block=gene_block)
+
+
+def mask_packed_h_t_bits(P_op, scales, words, acc, *, gene_block: int,
+                         scale_block: Optional[int] = None):
+    """Dispatcher of B9 (``acc`` updated in place and returned): the kernel
+    for CUDA tensors, the plain version on the CPU."""
+    if P_op.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_h_t_bits_cuda(
+            P_op, scales, words, acc, gene_block=gene_block,
+            scale_block=scale_block)
+    return mask_packed_h_t_bits_plain(P_op, scales, words, acc,
+                                      gene_block=gene_block,
+                                      scale_block=scale_block)

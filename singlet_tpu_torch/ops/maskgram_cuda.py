@@ -1,0 +1,137 @@
+"""Kernels B8 and B9: the masked packed-Gram products from bitplane words,
+hand-written in CUDA.
+
+B8 (``mask_packed_w_t_bits_cuda``) replaces
+``singlet_tpu/ops/pallas_maskgram.py`` ``mask_packed_w_t_bits`` and B9
+(``mask_packed_h_t_bits_cuda``) replaces ``mask_packed_h_t_bits``, both on
+their int8 and bf16 paths. Their source is ``csrc/maskgram_bits.cu``, whose
+header note gives the design and what bounds it on the card; ``_build.py``
+compiles it with nvcc at first use and this module binds it with ctypes.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version (``ops/maskgram.py``), because there is no
+card to launch on. Importing this module needs neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from singlet_tpu_torch.ops.bell_cuda import _check_words
+from singlet_tpu_torch.ops.maskgram import (_is_int8, b9_sub_block,
+                                            mask_packed_h_t_bits_plain,
+                                            mask_packed_w_t_bits_plain)
+from singlet_tpu_torch.ops.nnls_cuda import _check
+
+# kernel launches (one per wrapper call on CUDA tensors) of B8 and of B9;
+# read by chip_smoke.py to show that a fit went through the kernels
+LAUNCHES_MPW_BITS = 0
+LAUNCHES_MPH_BITS = 0
+
+_LIB = {}
+
+
+def _lib():
+    if not _LIB:
+        from singlet_tpu_torch import _build
+
+        lib = _build.load("maskgram_bits")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.mask_packed_w_t_bits.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci,
+                                             ci, vp, vp]
+        lib.mask_packed_w_t_bits.restype = ci
+        lib.mask_packed_h_t_bits.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
+                                             ci, ci, ci, ci, ci, vp, vp]
+        lib.mask_packed_h_t_bits.restype = ci
+        lib.maskgram_bits_error_string.argtypes = [ci]
+        lib.maskgram_bits_error_string.restype = ctypes.c_char_p
+        _LIB["lib"] = lib
+    return _LIB["lib"]
+
+
+def _raise_on(err, symbol):
+    if err != 0:
+        msg = _lib().maskgram_bits_error_string(err).decode()
+        raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def mask_packed_w_t_bits_cuda(P_op, scales, words, *,
+                              gene_block: int) -> torch.Tensor:
+    """Kernel B8: (np, block) float32 = (mask @ P)^T, the mask of the block's
+    cells read from ``words`` (block, n_t * gene_block) int32; P_op
+    (genes_pad, np) int8 with ``scales`` (np,) float32, or bf16. On CPU
+    tensors, the plain version."""
+    if P_op.device.type != "cuda":
+        return mask_packed_w_t_bits_plain(P_op, scales, words,
+                                          gene_block=gene_block)
+    global LAUNCHES_MPW_BITS
+    dev = P_op.device
+    int8 = _is_int8(P_op)
+    genes_pad, np_ = P_op.shape
+    if genes_pad % gene_block:
+        raise ValueError(f"P has {genes_pad} rows, not a multiple of "
+                         f"gene_block {gene_block}")
+    n_gb = genes_pad // gene_block
+    block = words.shape[0]
+    _check("P_op", P_op, (genes_pad, np_), P_op.dtype, dev)
+    _check_words(words, block, n_gb, gene_block, dev)
+    if int8:
+        _check("scales", scales, (np_,), torch.float32, dev)
+    out = torch.empty((np_, block), dtype=torch.float32, device=dev)
+    if block == 0 or np_ == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib().mask_packed_w_t_bits(
+            P_op.data_ptr(), int(int8), np_,
+            scales.data_ptr() if int8 else None, words.data_ptr(), block,
+            words.shape[1], gene_block, n_gb, out.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_w_t_bits")
+    LAUNCHES_MPW_BITS += 1
+    return out
+
+
+def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
+                              scale_block: Optional[int] = None):
+    """Kernel B9: ``acc`` (np, genes_pad) float32 += the dequantized
+    (mask^T @ P)^T, in place (returned). P_op (cells, np) int8 with
+    ``scales`` (np, cells // scale_block), or bf16; words (cells, n_t *
+    gene_block) int32. On CPU tensors, the plain version."""
+    if P_op.device.type != "cuda":
+        return mask_packed_h_t_bits_plain(P_op, scales, words, acc,
+                                          gene_block=gene_block,
+                                          scale_block=scale_block)
+    global LAUNCHES_MPH_BITS
+    dev = P_op.device
+    int8 = _is_int8(P_op)
+    cells, np_ = P_op.shape
+    scale_block = cells if scale_block is None else int(scale_block)
+    bc = b9_sub_block(cells, scale_block)
+    genes_pad = acc.shape[1]
+    if genes_pad % gene_block:
+        raise ValueError(f"acc has {genes_pad} columns, not a multiple of "
+                         f"gene_block {gene_block}")
+    n_gb = genes_pad // gene_block
+    _check("P_op", P_op, (cells, np_), P_op.dtype, dev)
+    _check("acc", acc, (np_, genes_pad), torch.float32, dev)
+    _check_words(words, cells, n_gb, gene_block, dev)
+    n_scales = cells // scale_block
+    if int8:
+        _check("scales", scales, (np_, n_scales), torch.float32, dev)
+    if cells == 0 or np_ == 0:
+        return acc
+    with torch.cuda.device(dev):
+        err = _lib().mask_packed_h_t_bits(
+            P_op.data_ptr(), int(int8), np_,
+            scales.data_ptr() if int8 else None, n_scales, words.data_ptr(),
+            cells, words.shape[1], gene_block, n_gb, genes_pad, bc,
+            scale_block, acc.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_h_t_bits")
+    LAUNCHES_MPH_BITS += 1
+    return acc

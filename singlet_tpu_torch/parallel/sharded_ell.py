@@ -22,14 +22,24 @@ What differs from the JAX engine, and why:
     code blocks cells and genes only to bound TPU memory, and every NNLS
     column exits on its own (``ops/nnls.py``), so the results are the same
     up to the order of sums;
-  * the masked step runs the route the JAX engine takes on the CPU and
-    under ``SINGLET_TPU_MASK_MM_PRECISION=highest``: B3 and B4 hash the
-    keep factor in-kernel at the nonzeros, the test mask of each block is
-    built per block and the mask products run in full f32
-    (``linalg.mask_dot_t``). The packed pair axis is not padded to a lane
-    multiple (``pad_pairs``): the padding exists for the TPU's lanes and
-    no consumer reads it. The bit-packed int8/bf16 route (kernels B5-B9)
-    is the next slice (ROADMAP A.7b);
+  * the masked step has the JAX engine's two routes, chosen when a fit is
+    built by ``_masked_route``, the counterpart of the JAX ``_use_bits``.
+    On a CUDA device at the default mask precision with
+    ``SINGLET_TPU_MASKGRAM`` int8 (the default) or bf16 it takes the bits
+    route: the test mask is packed once per fit into bitplane words
+    (``ops/maskbits.py``), and per cell block B5 gives the keep-masked
+    right-hand sides, B8 the h-side mask products (int8 or bf16 operand),
+    B2 the solves and B6 the w-side right-hand sides, while B9 flushes the
+    block's quantized w-side products into the carry once per group of F
+    blocks; the test MSE is B7. Otherwise (the CPU, as in JAX;
+    ``SINGLET_TPU_MASKGRAM=xla``; ``SINGLET_TPU_MASK_MM_PRECISION=high``
+    or ``highest``) it takes the f32 route: B3 and B4 hash the keep factor
+    in-kernel at the nonzeros, the test mask of each block is built per
+    block and the mask products run in full f32 (``linalg.mask_dot_t``).
+    ``SINGLET_TPU_MASKGRAM=hash`` and ``SINGLET_TPU_MASK8=1`` select
+    routes whose kernels are not ported (B10/B11, B12-B14) and raise. The
+    packed pair axis is not padded to a lane multiple (``pad_pairs``): the
+    padding exists for the TPU's lanes and no consumer reads it;
   * ``checkpoint=`` and ``chunk_iters`` raise (ROADMAP A.4a); ``gcnmf_fit``
     and ``batch_fit`` are absent (A.9); the ingest metric event waits for
     tracing (A.4a); multi-host, chunk-list and staged-directory ingest wait
@@ -49,10 +59,17 @@ import torch
 
 from singlet_tpu_torch.device import resolve_device
 from singlet_tpu_torch.native import csc_to_bell
-from singlet_tpu_torch.ops.bell import bell_spmm, bell_spmm_t, densify_planes
+from singlet_tpu_torch.ops.bell import (bell_mse_bits, bell_spmm,
+                                        bell_spmm_bits, bell_spmm_t,
+                                        bell_spmm_t_bits, densify_planes)
 from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
+                                          mask_mm_precision,
                                           packed_outer_products,
                                           scale_columns, triu_pairs)
+from singlet_tpu_torch.ops.maskbits import pack_mask_words
+from singlet_tpu_torch.ops.maskgram import (mask_packed_h_t_bits,
+                                            mask_packed_w_t_bits,
+                                            maskgram_mode, quantize_pairs)
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t)
 from singlet_tpu_torch.ops.rngmask import mask_block, seed_pair
@@ -179,15 +196,70 @@ def shard_ell_data(A: sp.spmatrix, device=None, cell_block: int = 2048,
         gene_block=gene_block)
 
 
+def _kernel_device(device) -> bool:
+    """Whether the engine's device runs the kernels: the counterpart of the
+    JAX engine's ``jax.default_backend() == "tpu"`` test."""
+    return torch.device(device).type == "cuda"
+
+
+def _masked_route(device, mode: str, precision: str, mask8: bool) -> str:
+    """The masked step's route, the counterpart of the JAX engine's
+    ``_use_bits`` and its mode selection: "int8" or "bf16" (the bits
+    route) on a kernel device at the default mask precision with that
+    ``SINGLET_TPU_MASKGRAM`` mode, else "xla" (the f32 route, which the
+    JAX engine takes on the CPU). The hash route and the prebuilt int8
+    mask of ``SINGLET_TPU_MASK8=1`` raise: their kernels are not ported."""
+    if not (_kernel_device(device) and precision == "default"):
+        return "xla"
+    if mode == "hash":
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="SINGLET_TPU_MASKGRAM=hash (kernels B10/B11)", item="B"))
+    if mode != "xla" and mask8:
+        raise NotImplementedError(_NOT_PORTED.format(
+            what="SINGLET_TPU_MASK8=1 (kernels B12-B14)", item="B"))
+    return mode
+
+
+def _quantized(P: torch.Tensor, mode: str):
+    """A packed-product operand of the bits route and its per-pair scales:
+    int8 from ``quantize_pairs``, or bf16 with unit scales."""
+    if mode == "int8":
+        return quantize_pairs(P, axis=0)
+    return P.to(torch.bfloat16), torch.ones(P.shape[1], dtype=torch.float32,
+                                            device=P.device)
+
+
 def _build_local_fns(data: ShardedEllData, inv_density: int):
     """The engine's steps over ``data``: ``plain``, ``masked``, ``mse`` and
-    ``project`` (the JAX ``_build_local_fns``). Environment knobs are read
-    here, when a fit is built."""
+    ``project``, with ``use_bits`` and ``prepare_bits`` (the JAX
+    ``_build_local_fns``). Environment knobs are read here, when a fit is
+    built."""
     cell_block, gene_block, n_gb = data.cell_block, data.gene_block, data.n_gb
     genes_pad, cells_pad = data.genes_pad, data.cells_pad
     genes_true, cells_true = data.genes_true, data.cells_true
     b_li, b_val, dev = data.b_li, data.b_val, data.device
     block_gib = float(os.environ.get("SINGLET_TPU_MASKED_BLOCK_GIB", "0"))
+    mode, precision = maskgram_mode(), mask_mm_precision()
+    mask8 = os.environ.get("SINGLET_TPU_MASK8", "0") == "1"
+
+    def route() -> str:
+        return _masked_route(dev, mode, precision, mask8)
+
+    def use_bits() -> bool:
+        """Whether masked fits pack the test mask once and take the bits
+        route (raises on the routes that are not ported)."""
+        return route() != "xla"
+
+    def prepare_bits(seed):
+        """The fit-invariant test mask of all cells as bitplane words,
+        packed once per fit: the steps and every test MSE of the fit read
+        it."""
+        words = pack_mask_words(
+            seed, torch.arange(cells_pad, device=dev), genes_pad=genes_pad,
+            gene_block=gene_block, inv_density=inv_density,
+            cells_true=cells_true, genes_true=genes_true,
+            cell_block=cell_block)
+        return (words,)
 
     def planes(start: int, size: int):
         return b_li[:, start:start + size], b_val[:, start:start + size]
@@ -246,38 +318,80 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         return W_new, Hb / d[None, :], d_w, tol
 
     def _masked(W, H, seed, L1_h, L1_w, L2_h, L2_w, k_true, sweep_cap=None,
-                max_sweeps: int = CD_MAX_SWEEPS):
+                max_sweeps: int = CD_MAX_SWEEPS, bits=None):
         k = W.shape[1]
         iu = triu_pairs(k)
-        n_coord = float(k_true)
+        npairs = iu[0].shape[0]
+        solve_kw = dict(max_sweeps=max_sweeps, n_coord=float(k_true),
+                        sweep_cap=sweep_cap)
         mblock = masked_block(k)
+        r = route()
+        if r != "xla" and bits is None:
+            # the JAX engine turns a bits step given no packed mask into its
+            # hash route
+            raise NotImplementedError(_NOT_PORTED.format(
+                what="a masked step without a packed mask (the hash route, "
+                     "kernels B10/B11)", item="B"))
         a_full = gram(W)
         Pw = packed_outer_products(W, iu)              # (genes_pad, npairs)
         Bw = torch.zeros((genes_pad, k), dtype=W.dtype, device=dev)
-        Pk_t = torch.zeros((iu[0].shape[0], genes_pad), dtype=W.dtype,
-                           device=dev)
+        Pk_t = torch.zeros((npairs, genes_pad), dtype=W.dtype, device=dev)
         Hsum = torch.zeros((k,), dtype=W.dtype, device=dev)
         Hgram = torch.zeros((k, k), dtype=W.dtype, device=dev)
         Hs = []
-        # one fused pass over cell blocks; the w-side accumulators take the
-        # unnormalised H_b and are rescaled after it: Bw by 1/d per column,
-        # the packed H Gram corrections by 1/(d_i d_j) per pair
-        for start in range(0, cells_pad, mblock):
-            li, lv = planes(start, mblock)
-            m = mask_of(seed, start, mblock).to(W.dtype)
-            B = bell_spmm(li, lv, W, seed, start, gene_block=gene_block,
-                          inv_density=inv_density)
-            packed_t = mask_dot_t(Pw, m, 1)             # (npairs, mblock)
+
+        def h_block(start, B, packed_t):
             Hb = solve_nnls_packed_t(
                 a_full, packed_t, iu, B, H[start:start + mblock], L1=L1_h,
                 L2=L2_h, update_mask=data.nonempty[start:start + mblock],
-                max_sweeps=max_sweeps, n_coord=n_coord, sweep_cap=sweep_cap)
-            Bw += bell_spmm_t(li, lv, Hb, seed, start, gene_block=gene_block,
-                              n_gb=n_gb, inv_density=inv_density)
-            Pk_t += mask_dot_t(packed_outer_products(Hb, iu), m, 0)
-            Hsum += Hb.sum(dim=0)
-            Hgram += Hb.T @ Hb
+                **solve_kw)
+            Hsum.add_(Hb.sum(dim=0))
+            Hgram.add_(Hb.T @ Hb)
             Hs.append(Hb)
+            return Hb
+
+        # one fused pass over cell blocks; the w-side accumulators take the
+        # unnormalised H_b and are rescaled after it: Bw by 1/d per column,
+        # the packed H Gram corrections by 1/(d_i d_j) per pair
+        if r == "xla":
+            for start in range(0, cells_pad, mblock):
+                li, lv = planes(start, mblock)
+                m = mask_of(seed, start, mblock).to(W.dtype)
+                B = bell_spmm(li, lv, W, seed, start, gene_block=gene_block,
+                              inv_density=inv_density)
+                Hb = h_block(start, B, mask_dot_t(Pw, m, 1))
+                Bw += bell_spmm_t(li, lv, Hb, seed, start,
+                                  gene_block=gene_block, n_gb=n_gb,
+                                  inv_density=inv_density)
+                Pk_t += mask_dot_t(packed_outer_products(Hb, iu), m, 0)
+        else:
+            # the bits route: each block's w-side packed products are
+            # quantized and stacked, and B9 flushes a group of F blocks
+            # into the carry at once (F the largest divisor of the block
+            # count up to 16), each block dequantized with its own scales:
+            # the bits of flushing block by block
+            (words,) = bits
+            Pw_op, Pw_s = _quantized(Pw, r)
+            n_blk = cells_pad // mblock
+            F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
+            for g0 in range(0, cells_pad, F * mblock):
+                ops, scales = [], []
+                for start in range(g0, g0 + F * mblock, mblock):
+                    li, lv = planes(start, mblock)
+                    w_blk = words[start:start + mblock]
+                    B = bell_spmm_bits(li, lv, W, w_blk,
+                                       gene_block=gene_block)
+                    Hb = h_block(start, B, mask_packed_w_t_bits(
+                        Pw_op, Pw_s, w_blk, gene_block=gene_block))
+                    Bw += bell_spmm_t_bits(li, lv, Hb, w_blk,
+                                           gene_block=gene_block, n_gb=n_gb)
+                    q, qs = _quantized(packed_outer_products(Hb, iu), r)
+                    ops.append(q)
+                    scales.append(qs)
+                mask_packed_h_t_bits(
+                    torch.cat(ops), torch.stack(scales, dim=1),
+                    words[g0:g0 + F * mblock], Pk_t, gene_block=gene_block,
+                    scale_block=mblock)
         d = Hsum + 1e-15
         H_new = torch.cat(Hs) / d[None, :]
         a_h = Hgram / (d[:, None] * d[None, :])
@@ -288,8 +402,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         Pk_t = Pk_t / (d[i0] * d[i1])[:, None]
         W_new = solve_nnls_packed_t(
             a_h, Pk_t, iu, Bw, W, L1=L1_w, L2=L2_w,
-            update_mask=data.gene_nonempty, max_sweeps=max_sweeps,
-            n_coord=n_coord, sweep_cap=sweep_cap)
+            update_mask=data.gene_nonempty, **solve_kw)
         W_new, d_w = scale_columns(W_new)
         tol = cor_distance(W_new[:genes_true], W[:genes_true],
                            genes_true * np.float32(k_true))
@@ -307,11 +420,17 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         d = H.sum(dim=0) + 1e-15
         return H / d[None, :], d
 
-    def _mse(W, d, H, seed):
+    def _mse(W, d, H, seed, bits=None):
         """Held-out test MSE (reference:src/singlet.cpp:536-568): per cell,
         the squared error summed over its test-masked genes over their
-        count (cells with none add 0), averaged over the true cells."""
+        count (cells with none add 0), averaged over the true cells. With
+        ``bits`` (the fit's packed mask), kernel B7 once over all cells."""
         Wd = W * d[None, :]
+        if bits is not None:
+            s, n = bell_mse_bits(b_li, b_val, bits[0], Wd, H,
+                                 gene_block=gene_block)
+            return torch.where(n > 0, s / n.clamp(min=1), 0.0).sum() \
+                / cells_true
         acc = torch.zeros((), dtype=W.dtype, device=dev)
         for start in range(0, cells_pad, cell_block):
             li, lv = planes(start, cell_block)
@@ -323,7 +442,8 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             acc = acc + torch.where(n > 0, s / n.clamp(min=1), 0.0).sum()
         return acc / cells_true
 
-    return dict(plain=_plain, masked=_masked, mse=_mse, project=_project)
+    return dict(plain=_plain, masked=_masked, mse=_mse, project=_project,
+                use_bits=use_bits, prepare_bits=prepare_bits)
 
 
 class ShardedEllEngine:
@@ -412,11 +532,18 @@ class ShardedEllEngine:
         L1_w, L1_h = _as_pair(L1)
         L2_w, L2_h = _as_pair(L2)
         settings = SweepSettings.from_env()
+        bits = None
         if masked:
+            # the fit-invariant test mask, packed once for the steps and
+            # the final test MSE
+            if fns["use_bits"]():
+                bits = fns["prepare_bits"](sp_)
+
             def step(W, H, cap):
                 return fns["masked"](W, H, sp_, L1_h, L1_w, L2_h, L2_w, k,
                                      sweep_cap=cap,
-                                     max_sweeps=settings.max_sweeps)
+                                     max_sweeps=settings.max_sweeps,
+                                     bits=bits)
         else:
             lh = lw = None
             if linked:
@@ -435,7 +562,7 @@ class ShardedEllEngine:
         out = dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
                    h=H[:data.cells_true].T.cpu().numpy(), tol_trace=traces)
         if masked:
-            out["test_mse"] = float(fns["mse"](W, d, H, sp_))
+            out["test_mse"] = float(fns["mse"](W, d, H, sp_, bits=bits))
         return out
 
     def ard_fit(self, k: int, w_init=None, mask_seed: int = 0,
@@ -458,13 +585,15 @@ class ShardedEllEngine:
         sp_ = seed_pair(mask_seed)
         settings = SweepSettings.from_env()
         L1, L2 = float(L1), float(L2)
+        # packed once: every masked step and every traced test MSE read it
+        bits = fns["prepare_bits"](sp_) if fns["use_bits"]() else None
 
         def step(W, H, cap):
             return fns["masked"](W, H, sp_, L1, L1, L2, L2, k, sweep_cap=cap,
-                                 max_sweeps=settings.max_sweeps)
+                                 max_sweeps=settings.max_sweeps, bits=bits)
 
         def mse(W, d, H):
-            return fns["mse"](W, d, H, sp_)
+            return fns["mse"](W, d, H, sp_, bits=bits)
 
         return run_ard(step, mse, W, H, k, data.genes_true, data.cells_true,
                        tol, overfit_threshold, maxit, trace_test_mse,

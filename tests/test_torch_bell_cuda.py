@@ -177,10 +177,15 @@ def test_wrappers_refuse(cuda):
             (N_GB * GENE_BLOCK, bell_cuda.MAX_K + 1), device=cuda), **kw)
 
 
-def test_engine_fit_on_card_matches_cpu(cuda):
+def test_engine_fit_on_card_matches_cpu(cuda, monkeypatch):
     """The ELL engine's plain and masked fit on the card, through B1-B4
-    only, against the same fit on the CPU (tolerance of the fit tests)."""
+    only, against the same fit on the CPU (tolerance of the fit tests). The
+    masked fit takes the f32 route (``SINGLET_TPU_MASKGRAM=xla``), the
+    route the CPU takes; the card's default bits route is held against the
+    CPU in tests/test_torch_maskbits_cuda.py."""
     import scipy.sparse as sp
+
+    monkeypatch.setenv("SINGLET_TPU_MASKGRAM", "xla")
 
     from singlet_tpu_torch.ops import nnls, nnls_cuda
     from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
