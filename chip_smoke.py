@@ -117,7 +117,7 @@ CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
            "bell_mse_bits")
-# the H100 SXM's published peaks (on-chip-measurement guide), for the
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
 HBM_BYTES_S = 3.35e12
@@ -737,7 +737,7 @@ def _csr_pair(torch, li, lv, gene_block, n_gb, words=None):
 def _bound(bytes_, ops, peak):
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of their type
-    (on-chip-measurement guide, H100 SXM at 700 W)."""
+    (NVIDIA's published peaks for the H100 SXM at 700 W)."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_S, ops / peak
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
