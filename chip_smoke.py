@@ -66,7 +66,33 @@ Phases; any failure raises and the script exits non-zero:
 12. the user's entry points on the ELL route: the planted rank-10
    operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
    ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
-   default bits route.
+   default bits route;
+13. kernels B10 and B11 (``ops/maskgram_cuda.py``, the hash route's mask
+   products, bf16, the mask hashed on the card), run beside phases 9 and
+   11: on the bench operand (k=50), on an edge geometry (1280 genes in
+   gene blocks of 32, 3000 cells from cell 12345 in blocks of 1000, true
+   sizes 2990 cells and 1270 genes) and on the 8192-cell slice of the
+   large operand (k=100; B10 on its first 2048-cell block, B11 over it
+   block by block): within 1e-5 x max |output| of their plain versions,
+   the same bits twice, and within 1e-5 x max |output| of bf16 B8/B9 on
+   the packed words of the same cells; per call the times of kernel,
+   plain version and library call (torch.matmul of the bf16 mask) and
+   the bound;
+14. resumable fits (``checkpoint=``), each stopped and resumed and equal
+   bit for bit to the uninterrupted run: after phase 7, ``nmf_fit`` and
+   ``ard_nmf_fit`` at the bench config (checkpoints every 5, stopped at
+   10, resumed to 20; also equal to the uncheckpointed fit); after phase
+   10, the ELL engine's checkpointed ``ard_fit`` on the bench operand on
+   the card's default mode, which takes the hash route (stopped at 2,
+   resumed to 5), its test-MSE trace within rtol 1e-3 of the bits route's;
+   after phase 8, ``ard_nmf``'s search-state checkpoint (stopped by
+   ``max_fits=3``, resumed: the same rank, cv_data and model); at the end
+   of phase 11, the checkpointed masked ``ard_fit`` at 524,288 x 16,384,
+   k=100 on the hash route (1 iteration, resumed to 2, per step a B3, B4,
+   B10 and B11 per block), then one hash-route step, one hashed test MSE
+   (each timed and under the profiler) and one checkpoint save timed. The
+   checkpoints go to a temporary directory under the git-ignored
+   ``build/``, removed at the end.
 
 Each counted run sets every launch counter to 0 just before it and reads
 them just after. After the phases come three lines: ``results: {...}`` with
@@ -80,9 +106,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -214,8 +242,8 @@ def _median_ms(torch, fn, runs: int) -> float:
     return statistics.median(times)
 
 
-COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "plain",
-          "plain_bell", "plain_maskgram")
+COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
+          "B11", "plain", "plain_bell", "plain_maskgram")
 
 
 def _launches(**nonzero):
@@ -227,7 +255,7 @@ def _launches(**nonzero):
 def _counted(torch, fn):
     """Run ``fn`` with every launch counter set to 0 just before it; return
     (its result, wall seconds, the counts of COUNTS read just after: kernel
-    launches of B1-B9 and calls of the plain versions)."""
+    launches of B1-B11 and calls of the plain versions)."""
     from singlet_tpu_torch.ops import (bell, bell_cuda, maskgram,
                                        maskgram_cuda, nnls, nnls_cuda)
 
@@ -238,6 +266,8 @@ def _counted(torch, fn):
                 (bell_cuda, "LAUNCHES_MSE_BITS"),
                 (maskgram_cuda, "LAUNCHES_MPW_BITS"),
                 (maskgram_cuda, "LAUNCHES_MPH_BITS"),
+                (maskgram_cuda, "LAUNCHES_MPW_HASH"),
+                (maskgram_cuda, "LAUNCHES_MPH_HASH"),
                 (nnls, "PLAIN_CALLS"), (bell, "PLAIN_CALLS"),
                 (maskgram, "PLAIN_CALLS"))
     for mod, attr in counters:
@@ -622,7 +652,7 @@ def phase_ard(torch, card):
           flush=True)
     return dict(planted=rank, selected=model.k, ranks=ranks,
                 fits=len(ranks), wall_s=secs, launches=n,
-                cv_rows=len(model.cv_data))
+                cv_rows=len(model.cv_data)), A, model
 
 
 def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
@@ -965,6 +995,276 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     return rows
 
 
+def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
+                       cells, block, cells_true=None, genes_true=None,
+                       timed=True):
+    """Kernels B10 and B11 against their plain versions on the card, for
+    cells [cell_offset, cell_offset + cells) of an operand of ``genes``
+    genes with the validity clamps ``cells_true``/``genes_true``: B10 on the
+    first ``block`` cells, B11 over all of them block by block into one
+    carry. Each within 1e-5 x max |output| of its plain version, the same
+    bits on a second run, and within 1e-5 x max |output| of bf16 B8 and B9
+    (one quantization group per block) fed the packed words of the same
+    cells and seed. With ``timed``, per call (one block): the times of
+    kernel, plain version and library call (torch.matmul of the bf16 mask,
+    built outside the timing, with the bf16 operand) and the bound."""
+    from singlet_tpu_torch.ops import maskgram, maskgram_cuda
+    from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
+    from singlet_tpu_torch.ops.maskbits import pack_mask_words
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+
+    cells_true = cell_offset + cells if cells_true is None else cells_true
+    genes_true = genes if genes_true is None else genes_true
+    G = gene_block
+    gen = torch.Generator(device="cuda").manual_seed(k + 2)
+    iu = triu_pairs(k)
+    npairs = iu[0].shape[0]
+    # the operands as the engine hands them over: packed products in bf16
+    Pw = packed_outer_products(torch.rand((genes, k), generator=gen,
+                                          device="cuda"), iu).bfloat16()
+    Ph = packed_outer_products(torch.rand((cells, k), generator=gen,
+                                          device="cuda"), iu).bfloat16()
+    acc0 = torch.rand((npairs, genes), generator=gen, device="cuda")
+    seed = seed_pair(MASKED["mask_seed"])
+    kw = dict(gene_block=G, inv_density=MASKED["inv_density"],
+              cells_true=cells_true, genes_true=genes_true)
+    ids64 = torch.arange(cell_offset, cell_offset + cells, device="cuda")
+    ids = ids64.to(torch.int32)
+    words = pack_mask_words(seed, ids64, genes_pad=genes, gene_block=G,
+                            inv_density=MASKED["inv_density"],
+                            cells_true=cells_true, genes_true=genes_true)
+    b = min(block, cells)
+    ones = torch.ones((npairs, 1), device="cuda")
+    rows = []
+
+    def b10(f):
+        return f(Pw, seed, ids[:b], **kw)
+
+    def b11(f):
+        acc = acc0.clone()
+        for s in range(0, cells, b):
+            f(Ph[s:s + b], seed, ids[s:s + b], acc, **kw)
+        return acc
+
+    def b8():
+        return maskgram_cuda.mask_packed_w_t_bits_cuda(
+            Pw, ones[:, 0], words[:b], gene_block=G)
+
+    def b9():
+        acc = acc0.clone()
+        for s in range(0, cells, b):
+            maskgram_cuda.mask_packed_h_t_bits_cuda(
+                Ph[s:s + b], ones, words[s:s + b], acc, gene_block=G,
+                scale_block=b)
+        return acc
+
+    m = maskgram.hash_mask(seed, ids64[:b], genes, **{
+        key: kw[key] for key in ("inv_density", "cells_true", "genes_true")})
+    nnz = int(m.sum())
+    m_bf = m.to(torch.bfloat16)
+    m_t = m_bf.T.contiguous()
+    buf = acc0.clone()
+    for name, call, kern, plain, bits_call, one, library, bytes_ in (
+            ("B10", b10, maskgram_cuda.mask_packed_w_t_cuda,
+             maskgram.mask_packed_w_t_plain, b8,
+             lambda f: f(Pw, seed, ids[:b], **kw),
+             lambda: torch.matmul(Pw.T, m_t),
+             genes * npairs * 2 + b * 4 + npairs * b * 4),
+            ("B11", b11, maskgram_cuda.mask_packed_h_t_cuda,
+             maskgram.mask_packed_h_t_plain, b9,
+             lambda f: f(Ph[:b], seed, ids[:b], buf, **kw),
+             lambda: torch.matmul(Ph[:b].T, m_bf),
+             b * npairs * 2 + b * 4 + 2 * npairs * genes * 4)):
+        got, again, want = call(kern), call(kern), call(plain)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{name} {label}: max abs err {err} > 1e-5 "
+                                 f"x {scale}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {label}: two runs differ")
+        bits_err = float((got - bits_call()).abs().max())
+        if not bits_err <= 1e-5 * scale:
+            raise AssertionError(f"{name} {label}: differs from bf16 "
+                                 f"{'B8' if name == 'B10' else 'B9'} on the "
+                                 f"packed words by {bits_err}")
+        row = dict(shape=label, kernel=name, cells=cells, block=b, k=k,
+                   genes=genes, max_abs_err=err, max_abs_out=scale,
+                   err_vs_bits=bits_err)
+        times = ""
+        if timed:
+            row.update(ms=_median_ms(torch, lambda: one(kern), runs=10),
+                       plain_ms=_median_ms(torch, lambda: one(plain), runs=2),
+                       library_ms=_median_ms(torch, library, runs=10),
+                       **_bound(bytes_, 2 * nnz * npairs, BF16_OPS_S))
+            times = (f", per call of {b} cells: kernel {row['ms']:.4f} ms, "
+                     f"plain {row['plain_ms']:.3f} ms, torch.matmul "
+                     f"{row['library_ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+        print(f"kernel {name} {label} cells={cells} block={b} k={k} "
+              f"genes={genes}: max|err|={err:.3e} (max|out| {scale:.3e}), "
+              f"same bits twice, against bf16 "
+              f"{'B8' if name == 'B10' else 'B9'} {bits_err:.3e}{times} "
+              f"({card})", flush=True)
+    return rows
+
+
+def _timed_manager(directory: str, every: int):
+    """A CheckpointManager of ``directory`` that records the wall seconds
+    of each of its saves (the write of the .npz) in ``save_s``."""
+    from singlet_tpu_torch.checkpoint import CheckpointManager
+
+    class TimedManager(CheckpointManager):
+        def save(self, it, state):
+            t0 = time.perf_counter()
+            out = super().save(it, state)
+            self.save_s.append(time.perf_counter() - t0)
+            return out
+
+    mgr = TimedManager(directory, every=every)
+    mgr.save_s = []
+    return mgr
+
+
+def _same(label, got, want, fields):
+    """Raise unless ``got`` and ``want`` (fit results, objects or dicts)
+    hold the same bits in every one of ``fields``."""
+    for f in fields:
+        x, y = ((got[f], want[f]) if isinstance(got, dict)
+                else (getattr(got, f), getattr(want, f)))
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{label}: {f} differs")
+
+
+def phase_resume_dense(torch, card, Ap, Atp, W0, ckdir):
+    """Resumable dense fits at the bench config: ``nmf_fit`` and
+    ``ard_nmf_fit`` with a checkpoint every 5 iterations, stopped at 10 and
+    resumed to 20, equal bit for bit to an uninterrupted checkpointed and
+    an uncheckpointed 20-iteration fit."""
+    import singlet_tpu_torch as stt
+
+    k = BENCH["k"]
+    out = {}
+    for algo, fit, kw, fields, iters_of in (
+            ("nmf_fit", stt.nmf_fit, dict(At=Atp, w_init=W0, tol=0.0),
+             ("w", "h", "d", "tol_trace"), lambda r: r.n_iter),
+            ("ard_nmf_fit", stt.ard_nmf_fit,
+             dict(At=Atp, w_init=W0, mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"], tol=0.0,
+                  trace_test_mse=1, overfit_threshold=1.0),
+             ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit"),
+             lambda r: len(r.iter))):
+        plain, plain_s, _ = _counted(torch, lambda: fit(Ap, k, maxit=20,
+                                                        **kw))
+        full_mgr = _timed_manager(os.path.join(ckdir, f"{algo}_full"), 5)
+        full, full_s, n_full = _counted(torch, lambda: fit(
+            Ap, k, maxit=20, checkpoint=full_mgr, **kw))
+        cut = _timed_manager(os.path.join(ckdir, f"{algo}_cut"), 5)
+        first, first_s, _ = _counted(torch, lambda: fit(
+            Ap, k, maxit=10, checkpoint=cut, **kw))
+        res, res_s, n_res = _counted(torch, lambda: fit(
+            Ap, k, maxit=20, checkpoint=cut, **kw))
+        if (iters_of(first), iters_of(res), iters_of(full)) != (10, 20, 20):
+            raise AssertionError(f"{algo}: iterations {iters_of(first)}, "
+                                 f"{iters_of(res)}, {iters_of(full)}")
+        # the resumed run took the last 10 iterations alone
+        key = "B1" if algo == "nmf_fit" else "B2"
+        if n_res[key] * 2 != n_full[key] or n_res["plain"]:
+            raise AssertionError(f"{algo}: resumed launches {n_res}, full "
+                                 f"{n_full}")
+        _same(f"{algo} resumed vs uninterrupted", res, full, fields)
+        _same(f"{algo} checkpointed vs uncheckpointed", full, plain, fields)
+        out[algo] = dict(plain_s=plain_s, full_s=full_s, first_s=first_s,
+                         resumed_s=res_s, saves_s=full_mgr.save_s + cut.save_s,
+                         launches_full=n_full, launches_resumed=n_res)
+        print(f"resumable {algo} bench config k={k}: stopped at 10 "
+              f"({first_s:.3f} s), resumed to 20 ({res_s:.3f} s) = the uninterrupted "
+              f"checkpointed fit ({full_s:.3f} s) = the uncheckpointed one "
+              f"({plain_s:.3f} s), bit for bit; saves "
+              f"{[round(s * 1e3, 2) for s in full_mgr.save_s]} ms ({card})",
+              flush=True)
+    return out
+
+
+def phase_resume_ell_bench(torch, card, eng, W0, bits_int8, ckdir):
+    """The ELL engine's checkpointed ard_fit on the bench operand, on the
+    card's default mode, which takes the hash route (a per-step path packs
+    no mask): stopped at 2 and resumed to 5, bit for bit the uninterrupted
+    checkpointed fit; its test-MSE trace within rtol 1e-3 of the bits
+    route's (int8, ``bits_int8``) with the same traced iterations; per step
+    a B3, B4, B10 and B11 per block and B2 per block and once over all
+    genes."""
+    k = BENCH["k"]
+    fit_kw = dict(w_init=W0, mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"], tol=0.0,
+                  trace_test_mse=1, overfit_threshold=1.0)
+    blocks = eng.data.cells_pad // eng.data.cell_block
+
+    def want(steps):
+        return _launches(B2=steps * (blocks + 1), B3=steps * blocks,
+                         B4=steps * blocks, B10=steps * blocks,
+                         B11=steps * blocks)
+
+    full_mgr = _timed_manager(os.path.join(ckdir, "ell_bench_full"), 1)
+    full, full_s, n_full = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=5, checkpoint=full_mgr, **fit_kw))
+    cut = _timed_manager(os.path.join(ckdir, "ell_bench_cut"), 1)
+    _, _, n_first = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=2, checkpoint=cut, **fit_kw))
+    res, res_s, n_res = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=5, checkpoint=cut, **fit_kw))
+    if (n_full, n_first, n_res) != (want(5), want(2), want(3)):
+        raise AssertionError(f"ELL bench hash route launches {n_full}, "
+                             f"{n_first}, {n_res}; want 5, 2 and 3 steps "
+                             f"of {want(1)}")
+    _same("ELL bench hash route resumed vs uninterrupted", res, full,
+          ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit"))
+    if full.iter != bits_int8["iter"]:
+        raise AssertionError(f"ELL bench: the hash route traced {full.iter}, "
+                             f"the bits route {bits_int8['iter']}")
+    np.testing.assert_allclose(full.test_mse, bits_int8["test_mse"],
+                               rtol=1e-3)
+    rel = float(np.max(np.abs(np.subtract(full.test_mse,
+                                          bits_int8["test_mse"]))
+                       / np.abs(bits_int8["test_mse"])))
+    print(f"ELL hash route (checkpointed ard_fit, default mode), bench "
+          f"operand k={k}, 5 traced iterations: {full_s:.3f} s, stopped at 2 "
+          f"and resumed to 5 bit for bit ({res_s:.3f} s for the last 3); "
+          f"test mse within {rel:.2e} relative of the bits route (int8; "
+          f"rtol 1e-3), iter {full.iter}; launches {n_full} ({card})",
+          flush=True)
+    return dict(wall_s=full_s, resumed_s=res_s, launches=n_full,
+                launches_cut=n_first, launches_resumed=n_res,
+                test_mse=full.test_mse, iter=full.iter,
+                max_rel_vs_bits=rel, saves_s=full_mgr.save_s)
+
+
+def phase_resume_search(torch, card, A, full, ckdir):
+    """``ard_nmf`` on the planted operand (numpy) with its search-state
+    checkpoint: stopped by ``max_fits=3``, then resumed; the same rank,
+    cv_data and model as the uninterrupted search ``full``."""
+    import singlet_tpu_torch as stt
+
+    ck = os.path.join(ckdir, "ard_search")
+    kw = dict(k_max=PLANTED["k_max"], verbose=0, seed=1, device="cuda",
+              checkpoint=ck)
+    cut, cut_s, _ = _counted(torch, lambda: stt.ard_nmf(A, max_fits=3, **kw))
+    res, res_s, n = _counted(torch, lambda: stt.ard_nmf(A, **kw))
+    if res.k != full.k:
+        raise AssertionError(f"resumed ard_nmf chose {res.k}, the "
+                             f"uninterrupted search {full.k}")
+    _same("resumed ard_nmf model", res, full, ("w", "d", "h"))
+    if not res.cv_data.equals(full.cv_data):
+        raise AssertionError(f"resumed ard_nmf cv_data:\n{res.cv_data}\n"
+                             f"uninterrupted:\n{full.cv_data}")
+    print(f"ard_nmf search checkpoint on the planted operand: stopped after "
+          f"3 fits ({cut_s:.3f} s, {len(cut.cv_data['k'].unique())} ranks), "
+          f"resumed to rank {res.k} ({res_s:.3f} s), cv_data and model equal "
+          f"to the uninterrupted search; launches {n} ({card})", flush=True)
+    return dict(stopped_s=cut_s, resumed_s=res_s, selected=res.k,
+                cv_rows=len(res.cv_data), launches=n)
+
+
 def phase_ell_vs_dense(torch, card, eng, Ap, Atp, W0):
     """The ELL engine (the bench operand given as scipy) against the dense
     providers (given as numpy) from one W0: 5 plain iterations and a
@@ -1055,10 +1355,11 @@ def phase_bits_vs_f32(torch, card, eng, W0):
     return out
 
 
-def phase_large(torch, card):
+def phase_large(torch, card, ckdir):
     """The largescale.py operand generated on the card; the plain ELL fit,
-    project, one profiled plain step, the masked ard_fit; and the kernel
-    checks of B3/B4 on a slice of its planes."""
+    project, one profiled plain step, the masked ard_fit on the f32 and the
+    bits route, the resumable masked fit on the hash route; and the kernel
+    checks of B3-B11 on a slice of its planes."""
     from singlet_tpu_torch.ops.nnls import SweepSettings
     from singlet_tpu_torch.ops.rngmask import seed_pair
     from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllData,
@@ -1097,6 +1398,9 @@ def phase_large(torch, card):
                                      c0)
     bits_rows = phase_bits_kernels(torch, card, "large slice", sl_li, sl_lv,
                                    k, L["gene_block"], data.n_gb, c0,
+                                   block=L["cell_block"])
+    hash_rows = phase_hash_kernels(torch, card, "large slice", k, genes,
+                                   L["gene_block"], c0, n,
                                    block=L["cell_block"])
 
     torch.cuda.reset_peak_memory_stats()
@@ -1233,15 +1537,113 @@ def phase_large(torch, card):
                          f"bits route (sweep cap {settings.fast_masked})"),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
+    del bits
+    resume = phase_resume_large(torch, card, eng, data, ckdir)
     return dict(
         genes=genes, cells=cells, nnz=nnz, width=width, k=k,
         gen_s=gen_s, planes_gib=planes_gib, kernels=kernel_rows,
-        bits_kernels=bits_rows,
+        bits_kernels=bits_rows, hash_kernels=hash_rows,
         plain=dict(iters=iters, wall_s=secs, ms_per_iter=ms_it,
                    cells_per_s=cells * 1e3 / ms_it, launches=n_fit,
                    final_tol=res["tol_trace"][-1], peak_mem_gib=peak),
         project=dict(wall_s=proj_s, launches=n_proj), profile=profile,
-        masked=masked, bits=bits_fit)
+        masked=masked, bits=bits_fit, resume=resume)
+
+
+def phase_resume_large(torch, card, eng, data, ckdir):
+    """The resumable masked fit at full width: the ELL engine's
+    ``ard_fit(checkpoint=, every=1)`` on the card's default mode, whose
+    per-step path packs no mask and so takes the hash route (per 2048-cell
+    block B3, B10, B2, B4 and B11; one B2 over all genes; the hashed f32
+    test MSE, which launches no kernel of the port): 1 iteration, resumed
+    to 2, bit for bit an uninterrupted checkpointed 2-iteration run. Then
+    one hash-route step, one test MSE and one checkpoint save (the host
+    copy included) timed, the step and the MSE under the profiler."""
+    from singlet_tpu_torch.checkpoint import CheckpointManager
+    from singlet_tpu_torch.ops.nnls import SweepSettings
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+    from singlet_tpu_torch.parallel.sharded_ell import _build_local_fns
+    from singlet_tpu_torch.solvers.als import checkpoint_saver
+
+    k = LARGE["k"]
+    blocks = data.cells_pad // data.cell_block
+    ard_kw = dict(tol=0.0, trace_test_mse=1, overfit_threshold=1.0,
+                  mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"])
+
+    def want(steps):
+        return _launches(B2=steps * (blocks + 1), B3=steps * blocks,
+                         B4=steps * blocks, B10=steps * blocks,
+                         B11=steps * blocks)
+
+    cut = _timed_manager(os.path.join(ckdir, "large_cut"), 1)
+    first, first_s, n_first = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=1, checkpoint=cut, **ard_kw))
+    res, res_s, n_res = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=2, checkpoint=cut, **ard_kw))
+    full_mgr = _timed_manager(os.path.join(ckdir, "large_full"), 1)
+    full, full_s, n_full = _counted(torch, lambda: eng.ard_fit(
+        k, maxit=2, checkpoint=full_mgr, **ard_kw))
+    if (n_first, n_res, n_full) != (want(1), want(1), want(2)):
+        raise AssertionError(f"large hash route launches {n_first}, {n_res}, "
+                             f"{n_full}; want 1, 1 and 2 steps of {want(1)}")
+    if first.iter != [0] or full.iter != [0, 1]:
+        raise AssertionError(f"large hash route iter {first.iter}, "
+                             f"{full.iter}")
+    if not (np.isfinite(full.test_mse).all() and min(full.test_mse) > 0):
+        raise AssertionError(f"large hash route test mse {full.test_mse}")
+    _check_fit(full.w, full.d, full.h, (data.genes_true, k),
+               (k, data.cells_true))
+    _same("large hash route resumed vs uninterrupted", res, full,
+          ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit"))
+    saves_s = cut.save_s + full_mgr.save_s
+    print(f"large resumable masked ELL ard_fit (hash route) k={k}: 1 "
+          f"iteration {first_s:.3f} s, resumed to 2 {res_s:.3f} s, bit for "
+          f"bit the uninterrupted 2 ({full_s:.3f} s); test mse "
+          f"{full.test_mse}; npz writes {[round(s, 3) for s in saves_s]} s; "
+          f"launches {n_full} ({card})", flush=True)
+
+    # one hash-route step (the default mode given no packed mask), one
+    # hashed test MSE and one save, from the fit's factors
+    fns = _build_local_fns(data, MASKED["inv_density"])
+    settings = SweepSettings.from_env()
+    seed = seed_pair(MASKED["mask_seed"])
+    W = torch.as_tensor(full.w, device="cuda")
+    H = torch.as_tensor(full.h.T.copy(), device="cuda")
+    d = torch.as_tensor(full.d, device="cuda")
+
+    def step():
+        return fns["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
+                             sweep_cap=float(settings.fast_masked))
+
+    def mse():
+        return fns["mse"](W, d, H, seed)
+
+    _, step_s, n_step = _counted(torch, step)
+    _, mse_s, n_mse = _counted(torch, mse)
+    if n_step != want(1) or n_mse != _launches():
+        raise AssertionError(f"large hash step launches {n_step}, test MSE "
+                             f"{n_mse}")
+    saver = checkpoint_saver(CheckpointManager(
+        os.path.join(ckdir, "large_save"), every=1), dict(k=k))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saver(1, W, H, d, {"tol_trace": [1.0]})
+    save_s = time.perf_counter() - t0
+    print(f"large hash route: one masked step {step_s * 1e3:.1f} ms (sweep "
+          f"cap {settings.fast_masked}), one hashed test MSE "
+          f"{mse_s * 1e3:.1f} ms, one checkpoint save of W, H and d "
+          f"{save_s * 1e3:.1f} ms with the copy to the host ({card})",
+          flush=True)
+    return dict(
+        first_s=first_s, resumed_s=res_s, full_s=full_s,
+        launches_first=n_first, launches_resumed=n_res, launches_full=n_full,
+        test_mse=full.test_mse, npz_write_s=saves_s, step_ms=step_s * 1e3,
+        mse_ms=mse_s * 1e3, save_ms=save_s * 1e3,
+        profile=_profile(torch, card, step, label=f"large masked ELL step, "
+                         f"hash route (sweep cap {settings.fast_masked})"),
+        mse_profile=_profile(torch, card, mse,
+                             label="large hashed test MSE (hash route)"))
 
 
 def phase_ell_entry(torch, card):
@@ -1353,6 +1755,78 @@ def phase_build():
     return {name: secs for name, (_, secs, _) in builds.items()}, wall_s
 
 
+def _phases(torch, card, results, ckdir):
+    """Every phase after the build, in order, into ``results``; the
+    resumable fits checkpoint under ``ckdir``."""
+    import scipy.sparse as sp
+
+    from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
+    from singlet_tpu_torch.solvers.als import make_dense_providers
+
+    A, W0 = _bench_operand()
+    t0 = time.perf_counter()
+    Ap, Atp = make_dense_providers(A, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    results["kernel"] = phase_kernel(torch, card)
+    results["kernel_b2"] = phase_kernel_b2(torch, card, Ap, Atp, W0)
+    results["parity"] = phase_parity(torch)
+    results["masked_parity"] = phase_masked_parity(torch)
+    results["bench"] = phase_bench(torch, card, A, W0, Ap, Atp, setup_s)
+    results["masked"] = phase_masked(torch, card, Ap, Atp, W0)
+    results["resume_dense"] = phase_resume_dense(torch, card, Ap, Atp, W0,
+                                                 ckdir)
+
+    # the bench operand as scipy CSC on the ELL engine
+    t0 = time.perf_counter()
+    eng = ShardedEllEngine(sp.csc_matrix(A), device="cuda")
+    torch.cuda.synchronize()
+    results["ell_setup_s"] = time.perf_counter() - t0
+    data = eng.data
+    print(f"ELL ingest of the bench operand from scipy: "
+          f"{results['ell_setup_s']:.3f} s, width {data.b_width} "
+          f"({card})", flush=True)
+    bell_rows = phase_bell_kernels(torch, card, "bench", data.b_li,
+                                   data.b_val, BENCH["k"], data.gene_block,
+                                   data.n_gb, 0)
+    bits_rows = phase_bits_kernels(torch, card, "bench", data.b_li,
+                                   data.b_val, BENCH["k"], data.gene_block,
+                                   data.n_gb, 0, block=data.cell_block)
+    hash_rows = phase_hash_kernels(torch, card, "bench", BENCH["k"],
+                                   data.genes_pad, data.gene_block, 0,
+                                   data.cells_pad, block=data.cell_block,
+                                   cells_true=data.cells_true,
+                                   genes_true=data.genes_true)
+    # an edge geometry: 40 gene blocks (a second word group), 3 quantization
+    # groups of 1000 cells for B9 (B11: 3 calls), a cell offset; for B10
+    # and B11 true sizes that are no multiple of the blocks
+    eli, elv, _ = synth_bell_planes_torch(1280, 3000, 400, 32)
+    bits_rows += phase_bits_kernels(torch, card, "edge", eli, elv, 7, 32, 40,
+                                    12345, block=1000, timed=False)
+    del eli, elv
+    hash_rows += phase_hash_kernels(torch, card, "edge", 7, 1280, 32, 12345,
+                                    3000, block=1000,
+                                    cells_true=12345 + 2990, genes_true=1270,
+                                    timed=False)
+    results["ell_vs_dense"] = phase_ell_vs_dense(torch, card, eng, Ap, Atp,
+                                                 W0)
+    results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
+    results["resume_ell_bench"] = phase_resume_ell_bench(
+        torch, card, eng, W0, results["bits_vs_f32"]["int8"], ckdir)
+    del A, Ap, Atp, eng, data
+    results["ard"], planted, model = phase_ard(torch, card)
+    results["resume_search"] = phase_resume_search(torch, card, planted,
+                                                   model, ckdir)
+    del planted, model
+    results["large"] = phase_large(torch, card, ckdir)
+    results["bell_kernels"] = bell_rows + results["large"].pop("kernels")
+    results["bits_kernels"] = bits_rows + results["large"].pop(
+        "bits_kernels")
+    results["hash_kernels"] = hash_rows + results["large"].pop(
+        "hash_kernels")
+    results["ell_entry"] = phase_ell_entry(torch, card)
+
+
 def main() -> int:
     import torch
 
@@ -1360,11 +1834,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 2
-    import scipy.sparse as sp
-
-    from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
-    from singlet_tpu_torch.solvers.als import make_dense_providers
-
     card = _card_line()
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} ({card})", flush=True)
@@ -1373,50 +1842,15 @@ def main() -> int:
     results = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s,
                "build_wall_s": build_wall_s}
-    A, W0 = _bench_operand()
-    t0 = time.perf_counter()
-    Ap, Atp = make_dense_providers(A, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-
-    results["kernel"] = phase_kernel(torch, card)
-    results["kernel_b2"] = phase_kernel_b2(torch, card, Ap, Atp, W0)
-    results["parity"] = phase_parity(torch)
-    results["masked_parity"] = phase_masked_parity(torch)
-    results["bench"] = phase_bench(torch, card, A, W0, Ap, Atp, setup_s)
-    results["masked"] = phase_masked(torch, card, Ap, Atp, W0)
-
-    # the bench operand as scipy CSC on the ELL engine
-    t0 = time.perf_counter()
-    eng = ShardedEllEngine(sp.csc_matrix(A), device="cuda")
-    torch.cuda.synchronize()
-    results["ell_setup_s"] = time.perf_counter() - t0
-    print(f"ELL ingest of the bench operand from scipy: "
-          f"{results['ell_setup_s']:.3f} s, width {eng.data.b_width} "
-          f"({card})", flush=True)
-    bell_rows = phase_bell_kernels(torch, card, "bench", eng.data.b_li,
-                                   eng.data.b_val, BENCH["k"],
-                                   eng.data.gene_block, eng.data.n_gb, 0)
-    bits_rows = phase_bits_kernels(torch, card, "bench", eng.data.b_li,
-                                   eng.data.b_val, BENCH["k"],
-                                   eng.data.gene_block, eng.data.n_gb, 0,
-                                   block=eng.data.cell_block)
-    # an edge geometry: 40 gene blocks (a second word group), 3 quantization
-    # groups of 1000 cells for B9, a cell offset
-    eli, elv, _ = synth_bell_planes_torch(1280, 3000, 400, 32)
-    bits_rows += phase_bits_kernels(torch, card, "edge", eli, elv, 7, 32, 40,
-                                    12345, block=1000, timed=False)
-    del eli, elv
-    results["ell_vs_dense"] = phase_ell_vs_dense(torch, card, eng, Ap, Atp,
-                                                 W0)
-    results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
-    del A, Ap, Atp, eng
-    results["ard"] = phase_ard(torch, card)
-    results["large"] = phase_large(torch, card)
-    results["bell_kernels"] = bell_rows + results["large"].pop("kernels")
-    results["bits_kernels"] = bits_rows + results["large"].pop(
-        "bits_kernels")
-    results["ell_entry"] = phase_ell_entry(torch, card)
+    # the checkpoints of the resumable fits, in the checkout's git-ignored
+    # build directory, removed at the end
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="smoke_checkpoints_",
+                             dir=os.path.join(ROOT, "build"))
+    try:
+        _phases(torch, card, results, ckdir)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
     results["wall_s"] = time.perf_counter() - T_START
 
     b1_row = next(r for r in results["kernel"]
@@ -1428,15 +1862,26 @@ def main() -> int:
     bell_row.update({r["kernel"]: r for r in results["bits_kernels"]
                      if r["shape"] == "large slice"
                      and r.get("dtype", "int8") == "int8"})
+    bell_row.update({r["kernel"]: r for r in results["hash_kernels"]
+                     if r["shape"] == "large slice"})
     bench, masked = results["bench"], results["masked"]
     large = results["large"]
+    dense_resume = results["resume_dense"]
+    ell_bench_resume, large_resume = results["resume_ell_bench"], \
+        large["resume"]
     ell_runs = [results["ell_vs_dense"]["plain_launches"],
                 results["ell_vs_dense"]["masked_launches"],
                 results["bits_vs_f32"]["f32"]["launches"],
                 results["bits_vs_f32"]["int8"]["launches"],
                 results["bits_vs_f32"]["bf16"]["launches"],
+                ell_bench_resume["launches"],
+                ell_bench_resume["launches_cut"],
+                ell_bench_resume["launches_resumed"],
                 large["plain"]["launches"], large["project"]["launches"],
                 large["masked"]["launches"], large["bits"]["launches"],
+                large_resume["launches_first"],
+                large_resume["launches_resumed"],
+                large_resume["launches_full"],
                 results["ell_entry"]["ard"]["launches"],
                 results["ell_entry"]["cv"]["launches"]]
     print("results: " + json.dumps(results))
@@ -1444,12 +1889,14 @@ def main() -> int:
           "n=4096 k=50 sweep_cap=32; B3 and B4 unmasked, B5, B6 and B7 at "
           "k=100 on 8192 cells of the large operand (16384 genes, width "
           "32), B8 (int8) on the first 2048-cell block of them and B9 (int8) "
-          "over all of them as 4 quantization groups; launches: B1 over the "
-          "two bench-scale nmf_fit runs, B2 over the bench-scale "
-          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B9 over the "
+          "over all of them as 4 quantization groups, B10 and B11 (bf16, the "
+          "mask hashed) per call on one 2048-cell block of them; launches: "
+          "B1 over the bench-scale nmf_fit runs, B2 over the bench-scale "
+          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B11 over the "
           "ELL engine's counted runs; bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
-          "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s)")
+          "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s, bf16 "
+          "989 TFLOP/s)")
 
     def entry(name, source, replaces, launches, row, err):
         return {"name": name, "route": "cuda",
@@ -1461,7 +1908,8 @@ def main() -> int:
                 "library_ms": row["library_ms"]}
 
     def ell_entry(name, key, source, replaces):
-        rows = results["bell_kernels"] + results["bits_kernels"]
+        rows = results["bell_kernels"] + results["bits_kernels"] + \
+            results["hash_kernels"]
         return entry(name, source, replaces,
                      sum(n[key] for n in ell_runs), bell_row[key],
                      max(r["max_abs_err"] for r in rows
@@ -1469,11 +1917,15 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("nnls_cd_shared", "nnls_cd.cu", "pallas_nnls.py:266",
-              bench["fixed10"]["launches"] + bench["race"]["launches"],
+              bench["fixed10"]["launches"] + bench["race"]["launches"]
+              + sum(dense_resume["nmf_fit"][key]["B1"] for key in (
+                  "launches_full", "launches_resumed")),
               b1_row, max(r["max_abs_err"] for r in results["kernel"])),
         entry("nnls_cd_batched", "nnls_cd_batched.cu", "pallas_nnls.py:195",
               masked["fit"]["launches"]["B2"] + masked["cv"]["launches"]["B2"]
-              + results["ard"]["launches"]["B2"], b2_row,
+              + results["ard"]["launches"]["B2"]
+              + sum(dense_resume["ard_nmf_fit"][key]["B2"] for key in (
+                  "launches_full", "launches_resumed")), b2_row,
               max(r["max_abs_err"] for r in results["kernel_b2"])),
         ell_entry("bell_spmm", "B3", "bell_spmm.cu", "pallas_bell.py:162"),
         ell_entry("bell_spmm_t", "B4", "bell_spmm.cu", "pallas_bell.py:416"),
@@ -1487,6 +1939,10 @@ def main() -> int:
                   "pallas_maskgram.py:480"),
         ell_entry("mask_packed_h_t_bits", "B9", "maskgram_bits.cu",
                   "pallas_maskgram.py:712"),
+        ell_entry("mask_packed_w_t", "B10", "maskgram_bits.cu",
+                  "pallas_maskgram.py:185"),
+        ell_entry("mask_packed_h_t", "B11", "maskgram_bits.cu",
+                  "pallas_maskgram.py:229"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,43 @@
-"""The masked packed-Gram products of the ELL engine's bits route, with the
-test mask read from bitplane words (``ops/maskbits.py``).
+"""The masked packed-Gram products of the ELL engine's masked routes.
 
-Port of the bit-packed half of ``singlet_tpu/ops/pallas_maskgram.py``:
-``maskgram_mode``, ``quantize_pairs`` and kernels B8
-(``mask_packed_w_t_bits``) and B9 (``mask_packed_h_t_bits``):
+Port of ``singlet_tpu/ops/pallas_maskgram.py``: ``maskgram_mode``,
+``quantize_pairs``, kernels B10 (``mask_packed_w_t``) and B11
+(``mask_packed_h_t``) of the hash route, with the test mask hashed from
+(seed, cell, gene), and B8 (``mask_packed_w_t_bits``) and B9
+(``mask_packed_h_t_bits``) of the bits route, with the mask read from
+bitplane words (``ops/maskbits.py``):
 
-  * B8, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]      (np, block)
-  * B9, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]      (np, genes)
+  * B8/B10, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]   (np, block)
+  * B9/B11, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]   (np, genes)
 
-Both emit the product transposed, the orientation the per-column Gram
-unpack (``linalg.unpack_sym_from_t``) reads. The operand P is either int8,
-quantized per pair by ``quantize_pairs`` (int32 sums, exact, then one
-dequantizing multiply per pair), or bf16 (f32 sums). B9's ``scale_block``
-batches several independently quantized cell blocks into one call: the
-scales are then (np, block // scale_block), one column per block, and the
-int32 partial of each cell sub-block is dequantized with its own block's
-column and added into ``acc`` in sub-block order, exactly as the JAX
-kernel does; so one batched call gives the bits of the same calls made
-block by block.
+All four emit the product transposed, the orientation the per-column Gram
+unpack (``linalg.unpack_sym_from_t``) reads. B10 and B11 round the operand
+to bf16 (the mask is an exact bf16 0/1) and sum in float32: B10 sums one
+partial per gene block in gene-block order, B11 adds one partial per cell
+sub-block (``_sub_block``, at most 1024 cells) into ``acc`` in sub-block
+order, as the JAX kernels do. Their mask is ``rngmask.mask_block`` of the
+GLOBAL cell ids (which need not start at 0) with the validity clamps:
+cells at or past ``cells_true`` and genes at or past ``genes_true`` are
+never held out. The bits route's operand P is either int8, quantized per
+pair by ``quantize_pairs`` (int32 sums, exact, then one dequantizing
+multiply per pair), or bf16 (f32 sums). B9's ``scale_block`` batches
+several independently quantized cell blocks into one call: the scales are
+then (np, block // scale_block), one column per block, and the int32
+partial of each cell sub-block is dequantized with its own block's column
+and added into ``acc`` in sub-block order, exactly as the JAX kernel does;
+so one batched call gives the bits of the same calls made block by block.
 
 Left out, because they lay the operand out for the TPU's VMEM and change
 nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
 VMEM budgets, and the pair axis padded to a lane multiple (``pad_pairs``);
 here the pair axis has its true length. ``SINGLET_TPU_MPH_NOALIAS`` and
 ``SINGLET_TPU_I8_DIRECT`` choose TPU memory layouts and are not read. The
-hash-mode kernels B10/B11 and the prebuilt-int8-mask kernels B13/B14 are
-not ported (ROADMAP B); the engine raises on their routes.
+prebuilt-int8-mask kernels B13/B14 are not ported (ROADMAP B); the engine
+raises on their route.
 
 The plain versions below are the CPU path and the reference of the CUDA
 kernels (``ops/maskgram_cuda.py``); the dispatchers send CUDA tensors to
-the kernels.
+the kernels and nothing else.
 """
 
 from __future__ import annotations
@@ -40,8 +48,9 @@ from typing import Optional
 import torch
 
 from singlet_tpu_torch.ops.maskbits import unpack_all
+from singlet_tpu_torch.ops.rngmask import mask_block
 
-# calls of the plain versions of B8 and B9 (the kernels count their own
+# calls of the plain versions of B8-B11 (the kernels count their own
 # launches)
 PLAIN_CALLS = 0
 
@@ -79,20 +88,78 @@ def _sub_block(block: int) -> int:
 
 
 def b9_sub_block(block: int, scale_block: int) -> int:
-    """Cells per int32 partial of B9: JAX's ``min(_sub_block(block),
-    _sub_block(scale_block))``. JAX then clamps it to at least 8, which
-    leaves cells out where the halving ends below 8 (a block that is no
-    multiple of 8); the port raises there instead."""
+    """Cells per partial of B9 (B11: ``scale_block`` = ``block``): JAX's
+    ``min(_sub_block(block), _sub_block(scale_block))``. JAX then clamps
+    it to at least 8, which leaves cells out where the halving ends below 8
+    (a block that is no multiple of 8); the port raises there instead."""
     if scale_block <= 0 or block % scale_block:
         raise ValueError(f"scale_block {scale_block} does not divide the "
                          f"{block} cells")
     bc = min(_sub_block(block), _sub_block(scale_block))
     if bc < 8:
         raise ValueError(
-            f"mask_packed_h_t_bits: {block} cells (scale_block "
+            f"B9/B11 (mask_packed_h_t*): {block} cells (scale_block "
             f"{scale_block}) do not split into sub-blocks of >= 8 cells; "
             "the JAX kernel would leave cells out here")
     return bc
+
+
+def hash_mask(seed, cell_ids: torch.Tensor, genes_pad: int, *,
+              inv_density: int, cells_true: int,
+              genes_true: int) -> torch.Tensor:
+    """The validity-clamped test mask of ``cell_ids`` (global ids) x all
+    ``genes_pad`` genes, bool (cells, genes_pad), on the ids' device: the
+    mask B10 and B11 hash."""
+    gene_ids = torch.arange(genes_pad, device=cell_ids.device)
+    m = mask_block(seed, cell_ids, gene_ids, inv_density)
+    return m & (cell_ids < cells_true)[:, None] \
+        & (gene_ids < genes_true)[None, :]
+
+
+def mask_packed_w_t_plain(Pw, seed, cell_ids, *, gene_block: int,
+                          inv_density: int, cells_true: int,
+                          genes_true: int) -> torch.Tensor:
+    """The plain version of kernel B10: (np, block) float32 = (mask @
+    bf16(Pw))^T for Pw (genes_pad, np) and the hashed mask of ``cell_ids``
+    (block,), one float32 partial per gene block summed in gene-block
+    order."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    genes_pad = Pw.shape[0]
+    P = Pw.to(torch.bfloat16).to(torch.float32)
+    m = hash_mask(seed, cell_ids, genes_pad, inv_density=inv_density,
+                  cells_true=cells_true, genes_true=genes_true)
+    m = m.to(torch.float32)
+    out = None
+    for g0 in range(0, genes_pad, gene_block):
+        part = P[g0:g0 + gene_block].T @ m[:, g0:g0 + gene_block].T
+        out = part if out is None else out + part
+    return out
+
+
+def mask_packed_h_t_plain(Ph, seed, cell_ids, acc, *, gene_block: int,
+                          inv_density: int, cells_true: int,
+                          genes_true: int) -> torch.Tensor:
+    """The plain version of kernel B11: ``acc`` (np, genes_pad) float32 +=
+    (mask^T @ bf16(Ph))^T for Ph (block, np) and the hashed mask of
+    ``cell_ids`` (block,), one float32 partial per cell sub-block
+    (``_sub_block``) added in sub-block order; ``acc`` is updated in place
+    and returned. ``gene_block`` must divide ``genes_pad``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    block = Ph.shape[0]
+    genes_pad = acc.shape[1]
+    if genes_pad % gene_block:
+        raise ValueError(f"acc has {genes_pad} columns, not a multiple of "
+                         f"gene_block {gene_block}")
+    bc = b9_sub_block(block, block)
+    P = Ph.to(torch.bfloat16).to(torch.float32)
+    for c0 in range(0, block, bc):
+        m = hash_mask(seed, cell_ids[c0:c0 + bc], genes_pad,
+                      inv_density=inv_density, cells_true=cells_true,
+                      genes_true=genes_true)
+        acc += P[c0:c0 + bc].T @ m.to(torch.float32)
+    return acc
 
 
 def _is_int8(P_op: torch.Tensor) -> bool:
@@ -144,6 +211,35 @@ def mask_packed_h_t_bits_plain(P_op, scales, words, acc, *, gene_block: int,
             d = P_op[c0:c0 + bc].to(torch.float32).T @ m.to(torch.float32)
         acc += d
     return acc
+
+
+def mask_packed_w_t(Pw, seed, cell_ids, *, gene_block: int,
+                    inv_density: int, cells_true: int,
+                    genes_true: int) -> torch.Tensor:
+    """Dispatcher of B10: the kernel for CUDA tensors, the plain version on
+    the CPU."""
+    kw = dict(gene_block=gene_block, inv_density=inv_density,
+              cells_true=cells_true, genes_true=genes_true)
+    if Pw.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_w_t_cuda(Pw, seed, cell_ids, **kw)
+    return mask_packed_w_t_plain(Pw, seed, cell_ids, **kw)
+
+
+def mask_packed_h_t(Ph, seed, cell_ids, acc, *, gene_block: int,
+                    inv_density: int, cells_true: int,
+                    genes_true: int) -> torch.Tensor:
+    """Dispatcher of B11 (``acc`` updated in place and returned): the
+    kernel for CUDA tensors, the plain version on the CPU."""
+    kw = dict(gene_block=gene_block, inv_density=inv_density,
+              cells_true=cells_true, genes_true=genes_true)
+    if Ph.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_h_t_cuda(Ph, seed, cell_ids, acc,
+                                                  **kw)
+    return mask_packed_h_t_plain(Ph, seed, cell_ids, acc, **kw)
 
 
 def mask_packed_w_t_bits(P_op, scales, words, *,

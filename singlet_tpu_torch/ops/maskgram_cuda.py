@@ -1,12 +1,15 @@
-"""Kernels B8 and B9: the masked packed-Gram products from bitplane words,
-hand-written in CUDA.
+"""Kernels B8-B11: the masked packed-Gram products, hand-written in CUDA.
 
 B8 (``mask_packed_w_t_bits_cuda``) replaces
 ``singlet_tpu/ops/pallas_maskgram.py`` ``mask_packed_w_t_bits`` and B9
 (``mask_packed_h_t_bits_cuda``) replaces ``mask_packed_h_t_bits``, both on
-their int8 and bf16 paths. Their source is ``csrc/maskgram_bits.cu``, whose
-header note gives the design and what bounds it on the card; ``_build.py``
-compiles it with nvcc at first use and this module binds it with ctypes.
+their int8 and bf16 paths, with the test mask read from bitplane words;
+B10 (``mask_packed_w_t_cuda``) replaces ``mask_packed_w_t`` and B11
+(``mask_packed_h_t_cuda``) replaces ``mask_packed_h_t``, with the mask
+hashed from (seed, cell, gene) on the card and bf16 operands. Their source
+is ``csrc/maskgram_bits.cu``, whose header note gives the design and what
+bounds it on the card; ``_build.py`` compiles it with nvcc at first use and
+this module binds it with ctypes.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (``ops/maskgram.py``), because there is no
@@ -20,16 +23,21 @@ from typing import Optional
 
 import torch
 
-from singlet_tpu_torch.ops.bell_cuda import _check_words
+from singlet_tpu_torch.ops.bell_cuda import _check_words, _seed_args
+from singlet_tpu_torch.ops.maskbits import n_word_groups
 from singlet_tpu_torch.ops.maskgram import (_is_int8, b9_sub_block,
                                             mask_packed_h_t_bits_plain,
-                                            mask_packed_w_t_bits_plain)
+                                            mask_packed_h_t_plain,
+                                            mask_packed_w_t_bits_plain,
+                                            mask_packed_w_t_plain)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
-# kernel launches (one per wrapper call on CUDA tensors) of B8 and of B9;
-# read by chip_smoke.py to show that a fit went through the kernels
+# kernel launches (one per wrapper call on CUDA tensors) of B8, B9, B10 and
+# B11; read by chip_smoke.py to show that a fit went through the kernels
 LAUNCHES_MPW_BITS = 0
 LAUNCHES_MPH_BITS = 0
+LAUNCHES_MPW_HASH = 0
+LAUNCHES_MPH_HASH = 0
 
 _LIB = {}
 
@@ -46,6 +54,13 @@ def _lib():
         lib.mask_packed_h_t_bits.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
                                              ci, ci, ci, ci, ci, vp, vp]
         lib.mask_packed_h_t_bits.restype = ci
+        u64, ll = ctypes.c_uint64, ctypes.c_longlong
+        lib.mask_packed_w_t_hash.argtypes = [vp, ci, vp, ci, ci, ci, ci, u64,
+                                             ci, ll, ll, vp, vp, vp]
+        lib.mask_packed_w_t_hash.restype = ci
+        lib.mask_packed_h_t_hash.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci,
+                                             ci, u64, ci, ll, ll, vp, vp, vp]
+        lib.mask_packed_h_t_hash.restype = ci
         lib.maskgram_bits_error_string.argtypes = [ci]
         lib.maskgram_bits_error_string.restype = ctypes.c_char_p
         _LIB["lib"] = lib
@@ -134,4 +149,93 @@ def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
             scale_block, acc.data_ptr(), _stream(dev))
     _raise_on(err, "mask_packed_h_t_bits")
     LAUNCHES_MPH_BITS += 1
+    return acc
+
+
+def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
+                 inv_density: int):
+    """The common inputs of B10 and B11: P as contiguous bf16, the cell ids
+    as int32 on P's device, the 64-bit seed, the word geometry and a
+    scratch buffer for the call's hashed words."""
+    dev = P.device
+    if genes_pad % gene_block:
+        raise ValueError(f"{genes_pad} genes are not a multiple of "
+                         f"gene_block {gene_block}")
+    if not 1 <= int(inv_density) < 65536:
+        raise ValueError(f"inv_density must be in [1, 65536), got "
+                         f"{inv_density}")
+    if cell_ids.device != dev:
+        raise ValueError(f"cell_ids is on {cell_ids.device}, expected {dev}")
+    if cell_ids.dim() != 1:
+        raise ValueError(f"cell_ids must be 1-D, got {tuple(cell_ids.shape)}")
+    n_gb = genes_pad // gene_block
+    wcols = n_word_groups(n_gb) * gene_block
+    ids = cell_ids.to(torch.int32).contiguous()
+    words = torch.empty((ids.shape[0], wcols), dtype=torch.int32, device=dev)
+    _, seed64 = _seed_args(seed, inv_density)
+    return (P.to(torch.bfloat16).contiguous(), ids, seed64, n_gb, wcols,
+            words)
+
+
+def mask_packed_w_t_cuda(Pw, seed, cell_ids, *, gene_block: int,
+                         inv_density: int, cells_true: int,
+                         genes_true: int) -> torch.Tensor:
+    """Kernel B10: (np, block) float32 = (mask @ bf16(Pw))^T for Pw
+    (genes_pad, np), float32 or bf16, and the validity-clamped test mask of
+    ``cell_ids`` (block,) (global ids) hashed on the card. On CPU tensors,
+    the plain version."""
+    kw = dict(gene_block=gene_block, inv_density=inv_density,
+              cells_true=cells_true, genes_true=genes_true)
+    if Pw.device.type != "cuda":
+        return mask_packed_w_t_plain(Pw, seed, cell_ids, **kw)
+    global LAUNCHES_MPW_HASH
+    dev = Pw.device
+    genes_pad, np_ = Pw.shape
+    P, ids, seed64, n_gb, wcols, words = _hash_inputs(
+        Pw, seed, cell_ids, genes_pad, gene_block, inv_density)
+    block = ids.shape[0]
+    out = torch.empty((np_, block), dtype=torch.float32, device=dev)
+    if block == 0 or np_ == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib().mask_packed_w_t_hash(
+            P.data_ptr(), np_, ids.data_ptr(), block, wcols, gene_block,
+            n_gb, seed64, int(inv_density), int(cells_true), int(genes_true),
+            words.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_w_t_hash")
+    LAUNCHES_MPW_HASH += 1
+    return out
+
+
+def mask_packed_h_t_cuda(Ph, seed, cell_ids, acc, *, gene_block: int,
+                         inv_density: int, cells_true: int,
+                         genes_true: int) -> torch.Tensor:
+    """Kernel B11: ``acc`` (np, genes_pad) float32 += (mask^T @
+    bf16(Ph))^T, in place (returned), for Ph (block, np) and the
+    validity-clamped test mask of ``cell_ids`` (block,) hashed on the card;
+    one partial per cell sub-block (at most 1024 cells), added in order.
+    On CPU tensors, the plain version."""
+    kw = dict(gene_block=gene_block, inv_density=inv_density,
+              cells_true=cells_true, genes_true=genes_true)
+    if Ph.device.type != "cuda":
+        return mask_packed_h_t_plain(Ph, seed, cell_ids, acc, **kw)
+    global LAUNCHES_MPH_HASH
+    dev = Ph.device
+    block, np_ = Ph.shape
+    genes_pad = acc.shape[1]
+    _check("acc", acc, (np_, genes_pad), torch.float32, dev)
+    P, ids, seed64, n_gb, wcols, words = _hash_inputs(
+        Ph, seed, cell_ids, genes_pad, gene_block, inv_density)
+    if ids.shape[0] != block:
+        raise ValueError(f"{ids.shape[0]} cell ids for {block} rows of Ph")
+    if block == 0 or np_ == 0:
+        return acc
+    bc = b9_sub_block(block, block)
+    with torch.cuda.device(dev):
+        err = _lib().mask_packed_h_t_hash(
+            P.data_ptr(), np_, ids.data_ptr(), block, wcols, gene_block,
+            n_gb, genes_pad, bc, seed64, int(inv_density), int(cells_true),
+            int(genes_true), words.data_ptr(), acc.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_h_t_hash")
+    LAUNCHES_MPH_HASH += 1
     return acc

@@ -26,17 +26,22 @@ Semantics kept from the JAX package:
 
 The JAX fit loop is one ``lax.while_loop`` so that a fit costs one sync
 with a remote TPU. Here it is a host loop that syncs once per iteration,
-for the tol test.
+for the tol test; the checkpointed fit (``checkpoint=``, the JAX package's
+per-step path) runs the same loop with a save after each iteration, and
+every fit logs ``fit_start``, ``iteration`` and ``fit_end`` events
+(``tracing.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device
 from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
                                           packed_outer_products,
@@ -45,6 +50,7 @@ from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t,
                                         sweep_cap_update)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix, _round_up
+from singlet_tpu_torch.tracing import get_metric_logger
 
 
 def pick_block(n_true: int, target: int, quantum: int = 256) -> int:
@@ -188,26 +194,73 @@ def als_step_masked(A: DenseMatrix, At: DenseMatrix, W, H, seed, L1, L2,
 
 def _fit_loop(step, W, H, tol_target: float, maxit: int,
               settings: SweepSettings, masked: bool = False,
-              verbose: bool = False):
+              verbose: bool = False, d=None, tols=(), on_step=None,
+              fit_id: Optional[str] = None):
     """The ALS loop with the JAX ``_fit_loop_device`` semantics, one
     ``.item()`` sync per iteration. ``step(W, H, sweep_cap)`` is one
     iteration, returning (W, H, d, tol); ``masked`` selects the masked
-    fast-phase cap. Returns (W, H, d, tol_trace)."""
+    fast-phase cap. Returns (W, H, d, tol_trace).
+
+    A resumed fit passes its saved ``d`` and ``tols``: the loop goes on
+    from ``len(tols)`` iterations, from the last saved tol, with the
+    exact-phase latch recovered from the trace (it fired iff a saved tol
+    crossed its threshold, as the JAX checkpoint path recovers it).
+    ``on_step(it, W, H, d, {"tol_trace": tols})`` runs after each
+    iteration (``checkpoint_saver``); with ``fit_id``, each iteration logs
+    an ``iteration`` event (tol and ms) to the metric logger."""
     k = W.shape[1]
-    d = torch.ones(k, dtype=W.dtype, device=W.device)
+    if d is None:
+        d = torch.ones(k, dtype=W.dtype, device=W.device)
     target = np.float32(tol_target)
-    tolv = np.float32(1.0)
+    tols = list(tols)
+    tolv = np.float32(tols[-1]) if tols else np.float32(1.0)
     exact = False
-    tols = []
+    for t in tols:
+        _, exact = sweep_cap_update(exact, t, target, masked=masked,
+                                    settings=settings)
+    logger = get_metric_logger()
     while len(tols) < maxit and tolv > target:
+        t0 = time.perf_counter()
         cap, exact = sweep_cap_update(exact, tolv, target, masked=masked,
                                       settings=settings)
         W, H, d, t = step(W, H, cap)
         tolv = np.float32(t.item())
         tols.append(float(tolv))
+        if fit_id is not None:
+            logger.log("iteration", fit=fit_id, iter=len(tols),
+                       tol=float(tolv),
+                       ms=round((time.perf_counter() - t0) * 1e3, 3))
         if verbose:
             print(f"{len(tols):4d} | {tolv:8.2e}")
+        if on_step is not None:
+            on_step(len(tols), W, H, d, {"tol_trace": tols})
     return W, H, d, tols
+
+
+def checkpoint_saver(mgr, config: dict):
+    """The ``on_step`` hook of a checkpointed fit loop, or None without a
+    manager: when ``mgr``'s cadence says so, and only then, W, H and d are
+    copied to the host and saved with ``config`` and the loop's traces (a
+    dict of lists, saved under their keys)."""
+    if mgr is None:
+        return None
+
+    def save(it, W, H, d, traces):
+        if mgr.should_save(it):
+            mgr.save(it, dict(config, W=W.cpu().numpy(), H=H.cpu().numpy(),
+                              d=d.cpu().numpy(), **traces))
+    return save
+
+
+def restore_fit_state(mgr, config: dict, device, verbose=False):
+    """The newest checkpoint of ``mgr`` with fingerprint ``config`` (W, H
+    and d as tensors on ``device``, the traces and ``it`` as saved), or
+    None without a manager or a match."""
+    st = mgr.restore(config, verbose=bool(verbose)) if mgr else None
+    if st is not None:
+        for key in ("W", "H", "d"):
+            st[key] = torch.as_tensor(st[key]).to(device)
+    return st
 
 
 # --------------------------------------------------------------------------
@@ -293,11 +346,16 @@ def nmf_fit(
     (whose device is then the fit's). ``device`` defaults to ``"cuda"`` and
     raises without a card. L1/L2 may be scalars or (w, h) pairs;
     ``link_h``/``link_w`` are 0/1 linking masks (cells, k) / (genes, k)
-    (reference:src/singlet.cpp:1059-1086). ``checkpoint`` is not ported yet.
+    (reference:src/singlet.cpp:1059-1086).
+
+    ``checkpoint`` (a directory path or ``CheckpointManager``) saves the
+    fit state atomically every ``every`` iterations and resumes from the
+    newest checkpoint of the same config fingerprint (the JAX package's
+    ``algo="als"`` fingerprint and file format: a checkpoint of the JAX
+    ``nmf_fit`` of the same geometry resumes here). The checkpointed and
+    the plain fit run the same host loop, so a resumed fit equals the
+    uninterrupted one bit for bit.
     """
-    if checkpoint is not None:
-        raise NotImplementedError("checkpoint= is not ported to "
-                                  "singlet_tpu_torch yet")
     Ap, Atp, dev = fit_providers(A, At, device)
     genes_pad = Ap.rows_pad
     cells_pad = Ap.cols_pad
@@ -306,14 +364,33 @@ def nmf_fit(
     else:
         W = _padded(w_init, genes_pad, k, dev)
     H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
+    d = None
 
     L1_w, L1_h = _as_pair(L1)
     L2_w, L2_h = _as_pair(L2)
+    linked = [link_h is not None, link_w is not None]
     if link_h is not None:
         link_h = _padded(link_h, cells_pad, k, dev)
     if link_w is not None:
         link_w = _padded(link_w, genes_pad, k, dev)
 
+    mgr = resolve_manager(checkpoint)
+    ckpt_config = CheckpointManager.config_of(
+        algo="als", k=int(k), genes_pad=int(genes_pad),
+        cells_pad=int(cells_pad), L1=[L1_w, L1_h], L2=[L2_w, L2_h],
+        seed=int(seed), linked=linked)
+    tol_trace = []
+    if mgr is not None:
+        st = restore_fit_state(mgr, ckpt_config, dev, verbose)
+        if st is not None:
+            W, H, d = st["W"], st["H"], st["d"]
+            tol_trace = list(st["tol_trace"])
+
+    logger = get_metric_logger()
+    fit_id = logger.new_fit_id("als")
+    logger.log("fit_start", fit=fit_id, algo="als", k=int(k),
+               genes=int(Ap.rows_true), cells=int(Ap.cols_true),
+               maxit=maxit, resumed_at=len(tol_trace) or None)
     settings = SweepSettings.from_env()
 
     def step(W, H, cap):
@@ -321,13 +398,17 @@ def nmf_fit(
                         link_w, sweep_cap=cap,
                         max_sweeps=settings.max_sweeps)
 
-    W, H, d, tol_trace = _fit_loop(step, W, H, tol, maxit, settings,
-                                   verbose=verbose)
+    W, H, d, tol_trace = _fit_loop(
+        step, W, H, tol, maxit, settings, verbose=verbose, d=d,
+        tols=tol_trace, on_step=checkpoint_saver(mgr, ckpt_config),
+        fit_id=fit_id)
+    tol_ = tol_trace[-1] if tol_trace else 1.0
+    logger.log("fit_end", fit=fit_id, n_iter=len(tol_trace), tol=tol_)
     return FitResult(
         w=W[: Ap.rows_true].cpu().numpy(),
         d=d.cpu().numpy(),
         h=H[: Ap.cols_true].T.cpu().numpy(),
-        tol=tol_trace[-1] if tol_trace else 1.0,
+        tol=tol_,
         n_iter=len(tol_trace),
         tol_trace=tol_trace,
     )

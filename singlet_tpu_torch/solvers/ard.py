@@ -13,23 +13,32 @@ once per iteration (the tol, and the test MSE at a trace iteration, in one
 read), with the same schedule: the trace is taken at ``it % trace == 0``
 with ``it`` counted from 0 before its increment, scores are compared in
 float32, and on a stop ``it`` is not incremented (the reference breaks
-before ``it++``).
+before ``it++``). The checkpointed fit (``checkpoint=``, the JAX
+package's per-step path) runs the same loop with a save after each step
+that did not stop the fit; every fit logs ``fit_start``, ``iteration``
+(with ``test_mse`` and ``overfit_score`` on traced iterations) and
+``fit_end`` events.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
+from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
 from singlet_tpu_torch.device import vprint
 from singlet_tpu_torch.ops.nnls import SweepSettings, sweep_cap_update
 from singlet_tpu_torch.ops.rngmask import seed_pair
 from singlet_tpu_torch.solvers.als import (_padded, als_step_masked,
-                                           fit_providers, init_w, mse_test)
+                                           checkpoint_saver, fit_providers,
+                                           init_w, mse_test,
+                                           restore_fit_state)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix
+from singlet_tpu_torch.tracing import get_metric_logger
 
 
 @dataclasses.dataclass
@@ -51,24 +60,41 @@ def _score(err, min_err):
 
 
 def _ard_loop(step, mse, W, H, tol_target, overfit_threshold, maxit: int,
-              trace_every: int, settings: SweepSettings, verbose: int = 0):
+              trace_every: int, settings: SweepSettings, verbose: int = 0,
+              start: Optional[dict] = None, on_step=None,
+              fit_id: Optional[str] = None):
     """The masked fit loop with the trace and early-stop policy of
     ``_ard_loop_device``. ``step(W, H, sweep_cap)`` is one masked iteration,
     returning (W, H, d, tol); ``mse(W, d, H)`` the test MSE, a 0-d tensor.
-    Returns (W, H, d, it, stopped, test_mse, iters, scores, tols) with
-    ``tols`` the tol of every step taken."""
+
+    ``start`` is a saved state to go on from (``d``, ``it`` and the four
+    traces ``test_mse``, ``iter``, ``tol``, ``score_overfit``, as the
+    checkpoint holds them): the loop resumes at iteration ``it`` from the
+    last traced tol, with the exact-phase latch recovered from the traced
+    tols, as the JAX checkpoint path does (with ``trace_every`` = 1 that is
+    the state of the uninterrupted loop). ``on_step(it, W, H, d, traces)``
+    runs after each step that did not stop the fit; with ``fit_id`` each
+    step logs an ``iteration`` event. Returns (W, H, d, it, stopped,
+    traces, tol) with ``tol`` the last step's."""
     target = np.float32(tol_target)
     threshold = np.float32(overfit_threshold)
-    d = torch.ones(W.shape[1], dtype=W.dtype, device=W.device)
-    tolv = np.float32(1.0)
-    min_err = np.float32(np.inf)
+    st = start or {}
+    d = st.get("d")
+    if d is None:
+        d = torch.ones(W.shape[1], dtype=W.dtype, device=W.device)
+    traces = {key: list(st.get(key, ())) for key in
+              ("test_mse", "iter", "tol", "score_overfit")}
+    traces["iter"] = [int(i) for i in traces["iter"]]
+    it = int(st.get("it", 0))
+    tolv = np.float32(traces["tol"][-1]) if traces["tol"] else np.float32(1.0)
+    min_err = np.float32(min(traces["test_mse"], default=np.inf))
     exact = stopped = False
-    it = 0
-    tols: List[float] = []
-    tmse: List[float] = []
-    t_iters: List[int] = []
-    scores: List[float] = []
+    for t in traces["tol"]:
+        _, exact = sweep_cap_update(exact, t, target, masked=True,
+                                    settings=settings)
+    logger = get_metric_logger()
     while not stopped and it < maxit and tolv > target:
+        t0 = time.perf_counter()
         cap, exact = sweep_cap_update(exact, tolv, target, masked=True,
                                       settings=settings)
         W, H, d, t = step(W, H, cap)
@@ -79,37 +105,46 @@ def _ard_loop(step, mse, W, H, tol_target, overfit_threshold, maxit: int,
         else:
             tv = t.item()
         tolv = np.float32(tv)
-        tols.append(float(tolv))
+        event = dict(iter=it + 1, tol=float(tolv))
         if traced:
             err = np.float32(ev)
             min_err = min(min_err, err)
             score = _score(err, min_err)
-            tmse.append(float(err))
-            t_iters.append(it)
-            scores.append(float(score))
+            for key, v in (("test_mse", float(err)), ("iter", it),
+                           ("tol", float(tolv)),
+                           ("score_overfit", float(score))):
+                traces[key].append(v)
+            event.update(test_mse=float(err), overfit_score=float(score))
             stopped = bool(score > threshold)
             vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} | {score:8.2e}")
         else:
             vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} |        -")
+        if fit_id is not None:
+            logger.log("iteration", fit=fit_id,
+                       ms=round((time.perf_counter() - t0) * 1e3, 3), **event)
         if not stopped:
             it += 1
-    return W, H, d, it, stopped, tmse, t_iters, scores, tols
+            if on_step is not None:
+                on_step(it, W, H, d, traces)
+    return W, H, d, it, stopped, traces, float(tolv)
 
 
 def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
             tol, overfit_threshold, maxit: int, trace_test_mse: int,
-            settings: SweepSettings, verbose: int = 0) -> ArdFitResult:
-    """:func:`_ard_loop`, then the tail trace (a test MSE after the last
-    step when the schedule did not trace it), as an ``ArdFitResult`` of the
-    true rows, columns and factors. Shared by the dense masked fit and the
-    blocked-ELL engine."""
-    W, H, d, it, stopped, test_mse_t, iter_t, score_t, tols = _ard_loop(
+            settings: SweepSettings, verbose: int = 0,
+            start: Optional[dict] = None, on_step=None,
+            fit_id: Optional[str] = None) -> ArdFitResult:
+    """:func:`_ard_loop` (``start``, ``on_step`` and ``fit_id`` passed on),
+    then the tail trace (a test MSE after the last step when the schedule
+    did not trace it), as an ``ArdFitResult`` of the true rows, columns
+    and factors; with ``fit_id``, a ``fit_end`` event. Shared by the dense
+    masked fit and the blocked-ELL engine."""
+    W, H, d, it, stopped, tr, tol_ = _ard_loop(
         step, mse, W, H, tol, overfit_threshold, int(maxit),
-        int(trace_test_mse), settings, verbose=verbose)
-    tol_t = [tols[i] for i in iter_t]
-    # a stopped step wrote tols[it] (it was not incremented)
-    last_idx = it if stopped else it - 1
-    tol_ = tols[last_idx] if last_idx >= 0 else 1.0
+        int(trace_test_mse), settings, verbose=verbose, start=start,
+        on_step=on_step, fit_id=fit_id)
+    test_mse_t, iter_t, tol_t, score_t = (
+        tr["test_mse"], tr["iter"], tr["tol"], tr["score_overfit"])
 
     if (it % trace_test_mse != 0 and not stopped
             and (not iter_t or iter_t[-1] != it)):
@@ -120,6 +155,11 @@ def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
         min_err = min(test_mse_t)
         score_t.append((err - min_err) / (err + min_err))
 
+    if fit_id is not None:
+        get_metric_logger().log(
+            "fit_end", fit=fit_id, n_iter=it,
+            test_mse=test_mse_t[-1] if test_mse_t else None,
+            stopped_early=stopped)
     return ArdFitResult(
         w=W[:rows_true, :k].cpu().numpy(),
         d=d[:k].cpu().numpy(),
@@ -161,12 +201,16 @@ def ard_nmf_fit(
     pads the factor count so that the rank searches share compiled XLA
     programs, and the padded fit equals the unpadded one up to
     reassociation (tests/test_drivers.py::test_rank_bucketing_is_exact).
-    Eager PyTorch compiles nothing per rank. ``checkpoint`` is not ported
-    yet and raises.
+    Eager PyTorch compiles nothing per rank.
+
+    ``checkpoint`` (a directory path or ``CheckpointManager``) saves W, H,
+    d, ``it`` and the four traces every ``every`` iterations under the JAX
+    package's ``algo="ard"`` fingerprint, with ``k_pad`` written as ``k``
+    because ``k_bucket`` is inert here; a re-run resumes from the newest
+    checkpoint of that fingerprint, with the latch and the loop's tol
+    recovered from the traced tols as JAX recovers them (bit for bit the
+    uninterrupted fit when every iteration is traced).
     """
-    if checkpoint is not None:
-        raise NotImplementedError("checkpoint= is not ported to "
-                                  "singlet_tpu_torch yet")
     Ap, Atp, dev = fit_providers(A, At, device)
     genes_pad, cells_pad = Ap.rows_pad, Ap.cols_pad
     sp = seed_pair(mask_seed)
@@ -176,6 +220,21 @@ def ard_nmf_fit(
         W = _padded(w_init, genes_pad, k, dev)
     H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
 
+    mgr = resolve_manager(checkpoint)
+    ckpt_config = CheckpointManager.config_of(
+        algo="ard", k=int(k), k_pad=int(k), genes_pad=int(genes_pad),
+        cells_pad=int(cells_pad), L1=L1, L2=L2, mask_seed=int(mask_seed),
+        inv_density=int(inv_density), trace=int(trace_test_mse))
+    start = restore_fit_state(mgr, ckpt_config, dev, verbose)
+    if start is not None:
+        W, H = start["W"], start["H"]
+
+    logger = get_metric_logger()
+    fit_id = logger.new_fit_id("ard")
+    logger.log("fit_start", fit=fit_id, algo="ard_masked", k=int(k),
+               genes=int(Ap.rows_true), cells=int(Ap.cols_true),
+               inv_density=int(inv_density), maxit=maxit,
+               resumed_at=(start or {}).get("it") or None)
     settings = SweepSettings.from_env()
     cell_block, gene_block = Ap.block, Atp.block
 
@@ -189,4 +248,5 @@ def ard_nmf_fit(
 
     return run_ard(step, mse, W, H, k, Ap.rows_true, Ap.cols_true, tol,
                    overfit_threshold, maxit, trace_test_mse, settings,
-                   verbose=verbose)
+                   verbose=verbose, start=start,
+                   on_step=checkpoint_saver(mgr, ckpt_config), fit_id=fit_id)

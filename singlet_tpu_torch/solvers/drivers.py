@@ -24,6 +24,7 @@ import numpy as np
 import pandas as pd
 import scipy.sparse as sp
 
+from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device, vprint
 from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
@@ -329,14 +330,18 @@ def ard_nmf(
     ``max_fits`` is a safety valve (no reference counterpart) against
     pathological search oscillation. ``config`` (an NMFConfig) supplies the
     hyperparameters, taking precedence over per-argument defaults. ``A``
-    and ``device`` are taken as ``run_nmf`` takes them; ``mesh`` and
-    ``checkpoint`` (the search-state checkpoint) are not ported yet and
-    raise.
+    and ``device`` are taken as ``run_nmf`` takes them; ``mesh`` is not
+    ported yet and raises.
+
+    ``checkpoint`` (a ``CheckpointManager`` or directory path) saves the
+    SEARCH state after every completed rank fit: the CV rows and the
+    adaptive walk's position (replicate, rank, step size, shrunken k_max),
+    under the JAX package's ``kind="ard_search"`` fingerprint, which leaves
+    ``max_fits`` out. A killed or valve-stopped search re-run with the same
+    arguments skips every completed fit and goes on bit for bit: the w
+    inits are deterministic in ``seed`` and the test mask is a stateless
+    hash of the mask seed, so the state holds no arrays.
     """
-    if checkpoint is not None:
-        raise NotImplementedError("checkpoint= (the ard_nmf search-state "
-                                  "checkpoint) is not ported to "
-                                  "singlet_tpu_torch yet")
     if config is not None:
         k_init, k_max, k_min = config.k_init, config.k_max, config.k_min
         n_replicates, tol, maxit = config.reps, config.tol, config.maxit
@@ -367,14 +372,51 @@ def ard_nmf(
         for rep in range(1, n_replicates + 1)
     ]
 
+    # the search state, saved after every completed fit
+    ckpt = resolve_manager(checkpoint, default_every=1)
+    ckpt_cfg = CheckpointManager.config_of(
+        kind="ard_search", genes=int(genes_true),
+        k_init=int(k_init), k_max=int(k_max), k_min=int(k_min),
+        n_replicates=int(n_replicates), tol=float(tol), cv_tol=float(cv_tol),
+        maxit=int(maxit), L1=float(L1), L2=float(L2),
+        inv_density=int(inv_density), learning_rate=float(learning_rate),
+        tol_overfit=float(tol_overfit), trace_test_mse=int(trace_test_mse),
+        seed=int(seed)) if ckpt else None
+    # (max_fits is not fingerprinted: a valve-stopped search resumes with
+    # a larger max_fits)
+
     rows = []
     n_fits = 0
-    for curr_rep in range(1, n_replicates + 1):
+    start_rep, resume_inner = 1, None
+    if ckpt is not None:
+        st = ckpt.restore(ckpt_cfg, verbose=verbose >= 1)
+        if st is not None:
+            rows = list(st["rows"])
+            n_fits = int(st["n_fits"])
+            start_rep = int(st["curr_rep"])
+            if st.get("in_rep"):
+                resume_inner = (float(st["step_size"]),
+                                int(st["curr_rank"]), int(st["this_k_max"]))
+
+    def _save_search(curr_rep, in_rep, step_size=1.0, curr_rank=0,
+                     this_k_max=0):
+        if ckpt is None:
+            return
+        ckpt.save(n_fits, dict(
+            ckpt_cfg, rows=rows, n_fits=int(n_fits), curr_rep=int(curr_rep),
+            in_rep=bool(in_rep), step_size=float(step_size),
+            curr_rank=int(curr_rank), this_k_max=int(this_k_max)))
+
+    for curr_rep in range(start_rep, n_replicates + 1):
         if verbose >= 1 and n_replicates > 1:
             print(f"\nREPLICATE {curr_rep}/{n_replicates}")
-        step_size = 1.0
-        curr_rank = int(k_init)
-        this_k_max = k_max
+        if resume_inner is not None:
+            step_size, curr_rank, this_k_max = resume_inner
+            resume_inner = None
+        else:
+            step_size = 1.0
+            curr_rank = int(k_init)
+            this_k_max = k_max
         while (step_size >= 1 and curr_rank <= this_k_max
                and curr_rank >= k_min and n_fits < max_fits):
             vprint(verbose, 1, f"k = {curr_rank} , rep = {curr_rep}")
@@ -412,6 +454,8 @@ def ard_nmf(
                 # get_best_rank; step outward from it
                 curr_rank = best_rank + int(step_size)
                 step_size *= (1 + learning_rate)
+                _save_search(curr_rep, True, step_size, curr_rank,
+                             this_k_max)
                 continue
             rank_ind = kvals.index(best_rank)
             if rank_ind == len(kvals) - 1:
@@ -434,6 +478,13 @@ def ard_nmf(
                     curr_rank = best_rank - diff_lower // 2
                 else:
                     curr_rank = best_rank + diff_higher // 2
+            _save_search(curr_rep, True, step_size, curr_rank, this_k_max)
+        # the replicate is finished, unless the max_fits valve stopped it
+        # mid-search: then the in-replicate state saved above survives, so
+        # that a resume with a larger max_fits goes on with the walk
+        if not (step_size >= 1 and curr_rank <= this_k_max
+                and curr_rank >= k_min and n_fits >= max_fits):
+            _save_search(curr_rep + 1, False)
 
     df = pd.DataFrame(rows)
     df.attrs["class"] = "cross_validate_nmf_data"

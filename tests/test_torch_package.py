@@ -1,7 +1,8 @@
 """The port's package contract, on the CPU: it never imports jax, never runs
 on the CPU unasked, imports its kernel modules without nvcc, dispatches CPU
 tensors to the plain version only, routes large scipy input to the
-blocked-ELL engine, and refuses what it has not ported."""
+blocked-ELL engine, and refuses what it has not ported; ``checkpoint=`` of
+the fits and of the ``ard_nmf`` search saves."""
 
 import os
 import subprocess
@@ -122,7 +123,7 @@ _ENTRY_POINTS = {
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 @pytest.mark.parametrize("what", ["mesh", "list", "dir", "checkpoint"])
-def test_unported_routes_raise(rng, what, entry):
+def test_unported_routes_raise(rng, what, entry, tmp_path):
     A = rng.random((30, 20)).astype(np.float32)
     kw = {}
     item = "A.7b"
@@ -135,15 +136,18 @@ def test_unported_routes_raise(rng, what, entry):
         A = "staged_chunks/"
     fit = _ENTRY_POINTS[entry]
     if what == "checkpoint":
-        # run_nmf has no checkpoint=; its engine nmf_fit (and the masked
-        # fit ard_nmf_fit) do
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            if entry == "run_nmf":
-                stt.nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
-            elif entry == "ard_nmf":
-                fit(A, checkpoint="ckpt/", device="cpu")
-            else:
-                stt.ard_nmf_fit(A, 3, checkpoint="ckpt/", device="cpu")
+        # ported: run_nmf has no checkpoint=; its engine nmf_fit (and the
+        # masked fit ard_nmf_fit) do, and ard_nmf saves its search state
+        ck = str(tmp_path / "ckpt")
+        kw = dict(checkpoint=stt.CheckpointManager(ck, every=1), tol=0.0,
+                  maxit=3, device="cpu")
+        if entry == "run_nmf":
+            stt.nmf_fit(A, 3, **kw)
+        elif entry == "ard_nmf":
+            fit(A, checkpoint=ck, device="cpu")
+        else:
+            stt.ard_nmf_fit(A, 3, **kw)
+        assert os.listdir(ck)
     else:
         with pytest.raises(NotImplementedError,
                            match=f"blocked-ELL.*ROADMAP {item}"):

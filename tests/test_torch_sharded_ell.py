@@ -14,6 +14,8 @@ and rtol=5e-3 on test MSE, those of tests/test_als.py and
 tests/test_drivers.py, with equal ``iter`` lists.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -301,7 +303,9 @@ def test_ell_fit_matches_dense_fit(rng, masked):
         np.testing.assert_allclose(got[f], want[f], **FIT, err_msg=f)
 
 
-def test_engine_refusals(rng):
+def test_engine_refusals(rng, tmp_path):
+    """The engine refuses malformed links and ``chunk_iters``;
+    ``checkpoint=`` of ``fit`` and ``ard_fit`` saves."""
     A = _sparse()
     te = tell.ShardedEllEngine(A, device="cpu", cell_block=256,
                                gene_block=32)
@@ -310,11 +314,13 @@ def test_engine_refusals(rng):
     with pytest.raises(ValueError, match="link_w"):
         te.fit(3, link_w=np.ones((5, 3)))
     with pytest.raises(NotImplementedError, match="A.4a"):
-        te.fit(3, checkpoint="ckpt/")
-    with pytest.raises(NotImplementedError, match="A.4a"):
         te.fit(3, chunk_iters=2)
-    with pytest.raises(NotImplementedError, match="A.4a"):
-        te.ard_fit(3, checkpoint="ckpt/")
+    for method in ("fit", "ard_fit"):
+        ck = tmp_path / method
+        getattr(te, method)(3, tol=0.0, maxit=2,
+                            checkpoint=stt.CheckpointManager(str(ck),
+                                                             every=1))
+        assert os.listdir(ck)
     assert not hasattr(te, "gcnmf_fit") and not hasattr(te, "batch_fit")
     out = tell.sharded_ell_nmf_fit(A, 3, device="cpu", tol=0.0, maxit=2)
     assert out["w"].shape == (A.shape[0], 3) and len(out["tol_trace"]) == 2

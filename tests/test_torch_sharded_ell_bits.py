@@ -143,8 +143,9 @@ def test_bits_route_close_to_f32_route(rng, monkeypatch):
 
 def test_route_selection(monkeypatch):
     """The f32 route on the CPU, under MASKGRAM=xla and under a mask
-    precision other than the default; the bits route otherwise on a kernel
-    device; the routes whose kernels are not ported raise."""
+    precision other than the default; the bits route or the hash route
+    otherwise on a kernel device, as MASKGRAM says; the prebuilt int8 mask
+    (MASK8), whose kernels are not ported, raises on the bits route."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tell._masked_route(cpu, "int8", "default", False) == "xla"
     assert tell._masked_route(cpu, "hash", "default", True) == "xla"
@@ -153,8 +154,9 @@ def test_route_selection(monkeypatch):
     assert tell._masked_route(cuda, "xla", "default", True) == "xla"
     assert tell._masked_route(cuda, "int8", "highest", False) == "xla"
     assert tell._masked_route(cuda, "int8", "high", False) == "xla"
-    with pytest.raises(NotImplementedError, match="B10/B11"):
-        tell._masked_route(cuda, "hash", "default", False)
+    assert tell._masked_route(cuda, "hash", "default", False) == "hash"
+    assert tell._masked_route(cuda, "hash", "default", True) == "hash"
+    assert tell._masked_route(cuda, "hash", "highest", False) == "xla"
     with pytest.raises(NotImplementedError, match="B12-B14"):
         tell._masked_route(cuda, "int8", "default", True)
     monkeypatch.setenv("SINGLET_TPU_MASK_MM_PRECISION", "exact")
@@ -166,30 +168,47 @@ def test_route_selection(monkeypatch):
 @pytest.mark.parametrize("env", [("SINGLET_TPU_MASKGRAM", "hash"),
                                  ("SINGLET_TPU_MASK8", "1")])
 def test_unported_routes_raise(rng, monkeypatch, env):
+    """MASK8 (kernels B12-B14, not ported) raises; MASKGRAM=hash runs the
+    hash route's B10/B11 (their plain versions here)."""
     monkeypatch.setattr(tell, "_kernel_device", lambda device: True)
     monkeypatch.setenv(*env)
     A = sp.random(64, 300, density=0.2, random_state=1, format="csc",
                   dtype=np.float32)
     te = tell.ShardedEllEngine(A, device="cpu", cell_block=256,
                                gene_block=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        te.ard_fit(3, maxit=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
-        te.fit(3, maxit=2, masked=True)
+    if env[0] == "SINGLET_TPU_MASK8":
+        with pytest.raises(NotImplementedError, match="ROADMAP B"):
+            te.ard_fit(3, maxit=2)
+        with pytest.raises(NotImplementedError, match="ROADMAP B"):
+            te.fit(3, maxit=2, masked=True)
+    else:
+        # 2 cell blocks of 256: per step a B10 and a B11 per block
+        m0 = maskgram.PLAIN_CALLS
+        r = te.ard_fit(3, maxit=2, tol=0.0, overfit_threshold=1.0)
+        assert r.iter == [0, 1] and np.isfinite(r.test_mse).all()
+        f = te.fit(3, maxit=2, tol=0.0, masked=True)
+        assert len(f["tol_trace"]) == 2 and np.isfinite(f["test_mse"])
+        assert maskgram.PLAIN_CALLS == m0 + 2 * (2 * 2 * 2)
     # the plain fit takes no masked route
     assert len(te.fit(3, maxit=2, tol=0.0)["tol_trace"]) == 2
 
 
 def test_masked_step_without_bits_raises(rng, monkeypatch):
     """A bits-route step given no packed mask is the JAX engine's hash
-    route (B10/B11), which is not ported."""
+    route (B10/B11): it runs, and gives what MASKGRAM=hash gives."""
     monkeypatch.setattr(tell, "_kernel_device", lambda device: True)
     A = sp.random(64, 300, density=0.2, random_state=1, format="csc",
                   dtype=np.float32)
     data = tell.shard_ell_data(A, "cpu", 256, 32)
-    fns = tell._build_local_fns(data, 8)
     W = torch.as_tensor(rng.random((data.genes_pad, 3)).astype(np.float32))
     H = torch.zeros((data.cells_pad, 3))
     from singlet_tpu_torch.ops.rngmask import seed_pair
-    with pytest.raises(NotImplementedError, match="B10/B11"):
-        fns["masked"](W, H, seed_pair(1), 0.0, 0.0, 0.0, 0.0, 3)
+    m0 = maskgram.PLAIN_CALLS
+    got = tell._build_local_fns(data, 8)["masked"](
+        W, H, seed_pair(1), 0.0, 0.0, 0.0, 0.0, 3)
+    assert maskgram.PLAIN_CALLS == m0 + 2 * 2      # B10 + B11 per block
+    monkeypatch.setenv("SINGLET_TPU_MASKGRAM", "hash")
+    want = tell._build_local_fns(data, 8)["masked"](
+        W, H, seed_pair(1), 0.0, 0.0, 0.0, 0.0, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
