@@ -38,21 +38,30 @@ Phases; any failure raises and the script exits non-zero:
    bench operand given as scipy (k=50) and on a slice of 4 cell blocks of
    the large operand (k=100): max abs error within 1e-5 x max |output|,
    the same bits on a second run, an exact 0/1 case; then kernels B5-B9
-   (``ops/bell_cuda.py``, ``ops/maskgram_cuda.py``) on the same planes
-   with their packed test mask: B5 and B6 the same bits as masked B3 and
-   B4, B7's sums within rtol 2e-4 and its counts equal, B8 (one block) and
-   B9 (4 quantization groups) on int8 the same bits as their plain
-   versions and on bf16 within 1e-5 x max |output|; and once more on an
-   edge geometry (40 gene blocks, 3 groups of 1000 cells). Times of
-   kernel, plain version and library call (torch.sparse.mm on a CSR copy
-   for B3-B6, torch._int_mm on the unpacked int8 mask for B8/B9), and
-   each kernel's bound;
+   and B12-B14 (``ops/bell_cuda.py``, ``ops/maskgram_cuda.py``) on the
+   same planes with their packed test mask: B5 and B6 the same bits as
+   masked B3 and B4, B7's sums within rtol 2e-4 and its counts equal, B12
+   the same bytes as its plain version, B8 and B13 (one block) and B9 and
+   B14 (4 quantization groups) on int8 the same bits as their plain
+   versions (and B13/B14 as B8/B9) and on bf16 within 1e-5 x max |output|;
+   and once more on an edge geometry (40 gene blocks, 3 groups of 1000
+   cells). Times of kernel, plain version and library call
+   (torch.sparse.mm on a CSR copy for B3-B6, torch._int_mm on the
+   unpacked int8 mask for B8/B9 and B13/B14), and each kernel's bound;
 10. the ELL engine against the dense providers on the bench operand from
    one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` on the
    f32 route (equal ``iter`` lists), within the fit tolerance; then the
    engine's default masked route on the card, the bits route (int8 and
    bf16), against its f32 route: the same traced iterations, test-MSE
-   traces within rtol 1e-3, and the launches of B2 and B5-B9 alone;
+   traces within rtol 1e-3, and the launches of B2 and B5-B9 alone; and
+   each once more under ``SINGLET_TPU_MASK8=1`` (the prebuilt int8 mask:
+   B12-B14 in place of B8/B9), int8 bit for bit the bits route's fit,
+   bf16 its test-MSE trace within 1e-5 relative;
+10b. ranks above 224: B1, B2, B3, B5 and B7 at k=256 and 300 against
+   their plain versions (the bench planes for B3-B7); ``run_nmf`` at k=256
+   on a 4096 x 2048 operand, and the ELL engine's plain fit and masked
+   ``ard_fit`` at k=256 on a small operand, on the card against the CPU
+   (B3 and B5 launch once per 224-column chunk of W, so twice a call);
 11. the large operand of benchmarks/largescale.py generated on the card
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
@@ -62,7 +71,13 @@ Phases; any failure raises and the script exits non-zero:
    profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
    B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
-   and one test MSE timed and under the profiler;
+   and one test MSE timed and under the profiler; then the step under
+   ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed in
+   turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
+   the peak memory of each, B12 on one group's words the same bytes as its
+   plain version, B14 on one group (16 quantization blocks of 2048 cells,
+   int8) the same bits as its plain version, each also timed, and one
+   MASK8 step under the profiler;
 12. the user's entry points on the ELL route: the planted rank-10
    operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
    ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
@@ -84,7 +99,9 @@ Phases; any failure raises and the script exits non-zero:
    10, resumed to 20; also equal to the uncheckpointed fit); after phase
    10, the ELL engine's checkpointed ``ard_fit`` on the bench operand on
    the card's default mode, which takes the hash route (stopped at 2,
-   resumed to 5), its test-MSE trace within rtol 1e-3 of the bits route's;
+   resumed to 5), its test-MSE trace within rtol 1e-3 of the bits route's,
+   and under ``SINGLET_TPU_MASK8=1`` a checkpointed fit that still takes
+   the hash route, bit for bit the one without;
    after phase 8, ``ard_nmf``'s search-state checkpoint (stopped by
    ``max_fits=3``, resumed: the same rank, cv_data and model); at the end
    of phase 11, the checkpointed masked ``ard_fit`` at 524,288 x 16,384,
@@ -144,7 +161,7 @@ MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
-           "bell_mse_bits")
+           "bell_mse_bits", "maskgram_m8")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -162,6 +179,12 @@ LARGE = dict(genes=16384, cells=524288, nnz=824, k=100, maxit=10,
 # the large operand's slice for the kernel checks: 4 cell blocks of 2048
 # at full gene width, at a cell offset inside the operand
 LARGE_SLICE = (262144, 4 * 2048)
+# ranks above 224: the kernels' ranks, run_nmf's operand, and a small
+# operand for the ELL engine (three cell blocks, three gene blocks)
+WIDE_K = (256, 300)
+WIDE_RUN_NMF = dict(genes=4096, cells=2048, k=256, maxit=3)
+WIDE_ELL = dict(genes=768, cells=768, k=256, maxit=2, cell_block=256,
+                gene_block=256)
 
 
 _M32 = 0xFFFFFFFF
@@ -243,7 +266,8 @@ def _median_ms(torch, fn, runs: int) -> float:
 
 
 COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
-          "B11", "plain", "plain_bell", "plain_maskgram")
+          "B11", "B12", "B13", "B14", "plain", "plain_bell", "plain_maskgram",
+          "plain_maskbits")
 
 
 def _launches(**nonzero):
@@ -255,8 +279,8 @@ def _launches(**nonzero):
 def _counted(torch, fn):
     """Run ``fn`` with every launch counter set to 0 just before it; return
     (its result, wall seconds, the counts of COUNTS read just after: kernel
-    launches of B1-B11 and calls of the plain versions)."""
-    from singlet_tpu_torch.ops import (bell, bell_cuda, maskgram,
+    launches of B1-B14 and calls of the plain versions)."""
+    from singlet_tpu_torch.ops import (bell, bell_cuda, maskbits, maskgram,
                                        maskgram_cuda, nnls, nnls_cuda)
 
     counters = ((nnls_cuda, "LAUNCHES"), (nnls_cuda, "LAUNCHES_BATCHED"),
@@ -268,8 +292,11 @@ def _counted(torch, fn):
                 (maskgram_cuda, "LAUNCHES_MPH_BITS"),
                 (maskgram_cuda, "LAUNCHES_MPW_HASH"),
                 (maskgram_cuda, "LAUNCHES_MPH_HASH"),
+                (maskgram_cuda, "LAUNCHES_UNPACK8"),
+                (maskgram_cuda, "LAUNCHES_MPW_M8"),
+                (maskgram_cuda, "LAUNCHES_MPH_M8"),
                 (nnls, "PLAIN_CALLS"), (bell, "PLAIN_CALLS"),
-                (maskgram, "PLAIN_CALLS"))
+                (maskgram, "PLAIN_CALLS"), (maskbits, "PLAIN_CALLS"))
     for mod, attr in counters:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -816,17 +843,19 @@ def _int_mm_library(torch, m_i8, P_i8):
 
 def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                        cell_offset, block=2048, timed=True):
-    """Kernels B5-B9 against their plain versions on the card, on planes
-    ``li``/``lv`` (a column slice at ``cell_offset`` of an operand's planes)
-    and the packed test mask of those cells: B5 and B6 against masked B3
-    and B4 (the same bits) and their plain versions; B7 (its sums within
-    rtol 2e-4, atol 1e-5, its counts equal); B8 on the first ``block``
-    cells and B9 over all of them in groups of ``block`` (each group its
-    own quantization, as the engine batches them), on int8 (the same bits
-    as the plain versions) and bf16 (within 1e-5 x max |out|). With
+    """Kernels B5-B9 and B12-B14 against their plain versions on the card,
+    on planes ``li``/``lv`` (a column slice at ``cell_offset`` of an
+    operand's planes) and the packed test mask of those cells: B5 and B6
+    against masked B3 and B4 (the same bits) and their plain versions; B7
+    (its sums within rtol 2e-4, atol 1e-5, its counts equal); B12 (the same
+    bytes); B8 and B13 on the first ``block`` cells and B9 and B14 over all
+    of them in groups of ``block`` (each group its own quantization, as the
+    engine batches them), on int8 (the same bits as the plain versions, and
+    B13/B14 those of B8/B9) and bf16 (within 1e-5 x max |out|). With
     ``timed``, the times of kernel, plain version and library call, and
     each kernel's bound."""
-    from singlet_tpu_torch.ops import bell, bell_cuda, maskgram, maskgram_cuda
+    from singlet_tpu_torch.ops import (bell, bell_cuda, maskbits, maskgram,
+                                       maskgram_cuda)
     from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
     from singlet_tpu_torch.ops.maskbits import unpack_all
     from singlet_tpu_torch.ops.rngmask import seed_pair
@@ -925,11 +954,30 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     record("B7", float((got[0] - want[0]).abs().max()),
            float(want[0].abs().max()), held_out=held, **t)
 
-    # B8 on one block, B9 over the groups of blocks
+    # B12: the words of all the cells unpacked into the dense int8 mask, the
+    # plain version's bytes; one PyTorch call does not compute it
+    def b12(f, out=None):
+        return f(words, gene_block=G, genes_pad=genes, out=out)
+
+    m8 = b12(maskgram_cuda.unpack_mask_bits_cuda)
+    if not torch.equal(m8, b12(maskbits.unpack_mask_bits_plain)):
+        raise AssertionError(f"B12 {label}: differs from the plain version")
+    m8_buf = torch.empty_like(m8)
+    t = timing(lambda: b12(maskgram_cuda.unpack_mask_bits_cuda, m8_buf),
+               lambda: b12(maskbits.unpack_mask_bits_plain, m8_buf))
+    if timed:
+        t.update(library_ms=None, bound=_bound(word_bytes + m8.numel(), 0,
+                                               INT8_OPS_S))
+    record("B12", 0.0, 1.0, **t)
+    del m8_buf
+
+    # B8 and B13 on one block, B9 and B14 over the groups of blocks
     iu = triu_pairs(k)
     npairs = iu[0].shape[0]
     b = min(block, cells)
     w_blk = words[:b]
+    m8_blk = m8[:b]
+    nnz_blk, nnz_all = int(m8_blk.sum()), int(m8.sum())
     Pw = packed_outer_products(W, iu)
     groups = [H[c0:c0 + b] for c0 in range(0, cells, b)]
     acc0 = torch.rand((npairs, genes), generator=gen, device="cuda")
@@ -985,13 +1033,60 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                 if dtype == "int8":
                     # the same int32 sums by torch._int_mm on the unpacked
                     # mask (unpacking and dequantizing outside the timing)
-                    m8 = m.to(torch.int8)
-                    library_ms = (_int_mm_library(torch, m8, Pw_op)
+                    m_i8 = m.to(torch.int8)
+                    library_ms = (_int_mm_library(torch, m_i8, Pw_op)
                                   if name == "B8" else _int_mm_library(
-                                      torch, Ph_op.T.contiguous(), m8))
+                                      torch, Ph_op.T.contiguous(), m_i8))
                 t.update(library_ms=library_ms,
                          bound=_bound(bytes_, 2 * nnz * npairs, peak))
             record(name, err, scale, dtype=dtype, **t)
+
+        # B13 and B14 read the unpacked mask: close to their plain versions
+        # and to B8 and B9 on the words (int8: the same bits as both)
+        def b13(f, acc=None):
+            return f(Pw_op, Pw_s, m8_blk, gene_block=G)
+
+        def b14(f, acc=None):
+            return f(Ph_op, Ph_s, m8, acc0.clone() if acc is None else acc,
+                     gene_block=G, scale_block=b)
+
+        for name, call, kern, plain, twin, nnz, bytes_ in (
+                ("B13", b13, maskgram_cuda.mask_packed_w_t_m8_cuda,
+                 maskgram.mask_packed_w_t_m8_plain,
+                 lambda: b8(maskgram_cuda.mask_packed_w_t_bits_cuda),
+                 nnz_blk, genes * npairs * esz + npairs * 4 + m8_blk.numel()
+                 + npairs * b * 4),
+                ("B14", b14, maskgram_cuda.mask_packed_h_t_m8_cuda,
+                 maskgram.mask_packed_h_t_m8_plain,
+                 lambda: b9(maskgram_cuda.mask_packed_h_t_bits_cuda),
+                 nnz_all, cells * npairs * esz + Ph_s.numel() * 4
+                 + m8.numel() + 2 * npairs * genes * 4)):
+            got, want, bits_out = call(kern), call(plain), twin()
+            err, scale = float((got - want).abs().max()), \
+                float(want.abs().max())
+            twin_err = float((got - bits_out).abs().max())
+            if dtype == "int8" and not (torch.equal(got, want)
+                                        and torch.equal(got, bits_out)):
+                raise AssertionError(
+                    f"{name} {label} int8: max abs err {err}, against "
+                    f"{'B8' if name == 'B13' else 'B9'} {twin_err}; want the "
+                    "same bits as both")
+            if not max(err, twin_err) <= 1e-5 * scale:
+                raise AssertionError(f"{name} {label} {dtype}: max abs err "
+                                     f"{err}, against the bits route "
+                                     f"{twin_err} > 1e-5 x {scale}")
+            buf = acc0.clone()
+            t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
+                       runs=10, plain_runs=2)
+            if timed:
+                library_ms = None
+                if dtype == "int8":
+                    library_ms = (_int_mm_library(torch, m8_blk, Pw_op)
+                                  if name == "B13" else _int_mm_library(
+                                      torch, Ph_op.T.contiguous(), m8))
+                t.update(library_ms=library_ms,
+                         bound=_bound(bytes_, 2 * nnz * npairs, peak))
+            record(name, err, scale, dtype=dtype, err_vs_bits=twin_err, **t)
     return rows
 
 
@@ -1205,20 +1300,29 @@ def phase_resume_ell_bench(torch, card, eng, W0, bits_int8, ckdir):
                          B4=steps * blocks, B10=steps * blocks,
                          B11=steps * blocks)
 
+    fields = ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit")
     full_mgr = _timed_manager(os.path.join(ckdir, "ell_bench_full"), 1)
     full, full_s, n_full = _counted(torch, lambda: eng.ard_fit(
         k, maxit=5, checkpoint=full_mgr, **fit_kw))
     cut = _timed_manager(os.path.join(ckdir, "ell_bench_cut"), 1)
-    _, _, n_first = _counted(torch, lambda: eng.ard_fit(
+    first, _, n_first = _counted(torch, lambda: eng.ard_fit(
         k, maxit=2, checkpoint=cut, **fit_kw))
     res, res_s, n_res = _counted(torch, lambda: eng.ard_fit(
         k, maxit=5, checkpoint=cut, **fit_kw))
-    if (n_full, n_first, n_res) != (want(5), want(2), want(3)):
+    # SINGLET_TPU_MASK8=1 is read on the bits route alone: the checkpointed
+    # fit still takes the hash route, and gives the same bits
+    with _env(SINGLET_TPU_MASK8="1"):
+        m8, _, n_m8 = _counted(torch, lambda: eng.ard_fit(
+            k, maxit=2, checkpoint=_timed_manager(
+                os.path.join(ckdir, "ell_bench_mask8"), 1), **fit_kw))
+    if (n_full, n_first, n_res, n_m8) != (want(5), want(2), want(3),
+                                          want(2)):
         raise AssertionError(f"ELL bench hash route launches {n_full}, "
-                             f"{n_first}, {n_res}; want 5, 2 and 3 steps "
-                             f"of {want(1)}")
-    _same("ELL bench hash route resumed vs uninterrupted", res, full,
-          ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit"))
+                             f"{n_first}, {n_res}, under MASK8 {n_m8}; want "
+                             f"5, 2, 3 and 2 steps of {want(1)}")
+    _same("ELL bench hash route resumed vs uninterrupted", res, full, fields)
+    _same("ELL bench checkpointed fit under MASK8=1 vs without", m8, first,
+          fields)
     if full.iter != bits_int8["iter"]:
         raise AssertionError(f"ELL bench: the hash route traced {full.iter}, "
                              f"the bits route {bits_int8['iter']}")
@@ -1231,10 +1335,12 @@ def phase_resume_ell_bench(torch, card, eng, W0, bits_int8, ckdir):
           f"operand k={k}, 5 traced iterations: {full_s:.3f} s, stopped at 2 "
           f"and resumed to 5 bit for bit ({res_s:.3f} s for the last 3); "
           f"test mse within {rel:.2e} relative of the bits route (int8; "
-          f"rtol 1e-3), iter {full.iter}; launches {n_full} ({card})",
-          flush=True)
+          f"rtol 1e-3), iter {full.iter}; launches {n_full}; under "
+          f"SINGLET_TPU_MASK8=1 a checkpointed 2-iteration fit on the same "
+          f"route, bit for bit the one without ({card})", flush=True)
     return dict(wall_s=full_s, resumed_s=res_s, launches=n_full,
                 launches_cut=n_first, launches_resumed=n_res,
+                launches_mask8=n_m8,
                 test_mse=full.test_mse, iter=full.iter,
                 max_rel_vs_bits=rel, saves_s=full_mgr.save_s)
 
@@ -1318,7 +1424,9 @@ def phase_bits_vs_f32(torch, card, eng, W0):
     """The ELL engine's bits route (its default on the card), int8 and
     bf16, against its f32 route on the bench operand from one W0: the same
     traced iterations and test-MSE traces within rtol 1e-3; B5-B9 and B2
-    launched as the route prescribes, and nothing else."""
+    launched as the route prescribes, and nothing else. Then each mode
+    under SINGLET_TPU_MASK8=1 against the bits route: B12-B14 in place of
+    B8/B9, int8 bit for bit, bf16 test MSE within 1e-5 relative."""
     k = BENCH["k"]
     fit_kw = dict(w_init=W0, mask_seed=MASKED["mask_seed"],
                   inv_density=MASKED["inv_density"], tol=0.0, maxit=5,
@@ -1352,6 +1460,269 @@ def phase_bits_vs_f32(torch, card, eng, W0):
               f"traced iterations: {secs_b:.3f} s against {secs_f:.3f} s; "
               f"iter {r_b.iter}; test mse within {rel:.2e} relative "
               f"(rtol 1e-3); launches {n_b} ({card})", flush=True)
+
+        # the same fit under SINGLET_TPU_MASK8=1: per iteration one B12 and
+        # one B14 for the one group of 4 blocks, a B13 per block in place of
+        # B8; int8 gives the bits route's bits, bf16 its test MSE within
+        # 1e-5 relative
+        with _env(SINGLET_TPU_MASKGRAM=mode, SINGLET_TPU_MASK8="1"):
+            r_8, secs_8, n_8 = _counted(torch,
+                                        lambda: eng.ard_fit(k, **fit_kw))
+        want = _launches(B2=5 * (blocks + 1), B5=5 * blocks, B6=5 * blocks,
+                         B7=5, B12=5, B13=5 * blocks, B14=5)
+        if n_8 != want:
+            raise AssertionError(f"MASK8 route ({mode}) launches {n_8}, want "
+                                 f"{want}")
+        if r_8.iter != r_b.iter:
+            raise AssertionError(f"MASK8 route ({mode}) traced {r_8.iter}, "
+                                 f"the bits route {r_b.iter}")
+        rel8 = float(np.max(np.abs(np.subtract(r_8.test_mse, r_b.test_mse))
+                            / np.abs(r_b.test_mse)))
+        if mode == "int8":
+            _same("MASK8 route vs bits route (int8)", r_8, r_b,
+                  ("w", "h", "d", "test_mse", "iter", "tol",
+                   "score_overfit"))
+        elif not rel8 <= 1e-5:
+            raise AssertionError(f"MASK8 route (bf16): test mse {r_8.test_mse}"
+                                 f", the bits route {r_b.test_mse}")
+        out[mode].update(mask8=dict(wall_s=secs_8, test_mse=r_8.test_mse,
+                                    launches=n_8, max_rel_vs_bits=rel8))
+        print(f"ELL MASK8 route ({mode}) vs bits route, bench operand k={k}, "
+              f"5 traced iterations: {secs_8:.3f} s against {secs_b:.3f} s; "
+              f"iter {r_8.iter}; test mse "
+              f"{'bit for bit' if mode == 'int8' else f'within {rel8:.2e}'}"
+              f" ({'w, h, d too' if mode == 'int8' else 'rtol 1e-5'}); "
+              f"launches {n_8} ({card})", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _kernel_routes_on_cpu():
+    """The ELL engine's kernel routes on the CPU, through the plain versions
+    of the kernels: its backend test ``_kernel_device`` answers True for the
+    block, as tests/test_torch_maskbits_cuda.py forces it."""
+    from singlet_tpu_torch.parallel import sharded_ell
+
+    old = sharded_ell._kernel_device
+    sharded_ell._kernel_device = lambda device: True
+    try:
+        yield
+    finally:
+        sharded_ell._kernel_device = old
+
+
+def phase_wide_k(torch, card, data):
+    """Ranks above 224, on the card against the plain versions and the CPU:
+    kernels B1 (n=2048, sweep cap 8) and B2 (n=512, per-column Grams of a
+    5% mask, cap 32) at k=256 and 300, within KERNEL_RTOL/KERNEL_ATOL; B3
+    (unmasked and masked), B5 (the same bits as masked B3) and B7 on the
+    bench operand's ELL planes ``data`` and its packed test mask at the same
+    ranks, B3/B5 within BELL_TOL and B7's sums within rtol 2e-4 with equal
+    counts; then ``run_nmf`` at k=256 on a 4096 x 2048 operand, and the
+    ELL engine's plain ``fit`` and masked ``ard_fit`` (its default bits
+    route) at k=256 on a 768 x 768 operand, each on the card against the
+    CPU (the CPU's ``ard_fit`` on the same route through the plain
+    versions) within FIT_RTOL/FIT_ATOL, with equal ``iter`` lists. The
+    ELL operand has 3 genes and 3 cells per factor: at 256 x 512 a
+    cell's kept genes, fewer than k, leave its masked NNLS without a unique
+    solution, and bf16 and int8 fits parted by a factor of 2 in test MSE
+    on the CPU alone."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.ops import bell, bell_cuda, linalg, nnls
+    from singlet_tpu_torch.ops.nnls_cuda import (nnls_batch_cuda,
+                                                 nnls_batch_cuda_batched_at)
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+    from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
+
+    G, li, lv = data.gene_block, data.b_li, data.b_val
+    genes, cells = data.genes_pad, data.cells_pad
+    words = _slice_words(torch, 0, cells, genes, G,
+                         cells_true=data.cells_true,
+                         genes_true=data.genes_true)
+    seed = seed_pair(MASKED["mask_seed"])
+    inv = MASKED["inv_density"]
+    rows = []
+
+    def timed(fn):
+        """(fn's result, its device time in ms by CUDA events)"""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def record(name, k, err, scale, kern, plain_ms):
+        row = dict(kernel=name.split()[0], check=name, k=k, max_abs_err=err,
+                   max_abs_out=scale, ms=_median_ms(torch, kern, runs=5),
+                   plain_ms=plain_ms)
+        rows.append(row)
+        print(f"kernel {name} at k={k}: max|err|={err:.3e} (max|out| "
+              f"{scale:.3e}), kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms ({card})", flush=True)
+
+    def close(name, k, got, want, rel=BELL_TOL):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= rel * scale:
+            raise AssertionError(f"{name} at k={k}: max abs err {err} > "
+                                 f"{rel} x {scale}")
+        return err, scale
+
+    for k in WIDE_K:
+        # B1 against one shared Gram
+        a, B, X0, mask = _nnls_problem(torch, 2048, k, seed=k)
+        kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=8.0)
+        Xk = nnls_batch_cuda(a, B, X0, **kw)
+        Xp, plain_ms = timed(lambda: nnls.nnls_batch(a, B, X0, **kw))
+        np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                   rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        if not torch.equal(Xk[~mask], X0[~mask]):
+            raise AssertionError(f"B1 at k={k}: masked rows differ from X0")
+        record("B1", k, float((Xk - Xp).abs().max()), float(Xp.abs().max()),
+               lambda: nnls_batch_cuda(a, B, X0, **kw), plain_ms)
+
+        # B2 against per-column Grams: a_full minus the packed Gram of the
+        # 5% masked rows, as a masked half-update makes them
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        n2, m_rows = 512, 2 * k
+        F_ = torch.rand((m_rows, k), generator=gen, device="cuda")
+        iu = linalg.triu_pairs(k)
+        m = torch.rand((n2, m_rows), generator=gen, device="cuda") < 0.05
+        at = linalg.unpack_sym_from_t(
+            linalg.mask_dot_t(linalg.packed_outer_products(F_, iu), m, 1), k,
+            iu, F_.T @ F_ + 1e-15 * torch.eye(k, device="cuda"))
+        B2 = torch.where(m, 0.0, torch.rand((n2, m_rows), generator=gen,
+                                            device="cuda")) @ F_
+        X02 = (torch.rand((n2, k), generator=gen, device="cuda")
+               * (torch.rand((n2, k), generator=gen, device="cuda") < 0.5))
+        mask2 = torch.rand(n2, generator=gen, device="cuda") >= 0.05
+        kw2 = dict(L1=0.01, L2=0.001, update_mask=mask2, sweep_cap=32.0)
+        Xk = nnls_batch_cuda_batched_at(at, B2, X02, **kw2)
+        Xp, plain_ms = timed(lambda: nnls.nnls_batch(at.permute(2, 1, 0), B2,
+                                                     X02, **kw2))
+        np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                   rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        if not torch.equal(Xk[~mask2], X02[~mask2]):
+            raise AssertionError(f"B2 at k={k}: masked rows differ from X0")
+        record("B2", k, float((Xk - Xp).abs().max()), float(Xp.abs().max()),
+               lambda: nnls_batch_cuda_batched_at(at, B2, X02, **kw2),
+               plain_ms)
+        del at, m
+
+        # B3 unmasked and masked, B5, B7 on the bench planes
+        gen = torch.Generator(device="cuda").manual_seed(k + 1)
+        W = torch.rand((genes, k), generator=gen, device="cuda")
+        H = torch.rand((cells, k), generator=gen, device="cuda")
+        spmm_kw = dict(gene_block=G, inv_density=inv)
+        for name, kern, plain in (
+                ("B3", lambda: bell_cuda.bell_spmm_cuda(li, lv, W, **spmm_kw),
+                 lambda: bell.bell_spmm_plain(li, lv, W, **spmm_kw)),
+                ("B3 masked",
+                 lambda: bell_cuda.bell_spmm_cuda(li, lv, W, seed, 0,
+                                                  **spmm_kw),
+                 lambda: bell.bell_spmm_plain(li, lv, W, seed, 0, **spmm_kw)),
+                ("B5", lambda: bell_cuda.bell_spmm_bits_cuda(
+                    li, lv, W, words, gene_block=G),
+                 lambda: bell.bell_spmm_bits_plain(li, lv, W, words,
+                                                   gene_block=G))):
+            got = kern()
+            if name == "B5" and not torch.equal(got, bell_cuda.bell_spmm_cuda(
+                    li, lv, W, seed, 0, **spmm_kw)):
+                raise AssertionError(f"B5 at k={k}: differs from masked B3")
+            want, plain_ms = timed(plain)
+            record(name, k, *close(name, k, got, want), kern, plain_ms)
+
+        def b7(f):
+            return f(li, lv, words, W / k, H, gene_block=G)
+
+        got = b7(bell_cuda.bell_mse_bits_cuda)
+        want, plain_ms = timed(lambda: b7(bell.bell_mse_bits_plain))
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                                   rtol=2e-4, atol=1e-5)
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"B7 at k={k}: counts differ")
+        record("B7", k, float((got[0] - want[0]).abs().max()),
+               float(want[0].abs().max()),
+               lambda: b7(bell_cuda.bell_mse_bits_cuda), plain_ms)
+
+    # run_nmf at k=256, card against CPU, from one w_init
+    R = WIDE_RUN_NMF
+    rng = np.random.default_rng(3)
+    A = np.log1p(rng.poisson(0.3, (R["genes"], R["cells"]))).astype(
+        np.float32)
+    kw = dict(rank=R["k"], tol=0.0, maxit=R["maxit"],
+              w_init=rng.random((R["genes"], R["k"])).astype(np.float32))
+    m_gpu, secs, n = _counted(torch, lambda: stt.run_nmf(A, device="cuda",
+                                                         **kw))
+    if n != _launches(B1=2 * R["maxit"]):
+        raise AssertionError(f"run_nmf at k={R['k']}: launches {n}")
+    m_cpu = stt.run_nmf(A, device="cpu", **kw)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(m_gpu, f), getattr(m_cpu, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=f)
+    print(f"run_nmf {R['genes']}x{R['cells']} k={R['k']} maxit={R['maxit']}: "
+          f"{secs:.3f} s on the card, launches {n}; cuda vs cpu within "
+          f"rtol={FIT_RTOL} atol={FIT_ATOL} ({card})", flush=True)
+    out = dict(kernels=rows, run_nmf=dict(wall_s=secs, launches=n))
+
+    # the ELL engine at k=256: plain fit, masked ard_fit on the bits route
+    E = WIDE_ELL
+    A = sp.random(E["genes"], E["cells"], density=0.2, random_state=5,
+                  format="csc", dtype=np.float32)
+    w0 = np.random.default_rng(4).random((E["genes"], E["k"])).astype(
+        np.float32)
+    geom = dict(cell_block=E["cell_block"], gene_block=E["gene_block"])
+    gpu = ShardedEllEngine(A, device="cuda", **geom)
+    fit_kw = dict(w_init=w0, tol=0.0, maxit=E["maxit"])
+    ard_kw = dict(fit_kw, mask_seed=2, inv_density=10, trace_test_mse=1,
+                  overfit_threshold=1.0)
+    g_fit, fit_s, n_fit = _counted(torch, lambda: gpu.fit(E["k"], **fit_kw))
+    # B3 launches once per column chunk of W
+    chunks = -(-E["k"] // bell_cuda.B3_K_CHUNK)
+    if n_fit != _launches(B1=2 * E["maxit"], B3=E["maxit"] * chunks,
+                          B4=E["maxit"]):
+        raise AssertionError(f"ELL fit at k={E['k']}: launches {n_fit}")
+    with _kernel_routes_on_cpu():
+        c_fit = ShardedEllEngine(A, device="cpu", **geom).fit(E["k"],
+                                                              **fit_kw)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(g_fit[f], c_fit[f], rtol=FIT_RTOL,
+                                   atol=FIT_ATOL, err_msg=f"fit {f}")
+    out["ell_fit"] = dict(wall_s=fit_s, launches=n_fit)
+    print(f"ELL engine at k={E['k']} on a {E['genes']}x{E['cells']} operand: "
+          f"plain fit {fit_s:.3f} s, launches {n_fit}; cuda vs cpu within "
+          f"rtol={FIT_RTOL} atol={FIT_ATOL} ({card})", flush=True)
+    # the masked ard_fit on the default bits route (int8), the CPU's on the
+    # same route through the plain versions
+    g_ard, ard_s, n_ard = _counted(torch, lambda: gpu.ard_fit(E["k"],
+                                                              **ard_kw))
+    with _kernel_routes_on_cpu():
+        c_ard = ShardedEllEngine(A, device="cpu", **geom).ard_fit(E["k"],
+                                                                  **ard_kw)
+    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+            or any(n_ard[key] for key in (
+                "B1", "B3", "B4", "plain", "plain_bell", "plain_maskgram",
+                "plain_maskbits")):
+        raise AssertionError(f"ELL ard_fit at k={E['k']}: launches {n_ard}")
+    if g_ard.iter != c_ard.iter:
+        raise AssertionError(f"ELL ard_fit at k={E['k']}: iter {g_ard.iter} "
+                             f"on the card, {c_ard.iter} on the CPU")
+    np.testing.assert_allclose(g_ard.test_mse, c_ard.test_mse, rtol=FIT_RTOL)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(g_ard, f), getattr(c_ard, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL,
+                                   err_msg=f"ard_fit {f}")
+    out["ell_ard"] = dict(wall_s=ard_s, launches=n_ard,
+                          test_mse=g_ard.test_mse,
+                          test_mse_cpu=c_ard.test_mse)
+    print(f"ELL masked ard_fit at k={E['k']} on the bits route (int8): "
+          f"{ard_s:.3f} s, iter {g_ard.iter}, launches {n_ard}; test mse "
+          f"{g_ard.test_mse} on the card, {c_ard.test_mse} on the CPU; cuda "
+          f"vs cpu within rtol={FIT_RTOL} atol={FIT_ATOL} ({card})",
+          flush=True)
     return out
 
 
@@ -1537,6 +1908,8 @@ def phase_large(torch, card, ckdir):
                          f"bits route (sweep cap {settings.fast_masked})"),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
+    bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
+                                          step_s * 1e3, (W, H, seed), F)
     del bits
     resume = phase_resume_large(torch, card, eng, data, ckdir)
     return dict(
@@ -1548,6 +1921,123 @@ def phase_large(torch, card, ckdir):
                    final_tol=res["tol_trace"][-1], peak_mem_gib=peak),
         project=dict(wall_s=proj_s, launches=n_proj), profile=profile,
         masked=masked, bits=bits_fit, resume=resume)
+
+
+def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
+                      F):
+    """The bits route's masked step at full width under
+    ``SINGLET_TPU_MASK8=1`` (read when the steps are built), from the same
+    factors and packed mask: per group of ``F`` blocks one B12 into the
+    step's int8 mask buffer and one B14, per block a B13 in place of B8.
+    Timed in turns with the bits step, whose first turn (``bits_ms``) the
+    caller timed just before (bits, MASK8, MASK8, bits), each with its peak
+    device memory; one MASK8 step under the profiler. At the shapes the
+    step gives them: B12 on one group's words, the same bytes as its plain
+    version, and B14 over that group (``F`` quantization blocks of H's
+    packed products, int8), the same bits as its plain version; each timed
+    with its plain version (CUDA events)."""
+    from singlet_tpu_torch.ops import maskbits, maskgram
+    from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
+    from singlet_tpu_torch.ops.maskgram_cuda import (mask_packed_h_t_m8_cuda,
+                                                     unpack_mask_bits_cuda)
+    from singlet_tpu_torch.ops.nnls import SweepSettings
+    from singlet_tpu_torch.parallel.sharded_ell import _build_local_fns
+
+    W, H, seed = state
+    k = W.shape[1]
+    blocks = data.cells_pad // data.cell_block
+    settings = SweepSettings.from_env()
+    with _env(SINGLET_TPU_MASK8="1"):
+        fns8 = _build_local_fns(data, MASKED["inv_density"])
+
+    def step8():
+        return fns8["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
+                              sweep_cap=float(settings.fast_masked),
+                              bits=bits)
+
+    want = {step8: _launches(B2=blocks + 1, B5=blocks, B6=blocks,
+                             B12=blocks // F, B13=blocks, B14=blocks // F),
+            bits_step: _launches(B2=blocks + 1, B5=blocks, B6=blocks,
+                                 B8=blocks, B9=blocks // F)}
+    times = {step8: [], bits_step: [bits_ms]}
+    peaks = {step8: [], bits_step: []}
+    outs = {}
+    launches = dict.fromkeys(COUNTS, 0)
+    for fn in (step8, step8, bits_step):
+        torch.cuda.reset_peak_memory_stats()
+        outs[fn], secs, n = _counted(torch, fn)
+        if n != want[fn]:
+            raise AssertionError(f"large step launches {n}, want {want[fn]}")
+        if fn is step8:
+            launches = {key: launches[key] + n[key] for key in COUNTS}
+        times[fn].append(secs * 1e3)
+        peaks[fn].append(torch.cuda.max_memory_allocated() / 2**30)
+    # int8 (the default mode): the same bits as the bits step
+    for got, ref in zip(outs[step8], outs[bits_step]):
+        if not torch.equal(got, ref):
+            raise AssertionError("large MASK8 step: differs from the bits "
+                                 "step")
+    # B12 and B14 at the step's shapes against their plain versions
+    group, blk = F * data.cell_block, data.cell_block
+    G, genes = data.gene_block, data.genes_pad
+
+    def b12(f, out=None):
+        return f(bits[0][:group], gene_block=G, genes_pad=genes, out=out)
+
+    m8 = b12(unpack_mask_bits_cuda)
+    if not torch.equal(m8, b12(maskbits.unpack_mask_bits_plain)):
+        raise AssertionError("large B12 on one group: differs from the plain "
+                             "version")
+    buf = torch.empty_like(m8)
+    unpack_ms = _median_ms(torch, lambda: b12(unpack_mask_bits_cuda, buf),
+                           runs=10)
+    unpack_plain_ms = _median_ms(
+        torch, lambda: b12(maskbits.unpack_mask_bits_plain, buf), runs=2)
+    del buf
+    iu = triu_pairs(k)
+    q = [maskgram.quantize_pairs(packed_outer_products(H[c0:c0 + blk], iu))
+         for c0 in range(0, group, blk)]
+    Ph_op = torch.cat([x for x, _ in q])
+    Ph_s = torch.stack([x for _, x in q], dim=1).contiguous()
+    del q
+    acc0 = torch.rand((iu[0].shape[0], genes),
+                      generator=torch.Generator(device="cuda").manual_seed(7),
+                      device="cuda")
+
+    def b14(f, acc=None):
+        return f(Ph_op, Ph_s, m8, acc0.clone() if acc is None else acc,
+                 gene_block=G, scale_block=blk)
+
+    got = b14(mask_packed_h_t_m8_cuda)
+    if not torch.equal(got, b14(maskgram.mask_packed_h_t_m8_plain)):
+        raise AssertionError("large B14 on one group (int8): differs from "
+                             "the plain version")
+    del got
+    buf = acc0.clone()
+    b14_ms = _median_ms(torch, lambda: b14(mask_packed_h_t_m8_cuda, buf),
+                        runs=3)
+    b14_plain_ms = _median_ms(
+        torch, lambda: b14(maskgram.mask_packed_h_t_m8_plain, buf), runs=1)
+    del buf, acc0, Ph_op, Ph_s, m8
+    print(f"large MASK8 step (sweep cap {settings.fast_masked}): "
+          f"{[round(t, 1) for t in times[step8]]} ms against the bits "
+          f"step's {[round(t, 1) for t in times[bits_step]]} ms (in turns "
+          f"bits, MASK8, MASK8, bits), the same bits; peak "
+          f"{max(peaks[step8]):.2f} GiB against {max(peaks[bits_step]):.2f}"
+          f" GiB; per group of {group} cells B12 {unpack_ms:.3f} ms (plain "
+          f"{unpack_plain_ms:.3f}, the same bytes), B14 {b14_ms:.3f} ms "
+          f"(plain {b14_plain_ms:.3f}, int8, the same bits) ({card})",
+          flush=True)
+    return dict(step_ms=times[step8], bits_step_ms=times[bits_step],
+                peak_mem_gib=max(peaks[step8]),
+                bits_peak_mem_gib=max(peaks[bits_step]),
+                launches=launches,
+                unpack_group_ms=unpack_ms,
+                unpack_group_plain_ms=unpack_plain_ms, b14_group_ms=b14_ms,
+                b14_group_plain_ms=b14_plain_ms, group_cells=group,
+                profile=_profile(torch, card, step8, label=f"large masked ELL "
+                                 f"step, MASK8 (sweep cap "
+                                 f"{settings.fast_masked})"))
 
 
 def phase_resume_large(torch, card, eng, data, ckdir):
@@ -1671,7 +2161,8 @@ def phase_ell_entry(torch, card):
     # the final fit at the chosen rank on the plain one (B1, B3, B4)
     if not all(n[key] for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
                                   "B8", "B9")) \
-            or n["plain"] or n["plain_bell"] or n["plain_maskgram"]:
+            or n["plain"] or n["plain_bell"] or n["plain_maskgram"] \
+            or n["plain_maskbits"]:
         raise AssertionError(f"ELL ard_nmf launches {n}")
     print(f"ard_nmf on the planted rank-{rank} {g}x{c} operand as scipy CSC "
           f"({A.nnz} nonzeros, ELL route): selected rank {model.k} after fits "
@@ -1685,7 +2176,8 @@ def phase_ell_entry(torch, card):
         raise AssertionError(f"ELL cross_validate_nmf frame:\n{df}")
     if not all(n_cv[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
             or any(n_cv[key] for key in ("B1", "B3", "B4", "plain",
-                                         "plain_bell", "plain_maskgram")):
+                                         "plain_bell", "plain_maskgram",
+                                         "plain_maskbits")):
         raise AssertionError(f"ELL cross_validate_nmf launches {n_cv}")
     best = stt.GetBestRank(df)
     print(f"cross_validate_nmf ranks {CV_RANKS} maxit=20 on the ELL route: "
@@ -1747,6 +2239,7 @@ def phase_build():
     bell_cuda._lib()
     bell_cuda._mse_lib()
     maskgram_cuda._lib()
+    maskgram_cuda._m8_lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
         print("\n".join(ln for ln in log.splitlines() if "ptxas" in ln),
@@ -1811,6 +2304,7 @@ def _phases(torch, card, results, ckdir):
     results["ell_vs_dense"] = phase_ell_vs_dense(torch, card, eng, Ap, Atp,
                                                  W0)
     results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
+    results["wide_k"] = phase_wide_k(torch, card, data)
     results["resume_ell_bench"] = phase_resume_ell_bench(
         torch, card, eng, W0, results["bits_vs_f32"]["int8"], ckdir)
     del A, Ap, Atp, eng, data
@@ -1869,16 +2363,22 @@ def main() -> int:
     dense_resume = results["resume_dense"]
     ell_bench_resume, large_resume = results["resume_ell_bench"], \
         large["resume"]
+    wide = results["wide_k"]
     ell_runs = [results["ell_vs_dense"]["plain_launches"],
                 results["ell_vs_dense"]["masked_launches"],
                 results["bits_vs_f32"]["f32"]["launches"],
                 results["bits_vs_f32"]["int8"]["launches"],
                 results["bits_vs_f32"]["bf16"]["launches"],
+                results["bits_vs_f32"]["int8"]["mask8"]["launches"],
+                results["bits_vs_f32"]["bf16"]["mask8"]["launches"],
                 ell_bench_resume["launches"],
                 ell_bench_resume["launches_cut"],
                 ell_bench_resume["launches_resumed"],
+                ell_bench_resume["launches_mask8"],
+                wide["ell_fit"]["launches"], wide["ell_ard"]["launches"],
                 large["plain"]["launches"], large["project"]["launches"],
                 large["masked"]["launches"], large["bits"]["launches"],
+                large["bits"]["mask8"]["launches"],
                 large_resume["launches_first"],
                 large_resume["launches_resumed"],
                 large_resume["launches_full"],
@@ -1888,11 +2388,13 @@ def main() -> int:
     print("kernel times below: B1 at n=16384 k=50 sweep_cap=8, B2 at "
           "n=4096 k=50 sweep_cap=32; B3 and B4 unmasked, B5, B6 and B7 at "
           "k=100 on 8192 cells of the large operand (16384 genes, width "
-          "32), B8 (int8) on the first 2048-cell block of them and B9 (int8) "
-          "over all of them as 4 quantization groups, B10 and B11 (bf16, the "
-          "mask hashed) per call on one 2048-cell block of them; launches: "
-          "B1 over the bench-scale nmf_fit runs, B2 over the bench-scale "
-          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B11 over the "
+          "32), B8 and B13 (int8) on the first 2048-cell block of them and "
+          "B9 and B14 (int8) over all of them as 4 quantization groups, B12 "
+          "unpacking all of them, B10 and B11 (bf16, the mask hashed) per "
+          "call on one 2048-cell block of them; launches: "
+          "B1 over the bench-scale nmf_fit runs and run_nmf at k=256, B2 "
+          "over the bench-scale "
+          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B14 over the "
           "ELL engine's counted runs; bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
           "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s, bf16 "
@@ -1909,7 +2411,7 @@ def main() -> int:
 
     def ell_entry(name, key, source, replaces):
         rows = results["bell_kernels"] + results["bits_kernels"] + \
-            results["hash_kernels"]
+            results["hash_kernels"] + wide["kernels"]
         return entry(name, source, replaces,
                      sum(n[key] for n in ell_runs), bell_row[key],
                      max(r["max_abs_err"] for r in rows
@@ -1919,14 +2421,17 @@ def main() -> int:
         entry("nnls_cd_shared", "nnls_cd.cu", "pallas_nnls.py:266",
               bench["fixed10"]["launches"] + bench["race"]["launches"]
               + sum(dense_resume["nmf_fit"][key]["B1"] for key in (
-                  "launches_full", "launches_resumed")),
-              b1_row, max(r["max_abs_err"] for r in results["kernel"])),
+                  "launches_full", "launches_resumed"))
+              + wide["run_nmf"]["launches"]["B1"], b1_row,
+              max(r["max_abs_err"] for r in results["kernel"]
+                  + wide["kernels"] if r.get("kernel", "B1") == "B1")),
         entry("nnls_cd_batched", "nnls_cd_batched.cu", "pallas_nnls.py:195",
               masked["fit"]["launches"]["B2"] + masked["cv"]["launches"]["B2"]
               + results["ard"]["launches"]["B2"]
               + sum(dense_resume["ard_nmf_fit"][key]["B2"] for key in (
                   "launches_full", "launches_resumed")), b2_row,
-              max(r["max_abs_err"] for r in results["kernel_b2"])),
+              max(r["max_abs_err"] for r in results["kernel_b2"]
+                  + wide["kernels"] if r.get("kernel", "B2") == "B2")),
         ell_entry("bell_spmm", "B3", "bell_spmm.cu", "pallas_bell.py:162"),
         ell_entry("bell_spmm_t", "B4", "bell_spmm.cu", "pallas_bell.py:416"),
         ell_entry("bell_spmm_bits", "B5", "bell_spmm.cu",
@@ -1943,6 +2448,12 @@ def main() -> int:
                   "pallas_maskgram.py:185"),
         ell_entry("mask_packed_h_t", "B11", "maskgram_bits.cu",
                   "pallas_maskgram.py:229"),
+        ell_entry("unpack_mask_bits", "B12", "maskgram_m8.cu",
+                  "maskbits.py:125"),
+        ell_entry("mask_packed_w_t_m8", "B13", "maskgram_m8.cu",
+                  "pallas_maskgram.py:566"),
+        ell_entry("mask_packed_h_t_m8", "B14", "maskgram_m8.cu",
+                  "pallas_maskgram.py:652"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,10 @@ default: the mask is packed once per fit into bitplane words
 packed-Gram mask products run on int8 or bf16 operands
 (``ops/maskgram.py``: ``quantize_pairs``, B8, B9 with the grouped carry
 flush; ``SINGLET_TPU_MASKGRAM``), and the test MSE is the fused kernel B7.
+Under ``SINGLET_TPU_MASK8=1`` the bits route unpacks each group of blocks'
+words once into a dense int8 0/1 mask (B12, ``maskbits.unpack_mask_bits``)
+and its mask products read it (B13, B14) in place of B8/B9; as in JAX the
+switch is read on the bits route alone.
 A masked step given no packed mask (every step of a checkpointed fit) and
 ``SINGLET_TPU_MASKGRAM=hash`` take the hash route: B3/B4 with the hashed
 keep and the bf16 mask products B10/B11 with the mask hashed on the card.
@@ -35,7 +39,14 @@ On the CPU, under ``SINGLET_TPU_MASKGRAM=xla`` and under
 ``SINGLET_TPU_MASK_MM_PRECISION=high``/``highest`` it takes the f32 route
 (the mask hashed per block, full-f32 products), as the JAX engine does.
 The counter-RNG test mask (``ops/rngmask.py``) is bit-exact with the JAX
-package's, in PyTorch, in the packed words and in B3/B4/B10/B11.
+package's, in PyTorch, in the packed words and in B3/B4/B10/B11. Every
+one of the JAX package's 14 Pallas kernels has a Hopper counterpart.
+
+Ranks: on the card a fit takes k <= 512, the limit of kernels B1, B2 and
+B7 (their register tiles; ``ops/nnls_cuda.py`` ``MAX_K`` and
+``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``), which raise past
+it; B3/B5 take any k in column chunks of 224, the other kernels any k.
+The JAX package has no such limit.
 
 Resumable fits: ``checkpoint=`` of ``nmf_fit``, ``ard_nmf_fit``,
 ``ard_nmf`` (the search state), ``ShardedEllEngine.fit``/``ard_fit`` and
@@ -52,13 +63,13 @@ and its results equal unpadded fits up to reassociation), ``chunk_iters``
 execution time, and the port's loop runs on the host),
 ``utils.enable_compilation_cache``, and the TPU layouts of the bits route:
 ``prechunk_pairs``, ``_mpw_geometry`` and the VMEM budgets of
-``ops/pallas_maskgram.py``, the per-block transposed words (``words_t``)
-and the pair axis padded to a lane multiple. ``SINGLET_TPU_MPH_NOALIAS``
+``ops/pallas_maskgram.py``, the per-block transposed words (``words_t``),
+the transposed copy of the prebuilt int8 mask (``m8.T``) and the pair axis
+padded to a lane multiple. ``SINGLET_TPU_MPH_NOALIAS``
 and ``SINGLET_TPU_I8_DIRECT`` choose how the TPU lays out memory, not what
 is computed, and are not read.
 
-Not ported yet, each raising or absent (ROADMAP A.7b, A.8, A.9, B): the
-engine's prebuilt int8 mask (``SINGLET_TPU_MASK8=1``: kernels B12-B14),
+Not ported yet, each raising or absent (ROADMAP A.2-A.4):
 chunk-list and staged-directory ingest (the C++ packer and SVC readers),
 multi-host ingest and ``mesh=``, and the engine's ``gcnmf_fit`` and
 ``batch_fit``.

@@ -29,6 +29,9 @@
 // the order is fixed, so a run gives the same bits every time. It clears
 // the slots it wrote before the next gene block.
 //
+// H columns per lane are a template parameter: 1..7 (k <= 224), then 8, 12
+// and 16 (k <= 512).
+//
 // The sums run in another order than the plain version's (which densifies
 // and predicts everything); float32, fused multiply-adds, built without
 // --use_fast_math.
@@ -159,8 +162,15 @@ int bell_mse_bits(const int32_t* li, const float* lv, long long ld, int n_gb,
     case 5: return launch<5>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
     case 6: return launch<6>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
     case 7: return launch<7>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  // k > 224: a wider H row per lane (the columns past k add nothing, so the
+  // sums are those of a template of exactly ceil(k / 32))
+  const int npl = (k + 31) / 32;
+  if (npl <= 8) return launch<8>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
+  if (npl <= 12) return launch<12>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
+  if (npl <= 16) return launch<16>(li, lv, ld, n_gb, width, cells, gene_block, words, wld, Wd, H, k, out, s);
+  return cudaErrorInvalidValue;
 }
 
 const char* bell_mse_bits_error_string(int err) {

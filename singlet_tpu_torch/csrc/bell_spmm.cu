@@ -41,7 +41,10 @@
 // warp then walks the live slots in order: each one broadcast by shuffle,
 // the lanes gather W's row (coalesced, k floats; W is 6.5 MB at k=100 and
 // stays in L2) and accumulate the cell's k outputs in registers. Each
-// output is one thread's sum in a fixed order: deterministic.
+// output is one thread's sum in a fixed order: deterministic. A lane holds
+// at most 7 outputs (k <= 224); the wrapper (ops/bell_cuda.py) launches a
+// wider W in column chunks of at most 224, which gives the same sums, since
+// no output's sum depends on the other columns.
 //
 // B4: the scatter direction, made deterministic without atomics. A block
 // owns (gene block gb, a 32-column slice of k, a chunk of cells) and keeps

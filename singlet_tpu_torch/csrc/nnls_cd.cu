@@ -41,6 +41,14 @@
 // the summation order of the sweep tolerance. Build WITHOUT --use_fast_math:
 // the clamp term x_i / 1e-15 and the tol / k <= 1e-8 exit need IEEE
 // division and denormals kept.
+//
+// Ranks above 224. The (k, k) Gram and 1/diag take (k^2 + k) * 4 bytes of
+// shared memory, 201,600 at k = 224 and more than a block may use (232,448)
+// past k = 240, and a lane keeps ceil(k / 32) coordinates. For k > 224 the
+// entry point `nnls_cd_global` runs the same kernel with the transposed Gram
+// (made by the caller) and 1/diag read from device memory through L1 and L2
+// (1 MiB at k = 512, shared by every column) and up to 16 coordinates a
+// lane: k <= 512. The arithmetic is the same, so only speed differs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,7 +59,9 @@ constexpr int kWarps = 8;            // columns (warps) per block
 constexpr float kCdTol = 1e-8f;      // CD_TOL of ops/nnls.py
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int NPL>  // coordinates per lane: k <= 32 * NPL
+// NPL: coordinates per lane, k <= 32 * NPL. kGlobal: `a` is the TRANSPOSED
+// Gram, read with 1/diag from device memory, not staged in shared memory.
+template <int NPL, bool kGlobal>
 __global__ void __launch_bounds__(kWarps * 32)
 nnls_cd_shared_kernel(const float* __restrict__ a,
                       const float* __restrict__ inv_diag,
@@ -62,15 +72,21 @@ nnls_cd_shared_kernel(const float* __restrict__ a,
                       int n, int k, float L1, float L2, float k_div,
                       float cap, int max_sweeps) {
   extern __shared__ float smem[];
-  float* aT = smem;            // (k, k): row i holds column i of a
-  float* inv = smem + k * k;   // (k,)
-  for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
-    const int i = idx / k;
-    const int c = idx - i * k;
-    aT[idx] = a[c * k + i];
+  const float* aT = a;          // (k, k): row i holds column i of a
+  const float* inv = inv_diag;  // (k,)
+  if constexpr (!kGlobal) {
+    float* sT = smem;
+    float* s_inv = smem + k * k;
+    for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
+      const int i = idx / k;
+      const int c = idx - i * k;
+      sT[idx] = a[c * k + i];
+    }
+    for (int i = threadIdx.x; i < k; i += blockDim.x) s_inv[i] = inv_diag[i];
+    __syncthreads();
+    aT = sT;
+    inv = s_inv;
   }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) inv[i] = inv_diag[i];
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int col = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -141,20 +157,20 @@ nnls_cd_shared_kernel(const float* __restrict__ a,
   }
 }
 
-template <int NPL>
+template <int NPL, bool kGlobal = false>
 cudaError_t launch(const float* a, const float* inv_diag, const float* B,
                    const float* X0, const uint8_t* mask, float* X, int n,
                    int k, float L1, float L2, float k_div, float cap,
                    int max_sweeps, cudaStream_t stream) {
-  const size_t smem = (size_t)(k * k + k) * sizeof(float);
+  const size_t smem = kGlobal ? 0 : (size_t)(k * k + k) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nnls_cd_shared_kernel<NPL>,
+        nnls_cd_shared_kernel<NPL, kGlobal>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n + kWarps - 1) / kWarps;
-  nnls_cd_shared_kernel<NPL><<<blocks, kWarps * 32, smem, stream>>>(
+  nnls_cd_shared_kernel<NPL, kGlobal><<<blocks, kWarps * 32, smem, stream>>>(
       a, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps);
   return cudaGetLastError();
 }
@@ -182,6 +198,21 @@ int nnls_cd_shared(const float* a, const float* inv_diag, const float* B,
     case 7: return launch<7>(a, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// As nnls_cd_shared, for 224 < k <= 512, with aT the TRANSPOSED Gram (aT[i,
+// c] = a[c, i]) in device memory.
+int nnls_cd_global(const float* aT, const float* inv_diag, const float* B,
+                   const float* X0, const uint8_t* mask, float* X, int n,
+                   int k, float L1, float L2, float k_div, float cap,
+                   int max_sweeps, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npl = (k + 31) / 32;
+  if (k <= 0 || npl > 16) return cudaErrorInvalidValue;
+  if (npl <= 8) return launch<8, true>(aT, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
+  if (npl <= 12) return launch<12, true>(aT, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
+  return launch<16, true>(aT, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
 }
 
 const char* nnls_cd_error_string(int err) {

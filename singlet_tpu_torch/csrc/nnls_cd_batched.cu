@@ -40,6 +40,11 @@
 // thread that issued a copy reads it. The block runs until its slowest
 // column stops; stopped columns idle through the barriers.
 //
+// Ranks above 224: eight warps of up to 28 register coordinates take
+// k <= 224. Past that a block has 16 warps (512 threads) of up to 32
+// coordinates each, k <= 512, with a ring of 4 rows (k <= 256) or 2: the
+// same per-thread code on more warps, so the arithmetic is unchanged.
+//
 // Arithmetic is written with the _rn intrinsics so that nvcc contracts
 // nothing into FMAs: each step rounds exactly like the plain version's
 // separate elementwise kernels, and only the summation order of the sweep
@@ -71,18 +76,17 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 constexpr int kLanes = 32;       // columns per block
-constexpr int kWarps = 8;        // warps sharing a block's coordinates
 constexpr float kCdTol = 1e-8f;  // CD_TOL of ops/nnls.py
 
-constexpr size_t smem_bytes(int depth, int npt) {
-  // delta (2 slots), tol partials (kWarps), the ring: per warp D rows of
+constexpr size_t smem_bytes(int warps, int depth, int npt) {
+  // delta (2 slots), tol partials (warps), the ring: per warp D rows of
   // npt entries per lane
-  return (size_t)(2 + kWarps + kWarps * depth * npt) * kLanes *
-         sizeof(float);
+  return (size_t)(2 + warps + warps * depth * npt) * kLanes * sizeof(float);
 }
 
-// D: ring depth in Gram rows; NPT: coordinates per thread, k <= kWarps * NPT
-template <int D, int NPT>
+// kWarps: warps sharing a block's coordinates; D: ring depth in Gram rows;
+// NPT: coordinates per thread, k <= kWarps * NPT
+template <int kWarps, int D, int NPT>
 __global__ void __launch_bounds__(kLanes * kWarps)
 nnls_cd_batched_kernel(const float* __restrict__ at,
                        const float* __restrict__ inv_diag,
@@ -194,21 +198,21 @@ nnls_cd_batched_kernel(const float* __restrict__ at,
   }
 }
 
-template <int D, int NPT>
+template <int D, int NPT, int kWarps = 8>
 cudaError_t launch(const float* at, const float* inv_diag, const float* B,
                    const float* X0, const uint8_t* mask, float* X, int n,
                    int k, float L1, float L2, float k_div, float cap,
                    int max_sweeps, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(D, NPT);
+  constexpr size_t smem = smem_bytes(kWarps, D, NPT);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        nnls_cd_batched_kernel<D, NPT>,
+        nnls_cd_batched_kernel<kWarps, D, NPT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int blocks = (n + kLanes - 1) / kLanes;
-  nnls_cd_batched_kernel<D, NPT><<<blocks, dim3(kLanes, kWarps), smem,
-                                   stream>>>(
+  nnls_cd_batched_kernel<kWarps, D, NPT><<<blocks, dim3(kLanes, kWarps),
+                                           smem, stream>>>(
       at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps);
   return cudaGetLastError();
 }
@@ -219,7 +223,7 @@ extern "C" {
 
 // All pointers are device pointers to contiguous float32 (mask: uint8, or
 // null for all columns active); at (k, k, n) with at[i, j, c] = a_c[j, i],
-// inv_diag (k, n), B / X0 / X (n, k). Takes k <= 224. Returns the
+// inv_diag (k, n), B / X0 / X (n, k). Takes k <= 512. Returns the
 // cudaError_t of the launch (0 on success).
 int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
                     const float* X0, const uint8_t* mask, float* X, int n,
@@ -228,9 +232,14 @@ int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
   if (n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // coordinates per thread: the smallest instantiated NPT with
-  // k <= kWarps * NPT; the ring holds 8 rows, 4 at the widest k
-  const int npt = (k + kWarps - 1) / kWarps;
-  if (k <= 0 || npt > 28) return cudaErrorInvalidValue;
+  // k <= 8 * NPT; the ring holds 8 rows, 4 at the widest k; past k = 224,
+  // 16 warps
+  const int npt = (k + 7) / 8;
+  if (k <= 0 || k > 512) return cudaErrorInvalidValue;
+  if (k > 224) {
+    if (k <= 256) return launch<4, 16, 16>(at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
+    return launch<2, 32, 16>(at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
+  }
   if (npt <= 1) return launch<8, 1>(at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
   if (npt <= 2) return launch<8, 2>(at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);
   if (npt <= 4) return launch<8, 4>(at, inv_diag, B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps, s);

@@ -31,8 +31,9 @@ from singlet_tpu_torch.ops.bell import (bell_mse_bits_plain,
                                         bell_spmm_t_plain)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
-# kernel launches (one per wrapper call on CUDA tensors) of B3 and of B4;
-# read by chip_smoke.py to show that a fit went through the kernels
+# kernel launches on CUDA tensors of B3 and of B4 (one per wrapper call
+# with cells; B3 and B5 one per column chunk of W); read by chip_smoke.py
+# to show that a fit went through the kernels
 LAUNCHES_SPMM = 0
 LAUNCHES_SPMM_T = 0
 # likewise B5, B6 and B7
@@ -40,8 +41,14 @@ LAUNCHES_SPMM_BITS = 0
 LAUNCHES_SPMM_T_BITS = 0
 LAUNCHES_MSE_BITS = 0
 
-# B3 keeps a cell's k outputs in registers, up to 7 per lane
-MAX_K = 224
+# B3 keeps a cell's k outputs in registers, up to 7 per lane: a wider W is
+# split into chunks of at most this many columns, one launch each. Each
+# output column is one thread's sum over the cell's live slots in slot
+# order whatever the other columns, so the chunks give the bits of one
+# launch and B3/B5 take any k
+B3_K_CHUNK = 224
+# B7 keeps a cell's H row in registers, up to 16 per lane
+MAX_K_MSE = 512
 # B4 keeps a (gene_block, 32) float tile and three 32 x 32 staging tiles
 # in shared memory, within the 232,448 bytes a Hopper block may use
 MAX_GENE_BLOCK = (232448 // 4 - 3 * 32 * 32) // 32
@@ -56,7 +63,7 @@ _LIB = {}
 
 
 def _lib():
-    if not _LIB:
+    if "lib" not in _LIB:
         from singlet_tpu_torch import _build
 
         lib = _build.load("bell_spmm")
@@ -146,16 +153,14 @@ def _raise_on(err, symbol, error_string=None):
 
 
 def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
-               words, *, gene_block: int, name: str) -> torch.Tensor:
-    """One launch of bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or
-    1, B5 with mode 2); checks its arguments and returns B (cells, k)."""
+               words, *, gene_block: int) -> tuple[torch.Tensor, int]:
+    """bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or 1, B5 with mode
+    2), one launch per chunk of at most ``B3_K_CHUNK`` columns of W; checks
+    its arguments and returns B (cells, k) and the number of launches."""
     rows_w, k = W.shape
     if rows_w % gene_block:
         raise ValueError(f"W has {rows_w} rows, not a multiple of "
                          f"gene_block {gene_block}")
-    if k > MAX_K:
-        raise NotImplementedError(f"kernel {name} takes k <= {MAX_K}, got "
-                                  f"{k}")
     n_gb = rows_w // gene_block
     _check("W", W, (rows_w, k), torch.float32, W.device)
     _check_planes(b_li, b_val, n_gb, W.device)
@@ -164,48 +169,57 @@ def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
         _check_words(words, cells, n_gb, gene_block, W.device)
     B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
     if cells == 0:
-        return B
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = _lib().bell_spmm(
-            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
-            b_li.shape[0] // n_gb, cells, gene_block, W.data_ptr(), k,
-            B.data_ptr(), mode, seed64, int(cell_offset), int(inv_density),
-            None if words is None else words.data_ptr(),
-            0 if words is None else words.stride(0), stream)
-    _raise_on(err, "bell_spmm")
-    return B
+        return B, 0
+    chunks = range(0, k, B3_K_CHUNK)
+    for c0 in chunks:
+        kc = min(B3_K_CHUNK, k - c0)
+        Wc = W if kc == k else W[:, c0:c0 + kc].contiguous()
+        Bc = B if kc == k else torch.empty((cells, kc), dtype=torch.float32,
+                                           device=W.device)
+        with torch.cuda.device(W.device):
+            stream = torch.cuda.current_stream(W.device).cuda_stream
+            err = _lib().bell_spmm(
+                b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
+                b_li.shape[0] // n_gb, cells, gene_block, Wc.data_ptr(), kc,
+                Bc.data_ptr(), mode, seed64, int(cell_offset),
+                int(inv_density), None if words is None else words.data_ptr(),
+                0 if words is None else words.stride(0), stream)
+        _raise_on(err, "bell_spmm")
+        if Bc is not B:
+            B[:, c0:c0 + kc] = Bc
+    return B, len(chunks)
 
 
 def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
                    gene_block: int, inv_density: int = 20) -> torch.Tensor:
     """Kernel B3: B (cells, k) = the (keep-masked, with ``seed``) product
-    of the planes with W (n_gb * gene_block, k). On CPU tensors, the plain
-    version."""
+    of the planes with W (n_gb * gene_block, k), in chunks of at most
+    ``B3_K_CHUNK`` columns (one launch each, each counted). On CPU
+    tensors, the plain version."""
     if W.device.type != "cuda":
         return bell_spmm_plain(b_li, b_val, W, seed, cell_offset,
                                gene_block=gene_block,
                                inv_density=inv_density)
     global LAUNCHES_SPMM
     masked, seed64 = _seed_args(seed, inv_density)
-    B = _launch_b3(b_li, b_val, W, masked, seed64, cell_offset, inv_density,
-                   None, gene_block=gene_block, name="B3")
-    LAUNCHES_SPMM += 1
+    B, launches = _launch_b3(b_li, b_val, W, masked, seed64, cell_offset,
+                             inv_density, None, gene_block=gene_block)
+    LAUNCHES_SPMM += launches
     return B
 
 
 def bell_spmm_bits_cuda(b_li, b_val, W, words, *,
                         gene_block: int) -> torch.Tensor:
     """Kernel B5: B3 keep-masked by the test bits of ``words`` (cells, n_t *
-    gene_block) int32, the packed mask of the planes' cells. On CPU
-    tensors, the plain version."""
+    gene_block) int32, the packed mask of the planes' cells, launched in
+    column chunks as B3. On CPU tensors, the plain version."""
     if W.device.type != "cuda":
         return bell_spmm_bits_plain(b_li, b_val, W, words,
                                     gene_block=gene_block)
     global LAUNCHES_SPMM_BITS
-    B = _launch_b3(b_li, b_val, W, 2, 0, 0, 1, words, gene_block=gene_block,
-                   name="B5")
-    LAUNCHES_SPMM_BITS += 1
+    B, launches = _launch_b3(b_li, b_val, W, 2, 0, 0, 1, words,
+                             gene_block=gene_block)
+    LAUNCHES_SPMM_BITS += launches
     return B
 
 
@@ -220,10 +234,12 @@ def b4_chunks(cells: int, n_gb: int, k: int):
 
 
 def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
-               *, gene_block: int, n_gb: int, name: str) -> torch.Tensor:
+               *, gene_block: int, n_gb: int,
+               name: str) -> tuple[torch.Tensor, int]:
     """One call of bell_spmm.cu's ``bell_spmm_t`` (B4 with keep mode 0 or
     1, B6 with mode 2; a second launch sums the cell chunks); returns Bw
-    (n_gb * gene_block, k)."""
+    (n_gb * gene_block, k) and the number of calls made (0 without
+    cells)."""
     if gene_block > MAX_GENE_BLOCK:
         raise NotImplementedError(
             f"kernel {name} takes gene_block <= {MAX_GENE_BLOCK}, got "
@@ -237,7 +253,7 @@ def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
     genes = n_gb * gene_block
     Bw = torch.empty((genes, k), dtype=torch.float32, device=H.device)
     if cells == 0:
-        return Bw.zero_()
+        return Bw.zero_(), 0
     n_chunks, chunk = b4_chunks(cells, n_gb, k)
     partials = (torch.empty((n_chunks, genes, k), dtype=torch.float32,
                             device=H.device) if n_chunks > 1 else None)
@@ -251,7 +267,7 @@ def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
             int(inv_density), None if words is None else words.data_ptr(),
             0 if words is None else words.stride(0), stream)
     _raise_on(err, "bell_spmm_t")
-    return Bw
+    return Bw, 1
 
 
 def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
@@ -266,9 +282,10 @@ def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
                                  inv_density=inv_density)
     global LAUNCHES_SPMM_T
     masked, seed64 = _seed_args(seed, inv_density)
-    Bw = _launch_b4(b_li, b_val, H, masked, seed64, cell_offset, inv_density,
-                    None, gene_block=gene_block, n_gb=n_gb, name="B4")
-    LAUNCHES_SPMM_T += 1
+    Bw, launches = _launch_b4(b_li, b_val, H, masked, seed64, cell_offset,
+                              inv_density, None, gene_block=gene_block,
+                              n_gb=n_gb, name="B4")
+    LAUNCHES_SPMM_T += launches
     return Bw
 
 
@@ -280,9 +297,9 @@ def bell_spmm_t_bits_cuda(b_li, b_val, H, words, *, gene_block: int,
         return bell_spmm_t_bits_plain(b_li, b_val, H, words,
                                       gene_block=gene_block, n_gb=n_gb)
     global LAUNCHES_SPMM_T_BITS
-    Bw = _launch_b4(b_li, b_val, H, 2, 0, 0, 1, words,
-                    gene_block=gene_block, n_gb=n_gb, name="B6")
-    LAUNCHES_SPMM_T_BITS += 1
+    Bw, launches = _launch_b4(b_li, b_val, H, 2, 0, 0, 1, words,
+                              gene_block=gene_block, n_gb=n_gb, name="B6")
+    LAUNCHES_SPMM_T_BITS += launches
     return Bw
 
 
@@ -300,8 +317,9 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     if rows_w % gene_block:
         raise ValueError(f"Wd has {rows_w} rows, not a multiple of "
                          f"gene_block {gene_block}")
-    if k > MAX_K:
-        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K}, got {k}")
+    if k > MAX_K_MSE:
+        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K_MSE}, got "
+                                  f"{k}")
     if gene_block > MAX_GENE_BLOCK_MSE:
         raise NotImplementedError(f"kernel B7 takes gene_block <= "
                                   f"{MAX_GENE_BLOCK_MSE}, got {gene_block}")

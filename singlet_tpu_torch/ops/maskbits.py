@@ -25,16 +25,24 @@ torch has few uint32 operations, and a shift by s followed by ``& 1``
 reads bit s whatever the sign. Validity is baked in when packing: padded
 cells and genes are never held out.
 
-No TPU kernel is involved here (kernel B12, ``unpack_mask_bits``, belongs
-to the ``SINGLET_TPU_MASK8=1`` route, ROADMAP B); the pack runs once per
-fit in plain PyTorch.
+The pack runs once per fit in plain PyTorch. Kernel B12
+(``unpack_mask_bits``, the TPU kernel ``singlet_tpu/ops/maskbits.py``
+``unpack_mask_bits``) expands the words of one group of cells into a dense
+int8 0/1 mask once per group for the ``SINGLET_TPU_MASK8=1`` route of the
+ELL engine; its plain version is ``unpack_mask_bits_plain`` and its CUDA
+kernel ``ops/maskgram_cuda.py`` ``unpack_mask_bits_cuda``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from singlet_tpu_torch.ops.rngmask import mask_block
+
+# calls of the plain version of B12 (the kernel counts its own launches)
+PLAIN_CALLS = 0
 
 
 def n_word_groups(n_gb: int) -> int:
@@ -99,3 +107,73 @@ def unpack_all(words: torch.Tensor, genes_pad: int,
     n_gb = genes_pad // gene_block
     return torch.cat([unpack_gene_block(words, gb, gene_block)
                       for gb in range(n_gb)], dim=1)
+
+
+def unpack_sub_block(cells: int) -> int:
+    """Cells per grid step of the JAX B12: ``min(1024, cells)`` halved until
+    it divides ``cells``. JAX then clamps it to at least 8, which leaves the
+    trailing cells unwritten where the halving ends below 8 (a cell count
+    such as 2050); the port raises there instead."""
+    bc = min(1024, cells)
+    while bc > 0 and cells % bc:
+        bc //= 2
+    if cells and bc < 8:
+        raise ValueError(
+            f"B12 (unpack_mask_bits): {cells} cells do not split into "
+            "steps of >= 8 cells; the JAX kernel would leave cells out here")
+    return bc
+
+
+def _check_unpack(words: torch.Tensor, gene_block: int, genes_pad: int):
+    if gene_block <= 0 or genes_pad % gene_block:
+        raise ValueError(f"genes_pad {genes_pad} is not a multiple of "
+                         f"gene_block {gene_block}")
+    wcols = n_word_groups(genes_pad // gene_block) * gene_block
+    if words.dim() != 2 or words.shape[1] != wcols:
+        raise ValueError(f"words must be (cells, {wcols}), got "
+                         f"{tuple(words.shape)}")
+    unpack_sub_block(words.shape[0])
+
+
+def unpack_out(out: Optional[torch.Tensor], words: torch.Tensor,
+               genes_pad: int) -> torch.Tensor:
+    """B12's output: ``out`` (checked) or a new (cells, genes_pad) int8
+    tensor on the words' device."""
+    shape = (words.shape[0], genes_pad)
+    if out is None:
+        return torch.empty(shape, dtype=torch.int8, device=words.device)
+    if (out.dtype != torch.int8 or tuple(out.shape) != shape
+            or out.device != words.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int8 {shape} tensor on "
+                         f"{words.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
+
+
+def unpack_mask_bits_plain(words: torch.Tensor, *, gene_block: int,
+                           genes_pad: int,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The plain version of kernel B12: the dense int8 0/1 test mask
+    (cells, genes_pad) of packed words (cells, n_t * gene_block), written
+    into ``out`` when given; gene block g is bit g % 32 of word group
+    g // 32."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    _check_unpack(words, gene_block, genes_pad)
+    out = unpack_out(out, words, genes_pad)
+    return out.copy_(unpack_all(words, genes_pad, gene_block))
+
+
+def unpack_mask_bits(words: torch.Tensor, *, gene_block: int,
+                     genes_pad: int,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatcher of B12: the kernel for CUDA tensors, the plain version on
+    the CPU."""
+    if words.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.unpack_mask_bits_cuda(
+            words, gene_block=gene_block, genes_pad=genes_pad, out=out)
+    return unpack_mask_bits_plain(words, gene_block=gene_block,
+                                  genes_pad=genes_pad, out=out)

@@ -3,14 +3,17 @@
 Port of ``singlet_tpu/ops/pallas_maskgram.py``: ``maskgram_mode``,
 ``quantize_pairs``, kernels B10 (``mask_packed_w_t``) and B11
 (``mask_packed_h_t``) of the hash route, with the test mask hashed from
-(seed, cell, gene), and B8 (``mask_packed_w_t_bits``) and B9
+(seed, cell, gene), B8 (``mask_packed_w_t_bits``) and B9
 (``mask_packed_h_t_bits``) of the bits route, with the mask read from
-bitplane words (``ops/maskbits.py``):
+bitplane words (``ops/maskbits.py``), and B13 (``mask_packed_w_t_m8``) and
+B14 (``mask_packed_h_t_m8``) of the bits route under
+``SINGLET_TPU_MASK8=1``, with the mask read from a prebuilt dense int8 0/1
+array (``maskbits.unpack_mask_bits``, B12):
 
-  * B8/B10, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]   (np, block)
-  * B9/B11, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]   (np, genes)
+  * B8/B10/B13, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]  (np, block)
+  * B9/B11/B14, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]  (np, genes)
 
-All four emit the product transposed, the orientation the per-column Gram
+All six emit the product transposed, the orientation the per-column Gram
 unpack (``linalg.unpack_sym_from_t``) reads. B10 and B11 round the operand
 to bf16 (the mask is an exact bf16 0/1) and sum in float32: B10 sums one
 partial per gene block in gene-block order, B11 adds one partial per cell
@@ -26,14 +29,18 @@ then (np, block // scale_block), one column per block, and the int32
 partial of each cell sub-block is dequantized with its own block's column
 and added into ``acc`` in sub-block order, exactly as the JAX kernel does;
 so one batched call gives the bits of the same calls made block by block.
+B13 and B14 compute what B8 and B9 compute, from the mask's bytes: on int8
+the sums are the same exact integers, so they give B8's and B9's bits on
+the same mask; on bf16 B13 sums one float32 partial per gene block in
+gene-block order and B14 one per cell sub-block, as the JAX kernels do.
 
 Left out, because they lay the operand out for the TPU's VMEM and change
 nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
 VMEM budgets, and the pair axis padded to a lane multiple (``pad_pairs``);
 here the pair axis has its true length. ``SINGLET_TPU_MPH_NOALIAS`` and
-``SINGLET_TPU_I8_DIRECT`` choose TPU memory layouts and are not read. The
-prebuilt-int8-mask kernels B13/B14 are not ported (ROADMAP B); the engine
-raises on their route.
+``SINGLET_TPU_I8_DIRECT`` choose TPU memory layouts and are not read; so
+does the JAX engine's transposed copy of the prebuilt mask (``m8.T``):
+B13 reads the mask's rows as they are.
 
 The plain versions below are the CPU path and the reference of the CUDA
 kernels (``ops/maskgram_cuda.py``); the dispatchers send CUDA tensors to
@@ -50,8 +57,8 @@ import torch
 from singlet_tpu_torch.ops.maskbits import unpack_all
 from singlet_tpu_torch.ops.rngmask import mask_block
 
-# calls of the plain versions of B8-B11 (the kernels count their own
-# launches)
+# calls of the plain versions of B8-B11, B13 and B14 (the kernels count
+# their own launches)
 PLAIN_CALLS = 0
 
 _MODES = ("int8", "bf16", "hash", "xla")
@@ -98,9 +105,24 @@ def b9_sub_block(block: int, scale_block: int) -> int:
     bc = min(_sub_block(block), _sub_block(scale_block))
     if bc < 8:
         raise ValueError(
-            f"B9/B11 (mask_packed_h_t*): {block} cells (scale_block "
+            f"B9/B11/B14 (mask_packed_h_t*): {block} cells (scale_block "
             f"{scale_block}) do not split into sub-blocks of >= 8 cells; "
             "the JAX kernel would leave cells out here")
+    return bc
+
+
+def m8_sub_block(block: int) -> int:
+    """Cells per grid step of the JAX B13: ``block`` halved while it is over
+    1024 or does not divide ``block``. JAX then clamps it to at least 8,
+    which leaves cells out where the halving ends below 8 (a block such as
+    2050); the port raises there instead."""
+    bc = block
+    while bc > 1024 or (bc > 0 and block % bc):
+        bc //= 2
+    if block and bc < 8:
+        raise ValueError(
+            f"B13 (mask_packed_w_t_m8): {block} cells do not split into "
+            "steps of >= 8 cells; the JAX kernel would leave cells out here")
     return bc
 
 
@@ -213,6 +235,72 @@ def mask_packed_h_t_bits_plain(P_op, scales, words, acc, *, gene_block: int,
     return acc
 
 
+def _check_m8(mask8: torch.Tensor, rows: int, genes_pad: int,
+              gene_block: int):
+    if mask8.dtype != torch.int8:
+        raise TypeError(f"the mask must be int8, got {mask8.dtype}")
+    if tuple(mask8.shape) != (rows, genes_pad):
+        raise ValueError(f"the mask must be ({rows}, {genes_pad}), got "
+                         f"{tuple(mask8.shape)}")
+    if gene_block <= 0 or genes_pad % gene_block:
+        raise ValueError(f"{genes_pad} genes are not a multiple of "
+                         f"gene_block {gene_block}")
+
+
+def mask_packed_w_t_m8_plain(P_op, scales, mask8_blk, *,
+                             gene_block: int) -> torch.Tensor:
+    """The plain version of kernel B13: (np, block) float32 from P_op
+    (genes_pad, np) int8 with ``scales`` (np,) or bf16 (``scales``
+    unused), and the block's prebuilt int8 0/1 mask (block, genes_pad).
+    int8: exact integer sums over all genes (float64 here), times the
+    per-pair scale; bf16: one float32 partial per gene block, summed in
+    gene-block order."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    genes_pad = P_op.shape[0]
+    block = mask8_blk.shape[0]
+    _check_m8(mask8_blk, block, genes_pad, gene_block)
+    m8_sub_block(block)
+    if _is_int8(P_op):
+        part = P_op.to(torch.float64).T @ mask8_blk.to(torch.float64).T
+        return part.to(torch.float32) * scales.to(torch.float32)[:, None]
+    P = P_op.to(torch.float32)
+    m = mask8_blk.to(torch.float32)
+    out = None
+    for g0 in range(0, genes_pad, gene_block):
+        part = P[g0:g0 + gene_block].T @ m[:, g0:g0 + gene_block].T
+        out = part if out is None else out + part
+    return out
+
+
+def mask_packed_h_t_m8_plain(P_op, scales, mask8, acc, *, gene_block: int,
+                             scale_block: Optional[int] = None):
+    """The plain version of kernel B14: ``acc`` (np, genes_pad) float32 +=
+    the dequantized (mask^T @ P)^T, updated in place and returned. P_op
+    (cells, np) int8 with ``scales`` (np, cells // scale_block), or bf16;
+    mask8 the prebuilt int8 0/1 mask (cells, genes_pad). Per cell sub-block
+    (``b9_sub_block``) one exact partial, dequantized with its block's
+    scale column, added into ``acc`` in sub-block order: B9's arithmetic."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    cells = P_op.shape[0]
+    genes_pad = acc.shape[1]
+    _check_m8(mask8, cells, genes_pad, gene_block)
+    scale_block = cells if scale_block is None else scale_block
+    bc = b9_sub_block(cells, scale_block)
+    int8 = _is_int8(P_op)
+    for c0 in range(0, cells, bc):
+        m = mask8[c0:c0 + bc]
+        if int8:
+            part = (P_op[c0:c0 + bc].to(torch.float64).T
+                    @ m.to(torch.float64)).to(torch.float32)
+            d = part * scales[:, c0 // scale_block][:, None]
+        else:
+            d = P_op[c0:c0 + bc].to(torch.float32).T @ m.to(torch.float32)
+        acc += d
+    return acc
+
+
 def mask_packed_w_t(Pw, seed, cell_ids, *, gene_block: int,
                     inv_density: int, cells_true: int,
                     genes_true: int) -> torch.Tensor:
@@ -268,3 +356,31 @@ def mask_packed_h_t_bits(P_op, scales, words, acc, *, gene_block: int,
     return mask_packed_h_t_bits_plain(P_op, scales, words, acc,
                                       gene_block=gene_block,
                                       scale_block=scale_block)
+
+
+def mask_packed_w_t_m8(P_op, scales, mask8_blk, *,
+                       gene_block: int) -> torch.Tensor:
+    """Dispatcher of B13: the kernel for CUDA tensors, the plain version on
+    the CPU."""
+    if P_op.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_w_t_m8_cuda(
+            P_op, scales, mask8_blk, gene_block=gene_block)
+    return mask_packed_w_t_m8_plain(P_op, scales, mask8_blk,
+                                    gene_block=gene_block)
+
+
+def mask_packed_h_t_m8(P_op, scales, mask8, acc, *, gene_block: int,
+                       scale_block: Optional[int] = None):
+    """Dispatcher of B14 (``acc`` updated in place and returned): the kernel
+    for CUDA tensors, the plain version on the CPU."""
+    if P_op.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.mask_packed_h_t_m8_cuda(
+            P_op, scales, mask8, acc, gene_block=gene_block,
+            scale_block=scale_block)
+    return mask_packed_h_t_m8_plain(P_op, scales, mask8, acc,
+                                    gene_block=gene_block,
+                                    scale_block=scale_block)

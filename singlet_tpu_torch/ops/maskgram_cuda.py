@@ -1,4 +1,5 @@
-"""Kernels B8-B11: the masked packed-Gram products, hand-written in CUDA.
+"""Kernels B8-B14: the masked packed-Gram products and the mask unpack,
+hand-written in CUDA.
 
 B8 (``mask_packed_w_t_bits_cuda``) replaces
 ``singlet_tpu/ops/pallas_maskgram.py`` ``mask_packed_w_t_bits`` and B9
@@ -8,8 +9,14 @@ B10 (``mask_packed_w_t_cuda``) replaces ``mask_packed_w_t`` and B11
 (``mask_packed_h_t_cuda``) replaces ``mask_packed_h_t``, with the mask
 hashed from (seed, cell, gene) on the card and bf16 operands. Their source
 is ``csrc/maskgram_bits.cu``, whose header note gives the design and what
-bounds it on the card; ``_build.py`` compiles it with nvcc at first use and
-this module binds it with ctypes.
+bounds it on the card. B12 (``unpack_mask_bits_cuda``) replaces
+``singlet_tpu/ops/maskbits.py`` ``unpack_mask_bits``, B13
+(``mask_packed_w_t_m8_cuda``) ``mask_packed_w_t_m8`` and B14
+(``mask_packed_h_t_m8_cuda``) ``mask_packed_h_t_m8``: the bits route under
+``SINGLET_TPU_MASK8=1``, the mask unpacked once per group into a dense
+int8 array that the products read; their source is ``csrc/maskgram_m8.cu``.
+``_build.py`` compiles each source with nvcc at first use and this module
+binds them with ctypes.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (``ops/maskgram.py``), because there is no
@@ -24,11 +31,16 @@ from typing import Optional
 import torch
 
 from singlet_tpu_torch.ops.bell_cuda import _check_words, _seed_args
-from singlet_tpu_torch.ops.maskbits import n_word_groups
-from singlet_tpu_torch.ops.maskgram import (_is_int8, b9_sub_block,
+from singlet_tpu_torch.ops.maskbits import (_check_unpack, n_word_groups,
+                                            unpack_mask_bits_plain,
+                                            unpack_out)
+from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
+                                            b9_sub_block, m8_sub_block,
                                             mask_packed_h_t_bits_plain,
+                                            mask_packed_h_t_m8_plain,
                                             mask_packed_h_t_plain,
                                             mask_packed_w_t_bits_plain,
+                                            mask_packed_w_t_m8_plain,
                                             mask_packed_w_t_plain)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
@@ -38,12 +50,16 @@ LAUNCHES_MPW_BITS = 0
 LAUNCHES_MPH_BITS = 0
 LAUNCHES_MPW_HASH = 0
 LAUNCHES_MPH_HASH = 0
+# likewise B12, B13 and B14 (the SINGLET_TPU_MASK8=1 route)
+LAUNCHES_UNPACK8 = 0
+LAUNCHES_MPW_M8 = 0
+LAUNCHES_MPH_M8 = 0
 
 _LIB = {}
 
 
 def _lib():
-    if not _LIB:
+    if "lib" not in _LIB:
         from singlet_tpu_torch import _build
 
         lib = _build.load("maskgram_bits")
@@ -67,9 +83,30 @@ def _lib():
     return _LIB["lib"]
 
 
-def _raise_on(err, symbol):
+def _m8_lib():
+    if "m8" not in _LIB:
+        from singlet_tpu_torch import _build
+
+        lib = _build.load("maskgram_m8")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.unpack_mask_bits.argtypes = [vp, ci, ci, ci, ci, vp, vp]
+        lib.unpack_mask_bits.restype = ci
+        lib.mask_packed_w_t_m8.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp,
+                                           vp]
+        lib.mask_packed_w_t_m8.restype = ci
+        lib.mask_packed_h_t_m8.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
+                                           ci, ci, vp, vp]
+        lib.mask_packed_h_t_m8.restype = ci
+        lib.maskgram_m8_error_string.argtypes = [ci]
+        lib.maskgram_m8_error_string.restype = ctypes.c_char_p
+        _LIB["m8"] = lib
+    return _LIB["m8"]
+
+
+def _raise_on(err, symbol, error_string=None):
     if err != 0:
-        msg = _lib().maskgram_bits_error_string(err).decode()
+        error_string = error_string or _lib().maskgram_bits_error_string
+        msg = error_string(err).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
 
 
@@ -238,4 +275,102 @@ def mask_packed_h_t_cuda(Ph, seed, cell_ids, acc, *, gene_block: int,
             int(genes_true), words.data_ptr(), acc.data_ptr(), _stream(dev))
     _raise_on(err, "mask_packed_h_t_hash")
     LAUNCHES_MPH_HASH += 1
+    return acc
+
+
+def unpack_mask_bits_cuda(words, *, gene_block: int, genes_pad: int,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B12: the dense int8 0/1 test mask (cells, genes_pad) of packed
+    words (cells, n_t * gene_block) int32, written into ``out`` when given.
+    On CPU tensors, the plain version."""
+    if words.device.type != "cuda":
+        return unpack_mask_bits_plain(words, gene_block=gene_block,
+                                      genes_pad=genes_pad, out=out)
+    global LAUNCHES_UNPACK8
+    _check_unpack(words, gene_block, genes_pad)
+    cells = words.shape[0]
+    n_gb = genes_pad // gene_block
+    _check("words", words, (cells, words.shape[1]), torch.int32,
+           words.device)
+    out = unpack_out(out, words, genes_pad)
+    if cells == 0 or genes_pad == 0:
+        return out
+    lib = _m8_lib()
+    with torch.cuda.device(words.device):
+        err = lib.unpack_mask_bits(words.data_ptr(), cells, words.shape[1],
+                                   gene_block, n_gb, out.data_ptr(),
+                                   _stream(words.device))
+    _raise_on(err, "unpack_mask_bits", lib.maskgram_m8_error_string)
+    LAUNCHES_UNPACK8 += 1
+    return out
+
+
+def mask_packed_w_t_m8_cuda(P_op, scales, mask8_blk, *,
+                            gene_block: int) -> torch.Tensor:
+    """Kernel B13: (np, block) float32 = (mask @ P)^T, the mask the block's
+    rows (block, genes_pad) of a prebuilt int8 0/1 mask; P_op (genes_pad,
+    np) int8 with ``scales`` (np,) float32, or bf16. On CPU tensors, the
+    plain version."""
+    if P_op.device.type != "cuda":
+        return mask_packed_w_t_m8_plain(P_op, scales, mask8_blk,
+                                        gene_block=gene_block)
+    global LAUNCHES_MPW_M8
+    dev = P_op.device
+    int8 = _is_int8(P_op)
+    genes_pad, np_ = P_op.shape
+    block = mask8_blk.shape[0]
+    _check_m8(mask8_blk, block, genes_pad, gene_block)
+    m8_sub_block(block)
+    _check("P_op", P_op, (genes_pad, np_), P_op.dtype, dev)
+    _check("mask8", mask8_blk, (block, genes_pad), torch.int8, dev)
+    if int8:
+        _check("scales", scales, (np_,), torch.float32, dev)
+    out = torch.empty((np_, block), dtype=torch.float32, device=dev)
+    if block == 0 or np_ == 0:
+        return out
+    lib = _m8_lib()
+    with torch.cuda.device(dev):
+        err = lib.mask_packed_w_t_m8(
+            P_op.data_ptr(), int(int8), np_,
+            scales.data_ptr() if int8 else None, mask8_blk.data_ptr(), block,
+            genes_pad, out.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_w_t_m8", lib.maskgram_m8_error_string)
+    LAUNCHES_MPW_M8 += 1
+    return out
+
+
+def mask_packed_h_t_m8_cuda(P_op, scales, mask8, acc, *, gene_block: int,
+                            scale_block: Optional[int] = None):
+    """Kernel B14: ``acc`` (np, genes_pad) float32 += the dequantized
+    (mask^T @ P)^T, in place (returned). P_op (cells, np) int8 with
+    ``scales`` (np, cells // scale_block), or bf16; mask8 the prebuilt int8
+    0/1 mask (cells, genes_pad). On CPU tensors, the plain version."""
+    if P_op.device.type != "cuda":
+        return mask_packed_h_t_m8_plain(P_op, scales, mask8, acc,
+                                        gene_block=gene_block,
+                                        scale_block=scale_block)
+    global LAUNCHES_MPH_M8
+    dev = P_op.device
+    int8 = _is_int8(P_op)
+    cells, np_ = P_op.shape
+    genes_pad = acc.shape[1]
+    _check_m8(mask8, cells, genes_pad, gene_block)
+    scale_block = cells if scale_block is None else int(scale_block)
+    bc = b9_sub_block(cells, scale_block)
+    _check("P_op", P_op, (cells, np_), P_op.dtype, dev)
+    _check("acc", acc, (np_, genes_pad), torch.float32, dev)
+    _check("mask8", mask8, (cells, genes_pad), torch.int8, dev)
+    n_scales = cells // scale_block
+    if int8:
+        _check("scales", scales, (np_, n_scales), torch.float32, dev)
+    if cells == 0 or np_ == 0:
+        return acc
+    lib = _m8_lib()
+    with torch.cuda.device(dev):
+        err = lib.mask_packed_h_t_m8(
+            P_op.data_ptr(), int(int8), np_,
+            scales.data_ptr() if int8 else None, n_scales, mask8.data_ptr(),
+            cells, genes_pad, bc, scale_block, acc.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_h_t_m8", lib.maskgram_m8_error_string)
+    LAUNCHES_MPH_M8 += 1
     return acc

@@ -11,7 +11,8 @@ is ``csrc/nnls_cd_batched.cu`` (a column per lane, its coordinates shared
 by eight warps, Gram rows streamed through a cp.async ring). Each source's
 header note gives its design and
 what bounds it on the card. ``_build.py`` compiles them with nvcc at first
-use and this module binds them with ctypes.
+use and this module binds them with ctypes. Both take k <= 512
+(``MAX_K``, ``MAX_K_BATCHED``) and raise past it.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
@@ -32,14 +33,16 @@ from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS, nnls_batch
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
 
-# B1: coordinates per lane are a template parameter of 1..7, so k <= 7 * 32;
-# the (k, k) Gram plus 1/diag then take at most 201,600 bytes of shared
-# memory, under the 232,448 a Hopper block may use
-MAX_K = 224
-# B2: eight warps share a block's coordinates, up to 28 each in registers
-# (a template parameter), so k <= 8 * 28; the same limit as B1, which the
-# final plain fit of a rank search runs at the chosen rank
-MAX_K_BATCHED = 224
+# B1: coordinates per lane are a template parameter; up to k = 224 (7 per
+# lane) the (k, k) Gram plus 1/diag are staged in shared memory (at most
+# 201,600 of the 232,448 bytes a Hopper block may use), past it the kernel
+# reads the transposed Gram from device memory with up to 16 per lane
+MAX_K_SHARED = 224
+MAX_K = 512
+# B2: eight warps share a block's coordinates, up to 28 each in registers,
+# so k <= 224; past it sixteen warps of up to 32; the same limit as B1,
+# which the final plain fit of a rank search runs at the chosen rank
+MAX_K_BATCHED = 512
 
 # the C entry points of B1 and B2 take the same arguments: six pointers,
 # n, k, L1, L2, k_div, cap, max_sweeps and the stream
@@ -108,8 +111,14 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     X = torch.empty_like(B)
     if n == 0:
         return X
-    _launch(_kernel(), "nnls_cd_shared", a, inv_diag, B, X0, update_mask,
-            X, L1, L2, k_div, cap, max_sweeps)
+    if k <= MAX_K_SHARED:
+        _launch(_kernel(), "nnls_cd_shared", a, inv_diag, B, X0, update_mask,
+                X, L1, L2, k_div, cap, max_sweeps)
+    else:
+        # the kernel reads column i of a as row i of its transposed copy
+        _launch(_kernel("nnls_cd", "nnls_cd_global"), "nnls_cd_global",
+                a.t().contiguous(), inv_diag, B, X0, update_mask, X, L1, L2,
+                k_div, cap, max_sweeps)
     LAUNCHES += 1
     return X
 

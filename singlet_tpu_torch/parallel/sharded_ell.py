@@ -43,9 +43,14 @@ What differs from the JAX engine, and why:
     f32 route: B3 and B4 hash the keep factor in-kernel at the nonzeros,
     the test mask of each block is built per block and the mask products
     run in full f32 (``linalg.mask_dot_t``). ``SINGLET_TPU_MASK8=1``
-    selects a route whose kernels are not ported (B12-B14) and raises. The
-    packed pair axis is not padded to a lane multiple (``pad_pairs``): the
-    padding exists for the TPU's lanes and no consumer reads it;
+    changes only the bits route, as in JAX: per group of F blocks one B12
+    unpacks the group's words into a dense int8 0/1 mask (one buffer per
+    step, reused by every group), B13 reads each block's rows of it in
+    place of B8 and B14 reads the group's in place of B9. The JAX engine's
+    transposed copy of that mask (``m8.T``) exists for the TPU's tiles and
+    is left out. The packed pair axis is not padded to a lane multiple
+    (``pad_pairs``): the padding exists for the TPU's lanes and no consumer
+    reads it;
   * ``checkpoint=`` of ``fit`` and ``ard_fit`` runs the same host loops
     with a save after each iteration; ``chunk_iters`` raises (ROADMAP
     A.4a: it splits the fused device loop for relays that cap execution
@@ -74,11 +79,13 @@ from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
                                           mask_mm_precision,
                                           packed_outer_products,
                                           scale_columns, triu_pairs)
-from singlet_tpu_torch.ops.maskbits import pack_mask_words
+from singlet_tpu_torch.ops.maskbits import pack_mask_words, unpack_mask_bits
 from singlet_tpu_torch.ops.maskgram import (mask_packed_h_t,
                                             mask_packed_h_t_bits,
+                                            mask_packed_h_t_m8,
                                             mask_packed_w_t,
                                             mask_packed_w_t_bits,
+                                            mask_packed_w_t_m8,
                                             maskgram_mode, quantize_pairs)
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t)
@@ -220,19 +227,17 @@ def _kernel_device(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _masked_route(device, mode: str, precision: str, mask8: bool) -> str:
+def _masked_route(device, mode: str, precision: str) -> str:
     """The masked step's route, the counterpart of the JAX engine's
     ``_use_bits`` and its mode selection: "int8" or "bf16" (the bits route,
     which a step given no packed mask turns into the hash route) or "hash"
     on a kernel device at the default mask precision with that
     ``SINGLET_TPU_MASKGRAM`` mode, else "xla" (the f32 route, which the JAX
-    engine takes on the CPU). The prebuilt int8 mask of
-    ``SINGLET_TPU_MASK8=1`` raises: its kernels are not ported."""
+    engine takes on the CPU). ``SINGLET_TPU_MASK8=1`` plays no part here:
+    as in JAX it is read on the bits route alone, where it selects the
+    prebuilt int8 mask (B12-B14) in place of B8/B9."""
     if not (_kernel_device(device) and precision == "default"):
         return "xla"
-    if mode in ("int8", "bf16") and mask8:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="SINGLET_TPU_MASK8=1 (kernels B12-B14)", item="B"))
     return mode
 
 
@@ -259,11 +264,11 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
     mask8 = os.environ.get("SINGLET_TPU_MASK8", "0") == "1"
 
     def route() -> str:
-        return _masked_route(dev, mode, precision, mask8)
+        return _masked_route(dev, mode, precision)
 
     def use_bits() -> bool:
         """Whether masked fits that pack the test mask once take the bits
-        route (raises on the route that is not ported)."""
+        route."""
         return route() in ("int8", "bf16")
 
     def prepare_bits(seed):
@@ -404,29 +409,48 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # quantized and stacked, and B9 flushes a group of F blocks
             # into the carry at once (F the largest divisor of the block
             # count up to 16), each block dequantized with its own scales:
-            # the bits of flushing block by block
+            # the bits of flushing block by block. Under MASK8 the group's
+            # words are first unpacked by B12 into one int8 mask buffer,
+            # allocated once per step and reused by every group, and B13
+            # and B14 read it in place of B8 and B9.
             (words,) = bits
             Pw_op, Pw_s = _quantized(Pw, r)
             n_blk = cells_pad // mblock
             F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
+            m8 = None
             for g0 in range(0, cells_pad, F * mblock):
+                w_grp = words[g0:g0 + F * mblock]
+                if mask8:
+                    m8 = unpack_mask_bits(w_grp, gene_block=gene_block,
+                                          genes_pad=genes_pad, out=m8)
                 ops, scales = [], []
                 for start in range(g0, g0 + F * mblock, mblock):
                     li, lv = planes(start, mblock)
                     w_blk = words[start:start + mblock]
                     B = bell_spmm_bits(li, lv, W, w_blk,
                                        gene_block=gene_block)
-                    Hb = h_block(start, B, mask_packed_w_t_bits(
-                        Pw_op, Pw_s, w_blk, gene_block=gene_block))
+                    if mask8:
+                        packed_t = mask_packed_w_t_m8(
+                            Pw_op, Pw_s, m8[start - g0:start - g0 + mblock],
+                            gene_block=gene_block)
+                    else:
+                        packed_t = mask_packed_w_t_bits(
+                            Pw_op, Pw_s, w_blk, gene_block=gene_block)
+                    Hb = h_block(start, B, packed_t)
                     Bw += bell_spmm_t_bits(li, lv, Hb, w_blk,
                                            gene_block=gene_block, n_gb=n_gb)
                     q, qs = _quantized(packed_outer_products(Hb, iu), r)
                     ops.append(q)
                     scales.append(qs)
-                mask_packed_h_t_bits(
-                    torch.cat(ops), torch.stack(scales, dim=1),
-                    words[g0:g0 + F * mblock], Pk_t, gene_block=gene_block,
-                    scale_block=mblock)
+                if mask8:
+                    mask_packed_h_t_m8(
+                        torch.cat(ops), torch.stack(scales, dim=1), m8, Pk_t,
+                        gene_block=gene_block, scale_block=mblock)
+                else:
+                    mask_packed_h_t_bits(
+                        torch.cat(ops), torch.stack(scales, dim=1), w_grp,
+                        Pk_t, gene_block=gene_block, scale_block=mblock)
+            del m8
         d = Hsum + 1e-15
         H_new = torch.cat(Hs) / d[None, :]
         a_h = Hgram / (d[:, None] * d[None, :])

@@ -12,6 +12,12 @@ through. Chunk lists and staged directories (ROADMAP A.7b) and ``mesh=``
 (A.8) raise: densifying such input silently could exhaust the card. The CV
 trace frame (columns k, rep, test_error, iter, tol[, overfit_score]) is the
 JAX package's.
+
+Ranks: on the card every fit takes k <= 512. The CD-NNLS kernels B1 and B2
+and the fused test MSE B7 hold a column's k coordinates in registers and
+raise past 512 (``ops/nnls_cuda.py`` ``MAX_K``, ``MAX_K_BATCHED``,
+``ops/bell_cuda.py`` ``MAX_K_MSE``); the JAX package has no such limit.
+On the CPU any rank runs.
 """
 
 from __future__ import annotations
@@ -150,7 +156,8 @@ def run_nmf(
     scipy input above ``SPARSE_THRESHOLD`` dense entries, or a
     ``ShardedEllEngine``, fits on the blocked-ELL engine. ``mesh`` is
     accepted for the JAX signature and raises: the multi-device engine is
-    not ported yet.
+    not ported yet. On the card ``rank`` may be at most 512 (the limit of
+    kernels B1, B2 and B7); past it the first launch raises.
     """
     if config is not None:
         tol, maxit, L1, L2, seed = (config.tol, config.maxit, config.L1,
@@ -245,7 +252,8 @@ def cross_validate_nmf(
     trace frame of class ``cross_validate_nmf_data``. ``A`` and ``device``
     are taken as ``run_nmf`` takes them; ``mesh`` raises. ``config`` (an
     NMFConfig) supplies the hyperparameters, taking precedence over the
-    per-argument defaults.
+    per-argument defaults. On the card each of ``ranks`` may be at most
+    512, as in ``run_nmf``.
     """
     if config is not None:
         n_replicates, maxit, verbose = (config.reps, config.maxit,
@@ -331,7 +339,8 @@ def ard_nmf(
     pathological search oscillation. ``config`` (an NMFConfig) supplies the
     hyperparameters, taking precedence over per-argument defaults. ``A``
     and ``device`` are taken as ``run_nmf`` takes them; ``mesh`` is not
-    ported yet and raises.
+    ported yet and raises. On the card ``k_max`` may be at most 512, as
+    ``run_nmf``'s rank.
 
     ``checkpoint`` (a ``CheckpointManager`` or directory path) saves the
     SEARCH state after every completed rank fit: the CV rows and the

@@ -57,7 +57,8 @@ def _close(got, want):
     assert err <= 1e-5 * float(want.abs().max()) + 1e-30, err
 
 
-CASES = [(w, k) for w in (8, 32, 136) for k in (3, 50, 100, 224)]
+CASES = [(w, k) for w in (8, 32, 136) for k in (3, 50, 100, 224)] + [
+    (32, 256), (8, 300)]
 CELLS = 1000      # no multiple of 256
 
 
@@ -70,7 +71,8 @@ def test_b3_matches_plain(cuda, width, k, masked):
     before = bell_cuda.LAUNCHES_SPMM
     got = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 4096,
                                    gene_block=GENE_BLOCK, inv_density=20)
-    assert bell_cuda.LAUNCHES_SPMM == before + 1
+    # one launch per column chunk of W
+    assert bell_cuda.LAUNCHES_SPMM == before + -(-k // bell_cuda.B3_K_CHUNK)
     want = bell.bell_spmm_plain(li, lv, W, seed, 4096,
                                 gene_block=GENE_BLOCK, inv_density=20)
     _close(got, want)
@@ -98,6 +100,42 @@ def test_b4_matches_plain(cuda, width, k, masked):
                                        gene_block=GENE_BLOCK, n_gb=N_GB,
                                        inv_density=20)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k,chunk", [(200, 64), (224, 100), (256, 224),
+                                     (300, 128)])
+def test_b3_chunks_give_the_bits_of_one_launch(cuda, k, chunk):
+    """B3 and B5 take W past B3_K_CHUNK columns in chunks, one launch each
+    and each counted: each output column is one thread's sum over the
+    cell's live slots in slot order, so W's columns launched in any chunks
+    give the same bits."""
+    from singlet_tpu_torch.ops.maskbits import pack_mask_words
+
+    li, lv = _planes(32, CELLS, k, cuda)
+    W = torch.rand((N_GB * GENE_BLOCK, k), device=cuda)
+    seed = seed_pair(5)
+    kw = dict(gene_block=GENE_BLOCK, inv_density=20)
+    launches = -(-k // bell_cuda.B3_K_CHUNK)
+    before = (bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_BITS)
+    whole = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 64, **kw)
+    assert bell_cuda.LAUNCHES_SPMM == before[0] + launches
+    assert torch.equal(whole, torch.cat([bell_cuda.bell_spmm_cuda(
+        li, lv, W[:, c0:c0 + chunk].contiguous(), seed, 64, **kw)
+        for c0 in range(0, k, chunk)], dim=1))
+    words = pack_mask_words(seed, torch.arange(64, 64 + CELLS, device=cuda),
+                            genes_pad=N_GB * GENE_BLOCK,
+                            gene_block=GENE_BLOCK, inv_density=20,
+                            cells_true=64 + CELLS,
+                            genes_true=N_GB * GENE_BLOCK)
+    b5 = bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                       gene_block=GENE_BLOCK)
+    assert bell_cuda.LAUNCHES_SPMM_BITS == before[1] + launches
+    assert torch.equal(b5, whole)
+    assert torch.equal(b5, torch.cat([bell_cuda.bell_spmm_bits_cuda(
+        li, lv, W[:, c0:c0 + chunk].contiguous(), words,
+        gene_block=GENE_BLOCK) for c0 in range(0, k, chunk)], dim=1))
+    _close(b5, bell.bell_spmm_bits_plain(li, lv, W, words,
+                                         gene_block=GENE_BLOCK))
 
 
 @pytest.mark.parametrize("inv_density", [1, 3, 20])
@@ -172,9 +210,8 @@ def test_wrappers_refuse(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         bell_cuda.bell_spmm_t_cuda(li, lv, H.T.contiguous().T, n_gb=N_GB,
                                    **kw)
-    with pytest.raises(NotImplementedError, match="B3"):
-        bell_cuda.bell_spmm_cuda(li, lv, torch.rand(
-            (N_GB * GENE_BLOCK, bell_cuda.MAX_K + 1), device=cuda), **kw)
+    with pytest.raises(ValueError, match="gene_block"):
+        bell_cuda.bell_spmm_cuda(li, lv, W[:700], **kw)
 
 
 def test_engine_fit_on_card_matches_cpu(cuda, monkeypatch):

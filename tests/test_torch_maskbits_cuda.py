@@ -73,7 +73,8 @@ def _close(got, want, rel=1e-5):
 
 
 @pytest.mark.parametrize("gene_block,n_gb", GEOMS)
-@pytest.mark.parametrize("width,k", [(8, 3), (32, 100), (40, 50)])
+@pytest.mark.parametrize("width,k", [(8, 3), (32, 100), (40, 50), (32, 256),
+                                     (8, 300)])
 def test_b5_b6_equal_masked_b3_b4(cuda, gene_block, n_gb, width, k):
     width = min(width, gene_block)
     li, lv = _planes(width, CELLS, gene_block, n_gb, width + k, cuda)
@@ -87,8 +88,9 @@ def test_b5_b6_equal_masked_b3_b4(cuda, gene_block, n_gb, width, k):
                                        gene_block=gene_block)
     b6 = bell_cuda.bell_spmm_t_bits_cuda(li, lv, H, words,
                                          gene_block=gene_block, n_gb=n_gb)
-    assert (bell_cuda.LAUNCHES_SPMM_BITS,
-            bell_cuda.LAUNCHES_SPMM_T_BITS) == (before[0] + 1, before[1] + 1)
+    # B5 launches once per column chunk of W
+    assert (bell_cuda.LAUNCHES_SPMM_BITS, bell_cuda.LAUNCHES_SPMM_T_BITS) == (
+        before[0] + -(-k // bell_cuda.B3_K_CHUNK), before[1] + 1)
     assert torch.equal(b5, bell_cuda.bell_spmm_cuda(
         li, lv, W, seed, OFFSET, gene_block=gene_block, inv_density=20))
     assert torch.equal(b6, bell_cuda.bell_spmm_t_cuda(
@@ -101,7 +103,7 @@ def test_b5_b6_equal_masked_b3_b4(cuda, gene_block, n_gb, width, k):
 
 
 @pytest.mark.parametrize("gene_block,n_gb", GEOMS)
-@pytest.mark.parametrize("k", [3, 50, 100, 224])
+@pytest.mark.parametrize("k", [3, 50, 100, 224, 256, 300])
 def test_b7_matches_plain(cuda, gene_block, n_gb, k):
     li, lv = _planes(24, CELLS, gene_block, n_gb, k, cuda)
     genes = gene_block * n_gb
@@ -209,6 +211,10 @@ def test_wrappers_refuse(cuda):
     with pytest.raises(TypeError, match="int8 or bfloat16"):
         maskgram_cuda.mask_packed_w_t_bits_cuda(op.float(), s, words,
                                                 gene_block=256)
+    with pytest.raises(NotImplementedError, match="B7 takes k <= 512"):
+        bell_cuda.bell_mse_bits_cuda(
+            li, lv, words, torch.rand((768, 513), device=cuda),
+            torch.rand((300, 513), device=cuda), gene_block=256)
     with pytest.raises(ValueError, match="8 cells"):
         maskgram_cuda.mask_packed_h_t_bits_cuda(
             torch.zeros((2050, s.shape[0]), dtype=torch.int8, device=cuda),

@@ -41,7 +41,8 @@ def _problem(n, k, seed, device):
 
 
 @pytest.mark.parametrize("n,k", [(256, 9), (1500, 10), (2048, 50),
-                                 (1024, 100), (300, 200)])
+                                 (1024, 100), (300, 200), (300, 256),
+                                 (200, 300)])
 @pytest.mark.parametrize("sweep_cap", [None, 8.0])
 def test_kernel_matches_plain(cuda, n, k, sweep_cap):
     a, B, X0, mask = _problem(n, k, n + k, cuda)
@@ -134,7 +135,8 @@ def _masked_problem(n, k, seed, device):
 
 
 @pytest.mark.parametrize("n,k", [(256, 9), (1500, 10), (2048, 50),
-                                 (1024, 100), (130, 224)])
+                                 (1024, 100), (130, 224), (130, 256),
+                                 (96, 300)])
 @pytest.mark.parametrize("sweep_cap", [None, 32.0])
 def test_batched_kernel_matches_plain(cuda, n, k, sweep_cap):
     at, B, X0, mask = _masked_problem(n, k, n + k, cuda)
@@ -156,6 +158,14 @@ def test_batched_kernel_n_coord_and_no_mask(cuda):
     Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
     np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
                                rtol=5e-3, atol=1e-6)
+
+
+def test_kernel_refuses_large_k(cuda):
+    k = nnls_cuda.MAX_K + 1
+    a = torch.eye(k, device=cuda)
+    B = torch.ones((4, k), device=cuda)
+    with pytest.raises(NotImplementedError, match="B1 takes k <= 512"):
+        nnls_cuda.nnls_batch_cuda(a, B, torch.zeros_like(B))
 
 
 def test_batched_kernel_refuses_large_k(cuda):

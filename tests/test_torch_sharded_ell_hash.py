@@ -158,3 +158,39 @@ def test_checkpointed_ard_fit_takes_the_hash_route(rng, tmp_path,
     assert {"mask_packed_w_t", "mask_packed_h_t"} <= set(kernel_routes)
     assert got.iter == [0, 1, 2, 3]
     _assert_ard_close(got, want)
+
+
+@pytest.mark.parametrize("fit", ["fit", "ard_fit"])
+def test_checkpointed_fits_under_mask8_take_the_hash_route(
+        rng, monkeypatch, tmp_path, fit):
+    """MASK8 is read on the bits route alone, as in JAX: a checkpointed
+    masked fit packs no mask, so under MASK8=1 it still takes the hash
+    route (a B3, B4, B10 and B11 per block and step; no B12) and equals the
+    same fit without MASK8 bit for bit."""
+    from singlet_tpu_torch.ops import maskbits
+
+    monkeypatch.setattr(tell, "_kernel_device", lambda device: True)
+    te = tell.ShardedEllEngine(_operand(), device="cpu", gene_block=256)
+    w0 = rng.random((GENES, K)).astype(np.float32)
+    if fit == "fit":
+        kw = dict(w_init=w0, tol=0.0, maxit=2, masked=True, mask_seed=4)
+        fields = ("w", "h", "d", "tol_trace", "test_mse")
+    else:
+        kw = dict(w_init=w0, mask_seed=4, maxit=2, tol=0.0,
+                  trace_test_mse=1, overfit_threshold=1.0)
+        fields = ("w", "h", "d", "test_mse", "iter", "tol", "score_overfit")
+
+    def run(label):
+        return getattr(te, fit)(K, checkpoint=CheckpointManager(
+            str(tmp_path / label), every=1), **kw)
+
+    want = run("plain")
+    monkeypatch.setenv("SINGLET_TPU_MASK8", "1")
+    b0, m0, u0 = bell.PLAIN_CALLS, maskgram.PLAIN_CALLS, maskbits.PLAIN_CALLS
+    got = run("mask8")
+    assert (bell.PLAIN_CALLS, maskgram.PLAIN_CALLS, maskbits.PLAIN_CALLS) \
+        == (b0 + 2 * 2 * BLOCKS, m0 + 2 * 2 * BLOCKS, u0)
+    for f in fields:
+        x, y = ((got[f], want[f]) if isinstance(got, dict)
+                else (getattr(got, f), getattr(want, f)))
+        np.testing.assert_array_equal(x, y, err_msg=f)
