@@ -82,17 +82,22 @@ Phases; any failure raises and the script exits non-zero:
    operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
    ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
    default bits route;
-13. kernels B10 and B11 (``ops/maskgram_cuda.py``, the hash route's mask
-   products, bf16, the mask hashed on the card), run beside phases 9 and
-   11: on the bench operand (k=50), on an edge geometry (1280 genes in
-   gene blocks of 32, 3000 cells from cell 12345 in blocks of 1000, true
-   sizes 2990 cells and 1270 genes) and on the 8192-cell slice of the
-   large operand (k=100; B10 on its first 2048-cell block, B11 over it
-   block by block): within 1e-5 x max |output| of their plain versions,
-   the same bits twice, and within 1e-5 x max |output| of bf16 B8/B9 on
-   the packed words of the same cells; per call the times of kernel,
-   plain version and library call (torch.matmul of the bf16 mask) and
-   the bound;
+13. kernels B10 and B11 (``ops/maskgram_cuda.py`` on
+   ``csrc/maskgram_hash.cu``: the hash route's mask products, bf16, a
+   hash pass that packs the mask along K, then one wgmma GEMM fed by
+   TMA), run beside phases 9 and 11: on the bench operand (k=50), on an
+   edge geometry (1280 genes in gene blocks of 32, 3000 cells from cell
+   12345 in blocks of 1000, true sizes 2990 cells and 1270 genes) and on
+   the 8192-cell slice of the large operand (k=100; B10 on its first
+   2048-cell block, B11 over it block by block), P handed over as the
+   engine does (views of buffers with the pair axis padded to 64): the
+   hash pass alone the plain version's words bit for bit, each kernel
+   within 1e-5 x max |output| of its plain version, the same bits twice,
+   and within 1e-5 x max |output| of bf16 B8/B9 on the packed words of
+   the same cells; per call the times of kernel, hash pass, plain version
+   and library call (torch.matmul of the bf16 mask) and the bound; and,
+   in turns (old, new, new, old), bf16 B8/B9 on the packed words against
+   B10/B11 on the same cells;
 14. resumable fits (``checkpoint=``), each stopped and resumed and equal
    bit for bit to the uninterrupted run: after phase 7, ``nmf_fit`` and
    ``ard_nmf_fit`` at the bench config (checkpoints every 5, stopped at
@@ -161,7 +166,7 @@ MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
-           "bell_mse_bits", "maskgram_m8")
+           "bell_mse_bits", "maskgram_m8", "maskgram_hash")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -1097,12 +1102,18 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
     cells [cell_offset, cell_offset + cells) of an operand of ``genes``
     genes with the validity clamps ``cells_true``/``genes_true``: B10 on the
     first ``block`` cells, B11 over all of them block by block into one
-    carry. Each within 1e-5 x max |output| of its plain version, the same
+    carry, each fed P as the engine feeds it (a view of a buffer whose pair
+    axis is padded for TMA). Their hash pass alone gives the plain
+    version's words bit for bit (both layouts, the first ``block`` cells);
+    each kernel is within 1e-5 x max |output| of its plain version, the same
     bits on a second run, and within 1e-5 x max |output| of bf16 B8 and B9
     (one quantization group per block) fed the packed words of the same
     cells and seed. With ``timed``, per call (one block): the times of
-    kernel, plain version and library call (torch.matmul of the bf16 mask,
-    built outside the timing, with the bf16 operand) and the bound."""
+    kernel, hash pass, plain version and library call (torch.matmul of the
+    bf16 mask, built outside the timing, with the bf16 operand) and the
+    bound; and the kernel in turns with bf16 B8/B9 on the packed words
+    (the earlier design's product code, without its hash pass), old, new,
+    new, old."""
     from singlet_tpu_torch.ops import maskgram, maskgram_cuda
     from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
     from singlet_tpu_torch.ops.maskbits import pack_mask_words
@@ -1114,31 +1125,51 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
     gen = torch.Generator(device="cuda").manual_seed(k + 2)
     iu = triu_pairs(k)
     npairs = iu[0].shape[0]
-    # the operands as the engine hands them over: packed products in bf16
+    # the operands in bf16: contiguous for B8/B9, and as the engine hands
+    # them to B10/B11
     Pw = packed_outer_products(torch.rand((genes, k), generator=gen,
                                           device="cuda"), iu).bfloat16()
     Ph = packed_outer_products(torch.rand((cells, k), generator=gen,
                                           device="cuda"), iu).bfloat16()
+    Pw_v = maskgram.pair_buffer(genes, npairs, "cuda")
+    Pw_v.copy_(Pw)
+    Ph_v = maskgram.pair_buffer(cells, npairs, "cuda")
+    Ph_v.copy_(Ph)
     acc0 = torch.rand((npairs, genes), generator=gen, device="cuda")
     seed = seed_pair(MASKED["mask_seed"])
-    kw = dict(gene_block=G, inv_density=MASKED["inv_density"],
-              cells_true=cells_true, genes_true=genes_true)
+    hkw = dict(inv_density=MASKED["inv_density"], cells_true=cells_true,
+               genes_true=genes_true)
+    kw = dict(gene_block=G, **hkw)
     ids64 = torch.arange(cell_offset, cell_offset + cells, device="cuda")
     ids = ids64.to(torch.int32)
     words = pack_mask_words(seed, ids64, genes_pad=genes, gene_block=G,
-                            inv_density=MASKED["inv_density"],
-                            cells_true=cells_true, genes_true=genes_true)
+                            **hkw)
     b = min(block, cells)
     ones = torch.ones((npairs, 1), device="cuda")
     rows = []
 
+    # the hash pass alone, both layouts: the plain version's words
+    hash_ms = {}
+    for gene_rows in (False, True):
+        def hashed(f, gene_rows=gene_rows):
+            return f(seed, ids[:b], genes, gene_rows=gene_rows, **hkw)
+
+        if not torch.equal(hashed(maskgram_cuda.pack_mask_k_cuda),
+                           hashed(maskgram.pack_mask_k)):
+            raise AssertionError(f"hash pass {label} (gene_rows={gene_rows})"
+                                 ": differs from the plain version")
+        if timed:
+            hash_ms["B11" if gene_rows else "B10"] = _median_ms(
+                torch, lambda: hashed(maskgram_cuda.pack_mask_k_cuda),
+                runs=10)
+
     def b10(f):
-        return f(Pw, seed, ids[:b], **kw)
+        return f(Pw_v, seed, ids[:b], **kw)
 
     def b11(f):
         acc = acc0.clone()
         for s in range(0, cells, b):
-            f(Ph[s:s + b], seed, ids[s:s + b], acc, **kw)
+            f(Ph_v[s:s + b], seed, ids[s:s + b], acc, **kw)
         return acc
 
     def b8():
@@ -1153,21 +1184,24 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
                 scale_block=b)
         return acc
 
-    m = maskgram.hash_mask(seed, ids64[:b], genes, **{
-        key: kw[key] for key in ("inv_density", "cells_true", "genes_true")})
+    m = maskgram.hash_mask(seed, ids64[:b], genes, **hkw)
     nnz = int(m.sum())
     m_bf = m.to(torch.bfloat16)
     m_t = m_bf.T.contiguous()
     buf = acc0.clone()
-    for name, call, kern, plain, bits_call, one, library, bytes_ in (
+    for name, call, kern, plain, bits_call, one, old, library, bytes_ in (
             ("B10", b10, maskgram_cuda.mask_packed_w_t_cuda,
              maskgram.mask_packed_w_t_plain, b8,
-             lambda f: f(Pw, seed, ids[:b], **kw),
+             lambda f: f(Pw_v, seed, ids[:b], **kw),
+             lambda: maskgram_cuda.mask_packed_w_t_bits_cuda(
+                 Pw, ones[:, 0], words[:b], gene_block=G),
              lambda: torch.matmul(Pw.T, m_t),
              genes * npairs * 2 + b * 4 + npairs * b * 4),
             ("B11", b11, maskgram_cuda.mask_packed_h_t_cuda,
              maskgram.mask_packed_h_t_plain, b9,
-             lambda f: f(Ph[:b], seed, ids[:b], buf, **kw),
+             lambda f: f(Ph_v[:b], seed, ids[:b], buf, **kw),
+             lambda: maskgram_cuda.mask_packed_h_t_bits_cuda(
+                 Ph[:b], ones, words[:b], buf, gene_block=G, scale_block=b),
              lambda: torch.matmul(Ph[:b].T, m_bf),
              b * npairs * 2 + b * 4 + 2 * npairs * genes * 4)):
         got, again, want = call(kern), call(kern), call(plain)
@@ -1187,14 +1221,27 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
                    err_vs_bits=bits_err)
         times = ""
         if timed:
+            turns = {"old": [], "new": []}
+            for who in ("old", "new", "new", "old"):
+                turns[who].append(_median_ms(
+                    torch, old if who == "old" else lambda: one(kern),
+                    runs=10))
             row.update(ms=_median_ms(torch, lambda: one(kern), runs=10),
+                       hash_ms=hash_ms[name],
                        plain_ms=_median_ms(torch, lambda: one(plain), runs=2),
                        library_ms=_median_ms(torch, library, runs=10),
+                       turns_old_ms=turns["old"], turns_new_ms=turns["new"],
+                       dense_ms=2 * b * genes * npairs / BF16_OPS_S * 1e3,
                        **_bound(bytes_, 2 * nnz * npairs, BF16_OPS_S))
-            times = (f", per call of {b} cells: kernel {row['ms']:.4f} ms, "
-                     f"plain {row['plain_ms']:.3f} ms, torch.matmul "
+            times = (f", per call of {b} cells: kernel {row['ms']:.4f} ms "
+                     f"(its hash pass {row['hash_ms']:.4f}), plain "
+                     f"{row['plain_ms']:.3f} ms, torch.matmul "
                      f"{row['library_ms']:.4f} ms, bound "
-                     f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}), dense "
+                     f"product at the bf16 peak {row['dense_ms']:.4f} ms; in "
+                     f"turns bf16 {'B8' if name == 'B10' else 'B9'} on the "
+                     f"words {[round(t, 4) for t in turns['old']]} ms, "
+                     f"{name} {[round(t, 4) for t in turns['new']]} ms")
         rows.append(row)
         print(f"kernel {name} {label} cells={cells} block={b} k={k} "
               f"genes={genes}: max|err|={err:.3e} (max|out| {scale:.3e}), "
@@ -2240,6 +2287,7 @@ def phase_build():
     bell_cuda._mse_lib()
     maskgram_cuda._lib()
     maskgram_cuda._m8_lib()
+    maskgram_cuda._hash_lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
         print("\n".join(ln for ln in log.splitlines() if "ptxas" in ln),
@@ -2444,9 +2492,9 @@ def main() -> int:
                   "pallas_maskgram.py:480"),
         ell_entry("mask_packed_h_t_bits", "B9", "maskgram_bits.cu",
                   "pallas_maskgram.py:712"),
-        ell_entry("mask_packed_w_t", "B10", "maskgram_bits.cu",
+        ell_entry("mask_packed_w_t", "B10", "maskgram_hash.cu",
                   "pallas_maskgram.py:185"),
-        ell_entry("mask_packed_h_t", "B11", "maskgram_bits.cu",
+        ell_entry("mask_packed_h_t", "B11", "maskgram_hash.cu",
                   "pallas_maskgram.py:229"),
         ell_entry("unpack_mask_bits", "B12", "maskgram_m8.cu",
                   "maskbits.py:125"),

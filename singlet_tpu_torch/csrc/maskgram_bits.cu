@@ -1,51 +1,31 @@
-// Masked packed-Gram products: kernels B8 and B9 of the port, with the test
-// mask read from bitplane words, and B10 and B11, with the mask hashed from
-// (seed, cell, gene), for sm_90a.
+// Masked packed-Gram products of the bits route: kernels B8 and B9 of the
+// port, with the test mask read from bitplane words, for sm_90a. (The hash
+// route's B10 and B11 are csrc/maskgram_hash.cu.)
 //
 // B8 (`mask_packed_w_t_bits`) replaces singlet_tpu/ops/pallas_maskgram.py
-// `mask_packed_w_t_bits` (kernel body `_mpw_bits_kernel`), B9
-// (`mask_packed_h_t_bits`) replaces `mask_packed_h_t_bits` (`_mph_bits_body`),
-// B10 (`mask_packed_w_t_hash`) replaces `mask_packed_w_t` (`_mpw_kernel`) and
-// B11 (`mask_packed_h_t_hash`) replaces `mask_packed_h_t` (`_mph_kernel`):
+// `mask_packed_w_t_bits` (kernel body `_mpw_bits_kernel`) and B9
+// (`mask_packed_h_t_bits`) replaces `mask_packed_h_t_bits` (`_mph_bits_body`):
 //
-//   B8, B10:  out[p, c]  = sum_g mask(c, g) P[g, p]          P (genes_pad, np)
-//   B9, B11:  acc[p, g] += sum_c mask(c, g) P[c, p]          P (cells, np)
+//   B8:  out[p, c]  = sum_g mask(c, g) P[g, p]          P (genes_pad, np)
+//   B9:  acc[p, g] += sum_c mask(c, g) P[c, p]          P (cells, np)
 //
 // with mask(c, gb * GB + w) = (words[c, (gb >> 5) * GB + w] >> (gb & 31)) & 1
 // (singlet_tpu_torch/ops/maskbits.py). P is int8 (per-pair scales from
 // quantize_pairs: exact int32 sums, then one multiply per pair) or bf16
-// (float32 sums); B10 and B11 take bf16 only. B9 and B11 form one partial
-// per cell sub-block of `bc` cells (int8: multiplied by the scale column of
-// its quantization group) and add it into the carry in sub-block order,
-// `(acc + d0) + d1 + ...`, as the JAX kernels do; __fmul_rn and __fadd_rn
-// keep nvcc from contracting that into an FMA, so the int8 path gives the
-// bits of the plain version.
-//
-// B10 and B11: the hash. The TPU kernels hash the (cells x gene block) mask
-// tile of each grid step in VMEM. A tile of cells here meets every pair
-// tile, so hashing inside the product tile would hash each (cell, gene) once
-// per pair tile (79 tiles of 64 pairs at k = 100). Instead each call runs
-// two kernels: `hash_words_kernel` hashes every (cell, gene) of the call
-// exactly once into bitplane words of the maskbits layout, in a scratch
-// buffer the wrapper allocates (4 MiB per 2048-cell block at 16,384 genes,
-// well inside the L2), and the product kernel of B8 or B9 reads them. The
-// hash is singlet_tpu_torch/ops/rngmask.py `mask_block` bit for bit (the
-// same code as bell_spmm.cu's, with x % inv_density taken from the two
-// 32-bit halves as rngmask.u64_mod_small takes it), with the validity
-// clamps: cell ids at or past cells_true and genes at or past genes_true
-// are never held out. The words are those `pack_mask_words` packs for the
-// same cells, so B10 gives the bits of bf16 B8 on them, and B11 those of
-// bf16 B9 with one quantization group.
+// (float32 sums). B9 forms one partial per cell sub-block of `bc` cells
+// (int8: multiplied by the scale column of its quantization group) and adds
+// it into the carry in sub-block order, `(acc + d0) + d1 + ...`, as the JAX
+// kernel does; __fmul_rn and __fadd_rn keep nvcc from contracting that into
+// an FMA, so the int8 path gives the bits of the plain version.
 //
 // What bounds them. At 524,288 cells x 16,384 genes, k = 100 (5050 pairs),
-// the dense products are 339 GOP per 2048-cell block (B8, B10) and 5.4 TOP
-// per group of 16 blocks (B9): 0.17 ms and 2.7 ms at the 1,979 TOP/s int8
-// peak (twice that at the 989 TFLOP/s bf16 peak). They read little (P 83 MB
-// int8, 165 MB bf16; the words 4 MB per block; B9 and B11 also read and
-// write the 331 MB carry once per call), so the dense products are bound by
-// the tensor cores. The mask is 5% dense, so a sparse formulation needs
-// fewer operations; that is work for a later change. The hash pass is 34M
-// hashes per block, some 0.1-0.3 ms of integer work.
+// the dense products are 339 GOP per 2048-cell block (B8) and 5.4 TOP per
+// group of 16 blocks (B9): 0.17 ms and 2.7 ms at the 1,979 TOP/s int8 peak
+// (twice that at the 989 TFLOP/s bf16 peak). They read little (P 83 MB
+// int8, 165 MB bf16; the words 4 MB per block; B9 also reads and writes
+// the 331 MB carry once per call), so the dense products are bound by the
+// tensor cores. The mask is 5% dense, so a sparse formulation needs fewer
+// operations; that is work for a later change.
 //
 // Design of the products. Both run on the tensor cores through `mma.sync`
 // (m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 x bf16 -> f32), with the mask
@@ -342,81 +322,6 @@ mph_bits_kernel(const T* __restrict__ P, int np,
   }
 }
 
-// The counter hash of singlet_tpu_torch/ops/rngmask.py (reference
-// src/singlet.cpp:30-64) on native uint64: rand(i) per cell, then per gene
-// the j-mix, the 64-bit add and the final xorshifts.
-__device__ __forceinline__ uint64_t hash_i(uint64_t seed, uint64_t i) {
-  i ^= i << 19;
-  i ^= i >> 7;
-  i ^= i << 36;
-  uint64_t x = seed + i;
-  x ^= x << 38;
-  x ^= x >> 13;
-  x ^= x << 23;
-  return x;
-}
-
-// x % inv == 0 for x = rand(i, j), with inv < 2^16 and two32_mod = 2^32 %
-// inv: (hi 2^32 + lo) % inv = ((hi % inv) two32_mod + lo % inv) % inv, which
-// stays below 2^32 in uint32
-__device__ __forceinline__ bool held_out(uint64_t xi, uint64_t j, uint32_t inv,
-                                         uint32_t two32_mod) {
-  j ^= j >> 7;
-  j ^= j << 23;
-  j ^= j >> 8;
-  uint64_t x = xi + j;
-  x ^= x >> 7;
-  x ^= x << 53;
-  x ^= x >> 4;
-  const uint32_t hi = (uint32_t)(x >> 32), lo = (uint32_t)x;
-  return ((hi % inv) * two32_mod + lo % inv) % inv == 0;
-}
-
-// B10/B11, first pass: thread idx builds word idx = (cell c, word column
-// col) of the call's words (cells, wcols): bit s is the validity-clamped
-// test bit of global cell ids[c] at gene (32 t + s) GB + w, col = t GB + w.
-// The cell's rand(i) is formed once per word, each (cell, gene) hashed once.
-__global__ void __launch_bounds__(256)
-hash_words_kernel(const int32_t* __restrict__ ids, int cells, int wcols,
-                  int gene_block, int n_gb, uint64_t seed, uint32_t inv,
-                  uint32_t two32_mod, long long cells_true,
-                  long long genes_true, uint32_t* __restrict__ words) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)cells * wcols) return;
-  const int c = (int)(idx / wcols), col = (int)(idx % wcols);
-  const int t = col / gene_block, w = col - t * gene_block;
-  const int32_t id = ids[c];
-  uint32_t word = 0;
-  if (id < cells_true) {
-    const uint64_t xi = hash_i(seed, (uint64_t)(uint32_t)id);
-    for (int s = 0; s < 32; ++s) {
-      const int gb = t * 32 + s;
-      const long long g = (long long)gb * gene_block + w;
-      if (gb >= n_gb || g >= genes_true) break;  // g grows with s
-      if (held_out(xi, (uint64_t)(uint32_t)g, inv, two32_mod)) word |= 1u << s;
-    }
-  }
-  words[idx] = word;
-}
-
-// B10 and B11 share their first pass: the validity-clamped hashed test mask
-// of the call's global cell ids (cells,) int32 into `words` (cells, wcols)
-// uint32, a scratch buffer of the wrapper.
-cudaError_t hash_words(const int32_t* ids, int cells, int wcols,
-                       int gene_block, int n_gb, uint64_t seed,
-                       int inv_density, long long cells_true,
-                       long long genes_true, uint32_t* words,
-                       cudaStream_t s) {
-  if (inv_density < 1 || inv_density >= 65536) return cudaErrorInvalidValue;
-  const uint32_t inv = (uint32_t)inv_density;
-  const uint32_t two32_mod = (uint32_t)((1ull << 32) % inv);
-  const long long n = (long long)cells * wcols;
-  hash_words_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      ids, cells, wcols, gene_block, n_gb, seed, inv, two32_mod, cells_true,
-      genes_true, words);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -470,54 +375,6 @@ int mask_packed_h_t_bits(const void* P, int int8, int np, const float* scales,
         static_cast<const uint16_t*>(P), np, scales, n_scales, words, cells,
         wcols, gene_block, n_gb, genes_pad, bc, scale_block, acc);
   }
-  return cudaGetLastError();
-}
-
-// B10. P (genes_pad, np) bf16 bit patterns, ids (block,) int32 global cell
-// ids, seed the 64-bit mask seed, words (block, wcols) uint32 scratch with
-// wcols = n_t * gene_block, out (np, block) float32.
-int mask_packed_w_t_hash(const void* P, int np, const int32_t* ids, int block,
-                         int wcols, int gene_block, int n_gb, uint64_t seed,
-                         int inv_density, long long cells_true,
-                         long long genes_true, uint32_t* words, float* out,
-                         void* stream) {
-  if (block <= 0 || np <= 0) return cudaSuccess;
-  if (gene_block <= 0 || wcols % gene_block != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = hash_words(ids, block, wcols, gene_block, n_gb, seed,
-                               inv_density, cells_true, genes_true, words, s);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((block + kB8Cells - 1) / kB8Cells,
-                  (np + kB8Pairs - 1) / kB8Pairs);
-  mpw_bits_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-      static_cast<const uint16_t*>(P), np, nullptr, words, block, wcols,
-      gene_block, n_gb, out);
-  return cudaGetLastError();
-}
-
-// B11. P (cells, np) bf16, ids (cells,) int32 global cell ids, words (cells,
-// wcols) uint32 scratch, acc (np, genes_pad) float32 updated in place, one
-// partial per sub-block of `bc` cells (bc divides cells).
-int mask_packed_h_t_hash(const void* P, int np, const int32_t* ids, int cells,
-                         int wcols, int gene_block, int n_gb, int genes_pad,
-                         int bc, uint64_t seed, int inv_density,
-                         long long cells_true, long long genes_true,
-                         uint32_t* words, float* acc, void* stream) {
-  if (cells <= 0 || np <= 0) return cudaSuccess;
-  if (gene_block <= 0 || wcols % gene_block != 0 || bc <= 0 ||
-      cells % bc != 0) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = hash_words(ids, cells, wcols, gene_block, n_gb, seed,
-                               inv_density, cells_true, genes_true, words, s);
-  if (err != cudaSuccess) return err;
-  const int w_tiles = (gene_block + kB9Locals - 1) / kB9Locals;
-  const dim3 grid((wcols / gene_block) * w_tiles,
-                  (np + kB9Pairs - 1) / kB9Pairs);
-  mph_bits_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-      static_cast<const uint16_t*>(P), np, nullptr, 1, words, cells, wcols,
-      gene_block, n_gb, genes_pad, bc, cells, acc);
   return cudaGetLastError();
 }
 

@@ -15,10 +15,14 @@ array (``maskbits.unpack_mask_bits``, B12):
 
 All six emit the product transposed, the orientation the per-column Gram
 unpack (``linalg.unpack_sym_from_t``) reads. B10 and B11 round the operand
-to bf16 (the mask is an exact bf16 0/1) and sum in float32: B10 sums one
-partial per gene block in gene-block order, B11 adds one partial per cell
-sub-block (``_sub_block``, at most 1024 cells) into ``acc`` in sub-block
-order, as the JAX kernels do. Their mask is ``rngmask.mask_block`` of the
+to bf16 (the mask is an exact bf16 0/1) and sum in float32: the plain B10
+sums one partial per gene block in gene-block order, the plain B11 adds one
+partial per cell sub-block (``_sub_block``, at most 1024 cells) into
+``acc`` in sub-block order, as the JAX kernels do; the CUDA kernels sum
+all of a call's genes or cells in one float32 accumulator, so they differ
+from the plain versions in the order of the sums alone. ``pack_mask_k`` is
+the plain version of their hash pass, which packs the mask along the
+product's K axis. Their mask is ``rngmask.mask_block`` of the
 GLOBAL cell ids (which need not start at 0) with the validity clamps:
 cells at or past ``cells_true`` and genes at or past ``genes_true`` are
 never held out. The bits route's operand P is either int8, quantized per
@@ -37,10 +41,11 @@ gene-block order and B14 one per cell sub-block, as the JAX kernels do.
 Left out, because they lay the operand out for the TPU's VMEM and change
 nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
 VMEM budgets, and the pair axis padded to a lane multiple (``pad_pairs``);
-here the pair axis has its true length. ``SINGLET_TPU_MPH_NOALIAS`` and
-``SINGLET_TPU_I8_DIRECT`` choose TPU memory layouts and are not read; so
-does the JAX engine's transposed copy of the prebuilt mask (``m8.T``):
-B13 reads the mask's rows as they are.
+here the pair axis has its true length (the hash route's bf16 operands are
+views of buffers padded to ``PAIR_PAD``, for TMA).
+``SINGLET_TPU_MPH_NOALIAS`` and ``SINGLET_TPU_I8_DIRECT`` choose TPU
+memory layouts and are not read; so does the JAX engine's transposed copy
+of the prebuilt mask (``m8.T``): B13 reads the mask's rows as they are.
 
 The plain versions below are the CPU path and the reference of the CUDA
 kernels (``ops/maskgram_cuda.py``); the dispatchers send CUDA tensors to
@@ -136,6 +141,49 @@ def hash_mask(seed, cell_ids: torch.Tensor, genes_pad: int, *,
     m = mask_block(seed, cell_ids, gene_ids, inv_density)
     return m & (cell_ids < cells_true)[:, None] \
         & (gene_ids < genes_true)[None, :]
+
+
+# the CUDA B10/B11 read P through TMA, whose rows must start 16 bytes
+# apart: the engine lays its bf16 operands out with the pair axis padded
+# to this multiple and hands over the [:, :npairs] view
+PAIR_PAD = 64
+
+
+def pair_buffer(rows: int, npairs: int, device) -> torch.Tensor:
+    """A (rows, npairs) bf16 view of an uninitialised (rows, npairs rounded
+    up to PAIR_PAD) buffer: the layout in which B10 and B11 take P without
+    a copy. Only the view's columns are ever read."""
+    width = -(-npairs // PAIR_PAD) * PAIR_PAD
+    return torch.empty((rows, width), dtype=torch.bfloat16,
+                       device=device)[:, :npairs]
+
+
+def k_words(K: int) -> int:
+    """Words per row of a mask packed along a product's K axis: ceil(K /
+    32) rounded up to 4, a 16-byte row."""
+    n = -(-K // 32)
+    return -(-n // 4) * 4
+
+
+def pack_mask_k(seed, cell_ids: torch.Tensor, genes_pad: int, *,
+                gene_rows: bool, inv_density: int, cells_true: int,
+                genes_true: int) -> torch.Tensor:
+    """The plain version of B10's and B11's hash pass: ``hash_mask`` of
+    ``cell_ids`` packed along the product's K axis into int32 words (the
+    uint32 bit patterns), the tails zero. B10 (``gene_rows`` False):
+    (cells, k_words(genes_pad)), bit s of word j = gene 32 j + s; B11
+    (True): (genes_pad, k_words(cells)), bit j of word q = cell 32 q + j."""
+    m = hash_mask(seed, cell_ids, genes_pad, inv_density=inv_density,
+                  cells_true=cells_true, genes_true=genes_true)
+    if gene_rows:
+        m = m.T
+    rows, K = m.shape
+    kw = k_words(K)
+    bits = torch.zeros((rows, kw * 32), dtype=torch.int64, device=m.device)
+    bits[:, :K] = m.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=m.device)
+    words = (bits.reshape(rows, kw, 32) << shift).sum(dim=2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def mask_packed_w_t_plain(Pw, seed, cell_ids, *, gene_block: int,

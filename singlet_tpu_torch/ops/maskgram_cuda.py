@@ -7,9 +7,11 @@ B8 (``mask_packed_w_t_bits_cuda``) replaces
 their int8 and bf16 paths, with the test mask read from bitplane words;
 B10 (``mask_packed_w_t_cuda``) replaces ``mask_packed_w_t`` and B11
 (``mask_packed_h_t_cuda``) replaces ``mask_packed_h_t``, with the mask
-hashed from (seed, cell, gene) on the card and bf16 operands. Their source
-is ``csrc/maskgram_bits.cu``, whose header note gives the design and what
-bounds it on the card. B12 (``unpack_mask_bits_cuda``) replaces
+hashed from (seed, cell, gene) on the card and bf16 operands. The source of
+B8/B9 is ``csrc/maskgram_bits.cu``, that of B10/B11 (a hash pass, then one
+wgmma GEMM fed by TMA; ``pack_mask_k_cuda`` runs the hash pass alone)
+``csrc/maskgram_hash.cu``; their header notes give the designs and what
+bounds them on the card. B12 (``unpack_mask_bits_cuda``) replaces
 ``singlet_tpu/ops/maskbits.py`` ``unpack_mask_bits``, B13
 (``mask_packed_w_t_m8_cuda``) ``mask_packed_w_t_m8`` and B14
 (``mask_packed_h_t_m8_cuda``) ``mask_packed_h_t_m8``: the bits route under
@@ -31,17 +33,19 @@ from typing import Optional
 import torch
 
 from singlet_tpu_torch.ops.bell_cuda import _check_words, _seed_args
-from singlet_tpu_torch.ops.maskbits import (_check_unpack, n_word_groups,
+from singlet_tpu_torch.ops.maskbits import (_check_unpack,
                                             unpack_mask_bits_plain,
                                             unpack_out)
 from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
-                                            b9_sub_block, m8_sub_block,
+                                            b9_sub_block, k_words,
+                                            m8_sub_block,
                                             mask_packed_h_t_bits_plain,
                                             mask_packed_h_t_m8_plain,
                                             mask_packed_h_t_plain,
                                             mask_packed_w_t_bits_plain,
                                             mask_packed_w_t_m8_plain,
-                                            mask_packed_w_t_plain)
+                                            mask_packed_w_t_plain,
+                                            pack_mask_k, pair_buffer)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
 # kernel launches (one per wrapper call on CUDA tensors) of B8, B9, B10 and
@@ -50,6 +54,9 @@ LAUNCHES_MPW_BITS = 0
 LAUNCHES_MPH_BITS = 0
 LAUNCHES_MPW_HASH = 0
 LAUNCHES_MPH_HASH = 0
+# launches of B10's and B11's hash pass alone (``pack_mask_k_cuda``; the
+# passes inside B10 and B11 count as theirs)
+LAUNCHES_HASH_K = 0
 # likewise B12, B13 and B14 (the SINGLET_TPU_MASK8=1 route)
 LAUNCHES_UNPACK8 = 0
 LAUNCHES_MPW_M8 = 0
@@ -70,17 +77,32 @@ def _lib():
         lib.mask_packed_h_t_bits.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
                                              ci, ci, ci, ci, ci, vp, vp]
         lib.mask_packed_h_t_bits.restype = ci
-        u64, ll = ctypes.c_uint64, ctypes.c_longlong
-        lib.mask_packed_w_t_hash.argtypes = [vp, ci, vp, ci, ci, ci, ci, u64,
-                                             ci, ll, ll, vp, vp, vp]
-        lib.mask_packed_w_t_hash.restype = ci
-        lib.mask_packed_h_t_hash.argtypes = [vp, ci, vp, ci, ci, ci, ci, ci,
-                                             ci, u64, ci, ll, ll, vp, vp, vp]
-        lib.mask_packed_h_t_hash.restype = ci
         lib.maskgram_bits_error_string.argtypes = [ci]
         lib.maskgram_bits_error_string.restype = ctypes.c_char_p
         _LIB["lib"] = lib
     return _LIB["lib"]
+
+
+def _hash_lib():
+    if "hash" not in _LIB:
+        from singlet_tpu_torch import _build
+
+        lib = _build.load("maskgram_hash")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        u64, ll = ctypes.c_uint64, ctypes.c_longlong
+        lib.mask_hash_words.argtypes = [ci, vp, ci, ci, ci, u64, ci, ll, ll,
+                                        vp, vp]
+        lib.mask_hash_words.restype = ci
+        lib.mask_packed_w_t_hash.argtypes = [vp, ll, ci, vp, ci, ci, ci, u64,
+                                             ci, ll, ll, vp, vp, vp]
+        lib.mask_packed_w_t_hash.restype = ci
+        lib.mask_packed_h_t_hash.argtypes = [vp, ll, ci, vp, ci, ci, ci, u64,
+                                             ci, ll, ll, vp, vp, vp]
+        lib.mask_packed_h_t_hash.restype = ci
+        lib.maskgram_hash_error_string.argtypes = [ci]
+        lib.maskgram_hash_error_string.restype = ctypes.c_char_p
+        _LIB["hash"] = lib
+    return _LIB["hash"]
 
 
 def _m8_lib():
@@ -190,10 +212,10 @@ def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
 
 
 def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
-                 inv_density: int):
-    """The common inputs of B10 and B11: P as contiguous bf16, the cell ids
-    as int32 on P's device, the 64-bit seed, the word geometry and a
-    scratch buffer for the call's hashed words."""
+                 inv_density: int, cells_true: int, genes_true: int):
+    """The common checks and inputs of B10 and B11: P as a bf16 operand
+    whose rows TMA can read (``_tma_operand``), the cell ids as int32 on
+    P's device and the hash pass's arguments from the 64-bit seed on."""
     dev = P.device
     if genes_pad % gene_block:
         raise ValueError(f"{genes_pad} genes are not a multiple of "
@@ -205,13 +227,57 @@ def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
         raise ValueError(f"cell_ids is on {cell_ids.device}, expected {dev}")
     if cell_ids.dim() != 1:
         raise ValueError(f"cell_ids must be 1-D, got {tuple(cell_ids.shape)}")
-    n_gb = genes_pad // gene_block
-    wcols = n_word_groups(n_gb) * gene_block
     ids = cell_ids.to(torch.int32).contiguous()
-    words = torch.empty((ids.shape[0], wcols), dtype=torch.int32, device=dev)
     _, seed64 = _seed_args(seed, inv_density)
-    return (P.to(torch.bfloat16).contiguous(), ids, seed64, n_gb, wcols,
-            words)
+    return (_tma_operand(P), ids,
+            (seed64, int(inv_density), int(cells_true), int(genes_true)))
+
+
+def _tma_operand(P: torch.Tensor) -> torch.Tensor:
+    """P as the bf16 B operand of B10/B11: a view whose rows start 16 bytes
+    apart (a row stride that is a multiple of 8, the base 16-byte aligned)
+    is used as it is, as the engine hands its operands over; anything else
+    is copied into a ``pair_buffer``."""
+    if (P.dtype == torch.bfloat16 and P.dim() == 2 and P.stride(1) == 1
+            and P.stride(0) % 8 == 0 and P.stride(0) >= P.shape[1]
+            and P.data_ptr() % 16 == 0):
+        return P
+    buf = pair_buffer(P.shape[0], P.shape[1], P.device)
+    buf.copy_(P)
+    return buf
+
+
+def pack_mask_k_cuda(seed, cell_ids, genes_pad: int, *, gene_rows: bool,
+                     inv_density: int, cells_true: int,
+                     genes_true: int) -> torch.Tensor:
+    """The hash pass of B10 (``gene_rows`` False) and B11 (True) alone: the
+    K-packed int32 words ``pack_mask_k`` builds, hashed on the card. On CPU
+    tensors, the plain version."""
+    kw = dict(gene_rows=gene_rows, inv_density=inv_density,
+              cells_true=cells_true, genes_true=genes_true)
+    if cell_ids.device.type != "cuda":
+        return pack_mask_k(seed, cell_ids, genes_pad, **kw)
+    global LAUNCHES_HASH_K
+    if not 1 <= int(inv_density) < 65536:
+        raise ValueError(f"inv_density must be in [1, 65536), got "
+                         f"{inv_density}")
+    dev = cell_ids.device
+    ids = cell_ids.to(torch.int32).contiguous()
+    cells = ids.shape[0]
+    rows, K = (genes_pad, cells) if gene_rows else (cells, genes_pad)
+    words = torch.empty((rows, k_words(K)), dtype=torch.int32, device=dev)
+    if cells == 0 or genes_pad == 0:
+        return words.zero_()
+    _, seed64 = _seed_args(seed, inv_density)
+    lib = _hash_lib()
+    with torch.cuda.device(dev):
+        err = lib.mask_hash_words(
+            int(gene_rows), ids.data_ptr(), cells, genes_pad, words.shape[1],
+            seed64, int(inv_density), int(cells_true), int(genes_true),
+            words.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_hash_words", lib.maskgram_hash_error_string)
+    LAUNCHES_HASH_K += 1
+    return words
 
 
 def mask_packed_w_t_cuda(Pw, seed, cell_ids, *, gene_block: int,
@@ -219,8 +285,10 @@ def mask_packed_w_t_cuda(Pw, seed, cell_ids, *, gene_block: int,
                          genes_true: int) -> torch.Tensor:
     """Kernel B10: (np, block) float32 = (mask @ bf16(Pw))^T for Pw
     (genes_pad, np), float32 or bf16, and the validity-clamped test mask of
-    ``cell_ids`` (block,) (global ids) hashed on the card. On CPU tensors,
-    the plain version."""
+    ``cell_ids`` (block,) (global ids) hashed on the card; all genes summed
+    in one float32 accumulator. Pw is read in place when it is a bf16 view
+    of a ``pair_buffer`` (or any rows 16 bytes apart), else copied into one.
+    On CPU tensors, the plain version."""
     kw = dict(gene_block=gene_block, inv_density=inv_density,
               cells_true=cells_true, genes_true=genes_true)
     if Pw.device.type != "cuda":
@@ -228,18 +296,22 @@ def mask_packed_w_t_cuda(Pw, seed, cell_ids, *, gene_block: int,
     global LAUNCHES_MPW_HASH
     dev = Pw.device
     genes_pad, np_ = Pw.shape
-    P, ids, seed64, n_gb, wcols, words = _hash_inputs(
-        Pw, seed, cell_ids, genes_pad, gene_block, inv_density)
+    P, ids, hash_args = _hash_inputs(Pw, seed, cell_ids, genes_pad,
+                                     gene_block, inv_density, cells_true,
+                                     genes_true)
     block = ids.shape[0]
     out = torch.empty((np_, block), dtype=torch.float32, device=dev)
     if block == 0 or np_ == 0:
         return out
+    words = torch.empty((block, k_words(genes_pad)), dtype=torch.int32,
+                        device=dev)
+    lib = _hash_lib()
     with torch.cuda.device(dev):
-        err = _lib().mask_packed_w_t_hash(
-            P.data_ptr(), np_, ids.data_ptr(), block, wcols, gene_block,
-            n_gb, seed64, int(inv_density), int(cells_true), int(genes_true),
-            words.data_ptr(), out.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_w_t_hash")
+        err = lib.mask_packed_w_t_hash(
+            P.data_ptr(), P.stride(0), np_, ids.data_ptr(), block, genes_pad,
+            words.shape[1], *hash_args, words.data_ptr(), out.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "mask_packed_w_t_hash", lib.maskgram_hash_error_string)
     LAUNCHES_MPW_HASH += 1
     return out
 
@@ -250,8 +322,12 @@ def mask_packed_h_t_cuda(Ph, seed, cell_ids, acc, *, gene_block: int,
     """Kernel B11: ``acc`` (np, genes_pad) float32 += (mask^T @
     bf16(Ph))^T, in place (returned), for Ph (block, np) and the
     validity-clamped test mask of ``cell_ids`` (block,) hashed on the card;
-    one partial per cell sub-block (at most 1024 cells), added in order.
-    On CPU tensors, the plain version."""
+    all the block's cells summed in one float32 accumulator (the JAX
+    kernel's 1024-cell sub-block partials are not formed), each carry
+    element read and written once. A block that the JAX sub-block clamp
+    would cut short raises, as the plain version does. Ph is read in place
+    when it is a bf16 view of a ``pair_buffer``, else copied into one. On
+    CPU tensors, the plain version."""
     kw = dict(gene_block=gene_block, inv_density=inv_density,
               cells_true=cells_true, genes_true=genes_true)
     if Ph.device.type != "cuda":
@@ -261,19 +337,23 @@ def mask_packed_h_t_cuda(Ph, seed, cell_ids, acc, *, gene_block: int,
     block, np_ = Ph.shape
     genes_pad = acc.shape[1]
     _check("acc", acc, (np_, genes_pad), torch.float32, dev)
-    P, ids, seed64, n_gb, wcols, words = _hash_inputs(
-        Ph, seed, cell_ids, genes_pad, gene_block, inv_density)
+    P, ids, hash_args = _hash_inputs(Ph, seed, cell_ids, genes_pad,
+                                     gene_block, inv_density, cells_true,
+                                     genes_true)
     if ids.shape[0] != block:
         raise ValueError(f"{ids.shape[0]} cell ids for {block} rows of Ph")
     if block == 0 or np_ == 0:
         return acc
-    bc = b9_sub_block(block, block)
+    b9_sub_block(block, block)
+    words = torch.empty((genes_pad, k_words(block)), dtype=torch.int32,
+                        device=dev)
+    lib = _hash_lib()
     with torch.cuda.device(dev):
-        err = _lib().mask_packed_h_t_hash(
-            P.data_ptr(), np_, ids.data_ptr(), block, wcols, gene_block,
-            n_gb, genes_pad, bc, seed64, int(inv_density), int(cells_true),
-            int(genes_true), words.data_ptr(), acc.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_h_t_hash")
+        err = lib.mask_packed_h_t_hash(
+            P.data_ptr(), P.stride(0), np_, ids.data_ptr(), block, genes_pad,
+            words.shape[1], *hash_args, words.data_ptr(), acc.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "mask_packed_h_t_hash", lib.maskgram_hash_error_string)
     LAUNCHES_MPH_HASH += 1
     return acc
 

@@ -86,7 +86,8 @@ from singlet_tpu_torch.ops.maskgram import (mask_packed_h_t,
                                             mask_packed_w_t,
                                             mask_packed_w_t_bits,
                                             mask_packed_w_t_m8,
-                                            maskgram_mode, quantize_pairs)
+                                            maskgram_mode, pair_buffer,
+                                            quantize_pairs)
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t)
 from singlet_tpu_torch.ops.rngmask import mask_block, seed_pair
@@ -387,8 +388,12 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # per block: B3 and B4 with the hashed keep, B10 and B11 on
             # bf16 operands with the mask hashed on the card, B11 adding
             # into the carry block by block (this route has no grouped
-            # flush)
-            Pw_op = Pw.to(torch.bfloat16)
+            # flush). The bf16 operands are views of buffers whose pair
+            # axis is padded for TMA: Pw's built once per step, each
+            # block's packed products written into one reused buffer.
+            Pw_op = pair_buffer(genes_pad, npairs, dev)
+            Pw_op.copy_(Pw)
+            Ph_op = pair_buffer(mblock, npairs, dev)
             ids_all = torch.arange(cells_pad, dtype=torch.int32, device=dev)
             hkw = dict(gene_block=gene_block, inv_density=inv_density,
                        cells_true=cells_true, genes_true=genes_true)
@@ -402,8 +407,8 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                 Bw += bell_spmm_t(li, lv, Hb, seed, start,
                                   gene_block=gene_block, n_gb=n_gb,
                                   inv_density=inv_density)
-                mask_packed_h_t(packed_outer_products(Hb, iu), seed, ids,
-                                Pk_t, **hkw)
+                Ph_op.copy_(packed_outer_products(Hb, iu))
+                mask_packed_h_t(Ph_op, seed, ids, Pk_t, **hkw)
         else:
             # the bits route: each block's w-side packed products are
             # quantized and stacked, and B9 flushes a group of F blocks

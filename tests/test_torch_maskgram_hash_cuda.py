@@ -1,8 +1,9 @@
 """Kernels B10 and B11 (``singlet_tpu_torch/ops/maskgram_cuda.py``
-``mask_packed_w_t_cuda`` / ``mask_packed_h_t_cuda``) on the card against
-their plain PyTorch versions and against bf16 B8/B9 fed the packed words of
-the same seed; and the ELL engine's hash route and checkpointed fit on the
-card.
+``mask_packed_w_t_cuda`` / ``mask_packed_h_t_cuda``, source
+``csrc/maskgram_hash.cu``) on the card against their plain PyTorch versions
+and against bf16 B8/B9 fed the packed words of the same seed; their hash
+pass alone (``pack_mask_k_cuda``) against its plain version; and the ELL
+engine's hash route and checkpointed fit on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one. On a machine with a card (and without jax, which
@@ -10,11 +11,14 @@ without one. On a machine with a card (and without jax, which
 
     python -m pytest --noconftest tests/test_torch_maskgram_hash_cuda.py -q
 
-Tolerances: against the plain versions the sums run in another order
-(max abs error <= 1e-5 * max |output|). Against B8/B9: the kernel hashes
-the very words ``pack_mask_words`` packs and then runs their bf16 product,
-so the bits must be equal. The engine on the card against the CPU: rtol
-5e-3, atol 5e-4 with equal ``iter`` lists (the fit tests' tolerance); a
+Tolerances: against the plain versions and against B8/B9 the sums run in
+another order (max abs error <= 1e-5 * max |output|): B10/B11 sum all of a
+call's genes or cells in one float32 accumulator, B8 and the plain B10 one
+partial per gene block, B9 and the plain B11 one per sub-block of 1024
+cells. The same inputs give the same bits twice, whether P is contiguous
+or a view of a padded buffer. The hash pass gives the plain version's
+words bit for bit. The engine on the card against the CPU: rtol 5e-3,
+atol 5e-4 with equal ``iter`` lists (the fit tests' tolerance); a
 resumed checkpointed fit on the card equals the uninterrupted one bit for
 bit.
 """
@@ -32,7 +36,9 @@ pytestmark = pytest.mark.cuda
 
 # (cells, offset, gene_block, n_gb, cells_true, genes_true): one word group
 # unclamped; 40 gene blocks (a second word group) with both clamps; 2048
-# cells (B11: two sub-blocks of 1024) at a global offset
+# cells (B11: two sub-blocks of 1024) at a global offset. 1000 and 300
+# cells are no multiple of the kernels' K stage (128) and 300 of a word
+# (32); k = 300 (45,150 pairs) spans 353 pair tiles
 GEOMS = [(1000, 4096, 256, 3, 5096, 768),
          (300, 12345, 32, 40, 12345 + 250, 1280 - 17),
          (2048, 262144, 512, 4, 300000, 2048)]
@@ -69,8 +75,16 @@ def _inputs(cuda, cells, offset, gene_block, n_gb, cells_true, genes_true,
     return Pw, Ph, ids, words, kw, acc0
 
 
+def _padded(P):
+    """P in bf16 as the engine hands it over: the [:, :np] view of a buffer
+    whose pair axis is padded to a multiple of 64."""
+    view = maskgram.pair_buffer(P.shape[0], P.shape[1], P.device)
+    view.copy_(P)
+    return view
+
+
 @pytest.mark.parametrize("geom", GEOMS)
-@pytest.mark.parametrize("k", [5, 50, 100])
+@pytest.mark.parametrize("k", [5, 50, 100, 300])
 def test_b10_matches_plain_and_b8(cuda, geom, k):
     Pw, _, ids, words, kw, _ = _inputs(cuda, *geom, k=k, seed=77)
     seed = seed_pair(77)
@@ -78,16 +92,17 @@ def test_b10_matches_plain_and_b8(cuda, geom, k):
     got = maskgram_cuda.mask_packed_w_t_cuda(Pw, seed, ids, **kw)
     again = maskgram_cuda.mask_packed_w_t_cuda(Pw.to(torch.bfloat16), seed,
                                                ids.to(torch.int32), **kw)
-    assert maskgram_cuda.LAUNCHES_MPW_HASH == before + 2
-    assert torch.equal(got, again)
+    view = maskgram_cuda.mask_packed_w_t_cuda(_padded(Pw), seed, ids, **kw)
+    assert maskgram_cuda.LAUNCHES_MPW_HASH == before + 3
+    assert torch.equal(got, again) and torch.equal(got, view)
     _close(got, maskgram.mask_packed_w_t_plain(Pw, seed, ids, **kw))
     b8 = maskgram_cuda.mask_packed_w_t_bits_cuda(
         Pw.to(torch.bfloat16), None, words, gene_block=kw["gene_block"])
-    assert torch.equal(got, b8)
+    _close(got, b8)
 
 
 @pytest.mark.parametrize("geom", GEOMS)
-@pytest.mark.parametrize("k", [5, 50, 100])
+@pytest.mark.parametrize("k", [5, 50, 100, 300])
 def test_b11_matches_plain_and_b9(cuda, geom, k):
     _, Ph, ids, words, kw, acc0 = _inputs(cuda, *geom, k=k, seed=29)
     seed = seed_pair(29)
@@ -95,12 +110,32 @@ def test_b11_matches_plain_and_b9(cuda, geom, k):
     got = acc0.clone()
     out = maskgram_cuda.mask_packed_h_t_cuda(Ph, seed, ids, got, **kw)
     assert out is got and maskgram_cuda.LAUNCHES_MPH_HASH == before + 1
+    again = maskgram_cuda.mask_packed_h_t_cuda(_padded(Ph), seed, ids,
+                                               acc0.clone(), **kw)
+    assert torch.equal(got, again)
     _close(got, maskgram.mask_packed_h_t_plain(Ph, seed, ids, acc0.clone(),
                                                **kw))
     b9 = maskgram_cuda.mask_packed_h_t_bits_cuda(
         Ph.to(torch.bfloat16), None, words, acc0.clone(),
         gene_block=kw["gene_block"])
-    assert torch.equal(got, b9)
+    _close(got, b9)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("gene_rows", [False, True])
+def test_hash_pass_matches_plain(cuda, geom, gene_rows):
+    """The hash pass of B10 (words per cell) and B11 (words per gene) gives
+    ``pack_mask_k``'s words bit for bit, clamps and zero tails included."""
+    cells, offset, gene_block, n_gb, cells_true, genes_true = geom
+    ids = torch.arange(offset, offset + cells, device=cuda)
+    kw = dict(gene_rows=gene_rows, inv_density=20, cells_true=cells_true,
+              genes_true=genes_true)
+    before = maskgram_cuda.LAUNCHES_HASH_K
+    got = maskgram_cuda.pack_mask_k_cuda(seed_pair(5), ids,
+                                         gene_block * n_gb, **kw)
+    assert maskgram_cuda.LAUNCHES_HASH_K == before + 1
+    assert torch.equal(got, maskgram.pack_mask_k(seed_pair(5), ids,
+                                                 gene_block * n_gb, **kw))
 
 
 def test_hash_wrappers_refuse(cuda):
