@@ -57,8 +57,9 @@ Phases; any failure raises and the script exits non-zero:
    each once more under ``SINGLET_TPU_MASK8=1`` (the prebuilt int8 mask:
    B12-B14 in place of B8/B9), int8 bit for bit the bits route's fit,
    bf16 its test-MSE trace within 1e-5 relative;
-10b. ranks above 224: B1, B2, B3, B5 and B7 at k=256 and 300 against
-   their plain versions (the bench planes for B3-B7); ``run_nmf`` at k=256
+10b. ranks above 224: B1, B2, B3, B4, B5, B6 and B7 at k=256 and 300
+   against their plain versions (the bench planes for B3-B7; B6 the bits
+   of masked B4); ``run_nmf`` at k=256
    on a 4096 x 2048 operand, and the ELL engine's plain fit and masked
    ``ard_fit`` at k=256 on a small operand, on the card against the CPU
    (B3 and B5 launch once per 224-column chunk of W, so twice a call);
@@ -66,7 +67,7 @@ Phases; any failure raises and the script exits non-zero:
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
    and B4 launches, no plain call), ``project`` of all cells, one plain
-   step under torch.profiler; the masked ``ard_fit`` on the f32 route for
+   step under torch.profiler (with B4's share of its device time); the masked ``ard_fit`` on the f32 route for
    1 traced iteration, with one f32 masked step and test MSE under the
    profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
@@ -1562,10 +1563,11 @@ def phase_wide_k(torch, card, data):
     """Ranks above 224, on the card against the plain versions and the CPU:
     kernels B1 (n=2048, sweep cap 8) and B2 (n=512, per-column Grams of a
     5% mask, cap 32) at k=256 and 300, within KERNEL_RTOL/KERNEL_ATOL; B3
-    (unmasked and masked), B5 (the same bits as masked B3) and B7 on the
-    bench operand's ELL planes ``data`` and its packed test mask at the same
-    ranks, B3/B5 within BELL_TOL and B7's sums within rtol 2e-4 with equal
-    counts; then ``run_nmf`` at k=256 on a 4096 x 2048 operand, and the
+    and B4 (unmasked and masked), B5 and B6 (the same bits as masked B3 and
+    B4) and B7 on the bench operand's ELL planes ``data`` and its packed
+    test mask at the same ranks, B3-B6 within BELL_TOL (B4 and B6 also the
+    same bits twice) and B7's sums within rtol 2e-4 with equal counts;
+    then ``run_nmf`` at k=256 on a 4096 x 2048 operand, and the
     ELL engine's plain ``fit`` and masked ``ard_fit`` (its default bits
     route) at k=256 on a 768 x 768 operand, each on the card against the
     CPU (the CPU's ``ard_fit`` on the same route through the plain
@@ -1679,6 +1681,29 @@ def phase_wide_k(torch, card, data):
             if name == "B5" and not torch.equal(got, bell_cuda.bell_spmm_cuda(
                     li, lv, W, seed, 0, **spmm_kw)):
                 raise AssertionError(f"B5 at k={k}: differs from masked B3")
+            want, plain_ms = timed(plain)
+            record(name, k, *close(name, k, got, want), kern, plain_ms)
+
+        # B4 unmasked and masked, B6 (the same bits as masked B4): two and
+        # three column tiles of 128
+        t_kw = dict(spmm_kw, n_gb=data.n_gb)
+        for name, kern, plain in (
+                ("B4", lambda: bell_cuda.bell_spmm_t_cuda(li, lv, H, **t_kw),
+                 lambda: bell.bell_spmm_t_plain(li, lv, H, **t_kw)),
+                ("B4 masked",
+                 lambda: bell_cuda.bell_spmm_t_cuda(li, lv, H, seed, 0,
+                                                    **t_kw),
+                 lambda: bell.bell_spmm_t_plain(li, lv, H, seed, 0, **t_kw)),
+                ("B6", lambda: bell_cuda.bell_spmm_t_bits_cuda(
+                    li, lv, H, words, gene_block=G, n_gb=data.n_gb),
+                 lambda: bell.bell_spmm_t_bits_plain(
+                     li, lv, H, words, gene_block=G, n_gb=data.n_gb))):
+            got = kern()
+            if not torch.equal(got, kern()):
+                raise AssertionError(f"{name} at k={k}: two runs differ")
+            if name == "B6" and not torch.equal(got, bell_cuda.bell_spmm_t_cuda(
+                    li, lv, H, seed, 0, **t_kw)):
+                raise AssertionError(f"B6 at k={k}: differs from masked B4")
             want, plain_ms = timed(plain)
             record(name, k, *close(name, k, got, want), kern, plain_ms)
 
@@ -1852,7 +1877,8 @@ def phase_large(torch, card, ckdir):
     H = torch.as_tensor(res["h"].T.copy(), device="cuda")
     profile = _profile(torch, card, lambda: fns["plain"](
         W, H, 0.01, 0.01, 0.0, 0.0, sweep_cap=float(settings.fast)),
-        label=f"large plain ELL step (sweep cap {settings.fast})")
+        label=f"large plain ELL step (sweep cap {settings.fast})",
+        share=("bell_spmm_t_kernel", "B4"))
 
     seed = seed_pair(MASKED["mask_seed"])
     blocks = cells // L["cell_block"]
@@ -1952,7 +1978,8 @@ def phase_large(torch, card, ckdir):
         pack_s=pack_s, words_gib=words_gib, step_ms=step_s * 1e3,
         mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms,
         profile=_profile(torch, card, step, label=f"large masked ELL step, "
-                         f"bits route (sweep cap {settings.fast_masked})"),
+                         f"bits route (sweep cap {settings.fast_masked})",
+                         share=("bell_spmm_t_kernel", "B6")),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
@@ -2172,13 +2199,15 @@ def phase_resume_large(torch, card, eng, data, ckdir):
           f"{mse_s * 1e3:.1f} ms, one checkpoint save of W, H and d "
           f"{save_s * 1e3:.1f} ms with the copy to the host ({card})",
           flush=True)
+    step_profile = _profile(torch, card, step, label=f"large masked ELL "
+                            f"step, hash route (sweep cap "
+                            f"{settings.fast_masked})",
+                            share=("bell_spmm_t_kernel", "B4"))
     return dict(
         first_s=first_s, resumed_s=res_s, full_s=full_s,
         launches_first=n_first, launches_resumed=n_res, launches_full=n_full,
         test_mse=full.test_mse, npz_write_s=saves_s, step_ms=step_s * 1e3,
-        mse_ms=mse_s * 1e3, save_ms=save_s * 1e3,
-        profile=_profile(torch, card, step, label=f"large masked ELL step, "
-                         f"hash route (sweep cap {settings.fast_masked})"),
+        mse_ms=mse_s * 1e3, save_ms=save_s * 1e3, profile=step_profile,
         mse_profile=_profile(torch, card, mse,
                              label="large hashed test MSE (hash route)"))
 
@@ -2237,9 +2266,12 @@ def phase_ell_entry(torch, card):
                         best_rank=best, rows=len(df)))
 
 
-def _profile(torch, card, fn, label="race"):
+def _profile(torch, card, fn, label="race", share=None):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and
-    the device's idle share of the run's wall time."""
+    the device's idle share of the run's wall time. With ``share`` (a
+    kernel name's key and its label, as ("bell_spmm_t_kernel", "B4")), also
+    that kernel's device time and its share of the run's, printed and
+    recorded as ``<label>_ms`` and ``<label>_share``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2268,8 +2300,16 @@ def _profile(torch, card, fn, label="race"):
     for name, us in top:
         print(f"  {us / 1e3:9.2f} ms  {us / max(busy_us, 1e-9):6.1%}  "
               f"{name[:90]}", flush=True)
-    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
-                kernels_ms={name: us / 1e3 for name, us in top})
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+               kernels_ms={name: us / 1e3 for name, us in top})
+    if share is not None:
+        key, name = share
+        ms = sum(us for kname, us in kernels.items() if key in kname) / 1e3
+        out[f"{name}_ms"] = ms
+        out[f"{name}_share"] = ms / max(busy_us / 1e3, 1e-9)
+        print(f"  kernel {name}: {ms:.2f} ms of {busy_us / 1e3:.1f} ms "
+              f"device time ({out[f'{name}_share']:.1%})", flush=True)
+    return out
 
 
 def phase_build():
@@ -2290,8 +2330,9 @@ def phase_build():
     maskgram_cuda._hash_lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
-        print("\n".join(ln for ln in log.splitlines() if "ptxas" in ln),
-              flush=True)
+        # ptxas -v: registers, and (on the line after) stack and spills
+        print("\n".join(ln for ln in log.splitlines()
+                        if "ptxas" in ln or "spill" in ln), flush=True)
     print(f"builds took {wall_s:.2f} s together", flush=True)
     return {name: secs for name, (_, secs, _) in builds.items()}, wall_s
 

@@ -21,6 +21,8 @@ card to launch on. Importing this module needs neither nvcc nor a card.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,15 +51,73 @@ LAUNCHES_MSE_BITS = 0
 B3_K_CHUNK = 224
 # B7 keeps a cell's H row in registers, up to 16 per lane
 MAX_K_MSE = 512
-# B4 keeps a (gene_block, 32) float tile and three 32 x 32 staging tiles
-# in shared memory, within the 232,448 bytes a Hopper block may use
-MAX_GENE_BLOCK = (232448 // 4 - 3 * 32 * 32) // 32
 # B7 keeps one dense float row of gene_block per warp, eight warps
 MAX_GENE_BLOCK_MSE = 232448 // (8 * 4)
-# B4 splits the cells into chunks until the grid has about this many
-# blocks (a function of the shapes only, so the sums are always the same)
-_B4_TARGET_BLOCKS = 1024
-_B4_MIN_CHUNK = 256
+
+# B4's plan (csrc/bell_spmm.cu): 20 warps a block, each holding the
+# outputs of 26 gene rows at 1 or 2 adjacent columns a lane (k <= 64) or of
+# 13 at 4; output columns in tiles of 128; cells in tiles of 64, of which
+# the first 32 slot rows are staged in shared memory; and in chunks until
+# there is about one block per SM of an H100 (at most 16, which bounds the
+# chunks' scratch)
+_B4_WARPS = 20
+_B4_GENES = {1: 26, 2: 26, 4: 13}
+_B4_COLS = 128
+_B4_TILE = 64
+_B4_WIN_ROWS = 32
+_B4_SMS = 132
+_B4_MAX_CHUNKS = 16
+
+
+class B4Plan(NamedTuple):
+    """B4's split of one call's work (see ``b4_plan``)."""
+    vec: int           # adjacent output columns a lane: 1, 2 or 4
+    rows: int          # gene rows a block (a row group of a gene block)
+    n_rg: int          # row groups a gene block
+    n_kt: int          # column tiles of at most 128
+    tile: int          # cells a tile
+    chunk_tiles: int   # tiles a chunk of cells
+    n_chunks: int
+    smem: int          # dynamic shared memory a block, bytes
+
+
+def _b4_vec(k: int) -> int:
+    """Adjacent output columns a lane of B4 holds: 1, 2 or 4, for column
+    tiles of at most 32, 64 or 128."""
+    cols = min(k, _B4_COLS)
+    return 1 if cols <= 32 else 2 if cols <= 64 else 4
+
+
+def b4_smem(rows: int, k: int) -> int:
+    """Bytes of B4's dynamic shared memory (bell_spmm.cu
+    ``b4_smem_bytes``): a window of 32 slot rows (ids and values), the
+    (rows, tile) values, two (rows, tile) bitmaps, two H tiles (rows
+    rounded up to 16 bytes, plus the last row's over-read) and four
+    flags."""
+    cols = min(k, _B4_COLS)
+    h_floats = _B4_TILE * (-(-cols // 4) * 4) + 32 * _b4_vec(k)
+    return (2 * h_floats * 4 + _B4_WIN_ROWS * _B4_TILE * 8
+            + rows * _B4_TILE * 4 + 2 * rows * (_B4_TILE // 32) * 4 + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def b4_plan(cells: int, n_gb: int, gene_block: int, k: int) -> B4Plan:
+    """B4's plan, from the shapes alone: each gene block in row groups of
+    at most 20 warps x 26 or 13 rows, k in column tiles of 128, the cells in
+    tiles of 64 and in chunks of tiles. Every output's sum runs over its
+    live cells in cell order within a chunk and over the chunks in order,
+    so the plan fixes the bits of the result."""
+    vec = _b4_vec(k)
+    n_rg = -(-gene_block // (_B4_WARPS * _B4_GENES[vec]))
+    rows = -(-gene_block // n_rg)
+    n_kt = -(-k // _B4_COLS)
+    n_tiles = max(1, -(-cells // _B4_TILE))
+    per_chunk = n_gb * n_rg * n_kt
+    n_chunks = max(1, min(_B4_MAX_CHUNKS, _B4_SMS // per_chunk, n_tiles))
+    chunk_tiles = -(-n_tiles // n_chunks)
+    return B4Plan(vec, rows, n_rg, n_kt, _B4_TILE, chunk_tiles,
+                  -(-n_tiles // chunk_tiles), b4_smem(rows, k))
+
 
 _LIB = {}
 
@@ -77,9 +137,9 @@ def _lib():
                 ctypes.c_void_p]
         lib.bell_spmm.argtypes = common + [ctypes.c_void_p] + tail
         lib.bell_spmm.restype = ctypes.c_int
-        lib.bell_spmm_t.argtypes = common + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p] + tail
+        # Bw, partials, counters; rows, chunk_tiles, n_chunks, h_vec, p_vec
+        lib.bell_spmm_t.argtypes = common + [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 5 + tail
         lib.bell_spmm_t.restype = ctypes.c_int
         lib.bell_spmm_error_string.argtypes = [ctypes.c_int]
         lib.bell_spmm_error_string.restype = ctypes.c_char_p
@@ -223,27 +283,28 @@ def bell_spmm_bits_cuda(b_li, b_val, W, words, *,
     return B
 
 
-def b4_chunks(cells: int, n_gb: int, k: int):
-    """(n_chunks, chunk): B4's split of the cells, from the shapes only."""
-    base = n_gb * ((k + 31) // 32)
-    max_chunks = max(1, -(-cells // _B4_MIN_CHUNK))
-    n_chunks = min(max_chunks, max(1, -(-_B4_TARGET_BLOCKS // base)), 65535)
-    chunk = -(-max(cells, 1) // n_chunks)
-    chunk = -(-chunk // 32) * 32
-    return -(-max(cells, 1) // chunk), chunk
+def _h_vec(H: torch.Tensor, k: int) -> int:
+    """Floats per cp.async of H in B4: 4 or 2 where k and H's address
+    allow, else 1."""
+    for vec in (4, 2):
+        if k % vec == 0 and H.data_ptr() % (4 * vec) == 0:
+            return vec
+    return 1
+
+
+def _p_vec(b_li, b_val) -> int:
+    """Cells per cp.async of the planes in B4: 4 where the row stride and
+    both planes' addresses allow, else 1."""
+    aligned = (b_li.stride(0) % 4 == 0 and b_li.data_ptr() % 16 == 0
+               and b_val.data_ptr() % 16 == 0)
+    return 4 if aligned else 1
 
 
 def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
-               *, gene_block: int, n_gb: int,
-               name: str) -> tuple[torch.Tensor, int]:
-    """One call of bell_spmm.cu's ``bell_spmm_t`` (B4 with keep mode 0 or
-    1, B6 with mode 2; a second launch sums the cell chunks); returns Bw
-    (n_gb * gene_block, k) and the number of calls made (0 without
-    cells)."""
-    if gene_block > MAX_GENE_BLOCK:
-        raise NotImplementedError(
-            f"kernel {name} takes gene_block <= {MAX_GENE_BLOCK}, got "
-            f"{gene_block}")
+               *, gene_block: int, n_gb: int) -> tuple[torch.Tensor, int]:
+    """One launch of bell_spmm.cu's ``bell_spmm_t`` (B4 with keep mode 0
+    or 1, B6 with mode 2) on ``b4_plan``; returns Bw (n_gb * gene_block, k)
+    and the number of launches (0 without cells or columns)."""
     cells = b_li.shape[1]
     k = H.shape[1]
     _check("H", H, (cells, k), torch.float32, H.device)
@@ -251,20 +312,33 @@ def _launch_b4(b_li, b_val, H, mode, seed64, cell_offset, inv_density, words,
     if words is not None:
         _check_words(words, cells, n_gb, gene_block, H.device)
     genes = n_gb * gene_block
-    Bw = torch.empty((genes, k), dtype=torch.float32, device=H.device)
-    if cells == 0:
-        return Bw.zero_(), 0
-    n_chunks, chunk = b4_chunks(cells, n_gb, k)
-    partials = (torch.empty((n_chunks, genes, k), dtype=torch.float32,
-                            device=H.device) if n_chunks > 1 else None)
+    if cells == 0 or k == 0 or genes == 0:
+        return torch.zeros((genes, k), dtype=torch.float32,
+                           device=H.device), 0
+    plan = b4_plan(cells, n_gb, gene_block, k)
+    size = genes * k
+    if plan.n_chunks == 1:
+        Bw = torch.empty((genes, k), dtype=torch.float32, device=H.device)
+        partials = counters = None
+    else:
+        # one allocation: Bw, the chunks' partial tiles, then one int32
+        # counter per output tile (Bw is a view of its first genes * k)
+        buf = torch.empty((1 + plan.n_chunks) * size
+                          + n_gb * plan.n_rg * plan.n_kt,
+                          dtype=torch.float32, device=H.device)
+        Bw = buf[:size].view(genes, k)
+        partials = buf.data_ptr() + 4 * size
+        counters = partials + 4 * plan.n_chunks * size
     with torch.cuda.device(H.device):
         stream = torch.cuda.current_stream(H.device).cuda_stream
         err = _lib().bell_spmm_t(
             b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
             b_li.shape[0] // n_gb, cells, gene_block, H.data_ptr(), k,
-            None if partials is None else partials.data_ptr(), n_chunks,
-            chunk, Bw.data_ptr(), mode, seed64, int(cell_offset),
-            int(inv_density), None if words is None else words.data_ptr(),
+            Bw.data_ptr(), partials, counters, plan.rows, plan.chunk_tiles,
+            plan.n_chunks, _h_vec(H, k),
+            _p_vec(b_li, b_val), mode,
+            seed64, int(cell_offset), int(inv_density),
+            None if words is None else words.data_ptr(),
             0 if words is None else words.stride(0), stream)
     _raise_on(err, "bell_spmm_t")
     return Bw, 1
@@ -284,7 +358,7 @@ def bell_spmm_t_cuda(b_li, b_val, H, seed=None, cell_offset: int = 0, *,
     masked, seed64 = _seed_args(seed, inv_density)
     Bw, launches = _launch_b4(b_li, b_val, H, masked, seed64, cell_offset,
                               inv_density, None, gene_block=gene_block,
-                              n_gb=n_gb, name="B4")
+                              n_gb=n_gb)
     LAUNCHES_SPMM_T += launches
     return Bw
 
@@ -298,7 +372,7 @@ def bell_spmm_t_bits_cuda(b_li, b_val, H, words, *, gene_block: int,
                                       gene_block=gene_block, n_gb=n_gb)
     global LAUNCHES_SPMM_T_BITS
     Bw, launches = _launch_b4(b_li, b_val, H, 2, 0, 0, 1, words,
-                              gene_block=gene_block, n_gb=n_gb, name="B6")
+                              gene_block=gene_block, n_gb=n_gb)
     LAUNCHES_SPMM_T_BITS += launches
     return Bw
 

@@ -1,5 +1,6 @@
 """Kernels B3 and B4 (``singlet_tpu_torch/ops/bell_cuda.py``) on the card
-against their plain PyTorch versions on the same inputs.
+against their plain PyTorch versions on the same inputs, and B6 against
+hashed B4 at the shapes where B4's plan splits its work.
 
 A CUDA kernel has no CPU mode, so every test here needs a card and skips
 without one. On a machine with a card (and without jax, which
@@ -11,7 +12,9 @@ Tolerance: max abs error <= 1e-5 * max |output|. Kernel and plain version
 form the same float32 products and differ only in the order of the sums
 (the plain version densifies each gene block and multiplies densely). With
 0/1 values and a 0/1 W every sum is a small integer, exact in any order,
-so there the two must be equal: one wrong mask bit would show.
+so there the two must be equal: one wrong mask bit would show. B6 skips
+exactly the slots that hashed B4 skips and is otherwise the same code, so
+the two must give the same bits.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from singlet_tpu_torch.ops import bell, bell_cuda
+from singlet_tpu_torch.ops.maskbits import pack_mask_words
 from singlet_tpu_torch.ops.rngmask import seed_pair
 
 pytestmark = pytest.mark.cuda
@@ -176,6 +180,92 @@ def test_column_slice_of_planes(cuda):
     want_t = bell.bell_spmm_t_plain(li[:, sl], lv[:, sl], H, seed, 1024,
                                     gene_block=GENE_BLOCK, n_gb=N_GB)
     _close(got_t, want_t)
+
+
+def _planes_g(n_gb, gene_block, width, cells, seed, device, dup_cell=None):
+    """Random planes (n_gb * width, cells) of any gene block: per (gene
+    block, cell) a random count of distinct local ids in random slot order;
+    with ``dup_cell``, that cell's slot 1 repeats its slot 0 in every gene
+    block (a non-canonical operand)."""
+    rng = np.random.default_rng(seed)
+    li = np.stack([np.stack([rng.choice(gene_block, width, replace=False)
+                             for _ in range(cells)]) for _ in range(n_gb)])
+    count = rng.integers(0, width + 1, (n_gb, cells, 1))
+    if dup_cell is not None:
+        count[:, dup_cell] = width
+        li[:, dup_cell, 1] = li[:, dup_cell, 0]
+    live = np.arange(width)[None, None, :] < count
+    li = np.where(live, li, -1).astype(np.int32)
+    lv = np.where(live, rng.random(li.shape) + 0.1, 0.0).astype(np.float32)
+    to2d = lambda x: np.ascontiguousarray(                     # noqa: E731
+        x.transpose(0, 2, 1)).reshape(n_gb * width, cells)
+    return (torch.as_tensor(to2d(li), device=device),
+            torch.as_tensor(to2d(lv), device=device))
+
+
+def _check_b4_b6(li, lv, H, gene_block, n_gb, offset):
+    """B4 plain and hashed within 1e-5 x max |output| of the plain version
+    and the same bits twice (one launch a call); B6 on the packed words of
+    the same cells the bits of hashed B4; values 1.0 with a 0/1 indicator
+    H equal to the plain version, plain and hashed."""
+    cells, k = H.shape
+    genes = n_gb * gene_block
+    seed = seed_pair(78)
+    kw = dict(gene_block=gene_block, n_gb=n_gb, inv_density=20)
+    for s in (None, seed):
+        before = bell_cuda.LAUNCHES_SPMM_T
+        got = bell_cuda.bell_spmm_t_cuda(li, lv, H, s, offset, **kw)
+        assert bell_cuda.LAUNCHES_SPMM_T == before + 1
+        _close(got, bell.bell_spmm_t_plain(li, lv, H, s, offset, **kw))
+        assert torch.equal(got, bell_cuda.bell_spmm_t_cuda(li, lv, H, s,
+                                                           offset, **kw))
+    words = pack_mask_words(seed, torch.arange(offset, offset + cells,
+                                               device=H.device),
+                            genes_pad=genes, gene_block=gene_block,
+                            inv_density=20, cells_true=offset + cells,
+                            genes_true=genes)
+    b6 = bell_cuda.bell_spmm_t_bits_cuda(li, lv, H, words,
+                                         gene_block=gene_block, n_gb=n_gb)
+    assert torch.equal(b6, got)
+    li = li.contiguous()
+    ones = torch.where(li >= 0, 1.0, 0.0)
+    Hi = torch.zeros_like(H)
+    Hi[torch.arange(cells), torch.arange(cells) % k] = 1.0
+    for s in (None, seed):
+        assert torch.equal(
+            bell_cuda.bell_spmm_t_cuda(li, ones, Hi, s, offset, **kw),
+            bell.bell_spmm_t_plain(li, ones, Hi, s, offset, **kw))
+
+
+# (gene_block, k): where B4's plan splits its work: two and seven row
+# groups (gene_block 512 and 1720), lanes of 1 and 4 columns (k 3, 100,
+# 128), two to four column tiles (k 129, 300, 512); at width 32 on 2049
+# cells (a last tile of one cell)
+PLAN_SPLITS = [(512, 3), (512, 100), (512, 128), (512, 129), (512, 300),
+               (512, 512), (1720, 100), (1720, 512)]
+
+
+@pytest.mark.parametrize("gene_block,k", PLAN_SPLITS)
+@pytest.mark.parametrize("sliced", [False, True])
+def test_b4_b6_where_the_plan_splits(cuda, gene_block, k, sliced):
+    """Also on a column slice of wider planes (row stride > cells, at an odd
+    cell offset)."""
+    cells, n_gb = 2049, 2
+    total = cells + 1000 if sliced else cells
+    li, lv = _planes_g(n_gb, gene_block, 32, total, gene_block + k, cuda)
+    if sliced:
+        li, lv = li[:, 517:517 + cells], lv[:, 517:517 + cells]
+    H = torch.rand((cells, k), device=cuda)
+    _check_b4_b6(li, lv, H, gene_block, n_gb, 4096)
+
+
+@pytest.mark.parametrize("gene_block,k", [(256, 100), (32, 7)])
+def test_b4_sums_a_gene_held_twice(cuda, gene_block, k):
+    """A cell whose two slots hold one gene (scipy input with duplicate
+    entries): its values add, as in the plain version's dense tile."""
+    li, lv = _planes_g(N_GB, gene_block, 16, CELLS, 5, cuda, dup_cell=321)
+    H = torch.rand((CELLS, k), device=cuda)
+    _check_b4_b6(li, lv, H, gene_block, N_GB, 0)
 
 
 def test_dispatchers_launch_kernels_only(cuda):

@@ -73,8 +73,8 @@ def _close(got, want, rel=1e-5):
 
 
 @pytest.mark.parametrize("gene_block,n_gb", GEOMS)
-@pytest.mark.parametrize("width,k", [(8, 3), (32, 100), (40, 50), (32, 256),
-                                     (8, 300)])
+@pytest.mark.parametrize("width,k", [(8, 3), (32, 100), (40, 50), (32, 129),
+                                     (32, 256), (8, 300), (16, 512)])
 def test_b5_b6_equal_masked_b3_b4(cuda, gene_block, n_gb, width, k):
     width = min(width, gene_block)
     li, lv = _planes(width, CELLS, gene_block, n_gb, width + k, cuda)
