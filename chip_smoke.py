@@ -42,12 +42,16 @@ Phases; any failure raises and the script exits non-zero:
    same planes with their packed test mask: B5 and B6 the same bits as
    masked B3 and B4, B7's sums within rtol 2e-4 and its counts equal, B12
    the same bytes as its plain version, B8 and B13 (one block) and B9 and
-   B14 (4 quantization groups) on int8 the same bits as their plain
-   versions (and B13/B14 as B8/B9) and on bf16 within 1e-5 x max |output|;
-   and once more on an edge geometry (40 gene blocks, 3 groups of 1000
-   cells). Times of kernel, plain version and library call
-   (torch.sparse.mm on a CSR copy for B3-B6, torch._int_mm on the
-   unpacked int8 mask for B8/B9 and B13/B14), and each kernel's bound;
+   B14 (4 quantization groups, P as the engine hands it over and
+   contiguous) on int8 the same bits as their plain versions (and B13/B14
+   as B8/B9), twice, and on bf16 within 1e-5 x max |output|; the passes of
+   B9 and B14 (``csrc/maskgram_gemm.cu``: the mask packed along the cells
+   for the shared GEMM) the words of their plain versions and of B11's
+   hash pass; and once more on an edge geometry (40 gene blocks, 3 groups
+   of 1000 cells). Times of kernel (B9/B14 with their pass, and the pass
+   alone), plain version and library call (torch.sparse.mm on a CSR copy
+   for B3-B6, torch._int_mm on the unpacked int8 mask for B8/B9 and
+   B13/B14), and each kernel's bound;
 10. the ELL engine against the dense providers on the bench operand from
    one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` on the
    f32 route (equal ``iter`` lists), within the fit tolerance; then the
@@ -72,21 +76,23 @@ Phases; any failure raises and the script exits non-zero:
    profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
    B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
-   and one test MSE timed and under the profiler; then the step under
-   ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed in
-   turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
+   and one test MSE timed and under the profiler (with B6's and B9's
+   shares of its device time, B9's pass and GEMM apart); then the step
+   under ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed
+   in turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
    the peak memory of each, B12 on one group's words the same bytes as its
    plain version, B14 on one group (16 quantization blocks of 2048 cells,
-   int8) the same bits as its plain version, each also timed, and one
-   MASK8 step under the profiler;
+   int8, P as the engine hands it over) the same bits as its plain version
+   and as B9, each timed (B9 and B14 with their passes apart), and one
+   MASK8 step under the profiler (with B14's share);
 12. the user's entry points on the ELL route: the planted rank-10
    operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
    ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
    default bits route;
 13. kernels B10 and B11 (``ops/maskgram_cuda.py`` on
-   ``csrc/maskgram_hash.cu``: the hash route's mask products, bf16, a
-   hash pass that packs the mask along K, then one wgmma GEMM fed by
-   TMA), run beside phases 9 and 11: on the bench operand (k=50), on an
+   ``csrc/maskgram_gemm.cu``: the hash route's mask products, bf16, a
+   hash pass that packs the mask along K, then the wgmma GEMM fed by TMA
+   that B9 and B14 share), run beside phases 9 and 11: on the bench operand (k=50), on an
    edge geometry (1280 genes in gene blocks of 32, 3000 cells from cell
    12345 in blocks of 1000, true sizes 2990 cells and 1270 genes) and on
    the 8192-cell slice of the large operand (k=100; B10 on its first
@@ -98,7 +104,8 @@ Phases; any failure raises and the script exits non-zero:
    the same cells; per call the times of kernel, hash pass, plain version
    and library call (torch.matmul of the bf16 mask) and the bound; and,
    in turns (old, new, new, old), bf16 B8/B9 on the packed words against
-   B10/B11 on the same cells;
+   B10/B11 on the same cells (bf16 B9 runs B11's GEMM after its own
+   pass);
 14. resumable fits (``checkpoint=``), each stopped and resumed and equal
    bit for bit to the uninterrupted run: after phase 7, ``nmf_fit`` and
    ``ard_nmf_fit`` at the bench config (checkpoints every 5, stopped at
@@ -167,7 +174,7 @@ MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
-           "bell_mse_bits", "maskgram_m8", "maskgram_hash")
+           "bell_mse_bits", "maskgram_m8", "maskgram_gemm")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -175,6 +182,12 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
+# the profiled device time of B9 and B14 (their pass and the int8 GEMM
+# they share) in the large masked steps, by kernel name
+B9_SHARES = ((("kpack_words_kernel", "mask_gemm_s8_kernel"), "B9"),
+             ("kpack_words_kernel", "B9_pass"))
+B14_SHARES = ((("kpack_m8_kernel", "mask_gemm_s8_kernel"), "B14"),
+              ("kpack_m8_kernel", "B14_pass"))
 # kernels B3 and B4 against their plain versions: only the order of the
 # sums differs
 BELL_TOL = 1e-5
@@ -977,7 +990,12 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     record("B12", 0.0, 1.0, **t)
     del m8_buf
 
-    # B8 and B13 on one block, B9 and B14 over the groups of blocks
+    # B8 and B13 on one block, B9 and B14 over the groups of blocks; the
+    # words B9's and B14's passes must give: B11's hash pass of the cells
+    hash_words = maskgram_cuda.pack_mask_k_cuda(
+        seed, torch.arange(cell_offset, cell_offset + cells, device="cuda"),
+        genes, gene_rows=True, inv_density=inv, cells_true=cell_offset + cells,
+        genes_true=genes)
     iu = triu_pairs(k)
     npairs = iu[0].shape[0]
     b = min(block, cells)
@@ -999,17 +1017,45 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                  for Hg in groups]
         Ph_op = torch.cat([x for x, _ in q])
         Ph_s = torch.stack([x for _, x in q], dim=1).contiguous()
+        # B9 and B14 take P as the engine hands it over: int8 K-major, bf16
+        # pair-padded (the checks also feed it contiguous)
+        Ph_eng = (maskgram.kmajor_buffer if dtype == "int8"
+                  else maskgram.pair_buffer)(cells, npairs, "cuda")
+        Ph_eng.copy_(Ph_op)
         esz = 1 if dtype == "int8" else 2
         peak = INT8_OPS_S if dtype == "int8" else BF16_OPS_S
 
         def b8(f, acc=None):
             return f(Pw_op, Pw_s, w_blk, gene_block=G)
 
-        def b9(f, acc=None):
+        def b9(f, acc=None, P=None):
             # the carry is updated in place: a fresh copy for the checks,
             # one reused buffer for the timings
-            return f(Ph_op, Ph_s, words, acc0.clone() if acc is None else acc,
-                     gene_block=G, scale_block=b)
+            return f(Ph_eng if P is None else P, Ph_s, words,
+                     acc0.clone() if acc is None else acc, gene_block=G,
+                     scale_block=b)
+
+        def carry_checks(name, call, kern, got, want, mask_pass,
+                         plain_pass):
+            """B9/B14: the same bits twice and from contiguous P (int8;
+            bf16 within the tolerance), and the kernel's pass alone the
+            words of its plain version and of B11's hash pass; returns
+            the pass's time."""
+            again, contig = call(kern), call(kern, P=Ph_op)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {label} {dtype}: two runs "
+                                     "differ")
+            c_err = float((contig - want).abs().max())
+            if (dtype == "int8" and not torch.equal(got, contig)) or \
+                    not c_err <= 1e-5 * float(want.abs().max()):
+                raise AssertionError(f"{name} {label} {dtype}: contiguous "
+                                     f"P differs by {c_err}")
+            kp = mask_pass()
+            if not (torch.equal(kp, plain_pass())
+                    and torch.equal(kp, hash_words)):
+                raise AssertionError(f"{name} pass {label}: differs from "
+                                     "its plain version or the hash pass")
+            return _median_ms(torch, mask_pass, runs=10) if timed else None
 
         for name, call, kern, plain, nnz_words, bytes_ in (
                 ("B8", b8, maskgram_cuda.mask_packed_w_t_bits_cuda,
@@ -1029,6 +1075,14 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
             if not err <= 1e-5 * scale:
                 raise AssertionError(f"{name} {label} {dtype}: max abs err "
                                      f"{err} > 1e-5 x {scale}")
+            extra = {}
+            if name == "B9":
+                extra["pass_ms"] = carry_checks(
+                    name, call, kern, got, want,
+                    lambda: maskgram_cuda.pack_words_k_cuda(
+                        words, gene_block=G, genes_pad=genes),
+                    lambda: maskgram.pack_words_k(words, gene_block=G,
+                                                  genes_pad=genes))
             buf = acc0.clone()
             t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
                        runs=10, plain_runs=2)
@@ -1045,16 +1099,17 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                       torch, Ph_op.T.contiguous(), m_i8))
                 t.update(library_ms=library_ms,
                          bound=_bound(bytes_, 2 * nnz * npairs, peak))
-            record(name, err, scale, dtype=dtype, **t)
+            record(name, err, scale, dtype=dtype, **extra, **t)
 
         # B13 and B14 read the unpacked mask: close to their plain versions
         # and to B8 and B9 on the words (int8: the same bits as both)
         def b13(f, acc=None):
             return f(Pw_op, Pw_s, m8_blk, gene_block=G)
 
-        def b14(f, acc=None):
-            return f(Ph_op, Ph_s, m8, acc0.clone() if acc is None else acc,
-                     gene_block=G, scale_block=b)
+        def b14(f, acc=None, P=None):
+            return f(Ph_eng if P is None else P, Ph_s, m8,
+                     acc0.clone() if acc is None else acc, gene_block=G,
+                     scale_block=b)
 
         for name, call, kern, plain, twin, nnz, bytes_ in (
                 ("B13", b13, maskgram_cuda.mask_packed_w_t_m8_cuda,
@@ -1081,6 +1136,12 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                 raise AssertionError(f"{name} {label} {dtype}: max abs err "
                                      f"{err}, against the bits route "
                                      f"{twin_err} > 1e-5 x {scale}")
+            extra = {}
+            if name == "B14":
+                extra["pass_ms"] = carry_checks(
+                    name, call, kern, got, want,
+                    lambda: maskgram_cuda.pack_mask8_k_cuda(m8),
+                    lambda: maskgram.pack_mask8_k(m8))
             buf = acc0.clone()
             t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
                        runs=10, plain_runs=2)
@@ -1092,7 +1153,8 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                       torch, Ph_op.T.contiguous(), m8))
                 t.update(library_ms=library_ms,
                          bound=_bound(bytes_, 2 * nnz * npairs, peak))
-            record(name, err, scale, dtype=dtype, err_vs_bits=twin_err, **t)
+            record(name, err, scale, dtype=dtype, err_vs_bits=twin_err,
+                   **extra, **t)
     return rows
 
 
@@ -1979,7 +2041,8 @@ def phase_large(torch, card, ckdir):
         mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms,
         profile=_profile(torch, card, step, label=f"large masked ELL step, "
                          f"bits route (sweep cap {settings.fast_masked})",
-                         share=("bell_spmm_t_kernel", "B6")),
+                         share=B9_SHARES + (("bell_spmm_t_kernel",
+                                             "B6"),)),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
@@ -2008,12 +2071,15 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
     device memory; one MASK8 step under the profiler. At the shapes the
     step gives them: B12 on one group's words, the same bytes as its plain
     version, and B14 over that group (``F`` quantization blocks of H's
-    packed products, int8), the same bits as its plain version; each timed
-    with its plain version (CUDA events)."""
+    packed products, int8, P as the engine hands it over), the same bits
+    as its plain version and as B9 on the group's words; each timed (CUDA
+    events) with its plain version, B9 and B14 with their passes alone and
+    beside torch._int_mm on the unpacked mask."""
     from singlet_tpu_torch.ops import maskbits, maskgram
     from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
-    from singlet_tpu_torch.ops.maskgram_cuda import (mask_packed_h_t_m8_cuda,
-                                                     unpack_mask_bits_cuda)
+    from singlet_tpu_torch.ops.maskgram_cuda import (
+        mask_packed_h_t_bits_cuda, mask_packed_h_t_m8_cuda, pack_mask8_k_cuda,
+        pack_words_k_cuda, unpack_mask_bits_cuda)
     from singlet_tpu_torch.ops.nnls import SweepSettings
     from singlet_tpu_torch.parallel.sharded_ell import _build_local_fns
 
@@ -2074,25 +2140,39 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
     Ph_op = torch.cat([x for x, _ in q])
     Ph_s = torch.stack([x for _, x in q], dim=1).contiguous()
     del q
+    # P as the engine hands it over (K-major)
+    Ph_eng = maskgram.kmajor_buffer(group, Ph_op.shape[1], "cuda")
+    Ph_eng.copy_(Ph_op)
     acc0 = torch.rand((iu[0].shape[0], genes),
                       generator=torch.Generator(device="cuda").manual_seed(7),
                       device="cuda")
+    w_grp = bits[0][:group]
 
     def b14(f, acc=None):
-        return f(Ph_op, Ph_s, m8, acc0.clone() if acc is None else acc,
+        return f(Ph_eng, Ph_s, m8, acc0.clone() if acc is None else acc,
                  gene_block=G, scale_block=blk)
 
+    def b9(acc):
+        return mask_packed_h_t_bits_cuda(Ph_eng, Ph_s, w_grp, acc,
+                                         gene_block=G, scale_block=blk)
+
     got = b14(mask_packed_h_t_m8_cuda)
-    if not torch.equal(got, b14(maskgram.mask_packed_h_t_m8_plain)):
+    if not (torch.equal(got, b14(maskgram.mask_packed_h_t_m8_plain))
+            and torch.equal(got, b9(acc0.clone()))):
         raise AssertionError("large B14 on one group (int8): differs from "
-                             "the plain version")
+                             "the plain version or from B9")
     del got
     buf = acc0.clone()
     b14_ms = _median_ms(torch, lambda: b14(mask_packed_h_t_m8_cuda, buf),
-                        runs=3)
+                        runs=5)
+    b9_ms = _median_ms(torch, lambda: b9(buf), runs=5)
+    b9_pass_ms = _median_ms(torch, lambda: pack_words_k_cuda(
+        w_grp, gene_block=G, genes_pad=genes), runs=5)
+    b14_pass_ms = _median_ms(torch, lambda: pack_mask8_k_cuda(m8), runs=5)
+    int_mm_ms = _int_mm_library(torch, Ph_op.T.contiguous(), m8)
     b14_plain_ms = _median_ms(
         torch, lambda: b14(maskgram.mask_packed_h_t_m8_plain, buf), runs=1)
-    del buf, acc0, Ph_op, Ph_s, m8
+    del buf, acc0, Ph_op, Ph_eng, Ph_s, m8
     print(f"large MASK8 step (sweep cap {settings.fast_masked}): "
           f"{[round(t, 1) for t in times[step8]]} ms against the bits "
           f"step's {[round(t, 1) for t in times[bits_step]]} ms (in turns "
@@ -2100,7 +2180,9 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
           f"{max(peaks[step8]):.2f} GiB against {max(peaks[bits_step]):.2f}"
           f" GiB; per group of {group} cells B12 {unpack_ms:.3f} ms (plain "
           f"{unpack_plain_ms:.3f}, the same bytes), B14 {b14_ms:.3f} ms "
-          f"(plain {b14_plain_ms:.3f}, int8, the same bits) ({card})",
+          f"(its pass {b14_pass_ms:.3f}; plain {b14_plain_ms:.3f}, int8, the "
+          f"same bits), B9 {b9_ms:.3f} ms (its pass {b9_pass_ms:.3f}; the "
+          f"same bits as B14), torch._int_mm {int_mm_ms:.3f} ms ({card})",
           flush=True)
     return dict(step_ms=times[step8], bits_step_ms=times[bits_step],
                 peak_mem_gib=max(peaks[step8]),
@@ -2108,10 +2190,13 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
                 launches=launches,
                 unpack_group_ms=unpack_ms,
                 unpack_group_plain_ms=unpack_plain_ms, b14_group_ms=b14_ms,
-                b14_group_plain_ms=b14_plain_ms, group_cells=group,
+                b14_group_plain_ms=b14_plain_ms, b14_group_pass_ms=b14_pass_ms,
+                b9_group_ms=b9_ms, b9_group_pass_ms=b9_pass_ms,
+                int_mm_group_ms=int_mm_ms, group_cells=group,
                 profile=_profile(torch, card, step8, label=f"large masked ELL "
                                  f"step, MASK8 (sweep cap "
-                                 f"{settings.fast_masked})"))
+                                 f"{settings.fast_masked})",
+                                 share=B14_SHARES))
 
 
 def phase_resume_large(torch, card, eng, data, ckdir):
@@ -2266,12 +2351,13 @@ def phase_ell_entry(torch, card):
                         best_rank=best, rows=len(df)))
 
 
-def _profile(torch, card, fn, label="race", share=None):
+def _profile(torch, card, fn, label="race", share=()):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and
-    the device's idle share of the run's wall time. With ``share`` (a
-    kernel name's key and its label, as ("bell_spmm_t_kernel", "B4")), also
-    that kernel's device time and its share of the run's, printed and
-    recorded as ``<label>_ms`` and ``<label>_share``."""
+    the device's idle share of the run's wall time. For each entry of
+    ``share`` (a kernel name's key, or a tuple of keys, and its label, as
+    ("bell_spmm_t_kernel", "B4")), also those kernels' device time and its
+    share of the run's, printed and recorded as ``<label>_ms`` and
+    ``<label>_share``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2302,9 +2388,12 @@ def _profile(torch, card, fn, label="race", share=None):
               f"{name[:90]}", flush=True)
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
                kernels_ms={name: us / 1e3 for name, us in top})
-    if share is not None:
-        key, name = share
-        ms = sum(us for kname, us in kernels.items() if key in kname) / 1e3
+    if share and isinstance(share[0], str):
+        share = (share,)
+    for keys, name in share:
+        keys = (keys,) if isinstance(keys, str) else keys
+        ms = sum(us for kname, us in kernels.items()
+                 if any(key in kname for key in keys)) / 1e3
         out[f"{name}_ms"] = ms
         out[f"{name}_share"] = ms / max(busy_us / 1e3, 1e-9)
         print(f"  kernel {name}: {ms:.2f} ms of {busy_us / 1e3:.1f} ms "
@@ -2327,7 +2416,7 @@ def phase_build():
     bell_cuda._mse_lib()
     maskgram_cuda._lib()
     maskgram_cuda._m8_lib()
-    maskgram_cuda._hash_lib()
+    maskgram_cuda._gemm_lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
         # ptxas -v: registers, and (on the line after) stack and spills
@@ -2531,17 +2620,17 @@ def main() -> int:
                   "pallas_bell.py:370"),
         ell_entry("mask_packed_w_t_bits", "B8", "maskgram_bits.cu",
                   "pallas_maskgram.py:480"),
-        ell_entry("mask_packed_h_t_bits", "B9", "maskgram_bits.cu",
+        ell_entry("mask_packed_h_t_bits", "B9", "maskgram_gemm.cu",
                   "pallas_maskgram.py:712"),
-        ell_entry("mask_packed_w_t", "B10", "maskgram_hash.cu",
+        ell_entry("mask_packed_w_t", "B10", "maskgram_gemm.cu",
                   "pallas_maskgram.py:185"),
-        ell_entry("mask_packed_h_t", "B11", "maskgram_hash.cu",
+        ell_entry("mask_packed_h_t", "B11", "maskgram_gemm.cu",
                   "pallas_maskgram.py:229"),
         ell_entry("unpack_mask_bits", "B12", "maskgram_m8.cu",
                   "maskbits.py:125"),
         ell_entry("mask_packed_w_t_m8", "B13", "maskgram_m8.cu",
                   "pallas_maskgram.py:566"),
-        ell_entry("mask_packed_h_t_m8", "B14", "maskgram_m8.cu",
+        ell_entry("mask_packed_h_t_m8", "B14", "maskgram_gemm.cu",
                   "pallas_maskgram.py:652"),
     ]}))
     print(card)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``build/singlet_tpu_torch/`` at the root
 of the checkout (git-ignored), under a file name that carries a hash of the
-source and flags, and loaded with ``ctypes``. A missing ``nvcc`` or a failed
+source, the local headers it includes and the flags, and loaded with
+``ctypes``. A missing ``nvcc`` or a failed
 build raises; nothing falls back to the plain PyTorch versions.
 
 Kernels are compiled WITHOUT ``--use_fast_math``: the CD-NNLS clamp term
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,12 +46,35 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_digest(src: Path) -> str:
+    """sha256 (hex) of a source, of every local header it includes
+    (``#include "..."`` beside the file that names it, followed
+    recursively) and of the nvcc flags: an edit to any of them gives a new
+    library name, so a stale build is never loaded."""
+    h = hashlib.sha256()
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(str(len(text)).encode() + b":" + text)
+        todo += [path.parent / m.decode() for m in _LOCAL_INCLUDE.findall(text)
+                 if (path.parent / m.decode()).is_file()]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def build(name: str) -> tuple[Path, float, str]:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists. Returns (library path, seconds spent compiling, compiler log)."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same digest
+    (``source_digest``) exists. Returns (library path, seconds spent
+    compiling, compiler log)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"lib{name}_{source_digest(src)[:16]}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""

@@ -1,51 +1,38 @@
-// Masked packed-Gram products of the bits route: kernels B8 and B9 of the
-// port, with the test mask read from bitplane words, for sm_90a. (The hash
-// route's B10 and B11 are csrc/maskgram_hash.cu.)
+// Masked packed-Gram product of the bits route: kernel B8 of the port, with
+// the test mask read from bitplane words, for sm_90a. (B9, the bits route's
+// carry product, shares one GEMM with B10, B11 and B14 in
+// csrc/maskgram_gemm.cu.)
 //
 // B8 (`mask_packed_w_t_bits`) replaces singlet_tpu/ops/pallas_maskgram.py
-// `mask_packed_w_t_bits` (kernel body `_mpw_bits_kernel`) and B9
-// (`mask_packed_h_t_bits`) replaces `mask_packed_h_t_bits` (`_mph_bits_body`):
+// `mask_packed_w_t_bits` (kernel body `_mpw_bits_kernel`):
 //
-//   B8:  out[p, c]  = sum_g mask(c, g) P[g, p]          P (genes_pad, np)
-//   B9:  acc[p, g] += sum_c mask(c, g) P[c, p]          P (cells, np)
+//   B8:  out[p, c] = sum_g mask(c, g) P[g, p]          P (genes_pad, np)
 //
 // with mask(c, gb * GB + w) = (words[c, (gb >> 5) * GB + w] >> (gb & 31)) & 1
 // (singlet_tpu_torch/ops/maskbits.py). P is int8 (per-pair scales from
-// quantize_pairs: exact int32 sums, then one multiply per pair) or bf16
-// (float32 sums). B9 forms one partial per cell sub-block of `bc` cells
-// (int8: multiplied by the scale column of its quantization group) and adds
-// it into the carry in sub-block order, `(acc + d0) + d1 + ...`, as the JAX
-// kernel does; __fmul_rn and __fadd_rn keep nvcc from contracting that into
-// an FMA, so the int8 path gives the bits of the plain version.
+// quantize_pairs: exact int32 sums, then one multiply per pair, __fmul_rn,
+// so the int8 path gives the bits of the plain version) or bf16 (float32
+// sums).
 //
-// What bounds them. At 524,288 cells x 16,384 genes, k = 100 (5050 pairs),
-// the dense products are 339 GOP per 2048-cell block (B8) and 5.4 TOP per
-// group of 16 blocks (B9): 0.17 ms and 2.7 ms at the 1,979 TOP/s int8 peak
-// (twice that at the 989 TFLOP/s bf16 peak). They read little (P 83 MB
-// int8, 165 MB bf16; the words 4 MB per block; B9 also reads and writes
-// the 331 MB carry once per call), so the dense products are bound by the
-// tensor cores. The mask is 5% dense, so a sparse formulation needs fewer
-// operations; that is work for a later change.
+// What bounds it. At 524,288 cells x 16,384 genes, k = 100 (5050 pairs),
+// the dense product is 339 GOP per 2048-cell block: 0.17 ms at the 1,979
+// TOP/s int8 peak (twice that at the 989 TFLOP/s bf16 peak). It reads
+// little (P 83 MB int8, 165 MB bf16; the words 4 MB per block), so the
+// dense product is bound by the tensor cores. The mask is 5% dense, so a
+// sparse formulation needs fewer operations; that is work for a later
+// change.
 //
-// Design of the products. Both run on the tensor cores through `mma.sync`
-// (m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 x bf16 -> f32), with the mask
-// as the A operand built in registers straight from the bits, never stored:
-//
-// * The TPU unpacks a (gene block x cells) tile per grid step. Here the K
-//   axis is walked so that one loaded word gives all its bits: in B8 a K
-//   chunk of 32 is one word column (local gene w of word group t) and its
-//   32 bits are the genes (32 t + s) GB + w, s = 0..31; the A fragment of a
-//   cell row is a few shifts of that one word. The chunk's 32 rows of P
-//   (one row per bitplane) are staged transposed in shared memory as the B
-//   operand.
-// * In B9 the rows of the product are genes and K is cells. A block owns
-//   4 local genes x 32 bitplanes of one word group (128 genes) and 64 pairs;
-//   per chunk of 32 cells each lane loads one cell's word of its warp's
-//   local gene and 16 warp ballots turn the 32 words into the 32-cell bit
-//   rows of the warp's 16 genes. P's 32 rows are staged transposed.
-// * Each block owns its output tile, so there are no atomics; B9 updates
-//   the carry in place (read once, written once). The next chunk's P and
-//   words are loaded into registers while the current chunk multiplies.
+// Design. It runs on the tensor cores through `mma.sync` (m16n8k32 s8 x s8
+// -> s32, or m16n8k16 bf16 x bf16 -> f32), with the mask as the A operand
+// built in registers straight from the bits, never stored. The TPU unpacks
+// a (gene block x cells) tile per grid step. Here the K axis is walked so
+// that one loaded word gives all its bits: a K chunk of 32 is one word
+// column (local gene w of word group t) and its 32 bits are the genes
+// (32 t + s) GB + w, s = 0..31; the A fragment of a cell row is a few shifts
+// of that one word. The chunk's 32 rows of P (one row per bitplane) are
+// staged transposed in shared memory as the B operand. Each block owns its
+// output tile, so there are no atomics. The next chunk's P and words are
+// loaded into registers while the current chunk multiplies.
 //
 // Right and simple first: no TMA, no wgmma, one stage of register
 // prefetch.
@@ -57,14 +44,11 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 32;                // K per chunk
 constexpr int kB8Cells = kWarps * 16;     // B8 tile: 128 cells
 constexpr int kB8Pairs = 128;             //          x 128 pairs
-constexpr int kB9Locals = 4;              // B9 tile: 4 local genes x 32
-constexpr int kB9Pairs = 64;              //          bitplanes x 64 pairs
 
 // shared-memory pitch of a staged row (K-contiguous), in elements: a
 // multiple of 4 bytes, padded against bank conflicts
@@ -210,118 +194,6 @@ mpw_bits_kernel(const T* __restrict__ P, int np,
   }
 }
 
-// B9. Grid (n_t * ceil(gene_block / 4), ceil(np / 64)); block x owns word
-// group x / w_tiles and local genes 4 (x % w_tiles) .. + 3; warp v owns
-// local gene (v >> 1) at bitplanes 16 (v & 1) .. + 15, its 16 rows.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mph_bits_kernel(const T* __restrict__ P, int np,
-                const float* __restrict__ scales, int n_scales,
-                const uint32_t* __restrict__ words, int cells, int wcols,
-                int gene_block, int n_gb, int genes_pad, int bc,
-                int scale_block, float* __restrict__ acc) {
-  constexpr int NT = kB9Pairs / 8;
-  constexpr int kStage = kB9Pairs * kChunk / kThreads;   // 8 per thread
-  __shared__ __align__(16) T sB[kB9Pairs * kPitch<T>];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int w_tiles = (gene_block + kB9Locals - 1) / kB9Locals;
-  const int tg = blockIdx.x / w_tiles;
-  const int w = (blockIdx.x % w_tiles) * kB9Locals + (warp >> 1);
-  const int s_base = (warp & 1) * 16;
-  const bool w_ok = w < gene_block;
-  const int gb0 = tg * 32 + s_base + g, gb1 = gb0 + 8;
-  const long long gene0 = (long long)gb0 * gene_block + w;
-  const long long gene1 = (long long)gb1 * gene_block + w;
-  const bool ok0 = w_ok && gb0 < n_gb, ok1 = w_ok && gb1 < n_gb;
-  const int p0 = blockIdx.y * kB9Pairs;
-  // staging: cell sj of the chunk, pairs sq .. sq + 7 of the tile
-  const int sj = threadIdx.x >> 3, sq = (threadIdx.x & 7) * kStage;
-  const long long wcol = (long long)tg * gene_block + w;
-
-  float run[NT][4];
-  AccT<T> part[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + j * 8 + t * 2 + (i & 1);
-      const bool ok = (i < 2 ? ok0 : ok1) && p < np;
-      run[j][i] = ok ? acc[(long long)p * genes_pad + (i < 2 ? gene0 : gene1)]
-                     : 0.f;
-      part[j][i] = 0;
-    }
-  }
-
-  const int per_sub = (bc + kChunk - 1) / kChunk;        // chunks per sub-block
-  const int n_q = (cells / bc) * per_sub;
-  T v[kStage];
-  uint32_t nword = 0;
-  auto load = [&](int q) {
-    const int sb = q / per_sub;
-    const long long c0 = (long long)sb * bc + (long long)(q % per_sub) * kChunk;
-    const long long end = (long long)sb * bc + bc;
-    const long long c = c0 + sj;
-    const T* row = P + c * np + p0 + sq;
-#pragma unroll
-    for (int e = 0; e < kStage; ++e) {
-      v[e] = (c < end && p0 + sq + e < np) ? row[e] : T(0);
-    }
-    nword = (w_ok && c0 + lane < end) ? words[(c0 + lane) * wcols + wcol] : 0u;
-  };
-
-  load(0);
-  for (int q = 0; q < n_q; ++q) {
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kStage; ++e) sB[(sq + e) * kPitch<T> + sj] = v[e];
-    __syncthreads();
-    const uint32_t word = nword;
-    if (q + 1 < n_q) load(q + 1);
-    // bit j of ballot s = bitplane s_base + s of chunk cell j; keep the two
-    // rows this thread's fragments take
-    uint32_t bits0 = 0, bits1 = 0;
-#pragma unroll
-    for (int s = 0; s < 16; ++s) {
-      const uint32_t b = __ballot_sync(kFull, (word >> (s_base + s)) & 1u);
-      if (s == g) bits0 = b;
-      if (s == g + 8) bits1 = b;
-    }
-    mma_chunk<T, NT>(part, bits0, bits1, sB, g, t);
-    if (q % per_sub == per_sub - 1) {
-      // the sub-block is complete: dequantize and add, in sub-block order
-      const int col = (int)(((long long)(q / per_sub) * bc) / scale_block);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if constexpr (sizeof(T) == 1) {
-            const int p = p0 + j * 8 + t * 2 + (i & 1);
-            const float sc = p < np ? scales[(long long)p * n_scales + col]
-                                    : 0.f;
-            run[j][i] = __fadd_rn(run[j][i],
-                                  __fmul_rn(__int2float_rn(part[j][i]), sc));
-          } else {
-            run[j][i] = __fadd_rn(run[j][i], part[j][i]);
-          }
-          part[j][i] = 0;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + j * 8 + t * 2 + (i & 1);
-      if ((i < 2 ? ok0 : ok1) && p < np) {
-        acc[(long long)p * genes_pad + (i < 2 ? gene0 : gene1)] = run[j][i];
-      }
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -346,34 +218,6 @@ int mask_packed_w_t_bits(const void* P, int int8, int np, const float* scales,
     mpw_bits_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
         static_cast<const uint16_t*>(P), np, scales, words, block, wcols,
         gene_block, n_gb, out);
-  }
-  return cudaGetLastError();
-}
-
-// P (cells, np) int8 or bf16, scales (np, n_scales) float32 (int8 only),
-// words (cells, wcols), acc (np, genes_pad) float32 updated in place; `bc`
-// divides `scale_block`, which divides `cells`.
-int mask_packed_h_t_bits(const void* P, int int8, int np, const float* scales,
-                         int n_scales, const uint32_t* words, int cells,
-                         int wcols, int gene_block, int n_gb, int genes_pad,
-                         int bc, int scale_block, float* acc, void* stream) {
-  if (cells <= 0 || np <= 0) return cudaSuccess;
-  if (gene_block <= 0 || wcols % gene_block != 0 || bc <= 0 ||
-      scale_block % bc != 0 || cells % scale_block != 0) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w_tiles = (gene_block + kB9Locals - 1) / kB9Locals;
-  const dim3 grid((wcols / gene_block) * w_tiles,
-                  (np + kB9Pairs - 1) / kB9Pairs);
-  if (int8) {
-    mph_bits_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(P), np, scales, n_scales, words, cells,
-        wcols, gene_block, n_gb, genes_pad, bc, scale_block, acc);
-  } else {
-    mph_bits_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-        static_cast<const uint16_t*>(P), np, scales, n_scales, words, cells,
-        wcols, gene_block, n_gb, genes_pad, bc, scale_block, acc);
   }
   return cudaGetLastError();
 }

@@ -37,6 +37,12 @@ B13 and B14 compute what B8 and B9 compute, from the mask's bytes: on int8
 the sums are the same exact integers, so they give B8's and B9's bits on
 the same mask; on bf16 B13 sums one float32 partial per gene block in
 gene-block order and B14 one per cell sub-block, as the JAX kernels do.
+The CUDA B9 and B14 run B11's GEMM after a pass that packs their mask
+along the cells, as B11's hash pass does: ``pack_words_k`` and
+``pack_mask8_k`` are the plain versions of those passes. On int8 that GEMM
+reads P K-major, so the engine builds its group operand in a
+``kmajor_buffer`` (bf16: a ``pair_buffer``); the plain versions take P in
+any layout.
 
 Left out, because they lay the operand out for the TPU's VMEM and change
 nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
@@ -158,11 +164,54 @@ def pair_buffer(rows: int, npairs: int, device) -> torch.Tensor:
                        device=device)[:, :npairs]
 
 
+# the CUDA B9/B14 on int8 read P K-major through TMA: the transpose of a
+# (npairs, pitch) buffer whose rows start 16 bytes apart
+KMAJOR_PAD = 16
+
+
+def kmajor_buffer(cells: int, npairs: int, device) -> torch.Tensor:
+    """A (cells, npairs) int8 view that is the transpose of an
+    uninitialised (npairs, cells rounded up to KMAJOR_PAD) buffer: the
+    layout in which int8 B9 and B14 take P without a copy (the engine
+    writes each block's quantized products into its rows). Only the view's
+    entries are ever read."""
+    pitch = -(-cells // KMAJOR_PAD) * KMAJOR_PAD
+    return torch.empty((npairs, pitch), dtype=torch.int8,
+                       device=device)[:, :cells].T
+
+
+def kmajor_pitch(P: torch.Tensor) -> Optional[int]:
+    """The pitch in bytes at which int8 B9/B14 read P (cells, npairs) in
+    place: P must be the transpose of rows that start 16 bytes apart (a
+    ``kmajor_buffer`` or a column slice of one at a multiple of 16). None
+    when P is laid out otherwise, and then the kernel's wrapper copies it
+    into a ``kmajor_buffer``."""
+    cells = P.shape[0]
+    if (P.dtype == torch.int8 and P.dim() == 2 and P.stride(0) == 1
+            and P.stride(1) % KMAJOR_PAD == 0 and P.stride(1) >= cells
+            and P.data_ptr() % 16 == 0):
+        return P.stride(1)
+    return None
+
+
 def k_words(K: int) -> int:
     """Words per row of a mask packed along a product's K axis: ceil(K /
     32) rounded up to 4, a 16-byte row."""
     n = -(-K // 32)
     return -(-n // 4) * 4
+
+
+def _pack_rows_k(m: torch.Tensor) -> torch.Tensor:
+    """A bool (rows, K) mask packed along K into (rows, k_words(K)) int32
+    words (the uint32 bit patterns): bit j of word q = column 32 q + j, the
+    tails zero."""
+    rows, K = m.shape
+    kw = k_words(K)
+    bits = torch.zeros((rows, kw * 32), dtype=torch.int64, device=m.device)
+    bits[:, :K] = m.to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=m.device)
+    words = (bits.reshape(rows, kw, 32) << shift).sum(dim=2)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def pack_mask_k(seed, cell_ids: torch.Tensor, genes_pad: int, *,
@@ -175,15 +224,23 @@ def pack_mask_k(seed, cell_ids: torch.Tensor, genes_pad: int, *,
     (True): (genes_pad, k_words(cells)), bit j of word q = cell 32 q + j."""
     m = hash_mask(seed, cell_ids, genes_pad, inv_density=inv_density,
                   cells_true=cells_true, genes_true=genes_true)
-    if gene_rows:
-        m = m.T
-    rows, K = m.shape
-    kw = k_words(K)
-    bits = torch.zeros((rows, kw * 32), dtype=torch.int64, device=m.device)
-    bits[:, :K] = m.to(torch.int64)
-    shift = torch.arange(32, dtype=torch.int64, device=m.device)
-    words = (bits.reshape(rows, kw, 32) << shift).sum(dim=2)
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return _pack_rows_k(m.T if gene_rows else m)
+
+
+def pack_words_k(words: torch.Tensor, *, gene_block: int,
+                 genes_pad: int) -> torch.Tensor:
+    """The plain version of B9's pass: the mask of bitplane words (cells,
+    n_t * gene_block) packed along the cells, (genes_pad, k_words(cells))
+    int32, bit j of word q = cell 32 q + j; for the words of the same seed
+    and cells, ``pack_mask_k(..., gene_rows=True)`` word for word."""
+    return _pack_rows_k(unpack_all(words, genes_pad, gene_block).T)
+
+
+def pack_mask8_k(mask8: torch.Tensor) -> torch.Tensor:
+    """The plain version of B14's pass: the int8 0/1 mask (cells,
+    genes_pad) packed along the cells, as ``pack_words_k`` packs the
+    words it was unpacked from."""
+    return _pack_rows_k((mask8 != 0).T)
 
 
 def mask_packed_w_t_plain(Pw, seed, cell_ids, *, gene_block: int,

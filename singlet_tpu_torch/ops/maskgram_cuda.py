@@ -7,16 +7,21 @@ B8 (``mask_packed_w_t_bits_cuda``) replaces
 their int8 and bf16 paths, with the test mask read from bitplane words;
 B10 (``mask_packed_w_t_cuda``) replaces ``mask_packed_w_t`` and B11
 (``mask_packed_h_t_cuda``) replaces ``mask_packed_h_t``, with the mask
-hashed from (seed, cell, gene) on the card and bf16 operands. The source of
-B8/B9 is ``csrc/maskgram_bits.cu``, that of B10/B11 (a hash pass, then one
-wgmma GEMM fed by TMA; ``pack_mask_k_cuda`` runs the hash pass alone)
-``csrc/maskgram_hash.cu``; their header notes give the designs and what
-bounds them on the card. B12 (``unpack_mask_bits_cuda``) replaces
-``singlet_tpu/ops/maskbits.py`` ``unpack_mask_bits``, B13
-(``mask_packed_w_t_m8_cuda``) ``mask_packed_w_t_m8`` and B14
-(``mask_packed_h_t_m8_cuda``) ``mask_packed_h_t_m8``: the bits route under
-``SINGLET_TPU_MASK8=1``, the mask unpacked once per group into a dense
-int8 array that the products read; their source is ``csrc/maskgram_m8.cu``.
+hashed from (seed, cell, gene) on the card and bf16 operands. B12
+(``unpack_mask_bits_cuda``) replaces ``singlet_tpu/ops/maskbits.py``
+``unpack_mask_bits``, B13 (``mask_packed_w_t_m8_cuda``)
+``mask_packed_w_t_m8`` and B14 (``mask_packed_h_t_m8_cuda``)
+``mask_packed_h_t_m8``: the bits route under ``SINGLET_TPU_MASK8=1``, the
+mask unpacked once per group into a dense int8 array that the products
+read.
+
+B9, B10, B11 and B14 are one GEMM with the mask as its A operand, packed
+along the product's K axis by a pass that runs first in the same call: a
+hash pass (B10/B11; ``pack_mask_k_cuda`` runs it alone), a transpose of
+the bitplane words (B9; ``pack_words_k_cuda``) or of the int8 mask (B14;
+``pack_mask8_k_cuda``). Their source is ``csrc/maskgram_gemm.cu``, that of
+B8 ``csrc/maskgram_bits.cu`` and that of B12/B13 ``csrc/maskgram_m8.cu``;
+their header notes give the designs and what bounds them on the card.
 ``_build.py`` compiles each source with nvcc at first use and this module
 binds them with ctypes.
 
@@ -38,6 +43,7 @@ from singlet_tpu_torch.ops.maskbits import (_check_unpack,
                                             unpack_out)
 from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
                                             b9_sub_block, k_words,
+                                            kmajor_buffer, kmajor_pitch,
                                             m8_sub_block,
                                             mask_packed_h_t_bits_plain,
                                             mask_packed_h_t_m8_plain,
@@ -45,7 +51,8 @@ from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
                                             mask_packed_w_t_bits_plain,
                                             mask_packed_w_t_m8_plain,
                                             mask_packed_w_t_plain,
-                                            pack_mask_k, pair_buffer)
+                                            pack_mask8_k, pack_mask_k,
+                                            pack_words_k, pair_buffer)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
 # kernel launches (one per wrapper call on CUDA tensors) of B8, B9, B10 and
@@ -57,6 +64,9 @@ LAUNCHES_MPH_HASH = 0
 # launches of B10's and B11's hash pass alone (``pack_mask_k_cuda``; the
 # passes inside B10 and B11 count as theirs)
 LAUNCHES_HASH_K = 0
+# likewise the passes of B9 and B14 alone (``pack_words_k_cuda``,
+# ``pack_mask8_k_cuda``)
+LAUNCHES_KPACK = 0
 # likewise B12, B13 and B14 (the SINGLET_TPU_MASK8=1 route)
 LAUNCHES_UNPACK8 = 0
 LAUNCHES_MPW_M8 = 0
@@ -74,20 +84,17 @@ def _lib():
         lib.mask_packed_w_t_bits.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci,
                                              ci, vp, vp]
         lib.mask_packed_w_t_bits.restype = ci
-        lib.mask_packed_h_t_bits.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
-                                             ci, ci, ci, ci, ci, vp, vp]
-        lib.mask_packed_h_t_bits.restype = ci
         lib.maskgram_bits_error_string.argtypes = [ci]
         lib.maskgram_bits_error_string.restype = ctypes.c_char_p
         _LIB["lib"] = lib
     return _LIB["lib"]
 
 
-def _hash_lib():
-    if "hash" not in _LIB:
+def _gemm_lib():
+    if "gemm" not in _LIB:
         from singlet_tpu_torch import _build
 
-        lib = _build.load("maskgram_hash")
+        lib = _build.load("maskgram_gemm")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         u64, ll = ctypes.c_uint64, ctypes.c_longlong
         lib.mask_hash_words.argtypes = [ci, vp, ci, ci, ci, u64, ci, ll, ll,
@@ -99,10 +106,21 @@ def _hash_lib():
         lib.mask_packed_h_t_hash.argtypes = [vp, ll, ci, vp, ci, ci, ci, u64,
                                              ci, ll, ll, vp, vp, vp]
         lib.mask_packed_h_t_hash.restype = ci
-        lib.maskgram_hash_error_string.argtypes = [ci]
-        lib.maskgram_hash_error_string.restype = ctypes.c_char_p
-        _LIB["hash"] = lib
-    return _LIB["hash"]
+        lib.mask_kpack_words.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
+        lib.mask_kpack_words.restype = ci
+        lib.mask_kpack_m8.argtypes = [vp, ci, ci, ci, vp, vp]
+        lib.mask_kpack_m8.restype = ci
+        lib.mask_packed_h_t_bits.argtypes = [ci, vp, ll, ci, vp, ci, vp, ci,
+                                             ci, ci, ci, ci, ci, ci, vp, ci,
+                                             vp, vp]
+        lib.mask_packed_h_t_bits.restype = ci
+        lib.mask_packed_h_t_m8.argtypes = [ci, vp, ll, ci, vp, ci, vp, ci,
+                                           ci, ci, ci, vp, ci, vp, vp]
+        lib.mask_packed_h_t_m8.restype = ci
+        lib.maskgram_gemm_error_string.argtypes = [ci]
+        lib.maskgram_gemm_error_string.restype = ctypes.c_char_p
+        _LIB["gemm"] = lib
+    return _LIB["gemm"]
 
 
 def _m8_lib():
@@ -116,9 +134,6 @@ def _m8_lib():
         lib.mask_packed_w_t_m8.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp,
                                            vp]
         lib.mask_packed_w_t_m8.restype = ci
-        lib.mask_packed_h_t_m8.argtypes = [vp, ci, ci, vp, ci, vp, ci, ci,
-                                           ci, ci, vp, vp]
-        lib.mask_packed_h_t_m8.restype = ci
         lib.maskgram_m8_error_string.argtypes = [ci]
         lib.maskgram_m8_error_string.restype = ctypes.c_char_p
         _LIB["m8"] = lib
@@ -176,39 +191,134 @@ def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
     """Kernel B9: ``acc`` (np, genes_pad) float32 += the dequantized
     (mask^T @ P)^T, in place (returned). P_op (cells, np) int8 with
     ``scales`` (np, cells // scale_block), or bf16; words (cells, n_t *
-    gene_block) int32. On CPU tensors, the plain version."""
+    gene_block) int32. One launch of B9's pass, which packs the words
+    along the cells, and of the shared GEMM. int8 P is read in place when
+    it is the transpose of rows 16 bytes apart (``kmajor_buffer``), bf16 P
+    when its rows start 16 bytes apart (``pair_buffer``); anything else is
+    copied into such a buffer first. On CPU tensors, the plain version."""
     if P_op.device.type != "cuda":
         return mask_packed_h_t_bits_plain(P_op, scales, words, acc,
                                           gene_block=gene_block,
                                           scale_block=scale_block)
     global LAUNCHES_MPH_BITS
     dev = P_op.device
-    int8 = _is_int8(P_op)
     cells, np_ = P_op.shape
-    scale_block = cells if scale_block is None else int(scale_block)
-    bc = b9_sub_block(cells, scale_block)
     genes_pad = acc.shape[1]
     if genes_pad % gene_block:
         raise ValueError(f"acc has {genes_pad} columns, not a multiple of "
                          f"gene_block {gene_block}")
     n_gb = genes_pad // gene_block
-    _check("P_op", P_op, (cells, np_), P_op.dtype, dev)
-    _check("acc", acc, (np_, genes_pad), torch.float32, dev)
     _check_words(words, cells, n_gb, gene_block, dev)
+    int8, P, p_ld, s_ptr, n_scales, bc, scale_block = _carry_inputs(
+        P_op, scales, acc, scale_block)
+    if cells == 0 or np_ == 0:
+        return acc
+    kwords = torch.empty((genes_pad, k_words(cells)), dtype=torch.int32,
+                         device=dev)
+    lib = _gemm_lib()
+    with torch.cuda.device(dev):
+        err = lib.mask_packed_h_t_bits(
+            int8, P.data_ptr(), p_ld, np_, s_ptr, n_scales, words.data_ptr(),
+            cells, words.shape[1], gene_block, n_gb, genes_pad, bc,
+            scale_block, kwords.data_ptr(), kwords.shape[1], acc.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "mask_packed_h_t_bits", lib.maskgram_gemm_error_string)
+    LAUNCHES_MPH_BITS += 1
+    return acc
+
+
+def _carry_inputs(P_op, scales, acc, scale_block):
+    """The common checks and inputs of B9 and B14: (int8 flag, P as the
+    GEMM reads it, P's pitch: int8 K-major with its pitch in bytes,
+    ``_kmajor_operand``, or bf16 with its row stride, ``_tma_operand``;
+    the scales' pointer, the quantization groups, the sub-block's cells and
+    scale_block)."""
+    dev = P_op.device
+    int8 = _is_int8(P_op)
+    cells, np_ = P_op.shape
+    scale_block = cells if scale_block is None else int(scale_block)
+    bc = b9_sub_block(cells, scale_block)
+    if scale_block % bc:
+        raise ValueError(
+            f"B9/B14: {cells} cells in quantization groups of {scale_block} "
+            f"sum sub-blocks of {bc} cells, which straddle the groups; the "
+            "kernel takes sub-blocks that divide the group")
+    _check("acc", acc, (np_, acc.shape[1]), torch.float32, dev)
     n_scales = cells // scale_block
     if int8:
         _check("scales", scales, (np_, n_scales), torch.float32, dev)
-    if cells == 0 or np_ == 0:
-        return acc
-    with torch.cuda.device(dev):
-        err = _lib().mask_packed_h_t_bits(
-            P_op.data_ptr(), int(int8), np_,
-            scales.data_ptr() if int8 else None, n_scales, words.data_ptr(),
-            cells, words.shape[1], gene_block, n_gb, genes_pad, bc,
-            scale_block, acc.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_h_t_bits")
-    LAUNCHES_MPH_BITS += 1
-    return acc
+        P, p_ld = _kmajor_operand(P_op)
+    else:
+        P = _tma_operand(P_op)
+        p_ld = P.stride(0)
+    return (int(int8), P, p_ld, scales.data_ptr() if int8 else None,
+            n_scales, bc, scale_block)
+
+
+def _kmajor_operand(P: torch.Tensor):
+    """int8 P (cells, np) as the K-major B operand of int8 B9/B14: (a
+    tensor whose data pointer starts the (np, pitch) rows, the pitch in
+    bytes). The transpose of rows 16 bytes apart (``kmajor_pitch``) is used
+    as it is, as the engine hands its group operand over; anything else is
+    copied into a ``kmajor_buffer``."""
+    pitch = kmajor_pitch(P)
+    if pitch is not None:
+        return P, pitch
+    buf = kmajor_buffer(P.shape[0], P.shape[1], P.device)
+    buf.copy_(P)
+    return buf, buf.stride(1)
+
+
+def pack_words_k_cuda(words, *, gene_block: int,
+                      genes_pad: int) -> torch.Tensor:
+    """B9's pass alone: bitplane words (cells, n_t * gene_block) packed
+    along the cells, the (genes_pad, k_words(cells)) int32 words
+    ``pack_words_k`` builds. On CPU tensors, the plain version."""
+    if words.device.type != "cuda":
+        return pack_words_k(words, gene_block=gene_block,
+                            genes_pad=genes_pad)
+    global LAUNCHES_KPACK
+    if gene_block <= 0 or genes_pad % gene_block:
+        raise ValueError(f"{genes_pad} genes are not a multiple of "
+                         f"gene_block {gene_block}")
+    cells = words.shape[0]
+    n_gb = genes_pad // gene_block
+    _check_words(words, cells, n_gb, gene_block, words.device)
+    out = torch.empty((genes_pad, k_words(cells)), dtype=torch.int32,
+                      device=words.device)
+    if cells == 0 or genes_pad == 0:
+        return out.zero_()
+    lib = _gemm_lib()
+    with torch.cuda.device(words.device):
+        err = lib.mask_kpack_words(words.data_ptr(), cells, words.shape[1],
+                                   gene_block, n_gb, out.shape[1],
+                                   out.data_ptr(), _stream(words.device))
+    _raise_on(err, "mask_kpack_words", lib.maskgram_gemm_error_string)
+    LAUNCHES_KPACK += 1
+    return out
+
+
+def pack_mask8_k_cuda(mask8) -> torch.Tensor:
+    """B14's pass alone: the int8 0/1 mask (cells, genes_pad) packed along
+    the cells, the (genes_pad, k_words(cells)) int32 words ``pack_mask8_k``
+    builds. On CPU tensors, the plain version."""
+    if mask8.device.type != "cuda":
+        return pack_mask8_k(mask8)
+    global LAUNCHES_KPACK
+    cells, genes_pad = mask8.shape
+    _check("mask8", mask8, (cells, genes_pad), torch.int8, mask8.device)
+    out = torch.empty((genes_pad, k_words(cells)), dtype=torch.int32,
+                      device=mask8.device)
+    if cells == 0 or genes_pad == 0:
+        return out.zero_()
+    lib = _gemm_lib()
+    with torch.cuda.device(mask8.device):
+        err = lib.mask_kpack_m8(mask8.data_ptr(), cells, genes_pad,
+                                out.shape[1], out.data_ptr(),
+                                _stream(mask8.device))
+    _raise_on(err, "mask_kpack_m8", lib.maskgram_gemm_error_string)
+    LAUNCHES_KPACK += 1
+    return out
 
 
 def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
@@ -269,13 +379,13 @@ def pack_mask_k_cuda(seed, cell_ids, genes_pad: int, *, gene_rows: bool,
     if cells == 0 or genes_pad == 0:
         return words.zero_()
     _, seed64 = _seed_args(seed, inv_density)
-    lib = _hash_lib()
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
         err = lib.mask_hash_words(
             int(gene_rows), ids.data_ptr(), cells, genes_pad, words.shape[1],
             seed64, int(inv_density), int(cells_true), int(genes_true),
             words.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_hash_words", lib.maskgram_hash_error_string)
+    _raise_on(err, "mask_hash_words", lib.maskgram_gemm_error_string)
     LAUNCHES_HASH_K += 1
     return words
 
@@ -305,13 +415,13 @@ def mask_packed_w_t_cuda(Pw, seed, cell_ids, *, gene_block: int,
         return out
     words = torch.empty((block, k_words(genes_pad)), dtype=torch.int32,
                         device=dev)
-    lib = _hash_lib()
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
         err = lib.mask_packed_w_t_hash(
             P.data_ptr(), P.stride(0), np_, ids.data_ptr(), block, genes_pad,
             words.shape[1], *hash_args, words.data_ptr(), out.data_ptr(),
             _stream(dev))
-    _raise_on(err, "mask_packed_w_t_hash", lib.maskgram_hash_error_string)
+    _raise_on(err, "mask_packed_w_t_hash", lib.maskgram_gemm_error_string)
     LAUNCHES_MPW_HASH += 1
     return out
 
@@ -347,13 +457,13 @@ def mask_packed_h_t_cuda(Ph, seed, cell_ids, acc, *, gene_block: int,
     b9_sub_block(block, block)
     words = torch.empty((genes_pad, k_words(block)), dtype=torch.int32,
                         device=dev)
-    lib = _hash_lib()
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
         err = lib.mask_packed_h_t_hash(
             P.data_ptr(), P.stride(0), np_, ids.data_ptr(), block, genes_pad,
             words.shape[1], *hash_args, words.data_ptr(), acc.data_ptr(),
             _stream(dev))
-    _raise_on(err, "mask_packed_h_t_hash", lib.maskgram_hash_error_string)
+    _raise_on(err, "mask_packed_h_t_hash", lib.maskgram_gemm_error_string)
     LAUNCHES_MPH_HASH += 1
     return acc
 
@@ -424,33 +534,31 @@ def mask_packed_h_t_m8_cuda(P_op, scales, mask8, acc, *, gene_block: int,
     """Kernel B14: ``acc`` (np, genes_pad) float32 += the dequantized
     (mask^T @ P)^T, in place (returned). P_op (cells, np) int8 with
     ``scales`` (np, cells // scale_block), or bf16; mask8 the prebuilt int8
-    0/1 mask (cells, genes_pad). On CPU tensors, the plain version."""
+    0/1 mask (cells, genes_pad). One launch of B14's pass, which packs the
+    mask along the cells, and of B9's GEMM: B9's arithmetic, and P read in
+    place as B9 reads it. On CPU tensors, the plain version."""
     if P_op.device.type != "cuda":
         return mask_packed_h_t_m8_plain(P_op, scales, mask8, acc,
                                         gene_block=gene_block,
                                         scale_block=scale_block)
     global LAUNCHES_MPH_M8
     dev = P_op.device
-    int8 = _is_int8(P_op)
     cells, np_ = P_op.shape
     genes_pad = acc.shape[1]
     _check_m8(mask8, cells, genes_pad, gene_block)
-    scale_block = cells if scale_block is None else int(scale_block)
-    bc = b9_sub_block(cells, scale_block)
-    _check("P_op", P_op, (cells, np_), P_op.dtype, dev)
-    _check("acc", acc, (np_, genes_pad), torch.float32, dev)
     _check("mask8", mask8, (cells, genes_pad), torch.int8, dev)
-    n_scales = cells // scale_block
-    if int8:
-        _check("scales", scales, (np_, n_scales), torch.float32, dev)
+    int8, P, p_ld, s_ptr, n_scales, bc, scale_block = _carry_inputs(
+        P_op, scales, acc, scale_block)
     if cells == 0 or np_ == 0:
         return acc
-    lib = _m8_lib()
+    kwords = torch.empty((genes_pad, k_words(cells)), dtype=torch.int32,
+                         device=dev)
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
         err = lib.mask_packed_h_t_m8(
-            P_op.data_ptr(), int(int8), np_,
-            scales.data_ptr() if int8 else None, n_scales, mask8.data_ptr(),
-            cells, genes_pad, bc, scale_block, acc.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_h_t_m8", lib.maskgram_m8_error_string)
+            int8, P.data_ptr(), p_ld, np_, s_ptr, n_scales, mask8.data_ptr(),
+            cells, genes_pad, bc, scale_block, kwords.data_ptr(),
+            kwords.shape[1], acc.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_h_t_m8", lib.maskgram_gemm_error_string)
     LAUNCHES_MPH_M8 += 1
     return acc

@@ -31,7 +31,9 @@ What differs from the JAX engine, and why:
     B5 gives the keep-masked right-hand sides, B8 the h-side mask products
     (int8 or bf16 operand), B2 the solves and B6 the w-side right-hand
     sides, while B9 flushes the block's quantized w-side products into the
-    carry once per group of F blocks; the test MSE is B7. A masked step
+    carry once per group of F blocks (the group's operand built in the
+    layout B9 reads in place: int8 K-major, bf16 pair-padded); the test
+    MSE is B7. A masked step
     given no packed mask there, as every step of a checkpointed fit is
     (the JAX per-step path), and every step under
     ``SINGLET_TPU_MASKGRAM=hash``, takes the hash route: per cell block B3
@@ -80,7 +82,7 @@ from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
                                           packed_outer_products,
                                           scale_columns, triu_pairs)
 from singlet_tpu_torch.ops.maskbits import pack_mask_words, unpack_mask_bits
-from singlet_tpu_torch.ops.maskgram import (mask_packed_h_t,
+from singlet_tpu_torch.ops.maskgram import (kmajor_buffer, mask_packed_h_t,
                                             mask_packed_h_t_bits,
                                             mask_packed_h_t_m8,
                                             mask_packed_w_t,
@@ -411,25 +413,32 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                 mask_packed_h_t(Ph_op, seed, ids, Pk_t, **hkw)
         else:
             # the bits route: each block's w-side packed products are
-            # quantized and stacked, and B9 flushes a group of F blocks
-            # into the carry at once (F the largest divisor of the block
-            # count up to 16), each block dequantized with its own scales:
-            # the bits of flushing block by block. Under MASK8 the group's
-            # words are first unpacked by B12 into one int8 mask buffer,
-            # allocated once per step and reused by every group, and B13
-            # and B14 read it in place of B8 and B9.
+            # quantized into its rows of one group operand, and B9 flushes
+            # a group of F blocks into the carry at once (F the largest
+            # divisor of the block count up to 16), each block dequantized
+            # with its own scales: the bits of flushing block by block. The
+            # group operand is allocated once per step in the layout the
+            # kernels read in place: int8 K-major (the transpose of
+            # (npairs, cells) rows 16 bytes apart), bf16 with its pair axis
+            # padded for TMA. Under MASK8 the group's words are first
+            # unpacked by B12 into one int8 mask buffer, likewise reused by
+            # every group, and B13 and B14 read it in place of B8 and B9.
             (words,) = bits
             Pw_op, Pw_s = _quantized(Pw, r)
             n_blk = cells_pad // mblock
             F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
+            Ph_grp = (kmajor_buffer if r == "int8" else pair_buffer)(
+                F * mblock, npairs, dev)
+            scales = torch.empty((npairs, F), dtype=torch.float32,
+                                 device=dev)
             m8 = None
             for g0 in range(0, cells_pad, F * mblock):
                 w_grp = words[g0:g0 + F * mblock]
                 if mask8:
                     m8 = unpack_mask_bits(w_grp, gene_block=gene_block,
                                           genes_pad=genes_pad, out=m8)
-                ops, scales = [], []
-                for start in range(g0, g0 + F * mblock, mblock):
+                for f, start in enumerate(range(g0, g0 + F * mblock,
+                                                mblock)):
                     li, lv = planes(start, mblock)
                     w_blk = words[start:start + mblock]
                     B = bell_spmm_bits(li, lv, W, w_blk,
@@ -445,17 +454,17 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                     Bw += bell_spmm_t_bits(li, lv, Hb, w_blk,
                                            gene_block=gene_block, n_gb=n_gb)
                     q, qs = _quantized(packed_outer_products(Hb, iu), r)
-                    ops.append(q)
-                    scales.append(qs)
+                    Ph_grp[start - g0:start - g0 + mblock] = q
+                    scales[:, f] = qs
                 if mask8:
-                    mask_packed_h_t_m8(
-                        torch.cat(ops), torch.stack(scales, dim=1), m8, Pk_t,
-                        gene_block=gene_block, scale_block=mblock)
+                    mask_packed_h_t_m8(Ph_grp, scales, m8, Pk_t,
+                                       gene_block=gene_block,
+                                       scale_block=mblock)
                 else:
-                    mask_packed_h_t_bits(
-                        torch.cat(ops), torch.stack(scales, dim=1), w_grp,
-                        Pk_t, gene_block=gene_block, scale_block=mblock)
-            del m8
+                    mask_packed_h_t_bits(Ph_grp, scales, w_grp, Pk_t,
+                                         gene_block=gene_block,
+                                         scale_block=mblock)
+            del m8, Ph_grp
         d = Hsum + 1e-15
         H_new = torch.cat(Hs) / d[None, :]
         a_h = Hgram / (d[:, None] * d[None, :])

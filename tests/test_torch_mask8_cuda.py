@@ -12,8 +12,10 @@ without one. On a machine with a card (and without jax, which
 
 Tolerances: B12 writes bytes, which must be equal. B13 and B14 on int8 sum
 exact int32 partials and dequantize with one rounding, as the plain
-versions and B8/B9 do, so they must give the same bits as both; on bf16
-they sum float32 in another order (max abs error <= 1e-5 * max |output|).
+versions and B8/B9 do, so they must give the same bits as both, whatever
+the layout of P; on bf16 they sum float32 in another order (max abs error
+<= 1e-5 * max |output|). B14's pass gives the words of its plain version
+and of B9's pass.
 The engine on the card against the CPU: rtol 5e-3, atol 5e-4 with equal
 ``iter`` lists (the fit tests' tolerance); on int8 against the card's own
 bits route, the same bits.
@@ -109,8 +111,8 @@ def test_b13_matches_plain_and_b8(cuda, dtype, gene_block, n_gb, k):
 
 # (cells, scale_block): one group; four groups of 2048 (two 1024-cell
 # sub-blocks each); three groups of 40 cells (sub-blocks of 40, no multiple
-# of the 32-cell chunk)
-B14_CELLS = [(1000, 1000), (8192, 2048), (120, 40)]
+# of the 32-cell word); eight groups of 8 cells
+B14_CELLS = [(1000, 1000), (8192, 2048), (120, 40), (64, 8)]
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
@@ -130,15 +132,58 @@ def test_b14_matches_plain_and_b9(cuda, dtype, gene_block, n_gb, cells,
     acc0 = torch.rand((op.shape[1], genes), device=cuda)
     before = maskgram_cuda.LAUNCHES_MPH_M8
     got = acc0.clone()
+    # P in the engine's layout (int8 K-major, bf16 pair-padded)
+    make = maskgram.kmajor_buffer if dtype == "int8" else maskgram.pair_buffer
+    P = make(op.shape[0], op.shape[1], cuda)
+    P.copy_(op)
     out = maskgram_cuda.mask_packed_h_t_m8_cuda(
-        op, s, m8, got, gene_block=gene_block, scale_block=scale_block)
+        P, s, m8, got, gene_block=gene_block, scale_block=scale_block)
     assert out is got and maskgram_cuda.LAUNCHES_MPH_M8 == before + 1
+    assert torch.equal(got, maskgram_cuda.mask_packed_h_t_m8_cuda(
+        op, s, m8, acc0.clone(), gene_block=gene_block,
+        scale_block=scale_block))
     _same(got, maskgram.mask_packed_h_t_m8_plain(
         op, s, m8, acc0.clone(), gene_block=gene_block,
         scale_block=scale_block), dtype)
     _same(got, maskgram_cuda.mask_packed_h_t_bits_cuda(
         op, s, words, acc0.clone(), gene_block=gene_block,
         scale_block=scale_block), dtype)
+
+
+@pytest.mark.parametrize("k", [3, 100, 256, 300, 512])
+def test_b14_ranks_equal_b9(cuda, k):
+    """int8 B14 at every rank the wrappers take: the bits of plain B14 and
+    of B9 on the words the mask was unpacked from."""
+    op, s = _operand(torch.rand((1000, k), device=cuda), "int8")
+    words = _words(1000, 256, 3, 20, cuda)
+    m8 = maskgram_cuda.unpack_mask_bits_cuda(words, gene_block=256,
+                                             genes_pad=768)
+    acc0 = torch.rand((op.shape[1], 768), device=cuda)
+    P = maskgram.kmajor_buffer(1000, op.shape[1], cuda)
+    P.copy_(op)
+    got = maskgram_cuda.mask_packed_h_t_m8_cuda(
+        P, s[:, None], m8, acc0.clone(), gene_block=256)
+    _same(got, maskgram.mask_packed_h_t_m8_plain(
+        op, s[:, None], m8, acc0.clone(), gene_block=256), "int8")
+    _same(got, maskgram_cuda.mask_packed_h_t_bits_cuda(
+        P, s[:, None], words, acc0.clone(), gene_block=256), "int8")
+
+
+@pytest.mark.parametrize("gene_block,n_gb", GEOMS + [(1720, 1)])
+@pytest.mark.parametrize("cells", [CELLS, 8192, 33])
+def test_b14_pass_matches_plain_and_b9_pass(cuda, gene_block, n_gb, cells):
+    """B14's pass alone: the words of its plain version and of B9's pass on
+    the words the mask was unpacked from."""
+    genes = gene_block * n_gb
+    words = _words(cells, gene_block, n_gb, 20, cuda)
+    m8 = maskbits.unpack_mask_bits_plain(words, gene_block=gene_block,
+                                         genes_pad=genes)
+    before = maskgram_cuda.LAUNCHES_KPACK
+    got = maskgram_cuda.pack_mask8_k_cuda(m8)
+    assert maskgram_cuda.LAUNCHES_KPACK == before + 1
+    assert torch.equal(got, maskgram.pack_mask8_k(m8))
+    assert torch.equal(got, maskgram_cuda.pack_words_k_cuda(
+        words, gene_block=gene_block, genes_pad=genes))
 
 
 def test_m8_wrappers_refuse(cuda):

@@ -12,8 +12,10 @@ without one. On a machine with a card (and without jax, which
 Tolerances: B5 and B6 skip exactly the slots that masked B3 and B4 skip
 and are otherwise the same code, so they must give the same bits. B8 and
 B9 on int8 sum exact int32 partials and dequantize with the plain
-version's single rounding, so they must give the same bits too; on bf16
-they sum float32 in another order (max abs error <= 1e-5 * max |output|).
+version's single rounding, so they must give the same bits too, whatever
+the layout of P and on a second run; on bf16 they sum float32 in another
+order (max abs error <= 1e-5 * max |output|). B9's pass gives the words of
+its plain version and of B11's hash pass.
 B7 sums in another order (rtol 2e-4, atol 1e-5, as tests/test_maskbits.py)
 and counts exactly. The engine on the card against the CPU: rtol 5e-3,
 atol 5e-4 with equal ``iter`` lists (the fit tests' tolerance).
@@ -154,36 +156,76 @@ def test_b8_matches_plain(cuda, dtype, gene_block, n_gb, k):
     _same(got, want, dtype)
 
 
-# (cells, scale_block): one group; four groups of 2048 (two 1024-cell
-# sub-blocks each); three groups of 40 cells (sub-blocks of 40, no
-# multiple of the 32-cell chunk)
-B9_CELLS = [(1000, 1000), (8192, 2048), (120, 40)]
+# (cells, scale_block): one group (one sub-block of 1000 cells, which ends
+# inside a 32-cell word); four groups of 2048 (two 1024-cell sub-blocks
+# each); three groups of 40 cells (sub-blocks of 40); eight groups of 8
+# cells (four sub-blocks per word); three groups of 1000 cells (sub-blocks
+# of 8: 3000 halves to 8)
+B9_CELLS = [(1000, 1000), (8192, 2048), (120, 40), (64, 8), (3000, 1000)]
+# (gene_block, n_gb) of B9: GEOMS, gene_block 512, and 1720 genes (no
+# multiple of the GEMM's 128-gene tile)
+B9_GEOMS = GEOMS + [(512, 3), (1720, 1)]
+
+
+def _group_operand(cells, scale_block, k, dtype, device):
+    """The engine's batched B9/B14 operand: per quantization group of
+    ``scale_block`` cells its own packed products, stacked contiguous,
+    and the (np, groups) scales."""
+    H = torch.rand((cells, k), device=device)
+    ops, scales = zip(*[_operand(H[c0:c0 + scale_block], dtype)
+                        for c0 in range(0, cells, scale_block)])
+    return torch.cat(ops), torch.stack(scales, dim=1).contiguous()
+
+
+def _layout(op, how):
+    """``op`` contiguous, as the engine hands it over (int8: the transpose
+    of rows 16 bytes apart; bf16: pair-padded rows), or (int8) the
+    transpose of rows whose pitch is no multiple of 16, which the wrapper
+    must copy."""
+    if how == "contiguous":
+        return op
+    if how == "engine":
+        make = maskgram.kmajor_buffer if op.dtype == torch.int8 \
+            else maskgram.pair_buffer
+        buf = make(op.shape[0], op.shape[1], op.device)
+    else:
+        buf = torch.empty((op.shape[1], op.shape[0] + 1), dtype=op.dtype,
+                          device=op.device)[:, :op.shape[0]].T
+    buf.copy_(op)
+    return buf
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
-@pytest.mark.parametrize("gene_block,n_gb", GEOMS)
+@pytest.mark.parametrize("gene_block,n_gb", B9_GEOMS)
 @pytest.mark.parametrize("cells,scale_block", B9_CELLS)
 def test_b9_matches_plain(cuda, dtype, gene_block, n_gb, cells,
                           scale_block):
     genes = gene_block * n_gb
     k = 20
-    H = torch.rand((cells, k), device=cuda)
-    ops, scales = zip(*[_operand(H[c0:c0 + scale_block], dtype)
-                        for c0 in range(0, cells, scale_block)])
-    op, s = torch.cat(ops), torch.stack(scales, dim=1).contiguous()
+    op, s = _group_operand(cells, scale_block, k, dtype, cuda)
     words = _words(cells, gene_block, n_gb, 20, cuda)
     acc0 = torch.rand((op.shape[1], genes), device=cuda)
     before = maskgram_cuda.LAUNCHES_MPH_BITS
     got = acc0.clone()
     out = maskgram_cuda.mask_packed_h_t_bits_cuda(
-        op, s, words, got, gene_block=gene_block, scale_block=scale_block)
+        _layout(op, "engine"), s, words, got, gene_block=gene_block,
+        scale_block=scale_block)
     assert out is got and maskgram_cuda.LAUNCHES_MPH_BITS == before + 1
     want = maskgram.mask_packed_h_t_bits_plain(
         op, s, words, acc0.clone(), gene_block=gene_block,
         scale_block=scale_block)
     _same(got, want, dtype)
-    if dtype == "int8":
-        # batched = group by group, bit for bit
+    # the same bits twice
+    again = maskgram_cuda.mask_packed_h_t_bits_cuda(
+        _layout(op, "engine"), s, words, acc0.clone(), gene_block=gene_block,
+        scale_block=scale_block)
+    assert torch.equal(got, again)
+    if dtype == "int8" and maskgram.b9_sub_block(
+            cells, scale_block) == maskgram.b9_sub_block(scale_block,
+                                                         scale_block):
+        # batched = group by group, bit for bit, where both sum the same
+        # sub-blocks (3000 cells in groups of 1000 take sub-blocks of 8,
+        # one group alone sub-blocks of 1000)
         seq = acc0.clone()
         for f, c0 in enumerate(range(0, cells, scale_block)):
             sl = slice(c0, c0 + scale_block)
@@ -191,6 +233,57 @@ def test_b9_matches_plain(cuda, dtype, gene_block, n_gb, cells,
                 op[sl], s[:, f:f + 1].contiguous(), words[sl], seq,
                 gene_block=gene_block)
         assert torch.equal(got, seq)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("k", [3, 100, 256, 300, 512])
+def test_b9_ranks(cuda, dtype, k):
+    """Every rank the wrappers take (np up to 131,328 pairs, 1027 pair
+    tiles), over two quantization groups of 1024 cells."""
+    op, s = _group_operand(2048, 1024, k, dtype, cuda)
+    words = _words(2048, 256, 3, 20, cuda)
+    acc0 = torch.rand((op.shape[1], 768), device=cuda)
+    got = maskgram_cuda.mask_packed_h_t_bits_cuda(
+        _layout(op, "engine"), s, words, acc0.clone(), gene_block=256,
+        scale_block=1024)
+    _same(got, maskgram.mask_packed_h_t_bits_plain(
+        op, s, words, acc0.clone(), gene_block=256, scale_block=1024), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("how", ["contiguous", "engine", "odd_pitch"])
+def test_b9_operand_layouts(cuda, dtype, how):
+    """P contiguous, as the engine hands it over, or in a layout the
+    wrapper must copy: the bits of the engine's layout (int8), or within
+    the bf16 tolerance of the plain version."""
+    op, s = _group_operand(2048, 1024, 100, dtype, cuda)
+    words = _words(2048, 512, 4, 20, cuda)
+    acc0 = torch.rand((op.shape[1], 2048), device=cuda)
+    run = lambda P: maskgram_cuda.mask_packed_h_t_bits_cuda(  # noqa: E731
+        P, s, words, acc0.clone(), gene_block=512, scale_block=1024)
+    got = run(_layout(op, how))
+    _same(got, maskgram.mask_packed_h_t_bits_plain(
+        op, s, words, acc0.clone(), gene_block=512, scale_block=1024), dtype)
+    assert torch.equal(got, run(_layout(op, "engine")))
+
+
+@pytest.mark.parametrize("gene_block,n_gb", B9_GEOMS)
+@pytest.mark.parametrize("cells", [1000, 8192, 33])
+def test_b9_pass_matches_plain_and_hash_pass(cuda, gene_block, n_gb, cells):
+    """B9's pass alone: the words of its plain version, and of B11's hash
+    pass for the same seed and cells."""
+    genes = gene_block * n_gb
+    words = _words(cells, gene_block, n_gb, 20, cuda)
+    before = maskgram_cuda.LAUNCHES_KPACK
+    got = maskgram_cuda.pack_words_k_cuda(words, gene_block=gene_block,
+                                          genes_pad=genes)
+    assert maskgram_cuda.LAUNCHES_KPACK == before + 1
+    assert torch.equal(got, maskgram.pack_words_k(
+        words, gene_block=gene_block, genes_pad=genes))
+    ids = torch.arange(OFFSET, OFFSET + cells, device=cuda)
+    assert torch.equal(got, maskgram_cuda.pack_mask_k_cuda(
+        seed_pair(77), ids, genes, gene_rows=True, inv_density=20,
+        cells_true=OFFSET + cells, genes_true=genes))
 
 
 def test_wrappers_refuse(cuda):
@@ -215,6 +308,15 @@ def test_wrappers_refuse(cuda):
         bell_cuda.bell_mse_bits_cuda(
             li, lv, words, torch.rand((768, 513), device=cuda),
             torch.rand((300, 513), device=cuda), gene_block=256)
+    # 2000 cells in groups of 1000 sum sub-blocks of 16 cells, which would
+    # straddle the groups
+    with pytest.raises(ValueError, match="straddle"):
+        maskgram_cuda.mask_packed_h_t_bits_cuda(
+            torch.zeros((2000, s.shape[0]), dtype=torch.int8, device=cuda),
+            torch.ones((s.shape[0], 2), device=cuda),
+            _words(2000, 256, 3, 20, cuda),
+            torch.zeros((s.shape[0], 768), device=cuda), gene_block=256,
+            scale_block=1000)
     with pytest.raises(ValueError, match="8 cells"):
         maskgram_cuda.mask_packed_h_t_bits_cuda(
             torch.zeros((2050, s.shape[0]), dtype=torch.int8, device=cuda),
