@@ -42,16 +42,18 @@ Phases; any failure raises and the script exits non-zero:
    same planes with their packed test mask: B5 and B6 the same bits as
    masked B3 and B4, B7's sums within rtol 2e-4 and its counts equal, B12
    the same bytes as its plain version, B8 and B13 (one block) and B9 and
-   B14 (4 quantization groups, P as the engine hands it over and
-   contiguous) on int8 the same bits as their plain versions (and B13/B14
-   as B8/B9), twice, and on bf16 within 1e-5 x max |output|; the passes of
-   B9 and B14 (``csrc/maskgram_gemm.cu``: the mask packed along the cells
-   for the shared GEMM) the words of their plain versions and of B11's
-   hash pass; and once more on an edge geometry (40 gene blocks, 3 groups
-   of 1000 cells). Times of kernel (B9/B14 with their pass, and the pass
-   alone), plain version and library call (torch.sparse.mm on a CSR copy
-   for B3-B6, torch._int_mm on the unpacked int8 mask for B8/B9 and
-   B13/B14), and each kernel's bound;
+   B14 (4 quantization groups), P as the engine hands it over and
+   contiguous, on int8 the same bits as their plain versions (and B13/B14
+   as B8/B9; B13 also on bf16), twice, and on bf16 within 1e-5 x max
+   |output|; the passes of B8/B13 and B9/B14 (``csrc/maskgram_gemm.cu``:
+   the mask packed along the genes or the cells for the shared GEMM) the
+   words of their plain versions and of B10's or B11's hash pass; and
+   once more on an edge geometry (40 gene blocks, 3 groups of 1000
+   cells). Times of kernel (with its pass, and the pass alone), plain
+   version and library call (torch.sparse.mm on a CSR copy for B3-B6,
+   torch._int_mm on the unpacked int8 mask for B8/B9 and B13/B14), and
+   each kernel's bound (B8/B9/B13/B14 also the dense product at the
+   peak);
 10. the ELL engine against the dense providers on the bench operand from
    one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` on the
    f32 route (equal ``iter`` lists), within the fit tolerance; then the
@@ -76,15 +78,15 @@ Phases; any failure raises and the script exits non-zero:
    profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
    B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
-   and one test MSE timed and under the profiler (with B6's and B9's
-   shares of its device time, B9's pass and GEMM apart); then the step
-   under ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed
+   and one test MSE timed and under the profiler (with B6's, B8's and
+   B9's shares of its device time, B8's and B9's passes apart); then the
+   step under ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed
    in turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
    the peak memory of each, B12 on one group's words the same bytes as its
    plain version, B14 on one group (16 quantization blocks of 2048 cells,
    int8, P as the engine hands it over) the same bits as its plain version
    and as B9, each timed (B9 and B14 with their passes apart), and one
-   MASK8 step under the profiler (with B14's share);
+   MASK8 step under the profiler (with B13's and B14's shares);
 12. the user's entry points on the ELL route: the planted rank-10
    operand as scipy CSC (past 64e6 entries), ``ard_nmf`` (10 +- 2) and
    ``cross_validate_nmf`` at ranks 5, 10 and 20, their masked fits on the
@@ -104,8 +106,8 @@ Phases; any failure raises and the script exits non-zero:
    the same cells; per call the times of kernel, hash pass, plain version
    and library call (torch.matmul of the bf16 mask) and the bound; and,
    in turns (old, new, new, old), bf16 B8/B9 on the packed words against
-   B10/B11 on the same cells (bf16 B9 runs B11's GEMM after its own
-   pass);
+   B10/B11 on the same cells and P (bf16 B8 runs B10's GEMM, bf16 B9
+   B11's, each after its own pass);
 14. resumable fits (``checkpoint=``), each stopped and resumed and equal
    bit for bit to the uninterrupted run: after phase 7, ``nmf_fit`` and
    ``ard_nmf_fit`` at the bench config (checkpoints every 5, stopped at
@@ -173,8 +175,8 @@ BENCH = dict(genes=16384, cells=8192, k=50, density=0.07, seed=42)
 MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
-SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "maskgram_bits",
-           "bell_mse_bits", "maskgram_m8", "maskgram_gemm")
+SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "bell_mse_bits",
+           "maskgram_m8", "maskgram_gemm")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -182,11 +184,16 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
-# the profiled device time of B9 and B14 (their pass and the int8 GEMM
-# they share) in the large masked steps, by kernel name
-B9_SHARES = ((("kpack_words_kernel", "mask_gemm_s8_kernel"), "B9"),
+# the profiled device time of B8, B9, B13 and B14 (each its pass and the
+# int8 GEMM: carry-free for B8/B13, with the carry for B9/B14) in the
+# large masked steps, by kernel name
+B8_SHARES = ((("gpack_words", "mask_gemm_s8_kernel<false>"), "B8"),
+             ("gpack_words", "B8_pass"))
+B9_SHARES = ((("kpack_words_kernel", "mask_gemm_s8_kernel<true>"), "B9"),
              ("kpack_words_kernel", "B9_pass"))
-B14_SHARES = ((("kpack_m8_kernel", "mask_gemm_s8_kernel"), "B14"),
+B13_SHARES = ((("gpack_m8_kernel", "mask_gemm_s8_kernel<false>"), "B13"),
+              ("gpack_m8_kernel", "B13_pass"))
+B14_SHARES = ((("kpack_m8_kernel", "mask_gemm_s8_kernel<true>"), "B14"),
               ("kpack_m8_kernel", "B14_pass"))
 # kernels B3 and B4 against their plain versions: only the order of the
 # sums differs
@@ -991,20 +998,39 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     del m8_buf
 
     # B8 and B13 on one block, B9 and B14 over the groups of blocks; the
-    # words B9's and B14's passes must give: B11's hash pass of the cells
-    hash_words = maskgram_cuda.pack_mask_k_cuda(
-        seed, torch.arange(cell_offset, cell_offset + cells, device="cuda"),
-        genes, gene_rows=True, inv_density=inv, cells_true=cell_offset + cells,
-        genes_true=genes)
+    # words their passes must give: B10's hash pass of the block's cells
+    # (along the genes), B11's of all the cells (along the cells)
+    ids = torch.arange(cell_offset, cell_offset + cells, device="cuda")
+    hkw = dict(inv_density=inv, cells_true=cell_offset + cells,
+               genes_true=genes)
+    hash_words = maskgram_cuda.pack_mask_k_cuda(seed, ids, genes,
+                                                gene_rows=True, **hkw)
     iu = triu_pairs(k)
     npairs = iu[0].shape[0]
     b = min(block, cells)
+    hash_words_blk = maskgram_cuda.pack_mask_k_cuda(seed, ids[:b], genes,
+                                                    gene_rows=False, **hkw)
     w_blk = words[:b]
     m8_blk = m8[:b]
     nnz_blk, nnz_all = int(m8_blk.sum()), int(m8.sum())
     Pw = packed_outer_products(W, iu)
     groups = [H[c0:c0 + b] for c0 in range(0, cells, b)]
     acc0 = torch.rand((npairs, genes), generator=gen, device="cuda")
+    passes = {
+        "B8": (lambda: maskgram_cuda.pack_words_g_cuda(
+                   w_blk, gene_block=G, genes_pad=genes),
+               lambda: maskgram.pack_words_g(w_blk, gene_block=G,
+                                             genes_pad=genes),
+               hash_words_blk),
+        "B9": (lambda: maskgram_cuda.pack_words_k_cuda(
+                   words, gene_block=G, genes_pad=genes),
+               lambda: maskgram.pack_words_k(words, gene_block=G,
+                                             genes_pad=genes),
+               hash_words),
+        "B13": (lambda: maskgram_cuda.pack_mask8_g_cuda(m8_blk),
+                lambda: maskgram.pack_mask8_g(m8_blk), hash_words_blk),
+        "B14": (lambda: maskgram_cuda.pack_mask8_k_cuda(m8),
+                lambda: maskgram.pack_mask8_k(m8), hash_words)}
     for dtype in ("int8", "bf16"):
         if dtype == "int8":
             Pw_op, Pw_s = maskgram.quantize_pairs(Pw, axis=0)
@@ -1017,16 +1043,19 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                  for Hg in groups]
         Ph_op = torch.cat([x for x, _ in q])
         Ph_s = torch.stack([x for _, x in q], dim=1).contiguous()
-        # B9 and B14 take P as the engine hands it over: int8 K-major, bf16
-        # pair-padded (the checks also feed it contiguous)
-        Ph_eng = (maskgram.kmajor_buffer if dtype == "int8"
-                  else maskgram.pair_buffer)(cells, npairs, "cuda")
+        # the kernels take P as the engine hands it over: int8 K-major,
+        # bf16 pair-padded (the checks also feed it contiguous)
+        make = (maskgram.kmajor_buffer if dtype == "int8"
+                else maskgram.pair_buffer)
+        Ph_eng = make(cells, npairs, "cuda")
         Ph_eng.copy_(Ph_op)
+        Pw_eng = make(genes, npairs, "cuda")
+        Pw_eng.copy_(Pw_op)
         esz = 1 if dtype == "int8" else 2
         peak = INT8_OPS_S if dtype == "int8" else BF16_OPS_S
 
-        def b8(f, acc=None):
-            return f(Pw_op, Pw_s, w_blk, gene_block=G)
+        def b8(f, acc=None, P=None):
+            return f(Pw_eng if P is None else P, Pw_s, w_blk, gene_block=G)
 
         def b9(f, acc=None, P=None):
             # the carry is updated in place: a fresh copy for the checks,
@@ -1035,13 +1064,19 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                      acc0.clone() if acc is None else acc, gene_block=G,
                      scale_block=b)
 
-        def carry_checks(name, call, kern, got, want, mask_pass,
-                         plain_pass):
-            """B9/B14: the same bits twice and from contiguous P (int8;
-            bf16 within the tolerance), and the kernel's pass alone the
-            words of its plain version and of B11's hash pass; returns
-            the pass's time."""
-            again, contig = call(kern), call(kern, P=Ph_op)
+        def b13(f, acc=None, P=None):
+            return f(Pw_eng if P is None else P, Pw_s, m8_blk, gene_block=G)
+
+        def b14(f, acc=None, P=None):
+            return f(Ph_eng if P is None else P, Ph_s, m8,
+                     acc0.clone() if acc is None else acc, gene_block=G,
+                     scale_block=b)
+
+        def checks(name, call, kern, got, want, contiguous):
+            """The same bits twice and from contiguous P (int8; bf16 within
+            the tolerance), and the kernel's pass alone the words of its
+            plain version and of the hash pass; returns the pass's time."""
+            again, contig = call(kern), call(kern, P=contiguous)
             if not torch.equal(got, again):
                 raise AssertionError(f"{name} {label} {dtype}: two runs "
                                      "differ")
@@ -1050,22 +1085,43 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                     not c_err <= 1e-5 * float(want.abs().max()):
                 raise AssertionError(f"{name} {label} {dtype}: contiguous "
                                      f"P differs by {c_err}")
+            mask_pass, plain_pass, hashed = passes[name]
             kp = mask_pass()
             if not (torch.equal(kp, plain_pass())
-                    and torch.equal(kp, hash_words)):
+                    and torch.equal(kp, hashed)):
                 raise AssertionError(f"{name} pass {label}: differs from "
                                      "its plain version or the hash pass")
             return _median_ms(torch, mask_pass, runs=10) if timed else None
 
-        for name, call, kern, plain, nnz_words, bytes_ in (
+        def library(name, m_i8):
+            """The same int32 sums by torch._int_mm on the unpacked mask
+            (unpacking and dequantizing outside the timing)."""
+            if name in ("B8", "B13"):
+                return _int_mm_library(torch, m_i8, Pw_op)
+            return _int_mm_library(torch, Ph_op.T.contiguous(), m_i8)
+
+        # B13 and B14 read the unpacked mask: B8's and B9's bits on int8
+        # (B13 also on bf16: B8's GEMM on the same words), close on bf16
+        for name, call, kern, plain, twin, contiguous, nnz, bytes_, macs in (
                 ("B8", b8, maskgram_cuda.mask_packed_w_t_bits_cuda,
-                 maskgram.mask_packed_w_t_bits_plain, w_blk,
+                 maskgram.mask_packed_w_t_bits_plain, None, Pw_op, nnz_blk,
                  genes * npairs * esz + npairs * 4 + w_blk.numel() * 4
-                 + npairs * b * 4),
+                 + npairs * b * 4, b * genes * npairs),
                 ("B9", b9, maskgram_cuda.mask_packed_h_t_bits_cuda,
-                 maskgram.mask_packed_h_t_bits_plain, words,
+                 maskgram.mask_packed_h_t_bits_plain, None, Ph_op, nnz_all,
                  cells * npairs * esz + Ph_s.numel() * 4 + word_bytes
-                 + 2 * npairs * genes * 4)):
+                 + 2 * npairs * genes * 4, cells * genes * npairs),
+                ("B13", b13, maskgram_cuda.mask_packed_w_t_m8_cuda,
+                 maskgram.mask_packed_w_t_m8_plain,
+                 lambda: b8(maskgram_cuda.mask_packed_w_t_bits_cuda), Pw_op,
+                 nnz_blk, genes * npairs * esz + npairs * 4 + m8_blk.numel()
+                 + npairs * b * 4, b * genes * npairs),
+                ("B14", b14, maskgram_cuda.mask_packed_h_t_m8_cuda,
+                 maskgram.mask_packed_h_t_m8_plain,
+                 lambda: b9(maskgram_cuda.mask_packed_h_t_bits_cuda), Ph_op,
+                 nnz_all, cells * npairs * esz + Ph_s.numel() * 4
+                 + m8.numel() + 2 * npairs * genes * 4,
+                 cells * genes * npairs)):
             got, want = call(kern), call(plain)
             err, scale = float((got - want).abs().max()), \
                 float(want.abs().max())
@@ -1076,85 +1132,29 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                 raise AssertionError(f"{name} {label} {dtype}: max abs err "
                                      f"{err} > 1e-5 x {scale}")
             extra = {}
-            if name == "B9":
-                extra["pass_ms"] = carry_checks(
-                    name, call, kern, got, want,
-                    lambda: maskgram_cuda.pack_words_k_cuda(
-                        words, gene_block=G, genes_pad=genes),
-                    lambda: maskgram.pack_words_k(words, gene_block=G,
-                                                  genes_pad=genes))
+            if twin is not None:
+                bits_out = twin()
+                twin_err = float((got - bits_out).abs().max())
+                exact = dtype == "int8" or name == "B13"
+                if (exact and not torch.equal(got, bits_out)) or \
+                        not twin_err <= 1e-5 * scale:
+                    raise AssertionError(
+                        f"{name} {label} {dtype}: against "
+                        f"{'B8' if name == 'B13' else 'B9'} {twin_err}; "
+                        f"want {'the same bits' if exact else 'within 1e-5'}")
+                extra["err_vs_bits"] = twin_err
+            extra["pass_ms"] = checks(name, call, kern, got, want,
+                                      contiguous)
             buf = acc0.clone()
             t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
                        runs=10, plain_runs=2)
             if timed:
-                m = unpack_all(nnz_words, genes, G)
-                nnz = int(m.sum())
-                library_ms = None
-                if dtype == "int8":
-                    # the same int32 sums by torch._int_mm on the unpacked
-                    # mask (unpacking and dequantizing outside the timing)
-                    m_i8 = m.to(torch.int8)
-                    library_ms = (_int_mm_library(torch, m_i8, Pw_op)
-                                  if name == "B8" else _int_mm_library(
-                                      torch, Ph_op.T.contiguous(), m_i8))
-                t.update(library_ms=library_ms,
-                         bound=_bound(bytes_, 2 * nnz * npairs, peak))
+                m_i8 = m8_blk if name in ("B8", "B13") else m8
+                t.update(library_ms=library(name, m_i8)
+                         if dtype == "int8" else None,
+                         bound=_bound(bytes_, 2 * nnz * npairs, peak),
+                         dense_floor_ms=2 * macs / peak * 1e3)
             record(name, err, scale, dtype=dtype, **extra, **t)
-
-        # B13 and B14 read the unpacked mask: close to their plain versions
-        # and to B8 and B9 on the words (int8: the same bits as both)
-        def b13(f, acc=None):
-            return f(Pw_op, Pw_s, m8_blk, gene_block=G)
-
-        def b14(f, acc=None, P=None):
-            return f(Ph_eng if P is None else P, Ph_s, m8,
-                     acc0.clone() if acc is None else acc, gene_block=G,
-                     scale_block=b)
-
-        for name, call, kern, plain, twin, nnz, bytes_ in (
-                ("B13", b13, maskgram_cuda.mask_packed_w_t_m8_cuda,
-                 maskgram.mask_packed_w_t_m8_plain,
-                 lambda: b8(maskgram_cuda.mask_packed_w_t_bits_cuda),
-                 nnz_blk, genes * npairs * esz + npairs * 4 + m8_blk.numel()
-                 + npairs * b * 4),
-                ("B14", b14, maskgram_cuda.mask_packed_h_t_m8_cuda,
-                 maskgram.mask_packed_h_t_m8_plain,
-                 lambda: b9(maskgram_cuda.mask_packed_h_t_bits_cuda),
-                 nnz_all, cells * npairs * esz + Ph_s.numel() * 4
-                 + m8.numel() + 2 * npairs * genes * 4)):
-            got, want, bits_out = call(kern), call(plain), twin()
-            err, scale = float((got - want).abs().max()), \
-                float(want.abs().max())
-            twin_err = float((got - bits_out).abs().max())
-            if dtype == "int8" and not (torch.equal(got, want)
-                                        and torch.equal(got, bits_out)):
-                raise AssertionError(
-                    f"{name} {label} int8: max abs err {err}, against "
-                    f"{'B8' if name == 'B13' else 'B9'} {twin_err}; want the "
-                    "same bits as both")
-            if not max(err, twin_err) <= 1e-5 * scale:
-                raise AssertionError(f"{name} {label} {dtype}: max abs err "
-                                     f"{err}, against the bits route "
-                                     f"{twin_err} > 1e-5 x {scale}")
-            extra = {}
-            if name == "B14":
-                extra["pass_ms"] = carry_checks(
-                    name, call, kern, got, want,
-                    lambda: maskgram_cuda.pack_mask8_k_cuda(m8),
-                    lambda: maskgram.pack_mask8_k(m8))
-            buf = acc0.clone()
-            t = timing(lambda: call(kern, buf), lambda: call(plain, buf),
-                       runs=10, plain_runs=2)
-            if timed:
-                library_ms = None
-                if dtype == "int8":
-                    library_ms = (_int_mm_library(torch, m8_blk, Pw_op)
-                                  if name == "B13" else _int_mm_library(
-                                      torch, Ph_op.T.contiguous(), m8))
-                t.update(library_ms=library_ms,
-                         bound=_bound(bytes_, 2 * nnz * npairs, peak))
-            record(name, err, scale, dtype=dtype, err_vs_bits=twin_err,
-                   **extra, **t)
     return rows
 
 
@@ -1175,8 +1175,8 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
     kernel, hash pass, plain version and library call (torch.matmul of the
     bf16 mask, built outside the timing, with the bf16 operand) and the
     bound; and the kernel in turns with bf16 B8/B9 on the packed words
-    (the earlier design's product code, without its hash pass), old, new,
-    new, old."""
+    (the same GEMM after a pass over the words in place of the hash pass,
+    P in the same layout), old, new, new, old."""
     from singlet_tpu_torch.ops import maskgram, maskgram_cuda
     from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
     from singlet_tpu_torch.ops.maskbits import pack_mask_words
@@ -1188,8 +1188,8 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
     gen = torch.Generator(device="cuda").manual_seed(k + 2)
     iu = triu_pairs(k)
     npairs = iu[0].shape[0]
-    # the operands in bf16: contiguous for B8/B9, and as the engine hands
-    # them to B10/B11
+    # the operands in bf16, as the engine hands them to B8-B11 (views of
+    # pair-padded buffers; contiguous for the library call)
     Pw = packed_outer_products(torch.rand((genes, k), generator=gen,
                                           device="cuda"), iu).bfloat16()
     Ph = packed_outer_products(torch.rand((cells, k), generator=gen,
@@ -1237,13 +1237,13 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
 
     def b8():
         return maskgram_cuda.mask_packed_w_t_bits_cuda(
-            Pw, ones[:, 0], words[:b], gene_block=G)
+            Pw_v, ones[:, 0], words[:b], gene_block=G)
 
     def b9():
         acc = acc0.clone()
         for s in range(0, cells, b):
             maskgram_cuda.mask_packed_h_t_bits_cuda(
-                Ph[s:s + b], ones, words[s:s + b], acc, gene_block=G,
+                Ph_v[s:s + b], ones, words[s:s + b], acc, gene_block=G,
                 scale_block=b)
         return acc
 
@@ -1257,14 +1257,15 @@ def phase_hash_kernels(torch, card, label, k, genes, gene_block, cell_offset,
              maskgram.mask_packed_w_t_plain, b8,
              lambda f: f(Pw_v, seed, ids[:b], **kw),
              lambda: maskgram_cuda.mask_packed_w_t_bits_cuda(
-                 Pw, ones[:, 0], words[:b], gene_block=G),
+                 Pw_v, ones[:, 0], words[:b], gene_block=G),
              lambda: torch.matmul(Pw.T, m_t),
              genes * npairs * 2 + b * 4 + npairs * b * 4),
             ("B11", b11, maskgram_cuda.mask_packed_h_t_cuda,
              maskgram.mask_packed_h_t_plain, b9,
              lambda f: f(Ph_v[:b], seed, ids[:b], buf, **kw),
              lambda: maskgram_cuda.mask_packed_h_t_bits_cuda(
-                 Ph[:b], ones, words[:b], buf, gene_block=G, scale_block=b),
+                 Ph_v[:b], ones, words[:b], buf, gene_block=G,
+                 scale_block=b),
              lambda: torch.matmul(Ph[:b].T, m_bf),
              b * npairs * 2 + b * 4 + 2 * npairs * genes * 4)):
         got, again, want = call(kern), call(kern), call(plain)
@@ -2041,8 +2042,8 @@ def phase_large(torch, card, ckdir):
         mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms,
         profile=_profile(torch, card, step, label=f"large masked ELL step, "
                          f"bits route (sweep cap {settings.fast_masked})",
-                         share=B9_SHARES + (("bell_spmm_t_kernel",
-                                             "B6"),)),
+                         share=B8_SHARES + B9_SHARES + (
+                             ("bell_spmm_t_kernel", "B6"),)),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
@@ -2196,7 +2197,7 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
                 profile=_profile(torch, card, step8, label=f"large masked ELL "
                                  f"step, MASK8 (sweep cap "
                                  f"{settings.fast_masked})",
-                                 share=B14_SHARES))
+                                 share=B13_SHARES + B14_SHARES))
 
 
 def phase_resume_large(torch, card, eng, data, ckdir):
@@ -2414,7 +2415,6 @@ def phase_build():
     nnls_cuda._kernel_batched()
     bell_cuda._lib()
     bell_cuda._mse_lib()
-    maskgram_cuda._lib()
     maskgram_cuda._m8_lib()
     maskgram_cuda._gemm_lib()
     for name, (lib, secs, log) in builds.items():
@@ -2618,7 +2618,7 @@ def main() -> int:
                   "pallas_bell.py:298"),
         ell_entry("bell_mse_bits", "B7", "bell_mse_bits.cu",
                   "pallas_bell.py:370"),
-        ell_entry("mask_packed_w_t_bits", "B8", "maskgram_bits.cu",
+        ell_entry("mask_packed_w_t_bits", "B8", "maskgram_gemm.cu",
                   "pallas_maskgram.py:480"),
         ell_entry("mask_packed_h_t_bits", "B9", "maskgram_gemm.cu",
                   "pallas_maskgram.py:712"),
@@ -2628,7 +2628,7 @@ def main() -> int:
                   "pallas_maskgram.py:229"),
         ell_entry("unpack_mask_bits", "B12", "maskgram_m8.cu",
                   "maskbits.py:125"),
-        ell_entry("mask_packed_w_t_m8", "B13", "maskgram_m8.cu",
+        ell_entry("mask_packed_w_t_m8", "B13", "maskgram_gemm.cu",
                   "pallas_maskgram.py:566"),
         ell_entry("mask_packed_h_t_m8", "B14", "maskgram_gemm.cu",
                   "pallas_maskgram.py:652"),

@@ -1,23 +1,28 @@
 // The masked packed-Gram products that share one GEMM, for sm_90a: kernels
 // B10 and B11 of the hash route (the test mask hashed from (seed, cell,
-// gene)), and B9 and B14 of the bits route (the mask read from bitplane
-// words, or from the prebuilt int8 mask of SINGLET_TPU_MASK8=1).
+// gene)), and B8, B9, B13 and B14 of the bits route (the mask read from
+// bitplane words, or from the prebuilt int8 mask of SINGLET_TPU_MASK8=1).
 //
 // B10 (`mask_packed_w_t_hash`) replaces singlet_tpu/ops/pallas_maskgram.py
 // `mask_packed_w_t` (kernel body `_mpw_kernel`), B11 (`mask_packed_h_t_hash`)
-// `mask_packed_h_t` (`_mph_kernel`), B9 (`mask_packed_h_t_bits`)
-// `mask_packed_h_t_bits` (`_mph_bits_body`) and B14 (`mask_packed_h_t_m8`)
+// `mask_packed_h_t` (`_mph_kernel`), B8 (`mask_packed_w_t_bits`)
+// `mask_packed_w_t_bits` (`_mpw_bits_kernel`), B9 (`mask_packed_h_t_bits`)
+// `mask_packed_h_t_bits` (`_mph_bits_body`), B13 (`mask_packed_w_t_m8`)
+// `mask_packed_w_t_m8` (`_mpw_m8_kernel`) and B14 (`mask_packed_h_t_m8`)
 // `mask_packed_h_t_m8` (`_mph_m8_kernel`). Each is one GEMM, T[M, N] =
 // sum_K mask[M, K] P[K, N]:
 //
-//   B10:      M = the call's cells, K = genes   out[p, c]  = T[c, p]  (np, block)
-//   B11/B9/B14: M = genes, K = the call's cells acc[p, g] += T[g, p]  (np, genes_pad)
+//   B10/B8/B13: M = the call's cells, K = genes
+//               out[p, c]  = T[c, p]   (np, block)
+//   B11/B9/B14: M = genes, K = the call's cells
+//               acc[p, g] += T[g, p]   (np, genes_pad)
 //
 // What bounds them. At 524,288 cells x 16,384 genes, k = 100 (5050 pairs,
 // padded to 5056), one 2048-cell call of B10/B11 is a dense product of 2 x
 // 2048 x 16,384 x 5056 = 339 GFLOP: 0.34 ms at the 989 TFLOP/s bf16 peak.
-// B9/B14 take a group of 16 such blocks at once on int8: 5.43 TOP, 2.74 ms
-// at the 1,979 TOP/s int8 peak. The mask is 5% dense, so chip_smoke.py's
+// B8/B13 run the same product per block on int8: 0.17 ms at the 1,979
+// TOP/s int8 peak. B9/B14 take a group of 16 such blocks at once on int8:
+// 5.43 TOP, 2.74 ms. The mask is 5% dense, so chip_smoke.py's
 // bound, which counts only the products the held-out entries need and the
 // bytes each call must move, is far lower (B11: 0.2038 ms, the 331 MB carry
 // read and written once). A dense design cannot reach that bound; the dense
@@ -26,10 +31,10 @@
 // Design. Each call runs two kernels:
 //
 // 1. A pass packs the call's mask along the product's K axis into scratch
-//    words the wrapper allocates: B10 (block, kwp) words, bit s of word j =
-//    gene 32 j + s; B11/B9/B14 (genes_pad, kwp), bit j of word q = cell
-//    32 q + j; kwp = ceil(K / 32) rounded up to 4 (a 16-byte row for TMA),
-//    the tails zero.
+//    words the wrapper allocates: B10/B8/B13 (block, kwp) words, bit s of
+//    word j = gene 32 j + s; B11/B9/B14 (genes_pad, kwp), bit j of word q =
+//    cell 32 q + j; kwp = ceil(K / 32) rounded up to 4 (a 16-byte row for
+//    TMA), the tails zero.
 //    * B10/B11 hash the mask: singlet_tpu_torch/ops/rngmask.py `mask_block`
 //      bit for bit (bell_spmm.cu's hash, with x % inv_density taken from the
 //      two 32-bit halves as rngmask.u64_mod_small takes it), with the
@@ -46,15 +51,27 @@
 //    Both stage their output so that each row's 8 words leave as one 32-byte
 //    sector. Per 32,768-cell group they read 64 MiB (B9) or 512 MiB (B14)
 //    and write 64 MiB: 0.04 or 0.17 ms at 3.35 TB/s.
+//    * B8's pass transposes a row's bitplane words within each word group:
+//      with gene_block % 32 == 0, bit b of word column t GB + 32 u + i is
+//      gene (32 t + b) GB + 32 u + i, which is bit i of gene word t GB + b
+//      (GB / 32) + u, so the 32 words of columns t GB + 32 u .. + 31 turn
+//      by 32 ballots into 32 gene words of the same GB-word span of the
+//      row. A warp takes one row's span, stages its words in shared memory
+//      (padded, conflict-free) and writes the span out in order. Any other
+//      gene_block takes a thread per word and a load per bit.
+//    * B13's pass reads the int8 mask: a thread per gene word, 32 bytes by
+//      two 16-byte loads, each 4 bytes tested != 0 at once (__vcmpne4).
+//    Per 2048-cell block they read 4 MiB (B8) or 32 MiB (B13) and write
+//    4 MiB: 0.003 or 0.011 ms at 3.35 TB/s.
 // 2. One GEMM, the mask as the A operand in registers built from the packed
 //    words and never stored, P the B operand streamed by TMA into a ring of
 //    shared-memory stages guarded by mbarriers, one lane of a producer
 //    warpgroup keeping it full, consumer warpgroups issuing `wgmma`. There
 //    are two instantiations:
-//    * bf16 (B10, B11 and bf16 B9/B14): wgmma.mma_async m64n128k16 bf16 ->
-//      f32 with A built from one word per row and k16 step by the shifts of
-//      `mma.sync`'s A fragment (the per-warp layout is the same). P is
-//      N-contiguous (K, pairs) in 128-byte-swizzled shared memory, read
+//    * bf16 (B10, B11 and bf16 B8/B9/B13/B14): wgmma.mma_async m64n128k16
+//      bf16 -> f32 with A built from one word per row and k16 step by the
+//      shifts of `mma.sync`'s A fragment (the per-warp layout is the same).
+//      P is N-contiguous (K, pairs) in 128-byte-swizzled shared memory, read
 //      through the descriptor's transpose bit: two TMA boxes of 64 pairs x
 //      128 K and the words (256 rows x 4) per stage, 5 stages. Two consumer
 //      warpgroups of 128 rows x 128 pairs each run 16 wgmma per stage in two
@@ -65,12 +82,12 @@
 //      consumer gets by setmaxnreg from the producer warpgroup. All of K
 //      sums in one float32 accumulator: the JAX kernels' sub-block partials
 //      are not formed.
-//    * int8 (B9/B14 on int8): wgmma.mma_async m64n128k32 s8 x s8 -> s32.
-//      int8 wgmma has no transpose, so P reaches shared memory K-major: the
-//      wrapper hands over (pairs, cells) rows 16 bytes apart (the engine
-//      builds its group operand so), read as one TMA box of 128 cells x
-//      128 pairs with the 128-byte swizzle, plus the words (256 rows x 4),
-//      per stage, 4 stages. A per row and k32 step is one word expanded to
+//    * int8 (B8/B9/B13/B14 on int8): wgmma.mma_async m64n128k32 s8 x s8 ->
+//      s32. int8 wgmma has no transpose, so P reaches shared memory
+//      K-major: the wrapper hands over (pairs, K) rows 16 bytes apart (the
+//      engine builds its operands so), read as one TMA box of 128 K x 128
+//      pairs with the 128-byte swizzle, plus the words (256 rows x 4), per
+//      stage. A per row and k32 step is one word expanded to
 //      bytes, ((x & 15) * 0x204081) & 0x01010101 four 0/1 bytes at a time.
 //      The tile is bf16's, 256 genes x 128 pairs, so that a stage's bytes
 //      feed as many products: each of two consumer warpgroups owns 128
@@ -78,30 +95,41 @@
 //      as bf16's accumulators are. A first design with 128 genes per CTA
 //      and the running sums in registers read twice the bytes per product
 //      and ran no faster than the bf16 GEMM. The float32 running sums of
-//      the tile (128 KiB) live in shared memory beside the ring: loaded
-//      from the carry once, coalesced, while the ring fills, and stored
-//      back once. Per cell sub-block of `bc` cells (ops/maskgram.py
-//      b9_sub_block) the first wgmma starts the partials (scale-d 0); at
-//      the sub-block's end the group completes and each partial is
-//      converted, multiplied by its pair's scale in the sub-block's
-//      quantization group and added to its running sum, run = (run + d0)
-//      + d1 + ..., with __fmul_rn and __fadd_rn so that nvcc forms no FMA:
-//      the bits of the plain version, as the JAX kernel sums. A sub-block
+//      the tile (128 KiB) live in shared memory beside a ring of 4
+//      stages: loaded from the carry once, coalesced, while the ring
+//      fills, and stored back once. Per cell sub-block of `bc` cells
+//      (ops/maskgram.py b9_sub_block) the first wgmma starts the partials
+//      (scale-d 0); at the sub-block's end the group completes and each
+//      partial is converted, multiplied by its pair's scale in the
+//      sub-block's quantization group and added to its running sum, run =
+//      (run + d0) + d1 + ..., with __fmul_rn and __fadd_rn so that nvcc
+//      forms no FMA: the bits of the plain version, as the JAX kernel
+//      sums. A sub-block
 //      that ends inside a stage is handled by masking the A bits: each
 //      sub-block the stage touches gets one group of 8 wgmma on its own
 //      cells, no cell dropped or counted twice.
+//      B8/B13 take the carry-free instantiation (kCarry false): their whole
+//      K axis is one exact int32 sum, so the partials stay in registers to
+//      the end, there are no running sums, no flush and no carry to read,
+//      and the shared memory holds a ring of 8 stages instead. The epilogue
+//      converts each sum and multiplies it by its pair's scale, __fmul_rn:
+//      the plain version's part.astype(f32) * s, bit for bit.
 //    * Coalesced carry: consecutive M rows are consecutive genes (cells in
 //      B10), so the epilogue transposes the tile through shared memory and
-//      writes out (B10), reads, adds and writes the carry (bf16 B11/B9/B14),
-//      or writes the running sums (int8), with 16-byte accesses along M.
+//      writes out (B10, B8/B13), reads, adds and writes the carry (bf16
+//      B11/B9/B14), or writes the running sums (int8 B9/B14), with 16-byte
+//      accesses along M.
 //    * Raster: bf16 runs the M tiles of one pair tile as neighbours in the
 //      grid, so they share its P panel in the L2; int8 takes the tiles in
-//      groups of 4 pair tiles, gene tile by gene tile, so that one wave of
-//      132 CTAs reads 4 P panels and 33 word panels from device memory.
-//    No split K: two runs give the same bits.
+//      groups of 4 pair tiles, M tile by M tile, so that one wave of 132
+//      CTAs reads 4 P panels and 33 word panels from device memory.
+//    No split K: two runs give the same bits. A 2048-cell call of B8/B10/
+//    B13 at k = 100 is 8 M tiles x 40 pair tiles = 320 CTAs, 2.42 waves of
+//    one CTA per SM: the last wave runs 56 of 132 SMs.
 //
-// The plain versions (ops/maskgram.py) of B10/B11 and bf16 B9/B14 differ
-// from the kernels only in the order of the f32 sums.
+// The plain versions (ops/maskgram.py) of B10/B11 and bf16 B8/B9/B13/B14
+// differ from the kernels only in the order of the f32 sums; on bf16, B8
+// and B13 run one GEMM on the same words, so they give the same bits.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
@@ -250,6 +278,53 @@ __device__ __forceinline__ uint32_t bf16x2(uint32_t x) {
 
 // ------------------------------------------------------------------- GEMM
 
+// The epilogue's stores of consumer warpgroup c: its 128 rows x kBN pairs,
+// staged pair-major in `tile` (pitch kEpiPitch), to out[p * ld + m] (kAdd:
+// added to it). Warp wq writes pair rows wq, wq + 4, ..., 16-byte accesses
+// along M; kAdd issues the carry loads of kEpiBatch rows before any of
+// their stores, so that their latencies overlap (a load after a store to
+// the same array would wait for it).
+template <bool kAdd>
+__device__ __forceinline__ void store_tile(const float* tile, int c, int wq,
+                                           int lane, int m0, int n0, int M,
+                                           int N, float* __restrict__ out,
+                                           long long ld) {
+  const int m = m0 + c * 128 + lane * 4;
+  const bool vec = (ld % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(out) % 16 == 0) && m + 3 < M;
+  for (int nb = wq; nb < kBN && n0 + nb < N; nb += 4 * kEpiBatch) {
+    float4 v[kEpiBatch];
+#pragma unroll
+    for (int j = 0; j < kEpiBatch; ++j) {
+      const int n = nb + 4 * j;
+      v[j] = *reinterpret_cast<const float4*>(tile + n * kEpiPitch + lane * 4);
+      if (kAdd && vec && n0 + n < N) {
+        const float4 o = *reinterpret_cast<const float4*>(
+            out + static_cast<long long>(n0 + n) * ld + m);
+        v[j].x += o.x;
+        v[j].y += o.y;
+        v[j].z += o.z;
+        v[j].w += o.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kEpiBatch; ++j) {
+      const int n = nb + 4 * j;
+      if (n0 + n >= N) break;
+      float* dst = out + static_cast<long long>(n0 + n) * ld + m;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = v[j];
+      } else {
+        const float e4[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (m + e < M) dst[e] = kAdd ? dst[e] + e4[e] : e4[e];
+        }
+      }
+    }
+  }
+}
+
 // Grid (ceil(M / 256), ceil(N / 128)). Warps 0-7: consumer warpgroup c =
 // warp / 4 owns rows c * 128 + sub * 64 + (warp % 4) * 16 .. + 15 (sub = 0,
 // 1) of the CTA's 256; warps 8-11: the producer warpgroup, of which one lane
@@ -393,65 +468,38 @@ mask_gemm_kernel(const __grid_constant__ CUtensorMap tm_p,
     }
   }
   named_sync(2 + c, 128);
-  // warp wq writes pair rows wq, wq + 4, ..., 16-byte accesses along M;
-  // B11 issues the carry loads of kEpiBatch rows before any of their
-  // stores, so that their latencies overlap (a load after a store to the
-  // same array would wait for it)
-  const int m = m0 + c * 128 + lane * 4;
-  const bool vec = (ld % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(out) % 16 == 0) && m + 3 < M;
-  for (int nb = wq; nb < kBN && n0 + nb < N; nb += 4 * kEpiBatch) {
-    float4 v[kEpiBatch];
-#pragma unroll
-    for (int j = 0; j < kEpiBatch; ++j) {
-      const int n = nb + 4 * j;
-      v[j] = *reinterpret_cast<const float4*>(tile + n * kEpiPitch + lane * 4);
-      if (kAdd && vec && n0 + n < N) {
-        const float4 o = *reinterpret_cast<const float4*>(
-            out + static_cast<long long>(n0 + n) * ld + m);
-        v[j].x += o.x;
-        v[j].y += o.y;
-        v[j].z += o.z;
-        v[j].w += o.w;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kEpiBatch; ++j) {
-      const int n = nb + 4 * j;
-      if (n0 + n >= N) break;
-      float* dst = out + static_cast<long long>(n0 + n) * ld + m;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = v[j];
-      } else {
-        const float e4[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (m + e < M) dst[e] = kAdd ? dst[e] + e4[e] : e4[e];
-        }
-      }
-    }
-  }
+  store_tile<kAdd>(tile, c, wq, lane, m0, n0, M, N, out, ld);
 }
 
 // --------------------------------------------------------------- int8 GEMM
 
 namespace s8 {
 
-constexpr int kBM = 256;                 // genes (M) per CTA: 128 per consumer
+constexpr int kBM = 256;                 // M rows per CTA: 128 per consumer
 constexpr int kBN = 128;                 // pairs (N) per CTA
-constexpr int kBK = 128;                 // cells (K) per stage: one swizzle row
-constexpr int kStages = 4;
+constexpr int kBK = 128;                 // K per stage: one swizzle row
 constexpr int kWords = kBK / 32;
-constexpr int kPBytes = kBK * kBN;               // one TMA box: 128 pairs x 128 cells
+constexpr int kPBytes = kBK * kBN;               // one TMA box: 128 pairs x 128 K
 constexpr int kWBytes = kBM * kWords * 4;
 constexpr int kStageBytes = kPBytes + kWBytes;   // a multiple of 1024
 constexpr int kRunPitch = kBM + 4;               // floats: conflict-free
 constexpr int kRunBytes = kBN * kRunPitch * 4;   // the running sums
-constexpr int kSmemBytes =
-    kStages * kStageBytes + kRunBytes + 2 * kStages * 8 + 1024;
 constexpr int kGroupN = 4;               // raster: pair tiles per group
 static_assert(kStageBytes % 1024 == 0, "stages keep the swizzle atoms aligned");
-static_assert(kSmemBytes <= 232448, "fits one SM's shared memory");
+
+// the shared memory of an instantiation: with the carry (B9/B14) 4 stages
+// beside the running sums; without (B8/B13) 8 stages, which the epilogue's
+// tile reuses
+template <bool kCarry>
+struct Cfg {
+  static constexpr int kStages = kCarry ? 4 : 8;
+  static constexpr int kRuns = kCarry ? kRunBytes : 0;
+  static constexpr int kSmemBytes =
+      kStages * kStageBytes + kRuns + 2 * kStages * 8 + 1024;
+  static_assert(kSmemBytes <= 232448, "fits one SM's shared memory");
+  static_assert(kCarry || kEpiBytes <= kStages * kStageBytes,
+                "the epilogue reuses the ring");
+};
 
 // Shared-memory descriptor of a 128-byte-swizzled K-major B tile: rows of
 // 128 K bytes, 8-row groups 1024 bytes apart (SBO); the leading offset is
@@ -512,26 +560,30 @@ __device__ __forceinline__ uint32_t span_bits(int a, int b) {
   return below_b & ~below_a;
 }
 
-// Grid: one CTA per (gene tile, pair tile), in groups of kGroupN pair tiles
-// taken gene tile by gene tile. Warps 0-7: consumer warpgroup c = warp / 4
-// owns genes c * 128 + sub * 64 + (warp % 4) * 16 .. + 15 (sub = 0, 1) of
-// the CTA's 256, as two int32 partials of 64 registers; warps 8-11: the
-// producer warpgroup, of which one lane issues the TMA loads. The running
-// sums of the tile (128 pairs x 256 genes) live in shared memory, loaded
-// from the carry and stored back coalesced; acc[p * ld + m] = the carry
-// plus each sub-block's dequantized partial in sub-block order.
+// Grid: one CTA per (M tile, pair tile), in groups of kGroupN pair tiles
+// taken M tile by M tile. Warps 0-7: consumer warpgroup c = warp / 4 owns
+// rows c * 128 + sub * 64 + (warp % 4) * 16 .. + 15 (sub = 0, 1) of the
+// CTA's 256, as two int32 partials of 64 registers; warps 8-11: the
+// producer warpgroup, of which one lane issues the TMA loads. kCarry
+// (B9/B14): the running sums of the tile (128 pairs x 256 genes) live in
+// shared memory, loaded from the carry and stored back coalesced;
+// acc[p * ld + m] = the carry plus each sub-block's dequantized partial in
+// sub-block order. Else (B8/B13; bc = scale_block = K, one scale per pair):
+// acc[p * ld + m] = the whole sum dequantized.
+template <bool kCarry>
 __global__ void __launch_bounds__(kThreads, 1)
 mask_gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_p,
                     const __grid_constant__ CUtensorMap tm_w, int M, int N,
                     int K, const float* __restrict__ scales, int n_scales,
                     int bc, int scale_block, float* __restrict__ acc,
                     long long ld) {
+  constexpr int kStages = Cfg<kCarry>::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   uint8_t* smem = smem_raw + pad;
   float* runs = reinterpret_cast<float*>(smem + kStages * kStageBytes);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes + kRunBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes +
+                                               Cfg<kCarry>::kRuns);
   uint64_t* empty = full + kStages;
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
   const int lane = threadIdx.x & 31;
@@ -572,28 +624,30 @@ mask_gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_p,
   const int c = warp >> 2, wq = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   const int ctid = threadIdx.x;  // 0 .. 255 over both consumer warpgroups
-  // the running sums start from the carry, coalesced: 64 threads per pair
-  // row, 4 genes each
+  // kCarry: the running sums start from the carry, coalesced: 64 threads
+  // per pair row, 4 genes each
   const int mloc = (ctid & 63) * 4;
   const int mg = m0 + mloc;
   const bool vec = (ld % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(acc) % 16 == 0) && mg + 3 < M;
-  for (int n = ctid >> 6; n < kBN; n += 4) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n0 + n < N) {
-      const float* src = acc + static_cast<long long>(n0 + n) * ld + mg;
-      if (vec) {
-        v = *reinterpret_cast<const float4*>(src);
-      } else {
-        if (mg < M) v.x = src[0];
-        if (mg + 1 < M) v.y = src[1];
-        if (mg + 2 < M) v.z = src[2];
-        if (mg + 3 < M) v.w = src[3];
+  if constexpr (kCarry) {
+    for (int n = ctid >> 6; n < kBN; n += 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (n0 + n < N) {
+        const float* src = acc + static_cast<long long>(n0 + n) * ld + mg;
+        if (vec) {
+          v = *reinterpret_cast<const float4*>(src);
+        } else {
+          if (mg < M) v.x = src[0];
+          if (mg + 1 < M) v.y = src[1];
+          if (mg + 2 < M) v.z = src[2];
+          if (mg + 3 < M) v.w = src[3];
+        }
       }
+      *reinterpret_cast<float4*>(runs + n * kRunPitch + mloc) = v;
     }
-    *reinterpret_cast<float4*>(runs + n * kRunPitch + mloc) = v;
+    named_sync(1, kConsumers * 128);
   }
-  named_sync(1, kConsumers * 128);
 
   int part[2][64];
 #pragma unroll
@@ -660,6 +714,7 @@ mask_gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_p,
       fence_regs(part[0]);
       fence_regs(part[1]);
       if (sb1 > k_end) break;  // the sub-block goes on in the next stage
+      if constexpr (!kCarry) break;  // K's end: the sums stay in registers
       // the sub-block is complete: dequantize and add into the running
       // sums, in sub-block order (each element is this thread's alone)
       const long long col = sb0 / scale_block;
@@ -684,9 +739,35 @@ mask_gemm_s8_kernel(const __grid_constant__ CUtensorMap tm_p,
     if (lane == 0) mbar_arrive(&empty[slot]);
   }
 
+  named_sync(1, kConsumers * 128);
+  if constexpr (!kCarry) {
+    // epilogue: both warpgroups are done with the ring; each converts and
+    // scales its sums, transposes them through shared memory, pair-major,
+    // and writes them out with 16-byte stores along M
+    float* tile = reinterpret_cast<float*>(smem) + c * 128 * kEpiPitch;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = j * 8 + t * 2 + e;
+        const float sc = n0 + n < N ? scales[n0 + n] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int sub = 0; sub < 2; ++sub) {
+            const int m = sub * 64 + wq * 16 + g + h * 8;
+            tile[n * kEpiPitch + m] =
+                __fmul_rn(__int2float_rn(part[sub][j * 4 + h * 2 + e]), sc);
+          }
+        }
+      }
+    }
+    named_sync(2 + c, 128);
+    store_tile<false>(tile, c, wq, lane, m0, n0, M, N, acc, ld);
+    return;
+  }
   // epilogue: the running sums back to the carry, 16-byte stores along the
   // genes
-  named_sync(1, kConsumers * 128);
   for (int n = ctid >> 6; n < kBN && n0 + n < N; n += 4) {
     const float4 v = *reinterpret_cast<const float4*>(runs + n * kRunPitch + mloc);
     float* dst = acc + static_cast<long long>(n0 + n) * ld + mg;
@@ -991,6 +1072,161 @@ cudaError_t kpack_m8(const int8_t* mask, int cells, int genes, int kwp,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- G-pack passes
+
+constexpr int kGpackWarps = 8;
+
+// B8's pass with gene_block % 32 == 0: bitplane words (cells, wcols), wcols
+// = n_t * GB, into (cells, kwp) words packed along the genes. Warp v of
+// block x takes task 8 x + v = (cell, word group t), the row's GB-word span
+// t GB .. + GB - 1, both in and out: per 32 words 32 u .. + 31 of the span,
+// 32 ballots (lane b keeps bitplane b's) give the gene words b (GB / 32) +
+// u of the span; staged in shared memory at a pitch of GB / 32 + 1 words
+// per bitplane (conflict-free for even GB / 32), then written out in order.
+// The word group's missing bitplanes (gene blocks past n_gb) are not
+// written; the row's last task zeroes the words past the genes.
+__global__ void __launch_bounds__(kGpackWarps * 32)
+gpack_words_kernel(const uint32_t* __restrict__ words, int cells, int wcols,
+                   int gene_block, int n_gb, int kwp,
+                   uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t span_s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g32 = gene_block >> 5, n_t = wcols / gene_block;
+  const long long task = static_cast<long long>(blockIdx.x) * kGpackWarps +
+                         warp;
+  if (task >= static_cast<long long>(cells) * n_t) return;
+  const long long row = task / n_t;
+  const int t = static_cast<int>(task - row * n_t);
+  const uint32_t* src = words + row * wcols + static_cast<long long>(t) *
+                                                   gene_block;
+  uint32_t* span = span_s + warp * (gene_block + 32);
+  for (int u0 = 0; u0 < g32; u0 += 4) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] = u0 + q < g32 ? src[32 * (u0 + q) + lane] : 0u;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t mine = 0;
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {
+        const uint32_t v = __ballot_sync(0xffffffffu, (w[q] >> b) & 1u);
+        mine = b == lane ? v : mine;
+      }
+      if (u0 + q < g32) span[lane * (g32 + 1) + u0 + q] = mine;
+    }
+  }
+  __syncwarp();
+  uint32_t* dst = out + row * kwp + static_cast<long long>(t) * gene_block;
+  const int n_out = min(32, n_gb - 32 * t) * g32;
+  for (int o = lane; o < n_out; o += 32) dst[o] = span[o + o / g32];
+  if (t == n_t - 1) {
+    for (int j = (n_gb * gene_block) / 32 + lane; j < kwp; j += 32) {
+      out[row * kwp + j] = 0u;
+    }
+  }
+}
+
+// B8's pass for any other gene_block: a thread per gene word (cell, j), a
+// load per bit.
+__global__ void __launch_bounds__(256)
+gpack_words_bits_kernel(const uint32_t* __restrict__ words, int cells,
+                        int wcols, int gene_block, int n_gb, int kwp,
+                        uint32_t* __restrict__ out) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  if (idx >= static_cast<long long>(cells) * kwp) return;
+  const long long c = idx / kwp;
+  const int j = static_cast<int>(idx - c * kwp);
+  const long long genes = static_cast<long long>(n_gb) * gene_block;
+  const uint32_t* row = words + c * wcols;
+  uint32_t word = 0;
+  for (int s = 0; s < 32; ++s) {
+    const long long g = 32ll * j + s;
+    if (g >= genes) break;
+    const int gb = static_cast<int>(g / gene_block);
+    const int w = static_cast<int>(g - static_cast<long long>(gb) *
+                                           gene_block);
+    word |= ((row[(gb >> 5) * gene_block + w] >> (gb & 31)) & 1u) << s;
+  }
+  out[idx] = word;
+}
+
+// bit i = (byte i of x != 0), i = 0..3
+__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// B13's pass: the int8 mask (cells, genes) into (cells, kwp) words packed
+// along the genes; a thread per word (cell, j) reads genes 32 j .. + 31,
+// by two 16-byte loads where `vec` (every row 16-byte aligned).
+__global__ void __launch_bounds__(256)
+gpack_m8_kernel(const int8_t* __restrict__ mask, int cells, int genes,
+                int kwp, bool vec, uint32_t* __restrict__ out) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  if (idx >= static_cast<long long>(cells) * kwp) return;
+  const long long c = idx / kwp;
+  const int j = static_cast<int>(idx - c * kwp);
+  const long long g0 = 32ll * j;
+  const int8_t* src = mask + c * genes + g0;
+  uint32_t word = 0;
+  if (vec && g0 + 32 <= genes) {
+    const uint4 a = *reinterpret_cast<const uint4*>(src);
+    const uint4 b = *reinterpret_cast<const uint4*>(src + 16);
+    const uint32_t x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) word |= nonzero4(x[q]) << (4 * q);
+  } else {
+    for (int s = 0; s < 32 && g0 + s < genes; ++s) {
+      if (src[s] != 0) word |= 1u << s;
+    }
+  }
+  out[idx] = word;
+}
+
+cudaError_t gpack_words(const uint32_t* words, int cells, int wcols,
+                        int gene_block, int n_gb, int kwp, uint32_t* out,
+                        cudaStream_t s) {
+  if (gene_block <= 0 || wcols != ((n_gb + 31) / 32) * gene_block ||
+      kwp % 4 != 0 || kwp * 32ll < static_cast<long long>(n_gb) * gene_block) {
+    return cudaErrorInvalidValue;
+  }
+  const int span_bytes = kGpackWarps * (gene_block + 32) * 4;
+  if (gene_block % 32 == 0 && span_bytes <= 232448) {
+    if (span_bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          gpack_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          span_bytes);
+      if (err != cudaSuccess) return err;
+    }
+    const long long tasks =
+        static_cast<long long>(cells) * (wcols / gene_block);
+    gpack_words_kernel<<<static_cast<unsigned>(
+                             (tasks + kGpackWarps - 1) / kGpackWarps),
+                         kGpackWarps * 32, span_bytes, s>>>(
+        words, cells, wcols, gene_block, n_gb, kwp, out);
+  } else {
+    const long long n = static_cast<long long>(cells) * kwp;
+    gpack_words_bits_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                              s>>>(words, cells, wcols, gene_block, n_gb, kwp,
+                                   out);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t gpack_m8(const int8_t* mask, int cells, int genes, int kwp,
+                     uint32_t* out, cudaStream_t s) {
+  if (kwp % 4 != 0 || kwp * 32ll < genes) return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(mask) % 16 == 0 &&
+                   genes % 16 == 0;
+  const long long n = static_cast<long long>(cells) * kwp;
+  gpack_m8_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
+      mask, cells, genes, kwp, vec, out);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------- host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1068,10 +1304,12 @@ cudaError_t mask_gemm(const void* P, long long p_ld, int N, int K,
   return cudaGetLastError();
 }
 
-// acc (M rows of genes, N pair rows of stride ld) = the carry plus, per
-// sub-block of bc cells, the dequantized int32 partial of mask (M x K,
+// acc (M rows, N pair rows of stride ld) = (kCarry: the carry plus) per
+// sub-block of bc K rows, the dequantized int32 partial of mask (M x K,
 // words (M, kwp)) @ P (K x N int8, K-major: N rows of K bytes, pitch apart),
-// times scales[p, sub-block start / scale_block]
+// times scales[p, sub-block start / scale_block]; without the carry bc =
+// scale_block = K
+template <bool kCarry>
 cudaError_t mask_gemm_s8(const void* Pt, long long pitch, int N, int K,
                          const float* scales, int n_scales, int bc,
                          int scale_block, const uint32_t* words, int kwp,
@@ -1111,12 +1349,14 @@ cudaError_t mask_gemm_s8(const void* Pt, long long pitch, int N, int K,
   const long long tiles = static_cast<long long>((M + s8::kBM - 1) / s8::kBM) *
                           ((N + s8::kBN - 1) / s8::kBN);
   if (tiles > 2147483647ll) return cudaErrorInvalidValue;
+  if (!kCarry && (bc != K || n_scales != 1)) return cudaErrorInvalidValue;
+  constexpr int smem = s8::Cfg<kCarry>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      s8::mask_gemm_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      s8::kSmemBytes);
+      s8::mask_gemm_s8_kernel<kCarry>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  s8::mask_gemm_s8_kernel<<<static_cast<unsigned>(tiles), kThreads,
-                            s8::kSmemBytes, s>>>(
+  s8::mask_gemm_s8_kernel<kCarry><<<static_cast<unsigned>(tiles), kThreads,
+                                    smem, s>>>(
       tm_p, tm_w, M, N, K, scales, n_scales, bc, scale_block, acc, ld);
   return cudaGetLastError();
 }
@@ -1130,12 +1370,27 @@ cudaError_t carry_product(int int8, const void* P, long long p_ld, int np,
                           int kwp, int genes_pad, float* acc,
                           cudaStream_t s) {
   if (int8) {
-    return mask_gemm_s8(P, p_ld, np, cells, scales, n_scales, bc,
-                        scale_block, kwords, kwp, genes_pad, acc, genes_pad,
-                        s);
+    return mask_gemm_s8<true>(P, p_ld, np, cells, scales, n_scales, bc,
+                              scale_block, kwords, kwp, genes_pad, acc,
+                              genes_pad, s);
   }
   return mask_gemm<true>(P, p_ld, np, cells, kwords, kwp, genes_pad, acc,
                          genes_pad, s);
+}
+
+// B8/B13 after their pass: out (np, block) = the block's mask (words
+// (block, kwp) along the genes) @ P, int8 through the carry-free int8 GEMM
+// (P K-major, p_ld its pitch in bytes) times scales[p], bf16 through the
+// bf16 GEMM (P (genes_pad, np), p_ld its row stride in elements)
+cudaError_t w_product(int int8, const void* P, long long p_ld, int np,
+                      const float* scales, const uint32_t* kwords, int kwp,
+                      int block, int genes_pad, float* out, cudaStream_t s) {
+  if (int8) {
+    return mask_gemm_s8<false>(P, p_ld, np, genes_pad, scales, 1, genes_pad,
+                               genes_pad, kwords, kwp, block, out, block, s);
+  }
+  return mask_gemm<false>(P, p_ld, np, genes_pad, kwords, kwp, block, out,
+                          block, s);
 }
 
 }  // namespace
@@ -1242,6 +1497,57 @@ int mask_packed_h_t_m8(int int8, const void* P, long long p_ld, int np,
   if (err != cudaSuccess) return err;
   return carry_product(int8, P, p_ld, np, scales, n_scales, cells, bc,
                        scale_block, kwords, kwp, genes_pad, acc, s);
+}
+
+// B8's pass alone: bitplane words (cells, wcols) into (cells, kwp) words
+// packed along the genes, kwp a multiple of 4 covering n_gb * gene_block.
+int mask_gpack_words(const uint32_t* words, int cells, int wcols,
+                     int gene_block, int n_gb, int kwp, uint32_t* out,
+                     void* stream) {
+  if (cells <= 0 || n_gb <= 0) return cudaSuccess;
+  return gpack_words(words, cells, wcols, gene_block, n_gb, kwp, out,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// B13's pass alone: the int8 mask (cells, genes_pad) into (cells, kwp)
+// words packed along the genes.
+int mask_gpack_m8(const int8_t* mask, int cells, int genes_pad, int kwp,
+                  uint32_t* out, void* stream) {
+  if (cells <= 0 || genes_pad <= 0) return cudaSuccess;
+  return gpack_m8(mask, cells, genes_pad, kwp, out,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// B8. int8 != 0: P (np, p_ld) int8 K-major, the genes along each row,
+// scales (np,) float32; else P (genes_pad, np) bf16, rows p_ld apart. words
+// (block, wcols) uint32 bitplane words, kwords (block, kwp) uint32 scratch,
+// out (np, block) float32.
+int mask_packed_w_t_bits(int int8, const void* P, long long p_ld, int np,
+                         const float* scales, const uint32_t* words,
+                         int block, int wcols, int gene_block, int n_gb,
+                         uint32_t* kwords, int kwp, float* out,
+                         void* stream) {
+  if (block <= 0 || np <= 0 || n_gb <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = gpack_words(words, block, wcols, gene_block, n_gb, kwp,
+                                kwords, s);
+  if (err != cudaSuccess) return err;
+  return w_product(int8, P, p_ld, np, scales, kwords, kwp, block,
+                   n_gb * gene_block, out, s);
+}
+
+// B13: B8 with the mask read from the block's rows of the prebuilt int8
+// 0/1 mask (block, genes_pad).
+int mask_packed_w_t_m8(int int8, const void* P, long long p_ld, int np,
+                       const float* scales, const int8_t* mask, int block,
+                       int genes_pad, uint32_t* kwords, int kwp, float* out,
+                       void* stream) {
+  if (block <= 0 || np <= 0 || genes_pad <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = gpack_m8(mask, block, genes_pad, kwp, kwords, s);
+  if (err != cudaSuccess) return err;
+  return w_product(int8, P, p_ld, np, scales, kwords, kwp, block, genes_pad,
+                   out, s);
 }
 
 const char* maskgram_gemm_error_string(int err) {

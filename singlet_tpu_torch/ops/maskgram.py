@@ -37,12 +37,13 @@ B13 and B14 compute what B8 and B9 compute, from the mask's bytes: on int8
 the sums are the same exact integers, so they give B8's and B9's bits on
 the same mask; on bf16 B13 sums one float32 partial per gene block in
 gene-block order and B14 one per cell sub-block, as the JAX kernels do.
-The CUDA B9 and B14 run B11's GEMM after a pass that packs their mask
-along the cells, as B11's hash pass does: ``pack_words_k`` and
-``pack_mask8_k`` are the plain versions of those passes. On int8 that GEMM
-reads P K-major, so the engine builds its group operand in a
-``kmajor_buffer`` (bf16: a ``pair_buffer``); the plain versions take P in
-any layout.
+The CUDA B8 and B13 run B10's GEMM after a pass that packs their block's
+mask along the genes, as B10's hash pass does (``pack_words_g``,
+``pack_mask8_g``), and B9 and B14 run B11's after a pass that packs it
+along the cells (``pack_words_k``, ``pack_mask8_k``): those are the plain
+versions of the passes. On int8 that GEMM reads P K-major, so the engine
+builds its operands in a ``kmajor_buffer`` (bf16: a ``pair_buffer``); the
+plain versions take P in any layout and give the same result.
 
 Left out, because they lay the operand out for the TPU's VMEM and change
 nothing that is computed: ``prechunk_pairs``, ``_mpw_geometry`` and the
@@ -241,6 +242,22 @@ def pack_mask8_k(mask8: torch.Tensor) -> torch.Tensor:
     genes_pad) packed along the cells, as ``pack_words_k`` packs the
     words it was unpacked from."""
     return _pack_rows_k((mask8 != 0).T)
+
+
+def pack_words_g(words: torch.Tensor, *, gene_block: int,
+                 genes_pad: int) -> torch.Tensor:
+    """The plain version of B8's pass: the mask of bitplane words (cells,
+    n_t * gene_block) packed along the genes, (cells, k_words(genes_pad))
+    int32, bit s of word j = gene 32 j + s; for the words of the same seed
+    and cells, ``pack_mask_k(..., gene_rows=False)`` word for word."""
+    return _pack_rows_k(unpack_all(words, genes_pad, gene_block))
+
+
+def pack_mask8_g(mask8: torch.Tensor) -> torch.Tensor:
+    """The plain version of B13's pass: the int8 0/1 mask (cells,
+    genes_pad) packed along the genes, as ``pack_words_g`` packs the
+    words it was unpacked from."""
+    return _pack_rows_k(mask8 != 0)
 
 
 def mask_packed_w_t_plain(Pw, seed, cell_ids, *, gene_block: int,

@@ -15,13 +15,15 @@ hashed from (seed, cell, gene) on the card and bf16 operands. B12
 mask unpacked once per group into a dense int8 array that the products
 read.
 
-B9, B10, B11 and B14 are one GEMM with the mask as its A operand, packed
+B8-B11, B13 and B14 are one GEMM with the mask as its A operand, packed
 along the product's K axis by a pass that runs first in the same call: a
 hash pass (B10/B11; ``pack_mask_k_cuda`` runs it alone), a transpose of
-the bitplane words (B9; ``pack_words_k_cuda``) or of the int8 mask (B14;
+the bitplane words along the genes (B8; ``pack_words_g_cuda``) or the
+cells (B9; ``pack_words_k_cuda``), or a pass over the int8 mask along the
+genes (B13; ``pack_mask8_g_cuda``) or the cells (B14;
 ``pack_mask8_k_cuda``). Their source is ``csrc/maskgram_gemm.cu``, that of
-B8 ``csrc/maskgram_bits.cu`` and that of B12/B13 ``csrc/maskgram_m8.cu``;
-their header notes give the designs and what bounds them on the card.
+B12 ``csrc/maskgram_m8.cu``; their header notes give the designs and what
+bounds them on the card.
 ``_build.py`` compiles each source with nvcc at first use and this module
 binds them with ctypes.
 
@@ -51,7 +53,8 @@ from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
                                             mask_packed_w_t_bits_plain,
                                             mask_packed_w_t_m8_plain,
                                             mask_packed_w_t_plain,
-                                            pack_mask8_k, pack_mask_k,
+                                            pack_mask8_g, pack_mask8_k,
+                                            pack_mask_k, pack_words_g,
                                             pack_words_k, pair_buffer)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
@@ -64,8 +67,8 @@ LAUNCHES_MPH_HASH = 0
 # launches of B10's and B11's hash pass alone (``pack_mask_k_cuda``; the
 # passes inside B10 and B11 count as theirs)
 LAUNCHES_HASH_K = 0
-# likewise the passes of B9 and B14 alone (``pack_words_k_cuda``,
-# ``pack_mask8_k_cuda``)
+# likewise the passes of B8, B9, B13 and B14 alone (``pack_words_g_cuda``,
+# ``pack_words_k_cuda``, ``pack_mask8_g_cuda``, ``pack_mask8_k_cuda``)
 LAUNCHES_KPACK = 0
 # likewise B12, B13 and B14 (the SINGLET_TPU_MASK8=1 route)
 LAUNCHES_UNPACK8 = 0
@@ -73,21 +76,6 @@ LAUNCHES_MPW_M8 = 0
 LAUNCHES_MPH_M8 = 0
 
 _LIB = {}
-
-
-def _lib():
-    if "lib" not in _LIB:
-        from singlet_tpu_torch import _build
-
-        lib = _build.load("maskgram_bits")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mask_packed_w_t_bits.argtypes = [vp, ci, ci, vp, vp, ci, ci, ci,
-                                             ci, vp, vp]
-        lib.mask_packed_w_t_bits.restype = ci
-        lib.maskgram_bits_error_string.argtypes = [ci]
-        lib.maskgram_bits_error_string.restype = ctypes.c_char_p
-        _LIB["lib"] = lib
-    return _LIB["lib"]
 
 
 def _gemm_lib():
@@ -117,6 +105,16 @@ def _gemm_lib():
         lib.mask_packed_h_t_m8.argtypes = [ci, vp, ll, ci, vp, ci, vp, ci,
                                            ci, ci, ci, vp, ci, vp, vp]
         lib.mask_packed_h_t_m8.restype = ci
+        lib.mask_gpack_words.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
+        lib.mask_gpack_words.restype = ci
+        lib.mask_gpack_m8.argtypes = [vp, ci, ci, ci, vp, vp]
+        lib.mask_gpack_m8.restype = ci
+        lib.mask_packed_w_t_bits.argtypes = [ci, vp, ll, ci, vp, vp, ci, ci,
+                                             ci, ci, vp, ci, vp, vp]
+        lib.mask_packed_w_t_bits.restype = ci
+        lib.mask_packed_w_t_m8.argtypes = [ci, vp, ll, ci, vp, vp, ci, ci,
+                                           vp, ci, vp, vp]
+        lib.mask_packed_w_t_m8.restype = ci
         lib.maskgram_gemm_error_string.argtypes = [ci]
         lib.maskgram_gemm_error_string.restype = ctypes.c_char_p
         _LIB["gemm"] = lib
@@ -131,9 +129,6 @@ def _m8_lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.unpack_mask_bits.argtypes = [vp, ci, ci, ci, ci, vp, vp]
         lib.unpack_mask_bits.restype = ci
-        lib.mask_packed_w_t_m8.argtypes = [vp, ci, ci, vp, vp, ci, ci, vp,
-                                           vp]
-        lib.mask_packed_w_t_m8.restype = ci
         lib.maskgram_m8_error_string.argtypes = [ci]
         lib.maskgram_m8_error_string.restype = ctypes.c_char_p
         _LIB["m8"] = lib
@@ -142,7 +137,7 @@ def _m8_lib():
 
 def _raise_on(err, symbol, error_string=None):
     if err != 0:
-        error_string = error_string or _lib().maskgram_bits_error_string
+        error_string = error_string or _gemm_lib().maskgram_gemm_error_string
         msg = error_string(err).decode()
         raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
 
@@ -155,35 +150,52 @@ def mask_packed_w_t_bits_cuda(P_op, scales, words, *,
                               gene_block: int) -> torch.Tensor:
     """Kernel B8: (np, block) float32 = (mask @ P)^T, the mask of the block's
     cells read from ``words`` (block, n_t * gene_block) int32; P_op
-    (genes_pad, np) int8 with ``scales`` (np,) float32, or bf16. On CPU
-    tensors, the plain version."""
+    (genes_pad, np) int8 with ``scales`` (np,) float32, or bf16. One launch
+    of B8's pass, which packs the words along the genes, and of the shared
+    GEMM. int8 P is read in place when it is the transpose of rows 16 bytes
+    apart (``kmajor_buffer``), bf16 P when its rows start 16 bytes apart
+    (``pair_buffer``); anything else is copied into such a buffer first. On
+    CPU tensors, the plain version."""
     if P_op.device.type != "cuda":
         return mask_packed_w_t_bits_plain(P_op, scales, words,
                                           gene_block=gene_block)
     global LAUNCHES_MPW_BITS
     dev = P_op.device
-    int8 = _is_int8(P_op)
     genes_pad, np_ = P_op.shape
     if genes_pad % gene_block:
         raise ValueError(f"P has {genes_pad} rows, not a multiple of "
                          f"gene_block {gene_block}")
     n_gb = genes_pad // gene_block
     block = words.shape[0]
-    _check("P_op", P_op, (genes_pad, np_), P_op.dtype, dev)
     _check_words(words, block, n_gb, gene_block, dev)
-    if int8:
-        _check("scales", scales, (np_,), torch.float32, dev)
+    int8, P, p_ld, s_ptr = _gemm_operand(P_op, scales, (np_,))
     out = torch.empty((np_, block), dtype=torch.float32, device=dev)
     if block == 0 or np_ == 0:
         return out
+    kwords = torch.empty((block, k_words(genes_pad)), dtype=torch.int32,
+                         device=dev)
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
-        err = _lib().mask_packed_w_t_bits(
-            P_op.data_ptr(), int(int8), np_,
-            scales.data_ptr() if int8 else None, words.data_ptr(), block,
-            words.shape[1], gene_block, n_gb, out.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_w_t_bits")
+        err = lib.mask_packed_w_t_bits(
+            int8, P.data_ptr(), p_ld, np_, s_ptr, words.data_ptr(), block,
+            words.shape[1], gene_block, n_gb, kwords.data_ptr(),
+            kwords.shape[1], out.data_ptr(), _stream(dev))
+    _raise_on(err, "mask_packed_w_t_bits", lib.maskgram_gemm_error_string)
     LAUNCHES_MPW_BITS += 1
     return out
+
+
+def _gemm_operand(P_op, scales, scales_shape):
+    """P and its scales as the shared GEMM reads them: (int8 flag, P, P's
+    pitch, the scales' pointer). int8 P goes K-major with its pitch in
+    bytes (``_kmajor_operand``), beside ``scales`` of ``scales_shape``;
+    bf16 P with its row stride (``_tma_operand``), without scales."""
+    if _is_int8(P_op):
+        _check("scales", scales, scales_shape, torch.float32, P_op.device)
+        P, p_ld = _kmajor_operand(P_op)
+        return 1, P, p_ld, scales.data_ptr()
+    P = _tma_operand(P_op)
+    return 0, P, P.stride(0), None
 
 
 def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
@@ -228,13 +240,10 @@ def mask_packed_h_t_bits_cuda(P_op, scales, words, acc, *, gene_block: int,
 
 
 def _carry_inputs(P_op, scales, acc, scale_block):
-    """The common checks and inputs of B9 and B14: (int8 flag, P as the
-    GEMM reads it, P's pitch: int8 K-major with its pitch in bytes,
-    ``_kmajor_operand``, or bf16 with its row stride, ``_tma_operand``;
-    the scales' pointer, the quantization groups, the sub-block's cells and
-    scale_block)."""
+    """The common checks and inputs of B9 and B14: ``_gemm_operand``'s,
+    then the quantization groups, the sub-block's cells and
+    scale_block."""
     dev = P_op.device
-    int8 = _is_int8(P_op)
     cells, np_ = P_op.shape
     scale_block = cells if scale_block is None else int(scale_block)
     bc = b9_sub_block(cells, scale_block)
@@ -245,22 +254,16 @@ def _carry_inputs(P_op, scales, acc, scale_block):
             "kernel takes sub-blocks that divide the group")
     _check("acc", acc, (np_, acc.shape[1]), torch.float32, dev)
     n_scales = cells // scale_block
-    if int8:
-        _check("scales", scales, (np_, n_scales), torch.float32, dev)
-        P, p_ld = _kmajor_operand(P_op)
-    else:
-        P = _tma_operand(P_op)
-        p_ld = P.stride(0)
-    return (int(int8), P, p_ld, scales.data_ptr() if int8 else None,
-            n_scales, bc, scale_block)
+    return (*_gemm_operand(P_op, scales, (np_, n_scales)), n_scales, bc,
+            scale_block)
 
 
 def _kmajor_operand(P: torch.Tensor):
-    """int8 P (cells, np) as the K-major B operand of int8 B9/B14: (a
-    tensor whose data pointer starts the (np, pitch) rows, the pitch in
-    bytes). The transpose of rows 16 bytes apart (``kmajor_pitch``) is used
-    as it is, as the engine hands its group operand over; anything else is
-    copied into a ``kmajor_buffer``."""
+    """int8 P (K, np) as the K-major B operand of the int8 GEMM (K the
+    cells of B9/B14, the genes of B8/B13): (a tensor whose data pointer
+    starts the (np, pitch) rows, the pitch in bytes). The transpose of rows
+    16 bytes apart (``kmajor_pitch``) is used as it is, as the engine hands
+    its operands over; anything else is copied into a ``kmajor_buffer``."""
     pitch = kmajor_pitch(P)
     if pitch is not None:
         return P, pitch
@@ -321,6 +324,58 @@ def pack_mask8_k_cuda(mask8) -> torch.Tensor:
     return out
 
 
+def pack_words_g_cuda(words, *, gene_block: int,
+                      genes_pad: int) -> torch.Tensor:
+    """B8's pass alone: bitplane words (cells, n_t * gene_block) packed
+    along the genes, the (cells, k_words(genes_pad)) int32 words
+    ``pack_words_g`` builds. On CPU tensors, the plain version."""
+    if words.device.type != "cuda":
+        return pack_words_g(words, gene_block=gene_block,
+                            genes_pad=genes_pad)
+    global LAUNCHES_KPACK
+    if gene_block <= 0 or genes_pad % gene_block:
+        raise ValueError(f"{genes_pad} genes are not a multiple of "
+                         f"gene_block {gene_block}")
+    cells = words.shape[0]
+    n_gb = genes_pad // gene_block
+    _check_words(words, cells, n_gb, gene_block, words.device)
+    out = torch.empty((cells, k_words(genes_pad)), dtype=torch.int32,
+                      device=words.device)
+    if cells == 0 or genes_pad == 0:
+        return out.zero_()
+    lib = _gemm_lib()
+    with torch.cuda.device(words.device):
+        err = lib.mask_gpack_words(words.data_ptr(), cells, words.shape[1],
+                                   gene_block, n_gb, out.shape[1],
+                                   out.data_ptr(), _stream(words.device))
+    _raise_on(err, "mask_gpack_words", lib.maskgram_gemm_error_string)
+    LAUNCHES_KPACK += 1
+    return out
+
+
+def pack_mask8_g_cuda(mask8) -> torch.Tensor:
+    """B13's pass alone: the int8 0/1 mask (cells, genes_pad) packed along
+    the genes, the (cells, k_words(genes_pad)) int32 words ``pack_mask8_g``
+    builds. On CPU tensors, the plain version."""
+    if mask8.device.type != "cuda":
+        return pack_mask8_g(mask8)
+    global LAUNCHES_KPACK
+    cells, genes_pad = mask8.shape
+    _check("mask8", mask8, (cells, genes_pad), torch.int8, mask8.device)
+    out = torch.empty((cells, k_words(genes_pad)), dtype=torch.int32,
+                      device=mask8.device)
+    if cells == 0 or genes_pad == 0:
+        return out.zero_()
+    lib = _gemm_lib()
+    with torch.cuda.device(mask8.device):
+        err = lib.mask_gpack_m8(mask8.data_ptr(), cells, genes_pad,
+                                out.shape[1], out.data_ptr(),
+                                _stream(mask8.device))
+    _raise_on(err, "mask_gpack_m8", lib.maskgram_gemm_error_string)
+    LAUNCHES_KPACK += 1
+    return out
+
+
 def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
                  inv_density: int, cells_true: int, genes_true: int):
     """The common checks and inputs of B10 and B11: P as a bf16 operand
@@ -344,10 +399,10 @@ def _hash_inputs(P, seed, cell_ids, genes_pad: int, gene_block: int,
 
 
 def _tma_operand(P: torch.Tensor) -> torch.Tensor:
-    """P as the bf16 B operand of B10/B11: a view whose rows start 16 bytes
-    apart (a row stride that is a multiple of 8, the base 16-byte aligned)
-    is used as it is, as the engine hands its operands over; anything else
-    is copied into a ``pair_buffer``."""
+    """P as the bf16 B operand of the bf16 GEMM: a view whose rows start 16
+    bytes apart (a row stride that is a multiple of 8, the base 16-byte
+    aligned) is used as it is, as the engine hands its operands over;
+    anything else is copied into a ``pair_buffer``."""
     if (P.dtype == torch.bfloat16 and P.dim() == 2 and P.stride(1) == 1
             and P.stride(0) % 8 == 0 and P.stride(0) >= P.shape[1]
             and P.data_ptr() % 16 == 0):
@@ -499,32 +554,33 @@ def mask_packed_w_t_m8_cuda(P_op, scales, mask8_blk, *,
                             gene_block: int) -> torch.Tensor:
     """Kernel B13: (np, block) float32 = (mask @ P)^T, the mask the block's
     rows (block, genes_pad) of a prebuilt int8 0/1 mask; P_op (genes_pad,
-    np) int8 with ``scales`` (np,) float32, or bf16. On CPU tensors, the
-    plain version."""
+    np) int8 with ``scales`` (np,) float32, or bf16. One launch of B13's
+    pass, which packs the mask along the genes, and of B8's GEMM: B8's
+    arithmetic (so B8's bits on int8 and on bf16), and P read in place as
+    B8 reads it. On CPU tensors, the plain version."""
     if P_op.device.type != "cuda":
         return mask_packed_w_t_m8_plain(P_op, scales, mask8_blk,
                                         gene_block=gene_block)
     global LAUNCHES_MPW_M8
     dev = P_op.device
-    int8 = _is_int8(P_op)
     genes_pad, np_ = P_op.shape
     block = mask8_blk.shape[0]
     _check_m8(mask8_blk, block, genes_pad, gene_block)
     m8_sub_block(block)
-    _check("P_op", P_op, (genes_pad, np_), P_op.dtype, dev)
     _check("mask8", mask8_blk, (block, genes_pad), torch.int8, dev)
-    if int8:
-        _check("scales", scales, (np_,), torch.float32, dev)
+    int8, P, p_ld, s_ptr = _gemm_operand(P_op, scales, (np_,))
     out = torch.empty((np_, block), dtype=torch.float32, device=dev)
     if block == 0 or np_ == 0:
         return out
-    lib = _m8_lib()
+    kwords = torch.empty((block, k_words(genes_pad)), dtype=torch.int32,
+                         device=dev)
+    lib = _gemm_lib()
     with torch.cuda.device(dev):
         err = lib.mask_packed_w_t_m8(
-            P_op.data_ptr(), int(int8), np_,
-            scales.data_ptr() if int8 else None, mask8_blk.data_ptr(), block,
-            genes_pad, out.data_ptr(), _stream(dev))
-    _raise_on(err, "mask_packed_w_t_m8", lib.maskgram_m8_error_string)
+            int8, P.data_ptr(), p_ld, np_, s_ptr, mask8_blk.data_ptr(), block,
+            genes_pad, kwords.data_ptr(), kwords.shape[1], out.data_ptr(),
+            _stream(dev))
+    _raise_on(err, "mask_packed_w_t_m8", lib.maskgram_gemm_error_string)
     LAUNCHES_MPW_M8 += 1
     return out
 

@@ -253,6 +253,18 @@ def _quantized(P: torch.Tensor, mode: str):
                                             device=P.device)
 
 
+def _w_operand(Pw: torch.Tensor, mode: str):
+    """The bits route's w-side operand (genes_pad, npairs) and its per-pair
+    scales, built once per step in the layout B8 and B13 read in place:
+    int8 in a ``kmajor_buffer`` (genes contiguous per pair), bf16 in a
+    ``pair_buffer``."""
+    q, scales = _quantized(Pw, mode)
+    op = (kmajor_buffer if mode == "int8" else pair_buffer)(
+        Pw.shape[0], Pw.shape[1], Pw.device)
+    op.copy_(q)
+    return op, scales
+
+
 def _build_local_fns(data: ShardedEllData, inv_density: int):
     """The engine's steps over ``data``: ``plain``, ``masked``, ``mse`` and
     ``project``, with ``use_bits`` and ``prepare_bits`` (the JAX
@@ -417,14 +429,15 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # a group of F blocks into the carry at once (F the largest
             # divisor of the block count up to 16), each block dequantized
             # with its own scales: the bits of flushing block by block. The
-            # group operand is allocated once per step in the layout the
-            # kernels read in place: int8 K-major (the transpose of
-            # (npairs, cells) rows 16 bytes apart), bf16 with its pair axis
-            # padded for TMA. Under MASK8 the group's words are first
-            # unpacked by B12 into one int8 mask buffer, likewise reused by
-            # every group, and B13 and B14 read it in place of B8 and B9.
+            # group operand is allocated once per step, and Pw's built once
+            # per step, in the layout the kernels read in place: int8
+            # K-major (the transpose of (npairs, K) rows 16 bytes apart),
+            # bf16 with its pair axis padded for TMA. Under MASK8 the
+            # group's words are first unpacked by B12 into one int8 mask
+            # buffer, likewise reused by every group, and B13 and B14 read
+            # it in place of B8 and B9.
             (words,) = bits
-            Pw_op, Pw_s = _quantized(Pw, r)
+            Pw_op, Pw_s = _w_operand(Pw, r)
             n_blk = cells_pad // mblock
             F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
             Ph_grp = (kmajor_buffer if r == "int8" else pair_buffer)(

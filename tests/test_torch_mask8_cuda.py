@@ -13,9 +13,10 @@ without one. On a machine with a card (and without jax, which
 Tolerances: B12 writes bytes, which must be equal. B13 and B14 on int8 sum
 exact int32 partials and dequantize with one rounding, as the plain
 versions and B8/B9 do, so they must give the same bits as both, whatever
-the layout of P; on bf16 they sum float32 in another order (max abs error
-<= 1e-5 * max |output|). B14's pass gives the words of its plain version
-and of B9's pass.
+the layout of P; on bf16 they sum float32 in another order than the plain
+versions (max abs error <= 1e-5 * max |output|), and B13 runs B8's GEMM on
+the same words, so it gives B8's bits on bf16 too. B13's and B14's passes
+give the words of their plain versions and of B8's and B9's passes.
 The engine on the card against the CPU: rtol 5e-3, atol 5e-4 with equal
 ``iter`` lists (the fit tests' tolerance); on int8 against the card's own
 bits route, the same bits.
@@ -90,23 +91,51 @@ def test_b12_matches_plain(cuda, gene_block, n_gb, cells):
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
 @pytest.mark.parametrize("gene_block,n_gb", GEOMS)
-@pytest.mark.parametrize("k", [5, 50, 100])
+@pytest.mark.parametrize("k", [5, 50, 100, 256, 300, 512])
 def test_b13_matches_plain_and_b8(cuda, dtype, gene_block, n_gb, k):
+    """B13 on a block of 1000 cells with P as the engine hands it over
+    (int8 K-major, bf16 pair-padded) and contiguous: the plain version's
+    bits on int8 (within the bf16 tolerance on bf16), the same bits twice
+    and from either layout, and B8's bits on the words of the mask."""
     genes = gene_block * n_gb
     W = torch.rand((genes, k), device=cuda)
     words = _words(CELLS, gene_block, n_gb, 20, cuda)
     m8 = maskgram_cuda.unpack_mask_bits_cuda(words, gene_block=gene_block,
                                              genes_pad=genes)
     op, s = _operand(W, dtype)
+    make = maskgram.kmajor_buffer if dtype == "int8" else maskgram.pair_buffer
+    P = make(genes, op.shape[1], cuda)
+    P.copy_(op)
+    run = lambda P: maskgram_cuda.mask_packed_w_t_m8_cuda(  # noqa: E731
+        P, s, m8, gene_block=gene_block)
     before = maskgram_cuda.LAUNCHES_MPW_M8
-    got = maskgram_cuda.mask_packed_w_t_m8_cuda(op, s, m8,
-                                                gene_block=gene_block)
+    got = run(P)
     assert maskgram_cuda.LAUNCHES_MPW_M8 == before + 1
     _same(got, maskgram.mask_packed_w_t_m8_plain(op, s, m8,
                                                  gene_block=gene_block),
           dtype)
-    _same(got, maskgram_cuda.mask_packed_w_t_bits_cuda(
-        op, s, words, gene_block=gene_block), dtype)
+    assert torch.equal(got, run(P))
+    assert torch.equal(got, run(op))
+    assert torch.equal(got, maskgram_cuda.mask_packed_w_t_bits_cuda(
+        P, s, words, gene_block=gene_block))
+
+
+@pytest.mark.parametrize("gene_block,n_gb", GEOMS + [(1720, 1)])
+@pytest.mark.parametrize("cells", [CELLS, 2048, 33])
+def test_b13_pass_matches_plain_and_b8_pass(cuda, gene_block, n_gb, cells):
+    """B13's pass alone: the words of its plain version and of B8's pass on
+    the words the mask was unpacked from (40 genes: rows that are not
+    16-byte aligned, read byte by byte)."""
+    genes = gene_block * n_gb
+    words = _words(cells, gene_block, n_gb, 20, cuda)
+    m8 = maskbits.unpack_mask_bits_plain(words, gene_block=gene_block,
+                                         genes_pad=genes)
+    before = maskgram_cuda.LAUNCHES_KPACK
+    got = maskgram_cuda.pack_mask8_g_cuda(m8)
+    assert maskgram_cuda.LAUNCHES_KPACK == before + 1
+    assert torch.equal(got, maskgram.pack_mask8_g(m8))
+    assert torch.equal(got, maskgram_cuda.pack_words_g_cuda(
+        words, gene_block=gene_block, genes_pad=genes))
 
 
 # (cells, scale_block): one group; four groups of 2048 (two 1024-cell

@@ -14,8 +14,8 @@ and are otherwise the same code, so they must give the same bits. B8 and
 B9 on int8 sum exact int32 partials and dequantize with the plain
 version's single rounding, so they must give the same bits too, whatever
 the layout of P and on a second run; on bf16 they sum float32 in another
-order (max abs error <= 1e-5 * max |output|). B9's pass gives the words of
-its plain version and of B11's hash pass.
+order (max abs error <= 1e-5 * max |output|). B8's pass gives the words of
+its plain version and of B10's hash pass, B9's those of B11's.
 B7 sums in another order (rtol 2e-4, atol 1e-5, as tests/test_maskbits.py)
 and counts exactly. The engine on the card against the CPU: rtol 5e-3,
 atol 5e-4 with equal ``iter`` lists (the fit tests' tolerance).
@@ -141,19 +141,48 @@ def _same(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", ["int8", "bf16"])
 @pytest.mark.parametrize("gene_block,n_gb", GEOMS)
-@pytest.mark.parametrize("k", [5, 50, 100])
+@pytest.mark.parametrize("k", [5, 50, 100, 256, 300, 512])
 def test_b8_matches_plain(cuda, dtype, gene_block, n_gb, k):
+    """B8 on a block of 1000 cells (an M tail) with P as the engine hands
+    it over (int8 K-major, bf16 pair-padded) and contiguous: the plain
+    version's bits on int8 (within the bf16 tolerance on bf16), the same
+    bits twice and from either layout."""
     genes = gene_block * n_gb
     W = torch.rand((genes, k), device=cuda)
     words = _words(CELLS, gene_block, n_gb, 20, cuda)
     op, s = _operand(W, dtype)
+    run = lambda P: maskgram_cuda.mask_packed_w_t_bits_cuda(  # noqa: E731
+        P, s, words, gene_block=gene_block)
     before = maskgram_cuda.LAUNCHES_MPW_BITS
-    got = maskgram_cuda.mask_packed_w_t_bits_cuda(op, s, words,
-                                                  gene_block=gene_block)
+    got = run(_layout(op, "engine"))
     assert maskgram_cuda.LAUNCHES_MPW_BITS == before + 1
     want = maskgram.mask_packed_w_t_bits_plain(op, s, words,
                                                gene_block=gene_block)
+    assert got.shape == (op.shape[1], CELLS)
     _same(got, want, dtype)
+    assert torch.equal(got, run(_layout(op, "engine")))
+    assert torch.equal(got, run(op))
+
+
+@pytest.mark.parametrize("gene_block,n_gb", GEOMS + [(512, 3), (1720, 1),
+                                                     (8, 5)])
+@pytest.mark.parametrize("cells", [1000, 2048, 33])
+def test_b8_pass_matches_plain_and_hash_pass(cuda, gene_block, n_gb, cells):
+    """B8's pass alone (the ballot transpose for gene_block % 32 == 0, a
+    load per bit otherwise): the words of its plain version, and of B10's
+    hash pass for the same seed and cells."""
+    genes = gene_block * n_gb
+    words = _words(cells, gene_block, n_gb, 20, cuda)
+    before = maskgram_cuda.LAUNCHES_KPACK
+    got = maskgram_cuda.pack_words_g_cuda(words, gene_block=gene_block,
+                                          genes_pad=genes)
+    assert maskgram_cuda.LAUNCHES_KPACK == before + 1
+    assert torch.equal(got, maskgram.pack_words_g(
+        words, gene_block=gene_block, genes_pad=genes))
+    ids = torch.arange(OFFSET, OFFSET + cells, device=cuda)
+    assert torch.equal(got, maskgram_cuda.pack_mask_k_cuda(
+        seed_pair(77), ids, genes, gene_rows=False, inv_density=20,
+        cells_true=OFFSET + cells, genes_true=genes))
 
 
 # (cells, scale_block): one group (one sub-block of 1000 cells, which ends
