@@ -13,9 +13,13 @@ Phases; any failure raises and the script exits non-zero:
 2. kernel B1 (``ops/nnls_cuda.py``) against its plain PyTorch version on the
    card, at the half-update shapes of the bench config and at edge shapes,
    with both sweep caps the fit uses; times both with CUDA events;
-3. kernel B2 likewise, on the per-column Grams of real masked half-updates
-   of the bench operand (h-side and w-side blocks, k=50 and 100, an edge
-   shape), at the masked fast cap 32 and at 100;
+3. kernel B2 likewise, on the solve inputs of real masked half-updates
+   of the bench operand (h-side and w-side blocks at k=50 and 100, the
+   large config's call shapes 2048 x 100 and 16384 x 100, an edge shape),
+   at the masked fast cap 32 and at 100: its packed entry (a_full and the
+   packed corrections, the fits' route) the same bits as its tile entry
+   on the unpacked Grams; times of both entries, of the unpack alone and
+   of the plain version;
 4. ``run_nmf`` on the card against ``run_nmf`` on the CPU at a small size;
 5. the masked fit ``ard_nmf_fit`` on the card against the CPU at the same
    small size;
@@ -53,7 +57,9 @@ Phases; any failure raises and the script exits non-zero:
    version and library call (torch.sparse.mm on a CSR copy for B3-B6,
    torch._int_mm on the unpacked int8 mask for B8/B9 and B13/B14), and
    each kernel's bound (B8/B9/B13/B14 also the dense product at the
-   peak);
+   peak); on the large slice B5 also in turns with torch.sparse.mm
+   (kernel, library, library, kernel, 3 times), for the spread of the
+   ratio;
 10. the ELL engine against the dense providers on the bench operand from
    one W0: 5 plain iterations and a 5-iteration masked ``ard_fit`` on the
    f32 route (equal ``iter`` lists), within the fit tolerance; then the
@@ -65,7 +71,7 @@ Phases; any failure raises and the script exits non-zero:
    bf16 its test-MSE trace within 1e-5 relative;
 10b. ranks above 224: B1, B2, B3, B4, B5, B6 and B7 at k=256 and 300
    against their plain versions (the bench planes for B3-B7; B6 the bits
-   of masked B4); ``run_nmf`` at k=256
+   of masked B4; B2 both entries, the same bits); ``run_nmf`` at k=256
    on a 4096 x 2048 operand, and the ELL engine's plain fit and masked
    ``ard_fit`` at k=256 on a small operand, on the card against the CPU
    (B3 and B5 launch once per 224-column chunk of W, so twice a call);
@@ -78,8 +84,9 @@ Phases; any failure raises and the script exits non-zero:
    profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
    B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
-   and one test MSE timed and under the profiler (with B6's, B8's and
-   B9's shares of its device time, B8's and B9's passes apart); then the
+   and one test MSE timed and under the profiler (with B2's, B5's, B6's,
+   B8's and B9's shares of its device time, B8's and B9's passes apart,
+   B2's h-side and w-side calls apart by launch grid); then the
    step under ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed
    in turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
    the peak memory of each, B12 on one group's words the same bytes as its
@@ -161,9 +168,12 @@ FIT_RTOL, FIT_ATOL = 5e-3, 5e-4
 
 KERNEL_SHAPES = [(8192, 50), (16384, 50), (1500, 10), (4096, 100)]
 SWEEP_CAPS = [8, 100]
-# kernel B2: the h-side block (2048 cells) and w-side block (4096 genes) of
-# the bench config, k=100, and a width that is no multiple of 32
-B2_SHAPES = [(2048, 50), (4096, 50), (4096, 100), (1500, 10)]
+# kernel B2 (n, k, side): the h-side block (2048 cells) and w-side block
+# (4096 genes) of the bench config, the large config's two call shapes at
+# k=100 (a 2048-cell block; all 16,384 genes), and a width that is no
+# multiple of 32
+B2_SHAPES = [(2048, 50, "h"), (4096, 50, "w"), (4096, 100, "w"),
+             (2048, 100, "h"), (16384, 100, "w"), (1500, 10, "h")]
 B2_SWEEP_CAPS = [32, 100]
 # (n, k, cap) whose times the kernels line reports: the w-side
 # half-update of the bench config in the fast phase, for each kernel
@@ -195,6 +205,10 @@ B13_SHARES = ((("gpack_m8_kernel", "mask_gemm_s8_kernel<false>"), "B13"),
               ("gpack_m8_kernel", "B13_pass"))
 B14_SHARES = ((("kpack_m8_kernel", "mask_gemm_s8_kernel<true>"), "B14"),
               ("kpack_m8_kernel", "B14_pass"))
+# kernel B2's device time in the profiled steps: one kernel name for both
+# entries, split into the h-side (2048-cell blocks) and w-side (all genes)
+# calls by their launch grids
+B2_SHARE = ("nnls_cd_col_kernel", "B2")
 # kernels B3 and B4 against their plain versions: only the order of the
 # sums differs
 BELL_TOL = 1e-5
@@ -408,9 +422,9 @@ def phase_kernel(torch, card):
 
 def _masked_solve_inputs(torch, P, X, n, seed):
     """The solve inputs of a real masked half-update of the first ``n``
-    columns of provider ``P`` against factor ``X``: per-column Grams
-    ``a_full - unpack(packed_t)`` in B2's (k, k, n) layout and B from the
-    kept entries; a warm X0 with zeros, 5% of the columns masked out."""
+    columns of provider ``P`` against factor ``X``: ``a_full``, the packed
+    corrections ``packed_t`` (npairs, n), ``iu``, B from the kept entries;
+    a warm X0 with zeros, 5% of the columns masked out."""
     from singlet_tpu_torch.ops import linalg
     from singlet_tpu_torch.ops.rngmask import seed_pair
 
@@ -420,21 +434,57 @@ def _masked_solve_inputs(torch, P, X, n, seed):
                     MASKED["inv_density"])
     B = torch.where(m, 0.0, P.col_block(0, n).T) @ X
     packed_t = linalg.mask_dot_t(linalg.packed_outer_products(X, iu), m, 1)
-    at = linalg.unpack_sym_from_t(packed_t, k, iu, linalg.gram(X))
     rng = np.random.default_rng(seed)
     X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
     mask = rng.random(n) >= 0.05
     dev = X.device
-    return at, B, torch.as_tensor(X0, device=dev), \
-        torch.as_tensor(mask, device=dev)
+    return linalg.gram(X), packed_t, iu, B, \
+        torch.as_tensor(X0, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def _b2_check(torch, label, a_full, packed_t, iu, B, X0, kw, plain=True):
+    """Kernel B2 on one problem: the packed entry (the masked
+    half-updates' route) the same bits as the tile entry on the unpacked
+    Grams, masked columns X0, within KERNEL_RTOL/KERNEL_ATOL of the plain
+    version. Returns (the unpacked tile, the packed entry's X, the plain
+    X and per-column sweeps, or None without ``plain``)."""
+    from singlet_tpu_torch.ops import linalg, nnls
+    from singlet_tpu_torch.ops.nnls_cuda import (
+        nnls_batch_cuda_batched_at, nnls_batch_cuda_batched_packed_t)
+
+    k, mask = B.shape[1], kw["update_mask"]
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    Xk = nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, **kw)
+    Xt = nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(Xk, Xt):
+        raise AssertionError(f"B2 {label}: the packed entry differs from "
+                             "the tile entry")
+    if not torch.equal(Xk[~mask], X0[~mask]):
+        raise AssertionError(f"B2 {label}: masked rows differ from X0")
+    if not plain:
+        return at, Xk, None
+    Xp, sweeps = nnls.nnls_batch(at.permute(2, 1, 0), B, X0,
+                                 return_sweeps=True, **kw)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    return at, Xk, (Xp, sweeps)
 
 
 def phase_kernel_b2(torch, card, Ap, Atp, W0):
-    from singlet_tpu_torch.ops import nnls
-    from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda_batched_at
+    """Kernel B2 on the solve inputs of real masked half-updates of the
+    bench operand (``B2_SHAPES``, both sweep caps): ``_b2_check``, then
+    CUDA-event times of the packed entry (``ms``, the route of the masked
+    half-updates), of the tile entry on the unpacked Grams (``tile_ms``),
+    of the unpack alone (``unpack_ms``; the parent ran the unpack and then
+    its kernel) and of the plain version, with the bound of the packed
+    entry's inputs."""
+    from singlet_tpu_torch.ops import linalg, nnls
+    from singlet_tpu_torch.ops.nnls_cuda import (
+        nnls_batch_cuda_batched_at, nnls_batch_cuda_batched_packed_t)
 
     # factors as wide as the widest shape: W0, then U(0, 1) columns
-    k_top = max(k for _, k in B2_SHAPES)
+    k_top = max(k for _, k, _ in B2_SHAPES)
     rng = np.random.default_rng(5)
     H0 = torch.as_tensor(rng.random((Ap.cols_pad, k_top), dtype=np.float32),
                          device="cuda")
@@ -444,34 +494,38 @@ def phase_kernel_b2(torch, card, Ap, Atp, W0):
                         dtype=np.float32)], axis=1)
     W = torch.as_tensor(W, device="cuda")
     rows = []
-    for n, k in B2_SHAPES:
-        # a w-side block solves genes against H, the others cells against W
-        P, X = (Atp, H0[:, :k]) if n == Atp.block else (Ap, W[:, :k])
-        at, B, X0, mask = _masked_solve_inputs(torch, P, X.contiguous(), n,
-                                               seed=n + k)
+    for n, k, side in B2_SHAPES:
+        # a w-side call solves genes against H, an h-side one cells against W
+        P, X = (Atp, H0[:, :k]) if side == "w" else (Ap, W[:, :k])
+        a_full, packed_t, iu, B, X0, mask = _masked_solve_inputs(
+            torch, P, X.contiguous(), n, seed=n + k)
+        npairs = packed_t.shape[0]
         for cap in B2_SWEEP_CAPS:
             kw = dict(L1=0.01, L2=0.001, update_mask=mask,
                       sweep_cap=float(cap))
-            Xk = nnls_batch_cuda_batched_at(at, B, X0, **kw)
-            Xp, sweeps = nnls.nnls_batch(at.permute(2, 1, 0), B, X0,
-                                         return_sweeps=True, **kw)
-            torch.cuda.synchronize()
-            np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
-                                       rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-            if not torch.equal(Xk[~mask], X0[~mask]):
-                raise AssertionError(f"B2: masked rows differ from X0 at "
-                                     f"n={n} k={k} cap={cap}")
+            at, Xk, (Xp, sweeps) = _b2_check(
+                torch, f"n={n} k={k} cap={cap}", a_full, packed_t, iu, B, X0,
+                kw)
             err = float((Xk - Xp).abs().max())
-            ms = _median_ms(torch, lambda: nnls_batch_cuda_batched_at(
+            ms = _median_ms(torch, lambda: nnls_batch_cuda_batched_packed_t(
+                a_full, packed_t, iu, B, X0, **kw), runs=10)
+            tile_ms = _median_ms(torch, lambda: nnls_batch_cuda_batched_at(
                 at, B, X0, **kw), runs=10)
+            unpack_ms = _median_ms(torch, lambda: linalg.unpack_sym_from_t(
+                packed_t, k, iu, a_full), runs=10)
             plain_ms = _median_ms(torch, lambda: nnls.nnls_batch(
-                at.permute(2, 1, 0), B, X0, **kw), runs=2)
-            rows.append(dict(n=n, k=k, sweep_cap=cap, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, library_ms=None,
-                             **_nnls_bound(sweeps, n, k, k * k * n)))
+                at.permute(2, 1, 0), B, X0, **kw), runs=1 if n > 4096 else 2)
+            rows.append(dict(n=n, k=k, side=side, sweep_cap=cap,
+                             max_abs_err=err, ms=ms, tile_ms=tile_ms,
+                             unpack_ms=unpack_ms, plain_ms=plain_ms,
+                             library_ms=None, **_nnls_bound(
+                                 sweeps, n, k, k * k + npairs * n)))
             print(f"kernel B2 n={n} k={k} cap={cap}: max|err|={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
-                  f"({card})", flush=True)
+                  f"packed entry {ms:.4f} ms, tile entry {tile_ms:.4f} ms "
+                  f"(+ unpack {unpack_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+                  f"bound {rows[-1]['bound_ms']:.4f} ms ({card})",
+                  flush=True)
+            del at
     return rows
 
 
@@ -754,8 +808,8 @@ def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                      "runs differ")
             ms = _median_ms(torch, lambda: call(kern), runs=20)
             plain_ms = _median_ms(torch, lambda: call(plain), runs=3)
-            library_ms, nnz, lib_err = _spmm_library(torch, csr[masked],
-                                                     name, X, got)
+            library_ms, nnz, lib_err, _ = _spmm_library(torch, csr[masked],
+                                                        name, X, got)
             if not lib_err <= BELL_TOL * scale:
                 raise AssertionError(f"{name} {label} masked={masked}: the "
                                      f"library call differs by {lib_err}")
@@ -846,7 +900,7 @@ def _slice_words(torch, cell_offset, cells, genes, gene_block,
 def _spmm_library(torch, csr, name, X, got):
     """torch.sparse.mm on the CSR copy for B3/B5 (operand @ W) or B4/B6
     (operand^T @ H): (median ms, nonzeros, max abs difference to the
-    kernel's ``got``)."""
+    kernel's ``got``, the call)."""
     A_csr, A_csr_t, nnz = csr
     mat = A_csr if name in ("B3", "B5") else A_csr_t
 
@@ -854,7 +908,24 @@ def _spmm_library(torch, csr, name, X, got):
         return torch.sparse.mm(mat, X)
 
     err = float((lib() - got).abs().max())
-    return _median_ms(torch, lib, runs=10), nnz, err
+    return _median_ms(torch, lib, runs=10), nnz, err, lib
+
+
+def _turns(torch, kernel, library, rounds=3, runs=10):
+    """A kernel and its library call timed in turns (kernel, library,
+    library, kernel, ``rounds`` times), each turn the median of ``runs``
+    calls by CUDA events: both lists of turns, their medians and the
+    ratio of the medians, kernel over library."""
+    turns = {"kernel": [], "library": []}
+    for _ in range(rounds):
+        for name in ("kernel", "library", "library", "kernel"):
+            fn = kernel if name == "kernel" else library
+            turns[name].append(_median_ms(torch, fn, runs=runs))
+    med = {name: statistics.median(ts) for name, ts in turns.items()}
+    return dict(kernel_ms=turns["kernel"], library_ms=turns["library"],
+                kernel_median_ms=med["kernel"],
+                library_median_ms=med["library"],
+                ratio=med["kernel"] / med["library"])
 
 
 def _int_mm_library(torch, m_i8, P_i8):
@@ -950,14 +1021,23 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                  f"{BELL_TOL} x {scale}")
         t = timing(lambda: call(kern), lambda: call(plain))
         if timed:
-            library_ms, nnz, lib_err = _spmm_library(torch, csr, name, X,
-                                                     got)
+            library_ms, nnz, lib_err, lib = _spmm_library(torch, csr, name,
+                                                          X, got)
             if not lib_err <= BELL_TOL * scale:
                 raise AssertionError(f"{name} {label}: the library call "
                                      f"differs by {lib_err}")
             t.update(library_ms=library_ms, bound=_bound(
                 plane_bytes + word_bytes + (genes + cells) * k * 4,
                 2 * nnz * k, F32_OPS_S))
+            if name == "B5":
+                # which way B5 falls against its library call, with the
+                # spread of the ratio
+                t["turns"] = _turns(torch, lambda: call(kern), lib)
+                print(f"kernel B5 {label} in turns with torch.sparse.mm: "
+                      f"{t['turns']['kernel_ms']} against "
+                      f"{t['turns']['library_ms']} ms, ratio of the "
+                      f"medians {t['turns']['ratio']:.4f} ({card})",
+                      flush=True)
         record(name, err, scale, **t)
 
     # B7: sums close, counts equal, the same bits twice
@@ -1625,7 +1705,8 @@ def _kernel_routes_on_cpu():
 def phase_wide_k(torch, card, data):
     """Ranks above 224, on the card against the plain versions and the CPU:
     kernels B1 (n=2048, sweep cap 8) and B2 (n=512, per-column Grams of a
-    5% mask, cap 32) at k=256 and 300, within KERNEL_RTOL/KERNEL_ATOL; B3
+    5% mask, cap 32; its packed entry and its tile entry, the same bits) at
+    k=256 and 300, within KERNEL_RTOL/KERNEL_ATOL; B3
     and B4 (unmasked and masked), B5 and B6 (the same bits as masked B3 and
     B4) and B7 on the bench operand's ELL planes ``data`` and its packed
     test mask at the same ranks, B3-B6 within BELL_TOL (B4 and B6 also the
@@ -1643,8 +1724,9 @@ def phase_wide_k(torch, card, data):
 
     import singlet_tpu_torch as stt
     from singlet_tpu_torch.ops import bell, bell_cuda, linalg, nnls
-    from singlet_tpu_torch.ops.nnls_cuda import (nnls_batch_cuda,
-                                                 nnls_batch_cuda_batched_at)
+    from singlet_tpu_torch.ops.nnls_cuda import (
+        nnls_batch_cuda, nnls_batch_cuda_batched_at,
+        nnls_batch_cuda_batched_packed_t)
     from singlet_tpu_torch.ops.rngmask import seed_pair
     from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 
@@ -1697,29 +1779,33 @@ def phase_wide_k(torch, card, data):
                lambda: nnls_batch_cuda(a, B, X0, **kw), plain_ms)
 
         # B2 against per-column Grams: a_full minus the packed Gram of the
-        # 5% masked rows, as a masked half-update makes them
+        # 5% masked rows, as a masked half-update makes them; the packed
+        # entry (the fits' route) and the tile entry
         gen = torch.Generator(device="cuda").manual_seed(k)
         n2, m_rows = 512, 2 * k
         F_ = torch.rand((m_rows, k), generator=gen, device="cuda")
         iu = linalg.triu_pairs(k)
         m = torch.rand((n2, m_rows), generator=gen, device="cuda") < 0.05
-        at = linalg.unpack_sym_from_t(
-            linalg.mask_dot_t(linalg.packed_outer_products(F_, iu), m, 1), k,
-            iu, F_.T @ F_ + 1e-15 * torch.eye(k, device="cuda"))
+        packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F_, iu), m,
+                                     1)
+        a_full = F_.T @ F_ + 1e-15 * torch.eye(k, device="cuda")
         B2 = torch.where(m, 0.0, torch.rand((n2, m_rows), generator=gen,
                                             device="cuda")) @ F_
         X02 = (torch.rand((n2, k), generator=gen, device="cuda")
                * (torch.rand((n2, k), generator=gen, device="cuda") < 0.5))
         mask2 = torch.rand(n2, generator=gen, device="cuda") >= 0.05
         kw2 = dict(L1=0.01, L2=0.001, update_mask=mask2, sweep_cap=32.0)
-        Xk = nnls_batch_cuda_batched_at(at, B2, X02, **kw2)
+        at, Xk, _ = _b2_check(torch, f"k={k}", a_full, packed_t, iu, B2,
+                              X02, kw2, plain=False)
         Xp, plain_ms = timed(lambda: nnls.nnls_batch(at.permute(2, 1, 0), B2,
                                                      X02, **kw2))
         np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
                                    rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-        if not torch.equal(Xk[~mask2], X02[~mask2]):
-            raise AssertionError(f"B2 at k={k}: masked rows differ from X0")
-        record("B2", k, float((Xk - Xp).abs().max()), float(Xp.abs().max()),
+        err, scale = float((Xk - Xp).abs().max()), float(Xp.abs().max())
+        record("B2", k, err, scale,
+               lambda: nnls_batch_cuda_batched_packed_t(
+                   a_full, packed_t, iu, B2, X02, **kw2), plain_ms)
+        record("B2 tile entry", k, err, scale,
                lambda: nnls_batch_cuda_batched_at(at, B2, X02, **kw2),
                plain_ms)
         del at, m
@@ -2043,7 +2129,9 @@ def phase_large(torch, card, ckdir):
         profile=_profile(torch, card, step, label=f"large masked ELL step, "
                          f"bits route (sweep cap {settings.fast_masked})",
                          share=B8_SHARES + B9_SHARES + (
-                             ("bell_spmm_t_kernel", "B6"),)),
+                             ("bell_spmm_t_kernel", "B6"),
+                             ("bell_spmm_kernel", "B5"), B2_SHARE),
+                         grids=(B2_SHARE[0],)),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)"))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
@@ -2197,7 +2285,8 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
                 profile=_profile(torch, card, step8, label=f"large masked ELL "
                                  f"step, MASK8 (sweep cap "
                                  f"{settings.fast_masked})",
-                                 share=B13_SHARES + B14_SHARES))
+                                 share=B13_SHARES + B14_SHARES + (
+                                     B2_SHARE,), grids=(B2_SHARE[0],)))
 
 
 def phase_resume_large(torch, card, eng, data, ckdir):
@@ -2288,7 +2377,8 @@ def phase_resume_large(torch, card, eng, data, ckdir):
     step_profile = _profile(torch, card, step, label=f"large masked ELL "
                             f"step, hash route (sweep cap "
                             f"{settings.fast_masked})",
-                            share=("bell_spmm_t_kernel", "B4"))
+                            share=(("bell_spmm_t_kernel", "B4"), B2_SHARE),
+                            grids=(B2_SHARE[0],))
     return dict(
         first_s=first_s, resumed_s=res_s, full_s=full_s,
         launches_first=n_first, launches_resumed=n_res, launches_full=n_full,
@@ -2352,13 +2442,16 @@ def phase_ell_entry(torch, card):
                         best_rank=best, rows=len(df)))
 
 
-def _profile(torch, card, fn, label="race", share=()):
+def _profile(torch, card, fn, label="race", share=(), grids=()):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and
     the device's idle share of the run's wall time. For each entry of
     ``share`` (a kernel name's key, or a tuple of keys, and its label, as
     ("bell_spmm_t_kernel", "B4")), also those kernels' device time and its
     share of the run's, printed and recorded as ``<label>_ms`` and
-    ``<label>_share``."""
+    ``<label>_share``. For each key of ``grids``, the device time and
+    launches of the kernels whose name holds it, by launch grid (from the
+    exported trace), recorded as ``<key>_by_grid``: B2's h-side and w-side
+    calls run one kernel on grids of different sizes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2399,6 +2492,25 @@ def _profile(torch, card, fn, label="race", share=()):
         out[f"{name}_share"] = ms / max(busy_us / 1e3, 1e-9)
         print(f"  kernel {name}: {ms:.2f} ms of {busy_us / 1e3:.1f} ms "
               f"device time ({out[f'{name}_share']:.1%})", flush=True)
+    if grids:
+        path = os.path.join(ROOT, "build", f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        os.remove(path)
+        for key in grids:
+            by_grid = {}
+            for ev in events:
+                if ev.get("cat") == "kernel" and key in ev.get("name", ""):
+                    grid = str(ev.get("args", {}).get("grid"))
+                    ms, calls = by_grid.get(grid, (0.0, 0))
+                    by_grid[grid] = (ms + ev.get("dur", 0) / 1e3, calls + 1)
+            out[f"{key}_by_grid"] = {grid: dict(ms=ms, calls=calls)
+                                     for grid, (ms, calls) in by_grid.items()}
+            for grid, (ms, calls) in sorted(by_grid.items()):
+                print(f"  {key} grid {grid}: {calls} launches, {ms:.2f} ms "
+                      f"of {busy_us / 1e3:.1f} ms device time "
+                      f"({ms / max(busy_us / 1e3, 1e-9):.1%})", flush=True)
     return out
 
 

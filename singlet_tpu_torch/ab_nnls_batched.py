@@ -4,13 +4,24 @@ each other on one CUDA card, in turns, on the same inputs.
     python3 -m singlet_tpu_torch.ab_nnls_batched OLD.cu NEW.cu
 
 Both sources are compiled with ``_build``'s nvcc flags, started together,
-into the git-ignored ``build/``. Per k in ``KS`` the inputs are those of a
-masked half-update (per-column Grams ``at`` of 5% masked rows, n=4096,
-sweep cap 32, the shape of ``chip_smoke.py``'s B2 rows); each turn times
-one version as the median of ``RUNS`` calls by CUDA events, in the order
-old, new, new, old repeated ``ROUNDS`` times. The two outputs must be equal bit for bit.
-Prints one JSON line per k with every turn's time and the card's name and
-power limit.
+into the git-ignored ``build/``. Per (n, k) in ``SHAPES`` the inputs are
+those of a masked half-update (a_full and the packed corrections of 5%
+masked rows, and the per-column Grams ``at`` unpacked from them; sweep
+cap 32). Two comparisons, each timed per turn as the median of ``RUNS``
+calls by CUDA events, in the order old, new, new, old repeated ``ROUNDS``
+times:
+
+- ``at``: both sources' tile entry ``nnls_cd_batched`` on ``at``;
+- ``packed``: what a masked solve costs, the old way against the new: the
+  unpack (``linalg.unpack_sym_from_t``), 1/diag and the old tile entry,
+  against the new source's packed entry ``nnls_cd_batched_packed`` on
+  ``a_full`` and ``packed_t`` (it forms 1/diag itself).
+
+All outputs must be equal bit for bit. Prints one JSON line per shape with
+every turn's time and the card's name and power limit. First, one line
+``chain``: the cycles per step (clock64 on one warp) of the CD step's
+serial chain alone, the floor of a step: the diff and clamp, then the
+delta's shuffle, then the next owner's downdate (``CHAIN_SOURCE``).
 """
 
 from __future__ import annotations
@@ -24,11 +35,79 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-KS = (50, 100, 200)
-N = 4096
+# the bench config's w-side block at k = 50 and 100, the engine's h-side
+# block at k = 100, a wide rank, and ranks above 224
+SHAPES = ((4096, 50), (4096, 100), (2048, 100), (4096, 200), (512, 256),
+          (512, 300))
 SWEEP_CAP = 32.0
-RUNS = 20
+RUNS = 10
 ROUNDS = 5
+
+
+# the CD step's chain on one warp, timed with clock64: variant 0 without
+# the shuffle, 1 with it (a half-warp's, as B2's columns of k <= 64), 2
+# also with the owner's predicated x update
+CHAIN_SOURCE = r"""
+#include <cuda_runtime.h>
+template <int V>
+__global__ void chain(float* out, long long* cyc, int iters) {
+  const int lane = threadIdx.x & 31;
+  float b = 1.0f + lane, inv = 0.5f, x = 0.25f * lane, g = 1e-3f;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    const int l = it & 15;
+    const float diff = __fadd_rn(__fsub_rn(__fmul_rn(b, inv), 0.01f),
+                                 __fmul_rn(0.001f, x));
+    float d = fmaxf(diff, -x);
+    if (V >= 1) d = __shfl_sync(0xffffffffu, d, l, 16);
+    if (V >= 2 && (lane & 15) == l) x = __fadd_rn(x, d);
+    b = __fsub_rn(b, __fmul_rn(g, d));
+  }
+  const long long t1 = clock64();
+  out[threadIdx.x] = b + x;
+  if (threadIdx.x == 0) *cyc = t1 - t0;
+}
+extern "C" int chain_cycles(int variant, int iters, long long* host) {
+  float* out;
+  long long* cyc;
+  cudaMalloc(&out, 32 * sizeof(float));
+  cudaMalloc(&cyc, sizeof(long long));
+  if (variant == 0) chain<0><<<1, 32>>>(out, cyc, iters);
+  if (variant == 1) chain<1><<<1, 32>>>(out, cyc, iters);
+  if (variant == 2) chain<2><<<1, 32>>>(out, cyc, iters);
+  const cudaError_t err = cudaMemcpy(host, cyc, sizeof(long long),
+                                     cudaMemcpyDeviceToHost);
+  cudaFree(out);
+  cudaFree(cyc);
+  return (int)err;
+}
+"""
+
+
+def _chain_cycles(torch) -> dict:
+    """Cycles per step of CHAIN_SOURCE's three variants, and the SM clock
+    nvidia-smi reads just after."""
+    from singlet_tpu_torch import _build
+
+    src = _build.BUILD_DIR / "ab_chain.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(CHAIN_SOURCE)
+    lib = _compile(src)
+    lib.chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_longlong)]
+    lib.chain_cycles.restype = ctypes.c_int
+    iters, out = 100000, {}
+    for variant, name in enumerate(("arithmetic", "with_shuffle",
+                                    "with_shuffle_and_x")):
+        for _ in range(2):   # the first launch warms up
+            cyc = ctypes.c_longlong()
+            if lib.chain_cycles(variant, iters, ctypes.byref(cyc)):
+                raise RuntimeError("chain_cycles failed")
+        out[name] = cyc.value / iters
+    out["sm_clock"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out
 
 
 def _compile(src: Path) -> ctypes.CDLL:
@@ -45,18 +124,22 @@ def _compile(src: Path) -> ctypes.CDLL:
 
 
 def _bind(lib):
-    from singlet_tpu_torch.ops.nnls_cuda import _ARGTYPES
+    """(tile entry, packed entry or None) of a built source."""
+    from singlet_tpu_torch.ops.nnls_cuda import _ARGTYPES, _ARGTYPES_PACKED
 
     fn = lib.nnls_cd_batched
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    return fn
+    packed = getattr(lib, "nnls_cd_batched_packed", None)
+    if packed is not None:
+        packed.argtypes = _ARGTYPES_PACKED
+        packed.restype = ctypes.c_int
+    return fn, packed
 
 
 def _inputs(torch, n: int, k: int, seed: int):
-    """(at, inv_diag, B, X0, mask): per-column Grams a_full minus the
-    packed Gram of each column's 5% masked rows, as a masked half-update
-    makes them."""
+    """(a_full, packed_t, iu, B, X0, mask): a masked half-update's
+    solve inputs."""
     from singlet_tpu_torch.ops import linalg
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -64,21 +147,42 @@ def _inputs(torch, n: int, k: int, seed: int):
     F = torch.rand((m_rows, k), generator=gen, device="cuda")
     iu = linalg.triu_pairs(k)
     m = torch.rand((n, m_rows), generator=gen, device="cuda") < 0.05
-    at = linalg.unpack_sym_from_t(
-        linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m, 1), k, iu,
-        F.T @ F + 1e-15 * torch.eye(k, device="cuda")).contiguous()
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
+                                 1).contiguous()
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device="cuda")
     B = torch.where(m, 0.0, torch.rand((n, m_rows), generator=gen,
                                        device="cuda")) @ F
     X0 = (torch.rand((n, k), generator=gen, device="cuda")
           * (torch.rand((n, k), generator=gen, device="cuda") < 0.5))
     mask = torch.rand(n, generator=gen, device="cuda") >= 0.05
-    inv_diag = 1.0 / at.reshape(k * k, n)[:: k + 1]
-    return at, inv_diag.contiguous(), B.contiguous(), X0, mask
+    return a_full, packed_t, iu, B.contiguous(), X0, mask
+
+
+def _turns(torch, fns, call):
+    """Per name, the median of RUNS calls of each turn, in the order old,
+    new, new, old, ROUNDS times."""
+    turns = {name: [] for name in fns}
+    for _ in range(ROUNDS):
+        for name in ("old", "new", "new", "old"):
+            times = []
+            for _ in range(RUNS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                call(name)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            turns[name].append(statistics.median(times))
+    return {"old_ms": turns["old"], "new_ms": turns["new"],
+            "old_median_ms": statistics.median(turns["old"]),
+            "new_median_ms": statistics.median(turns["new"])}
 
 
 def main() -> int:
     import torch
 
+    from singlet_tpu_torch.ops import linalg, nnls_cuda
     from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -94,43 +198,59 @@ def main() -> int:
     with ThreadPoolExecutor(2) as pool:
         fns = {name: _bind(lib) for name, lib in zip(
             ("old", "new"), pool.map(_compile, (args.old, args.new)))}
+    if fns["new"][1] is None:
+        raise SystemExit(f"{args.new} has no nnls_cd_batched_packed")
+    print(json.dumps({"chain": _chain_cycles(torch), "card": card}),
+          flush=True)
     stream = torch.cuda.current_stream().cuda_stream
-    for k in KS:
-        at, inv_diag, B, X0, mask = _inputs(torch, N, k, seed=k)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed: {err}")
+
+    for n, k in SHAPES:
+        a_full, packed_t, iu, B, X0, mask = _inputs(torch, n, k, seed=n + k)
+        starts = torch.as_tensor(nnls_cuda.packed_row_starts(k, iu),
+                                 device="cuda")
+        scalars = (n, k, 0.01, 0.001, float(k), SWEEP_CAP, CD_MAX_SWEEPS,
+                   stream)
         outs = {name: torch.empty_like(B) for name in fns}
 
-        def call(name):
-            err = fns[name](at.data_ptr(), inv_diag.data_ptr(), B.data_ptr(),
-                            X0.data_ptr(), mask.data_ptr(),
-                            outs[name].data_ptr(), N, k, 0.01, 0.001,
-                            float(k), SWEEP_CAP, CD_MAX_SWEEPS, stream)
-            if err:
-                raise RuntimeError(f"nnls_cd_batched ({name}) failed: {err}")
+        def tile(name, at, inv_diag):
+            check(fns[name][0](at.data_ptr(), inv_diag.data_ptr(),
+                               B.data_ptr(), X0.data_ptr(), mask.data_ptr(),
+                               outs[name].data_ptr(), *scalars),
+                  f"nnls_cd_batched ({name})")
 
-        for name in fns:
-            call(name)
-        torch.cuda.synchronize()
-        if not torch.equal(outs["old"], outs["new"]):
-            raise AssertionError(f"k={k}: the two versions differ")
-        turns = {name: [] for name in fns}
-        for _ in range(ROUNDS):
-            for name in ("old", "new", "new", "old"):
-                times = []
-                for _ in range(RUNS):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    call(name)
-                    end.record()
-                    torch.cuda.synchronize()
-                    times.append(start.elapsed_time(end))
-                turns[name].append(statistics.median(times))
-        print(json.dumps({
-            "k": k, "n": N, "sweep_cap": SWEEP_CAP, "card": card,
-            "same_bits": True,
-            "old_ms": turns["old"], "new_ms": turns["new"],
-            "old_median_ms": statistics.median(turns["old"]),
-            "new_median_ms": statistics.median(turns["new"])}), flush=True)
+        def solve(name):
+            """The masked solve from a_full and packed_t: the old source
+            on the unpacked tile, the new one on the packed form."""
+            if name == "old":
+                at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+                tile(name, at, 1.0 / at.reshape(k * k, n)[:: k + 1])
+                return
+            check(fns[name][1](a_full.data_ptr(), packed_t.data_ptr(),
+                               starts.data_ptr(), B.data_ptr(), X0.data_ptr(),
+                               mask.data_ptr(), outs[name].data_ptr(),
+                               *scalars),
+                  "nnls_cd_batched_packed (new)")
+
+        at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full).contiguous()
+        inv_diag = (1.0 / at.reshape(k * k, n)[:: k + 1]).contiguous()
+        row = {"n": n, "k": k, "sweep_cap": SWEEP_CAP, "card": card,
+               "same_bits": True}
+        for label, call in (("at", lambda name: tile(name, at, inv_diag)),
+                            ("packed", solve)):
+            for name in fns:
+                outs[name].fill_(float("nan"))
+                call(name)
+            torch.cuda.synchronize()
+            if not torch.equal(outs["old"], outs["new"]):
+                raise AssertionError(f"n={n} k={k} {label}: the two "
+                                     "versions differ")
+            row[label] = _turns(torch, fns, call)
+        del at
+        print(json.dumps(row), flush=True)
     return 0
 
 

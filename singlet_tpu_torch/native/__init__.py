@@ -3,7 +3,7 @@
 Port of the numpy path of ``singlet_tpu/native/__init__.py``
 ``csc_to_bell``. The JAX package's C++ packer (``libsinglet_io``) and its
 SVC readers serve the chunk-list and staged-directory ingest, which the
-port does not have yet (ROADMAP A.7b); the numpy path packs the same planes
+port does not have yet (ROADMAP A.2, streaming ingest); the numpy path packs the same planes
 bit for bit.
 """
 

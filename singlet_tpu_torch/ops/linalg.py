@@ -127,7 +127,8 @@ def unpack_sym_from_t(packed_t: torch.Tensor, k: int, iu,
     """Per-column Grams ``a_full - unpack(packed_c)`` in the coordinate-tile
     layout (k, k, n) from TRANSPOSED packed corrections ``packed_t``
     (npairs, n): a row gather, contiguous over columns, which is the layout
-    kernel B2 reads."""
+    of kernel B2's tile entry; its packed entry reads ``a_full`` and
+    ``packed_t`` themselves."""
     up = torch.index_select(packed_t, 0, _pos_index(k, iu, packed_t.device))
     return (a_full.reshape(k * k, 1) - up).reshape(k, k, packed_t.shape[1])
 

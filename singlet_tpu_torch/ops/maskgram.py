@@ -13,8 +13,8 @@ array (``maskbits.unpack_mask_bits``, B12):
   * B8/B10/B13, h-side:  packed_t[p, c] = sum_g mask(c, g) * P[g, p]  (np, block)
   * B9/B11/B14, w-side:  acc[p, g]     += sum_c mask(c, g) * P[c, p]  (np, genes)
 
-All six emit the product transposed, the orientation the per-column Gram
-unpack (``linalg.unpack_sym_from_t``) reads. B10 and B11 round the operand
+All six emit the product transposed, the orientation kernel B2's packed
+entry (and, on the CPU, the unpack ``linalg.unpack_sym_from_t``) reads. B10 and B11 round the operand
 to bf16 (the mask is an exact bf16 0/1) and sum in float32: the plain B10
 sums one partial per gene block in gene-block order, the plain B11 adds one
 partial per cell sub-block (``_sub_block``, at most 1024 cells) into

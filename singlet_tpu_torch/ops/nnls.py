@@ -181,10 +181,10 @@ def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     CPU.
 
     On CUDA a shared (k, k) Gram goes to kernel B1 and per-column (n, k, k)
-    Grams to kernel B2 (in its (k, k, n) layout, as the JAX dispatcher
-    sends them to ``nnls_batch_pallas_batched_a``); a float32 problem with
-    scalar L1 only: (n, k) L1 (batch mode) raises there rather than run the
-    plain loop.
+    Grams to kernel B2's tile entry (in its (k, k, n) layout, as the JAX
+    dispatcher sends them to ``nnls_batch_pallas_batched_a``); a float32
+    problem with scalar L1 only: (n, k) L1 (batch mode) raises there rather
+    than run the plain loop.
     """
     if B.device.type == "cuda":
         _check_cuda_problem(B, L1)
@@ -212,22 +212,18 @@ def solve_nnls_packed(a_full, packed, iu, B, X0, L1=0.0, L2=0.0,
     packed-triangle correction (the masked-CV formulation,
     reference:src/singlet.cpp:460-464: ``a_i = AAt(w) - AAt(w[:, idx])``).
 
-    ``packed``: (n, npairs) accumulated masked outer products. On CUDA the
-    Grams are emitted in kernel B2's (k, k, n) layout (``unpack_sym_t``);
-    on the CPU this is ``nnls_batch(a_full[None] - unpack_sym(packed))``.
+    ``packed``: (n, npairs) accumulated masked outer products. On CUDA this
+    is :func:`solve_nnls_packed_t` on ``packed.T``; on the CPU
+    ``nnls_batch(a_full[None] - unpack_sym(packed))``.
     """
-    from singlet_tpu_torch.ops.linalg import unpack_sym, unpack_sym_t
+    from singlet_tpu_torch.ops.linalg import unpack_sym
 
-    k = B.shape[1]
     if B.device.type == "cuda":
-        _check_cuda_problem(B, L1)
-        from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda_batched_at
-
-        return nnls_batch_cuda_batched_at(
-            unpack_sym_t(packed, k, iu, a_full), B, X0, L1=L1, L2=L2,
-            update_mask=update_mask, max_sweeps=max_sweeps, n_coord=n_coord,
-            sweep_cap=sweep_cap)
-    a = a_full[None] - unpack_sym(packed, k, iu)
+        return solve_nnls_packed_t(a_full, packed.T, iu, B, X0, L1=L1, L2=L2,
+                                   update_mask=update_mask,
+                                   max_sweeps=max_sweeps, n_coord=n_coord,
+                                   sweep_cap=sweep_cap)
+    a = a_full[None] - unpack_sym(packed, B.shape[1], iu)
     return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
                       max_sweeps=max_sweeps, n_coord=n_coord,
                       sweep_cap=sweep_cap)
@@ -238,17 +234,23 @@ def solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.0, L2=0.0,
                         n_coord=None, sweep_cap=None):
     """:func:`solve_nnls_packed` with the packed corrections TRANSPOSED,
     ``packed_t`` (npairs, n), the orientation ``linalg.mask_dot_t`` emits.
-    The (k, k, n) Grams come from one row gather (``unpack_sym_from_t``);
-    kernel B2 on CUDA, the plain version with ``a = at.permute(2, 1, 0)``
-    on the CPU.
+    On CUDA kernel B2's packed entry reads ``a_full`` and ``packed_t`` in
+    place (``nnls_cuda.nnls_batch_cuda_batched_packed_t``); on the CPU the
+    (k, k, n) Grams come from one row gather (``unpack_sym_from_t``) and go
+    to the plain version with ``a = at.permute(2, 1, 0)``.
     """
     from singlet_tpu_torch.ops.linalg import unpack_sym_from_t
-    from singlet_tpu_torch.ops.nnls_cuda import nnls_batch_cuda_batched_at
 
     if B.device.type == "cuda":
         _check_cuda_problem(B, L1)
+        from singlet_tpu_torch.ops.nnls_cuda import \
+            nnls_batch_cuda_batched_packed_t
+
+        return nnls_batch_cuda_batched_packed_t(
+            a_full.contiguous(), packed_t.contiguous(), iu, B, X0, L1=L1,
+            L2=L2, update_mask=update_mask, max_sweeps=max_sweeps,
+            n_coord=n_coord, sweep_cap=sweep_cap)
     at = unpack_sym_from_t(packed_t, B.shape[1], iu, a_full)
-    return nnls_batch_cuda_batched_at(at, B, X0, L1=L1, L2=L2,
-                                      update_mask=update_mask,
-                                      max_sweeps=max_sweeps, n_coord=n_coord,
-                                      sweep_cap=sweep_cap)
+    return nnls_batch(at.permute(2, 1, 0), B, X0, L1=L1, L2=L2,
+                      update_mask=update_mask, max_sweeps=max_sweeps,
+                      n_coord=n_coord, sweep_cap=sweep_cap)

@@ -8,8 +8,8 @@ input, and scipy input up to ``SPARSE_THRESHOLD`` dense entries, become
 dense providers on the device; larger scipy input goes to the blocked-ELL
 engine (``parallel/sharded_ell.py``) on the device. Either is built once
 and shared by every fit of a rank search, and a ``ShardedEllEngine`` passes
-through. Chunk lists and staged directories (ROADMAP A.7b) and ``mesh=``
-(A.8) raise: densifying such input silently could exhaust the card. The CV
+through. Chunk lists and staged directories (ROADMAP A.2, streaming
+ingest) and ``mesh=`` (A.4, multi-device) raise: densifying such input silently could exhaust the card. The CV
 trace frame (columns k, rep, test_error, iter, tol[, overfit_score]) is the
 JAX package's.
 
@@ -64,15 +64,15 @@ def _engine_or_providers(A, mesh, device):
     if mesh is not None:
         raise NotImplementedError(_NOT_PORTED.format(
             what="mesh=", engine="multi-device blocked-ELL engine",
-            item="A.8"))
+            item="A.4"))
     if isinstance(A, str):
         raise NotImplementedError(_NOT_PORTED.format(
             what="a staged chunk directory",
-            engine="streaming blocked-ELL ingest", item="A.7b"))
+            engine="streaming blocked-ELL ingest", item="A.2"))
     if isinstance(A, (list, tuple)):
         raise NotImplementedError(_NOT_PORTED.format(
             what="a chunk list", engine="streaming blocked-ELL ingest",
-            item="A.7b"))
+            item="A.2"))
     device = resolve_device(device)
     if is_scipy_sparse(A):
         if A.shape[0] * A.shape[1] > SPARSE_THRESHOLD:

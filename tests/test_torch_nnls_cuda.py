@@ -113,9 +113,10 @@ def test_run_nmf_on_card_matches_cpu(cuda):
 
 # ------------------------------------------------------------- kernel B2
 
-def _masked_problem(n, k, seed, device):
-    """Per-column Grams as a masked half-update makes them, in B2's
-    (k, k, n) layout: a_full minus the packed Gram of 5% masked rows."""
+def _masked_problem_packed(n, k, seed, device):
+    """A masked half-update's solve: a_full (k, k), the packed Gram
+    corrections of each column's 5% masked rows packed_t (npairs, n), iu,
+    B, a warm X0 with zeros and a 90% update mask."""
     from singlet_tpu_torch.ops import linalg
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -125,12 +126,22 @@ def _masked_problem(n, k, seed, device):
     m = torch.rand((n, rows), generator=g, device=device) < 0.05
     packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m, 1)
     a_full = F.T @ F + 1e-15 * torch.eye(k, device=device)
-    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
     G = torch.rand((n, rows), generator=g, device=device)
     B = torch.where(m, 0.0, G) @ F
     X0 = (torch.rand((n, k), generator=g, device=device)
           * (torch.rand((n, k), generator=g, device=device) < 0.5))
     mask = torch.rand(n, generator=g, device=device) < 0.9
+    return a_full, packed_t, iu, B, X0, mask
+
+
+def _masked_problem(n, k, seed, device):
+    """Per-column Grams as a masked half-update makes them, in B2's
+    (k, k, n) layout: a_full minus the packed Gram of 5% masked rows."""
+    from singlet_tpu_torch.ops import linalg
+
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(n, k, seed,
+                                                               device)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
     return at, B, X0, mask
 
 
@@ -210,3 +221,101 @@ def test_masked_fit_on_card_matches_cpu(cuda):
     for f in ("w", "h", "d"):
         np.testing.assert_allclose(getattr(r_gpu, f), getattr(r_cpu, f),
                                    rtol=5e-3, atol=5e-4)
+
+
+# ------------------------------------------------------ B2's packed entry
+
+@pytest.mark.parametrize("n,k", [(256, 9), (1500, 10), (2048, 50),
+                                 (1024, 100), (2048, 100), (130, 224),
+                                 (130, 256), (96, 300), (512, 300)])
+@pytest.mark.parametrize("sweep_cap", [None, 32.0])
+def test_packed_entry_matches_tile_entry_and_plain(cuda, n, k, sweep_cap):
+    """The packed entry gives the tile entry's bits on the unpacked Grams,
+    and is within the tolerance of the plain version; masked columns
+    return X0."""
+    from singlet_tpu_torch.ops import linalg
+
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(
+        n, k, n + k, cuda)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=sweep_cap)
+    before = nnls_cuda.LAUNCHES_BATCHED
+    Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    assert nnls_cuda.LAUNCHES_BATCHED == before + 1
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(Xk, Xt)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+
+
+def test_both_entries_take_every_k(cuda):
+    """Every k in 1..512 launches on both entries (each k picks its
+    shared-memory or streamed layout) with the same bits; against the
+    plain version at the layouts' edges."""
+    from singlet_tpu_torch.ops import linalg
+
+    edges = {1, 16, 17, 32, 33, 48, 49, 64, 65, 80, 81, 96, 97, 106, 107,
+             112, 113, 128, 129, 192, 193, 240, 241, 256, 257, 320, 321, 384,
+             385, 512}
+    for k in range(1, nnls_cuda.MAX_K_BATCHED + 1):
+        a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(
+            11, k, k, cuda)
+        at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+        kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=2.0)
+        Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t,
+                                                        iu, B, X0, **kw)
+        Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(Xk, Xt), k
+        if k in edges:
+            Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+            np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                       rtol=5e-3, atol=1e-6, err_msg=str(k))
+
+
+def test_solve_packed_t_reads_the_packed_form(cuda, monkeypatch):
+    """On the card solve_nnls_packed_t launches B2's packed entry once,
+    runs no plain version and writes no (k, k, n) tile."""
+    from singlet_tpu_torch.ops import linalg
+
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(
+        333, 20, 5, cuda)
+    want = nnls.nnls_batch(
+        linalg.unpack_sym_from_t(packed_t, 20, iu, a_full).permute(2, 1, 0),
+        B, X0, L1=0.01, update_mask=mask, sweep_cap=32.0)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("unpack_sym_from_t called")
+
+    monkeypatch.setattr(linalg, "unpack_sym_from_t", refuse)
+    counts = (nnls_cuda.LAUNCHES_BATCHED, nnls.PLAIN_CALLS)
+    X = nnls.solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.01,
+                                 update_mask=mask, sweep_cap=32.0)
+    assert (nnls_cuda.LAUNCHES_BATCHED, nnls.PLAIN_CALLS) == (
+        counts[0] + 1, counts[1])
+    np.testing.assert_allclose(X.cpu().numpy(), want.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+
+
+def test_packed_entry_checks_inputs(cuda):
+    a_full, packed_t, iu, B, X0, _ = _masked_problem_packed(64, 6, 6, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t[:-1],
+                                                   iu, B, X0)
+    with pytest.raises(ValueError, match="contiguous"):
+        nnls_cuda.nnls_batch_cuda_batched_packed_t(
+            a_full, packed_t.T.contiguous().T, iu, B, X0)
+    with pytest.raises(ValueError, match="triu_pairs"):
+        nnls_cuda.nnls_batch_cuda_batched_packed_t(
+            a_full, packed_t, (iu[1], iu[0]), B, X0)
+    k = nnls_cuda.MAX_K_BATCHED + 1
+    with pytest.raises(NotImplementedError, match="B2"):
+        nnls_cuda.nnls_batch_cuda_batched_packed_t(
+            torch.eye(k, device=cuda), torch.ones((k * (k + 1) // 2, 4),
+                                                  device=cuda),
+            None, torch.ones((4, k), device=cuda),
+            torch.zeros((4, k), device=cuda))

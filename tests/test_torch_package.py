@@ -126,10 +126,10 @@ _ENTRY_POINTS = {
 def test_unported_routes_raise(rng, what, entry, tmp_path):
     A = rng.random((30, 20)).astype(np.float32)
     kw = {}
-    item = "A.7b"
+    item = "A.2"
     if what == "mesh":
         kw["mesh"] = object()
-        item = "A.8"
+        item = "A.4"
     elif what == "list":
         A = [A[:, :10], A[:, 10:]]
     elif what == "dir":
