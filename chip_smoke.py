@@ -57,7 +57,7 @@ Phases; any failure raises and the script exits non-zero:
    version and library call (torch.sparse.mm on a CSR copy for B3-B6,
    torch._int_mm on the unpacked int8 mask for B8/B9 and B13/B14), and
    each kernel's bound (B8/B9/B13/B14 also the dense product at the
-   peak); on the large slice B5 also in turns with torch.sparse.mm
+   peak); B3 (unmasked) and B5 also in turns with torch.sparse.mm
    (kernel, library, library, kernel, 3 times), for the spread of the
    ratio;
 10. the ELL engine against the dense providers on the bench operand from
@@ -74,19 +74,22 @@ Phases; any failure raises and the script exits non-zero:
    of masked B4; B2 both entries, the same bits); ``run_nmf`` at k=256
    on a 4096 x 2048 operand, and the ELL engine's plain fit and masked
    ``ard_fit`` at k=256 on a small operand, on the card against the CPU
-   (B3 and B5 launch once per 224-column chunk of W, so twice a call);
+   (B3 and B5 launch once a call at any k);
 11. the large operand of benchmarks/largescale.py generated on the card
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
    and B4 launches, no plain call), ``project`` of all cells, one plain
-   step under torch.profiler (with B4's share of its device time); the masked ``ard_fit`` on the f32 route for
-   1 traced iteration, with one f32 masked step and test MSE under the
-   profiler; then the bits route: the test mask packed (seconds, GiB), the
+   step under torch.profiler (with B3's, B1's and B4's shares of its
+   device time, and B3's time by CUDA events inside the profiled call,
+   since the profiler's list has missed it); the masked ``ard_fit`` on the
+   f32 route for 1 traced iteration, with one f32 masked step and test MSE
+   under the profiler; then the bits route: the test mask packed (seconds, GiB), the
    masked ``ard_fit`` for 2 traced iterations (per iteration exactly 256
    B5, B6, B8, 16 B9, 257 B2 and one B7 launch, nothing else), one step
    and one test MSE timed and under the profiler (with B2's, B5's, B6's,
    B8's and B9's shares of its device time, B8's and B9's passes apart,
-   B2's h-side and w-side calls apart by launch grid); then the
+   B2's h-side and w-side calls apart by launch grid; the test MSE with
+   B7's time by CUDA events inside the profiled call); then the
    step under ``SINGLET_TPU_MASK8=1`` (per step 16 B12, 256 B13, 16 B14), timed
    in turns with the bits step (bits, MASK8, MASK8, bits; the same bits),
    the peak memory of each, B12 on one group's words the same bytes as its
@@ -808,15 +811,26 @@ def phase_bell_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                                      "runs differ")
             ms = _median_ms(torch, lambda: call(kern), runs=20)
             plain_ms = _median_ms(torch, lambda: call(plain), runs=3)
-            library_ms, nnz, lib_err, _ = _spmm_library(torch, csr[masked],
-                                                        name, X, got)
+            library_ms, nnz, lib_err, lib = _spmm_library(
+                torch, csr[masked], name, X, got)
             if not lib_err <= BELL_TOL * scale:
                 raise AssertionError(f"{name} {label} masked={masked}: the "
                                      f"library call differs by {lib_err}")
+            extra_row = {}
+            if name == "B3" and not masked:
+                # which way B3 falls against its library call, with the
+                # spread of the ratio, as B5's
+                extra_row["turns"] = t = _turns(torch, lambda: call(kern),
+                                                lib)
+                print(f"kernel B3 {label} in turns with torch.sparse.mm: "
+                      f"{t['kernel_ms']} against {t['library_ms']} ms, "
+                      f"ratio of the medians {t['ratio']:.4f} ({card})",
+                      flush=True)
             rows.append(dict(shape=label, kernel=name, masked=masked,
                              cells=cells, k=k, width=width,
                              max_abs_err=err, max_abs_out=scale, ms=ms,
                              plain_ms=plain_ms, library_ms=library_ms,
+                             **extra_row,
                              **_bound(2 * li.numel() * 4
                                       + (genes + cells) * k * 4,
                                       2 * nnz * k, F32_OPS_S)))
@@ -1901,10 +1915,7 @@ def phase_wide_k(torch, card, data):
     ard_kw = dict(fit_kw, mask_seed=2, inv_density=10, trace_test_mse=1,
                   overfit_threshold=1.0)
     g_fit, fit_s, n_fit = _counted(torch, lambda: gpu.fit(E["k"], **fit_kw))
-    # B3 launches once per column chunk of W
-    chunks = -(-E["k"] // bell_cuda.B3_K_CHUNK)
-    if n_fit != _launches(B1=2 * E["maxit"], B3=E["maxit"] * chunks,
-                          B4=E["maxit"]):
+    if n_fit != _launches(B1=2 * E["maxit"], B3=E["maxit"], B4=E["maxit"]):
         raise AssertionError(f"ELL fit at k={E['k']}: launches {n_fit}")
     with _kernel_routes_on_cpu():
         c_fit = ShardedEllEngine(A, device="cpu", **geom).fit(E["k"],
@@ -2027,7 +2038,9 @@ def phase_large(torch, card, ckdir):
     profile = _profile(torch, card, lambda: fns["plain"](
         W, H, 0.01, 0.01, 0.0, 0.0, sweep_cap=float(settings.fast)),
         label=f"large plain ELL step (sweep cap {settings.fast})",
-        share=("bell_spmm_t_kernel", "B4"))
+        share=(("bell_spmm_kernel", "B3"), ("nnls_cd_shared", "B1"),
+               ("bell_spmm_t_kernel", "B4")),
+        events=(("bell_spmm_cuda", "B3"),))
 
     seed = seed_pair(MASKED["mask_seed"])
     blocks = cells // L["cell_block"]
@@ -2133,7 +2146,9 @@ def phase_large(torch, card, ckdir):
                              ("bell_spmm_kernel", "B5"), B2_SHARE),
                          grids=(B2_SHARE[0],)),
         mse_profile=_profile(torch, card, mse,
-                             label="large test MSE, bits route (B7)"))
+                             label="large test MSE, bits route (B7)",
+                             share=(("bell_mse_bits", "B7"),),
+                             events=(("bell_mse_bits_cuda", "B7"),)))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
                                           step_s * 1e3, (W, H, seed), F)
     del bits
@@ -2442,7 +2457,43 @@ def phase_ell_entry(torch, card):
                         best_rank=best, rows=len(df)))
 
 
-def _profile(torch, card, fn, label="race", share=(), grids=()):
+@contextlib.contextmanager
+def _event_timed(torch, names):
+    """Within the block, each wrapper of ``ops/bell_cuda.py`` named in
+    ``names`` (its attribute name and a label) records a CUDA event before
+    and after each call, on the current stream; yields a dict that, after
+    the block, maps each label to [ms, calls]: the device time between the
+    events, which bracket the wrapper's one kernel launch."""
+    from singlet_tpu_torch.ops import bell_cuda
+
+    spans = {label: [] for _, label in names}
+    saved = {attr: getattr(bell_cuda, attr) for attr, _ in names}
+
+    def timed(fn, label):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[label].append((start, end))
+            return out
+        return wrapper
+
+    totals = {}
+    for attr, label in names:
+        setattr(bell_cuda, attr, timed(saved[attr], label))
+    try:
+        yield totals
+    finally:
+        for attr, fn in saved.items():
+            setattr(bell_cuda, attr, fn)
+    torch.cuda.synchronize()
+    for label, pairs in spans.items():
+        totals[label] = [sum(a.elapsed_time(b) for a, b in pairs), len(pairs)]
+
+
+def _profile(torch, card, fn, label="race", share=(), grids=(), events=()):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and
     the device's idle share of the run's wall time. For each entry of
     ``share`` (a kernel name's key, or a tuple of keys, and its label, as
@@ -2451,22 +2502,29 @@ def _profile(torch, card, fn, label="race", share=(), grids=()):
     ``<label>_share``. For each key of ``grids``, the device time and
     launches of the kernels whose name holds it, by launch grid (from the
     exported trace), recorded as ``<key>_by_grid``: B2's h-side and w-side
-    calls run one kernel on grids of different sizes."""
+    calls run one kernel on grids of different sizes. For each entry of
+    ``events`` (a wrapper of ``ops/bell_cuda.py`` and a label, as
+    ("bell_spmm_cuda", "B3")), the device time of its calls inside the
+    profiled run by CUDA events, recorded as ``<label>_events_ms``: the
+    profiler's list has shown no row for B3 in the plain step and for B7
+    in the test MSE. Where the profiler misses a kernel that the events
+    time, ``busy_ms_events`` and ``idle_share_events`` add its event time
+    to the profiler's busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        # the trace can miss the first kernel launched in its window (kernel
-        # B3, when ``fn`` starts with it): launch a tiny one before the
-        # timed run
+        # a tiny kernel first: the trace has missed the first kernel
+        # launched in its window
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with _event_timed(torch, events) as timed_ms:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: an aten op's device time repeats its kernels'
     kernels = {ev.key: ev.self_device_time_total
                for ev in prof.key_averages()
@@ -2481,6 +2539,7 @@ def _profile(torch, card, fn, label="race", share=(), grids=()):
         print(f"  {us / 1e3:9.2f} ms  {us / max(busy_us, 1e-9):6.1%}  "
               f"{name[:90]}", flush=True)
     out = dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+               idle_share=1 - busy_us / wall_us,
                kernels_ms={name: us / 1e3 for name, us in top})
     if share and isinstance(share[0], str):
         share = (share,)
@@ -2492,6 +2551,22 @@ def _profile(torch, card, fn, label="race", share=(), grids=()):
         out[f"{name}_share"] = ms / max(busy_us / 1e3, 1e-9)
         print(f"  kernel {name}: {ms:.2f} ms of {busy_us / 1e3:.1f} ms "
               f"device time ({out[f'{name}_share']:.1%})", flush=True)
+    missed_ms = 0.0
+    for name, (ms, calls) in timed_ms.items():
+        out[f"{name}_events_ms"] = ms
+        out[f"{name}_events_calls"] = calls
+        seen = out.get(f"{name}_ms", 0.0)
+        if seen < 0.5 * ms:
+            missed_ms += ms - seen
+        print(f"  kernel {name} by CUDA events inside the profiled call: "
+              f"{ms:.2f} ms over {calls} calls (the profiler's list "
+              f"{seen:.2f} ms)", flush=True)
+    if timed_ms:
+        out["busy_ms_events"] = busy_us / 1e3 + missed_ms
+        out["idle_share_events"] = 1 - out["busy_ms_events"] * 1e3 / wall_us
+        print(f"  device busy with the kernels the profiler missed "
+              f"{out['busy_ms_events']:.1f} ms, idle share "
+              f"{out['idle_share_events']:.3f} ({card})", flush=True)
     if grids:
         path = os.path.join(ROOT, "build", f"trace_{os.getpid()}.json")
         prof.export_chrome_trace(path)

@@ -45,7 +45,8 @@ one of the JAX package's 14 Pallas kernels has a Hopper counterpart.
 Ranks: on the card a fit takes k <= 512, the limit of kernels B1, B2 and
 B7 (their register tiles; ``ops/nnls_cuda.py`` ``MAX_K`` and
 ``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``), which raise past
-it; B3/B5 take any k in column chunks of 224, the other kernels any k.
+it; B3/B5 take any k in one launch (and gene blocks of up to 7,168 and
+5,632 genes), the other kernels any k.
 The JAX package has no such limit.
 
 Resumable fits: ``checkpoint=`` of ``nmf_fit``, ``ard_nmf_fit``,

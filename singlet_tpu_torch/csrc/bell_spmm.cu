@@ -19,7 +19,8 @@
 // add, the final xorshifts and `x % inv_density == 0`), on native uint64;
 // or (`masked` 2, B5 and B6) 1 - the test bit of (c, g) in the packed words
 // of singlet_tpu_torch/ops/maskbits.py, words[c, (gb >> 5) * GB + li] >>
-// (gb & 31) & 1, one load and one shift per slot in place of the hash.
+// (gb & 31) & 1, in place of the hash (B6 loads a word per slot; B5 reads
+// the bit from its first kernel's transpose of the words).
 // Pad slots are skipped: the TPU kernel multiplies them out, hashing a
 // bogus gene id. The three modes differ only in which slots are skipped,
 // so B5 gives the bits of B3 with the hash, and B6 those of B4, whenever
@@ -35,16 +36,46 @@
 // bound is the number of gathered rows moved through L1/L2 and shared
 // memory per nonzero, k floats each.
 //
-// B3: one warp per cell. Lane l reads slot w0 + l of the cell (the eight
-// warps of a block take eight neighbouring cells, so a 32-byte sector of a
-// plane row serves the whole block from L1), hashes its own slot, and the
-// warp then walks the live slots in order: each one broadcast by shuffle,
-// the lanes gather W's row (coalesced, k floats; W is 6.5 MB at k=100 and
-// stays in L2) and accumulate the cell's k outputs in registers. Each
-// output is one thread's sum in a fixed order: deterministic. A lane holds
-// at most 7 outputs (k <= 224); the wrapper (ops/bell_cuda.py) launches a
-// wider W in column chunks of at most 224, which gives the same sums, since
-// no output's sum depends on the other columns.
+// B3 (and B5, its mode 2): W's rows come from shared memory, one gene
+// block at a time. A block owns a cell tile of C = 64, 128 or 256 cells and
+// a column tile of kt <= 32 columns (a multiple of 4); the blocks of a
+// cell tile's column tiles are neighbours in the grid, so its planes come
+// from L2 after the first read, and pairs of them form a cluster. The block
+// walks the gene blocks in order (planes wider than shared memory holds
+// in windows of slot rows, one after the other). Per step, 4 stager warps
+// prepare the next step while 16 walker warps walk this one: one stager
+// asks TMA for W's (gene_block, kt) slice of the next gene block (into the
+// buffer of its parity; the box zero-fills past k); the stagers keep-test
+// this block's share of the next step's window (half the slot rows in a
+// cluster of two), once for the cluster (the hash, its `%` a multiply by a
+// modular inverse, or the test bit), from ids and values that TMA brought
+// as soon as the last share was read, and write per slot its W row's
+// offset in the slice and its value, a pad or held-out slot pointing at a
+// zero row with the value -0, whose fmaf leaves every sum as it is; a bulk
+// copy takes the share to the other block of the cluster, counted on its
+// mbarrier. The walkers take a quarter-warp per cell (lane q holds columns
+// 4q .. 4q + 3): per slot one 8-byte (offset, value) load shared by the
+// quarter and one 16-byte load of W's row from shared memory, four fmaf,
+// no branch, so several slots' loads are in flight. Every output is one
+// lane's fmaf chain over its cell's gene blocks in order and, in each, its
+// slots in slot order: the bits of the one-warp-per-cell kernel this
+// design replaces, and B5's are masked B3's. One launch for any k.
+// B5 first runs a small kernel that transposes its cells' words into test
+// bits by gene block, bm[gb][l >> 5][c] (bell_words_t_kernel): a word load
+// per slot goes through the L1 data path the walk uses and slowed the
+// walkers by about 65%; instead the stagers' TMA brings a gene block's
+// bits of the tile's cells (ceil(GB / 32) words a cell) with the ids, and
+// a slot's test is a bit in shared memory.
+// What bounds it: the walk's shared-memory wavefronts, one 128-byte
+// wavefront per quarter-warp and slot, pads included, and one per warp for
+// the pairs (5 per 4 cells and slot at kt <= 32); then L2, which brings
+// W's slice once per cell tile and gene block (|W| / C a cell), the planes
+// once per cluster and B5's test bits once per column tile. Budget per
+// block (640 threads, one block an SM, clusters of two): at most 96
+// registers a thread and no spills (ptxas -v); at k = 100, 128 cells and
+// 32 slot rows, 196,904 bytes of shared memory (2 x 57 KB of W, 2 x 32 KB
+// of windows, 2 x 8 KB of ids and values, 5 mbarriers), 8 KB more of test
+// bits in B5.
 //
 // B4 (and B6, its mode 2): the scatter direction, deterministic without
 // float atomics. A block of 20 warps owns (gene block gb, a row group of
@@ -94,13 +125,21 @@
 // --use_fast_math. Only the order of the sums differs from the plain
 // PyTorch versions.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;                       // B3: warps (cells) per block
+constexpr int kWalkWarps = 16;                  // B3: warps that walk
+constexpr int kStageWarps = 4;                  // B3: warps that stage
+constexpr int kStageThreads = kStageWarps * 32;
+constexpr int kThreads3 = kWalkWarps * 32 + kStageThreads;
+constexpr int kLanesCell = 8;                   // B3: lanes a cell, 4 columns each
+constexpr int kCellsPass = kWalkWarps * 32 / kLanesCell;  // B3: cells walked at once
+constexpr int kMaxRounds = 4;                   // B3: passes of 64 cells a block
+constexpr int kColTile3 = 4 * kLanesCell;       // B3: output columns a block
+constexpr int kBatch = 8;                       // B3: slots a stager tests at once
 constexpr int kWarpsT = 20;                     // B4: warps per block
 constexpr int kThreadsT = kWarpsT * 32;
 constexpr int kTile = 64;                       // B4: cells per tile
@@ -120,87 +159,10 @@ __device__ __forceinline__ uint64_t hash_i(uint64_t seed, uint64_t i) {
   return x;
 }
 
-__device__ __forceinline__ bool held_out(uint64_t xi, uint64_t j,
-                                         uint64_t inv_density) {
-  j ^= j >> 7;
-  j ^= j << 23;
-  j ^= j >> 8;
-  uint64_t x = xi + j;
-  x ^= x >> 7;
-  x ^= x << 53;
-  x ^= x >> 4;
-  return x % inv_density == 0;
-}
-
 // global cell and gene ids enter the hash as uint32, as in rngmask.py
 __device__ __forceinline__ uint64_t cell_hash(uint64_t seed,
                                               long long cell_id) {
   return hash_i(seed, (uint64_t)(uint32_t)cell_id);
-}
-
-// keep mode 2: whether the packed words hold cell c's test bit at gene
-// block gb, local gene l (`wrow` is cell c's row of words)
-__device__ __forceinline__ bool word_bit(const uint32_t* __restrict__ wrow,
-                                         int gb, int gene_block, int l) {
-  return (wrow[(gb >> 5) * gene_block + l] >> (gb & 31)) & 1u;
-}
-
-template <int NPL>  // output columns per lane: k <= 32 * NPL
-__global__ void __launch_bounds__(kWarps * 32)
-bell_spmm_kernel(const int32_t* __restrict__ li, const float* __restrict__ lv,
-                 long long ld, int n_gb, int width, int cells,
-                 int gene_block, const float* __restrict__ W, int k,
-                 float* __restrict__ B, int masked, uint64_t seed,
-                 long long cell_offset, uint64_t inv_density,
-                 const uint32_t* __restrict__ words, long long wld) {
-  const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c >= cells) return;  // whole warps only
-  const uint64_t xi = masked == 1 ? cell_hash(seed, cell_offset + c) : 0;
-  const uint32_t* wrow = masked == 2 ? words + c * wld : nullptr;
-  float acc[NPL];
-#pragma unroll
-  for (int s = 0; s < NPL; ++s) acc[s] = 0.f;
-
-  for (int gb = 0; gb < n_gb; ++gb) {
-    for (int w0 = 0; w0 < width; w0 += 32) {
-      const int w = w0 + lane;
-      int g = -1;
-      float v = 0.f;
-      if (w < width) {
-        const long long off = (long long)(gb * width + w) * ld + c;
-        const int l = li[off];
-        if (l >= 0) {
-          g = gb * gene_block + l;
-          v = lv[off];
-          if ((masked == 1 &&
-               held_out(xi, (uint64_t)(uint32_t)g, inv_density)) ||
-              (masked == 2 && word_bit(wrow, gb, gene_block, l))) {
-            g = -1;  // held out: keep = 0, the entry adds nothing
-          }
-        }
-      }
-      unsigned live = __ballot_sync(kFull, g >= 0);
-      while (live) {
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const int gj = __shfl_sync(kFull, g, j);
-        const float vj = __shfl_sync(kFull, v, j);
-        const float* w_row = W + (long long)gj * k;
-#pragma unroll
-        for (int s = 0; s < NPL; ++s) {
-          const int col = s * 32 + lane;
-          if (col < k) acc[s] = fmaf(vj, w_row[col], acc[s]);
-        }
-      }
-    }
-  }
-  float* b_row = B + c * k;
-#pragma unroll
-  for (int s = 0; s < NPL; ++s) {
-    const int col = s * 32 + lane;
-    if (col < k) b_row[col] = acc[s];
-  }
 }
 
 // ---- B4 and B6 --------------------------------------------------------------
@@ -359,12 +321,12 @@ __device__ __forceinline__ void b4_load_tile(const B4Args& a, int t, int gb,
 
 // whether slot (cell, gene gb * gene_block + l) is kept in keep mode MODE:
 // `xi` is the cell's hash (mode 1), `word` its packed test-mask word of l
-// (mode 2)
-template <int MODE>
-__device__ __forceinline__ bool b4_kept(const B4Args& a, int gb, uint64_t xi,
-                                        int l, uint32_t word) {
+// (mode 2); `a` is a B3Args or a B4Args
+template <int MODE, typename Args>
+__device__ __forceinline__ bool slot_kept(const Args& a, int gb, uint64_t xi,
+                                          int l, uint32_t word) {
   if (MODE == 1) {
-    // held_out's mix, then its divisibility test as a multiply
+    // the gene mix of rngmask.py, then `x % inv_density == 0` as a multiply
     uint64_t j = (uint64_t)(uint32_t)(gb * a.gene_block + l);
     j ^= j >> 7;
     j ^= j << 23;
@@ -478,7 +440,7 @@ bell_spmm_t_kernel(const B4Args a) {
         }
         const int r = l - r0;
         if ((unsigned)r < (unsigned)rows &&
-            b4_kept<MODE>(a, gb, xi, l, MODE == 2 ? __ldg(wrow + l) : 0u)) {
+            slot_kept<MODE>(a, gb, xi, l, MODE == 2 ? __ldg(wrow + l) : 0u)) {
           s_val[r * kTile + c] = v;
           const uint32_t bit = 1u << (c & 31);
           dup |= (atomicOr(bits + r * kTileWords + (c >> 5), bit) & bit) != 0u;
@@ -506,7 +468,7 @@ bell_spmm_t_kernel(const B4Args a) {
             const int r = l - r0;
             if ((unsigned)r >= (unsigned)rows) continue;
             const uint32_t word = MODE == 2 ? __ldg(wrow + l) : 0u;
-            if (!b4_kept<MODE>(a, gb, xi, l, word)) continue;
+            if (!slot_kept<MODE>(a, gb, xi, l, word)) continue;
             float* slot = s_val + r * kTile + c;
             *slot = pass == 0 ? 0.f : *slot + __ldg(a.lv + off);
           }
@@ -602,35 +564,556 @@ bell_spmm_t_kernel(const B4Args a) {
   }
 }
 
-template <int NPL>
-cudaError_t launch_b3(const int32_t* li, const float* lv, long long ld,
-                      int n_gb, int width, int cells, int gene_block,
-                      const float* W, int k, float* B, int masked,
-                      uint64_t seed, long long cell_offset,
-                      uint64_t inv_density, const uint32_t* words,
-                      long long wld, cudaStream_t stream) {
-  const int blocks = (cells + kWarps - 1) / kWarps;
-  bell_spmm_kernel<NPL><<<blocks, kWarps * 32, 0, stream>>>(
-      li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed,
-      cell_offset, inv_density, words, wld);
-  return cudaGetLastError();
+// ---- B3 and B5 --------------------------------------------------------------
+
+// Arguments of one B3/B5 launch; the host plan (kt, rounds, win, cs) comes
+// from the shapes alone (ops/bell_cuda.py `b3_plan`).
+struct B3Args {
+  int n_gb, width, cells, gene_block, k;
+  float* B;            // (cells, k)
+  int kt;              // columns a column tile: a multiple of 4, <= 32
+  int n_kt;            // column tiles
+  int rounds;          // passes of 64 cells: a block holds 64 * rounds cells
+  int win;             // slot rows a window: width, or fewer if it is wider
+  int cs;              // blocks of a cluster: neighbouring column tiles
+  int box_rows;        // gene rows a TMA box of W: min(gene_block, 256)
+  int masked;
+  uint64_t seed;
+  long long cell_offset;
+  int shift;           // x % inv_density == 0 as a multiply, as in B4Args
+  uint64_t odd_inverse;
+  uint64_t odd_limit;
+  int bm_words;        // keep mode 2: words of a cell's test bits a gene
+                       // block, 0 otherwise
+};
+
+// keep mode 2's test bits by gene block: words[c, (gb >> 5) * GB + l] bit
+// (gb & 31) becomes bit (l & 31) of bm[gb][l >> 5][c] (cells at a row
+// stride of `bm_ld`, a multiple of 4, for TMA). A block takes 32 cells and
+// 256 genes of one word group: its warps load the cells' words into
+// shared memory along the rows, then thread (warp jj, lane c) transposes
+// cell c's 32 words of genes 32 jj .. 32 jj + 31 in registers (five block
+// swaps) and stores them, neighbouring threads on neighbouring cells.
+constexpr int kBmCells = 32;
+constexpr int kBmWords = 8;   // 32-gene words a block, one per warp
+
+__global__ void __launch_bounds__(256)
+bell_words_t_kernel(const uint32_t* __restrict__ words, long long wld,
+                    int cells, int n_gb, int gene_block, int bm_words,
+                    long long bm_ld, uint32_t* __restrict__ bm) {
+  __shared__ uint32_t tile[kBmCells][32 * kBmWords + 1];
+  const int n_t = (n_gb + 31) / 32;
+  const int n_jb = (bm_words + kBmWords - 1) / kBmWords;
+  const int jb = (int)(blockIdx.x % n_jb);
+  const int t = (int)(blockIdx.x / n_jb % n_t);
+  const long long c0 = (long long)(blockIdx.x / n_jb / n_t) * kBmCells;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int r = warp; r < kBmCells; r += 8) {
+    const long long c = c0 + r;
+    for (int x = lane; x < 32 * kBmWords; x += 32) {
+      const int l = 32 * kBmWords * jb + x;
+      tile[r][x] = c < cells && l < gene_block
+                       ? __ldg(words + c * wld + (long long)t * gene_block + l)
+                       : 0u;
+    }
+  }
+  __syncthreads();
+  const int j = kBmWords * jb + warp;
+  const long long c = c0 + lane;
+  if (j >= bm_words || c >= cells) return;
+  uint32_t m[32];   // m[r] bit b: gene 32 j + r, gene block 32 t + b
+#pragma unroll
+  for (int r = 0; r < 32; ++r) m[r] = tile[lane][32 * warp + r];
+  uint32_t mask = 0x0000ffffu;
+#pragma unroll
+  for (int h = 16; h != 0; h >>= 1, mask ^= mask << h) {
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      if (r & h) continue;
+      const uint32_t x = ((m[r] >> h) ^ m[r + h]) & mask;
+      m[r] ^= x << h;
+      m[r + h] ^= x;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 32; ++b) {
+    const int gb = 32 * t + b;
+    if (gb < n_gb) bm[((long long)gb * bm_words + j) * bm_ld + c] = m[b];
+  }
+}
+
+// floats of one buffer of W's slice: whole TMA boxes of gene rows, a zero
+// row, room for the last lanes' reads past it, 128-byte aligned
+__host__ __device__ inline int b3_w_floats(int gene_block, int kt) {
+  const int box = gene_block < 256 ? gene_block : 256;
+  const int rows = (gene_block + box - 1) / box * box;
+  return (rows * kt + 32 + 31) / 32 * 32;
+}
+
+// words of a cell's test bits of one gene block (ops/bell_cuda.py
+// `b3_bm_words` is the same)
+__host__ __device__ inline int b3_bm_words(int gene_block) {
+  return (gene_block + 31) / 32;
+}
+
+// slot rows a block stages: its share of a window of win rows
+__host__ __device__ inline int b3_share(int win, int cs) {
+  return (win + cs - 1) / cs;
+}
+
+// dynamic shared memory of a block (ops/bell_cuda.py `b3_smem` is the
+// same): two buffers of W's slice (b3_w_floats), two of the cells' (win,
+// 64 * rounds) slot window of (offset, value) pairs, the ids and the
+// values of the block's share of a window (each 128-byte aligned), in
+// keep mode 2 the cells' test bits of a gene block (bm_words a cell), and
+// five mbarriers
+__host__ __device__ inline long long b3_smem_bytes(int gene_block, int win,
+                                                   int kt, int rounds, int cs,
+                                                   int bm_words) {
+  const long long c = (long long)kCellsPass * rounds;
+  const long long raw = (b3_share(win, cs) * c + 31) / 32 * 32;
+  return 2LL * b3_w_floats(gene_block, kt) * 4 + 2 * win * c * 8 +
+         2 * raw * 4 + c * bm_words * 4 + 40;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster; release and acquire, so
+// stores to other blocks' shared memory before it are seen after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the stagers' own barrier (named barrier 1; the walkers never wait on it)
+__device__ __forceinline__ void stagers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kStageThreads) : "memory");
+}
+
+// the address in the cluster's shared memory of shared address `local` of
+// the cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local,
+                                                 uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// copy `bytes` (a multiple of 16) of this block's shared memory at `src`
+// to `dst` in another block of the cluster, counted on that block's
+// mbarrier `bar` (both cluster addresses)
+__device__ __forceinline__ void bulk_to_cluster(uint32_t dst, uint32_t src,
+                                                uint32_t bytes,
+                                                uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA boxes of `map` at the given coordinates (innermost first) into
+// shared memory, counted on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// keep mode MODE (0, 1 or 2); block b owns column tile b % n_kt and cells
+// [(b / n_kt) * C, + C), C = 64 * rounds; the cluster's cs blocks are
+// neighbouring column tiles of one cell tile. tm_w views W as (k, gene
+// rows, gene blocks) with boxes (kt, box_rows, 1); tm_li and tm_lv view
+// the planes as (cells, slot rows) with boxes (C, a block's share of a
+// window); in keep mode 2, tm_bm views the test bits as (cells, bm_words,
+// gene blocks) with boxes (C, bm_words, 1).
+template <int MODE>
+__global__ void __launch_bounds__(kThreads3, 1)
+bell_spmm_kernel(const B3Args a, const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_li,
+                 const __grid_constant__ CUtensorMap tm_lv,
+                 const __grid_constant__ CUtensorMap tm_bm) {
+  extern __shared__ __align__(128) float smem3[];
+  const int C = kCellsPass * a.rounds;
+  const int w_floats = b3_w_floats(a.gene_block, a.kt);
+  const int pieces = (a.gene_block + a.box_rows - 1) / a.box_rows;
+  const int zero = pieces * a.box_rows * a.kt;   // the zero row
+  const int share = b3_share(a.win, a.cs);
+  const int raw = (share * C + 31) / 32 * 32;
+  // two buffers of W's slice (by gene block parity), two windows of
+  // (offset, value) pairs (by step parity), the staged ids and values and
+  // test bits; then the mbarriers of the W, the id and the window buffers
+  int2* s_win = reinterpret_cast<int2*>(smem3 + 2 * w_floats);
+  int* s_li = reinterpret_cast<int*>(s_win + 2 * a.win * C);
+  float* s_lv = reinterpret_cast<float*>(s_li + raw);
+  const uint32_t* s_bm = reinterpret_cast<const uint32_t*>(s_lv + raw);
+  uint64_t* bar_w = reinterpret_cast<uint64_t*>(
+      s_lv + raw + (MODE == 2 ? C * a.bm_words : 0));
+  uint64_t* bar_raw = bar_w + 2;
+  uint64_t* bar_win = bar_w + 3;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint32_t rank = cluster_rank();
+  // a cell tile's column tiles are neighbours in the grid: one cluster
+  const int j0 = (int)(blockIdx.x % a.n_kt) * a.kt;
+  const long long c0 = (long long)(blockIdx.x / a.n_kt) * C;
+  const int kt = min(a.kt, a.k - j0);
+  if (tid < 5) mbar_init(bar_w + tid, 1);
+  if (tid == 0) {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the steps: gene blocks in order, each in windows of win slot rows
+  const int n_win = (a.width + a.win - 1) / a.win;
+  const int steps = a.n_gb * n_win;
+  const int pt = tid - kWalkWarps * 32;   // a stager's index
+
+  if (tid < 32) {
+    smem3[zero + tid] = 0.f;
+    smem3[w_floats + zero + tid] = 0.f;
+  }
+
+  // this block's share of step `step`'s window: its first row and slots
+  auto share_of = [&](int step, int& gb, int& w0, int& r0) {
+    gb = step / n_win;
+    w0 = (step - gb * n_win) * a.win;
+    const int wn = min(a.win, a.width - w0);
+    r0 = min(wn, (int)rank * share);
+    return (min(wn, r0 + share) - r0) * C;
+  };
+  // one stager asks TMA for W's slice of gene block gb (into the buffer of
+  // its parity), and for the ids and values of this block's share of a
+  // step's window
+  auto load_w = [&](int gb) {
+    uint64_t* bar = bar_w + (gb & 1);
+    float* s_w = smem3 + (gb & 1) * w_floats;
+    mbar_expect_tx(bar, pieces * a.box_rows * a.kt * 4);
+    for (int p = 0; p < pieces; ++p) {
+      tma_load_3d(s_w + p * a.box_rows * a.kt, &tm_w, bar, j0,
+                  p * a.box_rows, gb);
+    }
+  };
+  uint32_t raw_phase = 0;
+  auto load_raw = [&](int step) {
+    int gb, w0, r0;
+    if (share_of(step, gb, w0, r0) == 0) return;
+    mbar_expect_tx(bar_raw,
+                   (2 * share + (MODE == 2 ? a.bm_words : 0)) * C * 4);
+    const int row = gb * a.width + w0 + r0;
+    tma_load_2d(s_li, &tm_li, bar_raw, (int)c0, row);
+    tma_load_2d(s_lv, &tm_lv, bar_raw, (int)c0, row);
+    if (MODE == 2) {
+      tma_load_3d(const_cast<uint32_t*>(s_bm), &tm_bm, bar_raw, (int)c0, 0,
+                  gb);
+    }
+  };
+  // The stagers keep-test a step's share once for the whole cluster, into
+  // this block's window of the step's parity: per slot its W row's offset
+  // and its value; a pad or held-out slot (or one past the cells) points at
+  // the zero row with the value -0, whose fmaf leaves every sum as it is.
+  // Then one stager asks for the next step's ids and values, copies the
+  // share into the other blocks' windows (bulk copies, counted on their
+  // window mbarriers) and arms this block's for the other blocks' shares.
+  auto convert = [&](int step) {
+    int gb, w0, r0;
+    const int n = share_of(step, gb, w0, r0);
+    const int b = step & 1;
+    if (pt == 0 && a.cs > 1) {
+      // the bytes the other blocks send: the step's rows but this share
+      const int wn = min(a.win, a.width - w0);
+      mbar_expect_tx(bar_win + b, (uint32_t)(wn * C - n) * 8);
+    }
+    if (n == 0) {
+      if (pt == 0 && step + 1 < steps) load_raw(step + 1);
+      return;
+    }
+    mbar_wait(bar_raw, raw_phase);
+    raw_phase ^= 1u;
+    int2* dst = s_win + (b * a.win + r0) * C;
+    // a batch's ids, values and test bits are all in flight at once
+    for (int i0 = 0; i0 < n; i0 += kStageThreads * kBatch) {
+      int l[kBatch];
+      int v[kBatch];
+      uint32_t word[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + pt + j * kStageThreads;
+        const bool in = i < n && c0 + (i & (C - 1)) < a.cells;
+        l[j] = in ? s_li[i] : -1;
+        v[j] = in ? __float_as_int(s_lv[i]) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + pt + j * kStageThreads;
+        // the test bit where the slot's word would hold it
+        word[j] = MODE == 2 && l[j] >= 0
+                      ? ((s_bm[(l[j] >> 5) * C + (i & (C - 1))] >>
+                          (l[j] & 31)) & 1u) << (gb & 31)
+                      : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + pt + j * kStageThreads;
+        if (i < n) {
+          const uint64_t xi =
+              MODE == 1 ? cell_hash(a.seed, a.cell_offset + c0 + (i & (C - 1)))
+                        : 0;
+          const bool kept =
+              l[j] >= 0 && slot_kept<MODE>(a, gb, xi, l[j], word[j]);
+          dst[i] = kept ? make_int2(l[j] * a.kt, v[j])
+                        : make_int2(zero, (int)0x80000000u);
+        }
+      }
+    }
+    // the share's generic stores, seen by the bulk copies' async proxy;
+    // the ids and values are read
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    stagers_sync();
+    if (pt == 0) {
+      if (step + 1 < steps) load_raw(step + 1);
+      const uint32_t src = smem_u32(dst);
+      const uint32_t bar = smem_u32(bar_win + b);
+      for (int t = 0; t < a.cs; ++t) {
+        if (t != (int)rank) {
+          bulk_to_cluster(cluster_addr(src, t), src, (uint32_t)n * 8,
+                          cluster_addr(bar, t));
+        }
+      }
+    }
+  };
+
+  cluster_sync();  // every block has started and set its barriers
+  if (pt == 0 && steps > 0) {
+    load_w(0);
+    load_raw(0);
+  }
+  if (pt >= 0 && steps > 0) convert(0);
+  cluster_sync();
+  // walking: a quarter-warp per cell, lane q of it holds the columns
+  // 4q .. 4q + 3 of the tile; the 16 walking warps take 64 cells at once
+  const int q = lane & 7;
+  const int sub = lane >> 3;
+  float4 acc[kMaxRounds];
+#pragma unroll
+  for (int r = 0; r < kMaxRounds; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int step = 0; step < steps; ++step) {
+    const int gb = step / n_win;
+    const int w0 = (step - gb * n_win) * a.win;
+    if (pt < 0) {
+      // each cell's slots in slot order, its W row's four columns from
+      // shared memory, one fmaf chain per output; no branch, so the loads
+      // of several slots are in flight at once
+      if (w0 == 0) mbar_wait(bar_w + (gb & 1), (gb >> 1) & 1);
+      if (a.cs > 1) mbar_wait(bar_win + (step & 1), (step >> 1) & 1);
+      const int wn = min(a.win, a.width - w0);
+      const float* wq = smem3 + (gb & 1) * w_floats + 4 * q;
+      const int2* win = s_win + (step & 1) * a.win * C;
+#pragma unroll
+      for (int r = 0; r < kMaxRounds; ++r) {
+        if (r < a.rounds) {
+          const int2* pr = win + (r * kWalkWarps + warp) * 4 + sub;
+          float4 t = acc[r];
+#pragma unroll 4
+          for (int w = 0; w < wn; ++w) {
+            const int2 e = pr[w * C];
+            const float4 x = *reinterpret_cast<const float4*>(wq + e.x);
+            const float v = __int_as_float(e.y);
+            t.x = fmaf(v, x.x, t.x);
+            t.y = fmaf(v, x.y, t.y);
+            t.z = fmaf(v, x.z, t.z);
+            t.w = fmaf(v, x.w, t.w);
+          }
+          acc[r] = t;
+        }
+      }
+    } else if (step + 1 < steps) {
+      // the next gene block's W is asked for (its buffer was last read
+      // before the last cluster barrier), then the next step is
+      // keep-tested into every block's window
+      if (pt == 0 && a.width - w0 <= a.win) load_w(gb + 1);
+      convert(step + 1);
+    }
+    cluster_sync();  // the next step is staged in every block, walks done
+  }
+
+  if (pt >= 0) return;
+#pragma unroll
+  for (int r = 0; r < kMaxRounds; ++r) {
+    const long long cell = c0 + (r * kWalkWarps + warp) * 4 + sub;
+    if (r < a.rounds && cell < a.cells && 4 * q < kt) {
+      float* out = a.B + cell * a.k + j0 + 4 * q;
+      const int n = min(4, kt - 4 * q);
+      out[0] = acc[r].x;
+      if (n > 1) out[1] = acc[r].y;
+      if (n > 2) out[2] = acc[r].z;
+      if (n > 3) out[3] = acc[r].w;
+    }
+  }
+}
+
+// raise a kernel's dynamic shared-memory limit to kMaxSmem (and, with
+// `carveout`, its shared-memory share of L1 to the most), once per device:
+// `raised` holds one bit per device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, unsigned long long& raised,
+                       bool carveout) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && ((raised >> dev) & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxSmem);
+  if (err == cudaSuccess && carveout) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess && dev < 64) raised |= 1ull << dev;
+  return err;
+}
+
+template <int MODE>
+cudaError_t launch_b3(const B3Args& a, const CUtensorMap* maps, unsigned grid,
+                      size_t smem, cudaStream_t stream) {
+  static unsigned long long raised = 0;
+  const cudaError_t err = allow_smem(bell_spmm_kernel<MODE>, raised, true);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads3);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, bell_spmm_kernel<MODE>, a, maps[0], maps[1],
+                            maps[2], maps[3]);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a TMA view of `base` with `rank` dims (innermost first), byte strides of
+// the outer dims, and boxes of `box`; zeros past the dims
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                const void* base, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x % d == 0 as a multiply (Granlund and Montgomery): with d = odd <<
+// shift, x is a multiple iff its low `shift` bits are 0 and x * odd^-1 mod
+// 2^64 <= (2^64 - 1) / odd
+struct OddDivisor {
+  int shift;
+  uint64_t inverse;
+  uint64_t limit;
+};
+
+OddDivisor odd_divisor(uint64_t d) {
+  int shift = 0;
+  while (!(d & 1)) {
+    d >>= 1;
+    ++shift;
+  }
+  uint64_t inverse = d;  // Newton: each step doubles the correct bits
+  for (int i = 0; i < 5; ++i) inverse *= 2 - d * inverse;
+  return {shift, inverse, ~0ull / d};
 }
 
 template <int VEC, int MODE>
 cudaError_t launch_b4(const B4Args& a, dim3 grid, size_t smem,
                       cudaStream_t stream) {
-  // raise the kernel's shared-memory limit once per device
   static unsigned long long raised = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(bell_spmm_t_kernel<VEC, MODE>, raised,
+                                     false);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !((raised >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(bell_spmm_t_kernel<VEC, MODE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) raised |= 1ull << dev;
-  }
   bell_spmm_t_kernel<VEC, MODE><<<grid, kThreadsT, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -640,31 +1123,94 @@ cudaError_t launch_b4(const B4Args& a, dim3 grid, size_t smem,
 extern "C" {
 
 // Device pointers: li int32 / lv float32 planes, row r at r * ld; W
-// (n_gb * gene_block, k) and B (cells, k) contiguous float32. `masked`: 0
-// keep all, 1 hash (seed, cell_offset, inv_density), 2 words (cells rows of
-// row stride `wld`, the packed test mask of these cells). Returns the
-// cudaError_t of the launch (0 on success).
+// (n_gb * gene_block, k) float32 with row stride ldw; B (cells, k)
+// contiguous float32. `masked`: 0 keep all, 1 hash (seed, cell_offset,
+// inv_density), 2 words (cells rows of row stride `wld`, the packed test
+// mask of these cells; `bm` holds n_gb * b3_bm_words(gene_block) *
+// round_up(cells, 4) words of scratch, the test bits by gene block that a
+// first kernel writes). The host plan of ops/bell_cuda.py `b3_plan`: column tiles of
+// `kt` columns (a multiple of 4, at most 32), cell tiles of 64 * `rounds`
+// (1, 2 or 4), slot windows of `win` rows, clusters of `cs` blocks (1 or
+// 2, dividing the column tiles). TMA reads W and the planes: their
+// addresses are multiples of 16 bytes, and ld and ldw of 4 (the wrapper
+// copies what is not). One launch for any k (mode 2: the test bits' pass,
+// then it). Returns the cudaError_t of the launch (0 on success).
 int bell_spmm(const int32_t* li, const float* lv, long long ld, int n_gb,
-              int width, int cells, int gene_block, const float* W, int k,
-              float* B, int masked, uint64_t seed, long long cell_offset,
+              int width, int cells, int gene_block, const float* W,
+              long long ldw, int k, float* B, int kt, int rounds, int win,
+              int cs, int masked, uint64_t seed, long long cell_offset,
               int inv_density, const uint32_t* words, long long wld,
-              void* stream) {
+              uint32_t* bm, void* stream) {
   if (cells <= 0 || k <= 0) return cudaSuccess;
+  const int n_kt = (k + kt - 1) / kt;
+  const int C = kCellsPass * rounds;
+  const int share = b3_share(win, cs);
+  const int bm_words = masked == 2 ? b3_bm_words(gene_block) : 0;
+  const long long smem =
+      b3_smem_bytes(gene_block, win, kt, rounds, cs, bm_words);
+  const long long grid = (long long)((cells + C - 1) / C) * n_kt;
   if (inv_density < 1 || masked < 0 || masked > 2 ||
-      (masked == 2 && words == nullptr)) {
+      (masked == 2 && (words == nullptr || bm == nullptr ||
+                       reinterpret_cast<uintptr_t>(bm) % 16 != 0)) ||
+      n_gb < 0 || width < 0 || gene_block < 1 || kt < 4 ||
+      kt > kColTile3 || kt % 4 != 0 ||
+      (rounds != 1 && rounds != 2 && rounds != 4) || win < 1 ||
+      (cs != 1 && cs != 2) || n_kt % cs != 0 || share > 256 ||
+      bm_words > 256 || ld % 4 != 0 || ldw % 4 != 0 || ldw < k ||
+      reinterpret_cast<uintptr_t>(li) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(lv) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(W) % 16 != 0 || smem > kMaxSmem ||
+      grid > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
+  const int box_rows = gene_block < 256 ? gene_block : 256;
+  CUtensorMap maps[4];
+  const cuuint64_t w_dims[3] = {(cuuint64_t)k, (cuuint64_t)gene_block,
+                                (cuuint64_t)(n_gb > 0 ? n_gb : 1)};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)ldw * 4,
+                                   (cuuint64_t)ldw * 4 * gene_block};
+  const cuuint32_t w_box[3] = {(cuuint32_t)kt, (cuuint32_t)box_rows, 1};
+  const long long rows = (long long)n_gb * width;
+  const cuuint64_t p_dims[2] = {(cuuint64_t)cells,
+                                (cuuint64_t)(rows > 0 ? rows : 1)};
+  const cuuint64_t p_strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t p_box[2] = {(cuuint32_t)C, (cuuint32_t)share};
+  const long long bm_ld = (cells + 3) / 4 * 4;
+  const cuuint64_t m_dims[3] = {(cuuint64_t)cells, (cuuint64_t)bm_words,
+                                (cuuint64_t)(n_gb > 0 ? n_gb : 1)};
+  const cuuint64_t m_strides[2] = {(cuuint64_t)bm_ld * 4,
+                                   (cuuint64_t)bm_ld * 4 * bm_words};
+  const cuuint32_t m_box[3] = {(cuuint32_t)C, (cuuint32_t)bm_words, 1};
+  if (!tensor_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, W, w_dims,
+                  w_strides, w_box) ||
+      !tensor_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_INT32, 2, li, p_dims,
+                  p_strides, p_box) ||
+      !tensor_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, lv, p_dims,
+                  p_strides, p_box) ||
+      (masked == 2 && !tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_UINT32, 3,
+                                  bm, m_dims, m_strides, m_box))) {
+    return cudaErrorInvalidValue;
+  }
+  if (masked != 2) maps[3] = maps[1];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint64_t d = (uint64_t)inv_density;
-  switch ((k + 31) / 32) {
-    case 1: return launch_b3<1>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 2: return launch_b3<2>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 3: return launch_b3<3>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 4: return launch_b3<4>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 5: return launch_b3<5>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 6: return launch_b3<6>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    case 7: return launch_b3<7>(li, lv, ld, n_gb, width, cells, gene_block, W, k, B, masked, seed, cell_offset, d, words, wld, s);
-    default: return cudaErrorInvalidValue;
+  if (masked == 2) {
+    const long long blocks = (cells + kBmCells - 1) / kBmCells *
+                             ((n_gb + 31) / 32) *
+                             ((bm_words + kBmWords - 1) / kBmWords);
+    bell_words_t_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+        words, wld, cells, n_gb, gene_block, bm_words, bm_ld, bm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const OddDivisor d = odd_divisor((uint64_t)inv_density);
+  const B3Args a{n_gb, width, cells, gene_block, k, B, kt, n_kt, rounds,
+                 win, cs, box_rows, masked, seed, cell_offset, d.shift,
+                 d.inverse, d.limit, bm_words};
+  const unsigned g = (unsigned)grid;
+  switch (masked) {
+    case 0: return launch_b3<0>(a, maps, g, (size_t)smem, s);
+    case 1: return launch_b3<1>(a, maps, g, (size_t)smem, s);
+    default: return launch_b3<2>(a, maps, g, (size_t)smem, s);
   }
 }
 
@@ -702,18 +1248,11 @@ int bell_spmm_t(const int32_t* li, const float* lv, long long ld, int n_gb,
       smem > kMaxSmem) {
     return cudaErrorInvalidValue;
   }
-  int shift = 0;
-  uint64_t odd = (uint64_t)inv_density;
-  while (!(odd & 1)) {
-    odd >>= 1;
-    ++shift;
-  }
-  uint64_t inverse = odd;  // Newton: each step doubles the correct bits
-  for (int i = 0; i < 5; ++i) inverse *= 2 - odd * inverse;
+  const OddDivisor d = odd_divisor((uint64_t)inv_density);
   const B4Args a{li, lv, ld, n_gb, width, cells, gene_block, H, k, Bw,
                  partials, counters, rows, chunk_tiles, n_chunks, h_vec,
-                 p_vec, masked, seed, cell_offset, shift, inverse,
-                 ~0ull / odd, words, wld};
+                 p_vec, masked, seed, cell_offset, d.shift, d.inverse,
+                 d.limit, words, wld};
   const int n_rg = (gene_block + rows - 1) / rows;
   const dim3 grid(n_gb * n_rg, (k + kColTile - 1) / kColTile, n_chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -34,21 +34,32 @@ from singlet_tpu_torch.ops.bell import (bell_mse_bits_plain,
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
 # kernel launches on CUDA tensors of B3 and of B4 (one per wrapper call
-# with cells; B3 and B5 one per column chunk of W); read by chip_smoke.py
-# to show that a fit went through the kernels
+# with cells, at any k); read by chip_smoke.py to show that a fit went
+# through the kernels
 LAUNCHES_SPMM = 0
 LAUNCHES_SPMM_T = 0
-# likewise B5, B6 and B7
+# likewise B5 (its test bits' pass included), B6 and B7
 LAUNCHES_SPMM_BITS = 0
 LAUNCHES_SPMM_T_BITS = 0
 LAUNCHES_MSE_BITS = 0
 
-# B3 keeps a cell's k outputs in registers, up to 7 per lane: a wider W is
-# split into chunks of at most this many columns, one launch each. Each
-# output column is one thread's sum over the cell's live slots in slot
-# order whatever the other columns, so the chunks give the bits of one
-# launch and B3/B5 take any k
-B3_K_CHUNK = 224
+# B3's plan (csrc/bell_spmm.cu): one block an SM of 16 warps that walk, a
+# quarter-warp per cell, 64 cells at once, 1, 2 or 4 times (64 to 256
+# cells a block), and 4 that stage; output columns in tiles of at most 32,
+# a multiple of 4, the blocks of two neighbouring column tiles of a cell
+# tile in a cluster that keep-tests each window once; shared memory
+# holds two buffers of a gene block's slice of W for the tile with a zero
+# row, two of the cells' slot window (all the slot rows of a gene block up
+# to 72 of them, the column tile sized for it; wider planes in windows of
+# what fits) and this block's share of the window; the plan wants at
+# least one block per SM of an H100 (132 SMs) in the grid
+_SMS = 132
+_SMEM_BLOCK = 232448
+_B3_CELLS_PASS = 64
+_B3_COLS = 32
+_B3_ROUNDS = (4, 2, 1)
+_B3_WIN_ROWS = 72
+_B3_CLUSTER = 2
 # B7 keeps a cell's H row in registers, up to 16 per lane
 MAX_K_MSE = 512
 # B7 keeps one dense float row of gene_block per warp, eight warps
@@ -65,8 +76,91 @@ _B4_GENES = {1: 26, 2: 26, 4: 13}
 _B4_COLS = 128
 _B4_TILE = 64
 _B4_WIN_ROWS = 32
-_B4_SMS = 132
 _B4_MAX_CHUNKS = 16
+
+
+class B3Plan(NamedTuple):
+    """B3's split of one call's work (see ``b3_plan``)."""
+    kt: int            # columns a column tile (a multiple of 4, <= 32)
+    n_kt: int          # column tiles
+    rounds: int        # passes of 64 cells a block: 1, 2 or 4
+    cells: int         # cells a block, 64 * rounds
+    n_ct: int          # cell tiles
+    win: int           # slot rows a window (the width, if it fits)
+    cs: int            # blocks of a cluster (neighbouring column tiles)
+    smem: int          # dynamic shared memory a block, bytes
+
+
+def b3_bm_words(gene_block: int) -> int:
+    """Words of a cell's test bits of one gene block in B5 (bell_spmm.cu
+    ``b3_bm_words``): ceil(gene_block / 32)."""
+    return -(-gene_block // 32)
+
+
+def b3_smem(gene_block: int, win: int, kt: int, rounds: int, cs: int,
+            bits: bool = False) -> int:
+    """Bytes of B3's dynamic shared memory (bell_spmm.cu
+    ``b3_smem_bytes``): two buffers of W's slice (whole TMA boxes of up to
+    256 gene rows by kt, a zero row and the last lanes' over-read, in
+    128-byte units), two of the (win, 64 * rounds) slot window of 8-byte
+    (offset, value) pairs, the ids and the values of the block's share of
+    a window (ceil(win / cs) rows, each in 128-byte units), with ``bits``
+    (B5) the cells' test bits of a gene block, and five mbarriers."""
+    box = min(gene_block, 256)
+    w_floats = -(-(-(-gene_block // box) * box * kt + 32) // 32) * 32
+    c = _B3_CELLS_PASS * rounds
+    raw = -(-(-(-win // cs) * c) // 32) * 32
+    bm = c * b3_bm_words(gene_block) if bits else 0
+    return 2 * w_floats * 4 + 2 * win * c * 8 + 2 * raw * 4 + bm * 4 + 40
+
+
+@functools.lru_cache(maxsize=256)
+def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
+            bits: bool = False) -> B3Plan:
+    """B3's plan, from the shapes alone: the fewest column tiles of at
+    most 32 columns, split evenly in multiples of 4, in clusters of two
+    where the tiles pair up (narrower tiles where two slices of W would not
+    fit beside the windows of 64 cells and min(width, 72) slot rows); then
+    the most cells a block (1, 2 or 4 passes of 64) whose window holds all
+    the slot rows and that gives at least one block per SM, else 64; planes
+    too wide for that are walked in windows of what fits; with ``bits``
+    (B5) the blocks also hold their cells' test bits of a gene block. Each
+    output is one thread's sum over its cell's gene blocks in order and, in
+    each, its kept slots in slot order, whatever the plan: the plan does not
+    change the bits. ``n_gb`` does not enter it."""
+    rows = max(1, min(width, _B3_WIN_ROWS))
+
+    def smem(win, kt, rounds, cs):
+        return b3_smem(gene_block, win, kt, rounds, cs, bits)
+
+    if smem(1, 4, 1, 1) > _SMEM_BLOCK:
+        raise NotImplementedError(
+            f"kernel B3: two slices of W of a gene block of {gene_block} "
+            f"genes do not fit in shared memory")
+    for kt_max in range(_B3_COLS, 0, -4):
+        n_kt = -(-k // kt_max)
+        kt = -(-(-(-k // n_kt)) // 4) * 4
+        n_kt = -(-k // kt)
+        cs = _B3_CLUSTER if n_kt % _B3_CLUSTER == 0 else 1
+        if kt == 4 or smem(rows, kt, 1, cs) <= _SMEM_BLOCK:
+            break
+
+    def win(rounds):
+        """The most slot rows up to the width (and 256) that fit."""
+        w = max(1, min(width, 256))
+        while w > 1 and smem(w, kt, rounds, cs) > _SMEM_BLOCK:
+            w -= 1
+        return w
+
+    def blocks(rounds):
+        return -(-cells // (_B3_CELLS_PASS * rounds)) * n_kt
+
+    fits = [r for r in _B3_ROUNDS if smem(1, kt, r, cs) <= _SMEM_BLOCK]
+    cands = [r for r in fits if win(r) >= min(width, 256)] or fits
+    rounds = next((r for r in cands if blocks(r) >= _SMS), cands[-1])
+    return B3Plan(kt, n_kt, rounds, _B3_CELLS_PASS * rounds,
+                  -(-cells // (_B3_CELLS_PASS * rounds)), win(rounds), cs,
+                  smem(win(rounds), kt, rounds, cs))
 
 
 class B4Plan(NamedTuple):
@@ -113,11 +207,26 @@ def b4_plan(cells: int, n_gb: int, gene_block: int, k: int) -> B4Plan:
     n_kt = -(-k // _B4_COLS)
     n_tiles = max(1, -(-cells // _B4_TILE))
     per_chunk = n_gb * n_rg * n_kt
-    n_chunks = max(1, min(_B4_MAX_CHUNKS, _B4_SMS // per_chunk, n_tiles))
+    n_chunks = max(1, min(_B4_MAX_CHUNKS, _SMS // per_chunk, n_tiles))
     chunk_tiles = -(-n_tiles // n_chunks)
     return B4Plan(vec, rows, n_rg, n_kt, _B4_TILE, chunk_tiles,
                   -(-n_tiles // chunk_tiles), b4_smem(rows, k))
 
+
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# keep mode, seed, cell offset, inv_density, words, words' row stride,
+# stream
+_KEEP_ARGTYPES = [_CI, ctypes.c_uint64, _CL, _CI, _VP, _CL, _VP]
+# bell_spmm: planes, ld, n_gb, width, cells, gene_block, W, its row
+# stride, k, B, kt, rounds, win, cs, then the keep arguments with the test
+# bits' scratch before the stream
+ARGTYPES_B3 = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI, _VP, _CI,
+               _CI, _CI, _CI] + _KEEP_ARGTYPES[:-1] + [_VP, _VP]
+# bell_spmm_t: planes, ld, n_gb, width, cells, gene_block, H, k, Bw,
+# partials, counters, rows, chunk_tiles, n_chunks, h_vec, p_vec, then the
+# keep arguments
+ARGTYPES_B4 = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CI, _VP, _VP, _VP,
+               _CI, _CI, _CI, _CI, _CI] + _KEEP_ARGTYPES
 
 _LIB = {}
 
@@ -127,19 +236,9 @@ def _lib():
         from singlet_tpu_torch import _build
 
         lib = _build.load("bell_spmm")
-        common = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p, ctypes.c_int]
-        # keep mode, seed, cell offset, inv_density, words, words' row
-        # stride, stream
-        tail = [ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p]
-        lib.bell_spmm.argtypes = common + [ctypes.c_void_p] + tail
+        lib.bell_spmm.argtypes = ARGTYPES_B3
         lib.bell_spmm.restype = ctypes.c_int
-        # Bw, partials, counters; rows, chunk_tiles, n_chunks, h_vec, p_vec
-        lib.bell_spmm_t.argtypes = common + [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 5 + tail
+        lib.bell_spmm_t.argtypes = ARGTYPES_B4
         lib.bell_spmm_t.restype = ctypes.c_int
         lib.bell_spmm_error_string.argtypes = [ctypes.c_int]
         lib.bell_spmm_error_string.restype = ctypes.c_char_p
@@ -212,11 +311,28 @@ def _raise_on(err, symbol, error_string=None):
         raise RuntimeError(f"{symbol} launch failed: {msg} ({err})")
 
 
+def _tma_ready(*xs: torch.Tensor) -> bool:
+    """Whether TMA reads these rows as they are: addresses a multiple of
+    16 bytes, row strides of 4 elements."""
+    return all(x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 for x in xs)
+
+
+def _padded(X: torch.Tensor) -> torch.Tensor:
+    """A copy of X (rows, cols) in rows padded to a multiple of 4."""
+    out = torch.empty((X.shape[0], -(-X.shape[1] // 4) * 4), dtype=X.dtype,
+                      device=X.device)
+    out[:, :X.shape[1]] = X
+    return out[:, :X.shape[1]]
+
+
 def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
                words, *, gene_block: int) -> tuple[torch.Tensor, int]:
-    """bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or 1, B5 with mode
-    2), one launch per chunk of at most ``B3_K_CHUNK`` columns of W; checks
-    its arguments and returns B (cells, k) and the number of launches."""
+    """One launch of bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or
+    1, B5 with mode 2) on ``b3_plan``, for any k; checks its
+    arguments and returns B (cells, k) and the number of launches (0
+    without cells or columns). The kernel reads W and the planes by TMA:
+    where their addresses or row strides do not allow it, it reads
+    padded copies."""
     rows_w, k = W.shape
     if rows_w % gene_block:
         raise ValueError(f"W has {rows_w} rows, not a multiple of "
@@ -228,34 +344,37 @@ def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
     if words is not None:
         _check_words(words, cells, n_gb, gene_block, W.device)
     B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
-    if cells == 0:
+    if cells == 0 or k == 0:
         return B, 0
-    chunks = range(0, k, B3_K_CHUNK)
-    for c0 in chunks:
-        kc = min(B3_K_CHUNK, k - c0)
-        Wc = W if kc == k else W[:, c0:c0 + kc].contiguous()
-        Bc = B if kc == k else torch.empty((cells, kc), dtype=torch.float32,
-                                           device=W.device)
-        with torch.cuda.device(W.device):
-            stream = torch.cuda.current_stream(W.device).cuda_stream
-            err = _lib().bell_spmm(
-                b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
-                b_li.shape[0] // n_gb, cells, gene_block, Wc.data_ptr(), kc,
-                Bc.data_ptr(), mode, seed64, int(cell_offset),
-                int(inv_density), None if words is None else words.data_ptr(),
-                0 if words is None else words.stride(0), stream)
-        _raise_on(err, "bell_spmm")
-        if Bc is not B:
-            B[:, c0:c0 + kc] = Bc
-    return B, len(chunks)
+    width = b_li.shape[0] // n_gb
+    plan = b3_plan(cells, n_gb, gene_block, width, k, mode == 2)
+    # mode 2: scratch for the test bits by gene block that the kernel's
+    # first pass writes
+    bm = (torch.empty(n_gb * b3_bm_words(gene_block) * (-(-cells // 4) * 4),
+                      dtype=torch.int32, device=W.device)
+          if mode == 2 else None)
+    li, lv = ((b_li, b_val) if _tma_ready(b_li, b_val)
+              else (_padded(b_li), _padded(b_val)))
+    Wt = W if _tma_ready(W) else _padded(W)
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = _lib().bell_spmm(
+            li.data_ptr(), lv.data_ptr(), li.stride(0), n_gb, width, cells,
+            gene_block, Wt.data_ptr(), Wt.stride(0), k, B.data_ptr(),
+            plan.kt, plan.rounds, plan.win, plan.cs, mode, seed64,
+            int(cell_offset), int(inv_density),
+            None if words is None else words.data_ptr(),
+            0 if words is None else words.stride(0),
+            None if bm is None else bm.data_ptr(), stream)
+    _raise_on(err, "bell_spmm")
+    return B, 1
 
 
 def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
                    gene_block: int, inv_density: int = 20) -> torch.Tensor:
     """Kernel B3: B (cells, k) = the (keep-masked, with ``seed``) product
-    of the planes with W (n_gb * gene_block, k), in chunks of at most
-    ``B3_K_CHUNK`` columns (one launch each, each counted). On CPU
-    tensors, the plain version."""
+    of the planes with W (n_gb * gene_block, k), one launch for any k. On
+    CPU tensors, the plain version."""
     if W.device.type != "cuda":
         return bell_spmm_plain(b_li, b_val, W, seed, cell_offset,
                                gene_block=gene_block,
@@ -271,8 +390,10 @@ def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
 def bell_spmm_bits_cuda(b_li, b_val, W, words, *,
                         gene_block: int) -> torch.Tensor:
     """Kernel B5: B3 keep-masked by the test bits of ``words`` (cells, n_t *
-    gene_block) int32, the packed mask of the planes' cells, launched in
-    column chunks as B3. On CPU tensors, the plain version."""
+    gene_block) int32, the packed mask of the planes' cells: a pass that
+    transposes the words into test bits by gene block, then B3's kernel in
+    keep mode 2, counted as one launch. On CPU tensors, the plain
+    version."""
     if W.device.type != "cuda":
         return bell_spmm_bits_plain(b_li, b_val, W, words,
                                     gene_block=gene_block)

@@ -75,8 +75,8 @@ def test_b3_matches_plain(cuda, width, k, masked):
     before = bell_cuda.LAUNCHES_SPMM
     got = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 4096,
                                    gene_block=GENE_BLOCK, inv_density=20)
-    # one launch per column chunk of W
-    assert bell_cuda.LAUNCHES_SPMM == before + -(-k // bell_cuda.B3_K_CHUNK)
+    # one launch at any k
+    assert bell_cuda.LAUNCHES_SPMM == before + 1
     want = bell.bell_spmm_plain(li, lv, W, seed, 4096,
                                 gene_block=GENE_BLOCK, inv_density=20)
     _close(got, want)
@@ -109,35 +109,36 @@ def test_b4_matches_plain(cuda, width, k, masked):
 @pytest.mark.parametrize("k,chunk", [(200, 64), (224, 100), (256, 224),
                                      (300, 128)])
 def test_b3_chunks_give_the_bits_of_one_launch(cuda, k, chunk):
-    """B3 and B5 take W past B3_K_CHUNK columns in chunks, one launch each
-    and each counted: each output column is one thread's sum over the
-    cell's live slots in slot order, so W's columns launched in any chunks
-    give the same bits."""
+    """A column slice of W launched alone gives the bits of those columns
+    of the full launch, in B3 and in B5: each output column is one thread's
+    sum over the cell's live slots in slot order, whatever the other
+    columns and however the plan tiles them. Every call is one launch."""
     from singlet_tpu_torch.ops.maskbits import pack_mask_words
 
     li, lv = _planes(32, CELLS, k, cuda)
     W = torch.rand((N_GB * GENE_BLOCK, k), device=cuda)
     seed = seed_pair(5)
     kw = dict(gene_block=GENE_BLOCK, inv_density=20)
-    launches = -(-k // bell_cuda.B3_K_CHUNK)
     before = (bell_cuda.LAUNCHES_SPMM, bell_cuda.LAUNCHES_SPMM_BITS)
     whole = bell_cuda.bell_spmm_cuda(li, lv, W, seed, 64, **kw)
-    assert bell_cuda.LAUNCHES_SPMM == before[0] + launches
-    assert torch.equal(whole, torch.cat([bell_cuda.bell_spmm_cuda(
-        li, lv, W[:, c0:c0 + chunk].contiguous(), seed, 64, **kw)
-        for c0 in range(0, k, chunk)], dim=1))
+    assert bell_cuda.LAUNCHES_SPMM == before[0] + 1
+    for c0 in range(0, k, chunk):
+        assert torch.equal(whole[:, c0:c0 + chunk], bell_cuda.bell_spmm_cuda(
+            li, lv, W[:, c0:c0 + chunk].contiguous(), seed, 64, **kw))
     words = pack_mask_words(seed, torch.arange(64, 64 + CELLS, device=cuda),
                             genes_pad=N_GB * GENE_BLOCK,
                             gene_block=GENE_BLOCK, inv_density=20,
                             cells_true=64 + CELLS,
                             genes_true=N_GB * GENE_BLOCK)
+    before = bell_cuda.LAUNCHES_SPMM_BITS
     b5 = bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
                                        gene_block=GENE_BLOCK)
-    assert bell_cuda.LAUNCHES_SPMM_BITS == before[1] + launches
+    assert bell_cuda.LAUNCHES_SPMM_BITS == before + 1
     assert torch.equal(b5, whole)
-    assert torch.equal(b5, torch.cat([bell_cuda.bell_spmm_bits_cuda(
-        li, lv, W[:, c0:c0 + chunk].contiguous(), words,
-        gene_block=GENE_BLOCK) for c0 in range(0, k, chunk)], dim=1))
+    for c0 in range(0, k, chunk):
+        assert torch.equal(b5[:, c0:c0 + chunk], bell_cuda.bell_spmm_bits_cuda(
+            li, lv, W[:, c0:c0 + chunk].contiguous(), words,
+            gene_block=GENE_BLOCK))
     _close(b5, bell.bell_spmm_bits_plain(li, lv, W, words,
                                          gene_block=GENE_BLOCK))
 
@@ -266,6 +267,77 @@ def test_b4_sums_a_gene_held_twice(cuda, gene_block, k):
     li, lv = _planes_g(N_GB, gene_block, 16, CELLS, 5, cuda, dup_cell=321)
     H = torch.rand((CELLS, k), device=cuda)
     _check_b4_b6(li, lv, H, gene_block, N_GB, 0)
+
+
+def _check_b3_b5(li, lv, W, gene_block, offset):
+    """B3 plain and hashed within 1e-5 x max |output| of the plain version,
+    the same bits twice, one launch a call; B5 on the packed words of the
+    same cells the bits of hashed B3; values 1.0 with a 0/1 indicator W
+    equal to the plain version, plain and hashed."""
+    cells, genes, k = li.shape[1], W.shape[0], W.shape[1]
+    seed = seed_pair(79)
+    kw = dict(gene_block=gene_block, inv_density=20)
+    for s in (None, seed):
+        before = bell_cuda.LAUNCHES_SPMM
+        got = bell_cuda.bell_spmm_cuda(li, lv, W, s, offset, **kw)
+        assert bell_cuda.LAUNCHES_SPMM == before + 1
+        _close(got, bell.bell_spmm_plain(li, lv, W, s, offset, **kw))
+        assert torch.equal(got, bell_cuda.bell_spmm_cuda(li, lv, W, s, offset,
+                                                         **kw))
+    words = pack_mask_words(seed, torch.arange(offset, offset + cells,
+                                               device=W.device),
+                            genes_pad=genes, gene_block=gene_block,
+                            inv_density=20, cells_true=offset + cells,
+                            genes_true=genes)
+    before = bell_cuda.LAUNCHES_SPMM_BITS
+    b5 = bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                       gene_block=gene_block)
+    assert bell_cuda.LAUNCHES_SPMM_BITS == before + 1
+    assert torch.equal(b5, got)
+    assert torch.equal(b5, bell_cuda.bell_spmm_bits_cuda(
+        li, lv, W, words, gene_block=gene_block))
+    li = li.contiguous()
+    ones = torch.where(li >= 0, 1.0, 0.0)
+    Wi = torch.zeros_like(W)
+    Wi[torch.arange(genes), torch.arange(genes) % k] = 1.0
+    for s in (None, seed):
+        assert torch.equal(
+            bell_cuda.bell_spmm_cuda(li, ones, Wi, s, offset, **kw),
+            bell.bell_spmm_plain(li, ones, Wi, s, offset, **kw))
+
+
+# (gene_block, width, k): where B3's plan splits its work: one to
+# nineteen column tiles (k 3 to 512), tiles of 4 to 32 columns, k odd and
+# not a multiple of 4 (copies of W by 1 and 2 floats), gene_block 1720 at
+# width 72, and planes of width 1000 at gene_block 2048, walked in windows
+# of slot rows; at 2049 cells (a last pass of one cell)
+B3_SPLITS = [(512, 32, 3), (512, 32, 50), (512, 32, 100), (512, 8, 129),
+             (512, 32, 256), (512, 32, 300), (512, 16, 512), (1720, 72, 100),
+             (1720, 72, 512), (1720, 8, 31), (2048, 1000, 5)]
+
+
+@pytest.mark.parametrize("gene_block,width,k", B3_SPLITS)
+@pytest.mark.parametrize("sliced", [False, True])
+def test_b3_b5_where_the_plan_splits(cuda, gene_block, width, k, sliced):
+    """Also on a column slice of wider planes (row stride > cells, at an odd
+    cell offset)."""
+    cells, n_gb = 2049, 2
+    total = cells + 1000 if sliced else cells
+    li, lv = _planes_g(n_gb, gene_block, width, total, gene_block + k, cuda)
+    if sliced:
+        li, lv = li[:, 517:517 + cells], lv[:, 517:517 + cells]
+    W = torch.rand((n_gb * gene_block, k), device=cuda)
+    _check_b3_b5(li, lv, W, gene_block, 4096)
+
+
+@pytest.mark.parametrize("gene_block,k", [(256, 100), (32, 7)])
+def test_b3_sums_a_gene_held_twice(cuda, gene_block, k):
+    """A cell whose two slots hold one gene (scipy input with duplicate
+    entries): both slots add, in slot order, as the plain version's dense
+    tile adds them."""
+    li, lv = _planes_g(N_GB, gene_block, 16, CELLS, 6, cuda, dup_cell=321)
+    W = torch.rand((N_GB * gene_block, k), device=cuda)
+    _check_b3_b5(li, lv, W, gene_block, 0)
 
 
 def test_dispatchers_launch_kernels_only(cuda):
