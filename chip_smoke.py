@@ -12,7 +12,8 @@ Phases; any failure raises and the script exits non-zero:
    all started together;
 2. kernel B1 (``ops/nnls_cuda.py``) against its plain PyTorch version on the
    card, at the half-update shapes of the bench config and at edge shapes,
-   with both sweep caps the fit uses; times both with CUDA events;
+   with both sweep caps the fit uses, and with a per-coordinate (n, k) L1
+   at the fast cap; times both with CUDA events;
 3. kernel B2 likewise, on the solve inputs of real masked half-updates
    of the bench operand (h-side and w-side blocks at k=50 and 100, the
    large config's call shapes 2048 x 100 and 16384 x 100, an edge shape),
@@ -171,6 +172,8 @@ FIT_RTOL, FIT_ATOL = 5e-3, 5e-4
 
 KERNEL_SHAPES = [(8192, 50), (16384, 50), (1500, 10), (4096, 100)]
 SWEEP_CAPS = [8, 100]
+# kernel B1 with an (n, k) L1 at each of those shapes, at this cap
+B1_L1_CAP = 8
 # kernel B2 (n, k, side): the h-side block (2048 cells) and w-side block
 # (4096 genes) of the bench config, the large config's two call shapes at
 # k=100 (a 2048-cell block; all 16,384 genes), and a width that is no
@@ -398,8 +401,13 @@ def phase_kernel(torch, card):
     rows = []
     for n, k in KERNEL_SHAPES:
         a, B, X0, mask = _nnls_problem(torch, n, k, seed=n + k)
-        for cap in SWEEP_CAPS:
-            kw = dict(L1=0.01, L2=0.001, update_mask=mask,
+        # a per-coordinate (n, k) L1, the plain version's batch-mode branch
+        L1s = {False: 0.01, True: 0.005 + 0.01 * torch.rand(
+            (n, k), generator=torch.Generator(device="cuda").manual_seed(k),
+            device="cuda")}
+        for cap, l1_array in [(c, False) for c in SWEEP_CAPS] + [
+                (B1_L1_CAP, True)]:
+            kw = dict(L1=L1s[l1_array], L2=0.001, update_mask=mask,
                       sweep_cap=float(cap))
             Xk = nnls_batch_cuda(a, B, X0, **kw)
             Xp, sweeps = nnls.nnls_batch(a, B, X0, return_sweeps=True, **kw)
@@ -414,10 +422,12 @@ def phase_kernel(torch, card):
                             runs=20)
             plain_ms = _median_ms(torch, lambda: nnls.nnls_batch(
                 a, B, X0, **kw), runs=3)
-            rows.append(dict(n=n, k=k, sweep_cap=cap, max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms, library_ms=None,
+            rows.append(dict(n=n, k=k, sweep_cap=cap, l1_array=l1_array,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None,
                              **_nnls_bound(sweeps, n, k, k * k)))
-            print(f"kernel B1 n={n} k={k} cap={cap}: max|err|={err:.3e} "
+            print(f"kernel B1 n={n} k={k} cap={cap}"
+                  f"{' (n, k) L1' if l1_array else ''}: max|err|={err:.3e} "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
                   f"({card})", flush=True)
     return rows
@@ -2038,7 +2048,7 @@ def phase_large(torch, card, ckdir):
     profile = _profile(torch, card, lambda: fns["plain"](
         W, H, 0.01, 0.01, 0.0, 0.0, sweep_cap=float(settings.fast)),
         label=f"large plain ELL step (sweep cap {settings.fast})",
-        share=(("bell_spmm_kernel", "B3"), ("nnls_cd_shared", "B1"),
+        share=(("bell_spmm_kernel", "B3"), ("nnls_cd_kernel", "B1"),
                ("bell_spmm_t_kernel", "B4")),
         events=(("bell_spmm_cuda", "B3"),))
 
@@ -2147,7 +2157,8 @@ def phase_large(torch, card, ckdir):
                          grids=(B2_SHARE[0],)),
         mse_profile=_profile(torch, card, mse,
                              label="large test MSE, bits route (B7)",
-                             share=(("bell_mse_bits", "B7"),),
+                             share=((("b7_kernel", "b7_bits_kernel"),
+                                     "B7"),),
                              events=(("bell_mse_bits_cuda", "B7"),)))
     bits_fit["mask8"] = phase_large_mask8(torch, card, data, bits, step,
                                           step_s * 1e3, (W, H, seed), F)
@@ -2713,7 +2724,8 @@ def main() -> int:
     results["wall_s"] = time.perf_counter() - T_START
 
     b1_row = next(r for r in results["kernel"]
-                  if (r["n"], r["k"], r["sweep_cap"]) == B1_REPORTED)
+                  if (r["n"], r["k"], r["sweep_cap"]) == B1_REPORTED
+                  and not r["l1_array"])
     b2_row = next(r for r in results["kernel_b2"]
                   if (r["n"], r["k"], r["sweep_cap"]) == B2_REPORTED)
     bell_row = {r["kernel"]: r for r in results["bell_kernels"]
@@ -2783,7 +2795,7 @@ def main() -> int:
                          if r["kernel"] == key))
 
     print(json.dumps({"kernels": [
-        entry("nnls_cd_shared", "nnls_cd.cu", "pallas_nnls.py:266",
+        entry("nnls_cd", "nnls_cd.cu", "pallas_nnls.py:266",
               bench["fixed10"]["launches"] + bench["race"]["launches"]
               + sum(dense_resume["nmf_fit"][key]["B1"] for key in (
                   "launches_full", "launches_resumed"))

@@ -8,7 +8,9 @@ in their plain and in their masked (in-kernel hashed keep factor) forms; B5
 ``bell_spmm_bits`` and ``bell_spmm_t_bits``: the same two kernels with the
 keep factor read from the packed test-mask words. Their source is
 ``csrc/bell_spmm.cu``. B7 (``bell_mse_bits_cuda``) replaces
-``bell_mse_bits``; its source is ``csrc/bell_mse_bits.cu``. Each source's
+``bell_mse_bits``; its source is ``csrc/bell_mse_bits.cu`` (a pass into
+test bits by gene block, then tiles of cells that read Wd's rows from
+shared memory, ``b7_plan``). Each source's
 header note gives the design and what bounds it on the card; ``_build.py``
 compiles them with nvcc at first use and this module binds them with
 ctypes.
@@ -60,10 +62,19 @@ _B3_COLS = 32
 _B3_ROUNDS = (4, 2, 1)
 _B3_WIN_ROWS = 72
 _B3_CLUSTER = 2
-# B7 keeps a cell's H row in registers, up to 16 per lane
+# B7 (csrc/bell_mse_bits.cu) keeps its cells' H rows in registers, up to
+# 16 columns a lane; a block of up to 15 walker warps (16 where their H
+# rows take at most 16 floats a lane) and a producer, Wd's slice of a
+# sub-block of 128, 64 or 32 genes in two buffers
 MAX_K_MSE = 512
-# B7 keeps one dense float row of gene_block per warp, eight warps
-MAX_GENE_BLOCK_MSE = 232448 // (8 * 4)
+_B7_WALKERS = 15
+_B7_ROWS = (128, 64, 32)
+_B7_NPL = (1, 2, 4, 8, 12, 16)
+_B7_BATCH = 8
+# B7's plan: the weight of a tile's stream of Wd through L2, per float of
+# a row, against the walk's cost of an entry on one SM (its shared-memory
+# wavefronts, at a 5% test set)
+_B7_WD_COST = 0.04
 
 # B4's plan (csrc/bell_spmm.cu): 20 warps a block, each holding the
 # outputs of 26 gene rows at 1 or 2 adjacent columns a lane (k <= 64) or of
@@ -213,6 +224,125 @@ def b4_plan(cells: int, n_gb: int, gene_block: int, k: int) -> B4Plan:
                   -(-n_tiles // chunk_tiles), b4_smem(rows, k))
 
 
+class B7Plan(NamedTuple):
+    """B7's split of one call's work (see ``b7_plan``)."""
+    npl: int           # H columns a lane (k <= 32 npl): 1, 2, 4, 8, 12, 16
+    cpw: int           # cells a walker warp
+    walkers: int       # walker warps a block
+    cells: int         # cells a block, walkers * cpw
+    n_ct: int          # cell tiles (blocks)
+    rows: int          # genes a sub-block: 128, 64 or 32
+    n_sb: int          # sub-blocks a gene block
+    bm_pitch: int      # words of a cell's test bits of a gene block
+    smem: int          # dynamic shared memory a block, bytes
+
+
+def b7_npl(k: int) -> int:
+    """H columns a lane of B7: ceil(k / 32) rounded up to 1, 2, 4, 8, 12
+    or 16."""
+    return next(n for n in _B7_NPL if 32 * n >= k)
+
+
+def b7_cpws(npl: int) -> tuple:
+    """Cells a walker of B7 may keep in registers (bell_mse_bits.cu
+    ``cpw_ok``): 32 floats of H a lane (at least 2 cells, at most 16), 8,
+    4 and 1."""
+    top = 2 if npl >= 12 else min(16, 32 // npl)
+    return tuple(c for c in (32, 16, 8, 4, 2, 1) if c in (top, 8, 4, 1)
+                 and c <= top)
+
+
+def b7_max_walkers(npl: int, cpw: int) -> int:
+    """Walker warps a block of B7 may have (bell_mse_bits.cu
+    ``max_walkers``): 16 where a walker's H rows take at most 16 floats a
+    lane (17 warps at up to 96 registers), else 15."""
+    return _B7_WALKERS + 1 if npl * cpw <= 16 else _B7_WALKERS
+
+
+def b7_bm_pitch(gene_block: int) -> int:
+    """Words of a cell's test bits of a gene block in B7's pass output:
+    ceil(gene_block / 32) rounded up to 8."""
+    return -(-gene_block // 256) * 8
+
+
+def b7_smem(rows: int, npl: int, cells: int, bm_pitch: int, walkers: int,
+            width: int) -> int:
+    """Bytes of B7's dynamic shared memory (bell_mse_bits.cu
+    ``b7_layout``): two buffers of Wd's (rows, 32 npl) slice, two of the
+    tile's test bits of a gene block, a walker's row of ``rows`` (tag,
+    value) pairs, 8 floats of scratch and a list of rows + 8 genes, two
+    buffers of the tile's slot ids and two of its values (width rows of
+    cells + 1), four mbarriers."""
+    off = 2 * rows * 32 * npl * 4 + 2 * cells * bm_pitch * 4
+    off += walkers * (3 * rows + 2 * _B7_BATCH) * 4
+    off += 4 * width * (cells + 1) * 4
+    return -(-off // 16) * 16 + 32
+
+
+@functools.lru_cache(maxsize=256)
+def b7_plan(cells: int, n_gb: int, gene_block: int, width: int,
+            k: int) -> B7Plan:
+    """B7's plan, from the shapes alone: H columns a lane from k;
+    sub-blocks of 128 genes, or 64 or 32 where Wd's slices would not fit;
+    of the (cells a walker in ``b7_cpws``, walkers up to
+    ``b7_max_walkers``) whose tile fits in shared memory, the one of
+    least cost: the longer of walking the cells (the waves of tiles over
+    the card's 132 SMs, a tile with fewer than 16 walkers hiding less of
+    the walk's latency) and streaming Wd through L2 once per tile; then
+    the most walkers. Every cell's squared errors are summed over its
+    held-out genes in ascending order whatever the plan: the plan does not
+    change the bits. ``n_gb`` does not enter it."""
+    if not 1 <= k <= MAX_K_MSE:
+        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K_MSE}, got "
+                                  f"{k}")
+    npl = b7_npl(k)
+    bm_pitch = b7_bm_pitch(gene_block)
+    for rows in _B7_ROWS:
+        fits = [(cpw, w) for cpw in b7_cpws(npl)
+                for w in range(b7_max_walkers(npl, cpw), 0, -1)
+                if b7_smem(rows, npl, w * cpw, bm_pitch, w, width)
+                <= _SMEM_BLOCK]
+        if not fits:
+            continue
+
+        def cost(cw):
+            # in units of an entry's shared-memory wavefronts on one SM:
+            # the longer of walking the cells (waves of tiles over the
+            # SMs, npl + 6 an entry, fewer than 16 walkers a tile hiding
+            # less) and streaming Wd through L2 once per tile, at a 5%
+            # test set; then the most walkers
+            c = cw[0] * cw[1]
+            tiles = -(-max(cells, 1) // c)
+            walk = (-(-tiles // _SMS) * c * (npl + 6)
+                    * max(1.0, (_B7_WALKERS + 1) / cw[1]))
+            return max(walk, tiles * 32 * npl * _B7_WD_COST), -cw[1]
+
+        cpw, walkers = min(fits, key=cost)
+        c = walkers * cpw
+        return B7Plan(npl, cpw, walkers, c, -(-max(cells, 1) // c), rows,
+                      -(-gene_block // rows), bm_pitch,
+                      b7_smem(rows, npl, c, bm_pitch, walkers, width))
+    raise NotImplementedError(
+        f"kernel B7: gene blocks of {gene_block} genes at width {width} and "
+        f"k = {k} do not fit in shared memory")
+
+
+def b7_wd_operand(Wd: torch.Tensor, npl: int) -> torch.Tensor:
+    """Wd (rows, k) as B7 reads it: rows of 32 npl floats, zeros past k,
+    lane l's columns l + 32 s, s = 4 q .. 4 q + 3, at 128 q + 4 l (npl a
+    multiple of 4; for npl = 2 lane l's two at 2 l, for npl = 1 in
+    place)."""
+    rows, k = Wd.shape
+    kp = 32 * npl
+    pad = torch.zeros((rows, kp), dtype=torch.float32, device=Wd.device)
+    pad[:, :k] = Wd
+    if npl == 1:
+        return pad
+    v = min(npl, 4)
+    return (pad.view(rows, npl // v, v, 32).transpose(2, 3)
+            .reshape(rows, kp).contiguous())
+
+
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # keep mode, seed, cell offset, inv_density, words, words' row stride,
 # stream
@@ -253,7 +383,8 @@ def _mse_lib():
         lib = _build.load("bell_mse_bits")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bell_mse_bits.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp, cl, vp,
-                                      vp, ci, vp, vp]
+                                      vp, ci, ci, ci, ci, ci, vp, ci, ci, vp,
+                                      vp]
         lib.bell_mse_bits.restype = ci
         lib.bell_mse_bits_error_string.argtypes = [ci]
         lib.bell_mse_bits_error_string.restype = ctypes.c_char_p
@@ -502,8 +633,10 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
                        gene_block: int) -> torch.Tensor:
     """Kernel B7: (2, cells) float32, per cell the squared error summed
     over its held-out genes (row 0) and their count (row 1), the mask read
-    from ``words``; Wd (n_gb * gene_block, k), H (cells, k). On CPU
-    tensors, the plain version."""
+    from ``words``; Wd (n_gb * gene_block, k), H (cells, k). A pass that
+    transposes the words into test bits by gene block, then the kernel on
+    ``b7_plan``, counted as one launch. On CPU tensors, the plain
+    version."""
     if H.device.type != "cuda":
         return bell_mse_bits_plain(b_li, b_val, words, Wd, H,
                                    gene_block=gene_block)
@@ -515,9 +648,6 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     if k > MAX_K_MSE:
         raise NotImplementedError(f"kernel B7 takes k <= {MAX_K_MSE}, got "
                                   f"{k}")
-    if gene_block > MAX_GENE_BLOCK_MSE:
-        raise NotImplementedError(f"kernel B7 takes gene_block <= "
-                                  f"{MAX_GENE_BLOCK_MSE}, got {gene_block}")
     n_gb = rows_w // gene_block
     cells = b_li.shape[1]
     dev = H.device
@@ -528,14 +658,21 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     out = torch.empty((2, cells), dtype=torch.float32, device=dev)
     if cells == 0:
         return out
+    width = b_li.shape[0] // n_gb
+    plan = b7_plan(cells, n_gb, gene_block, width, k)
+    wp = b7_wd_operand(Wd, plan.npl)
+    cells_pad = plan.n_ct * plan.cells
+    bm = torch.empty(n_gb * cells_pad * plan.bm_pitch, dtype=torch.int32,
+                     device=dev)
     lib = _mse_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bell_mse_bits(
-            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
-            b_li.shape[0] // n_gb, cells, gene_block, words.data_ptr(),
-            words.stride(0), Wd.data_ptr(), H.data_ptr(), k, out.data_ptr(),
-            stream)
+            b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb, width,
+            cells, gene_block, words.data_ptr(), words.stride(0),
+            wp.data_ptr(), H.data_ptr(), k, plan.npl, plan.cpw, plan.walkers,
+            plan.rows, bm.data_ptr(), cells_pad, plan.bm_pitch,
+            out.data_ptr(), stream)
     _raise_on(err, "bell_mse_bits", lib.bell_mse_bits_error_string)
     LAUNCHES_MSE_BITS += 1
     return out

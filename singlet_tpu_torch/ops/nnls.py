@@ -163,13 +163,14 @@ def nnls_batch(
     return X
 
 
-def _check_cuda_problem(B, L1):
-    """On CUDA the kernels take a float32 problem with scalar L1; (n, k) L1
-    (batch mode) raises rather than run the plain loop on the card."""
-    if isinstance(L1, torch.Tensor) and L1.dim() == 2:
+def _check_cuda_problem(B, L1, per_column_grams: bool):
+    """On CUDA the kernels take a float32 problem; (n, k) L1 (batch mode)
+    only with a shared Gram (B1): with per-column Grams (B2) it raises
+    rather than run the plain loop on the card."""
+    if per_column_grams and isinstance(L1, torch.Tensor) and L1.dim() == 2:
         raise NotImplementedError(
-            "on CUDA the CD-NNLS kernels take a scalar L1; (n, k) L1 (batch "
-            "mode) is not ported yet")
+            "on CUDA kernel B2 (per-column Grams) takes a scalar L1; (n, k) "
+            "L1 (batch mode) is ported for a shared Gram only")
     if B.dtype != torch.float32:
         raise NotImplementedError(
             f"on CUDA the CD-NNLS kernels take float32, got {B.dtype}")
@@ -180,14 +181,14 @@ def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     """Dispatcher: the kernels for CUDA tensors, the plain version on the
     CPU.
 
-    On CUDA a shared (k, k) Gram goes to kernel B1 and per-column (n, k, k)
-    Grams to kernel B2's tile entry (in its (k, k, n) layout, as the JAX
-    dispatcher sends them to ``nnls_batch_pallas_batched_a``); a float32
-    problem with scalar L1 only: (n, k) L1 (batch mode) raises there rather
-    than run the plain loop.
+    On CUDA a shared (k, k) Gram goes to kernel B1, with a scalar or an
+    (n, k) L1, and per-column (n, k, k) Grams to kernel B2's tile entry
+    (in its (k, k, n) layout, as the JAX dispatcher sends them to
+    ``nnls_batch_pallas_batched_a``) with a scalar L1: (n, k) L1 there
+    raises rather than run the plain loop. Float32 only.
     """
     if B.device.type == "cuda":
-        _check_cuda_problem(B, L1)
+        _check_cuda_problem(B, L1, a.dim() == 3)
         from singlet_tpu_torch.ops import nnls_cuda
 
         if a.dim() == 3:
@@ -195,6 +196,8 @@ def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                 a.permute(2, 1, 0).contiguous(), B, X0, L1=L1, L2=L2,
                 update_mask=update_mask, max_sweeps=max_sweeps,
                 n_coord=n_coord, sweep_cap=sweep_cap)
+        if isinstance(L1, torch.Tensor) and L1.dim() == 2:
+            L1 = L1.to(torch.float32).contiguous()
         return nnls_cuda.nnls_batch_cuda(a, B, X0, L1=L1, L2=L2,
                                          update_mask=update_mask,
                                          max_sweeps=max_sweeps,
@@ -242,7 +245,7 @@ def solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.0, L2=0.0,
     from singlet_tpu_torch.ops.linalg import unpack_sym_from_t
 
     if B.device.type == "cuda":
-        _check_cuda_problem(B, L1)
+        _check_cuda_problem(B, L1, True)
         from singlet_tpu_torch.ops.nnls_cuda import \
             nnls_batch_cuda_batched_packed_t
 

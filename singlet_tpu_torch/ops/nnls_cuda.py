@@ -3,8 +3,10 @@
 B1 (``nnls_batch_cuda``) solves against one shared Gram and replaces
 ``singlet_tpu/ops/pallas_nnls.py`` ``nnls_batch_pallas`` (body
 ``_nnls_kernel``), the kernel of both plain ALS half-updates; its source is
-``csrc/nnls_cd.cu`` (one warp per column, Gram staged transposed in shared
-memory). B2 solves against one Gram per column and replaces
+``csrc/nnls_cd.cu`` (G lanes a column, 32 / G columns a warp, the Gram
+staged transposed in shared memory; ``b1_plan`` picks G). It takes a
+scalar L1 or a per-coordinate (n, k) one. B2 solves against one Gram per
+column and replaces
 ``nnls_batch_pallas_batched_at`` (body ``_nnls_kernel_batched``), the
 kernel of the masked half-updates; its source is ``csrc/nnls_cd_batched.cu``
 (a warp or half-warp per column, its coordinates over the lanes, each
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,19 +45,29 @@ from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS, nnls_batch
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
 
-# B1: coordinates per lane are a template parameter; up to k = 224 (7 per
-# lane) the (k, k) Gram plus 1/diag are staged in shared memory (at most
-# 201,600 of the 232,448 bytes a Hopper block may use), past it the kernel
-# reads the transposed Gram from device memory with up to 16 per lane
+# B1: a column over G lanes, up to 8 coordinates a lane in registers (16
+# past k = 224); up to k = 224 the transposed Gram is staged in shared
+# memory (at most 200,704 of the 232,448 bytes a Hopper block may use),
+# past it the kernel reads it from device memory with G = 32
 MAX_K_SHARED = 224
 MAX_K = 512
+_SMEM_BLOCK = 232448
+# the plan's aim: at least this many warps a call (about two a scheduler
+# of an H100's 132 multiprocessors), where fewer columns a warp allow it
+_B1_MIN_WARPS = 1024
+# coordinates a lane on the shared-memory route at an odd pitch (scalar
+# loads; 16-byte loads take up to 16)
+_B1_MAX_NPL_SHARED = 8
+# shared memory of a block's sweep terms and L1 (8 warps of 32 lanes each)
+# and 1/diag, per coordinate a lane, float32 (nnls_cd.cu ``term_bytes``)
+_B1_TERM_BYTES = 17 * 32 * 4
 # B2: a column's coordinates over the 32 lanes of a warp, up to 16 each in
 # registers; the same limit as B1, which the final plain fit of a rank
 # search runs at the chosen rank
 MAX_K_BATCHED = 512
 
-# the C entry points of B1 and B2 take the same arguments: six pointers,
-# n, k, L1, L2, k_div, cap, max_sweeps and the stream
+# the C entry points of B2 take six pointers, n, k, L1, L2, k_div, cap,
+# max_sweeps and the stream
 _ARGTYPES = ([ctypes.c_void_p] * 6
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -62,11 +75,17 @@ _ARGTYPES = ([ctypes.c_void_p] * 6
 # B2's packed entry: a_full, packed_t and the row-start table in place of
 # the tile and 1/diag, then the arguments above
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
+# B1's entry: a, aT, l1, B, X0, mask, X, then n, k, g, L1, L2, k_div, cap,
+# max_sweeps and the stream
+ARGTYPES_B1 = ([ctypes.c_void_p] * 7
+               + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_int, ctypes.c_void_p])
 _BOUND: dict = {}
 
 
-def _kernel(source: str = "nnls_cd", symbol: str = "nnls_cd_shared",
-            argtypes=_ARGTYPES):
+def _kernel(source: str = "nnls_cd", symbol: str = "nnls_cd",
+            argtypes=ARGTYPES_B1):
     """(entry point, error-string function) of ``csrc/<source>.cu``,
     building and loading the library once."""
     if symbol not in _BOUND:
@@ -84,7 +103,7 @@ def _kernel(source: str = "nnls_cd", symbol: str = "nnls_cd_shared",
 
 
 def _kernel_batched():
-    return _kernel("nnls_cd_batched", "nnls_cd_batched")
+    return _kernel("nnls_cd_batched", "nnls_cd_batched", _ARGTYPES)
 
 
 def _check(name, t, shape, dtype, device):
@@ -99,10 +118,80 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+class B1Plan(NamedTuple):
+    """B1's split of one call's work (see ``b1_plan``)."""
+    g: int         # lanes a column: 2, 4, 8, 16 or 32
+    npl: int       # coordinates a lane, ceil(k / g) (device-memory route:
+                   # rounded up to even)
+    cols: int      # columns a warp, 32 // g
+    warps: int     # column sets (warps' worth of columns) of the call
+    shared: bool   # Gram staged in shared memory (k <= 224), else read
+                   # from device memory
+    pitch: int     # floats of a lane's run in a staged Gram row (4 mod 8:
+                   # 16-byte loads; odd: scalar loads)
+    smem: int      # dynamic shared memory a block, bytes: the staged
+                   # Gram, the warps' sweep terms and L1, and 1/diag
+
+
+@functools.lru_cache(maxsize=256)
+def b1_plan(n: int, k: int) -> B1Plan:
+    """B1's plan, from the shapes alone: the fewest lanes a column G (a
+    power of two, at least 2) whose staged Gram fits in shared memory,
+    with up to 16 coordinates a lane where the lane runs take 16-byte
+    loads (a pitch of 4 mod 8 floats), else up to 8 at an odd pitch;
+    doubled while the call would run fewer than ``_B1_MIN_WARPS`` warps,
+    so that the card fills. Past k = 224 G = 32, up to 16 coordinates a
+    lane, and the Gram is read from device memory. Lane p of a column
+    holds coordinates p, p + G, ...; the staged Gram row i holds column i
+    of a, lane p's entries at p * pitch. The plan does not change the
+    bits: every step rounds alike and the sweep tolerance is summed in one
+    order for every G (the kernel's note)."""
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(f"kernel B1 takes k <= {MAX_K}, got {k}")
+    if k > MAX_K_SHARED:
+        npl = -(-k // 32)
+        npl += npl & 1
+        return B1Plan(32, npl, 1, max(n, 0), False, 32 * npl,
+                      npl * _B1_TERM_BYTES)
+
+    def staged(g):
+        """(npl, pitch, bytes) of G = g on the shared-memory route: 16-byte
+        loads where the wider pitch fits, else an odd pitch (npl <= 8),
+        else None. The bytes hold the staged Gram, the warps' sweep
+        terms and L1, and 1/diag."""
+        npl = -(-k // g)
+        if 4 <= npl <= 16:
+            pitch = b1_vec_pitch(npl)
+            smem = (k + 1) * g * pitch * 4 + npl * _B1_TERM_BYTES
+            if smem <= _SMEM_BLOCK:
+                return npl, pitch, smem
+        if npl <= _B1_MAX_NPL_SHARED:
+            pitch = npl | 1
+            return npl, pitch, (k + 1) * g * pitch * 4 + npl * _B1_TERM_BYTES
+        return None
+
+    g = 2
+    while staged(g) is None:
+        g *= 2
+    while g < 32 and -(-n // (32 // g)) < _B1_MIN_WARPS:
+        g *= 2
+    npl, pitch, smem = staged(g)
+    return B1Plan(g, npl, 32 // g, -(-n // (32 // g)), True, pitch, smem)
+
+
+def b1_vec_pitch(npl: int) -> int:
+    """B1's pitch for 16-byte loads (nnls_cd.cu ``vec_pitch``): npl rounded
+    up to 4, then to 4 mod 8 floats, so that a quarter-warp's 8 lanes read
+    distinct banks."""
+    r = -(-npl // 4) * 4
+    return r if (r // 4) % 2 == 1 else r + 4
+
+
 def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                     max_sweeps: int = CD_MAX_SWEEPS, n_coord=None,
                     sweep_cap=None) -> torch.Tensor:
-    """``nnls_batch`` for a shared (k, k) float32 Gram and scalar L1/L2.
+    """``nnls_batch`` for a shared (k, k) float32 Gram, a scalar L2 and a
+    scalar or (n, k) float32 L1.
 
     a: (k, k); B, X0: (n, k); update_mask: bool (n,) or None. Returns X
     (n, k); rows with update_mask False equal X0 bit for bit.
@@ -116,22 +205,36 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     if k > MAX_K:
         raise NotImplementedError(f"kernel B1 takes k <= {MAX_K}, got {k}")
     _check("a", a, (k, k), torch.float32, B.device)
+    l1 = None
+    if isinstance(L1, torch.Tensor) and L1.dim() > 0:
+        _check("L1", L1, (n, k), torch.float32, B.device)
+        l1, L1 = L1, 0.0
     _check_common(B, X0, update_mask, L1, "B1")
     k_div = float(k if n_coord is None else n_coord)
-    cap = _cap(max_sweeps, sweep_cap)
-
-    inv_diag = 1.0 / torch.diagonal(a)       # as in the plain version
     X = torch.empty_like(B)
     if n == 0:
         return X
-    if k <= MAX_K_SHARED:
-        _launch(_kernel(), "nnls_cd_shared", (a, inv_diag), B, X0,
-                update_mask, X, L1, L2, k_div, cap, max_sweeps)
-    else:
-        # the kernel reads column i of a as row i of its transposed copy
-        _launch(_kernel("nnls_cd", "nnls_cd_global"), "nnls_cd_global",
-                (a.t().contiguous(), inv_diag), B, X0, update_mask, X, L1,
-                L2, k_div, cap, max_sweeps)
+    plan = b1_plan(n, k)
+    aT = None
+    if not plan.shared:
+        # column i of a as row i of a transposed copy, rows of 32 npl
+        # floats, zero past k, and row k a copy of row 0
+        aT = torch.zeros((k + 1, 32 * plan.npl), dtype=torch.float32,
+                         device=B.device)
+        aT[:k, :k] = a.t()
+        aT[k] = aT[0]
+    fn, err_str = _kernel()
+    mask_ptr = None if update_mask is None else update_mask.data_ptr()
+    with torch.cuda.device(B.device):
+        stream = torch.cuda.current_stream(B.device).cuda_stream
+        err = fn(a.data_ptr(), None if aT is None else aT.data_ptr(),
+                 None if l1 is None else l1.data_ptr(), B.data_ptr(),
+                 X0.data_ptr(), mask_ptr, X.data_ptr(), n, k, plan.g,
+                 float(L1), float(L2), k_div, _cap(max_sweeps, sweep_cap),
+                 int(max_sweeps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"nnls_cd launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES += 1
     return X
 
@@ -149,9 +252,10 @@ def _check_common(B, X0, update_mask, L1, name):
 
 def _launch(bound, symbol, grams, B, X0, update_mask, X, L1, L2, k_div, cap,
             max_sweeps):
-    """Launch a bound kernel on the current stream of B's device; raise if
-    the launch was refused. ``grams``: the tensors passed before B, (Gram,
-    1/diag) or B2's (a_full, packed_t, row starts)."""
+    """Launch a bound entry of B2 on the current stream of B's device;
+    raise if the launch was refused. ``grams``: the tensors passed before
+    B, the tile entry's (at, 1/diag) or the packed entry's (a_full,
+    packed_t, row starts)."""
     fn, err_str = bound
     n, k = B.shape
     mask_ptr = None if update_mask is None else update_mask.data_ptr()

@@ -31,7 +31,9 @@ from singlet_tpu.ops import maskbits as jmb
 from singlet_tpu.ops import pallas_bell as jpb
 from singlet_tpu.ops.rngmask import seed_pair as jax_seed_pair
 from singlet_tpu_torch.ops import bell, maskbits
-from singlet_tpu_torch.ops.bell_cuda import b3_bm_words, b3_plan, b3_smem
+from singlet_tpu_torch.ops.bell_cuda import (b3_bm_words, b3_plan, b3_smem,
+                                            b7_cpws, b7_max_walkers, b7_plan,
+                                            b7_smem)
 from singlet_tpu_torch.ops.rngmask import seed_pair
 from singlet_tpu_torch.parallel import sharded_ell as tell
 
@@ -360,3 +362,264 @@ def test_b3_b5_plain_and_model_match_jax(rng, geom):
     want = np.asarray(jpb.bell_spmm_bits(jli, jlv, jW, jwords.T,
                                          gene_block=gb, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ B7
+
+# (cells, n_gb, gene_block, width, k): the engine's test MSE (all 524,288
+# cells and the 8192-cell slice at k = 100, the bench planes at k = 50,
+# 256 and 300), the card tests' shapes, gene blocks up to B5's 5,632
+B7_SHAPES = [(524288, 32, 512, 32, 100), (8192, 32, 512, 32, 100),
+             (8192, 32, 512, 72, 50), (8192, 32, 512, 72, 256),
+             (8192, 32, 512, 72, 300), (1000, 3, 256, 24, 224),
+             (1000, 40, 32, 24, 3), (2049, 2, 5632, 72, 512),
+             (2049, 3, 160, 8, 40), (1, 1, 1, 1, 1), (31, 2, 100, 3, 129)]
+
+
+@pytest.mark.parametrize("cells,n_gb,gene_block,width,k", B7_SHAPES)
+def test_b7_plan_covers_cells_and_sub_blocks_once(cells, n_gb, gene_block,
+                                                  width, k):
+    """Every cell lies in one tile of walkers * cpw cells; a gene block's
+    sub-blocks [sb R, sb R + R) cover its genes once, in ascending order,
+    and each one's R / 32 words of test bits lie in the cell's bm_pitch
+    words; a walker keeps at most 32 floats of H a lane (or 2 cells); the
+    plan is a function of the shapes and does not change the bits."""
+    p = b7_plan(cells, n_gb, gene_block, width, k)
+    assert p == b7_plan.__wrapped__(cells, n_gb, gene_block, width, k)
+    assert 32 * p.npl >= k and p.npl in (1, 2, 4, 8, 12, 16)
+    assert p.cpw in b7_cpws(p.npl) and (p.cpw * p.npl <= 32 or p.cpw <= 2)
+    assert 1 <= p.walkers <= b7_max_walkers(p.npl, p.cpw) <= 16
+    assert p.cells == p.walkers * p.cpw
+    assert p.n_ct * p.cells >= cells > (p.n_ct - 1) * p.cells
+    assert p.rows in (128, 64, 32)
+    genes = [g for sb in range(p.n_sb)
+             for g in range(sb * p.rows, min((sb + 1) * p.rows, gene_block))]
+    assert genes == list(range(gene_block))
+    assert p.n_sb * p.rows // 32 <= p.bm_pitch and p.bm_pitch % 8 == 0
+    assert 32 * p.bm_pitch >= gene_block
+
+
+def test_b7_plan_fits_shared_memory():
+    """For gene_block <= 5,632 (B5's reach; the bits' pitch moves every
+    256 genes), width <= 72 and k <= 512, at the engine's cell counts and
+    a few cells, the plan's block fits in 232,448 bytes."""
+    gene_blocks = sorted({1, 31, 32, 33, 100, 255, 256, 257, 512, 1000,
+                          1720, 2048, 4096, 5000, 5376, 5377, 5632})
+    ks = list(range(1, 65, 3)) + [96, 97, 100, 128, 129, 224, 225, 256,
+                                  257, 300, 384, 385, 500, 512]
+    worst = 0
+    for gene_block in gene_blocks:
+        for width in (1, 8, 32, 72):
+            for k in ks:
+                for cells in (1, 2049, 8192, 524288):
+                    p = b7_plan.__wrapped__(cells, 32, gene_block, width, k)
+                    assert p.smem == b7_smem(p.rows, p.npl, p.cells,
+                                             p.bm_pitch, p.walkers, width)
+                    worst = max(worst, p.smem)
+    assert worst <= SMEM
+
+
+def test_b7_plan_fills_the_card_at_the_engine_shapes():
+    """All 524,288 cells take tiles of 16 walkers and sub-blocks of 128
+    genes; the 8192-cell slice and the bench planes one wave of tiles over
+    the 132 SMs."""
+    p = b7_plan(524288, 32, 512, 32, 100)
+    assert p.walkers == 16 and p.rows == 128
+    for width, k in ((32, 100), (72, 50)):
+        p = b7_plan(8192, 32, 512, width, k)
+        assert p.n_ct <= 132 and p.walkers >= 8
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _fma(a, b, c):
+    """fmaf on float32 values (the product is exact in float64)."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _butterfly(parts):
+    """The parent's xor butterfly 16, 8, 4, 2, 1 over 32 lane parts: every
+    lane's value (all equal)."""
+    v = [_f32(x) for x in parts]
+    off = 16
+    while off:
+        v = [_f32(v[l] + v[l ^ off]) for l in range(32)]
+        off //= 2
+    return v
+
+
+def _reduce_scatter(parts):
+    """The kernel's batch of 8 entries: parts[l][e] the lane parts; levels
+    16, 8, 4 keep the half of a lane's entries whose index bit matches its
+    lane bit and add the partner's parts of them, then the butterfly's
+    offsets 2 and 1. Returns each lane's value; lane l's is entry (l >> 2)
+    & 7's."""
+    p = [[_f32(x) for x in row] for row in parts]
+    for lvl in range(3):
+        off, half = 16 >> lvl, 8 >> (lvl + 1)
+        new = []
+        for l in range(32):
+            up = bool(l & off)
+            q = list(p[l])
+            for i in range(half):
+                partner = p[l ^ off]
+                # the partner sends what this lane keeps
+                recv = partner[i + half] if up else partner[i]
+                keep = p[l][i + half] if up else p[l][i]
+                q[i] = _f32(keep + recv)
+            new.append(q)
+        p = new
+    v = [row[0] for row in p]
+    for off in (2, 1):
+        v = [_f32(v[l] + v[l ^ off]) for l in range(32)]
+    return v
+
+
+def _parts(rng, shape):
+    kind = rng.integers(0, 4, shape)
+    x = np.where(kind == 0, 0.0, np.where(
+        kind == 1, rng.standard_normal(shape) * 1e-40,
+        rng.standard_normal(shape) * 10.0 ** rng.integers(-6, 6, shape)))
+    return x.astype(np.float32)
+
+
+def test_b7_reduce_scatter_is_the_parents_butterfly():
+    """Each entry's total after the reduce-scatter has the bits of the
+    parent's per-entry butterfly, on parts with zeros, denormals and
+    mixed signs and scales."""
+    rng = np.random.default_rng(17)
+    for _ in range(40):
+        parts = _parts(rng, (32, 8))
+        got = _reduce_scatter(parts)
+        for e in range(8):
+            want = _butterfly(parts[:, e])[0]
+            for l in range(32):
+                if (l >> 2) & 7 == e:
+                    assert got[l].tobytes() == want.tobytes(), (e, l)
+
+
+def _b7_bits(words, n_gb, gene_block, cells_pad, bm_pitch):
+    """numpy model of B7's pass (bell_mse_bits.cu ``b7_bits_kernel``):
+    bit (gb & 31) of words[c, (gb >> 5) GB + l] becomes bit (l & 31) of
+    bm[gb][c][l >> 5], zero past the gene block and the cells."""
+    cells = words.shape[0]
+    bm = np.zeros((n_gb, cells_pad, bm_pitch), np.uint32)
+    for gb in range(n_gb):
+        base = (gb >> 5) * gene_block
+        bit = (words[:, base:base + gene_block].astype(np.uint64)
+               >> np.uint64(gb & 31)) & np.uint64(1)
+        for l in range(gene_block):
+            bm[gb, :cells, l >> 5] |= (bit[:, l] << np.uint64(l & 31)
+                                       ).astype(np.uint32)
+    return bm
+
+
+def _model_b7(li, lv, words, Wd, H, gene_block, parent_order=False):
+    """numpy model of kernel B7 on ``b7_plan`` (the pass's bits, then per
+    tile, gene block, sub-block and the tile's cells the held-out genes in
+    ascending order, eight at a time, each dot one fmaf chain a lane and
+    the reduce-scatter, ``s = fmaf(diff, diff, s)``); with
+    ``parent_order``, the parent's (per cell, gene blocks and genes in
+    order, the butterfly per entry). Returns (2, cells) and each cell's
+    genes in visiting order."""
+    cells, k = H.shape
+    n_gb = Wd.shape[0] // gene_block
+    width = li.shape[0] // n_gb
+    p = b7_plan(cells, n_gb, gene_block, width, k)
+    kp = 32 * p.npl
+    bm = _b7_bits(words, n_gb, gene_block, p.n_ct * p.cells, p.bm_pitch)
+    h = np.zeros((cells, kp), np.float32)
+    h[:, :k] = H
+    w = np.zeros((Wd.shape[0], kp), np.float32)
+    w[:, :k] = Wd
+    out = np.zeros((2, cells), np.float32)
+    order = {c: [] for c in range(cells)}
+
+    def dense_row(c, gb):
+        d = np.zeros(gene_block, np.float32)
+        for s in range(width):
+            l = li[gb * width + s, c]
+            if l >= 0:
+                d[l] = lv[gb * width + s, c]
+        return d
+
+    def lane_parts(c, g):
+        parts = []
+        for lane in range(32):
+            acc = _f32(0)
+            for s in range(p.npl):
+                acc = _fma(h[c, s * 32 + lane], w[g, s * 32 + lane], acc)
+            parts.append(acc)
+        return parts
+
+    def add(c, g, tot, d):
+        diff = _f32(tot - d)
+        out[0, c] = _fma(diff, diff, out[0, c])
+        out[1, c] = _f32(out[1, c] + 1)
+        order[c].append(g)
+
+    def held(c, gb, lo, hi):
+        return [l for l in range(lo, hi)
+                if (int(bm[gb, c, l >> 5]) >> (l & 31)) & 1]
+
+    if parent_order:
+        for c in range(cells):
+            for gb in range(n_gb):
+                d = dense_row(c, gb)
+                for l in held(c, gb, 0, gene_block):
+                    g = gb * gene_block + l
+                    add(c, g, _butterfly(lane_parts(c, g))[0], d[l])
+        return out, order
+    for t in range(p.n_ct):
+        for gb in range(n_gb):
+            for sb in range(p.n_sb):
+                lo, hi = sb * p.rows, min((sb + 1) * p.rows, gene_block)
+                for c in range(t * p.cells, min((t + 1) * p.cells, cells)):
+                    ls = held(c, gb, lo, hi)
+                    d = dense_row(c, gb)
+                    for b0 in range(0, len(ls), 8):
+                        batch = ls[b0:b0 + 8]
+                        parts = np.zeros((32, 8), np.float32)
+                        for e, l in enumerate(batch):
+                            parts[:, e] = lane_parts(c, gb * gene_block + l)
+                        tot = _reduce_scatter(parts)
+                        for e, l in enumerate(batch):
+                            add(c, gb * gene_block + l, tot[4 * e], d[l])
+    return out, order
+
+
+@pytest.mark.parametrize("cells,n_gb,gene_block,width,k,inv", [
+    (37, 3, 160, 8, 40, 5), (20, 2, 96, 6, 3, 3), (16, 33, 8, 4, 9, 2)])
+def test_b7_schedule_matches_parent_and_plain(cells, n_gb, gene_block, width,
+                                              k, inv):
+    """The kernel's schedule (tiles, sub-blocks of the plan, batches of
+    eight) visits each cell's held-out genes once in ascending order and
+    gives the parent's bits; both are within rtol 2e-4 of the plain
+    version, with the same counts. Gene blocks that are no multiple of the
+    sub-block, a second word group (33 gene blocks) and tiles past the
+    cells included."""
+    li, lv = _planes(n_gb, width, cells, gene_block, cells + k)
+    genes = n_gb * gene_block
+    rng = np.random.default_rng(k)
+    Wd = (rng.random((genes, k)) / k).astype(np.float32)
+    H = rng.random((cells, k)).astype(np.float32)
+    words = maskbits.pack_mask_words(
+        seed_pair(3), torch.arange(100, 100 + cells), genes_pad=genes,
+        gene_block=gene_block, inv_density=inv, cells_true=100 + cells,
+        genes_true=genes).numpy().view(np.uint32)
+    got, order = _model_b7(li, lv, words, Wd, H, gene_block)
+    want, want_order = _model_b7(li, lv, words, Wd, H, gene_block,
+                                 parent_order=True)
+    assert order == want_order
+    for c in range(cells):
+        assert order[c] == sorted(set(order[c]))
+    assert got.tobytes() == want.tobytes()
+    plain = bell.bell_mse_bits_plain(
+        torch.as_tensor(li), torch.as_tensor(lv),
+        torch.as_tensor(words.view(np.int32)), torch.as_tensor(Wd),
+        torch.as_tensor(H), gene_block=gene_block).numpy()
+    np.testing.assert_array_equal(got[1], plain[1])
+    assert plain[1].sum() > 0
+    np.testing.assert_allclose(got[0], plain[0], rtol=2e-4, atol=1e-5)

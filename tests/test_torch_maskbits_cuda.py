@@ -125,6 +125,56 @@ def test_b7_matches_plain(cuda, gene_block, n_gb, k):
         li, lv, words, Wd, H, gene_block=gene_block))
 
 
+def test_b7_wide_gene_block_and_odd_cells(cuda):
+    """B7 at B5's widest gene block (5,632, width 72, k up to 512) and at
+    2049 cells (a tile past the cells): one launch, the plain version's
+    counts and sums, the same bits twice."""
+    G, n_gb, cells = 5632, 2, 2049
+    li, lv = _planes(72, cells, G, n_gb, 5, cuda)
+    words = _words(cells, G, n_gb, 20, cuda)
+    for k in (3, 100, 512):
+        Wd = torch.rand((G * n_gb, k), device=cuda) / k
+        H = torch.rand((cells, k), device=cuda)
+        before = bell_cuda.LAUNCHES_MSE_BITS
+        got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
+                                           gene_block=G)
+        assert bell_cuda.LAUNCHES_MSE_BITS == before + 1
+        want = bell.bell_mse_bits_plain(li, lv, words, Wd, H, gene_block=G)
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), rtol=2e-4,
+                                   atol=1e-5)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got, bell_cuda.bell_mse_bits_cuda(
+            li, lv, words, Wd, H, gene_block=G))
+
+
+def test_b7_takes_every_k_in_one_launch(cuda):
+    """Every k in 1..512 is one launch with the plain version's counts and
+    the same bits twice; its sums against the plain version at the plan's
+    edges."""
+    G, n_gb, cells = 64, 2, 45
+    li, lv = _planes(8, cells, G, n_gb, 6, cuda)
+    words = _words(cells, G, n_gb, 4, cuda)
+    edges = {1, 31, 32, 33, 64, 65, 96, 97, 128, 129, 224, 256, 257, 300,
+             384, 385, 511, 512}
+    for k in range(1, bell_cuda.MAX_K_MSE + 1):
+        Wd = torch.rand((G * n_gb, k), device=cuda) / k
+        H = torch.rand((cells, k), device=cuda)
+        before = bell_cuda.LAUNCHES_MSE_BITS
+        got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
+                                           gene_block=G)
+        assert bell_cuda.LAUNCHES_MSE_BITS == before + 1, k
+        assert torch.equal(got, bell_cuda.bell_mse_bits_cuda(
+            li, lv, words, Wd, H, gene_block=G)), k
+        if k in edges:
+            want = bell.bell_mse_bits_plain(li, lv, words, Wd, H,
+                                            gene_block=G)
+            assert torch.equal(got[1], want[1]), k
+            np.testing.assert_allclose(got[0].cpu().numpy(),
+                                       want[0].cpu().numpy(), rtol=2e-4,
+                                       atol=1e-5, err_msg=str(k))
+
+
 def _operand(X, dtype):
     P = packed_outer_products(X, triu_pairs(X.shape[1]))
     if dtype == "int8":

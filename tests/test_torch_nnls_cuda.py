@@ -10,6 +10,8 @@ without one. On a machine with a card (and without jax, which
 Tolerance rtol=5e-3, atol=1e-6, that of tests/test_pallas_nnls.py: kernel and
 plain version round every coordinate step alike, but sum the sweep-end tol in
 another order, so a borderline column may run one sweep more or fewer.
+B1 also takes an (n, k) L1 (the plain version's per-coordinate branch); a
+run gives the same bits every time.
 """
 
 import numpy as np
@@ -75,14 +77,76 @@ def test_solve_nnls_launches_kernel_only(cuda):
 
 
 def test_solve_nnls_raises_off_the_kernel(cuda):
+    """Per-column Grams with (n, k) L1 (B2 takes a scalar L1) and float64
+    raise rather than run the plain loop on the card; a shared Gram with
+    (n, k) L1 goes to B1."""
     a, B, X0, _ = _problem(64, 5, 4, cuda)
     with pytest.raises(NotImplementedError, match="batch"):
         nnls.solve_nnls(a.expand(64, 5, 5).contiguous(), B, X0,
                         L1=torch.full_like(B, 0.01))
-    with pytest.raises(NotImplementedError, match="batch"):
-        nnls.solve_nnls(a, B, X0, L1=torch.full_like(B, 0.01))
     with pytest.raises(NotImplementedError):
         nnls.solve_nnls(a.double(), B.double(), X0.double())
+    counts = (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS)
+    nnls.solve_nnls(a, B, X0, L1=torch.full_like(B, 0.01))
+    assert (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS) == (counts[0] + 1,
+                                                      counts[1])
+
+
+@pytest.mark.parametrize("n,k", [(333, 7), (1500, 10), (2048, 50),
+                                 (1024, 100), (300, 224), (300, 256),
+                                 (200, 300)])
+@pytest.mark.parametrize("sweep_cap", [None, 8.0])
+def test_kernel_l1_array_matches_plain(cuda, n, k, sweep_cap):
+    """B1 with a per-coordinate (n, k) L1 against the plain version's
+    (n, k) branch, through solve_nnls (one launch, no plain call); masked
+    columns return X0 bit for bit."""
+    a, B, X0, mask = _problem(n, k, n + k + 1, cuda)
+    L1 = torch.rand((n, k), generator=torch.Generator(device=cuda)
+                    .manual_seed(k), device=cuda) * 0.05
+    kw = dict(L2=0.001, update_mask=mask, sweep_cap=sweep_cap)
+    counts = (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS)
+    Xk = nnls.solve_nnls(a, B, X0, L1=L1, **kw)
+    assert (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS) == (counts[0] + 1,
+                                                      counts[1])
+    Xp = nnls.nnls_batch(a, B, X0, L1=L1, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+
+
+def test_kernel_takes_every_k_in_one_launch(cuda):
+    """Every k in 1..512 is one launch, at an n that is no multiple of a
+    warp's columns, with the same bits twice and X0 on masked columns;
+    against the plain version at the plan's edges."""
+    edges = {1, 2, 16, 17, 31, 32, 33, 48, 63, 64, 65, 100, 127, 128, 129,
+             200, 208, 209, 223, 224, 225, 256, 257, 300, 320, 321, 447,
+             448, 449, 511, 512}
+    for k in range(1, nnls_cuda.MAX_K + 1):
+        a, B, X0, mask = _problem(37, k, k, cuda)
+        kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=3.0)
+        before = nnls_cuda.LAUNCHES
+        Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+        assert nnls_cuda.LAUNCHES == before + 1, k
+        assert torch.equal(Xk, nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)), k
+        assert torch.equal(Xk[~mask], X0[~mask]), k
+        if k in edges:
+            Xp = nnls.nnls_batch(a, B, X0, **kw)
+            np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                       rtol=5e-3, atol=1e-6, err_msg=str(k))
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 1025, 8193])
+def test_kernel_any_column_count(cuda, n):
+    """Column counts that leave a warp's column set or the grid part
+    full (the plan's G varies with n) give the plain version's result."""
+    a, B, X0, mask = _problem(n, 50, n, cuda)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=8.0)
+    Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+    Xp = nnls.nnls_batch(a, B, X0, **kw)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
 
 
 def test_wrapper_checks_inputs(cuda):
@@ -93,6 +157,8 @@ def test_wrapper_checks_inputs(cuda):
         nnls_cuda.nnls_batch_cuda(a, B, X0[:10])
     with pytest.raises(TypeError):
         nnls_cuda.nnls_batch_cuda(a, B, X0, update_mask=mask.float())
+    with pytest.raises(ValueError, match="shape"):
+        nnls_cuda.nnls_batch_cuda(a, B, X0, L1=torch.zeros_like(B)[:, :3])
 
 
 def test_run_nmf_on_card_matches_cpu(cuda):
