@@ -9,7 +9,8 @@ Phases; any failure raises and the script exits non-zero:
 
 0. device: torch and CUDA versions, the card's name and power limit;
 1. build: compile every CUDA kernel from ``csrc/``, one nvcc per source,
-   all started together;
+   and the C++ IO library (``native/singlet_io.cpp``, g++), all started
+   together;
 2. kernel B1 (``ops/nnls_cuda.py``) against its plain PyTorch version on the
    card, at the half-update shapes of the bench config and at edge shapes,
    with both sweep caps the fit uses, and with a per-coordinate (n, k) L1
@@ -135,11 +136,41 @@ Phases; any failure raises and the script exits non-zero:
    B10 and B11 per block), then one hash-route step, one hashed test MSE
    (each timed and under the profiler) and one checkpoint save timed. The
    checkpoints go to a temporary directory under the git-ignored
-   ``build/``, removed at the end.
+   ``build/``, removed at the end;
+15. streaming ingest on 131,072 cells x 16,384 genes (824 requested
+   nonzeros per cell, about 105M stored), made on the host as 16 scipy
+   chunks of 8192 cells: the C++ IO library (``native/singlet_io.cpp``)
+   built and loaded (the phase fails if it is not); its ``csc_to_bell`` and
+   the numpy packer on the concatenated matrix, the same planes, both
+   timed (host s) with the planes' GiB; the chunk list ingested
+   (``shard_ell_from_chunks``) into planes equal on the card, bit for bit,
+   to ``shard_ell_data`` of the concatenation; ``stage_chunks`` into a
+   directory under ``build/`` in the v1 and the v2 (value-grouped) shard
+   encoding, bytes on disk and seconds, each staged directory ingested
+   (``shard_ell_from_staged``) into the same planes; ``run_nmf`` on the
+   v2 directory (k=100, tol=0, maxit=3, one W0) bit for bit the same fit
+   from the concatenated matrix's engine, B1, B3 and B4 alone; and
+   ``cross_validate_nmf`` on the v1 directory at one rank for 2 iterations
+   on the default bits route (B2, B5-B9); the directory removed at the end;
+16. the remaining solvers: each entry point on the card against the same
+   call on the CPU at a small size (``run_linked_nmf``, ``project_model``,
+   ``nmf_batch`` dense and ``batch_fit``, ``gcnmf`` dense and
+   ``gcnmf_fit``, ``mu_nmf`` both steps from one init, ``local_knn`` for
+   five metrics on exact integer distances, ``snn_graph``,
+   ``spatial_graph``); at the bench config from one W0, the engine side
+   against the dense side within the fit tolerance, with equal iteration
+   counts and tol traces within it (linked NMF,
+   projection, ``batch_fit`` against ``nmf_batch`` with 4 batches,
+   ``gcnmf_fit`` against ``gcnmf`` with G from ``local_knn`` on synthetic
+   coordinates, 10 neighbours), each timed; on phase 15's engine,
+   ``batch_fit`` and ``gcnmf_fit`` at k=100 for 3 iterations (ms per
+   iteration), G's plane width and GiB, and B3 on G's planes and on A's
+   planes timed apart by CUDA events. Every counted run launches B1, B3
+   and B4 alone and no plain version.
 
 Each counted run sets every launch counter to 0 just before it and reads
-them just after. After the phases come three lines: ``results: {...}`` with
-every number measured, ``{"kernels": [...]}`` and the card's name and power
+them just after. After the phases come the run's total seconds and three
+lines: ``results: {...}`` with every number measured, ``{"kernels": [...]}`` and the card's name and power
 limit; the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device the script exits 2 and prints no result.
 """
@@ -231,6 +262,20 @@ WIDE_K = (256, 300)
 WIDE_RUN_NMF = dict(genes=4096, cells=2048, k=256, maxit=3)
 WIDE_ELL = dict(genes=768, cells=768, k=256, maxit=2, cell_block=256,
                 gene_block=256)
+# phase 15, streaming ingest: the large config's genes and requested
+# nonzeros per cell (824, drawn with replacement, so about 804 stored) at a
+# quarter of its cells, made on the host as chunks of 8192 cells, raw
+# counts 1 + Poisson(0.6); the fits at k=100 for 3 iterations, the CV at
+# one rank for 2
+STREAM = dict(genes=16384, cells=131072, nnz=824, chunk=8192, seed=15,
+              k=100, maxit=3, cv_rank=100, cv_maxit=2)
+# phase 16, the remaining solvers: the card against the CPU at a small
+# size; the engine against the dense side at the bench config (10
+# iterations at tol=0, 4 batches, G from local_knn: 10 neighbours within
+# radius 2 of points spread 30 to that disc, 10 features); batch_fit and
+# gcnmf_fit on phase 15's operand (k=100, 3 iterations)
+SOLVERS = dict(maxit=10, batches=4, knn=10, radius=2.0, per_disc=30,
+               features=10, seed=16, large_maxit=3)
 
 
 _M32 = 0xFFFFFFFF
@@ -1098,6 +1143,14 @@ def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
     if timed:
         t.update(library_ms=None, bound=_bound(word_bytes + m8.numel(), 0,
                                                INT8_OPS_S))
+        # 5 more turns of 20 calls, for the median and the spread of B12's
+        # time against its bound
+        t["turns_ms"] = [_median_ms(torch, lambda: b12(
+            maskgram_cuda.unpack_mask_bits_cuda, m8_buf), runs=20)
+            for _ in range(5)]
+        print(f"kernel B12 {label} in 5 turns: {t['turns_ms']} ms, median "
+              f"{statistics.median(t['turns_ms']):.4f}, bound "
+              f"{t['bound']['bound_ms']:.4f} ms ({card})", flush=True)
     record("B12", 0.0, 1.0, **t)
     del m8_buf
 
@@ -2600,15 +2653,485 @@ def _profile(torch, card, fn, label="race", share=(), grids=(), events=()):
     return out
 
 
+def _check_launches(label, got, want):
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def _check_only(label, got, keys):
+    """Each kernel of ``keys`` launched, nothing else and no plain call."""
+    if not all(got[key] for key in keys) or \
+            any(got[key] for key in COUNTS if key not in keys):
+        raise AssertionError(f"{label}: launches {got}, want {keys} alone")
+
+
+def _stream_chunk(seed: int, genes: int, cells: int, nnz: int):
+    """One host chunk of phase 15's operand: per cell ``nnz`` genes drawn
+    uniformly with replacement (the duplicates merged), raw counts 1 +
+    Poisson(0.6), as scipy CSC, from a numpy seed."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    g = np.sort(rng.integers(0, genes, (cells, nnz), dtype=np.int32), axis=1)
+    keep = np.ones(g.shape, bool)
+    keep[:, 1:] = g[:, 1:] != g[:, :-1]
+    indptr = np.zeros(cells + 1, np.int64)
+    indptr[1:] = np.cumsum(keep.sum(axis=1))
+    indices = g[keep]
+    data = (1 + rng.poisson(0.6, indices.size)).astype(np.float32)
+    return sp.csc_matrix((data, indices, indptr), shape=(genes, cells))
+
+
+def _same_planes(torch, label, got, want):
+    """Two ShardedEllData on the card hold the same planes, flags and
+    geometry, bit for bit."""
+    for f in ("b_li", "b_val", "nonempty", "gene_nonempty"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: {f} differs from the monolithic "
+                                 f"ingest")
+    for f in ("b_width", "genes_true", "cells_true", "genes_pad",
+              "cells_pad", "cell_block", "gene_block"):
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"{label}: {f} {getattr(got, f)} != "
+                                 f"{getattr(want, f)}")
+
+
+def _synced(torch, fn):
+    """(fn(), wall seconds up to a device sync)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_stream(torch, card, stage_root):
+    """Streaming ingest at 131,072 cells: the native library, both packers,
+    chunk-list and staged ingest against monolithic ingest, the staged fit
+    against the monolithic fit, and a staged cross_validate_nmf. Returns
+    (results, the monolithic engine, its W0) for phase 16."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch import native
+    from singlet_tpu_torch.parallel import sharded_ell as tell
+    from singlet_tpu_torch.sparse.chunked import stage_chunks
+
+    S = STREAM
+    genes, cells, k = S["genes"], S["cells"], S["k"]
+    # built in phase 1 (phase_build), beside the CUDA sources
+    lib, _, _ = native.build()
+    if not native.available():
+        raise AssertionError("the native IO library did not load")
+    print(f"native IO library {os.path.relpath(lib, ROOT)} loaded",
+          flush=True)
+    t0 = time.perf_counter()
+    chunks = [_stream_chunk(S["seed"] + i, genes, S["chunk"], S["nnz"])
+              for i in range(cells // S["chunk"])]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = sp.hstack(chunks, format="csc")
+    hstack_s = time.perf_counter() - t0
+    genes_pad, cells_pad, cell_block, gene_block = tell.ell_geometry(
+        genes, cells)
+    n_gb = genes_pad // gene_block
+    t0 = time.perf_counter()
+    width = tell.bell_width(tell.bell_widths(A, n_gb, gene_block))
+    width_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    li_c, lv_c = native.csc_to_bell(A, cells_pad, gene_block, n_gb, width)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    li_n, lv_n = native._csc_to_bell_numpy(A, cells_pad, gene_block, n_gb,
+                                           width)
+    numpy_s = time.perf_counter() - t0
+    if not (np.array_equal(li_c, li_n) and np.array_equal(lv_c, lv_n)):
+        raise AssertionError("C++ and numpy csc_to_bell planes differ")
+    planes_gib = (li_c.nbytes + lv_c.nbytes) / 2**30
+    del li_c, lv_c, li_n, lv_n
+    print(f"stream operand {genes} x {cells}, {A.nnz} nonzeros in "
+          f"{len(chunks)} chunks (made in {gen_s:.3f} s, joined in "
+          f"{hstack_s:.3f} s), width {width} ({width_s:.3f} s): csc_to_bell "
+          f"C++ {cpp_s:.3f} s, numpy {numpy_s:.3f} s, the same planes, "
+          f"{planes_gib:.3f} GiB ({card})", flush=True)
+
+    mono, mono_s = _synced(torch, lambda: tell.shard_ell_data(A, "cuda"))
+    data, chunks_s = _synced(torch, lambda: tell.shard_ell_from_chunks(
+        chunks, "cuda"))
+    _same_planes(torch, "chunk list", data, mono)
+    del data
+    staged = {}
+    for name, value_compress in (("v1", False), ("v2", True)):
+        d = os.path.join(stage_root, name)
+        _, stage_s = _synced(torch, lambda: stage_chunks(
+            d, chunks, value_compress=value_compress))
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+        data, ingest_s = _synced(torch, lambda: tell.shard_ell_from_staged(
+            d, "cuda"))
+        _same_planes(torch, f"staged {name}", data, mono)
+        del data
+        staged[name] = dict(dir=d, stage_s=stage_s, bytes=disk,
+                            ingest_s=ingest_s)
+    print(f"ingest on the card: monolithic {mono_s:.3f} s, chunk list "
+          f"{chunks_s:.3f} s, staged v1 {staged['v1']['ingest_s']:.3f} s, "
+          f"v2 {staged['v2']['ingest_s']:.3f} s, all the same planes bit "
+          f"for bit; staging v1 {staged['v1']['stage_s']:.3f} s "
+          f"{staged['v1']['bytes']} bytes, v2 {staged['v2']['stage_s']:.3f} "
+          f"s {staged['v2']['bytes']} bytes ({card})", flush=True)
+    del A, chunks
+
+    W0 = np.random.default_rng(S["seed"]).random((genes, k),
+                                                 dtype=np.float32)
+    eng = stt.ShardedEllEngine(None, data=mono)
+    fit_kw = dict(rank=k, tol=0.0, maxit=S["maxit"], w_init=W0,
+                  device="cuda")
+    m_dir, dir_s, n_dir = _counted(torch, lambda: stt.run_nmf(
+        staged["v2"]["dir"], **fit_kw))
+    m_mono, mono_fit_s, n_mono = _counted(torch, lambda: stt.run_nmf(
+        eng, **fit_kw))
+    want = _launches(B1=2 * S["maxit"], B3=S["maxit"], B4=S["maxit"])
+    _check_launches("staged run_nmf", n_dir, want)
+    _check_launches("monolithic run_nmf", n_mono, want)
+    _check_fit(m_dir.w, m_dir.d, m_dir.h, (genes, k), (k, cells))
+    for f in ("w", "d", "h"):
+        if not np.array_equal(getattr(m_dir, f), getattr(m_mono, f)):
+            raise AssertionError(f"staged fit's {f} differs from the "
+                                 f"monolithic fit's")
+    df, cv_s, n_cv = _counted(torch, lambda: stt.cross_validate_nmf(
+        staged["v1"]["dir"], ranks=[S["cv_rank"]], n_replicates=1,
+        maxit=S["cv_maxit"], verbose=0, device="cuda"))
+    if list(df["k"].unique()) != [S["cv_rank"]] or \
+            not np.isfinite(df["test_error"]).all():
+        raise AssertionError(f"staged cross_validate_nmf frame:\n{df}")
+    _check_only("staged cross_validate_nmf", n_cv,
+                ("B2", "B5", "B6", "B7", "B8", "B9"))
+    print(f"run_nmf on the staged v2 directory k={k} maxit={S['maxit']}: "
+          f"{dir_s:.3f} s with ingest, bit for bit the monolithic engine's "
+          f"fit ({mono_fit_s:.3f} s), launches {n_dir}; cross_validate_nmf "
+          f"on the v1 directory at rank {S['cv_rank']}, maxit "
+          f"{S['cv_maxit']}: {cv_s:.3f} s with ingest, launches {n_cv} "
+          f"({card})", flush=True)
+    return dict(genes=genes, cells=cells, nnz=int(mono.b_li.ge(0).sum()),
+                width=width, planes_gib=planes_gib, gen_s=gen_s,
+                hstack_s=hstack_s, width_s=width_s, cpp_s=cpp_s,
+                numpy_s=numpy_s, mono_s=mono_s, chunks_s=chunks_s,
+                staged={v: {key: x for key, x in st.items() if key != "dir"}
+                        for v, st in staged.items()},
+                run_nmf=dict(staged_s=dir_s, mono_s=mono_fit_s,
+                             launches=n_dir, launches_mono=n_mono),
+                cv=dict(wall_s=cv_s, launches=n_cv, rows=len(df),
+                        test_error=df["test_error"].tolist())), eng, W0
+
+
+def _logged(torch, fn):
+    """``_counted`` with the metric log on: (result, wall seconds, launch
+    counts, the median of the fit's logged iteration times in ms, host
+    clock with the loop's sync each iteration, None without iterations;
+    the logged tol of each iteration)."""
+    from singlet_tpu_torch.tracing import metric_logging
+
+    with metric_logging() as log:
+        out, secs, n = _counted(torch, fn)
+    its = [e for e in log.events if e["event"] == "iteration"]
+    ms = [e["ms"] for e in its]
+    return (out, secs, n, statistics.median(ms) if ms else None,
+            [e["tol"] for e in its])
+
+
+def _sorted_model(out):
+    """An engine fit's dict as an NMFModel sorted by d, as the drivers
+    finalize it."""
+    from singlet_tpu_torch import NMFModel
+
+    return NMFModel(w=out["w"], d=out["d"], h=out["h"]).sorted_by_d()
+
+
+def _fit_gate(label, got, want, fields=("w", "d", "h")):
+    for f in fields:
+        g = got[f] if isinstance(got, dict) else getattr(got, f)
+        w = want[f] if isinstance(want, dict) else getattr(want, f)
+        np.testing.assert_allclose(g, w, rtol=FIT_RTOL, atol=FIT_ATOL,
+                                   err_msg=f"{label}: {f}")
+
+
+@contextlib.contextmanager
+def _mu_init_from(u, z):
+    """``mu_nmf`` starts from the numpy W ``u`` and H ``z`` on any device
+    (the card's and the CPU's generators draw apart)."""
+    import torch
+
+    from singlet_tpu_torch.solvers import mu
+
+    real = mu._mu_init
+    mu._mu_init = lambda g, c, k, seed, device: (
+        torch.as_tensor(u, device=device), torch.as_tensor(z, device=device))
+    try:
+        yield
+    finally:
+        mu._mu_init = real
+
+
+def _spatial_points(rng, n, radius, per_disc, features):
+    """Synthetic spatial data: n points uniform in a square whose density
+    puts ``per_disc`` points in a disc of ``radius``, and U(0, 1)
+    profiles (features, n)."""
+    side = np.float32(np.sqrt(np.pi * radius ** 2 * n / per_disc))
+    cx, cy = (rng.random((2, n), dtype=np.float32) * side)
+    return rng.random((features, n), dtype=np.float32), cx, cy
+
+
+def _solvers_small(torch, card):
+    """Each new entry point on the card against the same call on the
+    CPU."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+
+    rng = np.random.default_rng(SOLVERS["seed"])
+    genes, cells, k, maxit = 512, 1000, 8, 5
+    A = np.log1p(rng.poisson(0.3, (genes, cells))).astype(np.float32)
+    w0 = rng.random((genes, k), dtype=np.float32)
+    bid = rng.integers(0, 3, cells)
+    link_h = np.ones((k, cells), np.float32)
+    link_h[0, : cells // 2] = 0.0
+    M, cx, cy = _spatial_points(rng, cells, 2.0, 12, 6)
+    G = stt.local_knn(M, cx, cy, k=6, radius=2.0, device="cpu")
+    kw = dict(tol=0.0, maxit=maxit, w_init=w0)
+    calls = {
+        "run_linked_nmf": lambda dev: stt.run_linked_nmf(
+            A, w0, link_h=link_h, tol=0.0, maxit=maxit, verbose=False,
+            device=dev),
+        "nmf_batch": lambda dev: stt.nmf_batch(A, k, bid, device=dev, **kw),
+        "gcnmf": lambda dev: stt.gcnmf(A, G, k, device=dev, **kw),
+        "batch_fit": lambda dev: _sorted_model(stt.ShardedEllEngine(
+            sp.csc_matrix(A), device=dev, cell_block=512,
+            gene_block=256).batch_fit(bid, k, **kw)),
+        "gcnmf_fit": lambda dev: _sorted_model(stt.ShardedEllEngine(
+            sp.csc_matrix(A), device=dev, cell_block=512,
+            gene_block=256).gcnmf_fit(G, k, **kw)),
+    }
+    for name, call in calls.items():
+        _fit_gate(name, call("cuda"), call("cpu"))
+    h, d = stt.project_model(A, w0, device="cuda")
+    h_c, d_c = stt.project_model(A, w0, device="cpu")
+    _fit_gate("project_model", dict(h=h, d=d), dict(h=h_c, d=d_c),
+              ("h", "d"))
+    u = rng.random((genes, k), dtype=np.float32) + np.float32(1e-3)
+    z = np.abs(rng.standard_normal((k, cells), dtype=np.float32)) + \
+        np.float32(1e-3)
+    with _mu_init_from(u, z):
+        for faithful in (False, True):
+            got, want = (stt.mu_nmf(A, k, tol=0.0, maxit=3,
+                                    faithful=faithful, device=dev)
+                         for dev in ("cuda", "cpu"))
+            _fit_gate(f"mu_nmf faithful={faithful}", got, want,
+                      ("w", "h", "tol_trace"))
+    # integer profiles on a grid of integer coordinates: every distance is
+    # exact in float32, so both devices select the same edges
+    side = 40
+    Mi = rng.integers(0, 4, (8, side * side)).astype(np.float32)
+    gx = (np.arange(side * side) % side).astype(np.float32)
+    gy = (np.arange(side * side) // side).astype(np.float32)
+    edges = {}
+    for metric in ("euclidean", "jaccard", "cosine", "manhattan", "hamming"):
+        got, want = (stt.local_knn(Mi, gx, gy, k=10, radius=3.0,
+                                   metric=metric, block=256, device=dev)
+                     for dev in ("cuda", "cpu"))
+        if not (np.array_equal(got.indptr, want.indptr)
+                and np.array_equal(got.indices, want.indices)):
+            raise AssertionError(f"local_knn {metric}: edges differ")
+        np.testing.assert_allclose(got.data, want.data, rtol=1e-4)
+        edges[metric] = int(got.nnz)
+    S_g, S_c = (stt.snn_graph(got, 0.05, device=dev)
+                for dev in ("cuda", "cpu"))
+    if not (np.array_equal(S_g.indices, S_c.indices)
+            and np.array_equal(S_g.data, S_c.data)):
+        raise AssertionError("snn_graph differs between the card and CPU")
+    E = stt.spatial_graph(gx, gy, max_dist=3.0, max_k=20)
+    np.testing.assert_allclose(np.asarray(E.sum(axis=0)).ravel(), 1.0,
+                               rtol=1e-9)
+    print(f"remaining solvers {genes}x{cells} k={k}: run_linked_nmf, "
+          f"project_model, nmf_batch, batch_fit, gcnmf, gcnmf_fit, mu_nmf "
+          f"(both steps) on the card within rtol={FIT_RTOL} atol={FIT_ATOL} "
+          f"of the CPU; local_knn edges {edges} and snn_graph "
+          f"({S_g.nnz} edges) the same on both ({card})", flush=True)
+    return dict(local_knn_edges=edges, snn_edges=int(S_g.nnz),
+                spatial_edges=int(E.nnz))
+
+
+def _solvers_bench(torch, card):
+    """At the bench config from one W0: the engine's linked fit,
+    projection, batch_fit and gcnmf_fit against the dense side."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.solvers.als import make_dense_providers
+
+    A, W0 = _bench_operand()
+    g, c, k = BENCH["genes"], BENCH["cells"], BENCH["k"]
+    maxit = SOLVERS["maxit"]
+    rng = np.random.default_rng(SOLVERS["seed"])
+    P = make_dense_providers(A, device="cuda")
+    eng = stt.ShardedEllEngine(sp.csc_matrix(A), device="cuda")
+    link_h = np.ones((k, c), np.float32)
+    link_h[0, : c // 2] = 0.0
+    link_w = np.ones((g, k), np.float32)
+    link_w[: g // 4, 1] = 0.0
+    bid = rng.integers(0, SOLVERS["batches"], c)
+    M, cx, cy = _spatial_points(rng, c, SOLVERS["radius"],
+                                SOLVERS["per_disc"], SOLVERS["features"])
+    G, knn_s = _synced(torch, lambda: stt.local_knn(
+        M, cx, cy, k=SOLVERS["knn"], radius=SOLVERS["radius"],
+        device="cuda"))
+    lk = dict(link_h=link_h, link_w=link_w, tol=0.0, maxit=maxit,
+              verbose=False)
+    kw = dict(tol=0.0, maxit=maxit, w_init=W0)
+    plain = _launches(B1=2 * maxit, B3=maxit, B4=maxit)
+    runs = {
+        "linked": (lambda: stt.run_linked_nmf(eng, W0, **lk),
+                   lambda: stt.run_linked_nmf(P, W0, **lk), plain),
+        "batch": (lambda: _sorted_model(eng.batch_fit(bid, k, **kw)),
+                  lambda: stt.nmf_batch(A, k, bid, device="cuda", **kw),
+                  plain),
+        "gcnmf": (lambda: _sorted_model(eng.gcnmf_fit(G, k, **kw)),
+                  lambda: stt.gcnmf(A, G, k, device="cuda", **kw),
+                  _launches(B1=2 * maxit, B3=3 * maxit, B4=maxit)),
+        "project": (lambda: dict(zip("hd", stt.project_model(eng, W0))),
+                    lambda: dict(zip("hd", stt.project_model(P, W0))),
+                    _launches(B1=1, B3=1)),
+    }
+    out = dict(local_knn_s=knn_s, G_edges=int(G.nnz))
+    for name, (engine_fn, dense_fn, want) in runs.items():
+        got, eng_s, n_eng, eng_ms, eng_tols = _logged(torch, engine_fn)
+        ref, dense_s, n_dense, dense_ms, dense_tols = _logged(torch,
+                                                              dense_fn)
+        _check_launches(f"{name} on the engine", n_eng, want)
+        _check_launches(f"{name} dense", n_dense, _launches(B1=want["B1"]))
+        # equal iteration counts, the tol traces and the factors within
+        # the fit gate (a projection runs no iteration)
+        if len(eng_tols) != len(dense_tols) or \
+                len(eng_tols) != (0 if name == "project" else maxit):
+            raise AssertionError(f"{name}: {len(eng_tols)} iterations on "
+                                 f"the engine, {len(dense_tols)} dense")
+        np.testing.assert_allclose(eng_tols, dense_tols, rtol=FIT_RTOL,
+                                   atol=FIT_ATOL, err_msg=f"{name} tol")
+        _fit_gate(f"{name} engine vs dense", got, ref,
+                  ("h", "d") if name == "project" else ("w", "d", "h"))
+        out[name] = dict(engine_s=eng_s, dense_s=dense_s,
+                         engine_ms_per_iteration=eng_ms,
+                         dense_ms_per_iteration=dense_ms,
+                         iterations=len(eng_tols), tol_trace=eng_tols,
+                         tol_trace_dense=dense_tols,
+                         launches=n_eng, launches_dense=n_dense)
+    print(f"bench config {g}x{c} k={k}, {maxit} iterations: engine against "
+          f"dense within rtol={FIT_RTOL} atol={FIT_ATOL}, equal iteration "
+          f"counts and tol traces (wall s, engine / "
+          f"dense; median ms per iteration): "
+          + ", ".join(f"{name} {out[name]['engine_s']:.3f} / "
+                      f"{out[name]['dense_s']:.3f} s"
+                      + (f" ({out[name]['engine_ms_per_iteration']:.2f} / "
+                         f"{out[name]['dense_ms_per_iteration']:.2f} ms)"
+                         if name != "project" else "")
+                      for name in runs)
+          + f"; G from local_knn ({G.nnz} edges) in {knn_s:.3f} s ({card})",
+          flush=True)
+    return out
+
+
+def _solvers_large(torch, card, eng, W0):
+    """batch_fit and gcnmf_fit on phase 15's engine at k=100, G's planes,
+    and B3 on G's planes against A's."""
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.ops.bell import bell_spmm
+
+    data = eng.data
+    cells, k = data.cells_true, W0.shape[1]
+    maxit = SOLVERS["large_maxit"]
+    rng = np.random.default_rng(SOLVERS["seed"] + 1)
+    bid = rng.integers(0, SOLVERS["batches"], cells)
+    M, cx, cy = _spatial_points(rng, cells, SOLVERS["radius"],
+                                SOLVERS["per_disc"], SOLVERS["features"])
+    G, knn_s = _synced(torch, lambda: stt.local_knn(
+        M, cx, cy, k=SOLVERS["knn"], radius=SOLVERS["radius"],
+        device="cuda"))
+    g, graph_s = _synced(torch, lambda: eng.graph_data(G))
+    g_gib = 2 * g.b_li.numel() * 4 / 2**30
+    gen = torch.Generator(device="cuda").manual_seed(SOLVERS["seed"])
+    X = torch.rand((data.cells_pad, k), generator=gen, device="cuda")
+    Wt = torch.rand((data.genes_pad, k), generator=gen, device="cuda")
+    # B3 over each set of planes at k=100, twice 10 calls (the operand X
+    # stands for B or H on G's planes, W on A's); the bound reads the
+    # planes and the operand once and writes the (cells_pad, k) output
+    b3 = {}
+    for name, planes, op in (("G", g, X), ("A", data, Wt)):
+        def call():
+            return bell_spmm(planes.b_li, planes.b_val, op,
+                             gene_block=planes.gene_block)
+        nnz = int((planes.b_li >= 0).sum())
+        b3[name] = dict(
+            ms=_median_ms(torch, call, runs=10),
+            ms_again=_median_ms(torch, call, runs=10),
+            width=planes.b_width, gene_blocks=planes.n_gb, nnz=nnz,
+            **_bound(8 * planes.b_li.numel() + 4 * op.numel()
+                     + 4 * data.cells_pad * k, 2 * nnz * k, F32_OPS_S))
+    del X, Wt
+    kw = dict(tol=0.0, maxit=maxit, w_init=W0)
+    out = dict(local_knn_s=knn_s, graph_s=graph_s, G_edges=int(G.nnz),
+               G_width=g.b_width, G_gene_blocks=g.n_gb, G_gib=g_gib, b3=b3)
+    del g
+    for name, fn, want in (
+            ("batch_fit", lambda: eng.batch_fit(bid, k, **kw),
+             _launches(B1=2 * maxit, B3=maxit, B4=maxit)),
+            ("gcnmf_fit", lambda: eng.gcnmf_fit(G, k, **kw),
+             _launches(B1=2 * maxit, B3=3 * maxit, B4=maxit))):
+        res, secs, n, ms, _ = _logged(torch, fn)
+        _check_launches(f"large {name}", n, want)
+        if len(res["tol_trace"]) != maxit:
+            raise AssertionError(f"large {name}: {res['tol_trace']}")
+        _check_fit(res["w"], res["d"], res["h"], (data.genes_true, k),
+                   (k, cells))
+        out[name] = dict(wall_s=secs, ms_per_iteration=ms, launches=n,
+                         tol_trace=res["tol_trace"])
+    print(f"large {data.genes_true}x{cells} k={k}, {maxit} iterations "
+          f"(median ms per iteration; wall s with set-up, gcnmf_fit's "
+          f"packing of G included): batch_fit "
+          f"{out['batch_fit']['ms_per_iteration']:.2f} "
+          f"({out['batch_fit']['wall_s']:.3f} s), gcnmf_fit "
+          f"{out['gcnmf_fit']['ms_per_iteration']:.2f} "
+          f"({out['gcnmf_fit']['wall_s']:.3f} s); G from local_knn "
+          f"({G.nnz} edges) in {knn_s:.3f} s, its planes width "
+          f"{out['G_width']}, {out['G_gene_blocks']} gene blocks, "
+          f"{g_gib:.3f} GiB, packed in {graph_s:.3f} s; B3 on G's planes "
+          f"{b3['G']['ms']:.4f} / {b3['G']['ms_again']:.4f} ms (bound "
+          f"{b3['G']['bound_ms']:.4f}), on A's {b3['A']['ms']:.4f} / "
+          f"{b3['A']['ms_again']:.4f} ms (bound {b3['A']['bound_ms']:.4f}) "
+          f"({card})", flush=True)
+    return out
+
+
+def phase_solvers(torch, card, eng, W0):
+    return dict(small=_solvers_small(torch, card),
+                bench=_solvers_bench(torch, card),
+                large=_solvers_large(torch, card, eng, W0))
+
+
 def phase_build():
-    """Build every kernel source, one nvcc each, started together."""
-    from singlet_tpu_torch import _build
+    """Build every kernel source, one nvcc each, and the C++ IO library
+    (g++), all started together."""
+    from singlet_tpu_torch import _build, native
     from singlet_tpu_torch.ops import bell_cuda, maskgram_cuda, nnls_cuda
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        io_build = pool.submit(native.build)
         builds = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+        io_lib, io_s, _ = io_build.result()
     wall_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError(f"the native IO library {io_lib} did not load")
+    print(f"build singlet_io.cpp (g++): {io_s:.2f} s -> "
+          f"{os.path.relpath(io_lib, ROOT)}", flush=True)
     nnls_cuda._kernel()
     nnls_cuda._kernel_batched()
     bell_cuda._lib()
@@ -2621,7 +3144,8 @@ def phase_build():
         print("\n".join(ln for ln in log.splitlines()
                         if "ptxas" in ln or "spill" in ln), flush=True)
     print(f"builds took {wall_s:.2f} s together", flush=True)
-    return {name: secs for name, (_, secs, _) in builds.items()}, wall_s
+    return dict({name: secs for name, (_, secs, _) in builds.items()},
+                singlet_io=io_s), wall_s
 
 
 def _phases(torch, card, results, ckdir):
@@ -2695,6 +3219,15 @@ def _phases(torch, card, results, ckdir):
     results["hash_kernels"] = hash_rows + results["large"].pop(
         "hash_kernels")
     results["ell_entry"] = phase_ell_entry(torch, card)
+    # the staged directories of phase 15 under the git-ignored build/,
+    # removed at the end
+    stage_root = tempfile.mkdtemp(prefix="smoke_staged_",
+                                  dir=os.path.join(ROOT, "build"))
+    try:
+        results["stream"], eng, W0 = phase_stream(torch, card, stage_root)
+    finally:
+        shutil.rmtree(stage_root, ignore_errors=True)
+    results["solvers"] = phase_solvers(torch, card, eng, W0)
 
 
 def main() -> int:
@@ -2761,6 +3294,18 @@ def main() -> int:
                 large_resume["launches_full"],
                 results["ell_entry"]["ard"]["launches"],
                 results["ell_entry"]["cv"]["launches"]]
+    # the counted runs of phases 15 and 16 (the dense ones launch B1 alone)
+    stream, solvers = results["stream"], results["solvers"]
+    new_runs = [stream["run_nmf"]["launches"],
+                stream["run_nmf"]["launches_mono"], stream["cv"]["launches"]]
+    for name in ("linked", "batch", "gcnmf", "project"):
+        new_runs += [solvers["bench"][name]["launches"],
+                     solvers["bench"][name]["launches_dense"]]
+    new_runs += [solvers["large"][name]["launches"]
+                 for name in ("batch_fit", "gcnmf_fit")]
+    ell_runs += new_runs
+    print(f"chip_smoke total {results['wall_s']:.1f} s, the build "
+          f"{build_wall_s:.1f} s of it ({card})")
     print("results: " + json.dumps(results))
     print("kernel times below: B1 at n=16384 k=50 sweep_cap=8, B2 at "
           "n=4096 k=50 sweep_cap=32; B3 and B4 unmasked, B5, B6 and B7 at "
@@ -2769,8 +3314,8 @@ def main() -> int:
           "B9 and B14 (int8) over all of them as 4 quantization groups, B12 "
           "unpacking all of them, B10 and B11 (bf16, the mask hashed) per "
           "call on one 2048-cell block of them; launches: "
-          "B1 over the bench-scale nmf_fit runs and run_nmf at k=256, B2 "
-          "over the bench-scale "
+          "B1 over the bench-scale nmf_fit runs, run_nmf at k=256 and the "
+          "counted runs of phases 15 and 16, B2 over the bench-scale "
           "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B14 over the "
           "ELL engine's counted runs; bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
@@ -2799,7 +3344,8 @@ def main() -> int:
               bench["fixed10"]["launches"] + bench["race"]["launches"]
               + sum(dense_resume["nmf_fit"][key]["B1"] for key in (
                   "launches_full", "launches_resumed"))
-              + wide["run_nmf"]["launches"]["B1"], b1_row,
+              + wide["run_nmf"]["launches"]["B1"]
+              + sum(n["B1"] for n in new_runs), b1_row,
               max(r["max_abs_err"] for r in results["kernel"]
                   + wide["kernels"] if r.get("kernel", "B1") == "B1")),
         entry("nnls_cd_batched", "nnls_cd_batched.cu", "pallas_nnls.py:195",

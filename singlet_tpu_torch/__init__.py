@@ -70,25 +70,58 @@ padded to a lane multiple. ``SINGLET_TPU_MPH_NOALIAS``
 and ``SINGLET_TPU_I8_DIRECT`` choose how the TPU lays out memory, not what
 is computed, and are not read.
 
-Not ported yet, each raising or absent (ROADMAP A.2-A.4):
-chunk-list and staged-directory ingest (the C++ packer and SVC readers),
-multi-host ingest and ``mesh=``, and the engine's ``gcnmf_fit`` and
-``batch_fit``.
+Streaming ingest: the drivers (and ``run_linked_nmf``, ``project_model``)
+take a chunk list (scipy matrices, ``.svc``/``.npz``/``.mtx`` paths or
+loader callables) or a directory staged by ``sparse.chunked.stage_chunks``
+and stream it into the engine's planes
+(``parallel/sharded_ell.py`` ``shard_ell_from_chunks``,
+``shard_ell_from_staged``), packed by the JAX package's C++ library
+(``native/singlet_io.cpp``, built at first use with ``g++`` into the
+git-ignored ``build/``; numpy, scipy and ``.npz`` fallbacks without it).
+The SVC shard format is the JAX package's byte for byte, so a directory
+staged by either package is read by the other.
+
+The remaining solvers: linked NMF (``run_linked_nmf``,
+``build_link_matrix``), projection (``project_model``), batch-aware L1
+(``nmf_batch``; the engine's ``batch_fit``, whose (n, k) L1 goes to B1),
+graph-convolutional NMF (``gcnmf``, ``differentiate_model``,
+``assign_cells_to_edge_clusters``; the engine's ``gcnmf_fit``, with the
+graph as a second set of planes that B3 reads), multiplicative updates
+(``mu_nmf``) and the spatial graphs (``local_knn``, ``snn_graph`` in torch
+on the device; ``spatial_graph``, ``rescale_spatial`` numpy). As in JAX,
+``gcnmf`` and ``nmf_batch`` are the dense solvers and the engine's fits
+their scale routes.
+
+Not ported yet, raising (ROADMAP A.4): multi-host ingest and ``mesh=``
+(of the drivers, ``run_linked_nmf``, ``project_model``, ``gcnmf`` and
+``nmf_batch``).
 """
 
 from singlet_tpu_torch.checkpoint import CheckpointManager
 from singlet_tpu_torch.config import NMFConfig
+from singlet_tpu_torch.graphs.spatial import (local_knn, rescale_spatial,
+                                              snn_graph, spatial_graph)
 from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
                                                     sharded_ell_nmf_fit)
 from singlet_tpu_torch.solvers.als import nmf_fit
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
+from singlet_tpu_torch.solvers.batch import nmf_batch
 from singlet_tpu_torch.solvers.drivers import (GetBestRank, ard_nmf,
                                                cross_validate_nmf,
                                                get_best_rank, run_nmf)
+from singlet_tpu_torch.solvers.gcnmf import (assign_cells_to_edge_clusters,
+                                             differentiate_model, gcnmf)
+from singlet_tpu_torch.solvers.linked import build_link_matrix, run_linked_nmf
+from singlet_tpu_torch.solvers.mu import mu_nmf
+from singlet_tpu_torch.solvers.project import project_model
 from singlet_tpu_torch.tracing import MetricLogger, metric_logging, profile
 
 __all__ = ["NMFConfig", "NMFModel", "nmf_fit", "run_nmf",
            "cross_validate_nmf", "GetBestRank", "get_best_rank", "ard_nmf",
            "ard_nmf_fit", "ShardedEllEngine", "sharded_ell_nmf_fit",
-           "CheckpointManager", "MetricLogger", "metric_logging", "profile"]
+           "CheckpointManager", "MetricLogger", "metric_logging", "profile",
+           "run_linked_nmf", "build_link_matrix", "project_model", "gcnmf",
+           "mu_nmf", "nmf_batch", "differentiate_model",
+           "assign_cells_to_edge_clusters", "local_knn", "snn_graph",
+           "spatial_graph", "rescale_spatial"]

@@ -237,6 +237,23 @@ def _fit_loop(step, W, H, tol_target: float, maxit: int,
     return W, H, d, tols
 
 
+def logged_fit_loop(algo: str, step, W, H, tol_target: float, maxit: int,
+                    settings: SweepSettings, verbose: bool = False,
+                    **fields):
+    """``_fit_loop`` of a plain fit between its ``fit_start`` and
+    ``fit_end`` events (``fields``, e.g. genes and cells, go to
+    ``fit_start``), each iteration logged. Returns (W, H, d, tol_trace)."""
+    logger = get_metric_logger()
+    fit_id = logger.new_fit_id(algo)
+    logger.log("fit_start", fit=fit_id, algo=algo, k=int(W.shape[1]),
+               maxit=maxit, **fields)
+    W, H, d, tols = _fit_loop(step, W, H, tol_target, maxit, settings,
+                              verbose=verbose, fit_id=fit_id)
+    logger.log("fit_end", fit=fit_id, n_iter=len(tols),
+               tol=tols[-1] if tols else None)
+    return W, H, d, tols
+
+
 def checkpoint_saver(mgr, config: dict):
     """The ``on_step`` hook of a checkpointed fit loop, or None without a
     manager: when ``mgr``'s cadence says so, and only then, W, H and d are

@@ -5,13 +5,16 @@ Port of ``singlet_tpu/solvers/drivers.py`` (reference:R/run_nmf.R:18-77,
 reference:R/cross_validate_nmf.R:18-105, reference:R/GetBestRank.R:8-46,
 reference:R/ard_nmf.R:31-193), with a ``device=`` argument. Dense numpy
 input, and scipy input up to ``SPARSE_THRESHOLD`` dense entries, become
-dense providers on the device; larger scipy input goes to the blocked-ELL
-engine (``parallel/sharded_ell.py``) on the device. Either is built once
-and shared by every fit of a rank search, and a ``ShardedEllEngine`` passes
-through. Chunk lists and staged directories (ROADMAP A.2, streaming
-ingest) and ``mesh=`` (A.4, multi-device) raise: densifying such input silently could exhaust the card. The CV
-trace frame (columns k, rep, test_error, iter, tol[, overfit_score]) is the
-JAX package's.
+dense providers on the device; larger scipy input, a chunk list (scipy
+matrices, ``.svc``/``.npz``/``.mtx`` paths or loader callables) and a
+directory staged by ``sparse.chunked.stage_chunks`` go to the blocked-ELL
+engine (``parallel/sharded_ell.py``) on the device, the lists and
+directories streamed in (``shard_ell_from_chunks``,
+``shard_ell_from_staged``) with no concatenated matrix on the host.
+Either backend is built once and shared by every fit of a rank search,
+and a ``ShardedEllEngine`` passes through. ``mesh=`` (ROADMAP A.4,
+multi-device) raises. The CV trace frame (columns k, rep, test_error,
+iter, tol[, overfit_score]) is the JAX package's.
 
 Ranks: on the card every fit takes k <= 512. The CD-NNLS kernels B1 and B2
 and the fused test MSE B7 hold a column's k coordinates in registers and
@@ -33,7 +36,9 @@ import scipy.sparse as sp
 from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device, vprint
 from singlet_tpu_torch.model import NMFModel
-from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
+from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
+                                                    shard_ell_from_chunks,
+                                                    shard_ell_from_staged)
 from singlet_tpu_torch.solvers.als import (init_w, make_dense_providers,
                                            nmf_fit)
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
@@ -51,29 +56,31 @@ def _coerce_dense(A) -> np.ndarray:
     return np.asarray(A, dtype=np.float32)
 
 
-def _engine_or_providers(A, mesh, device):
-    """Route the input to a compute backend: a ``ShardedEllEngine`` or a
-    prebuilt ``(A, At)`` provider pair passes through; scipy input above
-    ``SPARSE_THRESHOLD`` dense entries becomes a ``ShardedEllEngine`` on
-    ``device``; everything else dense providers on ``device``. Chunk lists,
-    staged directories and ``mesh=`` raise."""
-    if isinstance(A, ShardedEllEngine):
-        return A
-    if isinstance(A, tuple) and len(A) == 2 and hasattr(A[0], "t_matmul"):
-        return A
+def _refuse_mesh(mesh) -> None:
+    """``mesh=`` is accepted for the JAX signatures and raises."""
     if mesh is not None:
         raise NotImplementedError(_NOT_PORTED.format(
             what="mesh=", engine="multi-device blocked-ELL engine",
             item="A.4"))
-    if isinstance(A, str):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="a staged chunk directory",
-            engine="streaming blocked-ELL ingest", item="A.2"))
-    if isinstance(A, (list, tuple)):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="a chunk list", engine="streaming blocked-ELL ingest",
-            item="A.2"))
+
+
+def _engine_or_providers(A, mesh, device):
+    """Route the input to a compute backend, as the JAX drivers do: a
+    ``ShardedEllEngine`` or a prebuilt ``(A, At)`` provider pair passes
+    through; a staged directory (``str``), a chunk list and scipy input
+    above ``SPARSE_THRESHOLD`` dense entries become a ``ShardedEllEngine``
+    on ``device``; everything else dense providers on ``device``.
+    ``mesh=`` raises."""
+    if isinstance(A, ShardedEllEngine):
+        return A
+    if isinstance(A, tuple) and len(A) == 2 and hasattr(A[0], "t_matmul"):
+        return A
+    _refuse_mesh(mesh)
     device = resolve_device(device)
+    if isinstance(A, str):
+        return ShardedEllEngine(None, data=shard_ell_from_staged(A, device))
+    if isinstance(A, (list, tuple)):
+        return ShardedEllEngine(None, data=shard_ell_from_chunks(A, device))
     if is_scipy_sparse(A):
         if A.shape[0] * A.shape[1] > SPARSE_THRESHOLD:
             return ShardedEllEngine(sp.csc_matrix(A), device=device)
@@ -148,16 +155,20 @@ def run_nmf(
 ) -> NMFModel:
     """Fit NMF at a fixed rank (reference:R/run_nmf.R:18-77).
 
-    ``A`` is a genes x cells numpy array or scipy matrix, or a prebuilt
-    ``(A, At)`` provider pair (whose device is then the fit's). ``device``
-    defaults to ``"cuda"`` and raises without a card. ``config`` (an
+    ``A`` is a genes x cells numpy array or scipy matrix, a chunk list
+    (scipy matrices, ``.svc``/``.npz``/``.mtx`` paths or loader
+    callables, split along the cells), a directory staged by
+    ``sparse.chunked.stage_chunks``, or a prebuilt ``(A, At)`` provider
+    pair (whose device is then the fit's). ``device`` defaults to
+    ``"cuda"`` and raises without a card. ``config`` (an
     :class:`~singlet_tpu_torch.config.NMFConfig`) supplies the solver
     hyperparameters, taking precedence over the per-argument defaults.
-    scipy input above ``SPARSE_THRESHOLD`` dense entries, or a
-    ``ShardedEllEngine``, fits on the blocked-ELL engine. ``mesh`` is
-    accepted for the JAX signature and raises: the multi-device engine is
-    not ported yet. On the card ``rank`` may be at most 512 (the limit of
-    kernels B1, B2 and B7); past it the first launch raises.
+    scipy input above ``SPARSE_THRESHOLD`` dense entries, chunk lists,
+    staged directories and a ``ShardedEllEngine`` fit on the blocked-ELL
+    engine. ``mesh`` is accepted for the JAX signature and raises: the
+    multi-device engine is not ported yet (ROADMAP A.4). On the card
+    ``rank`` may be at most 512 (the limit of kernels B1, B2 and B7); past
+    it the first launch raises.
     """
     if config is not None:
         tol, maxit, L1, L2, seed = (config.tol, config.maxit, config.L1,
@@ -249,8 +260,9 @@ def cross_validate_nmf(
 
     Each replicate shares one nested w_init (the rank-k fit uses its first
     k columns) and a deterministic per-replicate mask seed. Returns the tidy
-    trace frame of class ``cross_validate_nmf_data``. ``A`` and ``device``
-    are taken as ``run_nmf`` takes them; ``mesh`` raises. ``config`` (an
+    trace frame of class ``cross_validate_nmf_data``. ``A`` (chunk lists
+    and staged directories included) and ``device`` are taken as
+    ``run_nmf`` takes them; ``mesh`` raises. ``config`` (an
     NMFConfig) supplies the hyperparameters, taking precedence over the
     per-argument defaults. On the card each of ``ranks`` may be at most
     512, as in ``run_nmf``.
@@ -338,8 +350,9 @@ def ard_nmf(
     ``max_fits`` is a safety valve (no reference counterpart) against
     pathological search oscillation. ``config`` (an NMFConfig) supplies the
     hyperparameters, taking precedence over per-argument defaults. ``A``
-    and ``device`` are taken as ``run_nmf`` takes them; ``mesh`` is not
-    ported yet and raises. On the card ``k_max`` may be at most 512, as
+    (chunk lists and staged directories included) and ``device`` are
+    taken as ``run_nmf`` takes them; ``mesh`` is not ported yet and
+    raises. On the card ``k_max`` may be at most 512, as
     ``run_nmf``'s rank.
 
     ``checkpoint`` (a ``CheckpointManager`` or directory path) saves the

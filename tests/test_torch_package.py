@@ -1,8 +1,9 @@
 """The port's package contract, on the CPU: it never imports jax, never runs
 on the CPU unasked, imports its kernel modules without nvcc, dispatches CPU
-tensors to the plain version only, routes large scipy input to the
-blocked-ELL engine, and refuses what it has not ported; ``checkpoint=`` of
-the fits and of the ``ard_nmf`` search saves."""
+tensors to the plain version only, routes large scipy input, chunk lists
+and staged directories to the blocked-ELL engine, and refuses what it has
+not ported (``mesh=``); ``checkpoint=`` of the fits and of the ``ard_nmf``
+search saves."""
 
 import os
 import subprocess
@@ -16,6 +17,7 @@ import torch
 import singlet_tpu_torch as stt
 from singlet_tpu_torch import _build
 from singlet_tpu_torch.ops import nnls, nnls_cuda
+from singlet_tpu_torch.sparse.chunked import stage_chunks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,13 +39,22 @@ def _python(code, env=None):
 
 
 def test_import_leaves_jax_out():
-    out = _python("import sys, singlet_tpu_torch, singlet_tpu_torch.convert, "
-                  "singlet_tpu_torch.ops.nnls_cuda, "
-                  "singlet_tpu_torch.ops.rngmask, "
-                  "singlet_tpu_torch.ops.bell_cuda, "
-                  "singlet_tpu_torch.parallel.sharded_ell; "
-                  "assert 'jax' not in sys.modules, 'jax imported'; "
-                  "assert 'singlet_tpu' not in sys.modules")
+    """Every module of the port (the streaming ingest, the remaining
+    solvers and the spatial graphs among them) and chip_smoke.py import
+    neither jax nor singlet_tpu."""
+    out = _python(
+        "import importlib, pkgutil, sys, singlet_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    singlet_tpu_torch.__path__, 'singlet_tpu_torch.')]\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('native', 'sparse.chunked', 'solvers.linked',\n"
+        "             'solvers.project', 'solvers.batch', 'solvers.gcnmf',\n"
+        "             'solvers.mu', 'graphs.spatial'):\n"
+        "    assert 'singlet_tpu_torch.' + name in names, name\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert not [m for m in sys.modules if m == 'singlet_tpu'\n"
+        "            or m.startswith('singlet_tpu.')], 'singlet_tpu'\n")
     assert out.returncode == 0, out.stderr
 
 
@@ -124,18 +135,27 @@ _ENTRY_POINTS = {
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 @pytest.mark.parametrize("what", ["mesh", "list", "dir", "checkpoint"])
 def test_unported_routes_raise(rng, what, entry, tmp_path):
+    """``mesh=`` raises (ROADMAP A.4). Chunk lists and staged directories
+    raised until streaming ingest was ported (A.2): they now fit on the
+    blocked-ELL engine. ``checkpoint=`` saves."""
     A = rng.random((30, 20)).astype(np.float32)
-    kw = {}
-    item = "A.2"
-    if what == "mesh":
-        kw["mesh"] = object()
-        item = "A.4"
-    elif what == "list":
-        A = [A[:, :10], A[:, 10:]]
-    elif what == "dir":
-        A = "staged_chunks/"
     fit = _ENTRY_POINTS[entry]
-    if what == "checkpoint":
+    if what == "mesh":
+        with pytest.raises(NotImplementedError,
+                           match="blocked-ELL.*ROADMAP A.4"):
+            fit(A, device="cpu", mesh=object())
+    elif what in ("list", "dir"):
+        src = [sp.csc_matrix(A[:, :10]), sp.csc_matrix(A[:, 10:])]
+        if what == "dir":
+            src = stage_chunks(str(tmp_path / "staged"), src)
+        out = fit(src, device="cpu", maxit=5)
+        if entry == "cross_validate_nmf":
+            assert sorted(out["k"].unique()) == [2, 3]
+            assert np.isfinite(out["test_error"]).all()
+        else:
+            assert out.w.shape[0] == 30 and out.h.shape[1] == 20
+            assert np.isfinite(out.w).all()
+    else:
         # ported: run_nmf has no checkpoint=; its engine nmf_fit (and the
         # masked fit ard_nmf_fit) do, and ard_nmf saves its search state
         ck = str(tmp_path / "ckpt")
@@ -148,10 +168,6 @@ def test_unported_routes_raise(rng, what, entry, tmp_path):
         else:
             stt.ard_nmf_fit(A, 3, **kw)
         assert os.listdir(ck)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"blocked-ELL.*ROADMAP {item}"):
-            fit(A, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

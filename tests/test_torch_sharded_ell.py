@@ -304,8 +304,9 @@ def test_ell_fit_matches_dense_fit(rng, masked):
 
 
 def test_engine_refusals(rng, tmp_path):
-    """The engine refuses malformed links and ``chunk_iters``;
-    ``checkpoint=`` of ``fit`` and ``ard_fit`` saves."""
+    """The engine refuses malformed links, ``chunk_iters``, a graph that
+    is not cells x cells (``gcnmf_fit``) and batch ids of another length
+    (``batch_fit``); ``checkpoint=`` of ``fit`` and ``ard_fit`` saves."""
     A = _sparse()
     te = tell.ShardedEllEngine(A, device="cpu", cell_block=256,
                                gene_block=32)
@@ -321,7 +322,10 @@ def test_engine_refusals(rng, tmp_path):
                             checkpoint=stt.CheckpointManager(str(ck),
                                                              every=1))
         assert os.listdir(ck)
-    assert not hasattr(te, "gcnmf_fit") and not hasattr(te, "batch_fit")
+    with pytest.raises(ValueError, match="cells x cells"):
+        te.gcnmf_fit(sp.identity(5, format="csc"), 3, maxit=1)
+    with pytest.raises(ValueError, match="batch_id"):
+        te.batch_fit(np.zeros(5, np.int64), 3, maxit=1)
     out = tell.sharded_ell_nmf_fit(A, 3, device="cpu", tol=0.0, maxit=2)
     assert out["w"].shape == (A.shape[0], 3) and len(out["tol_trace"]) == 2
     assert (te.rows_pad, te.rows_true, te.cols_true) == (64, 48, 300)
