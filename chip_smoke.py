@@ -166,7 +166,24 @@ Phases; any failure raises and the script exits non-zero:
    ``batch_fit`` and ``gcnmf_fit`` at k=100 for 3 iterations (ms per
    iteration), G's plane width and GiB, and B3 on G's planes and on A's
    planes timed apart by CUDA events. Every counted run launches B1, B3
-   and B4 alone and no plain version.
+   and B4 alone and no plain version;
+17. the cell mesh on the card, on phase 15's operand (the staged
+   directories are kept until this phase) and the bench config: (a) a
+   world of one over NCCL in this process (``make_mesh()``): ``run_nmf``
+   on the v2 directory with ``mesh=`` (3 iterations) bit for bit phase
+   15's fit, then on phase 15's planes on the mesh the plain fit (3), the
+   bits-route ``ard_fit`` (2), ``gcnmf_fit`` with phase 16's G (2), and
+   the dense mesh engine ``sharded_nmf_fit`` plain (3) and masked (2) at
+   the bench config, each bit for bit the same fit with no mesh, with the
+   kernels' launches checked, ms per step against no mesh and the
+   collectives' bytes and ms; the process group destroyed; (b) two
+   processes sharing the card over gloo (``--mesh-worker``, cuda:0, the
+   kernels loaded from phase 1's build), each reading only its shards of
+   the v1 directory (``shard_ell_from_staged``), the same five fits, each
+   within rtol 5e-3, atol 5e-4 of (a), with equal iteration counts and
+   equal W bits on both ranks; their ms per step (two processes on one
+   card: not a scaling figure), collective bytes and ms, and which
+   collectives gloo takes on CUDA tensors.
 
 Each counted run sets every launch counter to 0 just before it and reads
 them just after. After the phases come the run's total seconds and three
@@ -2709,7 +2726,8 @@ def phase_stream(torch, card, stage_root):
     """Streaming ingest at 131,072 cells: the native library, both packers,
     chunk-list and staged ingest against monolithic ingest, the staged fit
     against the monolithic fit, and a staged cross_validate_nmf. Returns
-    (results, the monolithic engine, its W0) for phase 16."""
+    (results, the monolithic engine, its W0, the staged fit) for phases 16
+    and 17."""
     import scipy.sparse as sp
 
     import singlet_tpu_torch as stt
@@ -2821,7 +2839,8 @@ def phase_stream(torch, card, stage_root):
                 run_nmf=dict(staged_s=dir_s, mono_s=mono_fit_s,
                              launches=n_dir, launches_mono=n_mono),
                 cv=dict(wall_s=cv_s, launches=n_cv, rows=len(df),
-                        test_error=df["test_error"].tolist())), eng, W0
+                        test_error=df["test_error"].tolist())), eng, W0, \
+        m_dir
 
 
 def _logged(torch, fn):
@@ -3079,6 +3098,7 @@ def _solvers_large(torch, card, eng, W0):
     kw = dict(tol=0.0, maxit=maxit, w_init=W0)
     out = dict(local_knn_s=knn_s, graph_s=graph_s, G_edges=int(G.nnz),
                G_width=g.b_width, G_gene_blocks=g.n_gb, G_gib=g_gib, b3=b3)
+    out["G"] = G
     del g
     for name, fn, want in (
             ("batch_fit", lambda: eng.batch_fit(bid, k, **kw),
@@ -3111,9 +3131,286 @@ def _solvers_large(torch, card, eng, W0):
 
 
 def phase_solvers(torch, card, eng, W0):
-    return dict(small=_solvers_small(torch, card),
-                bench=_solvers_bench(torch, card),
-                large=_solvers_large(torch, card, eng, W0))
+    """Phase 16; returns (its results, the graph G of the large fits)."""
+    out = dict(small=_solvers_small(torch, card),
+               bench=_solvers_bench(torch, card),
+               large=_solvers_large(torch, card, eng, W0))
+    return out, out["large"].pop("G")
+
+
+# phase 17: the mesh on the card. MESH: the fits of phase 17 (the staged
+# operand of phase 15 at k=100, the bench config's dense mesh engine), the
+# two processes' time limit, and the probe's collectives
+MESH = dict(maxit=3, ard_maxit=2, gcnmf_maxit=2, dense_maxit=3,
+            dense_masked_maxit=2, world=2, timeout=300)
+
+
+def _collected(torch, fn):
+    """``_logged`` with the collectives counted and timed: (result, wall s,
+    launch counts, median ms per iteration, {"calls", "bytes", "ms"} of
+    the collectives over the run)."""
+    from singlet_tpu_torch.parallel import collectives
+
+    collectives.reset_counts(timed=True)
+    out, secs, n, ms, _ = _logged(torch, fn)
+    coll = collectives.counts()
+    collectives.reset_counts(timed=False)
+    return out, secs, n, ms, coll
+
+
+def _mesh_fits(torch, stt, eng, W0, G, bench, device, mesh):
+    """The fits phase 17 holds across worlds, on ``eng`` (phase 15's
+    operand; on ``mesh``), and the dense mesh engine on the bench config's
+    ``bench`` = (A, W0): {name: (fields, wall s, launches, ms per
+    iteration, collectives, iterations)}."""
+    S, M = STREAM, MESH
+    k = S["k"]
+    A_b, W0_b = bench
+    runs = {
+        "fit": lambda: eng.fit(k, tol=0.0, maxit=M["maxit"], w_init=W0),
+        "ard": lambda: eng.ard_fit(k, w_init=W0, tol=0.0,
+                                   maxit=M["ard_maxit"]),
+        "gcnmf": lambda: eng.gcnmf_fit(G, k, tol=0.0,
+                                       maxit=M["gcnmf_maxit"], w_init=W0),
+        "dense": lambda: stt.sharded_nmf_fit(
+            A_b, BENCH["k"], mesh=mesh, tol=0.0, maxit=M["dense_maxit"],
+            w_init=W0_b, device=device),
+        "dense_masked": lambda: stt.sharded_nmf_fit(
+            A_b, BENCH["k"], mesh=mesh, tol=0.0,
+            maxit=M["dense_masked_maxit"], masked=True,
+            inv_density=MASKED["inv_density"],
+            mask_seed=MASKED["mask_seed"], w_init=W0_b, device=device)}
+    out = {}
+    for name, fn in runs.items():
+        res, secs, n, ms, coll = _collected(torch, fn)
+        if not isinstance(res, dict):
+            res = dict(w=res.w, d=res.d, h=res.h, tol_trace=res.tol,
+                       test_mse=res.test_mse, iter=res.iter)
+        its = len(res["tol_trace"]) if name != "ard" else \
+            len(res["iter"])
+        out[name] = (res, secs, n, ms, coll, its)
+    return out
+
+
+def mesh_worker(argv) -> int:
+    """One rank of phase 17(b): ``chip_smoke.py --mesh-worker RANK WORLD
+    DIR STAGED``. Joins the gloo world through ``DIR/store`` on cuda:0
+    (the ranks share the card), reads only its shards of the staged
+    directory, runs ``_mesh_fits`` and saves what it measured to
+    ``DIR/rank<RANK>.npz`` (w, d and the traces; h on rank 0 only), then
+    probes which collectives gloo takes on CUDA tensors."""
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.parallel import sharded_ell as tell
+
+    rank, world, out, staged = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    t_start = time.perf_counter()
+    stt.initialize(coordinator_address="file://" + os.path.join(out,
+                                                                "store"),
+                   num_processes=world, process_id=rank, backend="gloo",
+                   device="cuda:0")
+    mesh = stt.make_mesh(world, device="cuda:0")
+    data, ingest_s = _synced(torch, lambda: tell.shard_ell_from_staged(
+        staged, "cuda:0", mesh=mesh))
+    eng = stt.ShardedEllEngine(None, data=data)
+    W0 = np.random.default_rng(STREAM["seed"]).random(
+        (STREAM["genes"], STREAM["k"]), dtype=np.float32)
+    G = sp.load_npz(os.path.join(out, "G.npz"))
+    fits = _mesh_fits(torch, stt, eng, W0, G, _bench_operand(), "cuda:0",
+                      mesh)
+    save = dict(ingest_s=ingest_s, cells_local=data.cells_local,
+                cell_offset=data.cell_offset)
+    for name, (res, secs, n, ms, coll, its) in fits.items():
+        keep = ("w", "d", "h") if rank == 0 else ("w", "d")
+        save.update({f"{name}_{f}": np.asarray(res[f]) for f in keep})
+        save.update({f"{name}_tol_trace": np.asarray(res["tol_trace"]),
+                     f"{name}_wall_s": secs, f"{name}_ms": ms,
+                     f"{name}_its": its,
+                     f"{name}_launches": json.dumps(n),
+                     f"{name}_coll": json.dumps(coll)})
+        if "test_mse" in res:
+            save[f"{name}_test_mse"] = np.asarray(res["test_mse"])
+    # which collectives gloo takes on CUDA tensors (the helpers of
+    # parallel/collectives.py hand it the tensors where they are): each
+    # raises at the call, on both ranks alike, or runs
+    t = torch.ones(4, device="cuda:0")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(world * 4, device="cuda:0"), t),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4 // world, device="cuda:0"), t)}
+    took = {}
+    for name, call in probes.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            took[name] = True
+        except Exception as exc:      # the probe's answer, not a fallback
+            took[name] = f"{type(exc).__name__}: {exc}"[:200]
+    save["gloo_cuda"] = json.dumps(took)
+    save["worker_s"] = time.perf_counter() - t_start
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **save)
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_gate(label, got, want, fields=("w", "d", "h")):
+    for f in fields:
+        np.testing.assert_allclose(got[f], want[f], rtol=FIT_RTOL,
+                                   atol=FIT_ATOL, err_msg=f"{label}: {f}")
+
+
+def _same_bits(label, got, want, fields=("w", "d", "h")):
+    for f in fields:
+        if not np.array_equal(np.asarray(got[f]), np.asarray(want[f])):
+            raise AssertionError(f"{label}: {f} differs")
+
+
+def phase_mesh(torch, card, stage_root, eng, W0, G, m_dir):
+    """Phase 17: (a) a world of one over NCCL in this process, bit for bit
+    the fits with no mesh; (b) two gloo processes sharing the card, within
+    the fit tolerance of (a), with equal iteration counts and W bits."""
+    import dataclasses
+
+    import scipy.sparse as sp
+    import torch.distributed as dist
+
+    import singlet_tpu_torch as stt
+
+    t_phase = time.perf_counter()
+    S, M = STREAM, MESH
+    k = S["k"]
+    v1, v2 = (os.path.join(stage_root, v) for v in ("v1", "v2"))
+    # (a) a world of one over NCCL
+    mesh = stt.make_mesh()
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"world of one: {dist.get_backend()}, "
+                             f"{mesh.size()} ranks")
+    try:
+        m_mesh, dir_s, n_dir = _counted(torch, lambda: stt.run_nmf(
+            v2, rank=k, tol=0.0, maxit=M["maxit"], w_init=W0,
+            device="cuda", mesh=mesh))
+        _check_launches("run_nmf on a world of one", n_dir, _launches(
+            B1=2 * M["maxit"], B3=M["maxit"], B4=M["maxit"]))
+        _same_bits("run_nmf on a world of one (phase 15's fit)",
+                   vars(m_mesh), vars(m_dir))
+        one = stt.ShardedEllEngine(None, data=dataclasses.replace(
+            eng.data, mesh=mesh, rank=0, n_dev=1))
+        bench = _bench_operand()
+        a = _mesh_fits(torch, stt, one, W0, G, bench, "cuda", mesh)
+        # the same fits with no mesh, to be the same bits
+        none = _mesh_fits(torch, stt, eng, W0, G, bench, "cuda", None)
+        del bench
+    finally:
+        dist.destroy_process_group()
+    for name in a:
+        _same_bits(f"{name} on a world of one", a[name][0], none[name][0])
+        if a[name][5] != none[name][5]:
+            raise AssertionError(f"{name}: iterations differ")
+    for name, want_keys in (("ard", ("B2", "B5", "B6", "B7", "B8", "B9")),
+                            ("fit", ("B1", "B3", "B4")),
+                            ("gcnmf", ("B1", "B3", "B4")),
+                            ("dense", ("B1",)), ("dense_masked", ("B2",))):
+        _check_only(f"{name} on a world of one", a[name][2], want_keys)
+    print(f"world of one over NCCL: run_nmf on the staged v2 directory k={k} "
+          f"maxit={M['maxit']} {dir_s:.3f} s with ingest, bit for bit phase "
+          f"15's fit; ms per step world of one / no mesh: "
+          + ", ".join(f"{name} {a[name][3]:.3f} / {none[name][3]:.3f}"
+                      for name in a)
+          + "; collective bytes per step over the fit (its one gather of H "
+          "on return included): "
+          + ", ".join(f"{name} {a[name][4]['bytes'] / a[name][5]:.0f}"
+                      for name in a)
+          + f"; every fit the bits of no mesh ({card})", flush=True)
+
+    # (b) two gloo processes sharing the card, each on its own shards
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="smoke_mesh_", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        sp.save_npz(os.path.join(tmp, "G.npz"), G)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(r), str(M["world"]), tmp, v1], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(M["world"])]
+        logs = []
+        try:
+            for p in procs:
+                left = M["timeout"] - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(left, 1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        world_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError(
+                "the two mesh processes failed:\n" + "\n".join(
+                    f"--- rank {r} (rc {p.returncode})\n{log[-6000:]}"
+                    for r, (p, log) in enumerate(zip(procs, logs))))
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(M["world"])]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = {}
+    for name in a:
+        want = a[name][0]
+        got = {f: ranks[0][f"{name}_{f}"] for f in ("w", "d", "h")}
+        _mesh_gate(f"two processes {name}", got, want)
+        its = [int(r[f"{name}_its"]) for r in ranks]
+        if its != [a[name][5]] * M["world"]:
+            raise AssertionError(f"two processes {name}: iterations {its}, "
+                                 f"world of one {a[name][5]}")
+        for r in ranks[1:]:
+            _same_bits(f"two processes {name}: W across ranks",
+                       {f: r[f"{name}_{f}"] for f in ("w", "d")},
+                       {f: ranks[0][f"{name}_{f}"] for f in ("w", "d")},
+                       ("w", "d"))
+        b[name] = dict(
+            ms=[float(r[f"{name}_ms"]) for r in ranks],
+            wall_s=[float(r[f"{name}_wall_s"]) for r in ranks],
+            its=its, launches=[json.loads(str(r[f"{name}_launches"]))
+                               for r in ranks],
+            collectives=[json.loads(str(r[f"{name}_coll"])) for r in ranks])
+    gloo_cuda = json.loads(str(ranks[0]["gloo_cuda"]))
+    print("two gloo processes sharing the card (not a scaling figure): "
+          f"{world_s:.1f} s with start-up, staged v1 ingest of each rank's "
+          f"shards {float(ranks[0]['ingest_s']):.3f} / "
+          f"{float(ranks[1]['ingest_s']):.3f} s; ms per step rank 0 / 1: "
+          + ", ".join(f"{name} {v['ms'][0]:.3f} / {v['ms'][1]:.3f}"
+                      for name, v in b.items())
+          + "; collective bytes and ms per step over the fit (rank 0; the "
+          "gather of H on return and the waits for the other rank "
+          "included): "
+          + ", ".join(
+              f"{name} {v['collectives'][0]['bytes'] / v['its'][0]:.0f} B "
+              f"{v['collectives'][0]['ms'] / v['its'][0]:.3f} ms"
+              for name, v in b.items())
+          + f"; within rtol={FIT_RTOL} atol={FIT_ATOL} of the world of one, "
+          f"equal iterations and W bits across ranks; gloo on CUDA tensors "
+          f"takes {gloo_cuda} ({card})", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 took {phase_s:.1f} s ({card})", flush=True)
+    return dict(
+        phase_s=phase_s, world_s=world_s,
+        one=dict(run_nmf=dict(wall_s=dir_s, launches=n_dir), **{
+            name: dict(wall_s=v[1], launches=v[2], ms=v[3], collectives=v[4],
+                       its=v[5], ms_no_mesh=none[name][3],
+                       launches_no_mesh=none[name][2],
+                       wall_s_no_mesh=none[name][1])
+            for name, v in a.items()}),
+        two=dict(ingest_s=[float(r["ingest_s"]) for r in ranks],
+                 worker_s=[float(r["worker_s"]) for r in ranks],
+                 gloo_cuda=gloo_cuda, **b))
 
 
 def phase_build():
@@ -3219,24 +3516,30 @@ def _phases(torch, card, results, ckdir):
     results["hash_kernels"] = hash_rows + results["large"].pop(
         "hash_kernels")
     results["ell_entry"] = phase_ell_entry(torch, card)
-    # the staged directories of phase 15 under the git-ignored build/,
-    # removed at the end
+    # the staged directories of phase 15 under the git-ignored build/, read
+    # again by phase 17, removed at the end
     stage_root = tempfile.mkdtemp(prefix="smoke_staged_",
                                   dir=os.path.join(ROOT, "build"))
     try:
-        results["stream"], eng, W0 = phase_stream(torch, card, stage_root)
+        results["stream"], eng, W0, m_dir = phase_stream(torch, card,
+                                                         stage_root)
+        results["solvers"], G = phase_solvers(torch, card, eng, W0)
+        results["mesh"] = phase_mesh(torch, card, stage_root, eng, W0, G,
+                                     m_dir)
     finally:
         shutil.rmtree(stage_root, ignore_errors=True)
-    results["solvers"] = phase_solvers(torch, card, eng, W0)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-worker"]:
+        return mesh_worker(argv[1:])
     card = _card_line()
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} ({card})", flush=True)
@@ -3303,6 +3606,15 @@ def main() -> int:
                      solvers["bench"][name]["launches_dense"]]
     new_runs += [solvers["large"][name]["launches"]
                  for name in ("batch_fit", "gcnmf_fit")]
+    # phase 17: the world of one (and the same fits with no mesh) and both
+    # ranks of the two processes
+    mesh_res = results["mesh"]
+    mesh_runs = [mesh_res["one"]["run_nmf"]["launches"]]
+    for name in ("fit", "ard", "gcnmf", "dense", "dense_masked"):
+        mesh_runs += [mesh_res["one"][name]["launches"],
+                      mesh_res["one"][name]["launches_no_mesh"],
+                      *mesh_res["two"][name]["launches"]]
+    new_runs += mesh_runs
     ell_runs += new_runs
     print(f"chip_smoke total {results['wall_s']:.1f} s, the build "
           f"{build_wall_s:.1f} s of it ({card})")
@@ -3315,9 +3627,10 @@ def main() -> int:
           "unpacking all of them, B10 and B11 (bf16, the mask hashed) per "
           "call on one 2048-cell block of them; launches: "
           "B1 over the bench-scale nmf_fit runs, run_nmf at k=256 and the "
-          "counted runs of phases 15 and 16, B2 over the bench-scale "
-          "ard_nmf_fit, cross_validate_nmf and ard_nmf runs, B3-B14 over the "
-          "ELL engine's counted runs; bound_ms: the larger of the bytes over "
+          "counted runs of phases 15-17 (phase 17: both ranks of the two "
+          "processes), B2 over the bench-scale ard_nmf_fit, "
+          "cross_validate_nmf and ard_nmf runs and phase 17's, B3-B14 over "
+          "the ELL engine's counted runs; bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
           "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s, bf16 "
           "989 TFLOP/s)")
@@ -3352,7 +3665,8 @@ def main() -> int:
               masked["fit"]["launches"]["B2"] + masked["cv"]["launches"]["B2"]
               + results["ard"]["launches"]["B2"]
               + sum(dense_resume["ard_nmf_fit"][key]["B2"] for key in (
-                  "launches_full", "launches_resumed")), b2_row,
+                  "launches_full", "launches_resumed"))
+              + sum(n["B2"] for n in mesh_runs), b2_row,
               max(r["max_abs_err"] for r in results["kernel_b2"]
                   + wide["kernels"] if r.get("kernel", "B2") == "B2")),
         ell_entry("bell_spmm", "B3", "bell_spmm.cu", "pallas_bell.py:162"),

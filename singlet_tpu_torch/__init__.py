@@ -92,9 +92,21 @@ on the device; ``spatial_graph``, ``rescale_spatial`` numpy). As in JAX,
 ``gcnmf`` and ``nmf_batch`` are the dense solvers and the engine's fits
 their scale routes.
 
-Not ported yet, raising (ROADMAP A.4): multi-host ingest and ``mesh=``
-(of the drivers, ``run_linked_nmf``, ``project_model``, ``gcnmf`` and
-``nmf_batch``).
+Multi-device (``parallel/``): the port runs one process per device, as
+``torchrun`` starts them, and the JAX package's single-process mesh of N
+devices is here a world of N ranks with a 1-D ``DeviceMesh`` named
+``"cells"`` (``make_mesh``, ``global_mesh``, ``initialize``). Every
+driver's ``mesh=`` (``run_nmf``, ``cross_validate_nmf``, ``ard_nmf``,
+``run_linked_nmf``, ``project_model``, ``nmf_batch``, ``gcnmf``), the ELL
+engine and the dense mesh engine (``sharded_nmf_fit``) split the cells over
+the ranks; each rank packs and computes on its own cells with the same
+kernels, the ranks reduce over ``torch.distributed`` (NCCL on a card, gloo
+on the CPU; ``parallel/collectives.py``) at the JAX engines' points, and
+every rank gets the whole model. Each rank can ingest only its own cells
+(``shard_cells_from_local``, ``parallel.sharded_ell.shard_ell_from_local``
+and the chunk-list and staged-directory ingest on a mesh). A world of one
+(``make_mesh()`` with no process group) gives the bits of the fits with no
+mesh.
 """
 
 from singlet_tpu_torch.checkpoint import CheckpointManager
@@ -102,8 +114,11 @@ from singlet_tpu_torch.config import NMFConfig
 from singlet_tpu_torch.graphs.spatial import (local_knn, rescale_spatial,
                                               snn_graph, spatial_graph)
 from singlet_tpu_torch.model import NMFModel
-from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
-                                                    sharded_ell_nmf_fit)
+from singlet_tpu_torch.parallel import (ShardedEllEngine, global_mesh,
+                                        initialize, make_mesh,
+                                        process_cell_range,
+                                        shard_cells_from_local, shard_data,
+                                        sharded_ell_nmf_fit, sharded_nmf_fit)
 from singlet_tpu_torch.solvers.als import nmf_fit
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
 from singlet_tpu_torch.solvers.batch import nmf_batch
@@ -124,4 +139,6 @@ __all__ = ["NMFConfig", "NMFModel", "nmf_fit", "run_nmf",
            "run_linked_nmf", "build_link_matrix", "project_model", "gcnmf",
            "mu_nmf", "nmf_batch", "differentiate_model",
            "assign_cells_to_edge_clusters", "local_knn", "snn_graph",
-           "spatial_graph", "rescale_spatial"]
+           "spatial_graph", "rescale_spatial", "initialize", "global_mesh",
+           "process_cell_range", "shard_cells_from_local", "make_mesh",
+           "shard_data", "sharded_nmf_fit"]

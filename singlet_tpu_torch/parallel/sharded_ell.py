@@ -1,27 +1,43 @@
-"""The blocked-ELL sparse engine on one CUDA card: the route of every scipy
-input above ``SPARSE_THRESHOLD`` dense entries.
+"""The blocked-ELL sparse engine: the route of every scipy input above
+``SPARSE_THRESHOLD`` dense entries, on one CUDA card or cell-split over the
+ranks of a mesh.
 
-Port of ``singlet_tpu/parallel/sharded_ell.py`` with the mesh cut to one
-device. The operand is held only as blocked-ELL A-planes, no transpose:
-each cell's nonzeros are split by gene block and stored as fixed-width
-planes of LOCAL gene ids (pad -1) and values (pad 0), gb-major, in the 2-D
-layout ``(n_gb * width, cells_pad)`` with cells contiguous. The h-update
-right-hand sides come from kernel B3 (``ops/bell.py`` ``bell_spmm``), the
-w-update right-hand sides from kernel B4 (``bell_spmm_t``) over the same
-planes, and the NNLS solves from kernels B1 (shared Gram) and B2
-(per-column Grams, the masked fit).
+Port of ``singlet_tpu/parallel/sharded_ell.py``. The operand is held only
+as blocked-ELL A-planes, no transpose: each cell's nonzeros are split by
+gene block and stored as fixed-width planes of LOCAL gene ids (pad -1) and
+values (pad 0), gb-major, in the 2-D layout ``(n_gb * width, cells_local)``
+with cells contiguous. The h-update right-hand sides come from kernel B3
+(``ops/bell.py`` ``bell_spmm``), the w-update right-hand sides from kernel
+B4 (``bell_spmm_t``) over the same planes, and the NNLS solves from kernels
+B1 (shared Gram) and B2 (per-column Grams, the masked fit).
+
+On a mesh (a 1-D ``DeviceMesh`` named ``"cells"``, ``parallel/sharded.py``
+``make_mesh``; one process per device) each rank holds the planes of its
+own cells ``[cell_offset, cell_offset + cells_local)`` and its rows of H;
+W is replicated. Every kernel runs per rank on the rank's cells, with the
+rank's GLOBAL cell ids wherever the JAX engine takes ``_local_cell_ids``
+(the packed test mask, the hashed keep factor and mask of B3, B4, B10 and
+B11). The ranks reduce at the JAX engine's points and in its order, raw
+sums first and the division by ``d`` after (``collectives.psum``): the
+plain step's Hsum, Hgram and Bw, the masked step's and ``Pk_t``, the test
+MSE's sum, the projection's column sums, the batch penalty's per-batch
+sums; GCNMF gathers B and the rescaled H over the ranks
+(``collectives.all_gather_cells``), since the graph's "gene" axis is the
+global cell axis. The w-side solve runs replicated on every rank from the
+reduced operands, and every loop decision reads the tol reduced with MAX
+over the ranks, so the ranks' loops cannot part. The fits return the whole
+model on every rank (H gathered).
 
 What differs from the JAX engine, and why:
 
-  * no mesh, shard_map or psum: one device holds all cells;
   * the fit loops are host loops with one sync per iteration (as
     ``solvers/als.py`` and ``solvers/ard.py``), not one fused device
     program;
-  * the plain step and the projection launch B3, B1 and B4 ONCE over all
-    cells, and both steps solve all genes in one B1 or B2 launch. The JAX
-    code blocks cells and genes only to bound TPU memory, and every NNLS
-    column exits on its own (``ops/nnls.py``), so the results are the same
-    up to the order of sums;
+  * the plain step and the projection launch B3, B1 and B4 ONCE over the
+    rank's cells, and both steps solve all genes in one B1 or B2 launch.
+    The JAX code blocks cells and genes only to bound TPU memory, and every
+    NNLS column exits on its own (``ops/nnls.py``), so the results are the
+    same up to the order of sums;
   * the masked step has the JAX engine's three routes, chosen when a fit
     is built by ``_masked_route``, the counterpart of the JAX ``_use_bits``
     and its mode selection. On a CUDA device at the default mask precision
@@ -54,20 +70,23 @@ What differs from the JAX engine, and why:
     (``pad_pairs``): the padding exists for the TPU's lanes and no consumer
     reads it;
   * ``checkpoint=`` of ``fit`` and ``ard_fit`` runs the same host loops
-    with a save after each iteration; ``chunk_iters`` is left out and
-    raises (ROADMAP A.6: it splits the fused device loop for relays that
-    cap execution time);
+    with a save after each iteration (on a mesh: H gathered, rank 0
+    writes, a barrier, and every rank restores its rows); ``chunk_iters``
+    is left out and raises (ROADMAP A.6: it splits the fused device loop
+    for relays that cap execution time);
   * ``gcnmf_fit`` and ``batch_fit`` (the scale routes of ``solvers/
     gcnmf.py`` and ``solvers/batch.py``) run their steps as the plain step
-    does: B3, B1 and B4 once over all cells, B1 once over all genes, with
-    no all_gather (one device holds every cell). GCNMF packs the graph G
-    into a second set of planes whose "gene" axis is the cell axis, and
-    B3 over them convolves B and H;
-  * chunk-list and staged-directory ingest (``shard_ell_from_chunks``,
-    ``shard_ell_from_staged``) stream into the planes of one device:
-    the JAX functions' passes and slices with no allgather, planes bit for
-    bit those of ``shard_ell_data`` of the concatenated matrix. Multi-host
-    ingest (``shard_ell_from_local``) waits for A.4 (multi-device).
+    does: B3, B1 and B4 once over the rank's cells, B1 once over all genes.
+    GCNMF packs the graph G into a second set of planes whose "gene" axis
+    is the global cell axis, and B3 over them convolves the gathered B and
+    H;
+  * ingest: ``shard_ell_data`` packs only the rank's columns of the whole
+    matrix; ``shard_ell_from_local`` the rank's own column slice, with the
+    plane width agreed over the ranks (``collectives.allgather_max``) and
+    ``gene_nonempty`` OR'ed over them; ``shard_ell_from_chunks`` and
+    ``shard_ell_from_staged`` read only the chunks or shards that overlap
+    the rank's range. Each rank's planes are, bit for bit, the rank's slice
+    of the JAX ``shard_ell_data`` on a mesh of the same size.
 """
 
 from __future__ import annotations
@@ -82,7 +101,6 @@ import scipy.sparse as sp
 import torch
 
 from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
-from singlet_tpu_torch.device import resolve_device
 from singlet_tpu_torch import native
 from singlet_tpu_torch.native import csc_to_bell
 from singlet_tpu_torch.ops.bell import (bell_mse_bits, bell_spmm,
@@ -104,6 +122,11 @@ from singlet_tpu_torch.ops.maskgram import (kmajor_buffer, mask_packed_h_t,
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t)
 from singlet_tpu_torch.ops.rngmask import mask_block, seed_pair
+from singlet_tpu_torch.parallel.collectives import (all_gather_cells,
+                                                    allgather_max,
+                                                    any_over_ranks, pmax,
+                                                    psum, rank_of, world_of)
+from singlet_tpu_torch.parallel.sharded import check_mesh, rank_device
 from singlet_tpu_torch.solvers.als import (_as_pair, _fit_loop, _padded,
                                            checkpoint_saver, init_w,
                                            logged_fit_loop,
@@ -113,8 +136,8 @@ from singlet_tpu_torch.sparse.chunked import _load_chunk, read_manifest
 from singlet_tpu_torch.tracing import get_metric_logger
 
 __all__ = ["ShardedEllData", "ShardedEllEngine", "shard_ell_data",
-           "shard_ell_from_chunks", "shard_ell_from_staged", "ell_geometry",
-           "sharded_ell_nmf_fit"]
+           "shard_ell_from_local", "shard_ell_from_chunks",
+           "shard_ell_from_staged", "ell_geometry", "sharded_ell_nmf_fit"]
 
 _LEFT_OUT = "{what} is left out of singlet_tpu_torch (ROADMAP {item})"
 
@@ -125,18 +148,22 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class ShardedEllData:
-    """Blocked-ELL A-planes of a genes x cells operand on one device.
+    """Blocked-ELL A-planes of the rank's cells of a genes x cells operand.
 
     ``b_li[gb * width + w, c]`` is the local gene id (``gene - gb *
-    gene_block``, pad -1) of slot w of gene block gb of cell c, ``b_val``
-    its value (pad 0), at one uniform width (the max per-(cell, block)
-    count, rounded up to 8). Cells are contiguous.
+    gene_block``, pad -1) of slot w of gene block gb of the rank's cell c,
+    ``b_val`` its value (pad 0), at one uniform width (the max per-(cell,
+    block) count over ALL cells, rounded up to 8). Cells are contiguous.
+    The rank holds global cells ``[cell_offset, cell_offset +
+    cells_local)`` of ``cells_pad``; without a mesh it is rank 0 of 1 and
+    holds them all. ``gene_nonempty`` is over all cells, the same on every
+    rank.
     """
 
-    b_li: torch.Tensor           # (n_gb * width, cells_pad) int32
-    b_val: torch.Tensor          # (n_gb * width, cells_pad) float32
+    b_li: torch.Tensor           # (n_gb * width, cells_local) int32
+    b_val: torch.Tensor          # (n_gb * width, cells_local) float32
     b_width: int
-    nonempty: torch.Tensor       # (cells_pad,) bool
+    nonempty: torch.Tensor       # (cells_local,) bool
     gene_nonempty: torch.Tensor  # (genes_pad,) bool
     device: torch.device
     genes_true: int
@@ -145,10 +172,21 @@ class ShardedEllData:
     cells_pad: int
     cell_block: int
     gene_block: int
+    mesh: Optional[object] = None
+    rank: int = 0
+    n_dev: int = 1
 
     @property
     def n_gb(self) -> int:
         return self.genes_pad // self.gene_block
+
+    @property
+    def cells_local(self) -> int:
+        return self.cells_pad // self.n_dev
+
+    @property
+    def cell_offset(self) -> int:
+        return self.rank * self.cells_local
 
 
 def bell_widths(A: sp.csc_matrix, n_gb: int, gene_block: int) -> np.ndarray:
@@ -200,67 +238,145 @@ def planes_to_device_layout(planes: np.ndarray) -> np.ndarray:
 
 
 def ell_geometry(genes: int, cells: int, cell_block: int = 2048,
-                 gene_block: int = 512) -> Tuple[int, int, int, int]:
-    """(genes_pad, cells_pad, cell_block, gene_block) of an ELL operand:
-    the JAX package's geometry on a one-device mesh."""
-    cell_block = min(cell_block, _round_up(max(cells, 1), 256))
-    cells_pad = _round_up(cells, cell_block)
+                 gene_block: int = 512, *, n_dev: int = 1
+                 ) -> Tuple[int, int, int, int]:
+    """(genes_pad, cells_pad, cell_block, gene_block) of an ELL operand on
+    a mesh of ``n_dev`` ranks (the JAX ``ell_geometry``; its mesh is here
+    the mesh size): each rank holds ``cells_pad // n_dev`` cells, a
+    multiple of the cell block."""
+    cell_block = min(cell_block, _round_up(max(cells // n_dev, 1), 256))
+    cells_pad = _round_up(cells, n_dev * cell_block)
     gene_block = min(gene_block, _round_up(genes, 256))
     genes_pad = _round_up(genes, gene_block)
     return genes_pad, cells_pad, cell_block, gene_block
 
 
 def _ell_data(li: np.ndarray, lv: np.ndarray, width: int, ne: np.ndarray,
-              gne: np.ndarray, device, genes: int, cells: int,
-              geometry) -> ShardedEllData:
-    """ShardedEllData on ``device`` from planes in the engine's 2-D layout
-    and the host's nonempty flags."""
+              gne: torch.Tensor, device, genes: int, cells: int, geometry,
+              mesh) -> ShardedEllData:
+    """ShardedEllData of the rank's cells on ``device`` from planes in the
+    engine's 2-D layout, the host's nonempty flags and ``gne`` on
+    ``device``."""
     genes_pad, cells_pad, cell_block, gene_block = geometry
     to = lambda x: torch.from_numpy(x).to(device)      # noqa: E731
     return ShardedEllData(
         b_li=to(li), b_val=to(lv), b_width=width, nonempty=to(ne),
-        gene_nonempty=to(gne), device=device, genes_true=genes,
+        gene_nonempty=gne, device=device, genes_true=genes,
         cells_true=cells, genes_pad=genes_pad, cells_pad=cells_pad,
-        cell_block=cell_block, gene_block=gene_block)
+        cell_block=cell_block, gene_block=gene_block, mesh=mesh,
+        rank=rank_of(mesh), n_dev=world_of(mesh))
+
+
+def _rank_range(mesh, cells_pad: int) -> Tuple[int, int]:
+    """[start, stop) of the padded cell axis the rank owns."""
+    cells_local = cells_pad // world_of(mesh)
+    start = rank_of(mesh) * cells_local
+    return start, start + cells_local
+
+
+def _gene_flags(present: np.ndarray, genes_pad: int, device, mesh,
+                or_over_ranks: bool) -> torch.Tensor:
+    """(genes_pad,) bool on ``device`` from the host's flags of the true
+    genes, OR'ed over the ranks when each rank saw only its own cells."""
+    gne = torch.zeros(genes_pad, dtype=torch.bool)
+    gne[:present.size] = torch.from_numpy(np.asarray(present, bool))
+    gne = gne.to(device)
+    return any_over_ranks(mesh, gne) if or_over_ranks else gne
 
 
 def shard_ell_data(A: sp.spmatrix, device=None, cell_block: int = 2048,
-                   gene_block: int = 512) -> ShardedEllData:
-    """Blocked-ELL planes of a genes x cells scipy matrix, on ``device``
-    (default ``"cuda"``). No transpose is built."""
-    device = resolve_device(device)
+                   gene_block: int = 512, mesh=None) -> ShardedEllData:
+    """Blocked-ELL planes of the rank's cells of a genes x cells scipy
+    matrix that every rank holds whole, on the rank's device (default
+    ``"cuda"``; on a mesh ``rank_device``). The rank packs only its own
+    columns; the width and ``gene_nonempty`` come from the whole matrix,
+    with no collective. No transpose is built."""
+    mesh = check_mesh(mesh)
+    device = rank_device(mesh, device)
     A = sp.csc_matrix(A)
     genes, cells = A.shape
-    geometry = ell_geometry(genes, cells, cell_block, gene_block)
+    geometry = ell_geometry(genes, cells, cell_block, gene_block,
+                            n_dev=world_of(mesh))
     genes_pad, cells_pad, cell_block, gene_block = geometry
     n_gb = genes_pad // gene_block
     width = bell_width(bell_widths(A, n_gb, gene_block))
     _log_bell_ingest(width, A.nnz, cells, n_gb, cells_pad)
-    b_li, b_val = csc_to_bell(A, cells_pad, gene_block, n_gb, width)
-
-    ne = np.zeros(cells_pad, bool)
-    ne[:cells] = np.diff(A.indptr) > 0
-    gne = np.zeros(genes_pad, bool)
-    gne[:genes] = np.asarray((A != 0).sum(axis=1)).ravel() > 0
+    start, stop = _rank_range(mesh, cells_pad)
+    local = A if (start, stop) == (0, cells_pad) else \
+        A[:, min(start, cells):min(stop, cells)]
+    b_li, b_val = csc_to_bell(local, stop - start, gene_block, n_gb, width)
+    ne = np.zeros(stop - start, bool)
+    ne[:local.shape[1]] = np.diff(local.indptr) > 0
+    gne = _gene_flags(np.asarray((A != 0).sum(axis=1)).ravel() > 0,
+                      genes_pad, device, mesh, or_over_ranks=False)
     return _ell_data(planes_to_device_layout(b_li),
                      planes_to_device_layout(b_val), width, ne, gne, device,
-                     genes, cells, geometry)
+                     genes, cells, geometry, mesh)
+
+
+def shard_ell_from_local(local_cols: sp.spmatrix, cells_true: int,
+                         mesh=None, cell_block: int = 2048,
+                         gene_block: int = 512,
+                         device=None) -> ShardedEllData:
+    """The rank's planes from its own (genes x owned true cells) column
+    slice: the columns of its range ``[rank * cells_local, (rank + 1) *
+    cells_local)`` up to ``cells_true``, none for a rank of padding only.
+    The plane width is agreed over the ranks (one ``allgather_max``) and
+    ``gene_nonempty`` OR'ed over them (a gene is live where it holds a
+    stored entry, the JAX rule), so the planes are the rank's slice of
+    ``shard_ell_data`` of the concatenated matrix, bit for bit, with no
+    rank ever holding it (the reference's sparse-list ingest and
+    distributed transpose, reference:src/singlet.cpp:384-402,
+    reference:R/ard_nmf.R:57-70). ``mesh=None`` is a world of one."""
+    mesh = check_mesh(mesh)
+    device = rank_device(mesh, device)
+    local_cols = sp.csc_matrix(local_cols)
+    genes = local_cols.shape[0]
+    geometry = ell_geometry(genes, cells_true, cell_block, gene_block,
+                            n_dev=world_of(mesh))
+    genes_pad, cells_pad, cell_block, gene_block = geometry
+    start, stop = _rank_range(mesh, cells_pad)
+    expected = max(0, min(stop, cells_true) - start)
+    if local_cols.shape[1] != expected:
+        raise ValueError(
+            f"rank {rank_of(mesh)} owns padded cell range [{start}, {stop}) "
+            f"= {expected} true columns, got {local_cols.shape[1]}")
+    n_gb = genes_pad // gene_block
+    (wmax,) = allgather_max(mesh, (int(bell_widths(
+        local_cols, n_gb, gene_block).max(initial=0)),))
+    width = bell_width(np.asarray([wmax]))
+    _log_bell_ingest(width, local_cols.nnz, local_cols.shape[1], n_gb,
+                     cells_pad)
+    b_li, b_val = csc_to_bell(local_cols, stop - start, gene_block, n_gb,
+                              width)
+    ne = np.zeros(stop - start, bool)
+    ne[:expected] = np.diff(local_cols.indptr) > 0
+    present = np.zeros(genes, bool)
+    present[np.unique(local_cols.indices)] = True
+    return _ell_data(planes_to_device_layout(b_li),
+                     planes_to_device_layout(b_val), width, ne,
+                     _gene_flags(present, genes_pad, device, mesh, True),
+                     device, genes, cells_true, geometry, mesh)
 
 
 def shard_ell_from_chunks(chunks, device=None, cell_block: int = 2048,
-                          gene_block: int = 512) -> ShardedEllData:
+                          gene_block: int = 512,
+                          mesh=None) -> ShardedEllData:
     """Stream a chunk list (scipy matrices, ``.svc``/``.npz``/``.mtx``
-    paths, or loader callables) into blocked-ELL planes on ``device``
-    (default ``"cuda"``) WITHOUT materializing the concatenated matrix on
-    the host: the JAX function's three passes on one device. (1) shapes:
-    SVC paths read only their header, other sources are loaded (in-memory
-    chunks are free; path and callable chunks are loaded again in later
-    passes, the streaming trade); (2) the plane width from every chunk;
-    (3) each chunk packed straight into its cells of the planes, in the
-    engine's layout. The planes equal those of ``shard_ell_data`` of the
-    concatenated matrix bit for bit (the reference's sparse-list mode,
+    paths, or loader callables) into the rank's blocked-ELL planes on its
+    device (default ``"cuda"``) WITHOUT materializing the concatenated
+    matrix on the host: the JAX function's three passes, none of which
+    loads a chunk the rank does not own. (1) shapes: SVC paths read only
+    their header, other sources are loaded (in-memory chunks are free; path
+    and callable chunks are loaded again in later passes, the streaming
+    trade); (2) the plane width from the rank's chunk slices, agreed over
+    the ranks (``allgather_max``); (3) each owned slice packed straight
+    into its cells of the planes, in the engine's layout. The planes equal
+    the rank's slice of ``shard_ell_data`` of the concatenated matrix bit
+    for bit (the reference's sparse-list mode,
     reference:src/singlet.cpp:384-402)."""
-    device = resolve_device(device)
+    mesh = check_mesh(mesh)
+    device = rank_device(mesh, device)
     genes = None
     cols_of = []
     nnz_total = 0
@@ -278,78 +394,94 @@ def shard_ell_from_chunks(chunks, device=None, cell_block: int = 2048,
         cols_of.append(cc)
         nnz_total += nz
     cells = int(sum(cols_of))
-    geometry = ell_geometry(genes, cells, cell_block, gene_block)
+    geometry = ell_geometry(genes, cells, cell_block, gene_block,
+                            n_dev=world_of(mesh))
     genes_pad, cells_pad, cell_block, gene_block = geometry
     n_gb = genes_pad // gene_block
+    start, stop = _rank_range(mesh, cells_pad)
+    local_cells = stop - start
+
+    def owned():
+        """(the chunk's owned slice, its first local cell)."""
+        off = 0
+        for c, w in zip(chunks, cols_of):
+            lo, hi = max(start, off), min(stop, off + w)
+            if lo < hi:
+                M = _load_chunk(c)
+                if (lo, hi) != (off, off + w):
+                    M = sp.csc_matrix(M[:, lo - off:hi - off])
+                yield M, lo - start
+            off += w
 
     wmax = 0
-    for c in chunks:
-        M = _load_chunk(c)
+    for M, _ in owned():
         wmax = max(wmax, int(bell_widths(M, n_gb, gene_block)
                              .max(initial=0)))
         del M
+    (wmax,) = allgather_max(mesh, (wmax,))
     width = bell_width(np.asarray([wmax]))
     _log_bell_ingest(width, nnz_total, cells, n_gb, cells_pad)
 
-    # the planes in the engine's layout (n_gb, width, cells_pad), each
-    # chunk's (n_gb, cols, width) planes transposed into its cells
-    li = np.full((n_gb, width, cells_pad), -1, np.int32)
-    lv = np.zeros((n_gb, width, cells_pad), np.float32)
-    ne = np.zeros(cells_pad, bool)
-    gne = np.zeros(genes_pad, bool)
-    off = 0
-    for c, w in zip(chunks, cols_of):
-        M = _load_chunk(c)
+    # the planes in the engine's layout (n_gb, width, local_cells), each
+    # slice's (n_gb, cols, width) planes transposed into its cells
+    li = np.full((n_gb, width, local_cells), -1, np.int32)
+    lv = np.zeros((n_gb, width, local_cells), np.float32)
+    ne = np.zeros(local_cells, bool)
+    present = np.zeros(genes, bool)
+    for M, c0 in owned():
+        w = M.shape[1]
         c_li, c_lv = csc_to_bell(M, w, gene_block, n_gb, width)
-        li[:, :, off:off + w] = c_li.transpose(0, 2, 1)
-        lv[:, :, off:off + w] = c_lv.transpose(0, 2, 1)
-        ne[off:off + w] = np.diff(M.indptr) > 0
-        gne[np.unique(M.indices)] = True
-        off += w
+        li[:, :, c0:c0 + w] = c_li.transpose(0, 2, 1)
+        lv[:, :, c0:c0 + w] = c_lv.transpose(0, 2, 1)
+        ne[c0:c0 + w] = np.diff(M.indptr) > 0
+        present[np.unique(M.indices)] = True
         del M, c_li, c_lv
-    return _ell_data(li.reshape(n_gb * width, cells_pad),
-                     lv.reshape(n_gb * width, cells_pad), width, ne, gne,
-                     device, genes, cells, geometry)
+    return _ell_data(li.reshape(n_gb * width, local_cells),
+                     lv.reshape(n_gb * width, local_cells), width, ne,
+                     _gene_flags(present, genes_pad, device, mesh, True),
+                     device, genes, cells, geometry, mesh)
 
 
 def shard_ell_from_staged(directory: str, device=None,
-                          cell_block: int = 2048,
-                          gene_block: int = 512) -> ShardedEllData:
-    """Blocked-ELL planes on ``device`` (default ``"cuda"``) from a
-    directory staged by ``sparse.chunked.stage_chunks`` (by either
-    package): the JAX function on one device, which owns every cell, so it
-    reads every shard, joins them and packs them as the JAX
-    ``shard_ell_from_local`` packs one host's cells, with no allgather. The
-    planes equal those of ``shard_ell_data`` of the concatenated matrix
-    bit for bit (the reference's file-staging workflow,
-    reference:R/run_nmf.R:79-107)."""
-    device = resolve_device(device)
+                          cell_block: int = 2048, gene_block: int = 512,
+                          mesh=None) -> ShardedEllData:
+    """The rank's blocked-ELL planes on its device (default ``"cuda"``)
+    from a directory staged by ``sparse.chunked.stage_chunks`` (by either
+    package): the rank reads ONLY the SVC shards that overlap its cell
+    range, slices them to it and packs them through
+    ``shard_ell_from_local``. The planes equal the rank's slice of
+    ``shard_ell_data`` of the concatenated matrix bit for bit (the
+    reference's file-staging workflow, reference:R/run_nmf.R:79-107)."""
+    mesh = check_mesh(mesh)
     meta = read_manifest(directory)
     genes, cells = int(meta["genes"]), int(meta["cells"])
-    parts = [native.svc_read(os.path.join(directory, ch["file"]))
-             for ch in meta["chunks"]]
-    A = (sp.hstack(parts).tocsc() if parts
-         else sp.csc_matrix((genes, 0), dtype=np.float32))
+    _, cells_pad, _, _ = ell_geometry(genes, cells, cell_block, gene_block,
+                                      n_dev=world_of(mesh))
+    start, stop = _rank_range(mesh, cells_pad)
+    stop = min(stop, cells)
+    parts = []
+    off = 0
+    for ch in meta["chunks"]:
+        w = int(ch["cols"])
+        lo, hi = max(start, off), min(stop, off + w)
+        if lo < hi:
+            M = native.svc_read(os.path.join(directory, ch["file"]))
+            if M.shape != (genes, w):
+                raise ValueError(f"staged shard {ch['file']} holds "
+                                 f"{M.shape}, the manifest says ({genes}, "
+                                 f"{w})")
+            parts.append(M if (lo, hi) == (off, off + w)
+                         else M[:, lo - off:hi - off])
+        off += w
+    if off != cells:
+        raise ValueError(f"staged shards hold {off} cells, the manifest "
+                         f"says {cells}")
+    local = (sp.hstack(parts).tocsc() if len(parts) > 1
+             else sp.csc_matrix(parts[0]) if parts
+             else sp.csc_matrix((genes, 0), dtype=np.float32))
     del parts
-    if A.shape != (genes, cells):
-        raise ValueError(f"staged shards hold {A.shape}, the manifest says "
-                         f"({genes}, {cells})")
-    geometry = ell_geometry(genes, cells, cell_block, gene_block)
-    genes_pad, cells_pad, cell_block, gene_block = geometry
-    n_gb = genes_pad // gene_block
-    width = bell_width(np.asarray(
-        [int(bell_widths(A, n_gb, gene_block).max(initial=0))]))
-    _log_bell_ingest(width, A.nnz, cells, n_gb, cells_pad)
-    b_li, b_val = csc_to_bell(A, cells_pad, gene_block, n_gb, width)
-    ne = np.zeros(cells_pad, bool)
-    ne[:cells] = np.diff(A.indptr) > 0
-    # a gene is live where it holds a stored entry (the JAX rule of
-    # shard_ell_from_local, which counts stored zeros)
-    gne = np.zeros(genes_pad, bool)
-    gne[np.unique(A.indices)] = True
-    return _ell_data(planes_to_device_layout(b_li),
-                     planes_to_device_layout(b_val), width, ne, gne, device,
-                     genes, cells, geometry)
+    return shard_ell_from_local(local, cells, mesh, cell_block=cell_block,
+                                gene_block=gene_block, device=device)
 
 
 def _kernel_device(device) -> bool:
@@ -394,14 +526,16 @@ def _w_operand(Pw: torch.Tensor, mode: str):
 
 
 def _build_local_fns(data: ShardedEllData, inv_density: int):
-    """The engine's steps over ``data``: ``plain``, ``masked``, ``mse`` and
-    ``project``, with ``use_bits`` and ``prepare_bits`` (the JAX
-    ``_build_local_fns``). Environment knobs are read here, when a fit is
-    built."""
+    """The engine's steps over the rank's planes ``data``: ``plain``,
+    ``masked``, ``mse``, ``project``, ``gcnmf`` and ``batch``, with
+    ``use_bits`` and ``prepare_bits`` (the JAX ``_build_local_fns``). Each
+    step returns (W, H, d, tol) with H the rank's rows and tol the MAX over
+    the ranks. Environment knobs are read here, when a fit is built."""
     cell_block, gene_block, n_gb = data.cell_block, data.gene_block, data.n_gb
-    genes_pad, cells_pad = data.genes_pad, data.cells_pad
+    genes_pad, cells_local = data.genes_pad, data.cells_local
     genes_true, cells_true = data.genes_true, data.cells_true
     b_li, b_val, dev = data.b_li, data.b_val, data.device
+    mesh, off = data.mesh, data.cell_offset
     block_gib = float(os.environ.get("SINGLET_TPU_MASKED_BLOCK_GIB", "0"))
     mode, precision = maskgram_mode(), mask_mm_precision()
     mask8 = os.environ.get("SINGLET_TPU_MASK8", "0") == "1"
@@ -415,14 +549,14 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         return route() in ("int8", "bf16")
 
     def prepare_bits(seed):
-        """The fit-invariant test mask of all cells as bitplane words,
-        packed once per fit: the steps and every test MSE of the fit read
-        it."""
+        """The fit-invariant test mask of the rank's cells (their GLOBAL
+        ids) as bitplane words, packed once per fit: the steps and every
+        test MSE of the fit read it."""
         words = pack_mask_words(
-            seed, torch.arange(cells_pad, device=dev), genes_pad=genes_pad,
-            gene_block=gene_block, inv_density=inv_density,
-            cells_true=cells_true, genes_true=genes_true,
-            cell_block=cell_block)
+            seed, torch.arange(off, off + cells_local, device=dev),
+            genes_pad=genes_pad, gene_block=gene_block,
+            inv_density=inv_density, cells_true=cells_true,
+            genes_true=genes_true, cell_block=cell_block)
         return (words,)
 
     def planes(start: int, size: int):
@@ -430,7 +564,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
 
     def masked_block(k: int) -> int:
         """Masked compute-block size, a multiple of ``cell_block`` dividing
-        ``cells_pad``: one storage block unless
+        ``cells_local``: one storage block unless
         ``SINGLET_TPU_MASKED_BLOCK_GIB`` sets a budget for the per-block
         temporaries (the JAX ``_masked_block``)."""
         budget = int(block_gib * (1 << 30))
@@ -438,48 +572,55 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             return cell_block
         np_pad = _round_up(k * (k + 1) // 2, 128)
         per_col = 4 * (3 * genes_pad + 2 * k * k + 2 * np_pad)
-        n_base = max(cells_pad // cell_block, 1)
+        n_base = max(cells_local // cell_block, 1)
         f_cap = max(1, min(n_base, budget // per_col // cell_block))
         f = max(d for d in range(1, f_cap + 1) if n_base % d == 0)
         return f * cell_block
 
     def mask_of(seed, start: int, size: int) -> torch.Tensor:
-        """Test mask of cells [start, start + size), bool (size, genes_pad),
-        with the validity clamps: padded cells and genes are never held
-        out."""
+        """Test mask of the rank's cells [start, start + size), bool (size,
+        genes_pad), keyed by their global ids, with the validity clamps:
+        padded cells and genes are never held out."""
         m = torch.zeros((size, genes_pad), dtype=torch.bool, device=dev)
-        n_valid = max(0, min(size, cells_true - start))
+        g0 = off + start
+        n_valid = max(0, min(size, cells_true - g0))
         if n_valid:
             m[:n_valid, :genes_true] = mask_block(
-                seed, torch.arange(start, start + n_valid, device=dev),
+                seed, torch.arange(g0, g0 + n_valid, device=dev),
                 torch.arange(genes_true, device=dev), inv_density)
         return m
 
-    def h_scaled(Hb):
-        """From the unnormalised H: its column sums d (+1e-15), H / d, and
-        the Gram of H / d as Hb^T Hb / (d_i d_j) + 1e-15 I (the JAX
-        engine's order of operations)."""
-        d = Hb.sum(dim=0) + 1e-15
-        a_h = (Hb.T @ Hb) / (d[:, None] * d[None, :])
-        a_h = a_h + 1e-15 * torch.eye(Hb.shape[1], dtype=Hb.dtype,
+    def reduced_scale(Hsum, Hgram, Bw=None):
+        """The rank's raw sums of the unnormalised H (its column sums and
+        Gram, and the w-side right-hand sides ``Bw`` when given) summed over
+        the ranks in one call, then d = sum + 1e-15 and the Gram of H / d
+        as Hgram / (d_i d_j) + 1e-15 I (the JAX engine's order: reduce, then
+        divide). Returns (d, a_h)."""
+        psum(mesh, *((Hsum, Hgram) if Bw is None else (Hsum, Hgram, Bw)))
+        d = Hsum + 1e-15
+        a_h = Hgram / (d[:, None] * d[None, :])
+        a_h = a_h + 1e-15 * torch.eye(Hsum.shape[0], dtype=Hsum.dtype,
                                       device=dev)
-        return d, Hb / d[None, :], a_h
+        return d, a_h
 
     def w_update(W, a_h, Bw, L1_w, L2_w, update_mask, sweep_cap,
                  max_sweeps):
-        """The w-side solve over all genes, the column rescale, and the
-        tol against the previous W on the true genes."""
+        """The w-side solve over all genes (replicated on every rank), the
+        column rescale, and the tol against the previous W on the true
+        genes, MAX over the ranks."""
         W_new = solve_nnls(a_h, Bw, W, L1=L1_w, L2=L2_w,
                            update_mask=update_mask, max_sweeps=max_sweeps,
                            sweep_cap=sweep_cap)
         W_new, d_w = scale_columns(W_new)
-        return W_new, d_w, cor_distance(W_new[:genes_true], W[:genes_true])
+        tol = cor_distance(W_new[:genes_true], W[:genes_true])
+        return W_new, d_w, pmax(mesh, tol)
 
     def _plain(W, H, L1_h, L1_w, L2_h, L2_w, link_h=None, link_w=None,
                sweep_cap=None, max_sweeps: int = CD_MAX_SWEEPS):
         # one fused pass: B3 gives B, B1 the unnormalised H, B4 the w-side
         # right-hand sides from it; the column rescale by d is applied
-        # after the pass (Bw is linear and the H Gram bilinear in H)
+        # after the pass and the reduction (Bw is linear and the H Gram
+        # bilinear in H)
         B = bell_spmm(b_li, b_val, W, gene_block=gene_block)
         if link_h is not None:
             B = B * link_h
@@ -487,7 +628,8 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                         update_mask=data.nonempty, max_sweeps=max_sweeps,
                         sweep_cap=sweep_cap)
         Bw = bell_spmm_t(b_li, b_val, Hb, gene_block=gene_block, n_gb=n_gb)
-        d, H_new, a_h = h_scaled(Hb)
+        d, a_h = reduced_scale(Hb.sum(dim=0), Hb.T @ Hb, Bw)
+        H_new = Hb / d[None, :]
         Bw = Bw / d[None, :]
         if link_w is not None:
             Bw = Bw * link_w
@@ -499,18 +641,24 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                sweep_cap=None, max_sweeps: int = CD_MAX_SWEEPS):
         """One GCNMF iteration (``c_gcnmf``, reference:src/singlet.cpp:
         1668-1730; the JAX ``build_sharded_ell_gcnmf_loop`` step) over the
-        A planes and the graph's planes ``g``, whose "gene" axis is the
-        cell axis: B3 over A gives B = A^T W, B3 over G convolves it for
-        EVERY cell (the reference skips no empty column here), B1 solves H;
-        B3 over G gives GH from the rescaled H and B4 over A the w-side
-        right-hand sides from it. The Gram stays that of H, not of GH."""
-        B = bell_spmm(b_li, b_val, W, gene_block=gene_block)
+        A planes and the graph's planes ``g`` of the rank's cells, whose
+        "gene" axis is the global cell axis: B3 over A gives B = A^T W,
+        gathered over the ranks; B3 over G convolves it for EVERY cell (the
+        reference skips no empty column here), B1 solves H; the rescaled H
+        is gathered, B3 over G gives GH from it and B4 over A the w-side
+        right-hand sides, summed over the ranks. The Gram stays that of H,
+        not of GH."""
+        B = all_gather_cells(mesh, bell_spmm(b_li, b_val, W,
+                                             gene_block=gene_block))
         Bc = bell_spmm(g.b_li, g.b_val, B, gene_block=g.gene_block)
         Hb = solve_nnls(gram(W), Bc, H, L1=L1_h, L2=L2_h,
                         max_sweeps=max_sweeps, sweep_cap=sweep_cap)
-        _, H_new, a_h = h_scaled(Hb)
-        GH = bell_spmm(g.b_li, g.b_val, H_new, gene_block=g.gene_block)
-        Bw = bell_spmm_t(b_li, b_val, GH, gene_block=gene_block, n_gb=n_gb)
+        d, a_h = reduced_scale(Hb.sum(dim=0), Hb.T @ Hb)
+        H_new = Hb / d[None, :]
+        GH = bell_spmm(g.b_li, g.b_val, all_gather_cells(mesh, H_new),
+                       gene_block=g.gene_block)
+        Bw = psum(mesh, bell_spmm_t(b_li, b_val, GH, gene_block=gene_block,
+                                    n_gb=n_gb))
         W_new, d_w, tol = w_update(W, a_h, Bw, L1_w, L2_w, None, sweep_cap,
                                    max_sweeps)
         return W_new, H_new, d_w, tol
@@ -519,24 +667,25 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                max_sweeps: int = CD_MAX_SWEEPS):
         """One batch-aware L1 iteration (``c_nmf_batch``, reference:src/
         singlet.cpp:677-710; the JAX ``build_sharded_ell_batch_loop``
-        step): the per-(factor, batch) penalty from the current H (one-hot
-        (cells_pad, n_batches) products: each batch's mean loading less the
-        mean of the other batches' means), each cell's row of it plus L1 as
-        B1's (n, k) L1 over the h-side, a scalar L1 over the w-side."""
+        step): the per-(factor, batch) penalty from the current H (the
+        rank's one-hot (cells_local, n_batches) products summed over the
+        ranks: each batch's mean loading less the mean of the other
+        batches' means), each cell's row of it plus L1 as B1's (n, k) L1
+        over the h-side, a scalar L1 over the w-side."""
         nb = onehot.shape[1]
-        means = (H.T @ onehot) / counts[None, :]                  # (k, nb)
+        means = psum(mesh, H.T @ onehot) / counts[None, :]         # (k, nb)
         pen = means - (means.sum(dim=1, keepdim=True) - means) \
             / max(nb - 1, 1)
-        L1_cells = onehot @ pen.T + L1                             # (cells, k)
+        L1_cells = onehot @ pen.T + L1                      # (cells_local, k)
         B = bell_spmm(b_li, b_val, W, gene_block=gene_block)
         Hb = solve_nnls(gram(W), B, H, L1=L1_cells, L2=L2,
                         update_mask=data.nonempty, max_sweeps=max_sweeps,
                         sweep_cap=sweep_cap)
         Bw = bell_spmm_t(b_li, b_val, Hb, gene_block=gene_block, n_gb=n_gb)
-        d, H_new, a_h = h_scaled(Hb)
+        d, a_h = reduced_scale(Hb.sum(dim=0), Hb.T @ Hb, Bw)
         W_new, d_w, tol = w_update(W, a_h, Bw / d[None, :], L1, L2, None,
                                    sweep_cap, max_sweeps)
-        return W_new, H_new, d_w, tol
+        return W_new, Hb / d[None, :], d_w, tol
 
     def _masked(W, H, seed, L1_h, L1_w, L2_h, L2_w, k_true, sweep_cap=None,
                 max_sweeps: int = CD_MAX_SWEEPS, bits=None):
@@ -569,17 +718,19 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             Hs.append(Hb)
             return Hb
 
-        # one fused pass over cell blocks; the w-side accumulators take the
-        # unnormalised H_b and are rescaled after it: Bw by 1/d per column,
-        # the packed H Gram corrections by 1/(d_i d_j) per pair
+        # one fused pass over the rank's cell blocks; the w-side
+        # accumulators take the unnormalised H_b and are rescaled after it
+        # and the reduction: Bw by 1/d per column, the packed H Gram
+        # corrections by 1/(d_i d_j) per pair. The hashed keep factor and
+        # mask take the blocks' GLOBAL cell ids (off + start).
         if r == "xla":
-            for start in range(0, cells_pad, mblock):
+            for start in range(0, cells_local, mblock):
                 li, lv = planes(start, mblock)
                 m = mask_of(seed, start, mblock).to(W.dtype)
-                B = bell_spmm(li, lv, W, seed, start, gene_block=gene_block,
-                              inv_density=inv_density)
+                B = bell_spmm(li, lv, W, seed, off + start,
+                              gene_block=gene_block, inv_density=inv_density)
                 Hb = h_block(start, B, mask_dot_t(Pw, m, 1))
-                Bw += bell_spmm_t(li, lv, Hb, seed, start,
+                Bw += bell_spmm_t(li, lv, Hb, seed, off + start,
                                   gene_block=gene_block, n_gb=n_gb,
                                   inv_density=inv_density)
                 Pk_t += mask_dot_t(packed_outer_products(Hb, iu), m, 0)
@@ -593,17 +744,18 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             Pw_op = pair_buffer(genes_pad, npairs, dev)
             Pw_op.copy_(Pw)
             Ph_op = pair_buffer(mblock, npairs, dev)
-            ids_all = torch.arange(cells_pad, dtype=torch.int32, device=dev)
+            ids_all = torch.arange(off, off + cells_local, dtype=torch.int32,
+                                   device=dev)
             hkw = dict(gene_block=gene_block, inv_density=inv_density,
                        cells_true=cells_true, genes_true=genes_true)
-            for start in range(0, cells_pad, mblock):
+            for start in range(0, cells_local, mblock):
                 li, lv = planes(start, mblock)
                 ids = ids_all[start:start + mblock]
-                B = bell_spmm(li, lv, W, seed, start, gene_block=gene_block,
-                              inv_density=inv_density)
+                B = bell_spmm(li, lv, W, seed, off + start,
+                              gene_block=gene_block, inv_density=inv_density)
                 Hb = h_block(start, B, mask_packed_w_t(Pw_op, seed, ids,
                                                        **hkw))
-                Bw += bell_spmm_t(li, lv, Hb, seed, start,
+                Bw += bell_spmm_t(li, lv, Hb, seed, off + start,
                                   gene_block=gene_block, n_gb=n_gb,
                                   inv_density=inv_density)
                 Ph_op.copy_(packed_outer_products(Hb, iu))
@@ -612,25 +764,25 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # the bits route: each block's w-side packed products are
             # quantized into its rows of one group operand, and B9 flushes
             # a group of F blocks into the carry at once (F the largest
-            # divisor of the block count up to 16), each block dequantized
-            # with its own scales: the bits of flushing block by block. The
-            # group operand is allocated once per step, and Pw's built once
-            # per step, in the layout the kernels read in place: int8
-            # K-major (the transpose of (npairs, K) rows 16 bytes apart),
-            # bf16 with its pair axis padded for TMA. Under MASK8 the
-            # group's words are first unpacked by B12 into one int8 mask
-            # buffer, likewise reused by every group, and B13 and B14 read
-            # it in place of B8 and B9.
+            # divisor of the rank's block count up to 16), each block
+            # dequantized with its own scales: the bits of flushing block
+            # by block. The group operand is allocated once per step, and
+            # Pw's built once per step, in the layout the kernels read in
+            # place: int8 K-major (the transpose of (npairs, K) rows 16
+            # bytes apart), bf16 with its pair axis padded for TMA. Under
+            # MASK8 the group's words are first unpacked by B12 into one
+            # int8 mask buffer, likewise reused by every group, and B13
+            # and B14 read it in place of B8 and B9.
             (words,) = bits
             Pw_op, Pw_s = _w_operand(Pw, r)
-            n_blk = cells_pad // mblock
+            n_blk = cells_local // mblock
             F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
             Ph_grp = (kmajor_buffer if r == "int8" else pair_buffer)(
                 F * mblock, npairs, dev)
             scales = torch.empty((npairs, F), dtype=torch.float32,
                                  device=dev)
             m8 = None
-            for g0 in range(0, cells_pad, F * mblock):
+            for g0 in range(0, cells_local, F * mblock):
                 w_grp = words[g0:g0 + F * mblock]
                 if mask8:
                     m8 = unpack_mask_bits(w_grp, gene_block=gene_block,
@@ -663,10 +815,11 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                                          gene_block=gene_block,
                                          scale_block=mblock)
             del m8, Ph_grp
-        d = Hsum + 1e-15
+        # the raw sums over the ranks (Pk_t, the large one, in place on its
+        # own), then the rescale
+        psum(mesh, Pk_t)
+        d, a_h = reduced_scale(Hsum, Hgram, Bw)
         H_new = torch.cat(Hs) / d[None, :]
-        a_h = Hgram / (d[:, None] * d[None, :])
-        a_h = a_h + 1e-15 * torch.eye(k, dtype=W.dtype, device=dev)
         Bw = Bw / d[None, :]
         i0 = torch.as_tensor(iu[0], device=dev)
         i1 = torch.as_tensor(iu[1], device=dev)
@@ -677,33 +830,36 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         W_new, d_w = scale_columns(W_new)
         tol = cor_distance(W_new[:genes_true], W[:genes_true],
                            genes_true * np.float32(k_true))
-        return W_new, H_new, d_w, tol
+        return W_new, H_new, d_w, pmax(mesh, tol)
 
     def _project(W, L1, L2):
-        """One cold-start h half-update against the column-normalised
-        frozen W at full sweeps (``c_project_model``). Returns (H, d)."""
+        """One cold-start h half-update of the rank's cells against the
+        column-normalised frozen W at full sweeps (``c_project_model``).
+        Returns (H, d), d summed over the ranks."""
         k = W.shape[1]
         Wn = W / (W.sum(dim=0) + 1e-15)[None, :]
         B = bell_spmm(b_li, b_val, Wn, gene_block=gene_block)
         H = solve_nnls(gram(Wn), B,
-                       torch.zeros((cells_pad, k), dtype=W.dtype, device=dev),
+                       torch.zeros((cells_local, k), dtype=W.dtype,
+                                   device=dev),
                        L1=L1, L2=L2, update_mask=data.nonempty)
-        d = H.sum(dim=0) + 1e-15
+        d = psum(mesh, H.sum(dim=0)) + 1e-15
         return H / d[None, :], d
 
     def _mse(W, d, H, seed, bits=None):
         """Held-out test MSE (reference:src/singlet.cpp:536-568): per cell,
         the squared error summed over its test-masked genes over their
-        count (cells with none add 0), averaged over the true cells. With
-        ``bits`` (the fit's packed mask), kernel B7 once over all cells."""
+        count (cells with none add 0), summed over the rank's cells and
+        then over the ranks, averaged over the true cells. With ``bits``
+        (the fit's packed mask), kernel B7 once over the rank's cells."""
         Wd = W * d[None, :]
         if bits is not None:
             s, n = bell_mse_bits(b_li, b_val, bits[0], Wd, H,
                                  gene_block=gene_block)
-            return torch.where(n > 0, s / n.clamp(min=1), 0.0).sum() \
-                / cells_true
+            acc = torch.where(n > 0, s / n.clamp(min=1), 0.0).sum()
+            return psum(mesh, acc) / cells_true
         acc = torch.zeros((), dtype=W.dtype, device=dev)
-        for start in range(0, cells_pad, cell_block):
+        for start in range(0, cells_local, cell_block):
             li, lv = planes(start, cell_block)
             m = mask_of(seed, start, cell_block)
             dense = densify_planes(li, lv, gene_block, n_gb)
@@ -711,7 +867,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             s = torch.where(m, torch.square(pred - dense), 0.0).sum(dim=1)
             n = m.sum(dim=1)
             acc = acc + torch.where(n > 0, s / n.clamp(min=1), 0.0).sum()
-        return acc / cells_true
+        return psum(mesh, acc) / cells_true
 
     return dict(plain=_plain, masked=_masked, mse=_mse, project=_project,
                 gcnmf=_gcnmf, batch=_batch, use_bits=use_bits,
@@ -719,18 +875,30 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
 
 
 class ShardedEllEngine:
-    """Dataset-resident sparse NMF engine on one device: the planes stay on
-    the card for every fit of a rank search (the reference keeps A and At
-    alive the same way, reference:R/ard_nmf.R:57-97). The drivers route
-    large scipy input here."""
+    """Dataset-resident sparse NMF engine, on one device or cell-split over
+    the ranks of a mesh: the planes stay on the card for every fit of a
+    rank search (the reference keeps A and At alive the same way,
+    reference:R/ard_nmf.R:57-97). The drivers route large scipy input, and
+    every input given with a mesh, here.
 
-    def __init__(self, A: Optional[sp.spmatrix], device=None,
+    On a mesh every rank builds the engine with the same arguments (the
+    whole ``A``, of which it packs its own cells; or ``data`` from one of
+    the ingest functions) and calls the same fits in the same order; each
+    fit returns the whole model on every rank."""
+
+    def __init__(self, A: Optional[sp.spmatrix], mesh=None, device=None,
                  cell_block: int = 2048, gene_block: int = 512,
                  data: Optional[ShardedEllData] = None) -> None:
+        mesh = check_mesh(mesh)
         self.data = data if data is not None else shard_ell_data(
-            A, device, cell_block=cell_block, gene_block=gene_block)
+            A, device, cell_block=cell_block, gene_block=gene_block,
+            mesh=mesh)
 
     # driver-facing geometry (mirrors the provider protocol)
+    @property
+    def mesh(self):
+        return self.data.mesh
+
     @property
     def device(self) -> torch.device:
         return self.data.device
@@ -747,32 +915,50 @@ class ShardedEllEngine:
     def cols_true(self) -> int:
         return self.data.cells_true
 
+    def _local_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a (cells_pad, ...) tensor."""
+        data = self.data
+        return X[data.cell_offset:data.cell_offset + data.cells_local]
+
+    def _h_out(self, H: torch.Tensor) -> np.ndarray:
+        """h (k, cells) of the whole model from the rank's rows of H."""
+        H = all_gather_cells(self.mesh, H)
+        return H[:self.data.cells_true].T.cpu().numpy()
+
     def _state(self, k: int, w_init, seed: int):
         """W (genes_pad, k) from ``w_init`` or a seeded ``torch.Generator``
         (``init_w``: the JAX engine draws from threefry, so one seed gives
-        another W), and H zeros (cells_pad, k)."""
+        another W; every rank draws the same W), and the rank's H zeros
+        (cells_local, k)."""
         data = self.data
         if w_init is None:
             W = init_w(k, data.genes_pad, data.genes_true, seed,
                        device=data.device)
         else:
             W = _padded(w_init, data.genes_pad, k, data.device)
-        H = torch.zeros((data.cells_pad, k), dtype=torch.float32,
+        H = torch.zeros((data.cells_local, k), dtype=torch.float32,
                         device=data.device)
         return W, H
+
+    def _restored(self, mgr, config, verbose):
+        """The newest matching checkpoint with H cut to the rank's rows,
+        or None."""
+        st = restore_fit_state(mgr, config, self.device, verbose)
+        if st is not None:
+            st["H"] = self._local_rows(st["H"])
+        return st
 
     def _link(self, link, rows_true: int, rows_pad: int, k: int, name: str):
         ones = torch.ones((rows_pad, k), dtype=torch.float32,
                           device=self.device)
-        if link is None:
-            return ones
-        link = np.asarray(link, np.float32)
-        if link.shape != (rows_true, k):
-            what = "cells" if name == "link_h" else "genes"
-            raise ValueError(f"{name} must be ({what}, k) = ({rows_true}, "
-                             f"{k}), got {link.shape}")
-        ones[:rows_true] = torch.as_tensor(link, device=self.device)
-        return ones
+        if link is not None:
+            link = np.asarray(link, np.float32)
+            if link.shape != (rows_true, k):
+                what = "cells" if name == "link_h" else "genes"
+                raise ValueError(f"{name} must be ({what}, k) = ({rows_true}"
+                                 f", {k}), got {link.shape}")
+            ones[:rows_true] = torch.as_tensor(link, device=self.device)
+        return self._local_rows(ones) if name == "link_h" else ones
 
     # ---------------------------------------------------------------- fits
     def fit(self, k: int, tol: float = 1e-4, maxit: int = 100, L1=0.01,
@@ -789,10 +975,11 @@ class ShardedEllEngine:
 
         ``checkpoint`` (a directory path or ``CheckpointManager``) saves
         the state every ``every`` iterations under the JAX
-        ``algo="sharded_ell_fit"`` fingerprint and resumes from the newest
-        match. As in JAX, its masked steps get no packed mask: on the card
-        they take the hash route (B10/B11), on the CPU the f32 route, and
-        the final test MSE is the hashed one."""
+        ``algo="sharded_ell_fit"`` fingerprint (whose ``cells_pad`` carries
+        the mesh size) and resumes from the newest match. As in JAX, its
+        masked steps get no packed mask: on the card they take the hash
+        route (B10/B11), on the CPU the f32 route, and the final test MSE
+        is the hashed one."""
         if chunk_iters is not None:
             raise NotImplementedError(_LEFT_OUT.format(
                 what="chunk_iters", item="A.6"))
@@ -816,7 +1003,7 @@ class ShardedEllEngine:
             mask_seed=int(mask_seed), inv_density=int(inv_density),
             linked=[link_h is not None, link_w is not None])
         d, traces = None, []
-        st = restore_fit_state(mgr, ckpt_config, data.device, verbose)
+        st = self._restored(mgr, ckpt_config, verbose)
         if st is not None:
             W, H, d = st["W"], st["H"], st["d"]
             traces = list(st["tol_trace"])
@@ -849,25 +1036,28 @@ class ShardedEllEngine:
         fit_id = logger.new_fit_id("sharded_ell")
         logger.log("fit_start", fit=fit_id, algo="sharded_ell_fit", k=k,
                    genes=int(data.genes_true), cells=int(data.cells_true),
-                   n_devices=1, masked=bool(masked), linked=bool(linked),
-                   maxit=maxit, resumed_at=len(traces) or None)
+                   n_devices=int(data.n_dev), masked=bool(masked),
+                   linked=bool(linked), maxit=maxit,
+                   resumed_at=len(traces) or None)
         W, H, d, traces = _fit_loop(
             step, W, H, tol, maxit, settings, masked=bool(masked),
             verbose=verbose, d=d, tols=traces,
-            on_step=checkpoint_saver(mgr, ckpt_config), fit_id=fit_id)
+            on_step=checkpoint_saver(mgr, ckpt_config, mesh=data.mesh),
+            fit_id=fit_id)
         logger.log("fit_end", fit=fit_id, n_iter=len(traces),
                    tol=traces[-1] if traces else None)
         out = dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
-                   h=H[:data.cells_true].T.cpu().numpy(), tol_trace=traces)
+                   h=self._h_out(H), tol_trace=traces)
         if masked:
             out["test_mse"] = float(fns["mse"](W, d, H, sp_, bits=bits))
         return out
 
     def graph_data(self, G) -> ShardedEllData:
-        """A (cells, cells) graph as blocked-ELL planes on the engine's
-        device, for ``gcnmf_fit``: G's row (neighbour) axis padded to
-        ``cells_pad`` becomes the planes' "gene" axis, at the engine's cell
-        and gene blocks (the JAX ``gcnmf_fit``'s packing)."""
+        """A (cells, cells) graph as blocked-ELL planes of the rank's cells
+        on the engine's device, for ``gcnmf_fit``: G's row (neighbour) axis
+        padded to ``cells_pad`` becomes the planes' "gene" axis, at the
+        engine's cell and gene blocks and on its mesh (the JAX
+        ``gcnmf_fit``'s packing)."""
         data = self.data
         G = sp.csc_matrix(G).astype(np.float32)
         if G.shape != (data.cells_true, data.cells_true):
@@ -877,7 +1067,7 @@ class ShardedEllEngine:
         Gp = sp.csc_matrix((G.data, G.indices, G.indptr),
                            shape=(data.cells_pad, data.cells_true))
         g = shard_ell_data(Gp, data.device, cell_block=data.cell_block,
-                           gene_block=data.gene_block)
+                           gene_block=data.gene_block, mesh=data.mesh)
         if g.genes_pad != data.cells_pad:
             raise ValueError(
                 f"G's planes pad its rows to {g.genes_pad}, not the "
@@ -914,8 +1104,8 @@ class ShardedEllEngine:
         """Batch-aware L1-matrix NMF over the engine, the scale route for
         ``c_nmf_batch`` (reference:src/singlet.cpp:677-710): the penalty is
         computed on the device each iteration from the current H.
-        ``batch_id``: per-cell 0-based ints (or labels). Returns the dict
-        of ``fit``."""
+        ``batch_id``: per-cell 0-based ints (or labels), of all cells.
+        Returns the dict of ``fit``."""
         data = self.data
         batch_id = np.asarray(batch_id)
         if batch_id.dtype.kind not in "iu":
@@ -929,7 +1119,7 @@ class ShardedEllEngine:
         # empty batches: sum is 0, so clamping the divisor reproduces the
         # dense solver's zero mean instead of 0/0
         counts = np.maximum(onehot.sum(axis=0), 1.0)
-        onehot = torch.from_numpy(onehot).to(data.device)
+        onehot = self._local_rows(torch.from_numpy(onehot)).to(data.device)
         counts = torch.from_numpy(counts).to(data.device)
         fns = _build_local_fns(data, 20)
         settings = SweepSettings.from_env()
@@ -950,9 +1140,10 @@ class ShardedEllEngine:
         W, H = self._state(k, w_init, seed)
         W, H, d, traces = logged_fit_loop(
             algo, step, W, H, tol, maxit, settings, verbose=verbose,
-            genes=int(data.genes_true), cells=int(data.cells_true))
+            genes=int(data.genes_true), cells=int(data.cells_true),
+            n_devices=int(data.n_dev))
         return dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
-                    h=H[:data.cells_true].T.cpu().numpy(), tol_trace=traces)
+                    h=self._h_out(H), tol_trace=traces)
 
     def ard_fit(self, k: int, w_init=None, mask_seed: int = 0,
                 inv_density: int = 20, tol: float = 1e-4, maxit: int = 100,
@@ -984,7 +1175,7 @@ class ShardedEllEngine:
             cells_pad=int(data.cells_pad), L1=L1, L2=L2,
             mask_seed=int(mask_seed), inv_density=int(inv_density),
             trace=int(trace_test_mse))
-        start = restore_fit_state(mgr, ckpt_config, data.device, verbose)
+        start = self._restored(mgr, ckpt_config, verbose)
         if start is not None:
             W, H = start["W"], start["H"]
         # packed once: every masked step and every traced test MSE read it
@@ -1003,20 +1194,22 @@ class ShardedEllEngine:
         fit_id = logger.new_fit_id("sharded_ell_ard")
         logger.log("fit_start", fit=fit_id, algo="sharded_ell_ard", k=k,
                    genes=int(data.genes_true), cells=int(data.cells_true),
-                   inv_density=int(inv_density), maxit=maxit,
-                   resumed_at=(start or {}).get("it") or None)
+                   n_devices=int(data.n_dev), inv_density=int(inv_density),
+                   maxit=maxit, resumed_at=(start or {}).get("it") or None)
         return run_ard(step, mse, W, H, k, data.genes_true, data.cells_true,
                        tol, overfit_threshold, maxit, trace_test_mse,
                        settings, verbose=verbose, start=start,
-                       on_step=checkpoint_saver(mgr, ckpt_config),
-                       fit_id=fit_id)
+                       on_step=checkpoint_saver(mgr, ckpt_config,
+                                                mesh=data.mesh),
+                       fit_id=fit_id,
+                       gather=lambda H: all_gather_cells(data.mesh, H))
 
     def project(self, w, L1: float = 0.01, L2: float = 0.0):
         """Project the dataset's cells onto a frozen factor model
         (``c_project_model``, reference:src/singlet.cpp:405-413): normalise
         w's columns, one cold-start NNLS h half-update over the planes,
         rescale. ``w`` is (genes, k) or (k, genes). Returns (h (k, cells),
-        d (k,)) as numpy."""
+        d (k,)) as numpy, the whole of them on every rank."""
         data = self.data
         w = np.array(w, np.float32)
         if w.shape[0] != data.genes_true:
@@ -1027,10 +1220,10 @@ class ShardedEllEngine:
                                  "gene axis of the dataset")
         W = _padded(w, data.genes_pad, w.shape[1], data.device)
         H, d = _build_local_fns(data, 20)["project"](W, float(L1), float(L2))
-        return H[:data.cells_true].T.cpu().numpy(), d.cpu().numpy()
+        return self._h_out(H), d.cpu().numpy()
 
 
-def sharded_ell_nmf_fit(A: sp.spmatrix, k: int, device=None,
+def sharded_ell_nmf_fit(A: sp.spmatrix, k: int, mesh=None, device=None,
                         tol: float = 1e-4, maxit: int = 100, L1=0.01,
                         L2=0.0, seed: int = 0, masked: bool = False,
                         inv_density: int = 20, mask_seed: int = 0,
@@ -1038,9 +1231,10 @@ def sharded_ell_nmf_fit(A: sp.spmatrix, k: int, device=None,
                         data: Optional[ShardedEllData] = None,
                         checkpoint=None, chunk_iters: Optional[int] = None,
                         link_h=None, link_w=None):
-    """Sparse NMF fit on the blocked-ELL engine (``ShardedEllEngine.fit``);
-    ``device`` (default ``"cuda"``) in place of the JAX ``mesh``."""
-    engine = ShardedEllEngine(A, device=device, data=data)
+    """Sparse NMF fit on the blocked-ELL engine (``ShardedEllEngine.fit``),
+    on ``mesh`` (a ``"cells"`` DeviceMesh; None is one device) and the
+    rank's ``device`` (default ``"cuda"``)."""
+    engine = ShardedEllEngine(A, mesh=mesh, device=device, data=data)
     return engine.fit(k, tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
                       verbose=verbose, w_init=w_init, masked=masked,
                       inv_density=inv_density, mask_seed=mask_seed,

@@ -239,33 +239,45 @@ def _fit_loop(step, W, H, tol_target: float, maxit: int,
 
 def logged_fit_loop(algo: str, step, W, H, tol_target: float, maxit: int,
                     settings: SweepSettings, verbose: bool = False,
-                    **fields):
-    """``_fit_loop`` of a plain fit between its ``fit_start`` and
-    ``fit_end`` events (``fields``, e.g. genes and cells, go to
-    ``fit_start``), each iteration logged. Returns (W, H, d, tol_trace)."""
+                    masked: bool = False, **fields):
+    """``_fit_loop`` of a fit (plain unless ``masked``) between its
+    ``fit_start`` and ``fit_end`` events (``fields``, e.g. genes and cells,
+    go to ``fit_start``), each iteration logged. Returns (W, H, d,
+    tol_trace)."""
     logger = get_metric_logger()
     fit_id = logger.new_fit_id(algo)
     logger.log("fit_start", fit=fit_id, algo=algo, k=int(W.shape[1]),
                maxit=maxit, **fields)
     W, H, d, tols = _fit_loop(step, W, H, tol_target, maxit, settings,
-                              verbose=verbose, fit_id=fit_id)
+                              masked=masked, verbose=verbose, fit_id=fit_id)
     logger.log("fit_end", fit=fit_id, n_iter=len(tols),
                tol=tols[-1] if tols else None)
     return W, H, d, tols
 
 
-def checkpoint_saver(mgr, config: dict):
+def checkpoint_saver(mgr, config: dict, mesh=None):
     """The ``on_step`` hook of a checkpointed fit loop, or None without a
     manager: when ``mgr``'s cadence says so, and only then, W, H and d are
     copied to the host and saved with ``config`` and the loop's traces (a
-    dict of lists, saved under their keys)."""
+    dict of lists, saved under their keys). On a mesh H (the rank's rows)
+    is first gathered over the ranks, rank 0 writes and every rank waits
+    for the write (``CheckpointManager.save``)."""
     if mgr is None:
         return None
 
     def save(it, W, H, d, traces):
-        if mgr.should_save(it):
+        if not mgr.should_save(it):
+            return
+        if mesh is None:
+            # the one-device call, as a subclass overriding save takes it
             mgr.save(it, dict(config, W=W.cpu().numpy(), H=H.cpu().numpy(),
                               d=d.cpu().numpy(), **traces))
+            return
+        from singlet_tpu_torch.parallel.collectives import all_gather_cells
+
+        H = all_gather_cells(mesh, H)
+        mgr.save(it, dict(config, W=W.cpu().numpy(), H=H.cpu().numpy(),
+                          d=d.cpu().numpy(), **traces), mesh=mesh)
     return save
 
 

@@ -133,12 +133,13 @@ def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
             tol, overfit_threshold, maxit: int, trace_test_mse: int,
             settings: SweepSettings, verbose: int = 0,
             start: Optional[dict] = None, on_step=None,
-            fit_id: Optional[str] = None) -> ArdFitResult:
+            fit_id: Optional[str] = None, gather=None) -> ArdFitResult:
     """:func:`_ard_loop` (``start``, ``on_step`` and ``fit_id`` passed on),
     then the tail trace (a test MSE after the last step when the schedule
     did not trace it), as an ``ArdFitResult`` of the true rows, columns
     and factors; with ``fit_id``, a ``fit_end`` event. Shared by the dense
-    masked fit and the blocked-ELL engine."""
+    masked fit and the blocked-ELL engine; ``gather(H)`` gives the whole H
+    from a rank's rows on a mesh."""
     W, H, d, it, stopped, tr, tol_ = _ard_loop(
         step, mse, W, H, tol, overfit_threshold, int(maxit),
         int(trace_test_mse), settings, verbose=verbose, start=start,
@@ -155,6 +156,8 @@ def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
         min_err = min(test_mse_t)
         score_t.append((err - min_err) / (err + min_err))
 
+    if gather is not None:
+        H = gather(H)
     if fit_id is not None:
         get_metric_logger().log(
             "fit_end", fit=fit_id, n_iter=it,

@@ -14,21 +14,25 @@ matrix by cell column and leaves batch 0 uninitialized: out-of-bounds /
 uninitialized reads in Eigen): as in the JAX package, the documented intent
 is implemented, expanding the (k, n_batches) penalty to per-cell columns
 via each cell's batch id. ``nmf_batch`` is the dense solver; the scale
-route is the blocked-ELL engine's ``batch_fit`` (penalty on the device).
+route is the blocked-ELL engine's ``batch_fit`` (penalty on the device),
+which ``nmf_batch(..., mesh=)`` takes with the cells split over the ranks
+of a mesh.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from singlet_tpu_torch.device import resolve_device
 from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.ops.linalg import cor_distance, gram, scale_columns
 from singlet_tpu_torch.ops.nnls import SweepSettings, solve_nnls
+from singlet_tpu_torch.parallel.sharded import check_mesh
+from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 from singlet_tpu_torch.solvers.als import logged_fit_loop
-from singlet_tpu_torch.solvers.drivers import (_coerce_dense, _finalize,
-                                               _refuse_mesh)
+from singlet_tpu_torch.solvers.drivers import _coerce_dense, _finalize
 
 
 def calc_l1_matrix(h: np.ndarray, batch_id: np.ndarray) -> np.ndarray:
@@ -79,12 +83,23 @@ def nmf_batch(A, k: int, batch_id, tol: float = 1e-4, maxit: int = 100,
               verbose: bool = False, gene_names=None,
               cell_names=None, w_init=None, mesh=None,
               device=None) -> NMFModel:
-    """ALS NMF with batch-aware per-coordinate L1 on the h update: the
-    dense solver on ``device`` (default ``"cuda"``). The penalty is
-    computed on the host each iteration from the current H
-    (``calc_l1_matrix``), as in the JAX package. The scale route is
-    ``ShardedEllEngine.batch_fit``; ``mesh`` raises (ROADMAP A.4)."""
-    _refuse_mesh(mesh)
+    """ALS NMF with batch-aware per-coordinate L1 on the h update.
+
+    Without ``mesh``: the dense solver on ``device`` (default ``"cuda"``);
+    the penalty is computed on the host each iteration from the current H
+    (``calc_l1_matrix``), as in the JAX package. With ``mesh`` (a
+    ``"cells"`` DeviceMesh): the scale route, ``ShardedEllEngine.batch_fit``
+    with the cells split over the mesh's ranks (A stays sparse; the
+    penalty is computed on the device each iteration), every rank calling
+    with the same arguments and getting the whole model."""
+    if check_mesh(mesh) is not None:
+        if not sp.issparse(A):
+            A = sp.csc_matrix(_coerce_dense(A))
+        eng = ShardedEllEngine(A, mesh=mesh, device=device)
+        out = eng.batch_fit(batch_id, k, tol=tol, maxit=maxit, L1=L1, L2=L2,
+                            seed=seed, w_init=w_init, verbose=verbose)
+        return _finalize(out["w"], out["d"], out["h"], gene_names,
+                         cell_names)
     device = resolve_device(device)
     Aj = _dense_operand(A, device)
     batch_id = np.asarray(batch_id)

@@ -12,9 +12,13 @@ engine (``parallel/sharded_ell.py``) on the device, the lists and
 directories streamed in (``shard_ell_from_chunks``,
 ``shard_ell_from_staged``) with no concatenated matrix on the host.
 Either backend is built once and shared by every fit of a rank search,
-and a ``ShardedEllEngine`` passes through. ``mesh=`` (ROADMAP A.4,
-multi-device) raises. The CV trace frame (columns k, rep, test_error,
-iter, tol[, overfit_score]) is the JAX package's.
+and a ``ShardedEllEngine`` passes through. With ``mesh=`` (a 1-D
+``DeviceMesh`` named ``"cells"``, ``parallel.make_mesh``; one process per
+device, every rank calling the driver with the same arguments) every
+input but an engine or a provider pair goes to the engine on the mesh,
+each rank packing only its own cells, and every rank gets the whole model.
+The CV trace frame (columns k, rep, test_error, iter, tol[,
+overfit_score]) is the JAX package's.
 
 Ranks: on the card every fit takes k <= 512. The CD-NNLS kernels B1 and B2
 and the fused test MSE B7 hold a column's k coordinates in registers and
@@ -36,6 +40,7 @@ import scipy.sparse as sp
 from singlet_tpu_torch.checkpoint import CheckpointManager, resolve_manager
 from singlet_tpu_torch.device import is_scipy_sparse, resolve_device, vprint
 from singlet_tpu_torch.model import NMFModel
+from singlet_tpu_torch.parallel.sharded import check_mesh
 from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
                                                     shard_ell_from_chunks,
                                                     shard_ell_from_staged)
@@ -47,40 +52,37 @@ from singlet_tpu_torch.solvers.ard import ard_nmf_fit
 # engine; smaller ones are densified
 SPARSE_THRESHOLD = 64e6
 
-_NOT_PORTED = ("{what} runs on the {engine}, which is not ported to "
-               "singlet_tpu_torch yet (ROADMAP {item})")
-
 
 def _coerce_dense(A) -> np.ndarray:
     """A dense float32 numpy array of the (non-scipy) input."""
     return np.asarray(A, dtype=np.float32)
 
 
-def _refuse_mesh(mesh) -> None:
-    """``mesh=`` is accepted for the JAX signatures and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="mesh=", engine="multi-device blocked-ELL engine",
-            item="A.4"))
-
-
 def _engine_or_providers(A, mesh, device):
-    """Route the input to a compute backend, as the JAX drivers do: a
+    """Route the input to a compute backend, as the JAX drivers do
+    (``singlet_tpu/solvers/drivers.py`` ``_engine_or_providers``): a
     ``ShardedEllEngine`` or a prebuilt ``(A, At)`` provider pair passes
-    through; a staged directory (``str``), a chunk list and scipy input
-    above ``SPARSE_THRESHOLD`` dense entries become a ``ShardedEllEngine``
-    on ``device``; everything else dense providers on ``device``.
-    ``mesh=`` raises."""
+    through; a staged directory (``str``) and a chunk list become a
+    ``ShardedEllEngine`` on ``mesh`` (None: one device), streamed into the
+    rank's planes; scipy input above ``SPARSE_THRESHOLD`` dense entries
+    becomes the engine too, and with a mesh so does every dense or scipy
+    input; everything else dense providers on ``device``. A ``mesh`` that
+    is not a 1-D ``"cells"`` DeviceMesh raises TypeError."""
+    mesh = check_mesh(mesh)
     if isinstance(A, ShardedEllEngine):
         return A
     if isinstance(A, tuple) and len(A) == 2 and hasattr(A[0], "t_matmul"):
         return A
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
     if isinstance(A, str):
-        return ShardedEllEngine(None, data=shard_ell_from_staged(A, device))
+        return ShardedEllEngine(None, data=shard_ell_from_staged(
+            A, device, mesh=mesh))
     if isinstance(A, (list, tuple)):
-        return ShardedEllEngine(None, data=shard_ell_from_chunks(A, device))
+        return ShardedEllEngine(None, data=shard_ell_from_chunks(
+            A, device, mesh=mesh))
+    if mesh is not None:
+        A = A if is_scipy_sparse(A) else _coerce_dense(A)
+        return ShardedEllEngine(sp.csc_matrix(A), mesh=mesh, device=device)
+    device = resolve_device(device)
     if is_scipy_sparse(A):
         if A.shape[0] * A.shape[1] > SPARSE_THRESHOLD:
             return ShardedEllEngine(sp.csc_matrix(A), device=device)
@@ -165,10 +167,13 @@ def run_nmf(
     hyperparameters, taking precedence over the per-argument defaults.
     scipy input above ``SPARSE_THRESHOLD`` dense entries, chunk lists,
     staged directories and a ``ShardedEllEngine`` fit on the blocked-ELL
-    engine. ``mesh`` is accepted for the JAX signature and raises: the
-    multi-device engine is not ported yet (ROADMAP A.4). On the card
-    ``rank`` may be at most 512 (the limit of kernels B1, B2 and B7); past
-    it the first launch raises.
+    engine. ``mesh`` (a 1-D ``"cells"`` DeviceMesh, ``parallel.make_mesh``)
+    fits any input but a provider pair on the engine with the cells split
+    over the mesh's ranks, each rank on its own device (``device``, or
+    ``cuda:{LOCAL_RANK}``); every rank calls ``run_nmf`` with the same
+    arguments and gets the whole model. On the card ``rank`` may be at
+    most 512 (the limit of kernels B1, B2 and B7); past it the first
+    launch raises.
     """
     if config is not None:
         tol, maxit, L1, L2, seed = (config.tol, config.maxit, config.L1,
@@ -261,8 +266,8 @@ def cross_validate_nmf(
     Each replicate shares one nested w_init (the rank-k fit uses its first
     k columns) and a deterministic per-replicate mask seed. Returns the tidy
     trace frame of class ``cross_validate_nmf_data``. ``A`` (chunk lists
-    and staged directories included) and ``device`` are taken as
-    ``run_nmf`` takes them; ``mesh`` raises. ``config`` (an
+    and staged directories included), ``mesh`` and ``device`` are taken as
+    ``run_nmf`` takes them. ``config`` (an
     NMFConfig) supplies the hyperparameters, taking precedence over the
     per-argument defaults. On the card each of ``ranks`` may be at most
     512, as in ``run_nmf``.
@@ -350,10 +355,9 @@ def ard_nmf(
     ``max_fits`` is a safety valve (no reference counterpart) against
     pathological search oscillation. ``config`` (an NMFConfig) supplies the
     hyperparameters, taking precedence over per-argument defaults. ``A``
-    (chunk lists and staged directories included) and ``device`` are
-    taken as ``run_nmf`` takes them; ``mesh`` is not ported yet and
-    raises. On the card ``k_max`` may be at most 512, as
-    ``run_nmf``'s rank.
+    (chunk lists and staged directories included), ``mesh`` and
+    ``device`` are taken as ``run_nmf`` takes them. On the card ``k_max``
+    may be at most 512, as ``run_nmf``'s rank.
 
     ``checkpoint`` (a ``CheckpointManager`` or directory path) saves the
     SEARCH state after every completed rank fit: the CV rows and the
@@ -362,7 +366,8 @@ def ard_nmf(
     ``max_fits`` out. A killed or valve-stopped search re-run with the same
     arguments skips every completed fit and goes on bit for bit: the w
     inits are deterministic in ``seed`` and the test mask is a stateless
-    hash of the mask seed, so the state holds no arrays.
+    hash of the mask seed, so the state holds no arrays. On a mesh rank
+    0 writes the search state and every rank waits for the write.
     """
     if config is not None:
         k_init, k_max, k_min = config.k_init, config.k_max, config.k_min
@@ -383,6 +388,9 @@ def ard_nmf(
         raise ValueError("k_min cannot be less than 2")
 
     P = _engine_or_providers(A, mesh, device)
+    # the mesh the search state is saved on: the engine's, also when an
+    # engine on a mesh is passed in
+    mesh = getattr(P, "mesh", None)
     genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
                                   _device_of(P))
     inv_density = round(1.0 / test_density)
@@ -424,10 +432,14 @@ def ard_nmf(
                      this_k_max=0):
         if ckpt is None:
             return
-        ckpt.save(n_fits, dict(
+        state = dict(
             ckpt_cfg, rows=rows, n_fits=int(n_fits), curr_rep=int(curr_rep),
             in_rep=bool(in_rep), step_size=float(step_size),
-            curr_rank=int(curr_rank), this_k_max=int(this_k_max)))
+            curr_rank=int(curr_rank), this_k_max=int(this_k_max))
+        if mesh is None:
+            ckpt.save(n_fits, state)
+        else:
+            ckpt.save(n_fits, state, mesh=mesh)
 
     for curr_rep in range(start_rep, n_replicates + 1):
         if verbose >= 1 and n_replicates > 1:

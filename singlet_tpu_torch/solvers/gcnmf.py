@@ -7,7 +7,9 @@ convolved over a (cells x cells) graph G before the NNLS solve
 embeddings (``b_gene = sum_c A(gene,c) * (G[:,c] . H)``). In the dense
 solver both are plain f32 matmuls, B_h' = G^T B_h and B_w = A (G^T H), and
 the NNLS solves are kernel B1 on the card; the scale route is the
-blocked-ELL engine's ``gcnmf_fit``, which holds G as planes.
+blocked-ELL engine's ``gcnmf_fit``, which holds G as planes, and which
+``gcnmf(..., mesh=)`` takes with the cells split over the ranks of a
+mesh.
 
 Also the edge-cluster utilities ``c_differentiate_model``
 (reference:src/singlet.cpp:1733-1752) and ``c_assign_cells_to_edge_clusters``
@@ -25,9 +27,11 @@ from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.ops.linalg import cor_distance, gram, scale_columns
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls)
+from singlet_tpu_torch.parallel.sharded import check_mesh
+from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 from singlet_tpu_torch.solvers.als import logged_fit_loop
 from singlet_tpu_torch.solvers.batch import _dense_operand, _start_w
-from singlet_tpu_torch.solvers.drivers import _finalize, _refuse_mesh
+from singlet_tpu_torch.solvers.drivers import _coerce_dense, _finalize
 
 
 def _gcnmf_step(A, G, W, H, L1, L2, sweep_cap=None,
@@ -56,11 +60,26 @@ def gcnmf(A, G, k: int, tol: float = 1e-4, maxit: int = 100,
           device=None) -> NMFModel:
     """Fit graph-convolutional NMF; G is a (cells x cells) graph.
 
-    The dense solver on ``device`` (default ``"cuda"``): A and G are
-    densified on the device (G takes cells^2 floats). The scale route,
-    which keeps A and G sparse as blocked-ELL planes, is
-    ``ShardedEllEngine.gcnmf_fit``; ``mesh`` raises (ROADMAP A.4)."""
-    _refuse_mesh(mesh)
+    Without ``mesh``: the dense solver on ``device`` (default
+    ``"cuda"``): A and G are densified on the device (G takes cells^2
+    floats). With ``mesh`` (a ``"cells"`` DeviceMesh): the scale route,
+    ``ShardedEllEngine.gcnmf_fit``, A and G sparse as blocked-ELL planes
+    of each rank's cells (the graph convolution gathers B and H over the
+    ranks once per half-update), every rank calling with the same
+    arguments and getting the whole model."""
+    if check_mesh(mesh) is not None:
+        if not sp.issparse(A):
+            A = sp.csc_matrix(_coerce_dense(A))
+        if w_init is not None:
+            w_init = np.asarray(w_init, np.float32)
+            if w_init.shape == (k, A.shape[0]) and k != A.shape[0]:
+                w_init = w_init.T
+        eng = ShardedEllEngine(A, mesh=mesh, device=device)
+        out = eng.gcnmf_fit(sp.csc_matrix(G), k, tol=tol, maxit=maxit,
+                            L1=L1, L2=L2, seed=seed, w_init=w_init,
+                            verbose=verbose)
+        return _finalize(out["w"], out["d"], out["h"], gene_names,
+                         cell_names)
     device = resolve_device(device)
     Aj = _dense_operand(A, device)
     Gd = np.asarray(G.todense(), np.float32) if sp.issparse(G) else \

@@ -8,7 +8,9 @@ before the solve, zeroing unlinked factors for that sample. Factors whose
 link is 0 decay to 0 under the L1 clamp, splitting the model into shared
 and group-unique factors. The fit is the plain one with ``link_h`` /
 ``link_w``: ``nmf_fit`` on dense providers (kernel B1), or the blocked-ELL
-engine's ``fit`` (B3, B1, B4). ``build_link_matrix`` is numpy, copied.
+engine's ``fit`` (B3, B1, B4), with ``mesh=`` cell-split over the ranks of
+a mesh (each rank links its own cells). ``build_link_matrix`` is numpy,
+copied.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ def run_linked_nmf(
     ``A`` and ``device`` are taken as ``run_nmf`` takes them: dense, scipy
     sparse (on the blocked-ELL engine above ``SPARSE_THRESHOLD`` dense
     entries, never densified), a chunk list or staged directory, or a
-    prebuilt ``ShardedEllEngine``. ``mesh`` raises (ROADMAP A.4).
+    prebuilt ``ShardedEllEngine``; ``mesh`` (a ``"cells"`` DeviceMesh) runs
+    the fit cell-split on the engine over the mesh's ranks, each rank
+    calling with the same arguments and getting the whole model.
     """
     if link_h is None and link_w is None:
         raise ValueError(

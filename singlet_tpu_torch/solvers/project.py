@@ -7,7 +7,8 @@ Port of ``singlet_tpu/solvers/project.py``: ``project_model``
 one unmasked NNLS half-update for h from a zero start, rescale. On dense
 providers that is one ``solve_nnls`` (kernel B1 on the card); on the
 blocked-ELL engine (large scipy input, chunk lists, staged directories, a
-prebuilt engine) the engine's ``project`` (B3, B1). The matrix is never
+prebuilt engine, and any input with ``mesh=``, the cells split over the
+mesh's ranks) the engine's ``project`` (B3, B1). The matrix is never
 densified on the engine's route.
 """
 
@@ -41,8 +42,9 @@ def project_model(A, w, L1: float = 0.01, L2: float = 0.0, mesh=None,
     Accepts w as (genes, k) or (k, genes) like the reference's transpose
     check (reference:src/singlet.cpp:406). ``A`` and ``device`` are taken
     as ``run_nmf`` takes them (dense, scipy sparse, a chunk list or staged
-    directory, or a prebuilt ShardedEllEngine); ``mesh`` raises (ROADMAP
-    A.4). Returns (h (k, cells), d (k,)) as numpy.
+    directory, or a prebuilt ShardedEllEngine); ``mesh`` (a ``"cells"``
+    DeviceMesh) projects the cells split over the mesh's ranks. Returns (h
+    (k, cells), d (k,)) as numpy, the whole of them on every rank.
     """
     P = _engine_or_providers(A, mesh, device)
     genes = P.rows_true if isinstance(P, ShardedEllEngine) \

@@ -4,7 +4,9 @@ The twin of ``singlet_tpu/tracing.py``:
 
   * ``MetricLogger``: per-iteration JSONL event records (``ts``, ``fit``
     id, ``event`` and its fields), written line by line so that a crashed
-    run leaves its trace up to the failure;
+    run leaves its trace up to the failure; in a ``torch.distributed``
+    world rank 0 writes the file and every rank keeps its events in
+    memory;
   * a process-wide default logger (``get_metric_logger``,
     ``set_metric_logger``, ``metric_logging``), so that the fits emit
     events without a logger argument: ``fit_start``, ``iteration`` and
@@ -30,6 +32,16 @@ from typing import Any, Dict, List, Optional
 
 __all__ = ["MetricLogger", "NULL_LOGGER", "get_metric_logger",
            "set_metric_logger", "metric_logging", "profile"]
+
+
+def _writes_files() -> bool:
+    """Whether this process writes the metric log: rank 0 of an
+    initialized ``torch.distributed`` world, or the only process. Every
+    rank keeps its events in memory."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 class MetricLogger:
@@ -67,7 +79,7 @@ class MetricLogger:
             with self._lock:
                 if self.keep_in_memory:
                     self.events.append(rec)
-                if self._fh is not None:
+                if self._fh is not None and _writes_files():
                     self._fh.write(json.dumps(rec) + "\n")
         except Exception as exc:  # never break the fit because of logging
             self._broken = True

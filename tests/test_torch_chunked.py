@@ -170,7 +170,7 @@ def test_list_and_directory_route_to_the_engine(tmp_path):
     d = tchunked.stage_chunks(str(tmp_path / "s"), _split(A, [0, 120, 300]))
     P = tdrivers._engine_or_providers(d, None, "cpu")
     assert isinstance(P, tell.ShardedEllEngine) and P.cols_true == 300
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(TypeError, match="DeviceMesh.*'cells'"):
         tdrivers._engine_or_providers(d, object(), "cpu")
 
 

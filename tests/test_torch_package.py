@@ -1,9 +1,9 @@
 """The port's package contract, on the CPU: it never imports jax, never runs
 on the CPU unasked, imports its kernel modules without nvcc, dispatches CPU
 tensors to the plain version only, routes large scipy input, chunk lists
-and staged directories to the blocked-ELL engine, and refuses what it has
-not ported (``mesh=``); ``checkpoint=`` of the fits and of the ``ard_nmf``
-search saves."""
+and staged directories to the blocked-ELL engine, and refuses a ``mesh=``
+that is not a "cells" DeviceMesh; ``checkpoint=`` of the fits and of the
+``ard_nmf`` search saves."""
 
 import os
 import subprocess
@@ -135,14 +135,15 @@ _ENTRY_POINTS = {
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
 @pytest.mark.parametrize("what", ["mesh", "list", "dir", "checkpoint"])
 def test_unported_routes_raise(rng, what, entry, tmp_path):
-    """``mesh=`` raises (ROADMAP A.4). Chunk lists and staged directories
-    raised until streaming ingest was ported (A.2): they now fit on the
-    blocked-ELL engine. ``checkpoint=`` saves."""
+    """``mesh=`` of another kind than a 1-D ``"cells"`` DeviceMesh raises
+    TypeError (the mesh itself is ported, A.4: tests/test_torch_mesh.py).
+    Chunk lists and staged directories raised until streaming ingest was
+    ported (A.2): they now fit on the blocked-ELL engine. ``checkpoint=``
+    saves."""
     A = rng.random((30, 20)).astype(np.float32)
     fit = _ENTRY_POINTS[entry]
     if what == "mesh":
-        with pytest.raises(NotImplementedError,
-                           match="blocked-ELL.*ROADMAP A.4"):
+        with pytest.raises(TypeError, match="DeviceMesh.*'cells'"):
             fit(A, device="cpu", mesh=object())
     elif what in ("list", "dir"):
         src = [sp.csc_matrix(A[:, :10]), sp.csc_matrix(A[:, 10:])]
