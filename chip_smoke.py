@@ -3301,7 +3301,7 @@ def phase_mesh(torch, card, stage_root, eng, W0, G, m_dir):
         _same_bits("run_nmf on a world of one (phase 15's fit)",
                    vars(m_mesh), vars(m_dir))
         one = stt.ShardedEllEngine(None, data=dataclasses.replace(
-            eng.data, mesh=mesh, rank=0, n_dev=1))
+            eng.data, mesh=mesh))
         bench = _bench_operand()
         a = _mesh_fits(torch, stt, one, W0, G, bench, "cuda", mesh)
         # the same fits with no mesh, to be the same bits

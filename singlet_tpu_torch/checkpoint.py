@@ -7,11 +7,9 @@ by one package resumes in the other when the fit's geometry is the same.
 
 The complete fit state (W, H, d, the iteration counter, the tol / test-MSE
 traces and a config fingerprint) is written atomically every ``every``
-iterations (on a mesh of ranks by rank 0, the whole H gathered, with a
-barrier after the write so that every rank restores from the file), and a
-resumed fit continues bit for bit: ALS is deterministic given its state,
-and the test mask is a stateless counter hash of (seed, cell, gene), so no
-RNG state is saved beyond the integer mask seed.
+iterations, and a resumed fit continues bit for bit: ALS is deterministic
+given its state, and the test mask is a stateless counter hash of (seed,
+cell, gene), so no RNG state is saved beyond the integer mask seed.
 
 Storage is one ``.npz`` per checkpoint with a JSON ``__meta__`` entry;
 writes go to a temporary file and ``os.replace``, so a crash mid-write
@@ -107,22 +105,14 @@ class CheckpointManager:
             return True
         return False
 
-    def save(self, it: int, state: Dict[str, Any], mesh=None) -> str:
-        """Write ``state`` as the checkpoint of iteration ``it`` and drop
-        all but the newest ``keep``. On a mesh (a ``"cells"`` DeviceMesh)
-        rank 0 writes and every rank waits at a barrier after it, so that
-        a later restore on any rank reads the file."""
+    def save(self, it: int, state: Dict[str, Any]) -> str:
         path = self._path(it)
-        from singlet_tpu_torch.parallel.collectives import barrier, rank_of
-
-        if rank_of(mesh) == 0:
-            save_fit_state(path, dict(state, it=int(it)))
-            for old in self._all()[: -self.keep]:
-                try:
-                    os.unlink(old)
-                except OSError:
-                    pass
-        barrier(mesh)
+        save_fit_state(path, dict(state, it=int(it)))
+        for old in self._all()[: -self.keep]:
+            try:
+                os.unlink(old)
+            except OSError:
+                pass
         return path
 
     def restore(self, config: Dict[str, Any],

@@ -35,29 +35,12 @@ import torch.distributed as dist
 from singlet_tpu_torch.device import resolve_device
 from singlet_tpu_torch.parallel.collectives import rank_of, world_of
 from singlet_tpu_torch.parallel.sharded import (AXIS, ShardedData,
-                                                _dense_data, cell_geometry,
-                                                check_mesh, make_mesh,
-                                                rank_device)
+                                                _dense_data, _local_index,
+                                                cell_geometry, check_mesh,
+                                                make_mesh, rank_device)
 
 __all__ = ["initialize", "global_mesh", "process_cell_range",
            "shard_cells_from_local"]
-
-
-def _process_device(device, process_id: int) -> torch.device:
-    """The device of a process: ``device`` when named, else the card of
-    ``LOCAL_RANK`` (or, started by hand, of ``process_id``); past the
-    host's cards it raises."""
-    dev = resolve_device(device)
-    if dev.type != "cuda" or dev.index is not None:
-        return dev
-    idx = int(os.environ.get("LOCAL_RANK", process_id))
-    n = torch.cuda.device_count()
-    if idx >= n:
-        raise RuntimeError(
-            f"process {process_id} (LOCAL_RANK {idx}) has no card of its "
-            f"own: this host has {n} CUDA device(s). Name each rank's "
-            "device (device='cuda:0' with backend='gloo' to share one card)")
-    return resolve_device(torch.device("cuda", idx))
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -85,7 +68,9 @@ def initialize(coordinator_address: Optional[str] = None,
         init_method = (coordinator_address if "://" in coordinator_address
                        else f"tcp://{coordinator_address}")
     process_id = int(process_id or 0)
-    dev = _process_device(device, process_id)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = resolve_device(torch.device("cuda", _local_index(process_id)))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if backend is None:

@@ -62,20 +62,24 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _local_index() -> int:
+def _local_index(fallback: Optional[int] = None) -> int:
     """The card of this process: ``LOCAL_RANK`` (as ``torchrun`` sets it),
-    else the current CUDA device. A ``LOCAL_RANK`` past the cards there are
-    raises: a rank is never folded onto another card."""
+    else ``fallback`` (a process started by hand: its rank), else the
+    current CUDA device. An index past the cards there are raises: a rank
+    is never folded onto another card."""
     if "LOCAL_RANK" in os.environ:
-        idx = int(os.environ["LOCAL_RANK"])
-        n = torch.cuda.device_count()
-        if idx >= n:
-            raise RuntimeError(
-                f"LOCAL_RANK={idx} but this host has {n} CUDA device(s); "
-                "start one process per card, or name each rank's device "
-                "(device=...)")
-        return idx
-    return torch.cuda.current_device()
+        idx, what = int(os.environ["LOCAL_RANK"]), "LOCAL_RANK"
+    elif fallback is not None:
+        idx, what = int(fallback), "process"
+    else:
+        return torch.cuda.current_device()
+    n = torch.cuda.device_count()
+    if idx >= n:
+        raise RuntimeError(
+            f"{what} {idx} has no card of its own: this host has {n} CUDA "
+            "device(s). Start one process per card, or name each rank's "
+            "device (device='cuda:0' with backend='gloo' to share one card)")
+    return idx
 
 
 def rank_device(mesh=None, device=None) -> torch.device:

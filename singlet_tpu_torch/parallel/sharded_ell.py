@@ -173,12 +173,18 @@ class ShardedEllData:
     cell_block: int
     gene_block: int
     mesh: Optional[object] = None
-    rank: int = 0
-    n_dev: int = 1
 
     @property
     def n_gb(self) -> int:
         return self.genes_pad // self.gene_block
+
+    @property
+    def n_dev(self) -> int:
+        return world_of(self.mesh)
+
+    @property
+    def rank(self) -> int:
+        return rank_of(self.mesh)
 
     @property
     def cells_local(self) -> int:
@@ -263,8 +269,7 @@ def _ell_data(li: np.ndarray, lv: np.ndarray, width: int, ne: np.ndarray,
         b_li=to(li), b_val=to(lv), b_width=width, nonempty=to(ne),
         gene_nonempty=gne, device=device, genes_true=genes,
         cells_true=cells, genes_pad=genes_pad, cells_pad=cells_pad,
-        cell_block=cell_block, gene_block=gene_block, mesh=mesh,
-        rank=rank_of(mesh), n_dev=world_of(mesh))
+        cell_block=cell_block, gene_block=gene_block, mesh=mesh)
 
 
 def _rank_range(mesh, cells_pad: int) -> Tuple[int, int]:

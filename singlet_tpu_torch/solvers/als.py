@@ -49,6 +49,8 @@ from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t,
                                         sweep_cap_update)
+from singlet_tpu_torch.parallel.collectives import (all_gather_cells,
+                                                    barrier, rank_of)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix, _round_up
 from singlet_tpu_torch.tracing import get_metric_logger
 
@@ -255,29 +257,32 @@ def logged_fit_loop(algo: str, step, W, H, tol_target: float, maxit: int,
     return W, H, d, tols
 
 
+def save_once(mgr, it: int, state, mesh=None) -> None:
+    """Save ``state()`` as ``mgr``'s checkpoint of iteration ``it`` once
+    for the mesh: rank 0 builds and writes it, and every rank waits for the
+    write at a barrier, so that a later restore on any rank reads the file.
+    Without a mesh this process writes."""
+    if rank_of(mesh) == 0:
+        mgr.save(it, state())
+    barrier(mesh)
+
+
 def checkpoint_saver(mgr, config: dict, mesh=None):
     """The ``on_step`` hook of a checkpointed fit loop, or None without a
     manager: when ``mgr``'s cadence says so, and only then, W, H and d are
     copied to the host and saved with ``config`` and the loop's traces (a
     dict of lists, saved under their keys). On a mesh H (the rank's rows)
-    is first gathered over the ranks, rank 0 writes and every rank waits
-    for the write (``CheckpointManager.save``)."""
+    is first gathered over the ranks and ``save_once`` writes it."""
     if mgr is None:
         return None
 
     def save(it, W, H, d, traces):
         if not mgr.should_save(it):
             return
-        if mesh is None:
-            # the one-device call, as a subclass overriding save takes it
-            mgr.save(it, dict(config, W=W.cpu().numpy(), H=H.cpu().numpy(),
-                              d=d.cpu().numpy(), **traces))
-            return
-        from singlet_tpu_torch.parallel.collectives import all_gather_cells
-
         H = all_gather_cells(mesh, H)
-        mgr.save(it, dict(config, W=W.cpu().numpy(), H=H.cpu().numpy(),
-                          d=d.cpu().numpy(), **traces), mesh=mesh)
+        save_once(mgr, it, lambda: dict(
+            config, W=W.cpu().numpy(), H=H.cpu().numpy(), d=d.cpu().numpy(),
+            **traces), mesh)
     return save
 
 

@@ -22,7 +22,6 @@ of a mesh.
 from __future__ import annotations
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
 from singlet_tpu_torch.device import resolve_device
@@ -30,9 +29,10 @@ from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.ops.linalg import cor_distance, gram, scale_columns
 from singlet_tpu_torch.ops.nnls import SweepSettings, solve_nnls
 from singlet_tpu_torch.parallel.sharded import check_mesh
-from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 from singlet_tpu_torch.solvers.als import logged_fit_loop
-from singlet_tpu_torch.solvers.drivers import _coerce_dense, _finalize
+from singlet_tpu_torch.solvers.drivers import (_coerce_dense,
+                                               _engine_or_providers,
+                                               _finalize)
 
 
 def calc_l1_matrix(h: np.ndarray, batch_id: np.ndarray) -> np.ndarray:
@@ -91,13 +91,13 @@ def nmf_batch(A, k: int, batch_id, tol: float = 1e-4, maxit: int = 100,
     ``"cells"`` DeviceMesh): the scale route, ``ShardedEllEngine.batch_fit``
     with the cells split over the mesh's ranks (A stays sparse; the
     penalty is computed on the device each iteration), every rank calling
-    with the same arguments and getting the whole model."""
+    with the same arguments and getting the whole model; ``A`` is then
+    routed as ``run_nmf`` routes it (chunk lists, staged directories and
+    an engine included)."""
     if check_mesh(mesh) is not None:
-        if not sp.issparse(A):
-            A = sp.csc_matrix(_coerce_dense(A))
-        eng = ShardedEllEngine(A, mesh=mesh, device=device)
-        out = eng.batch_fit(batch_id, k, tol=tol, maxit=maxit, L1=L1, L2=L2,
-                            seed=seed, w_init=w_init, verbose=verbose)
+        out = _engine_or_providers(A, mesh, device).batch_fit(
+            batch_id, k, tol=tol, maxit=maxit, L1=L1, L2=L2, seed=seed,
+            w_init=w_init, verbose=verbose)
         return _finalize(out["w"], out["d"], out["h"], gene_names,
                          cell_names)
     device = resolve_device(device)

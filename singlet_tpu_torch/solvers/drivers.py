@@ -45,7 +45,7 @@ from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
                                                     shard_ell_from_chunks,
                                                     shard_ell_from_staged)
 from singlet_tpu_torch.solvers.als import (init_w, make_dense_providers,
-                                           nmf_fit)
+                                           nmf_fit, save_once)
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
 
 # scipy-sparse inputs with more dense entries than this go to the blocked-ELL
@@ -432,14 +432,10 @@ def ard_nmf(
                      this_k_max=0):
         if ckpt is None:
             return
-        state = dict(
+        save_once(ckpt, n_fits, lambda: dict(
             ckpt_cfg, rows=rows, n_fits=int(n_fits), curr_rep=int(curr_rep),
             in_rep=bool(in_rep), step_size=float(step_size),
-            curr_rank=int(curr_rank), this_k_max=int(this_k_max))
-        if mesh is None:
-            ckpt.save(n_fits, state)
-        else:
-            ckpt.save(n_fits, state, mesh=mesh)
+            curr_rank=int(curr_rank), this_k_max=int(this_k_max)), mesh)
 
     for curr_rep in range(start_rep, n_replicates + 1):
         if verbose >= 1 and n_replicates > 1:

@@ -28,10 +28,10 @@ from singlet_tpu_torch.ops.linalg import cor_distance, gram, scale_columns
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls)
 from singlet_tpu_torch.parallel.sharded import check_mesh
-from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
 from singlet_tpu_torch.solvers.als import logged_fit_loop
 from singlet_tpu_torch.solvers.batch import _dense_operand, _start_w
-from singlet_tpu_torch.solvers.drivers import _coerce_dense, _finalize
+from singlet_tpu_torch.solvers.drivers import (_engine_or_providers,
+                                               _finalize)
 
 
 def _gcnmf_step(A, G, W, H, L1, L2, sweep_cap=None,
@@ -66,15 +66,16 @@ def gcnmf(A, G, k: int, tol: float = 1e-4, maxit: int = 100,
     ``ShardedEllEngine.gcnmf_fit``, A and G sparse as blocked-ELL planes
     of each rank's cells (the graph convolution gathers B and H over the
     ranks once per half-update), every rank calling with the same
-    arguments and getting the whole model."""
+    arguments and getting the whole model; ``A`` is then routed as
+    ``run_nmf`` routes it (chunk lists, staged directories and an engine
+    included)."""
     if check_mesh(mesh) is not None:
-        if not sp.issparse(A):
-            A = sp.csc_matrix(_coerce_dense(A))
+        eng = _engine_or_providers(A, mesh, device)
+        genes = eng.data.genes_true
         if w_init is not None:
             w_init = np.asarray(w_init, np.float32)
-            if w_init.shape == (k, A.shape[0]) and k != A.shape[0]:
+            if w_init.shape == (k, genes) and k != genes:
                 w_init = w_init.T
-        eng = ShardedEllEngine(A, mesh=mesh, device=device)
         out = eng.gcnmf_fit(sp.csc_matrix(G), k, tol=tol, maxit=maxit,
                             L1=L1, L2=L2, seed=seed, w_init=w_init,
                             verbose=verbose)

@@ -37,7 +37,10 @@ __all__ = ["MetricLogger", "NULL_LOGGER", "get_metric_logger",
 def _writes_files() -> bool:
     """Whether this process writes the metric log: rank 0 of an
     initialized ``torch.distributed`` world, or the only process. Every
-    rank keeps its events in memory."""
+    rank keeps its events in memory. The logger is process-wide and knows
+    no mesh; the ``"cells"`` mesh spans the world (``make_mesh``), so this
+    is the rank that writes a mesh fit's checkpoints (``solvers.als.
+    save_once``)."""
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) \

@@ -18,7 +18,11 @@ this file under a ``FileStore``, at most 120 s each).
     that file's tolerances (rtol 5e-3, atol 5e-4 on factors and test MSE,
     equal ``iter`` lists);
   * a world of one in this process (``make_mesh()``) gives the bits of the
-    fits with no mesh.
+    fits with no mesh; on it a checkpoint manager's ``save(it, state)`` is
+    called as with no mesh, and ``nmf_batch`` / ``gcnmf`` take every input
+    ``run_nmf`` takes (scipy, dense, chunk list, staged directory, engine)
+    with the engine's bits;
+  * a ``LOCAL_RANK`` (or process id) past the host's cards raises.
 """
 
 import os
@@ -28,7 +32,7 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from test_torch_mesh import World, worker_main
+from test_torch_mesh import World, batch_of, ring, worker_main
 
 FIT = dict(rtol=5e-3, atol=5e-4)
 BLOCKS = (256, 32)
@@ -294,9 +298,11 @@ def test_resumed_fit_on_mesh_is_bit_for_bit(_worlds, fit):
 
 
 def test_one_device_save_keeps_its_call(tmp_path):
-    """With no mesh the fits and the ard_nmf search call
-    ``CheckpointManager.save(it, state)``, as a subclass that overrides
-    ``save`` takes it."""
+    """With no mesh and on a world of one the fits and the ard_nmf search
+    call ``CheckpointManager.save(it, state)``, as a subclass that
+    overrides ``save`` takes it."""
+    import torch.distributed as dist
+
     import singlet_tpu_torch as stt
 
     calls = []
@@ -306,13 +312,38 @@ def test_one_device_save_keeps_its_call(tmp_path):
             calls.append(it)
             return super().save(it, state)
 
-    eng = stt.ShardedEllEngine(operand(), device="cpu", cell_block=BLOCKS[0],
-                               gene_block=BLOCKS[1])
-    eng.fit(3, tol=0.0, maxit=2, checkpoint=Mgr(str(tmp_path / "f"), every=1))
-    assert calls == [1, 2]
-    stt.ard_nmf(operand().toarray(), k_max=3, maxit=2, verbose=0,
-                device="cpu", checkpoint=Mgr(str(tmp_path / "s"), every=1))
-    assert len(calls) > 2
+    def fits(mesh, where):
+        calls.clear()
+        eng = stt.ShardedEllEngine(operand(), mesh=mesh, device="cpu",
+                                   cell_block=BLOCKS[0],
+                                   gene_block=BLOCKS[1])
+        eng.fit(3, tol=0.0, maxit=2,
+                checkpoint=Mgr(str(tmp_path / where / "f"), every=1))
+        assert calls == [1, 2]
+        stt.ard_nmf(operand().toarray(), k_max=3, maxit=2, verbose=0,
+                    device="cpu", mesh=mesh,
+                    checkpoint=Mgr(str(tmp_path / where / "s"), every=1))
+        assert len(calls) > 2
+
+    fits(None, "none")
+    mesh = stt.make_mesh(device="cpu")
+    try:
+        fits(mesh, "mesh")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_local_rank_past_the_cards_raises(monkeypatch):
+    """A rank's card is ``LOCAL_RANK``, else its process id; one past the
+    host's cards (none here) raises, and is never folded onto another."""
+    from singlet_tpu_torch.parallel.sharded import _local_index
+
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(RuntimeError, match="LOCAL_RANK 0 has no card"):
+        _local_index(fallback=1)
+    monkeypatch.delenv("LOCAL_RANK")
+    with pytest.raises(RuntimeError, match="process 1 has no card"):
+        _local_index(fallback=1)
 
 
 def test_metric_log_written_by_rank_zero(_worlds):
@@ -409,6 +440,45 @@ def test_world_of_one_gives_the_bits_of_no_mesh(monkeypatch):
         for f, v in fit.items():
             np.testing.assert_array_equal(np.asarray(got[name][f]),
                                           np.asarray(v),
+                                          err_msg=f"{name} {f}")
+
+
+@pytest.mark.parametrize("solver", ["batch", "gcnmf"])
+def test_solvers_on_mesh_take_every_input(tmp_path, solver):
+    """On a world of one, ``nmf_batch`` and ``gcnmf`` with ``mesh=`` route
+    the input as ``run_nmf`` does: a scipy matrix, a dense array, a chunk
+    list, a staged directory and an engine give the engine's bits."""
+    import torch.distributed as dist
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.solvers.drivers import _finalize
+    from singlet_tpu_torch.sparse.chunked import stage_chunks
+
+    A = operand()
+    w0 = np.random.default_rng(1).random((60, 3)).astype(np.float32)
+    kw = dict(tol=0.0, maxit=3, w_init=w0, device="cpu")
+    staged = stage_chunks(str(tmp_path / "staged"), chunks())
+    mesh = stt.make_mesh(device="cpu")
+    try:
+        eng = stt.ShardedEllEngine(A, mesh=mesh, device="cpu")
+        if solver == "batch":
+            want = eng.batch_fit(batch_of(600), 3, tol=0.0, maxit=3,
+                                 w_init=w0)
+            fit = lambda X: stt.nmf_batch(X, 3, batch_of(600),  # noqa: E731
+                                          mesh=mesh, **kw)
+        else:
+            want = eng.gcnmf_fit(ring(600), 3, tol=0.0, maxit=3, w_init=w0)
+            fit = lambda X: stt.gcnmf(X, ring(600), 3,  # noqa: E731
+                                      mesh=mesh, **kw)
+        got = {name: fit(X) for name, X in (
+            ("scipy", A), ("dense", A.toarray()), ("chunks", chunks()),
+            ("staged", staged), ("engine", eng))}
+    finally:
+        dist.destroy_process_group()
+    want = _finalize(want["w"], want["d"], want["h"], None, None)
+    for name, m in got.items():
+        for f in ("w", "d", "h"):
+            np.testing.assert_array_equal(getattr(m, f), getattr(want, f),
                                           err_msg=f"{name} {f}")
 
 
