@@ -76,7 +76,21 @@ Phases; any failure raises and the script exits non-zero:
    of masked B4; B2 both entries, the same bits); ``run_nmf`` at k=256
    on a 4096 x 2048 operand, and the ELL engine's plain fit and masked
    ``ard_fit`` at k=256 on a small operand, on the card against the CPU
-   (B3 and B5 launch once a call at any k);
+   (B3 and B5 launch once a call at any k); then ranks above 512, the
+   wide-k routes: B1, B2 (both entries, the same bits) and B7 at k=600
+   against their plain versions (sweep cap 8), ``run_nmf`` at k=600 on a
+   4096 x 2048 operand on the card against the CPU, and the ELL engine's
+   bits-route ``ard_fit`` at k=600 against the dense masked fit on a
+   1800 x 1800 planted block operand (the same traced iterations, the
+   factors within the fit gate, test MSE within rtol 1e-3), each wide
+   route's launches counted;
+10c. gene blocks past the tiles of B3 and B5: 16,384 genes in two gene
+   blocks of 8,192 at 4,096 cells (824 requested nonzeros a cell): B3
+   (plain and masked) and B5 on their wide-block route, and B7, against
+   their plain versions, B5 the bits of masked B3; the engine's plain
+   fit and f32-route masked fit on these planes against the dense
+   providers within the fit tolerance, and its bits-route fit against
+   the f32 route's test MSE within rtol 1e-3;
 11. the large operand of benchmarks/largescale.py generated on the card
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
@@ -183,7 +197,14 @@ Phases; any failure raises and the script exits non-zero:
    within rtol 5e-3, atol 5e-4 of (a), with equal iteration counts and
    equal W bits on both ranks; their ms per step (two processes on one
    card: not a scaling figure), collective bytes and ms, and which
-   collectives gloo takes on CUDA tensors.
+   collectives gloo takes on CUDA tensors;
+18. the pipeline, last: a 10x directory of 16,384 genes x 8,192 cells
+   (824 requested nonzeros a cell, raw counts 1 + Poisson(0.6)) written
+   under ``build/``; ``cellxgene_pipeline`` on it with k=10 and with
+   k=[5, 10, 15], each stage timed (read, normalize, NMF, annotate,
+   save), each model bit for bit the direct ``Experiment`` fit from the
+   same seed, B1 (and B2 for the list) launched, the model files written;
+   then ``annotate_nmf`` and ``run_gsea`` on the k=10 model.
 
 Each counted run sets every launch counter to 0 just before it and reads
 them just after. After the phases come the run's total seconds and three
@@ -279,6 +300,28 @@ WIDE_K = (256, 300)
 WIDE_RUN_NMF = dict(genes=4096, cells=2048, k=256, maxit=3)
 WIDE_ELL = dict(genes=768, cells=768, k=256, maxit=2, cell_block=256,
                 gene_block=256)
+# ranks above 512, the wide-k routes of B1, B2 and B7: the kernels at k=600
+# and sweep cap 8 (so that the plain versions stay short); run_nmf at k=600
+# on a planted 4096 x 2048 block operand (a well-posed rank-600 fit); the
+# ELL engine's bits-route ard_fit against the
+# dense masked fit on an operand of 3 genes and 3 cells a factor, as
+# WIDE_ELL's at k=256 (WIDE_ELL's own 768 x 768 would leave 1.3 a factor)
+WIDE600 = dict(k=600, sweep_cap=8, b1_n=2048, b2_n=512)
+WIDE600_RUN_NMF = dict(genes=4096, cells=2048, maxit=2)
+WIDE600_ELL = dict(genes=1800, cells=1800, maxit=1, cell_block=256,
+                   gene_block=256)
+# gene blocks past the tiles of B3 (7,168 genes) and B5 (5,632): the large
+# config's 16,384 genes and 824 requested nonzeros a cell in two gene
+# blocks of 8,192, at 4,096 cells; the plain versions of B3 and B5 by
+# slices of 256 cells (one gene block's one-hot tile of all the cells would
+# not fit on the card)
+WIDE_BLOCK = dict(genes=16384, cells=4096, nnz=824, gene_block=8192,
+                  cell_block=2048, k=50, maxit=3, masked_maxit=2,
+                  plain_cells=256)
+# the last phase, the pipeline on a 10x directory at the large config's
+# width: 16,384 genes x 8,192 cells, 824 requested nonzeros a cell
+PIPELINE = dict(genes=16384, cells=8192, nnz=824, seed=19, k=10,
+                ks=(5, 10, 15), groups=4)
 # phase 15, streaming ingest: the large config's genes and requested
 # nonzeros per cell (824, drawn with replacement, so about 804 stored) at a
 # quarter of its cells, made on the host as chunks of 8192 cells, raw
@@ -375,7 +418,7 @@ def _median_ms(torch, fn, runs: int) -> float:
 
 COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
           "B11", "B12", "B13", "B14", "plain", "plain_bell", "plain_maskgram",
-          "plain_maskbits")
+          "plain_maskbits", "B1w", "B2w", "B3w", "B5w", "B7w")
 
 
 def _launches(**nonzero):
@@ -387,7 +430,9 @@ def _launches(**nonzero):
 def _counted(torch, fn):
     """Run ``fn`` with every launch counter set to 0 just before it; return
     (its result, wall seconds, the counts of COUNTS read just after: kernel
-    launches of B1-B14 and calls of the plain versions)."""
+    launches of B1-B14, calls of the plain versions, and the launches of
+    B1-B14 that took a wide route: B1w, B2w and B7w past k = 512, B3w and
+    B5w on gene blocks past their tiles, each counted in B1-B7 too)."""
     from singlet_tpu_torch.ops import (bell, bell_cuda, maskbits, maskgram,
                                        maskgram_cuda, nnls, nnls_cuda)
 
@@ -404,7 +449,12 @@ def _counted(torch, fn):
                 (maskgram_cuda, "LAUNCHES_MPW_M8"),
                 (maskgram_cuda, "LAUNCHES_MPH_M8"),
                 (nnls, "PLAIN_CALLS"), (bell, "PLAIN_CALLS"),
-                (maskgram, "PLAIN_CALLS"), (maskbits, "PLAIN_CALLS"))
+                (maskgram, "PLAIN_CALLS"), (maskbits, "PLAIN_CALLS"),
+                (nnls_cuda, "LAUNCHES_WIDE"),
+                (nnls_cuda, "LAUNCHES_BATCHED_WIDE"),
+                (bell_cuda, "LAUNCHES_SPMM_WIDE"),
+                (bell_cuda, "LAUNCHES_SPMM_BITS_WIDE"),
+                (bell_cuda, "LAUNCHES_MSE_BITS_WIDE"))
     for mod, attr in counters:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -2035,6 +2085,575 @@ def phase_wide_k(torch, card, data):
           f"{g_ard.test_mse} on the card, {c_ard.test_mse} on the CPU; cuda "
           f"vs cpu within rtol={FIT_RTOL} atol={FIT_ATOL} ({card})",
           flush=True)
+    out["k600"] = _wide_k600(torch, card, data, words)
+    return out
+
+
+def _block_operand(genes: int, cells: int, k: int, seed: int,
+                   ones: bool = False):
+    """A planted block operand (genes x cells float32) and a W init of the
+    same blocks: gene g and cell c load on factor g mod k and c mod k
+    alone, values U(0.5, 1.5) (with ``ones``, 1.0, and the init the
+    planted W itself), so that every half-update's Gram is diagonal and a
+    rank-k fit is well posed. A rank-600 fit of noise is
+    not: on the CPU alone a 1e-6 relative change of the W init moves 2,005
+    entries of w past the fit gate in one iteration (4096 x 2048
+    log1p(Poisson(0.3)), 8 sweeps), as the host's and the card's matrix
+    products, summed in other orders, did."""
+    rng = np.random.default_rng(seed)
+    g, c = np.arange(genes), np.arange(cells)
+
+    def draw(n):
+        return np.ones(n) if ones else rng.uniform(0.5, 1.5, n)
+
+    Wt = np.zeros((genes, k))
+    Wt[g, g % k] = draw(genes)
+    Ht = np.zeros((k, cells))
+    Ht[c % k, c] = draw(cells)
+    w_init = np.zeros((genes, k), np.float32)
+    w_init[g, g % k] = draw(genes)
+    return (Wt @ Ht).astype(np.float32), w_init
+
+
+def _wide_k600(torch, card, data, words):
+    """Ranks above 512, the wide-k routes: B1 (n=2048) and B2 (n=512,
+    per-column Grams of a 5% mask; its packed entry the same bits as its
+    tile entry) at k=600 and sweep cap 8, and B7 on the bench planes
+    ``data`` and their packed test mask ``words``, each against its plain
+    version at the tuned routes' gates, the wide route's launch counted;
+    then ``run_nmf`` at k=600 on a planted 4096 x 2048 block operand, the
+    card against the CPU within FIT_RTOL/FIT_ATOL, and the ELL engine's masked
+    ``ard_fit`` on its default bits route at k=600 against the dense
+    masked fit on the card: the same traced iterations and test-MSE
+    traces within rtol 1e-3, the gate of the bits route against the f32
+    route, and the factors within FIT_RTOL/FIT_ATOL. Both fits run on
+    planted block operands (``_block_operand``); the ELL one has 3 genes
+    and 3 cells a factor, as WIDE_ELL's at k=256."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.ops import bell, bell_cuda, linalg, nnls
+    from singlet_tpu_torch.ops.nnls_cuda import (
+        nnls_batch_cuda, nnls_batch_cuda_batched_packed_t)
+    from singlet_tpu_torch.parallel.sharded_ell import ShardedEllEngine
+    from singlet_tpu_torch.solvers.als import make_dense_providers
+
+    k = WIDE600["k"]
+    cap = float(WIDE600["sweep_cap"])
+    rows = {}
+
+    def timed(fn):
+        """(fn's result, its device time in ms by CUDA events)"""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    # B1 against one shared Gram
+    n1 = WIDE600["b1_n"]
+    a, B, X0, mask = _nnls_problem(torch, n1, k, seed=k)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=cap)
+    Xk, _, n_k = _counted(torch, lambda: nnls_batch_cuda(a, B, X0, **kw))
+    if n_k != _launches(B1=1, B1w=1):
+        raise AssertionError(f"B1 at k={k}: launches {n_k}")
+    (Xp, sweeps), plain_ms = timed(lambda: nnls.nnls_batch(
+        a, B, X0, return_sweeps=True, **kw))
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    if not torch.equal(Xk[~mask], X0[~mask]):
+        raise AssertionError(f"B1 at k={k}: masked rows differ from X0")
+    rows["B1"] = dict(kernel="B1", n=n1, k=k, sweep_cap=cap,
+                      max_abs_err=float((Xk - Xp).abs().max()),
+                      ms=_median_ms(torch, lambda: nnls_batch_cuda(
+                          a, B, X0, **kw), runs=5),
+                      plain_ms=plain_ms, library_ms=None,
+                      **_nnls_bound(sweeps, n1, k, k * k))
+    del a, B, X0, Xk, Xp
+
+    # B2 against per-column Grams, as a masked half-update makes them
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    n2, m_rows = WIDE600["b2_n"], 2 * k
+    F_ = torch.rand((m_rows, k), generator=gen, device="cuda")
+    iu = linalg.triu_pairs(k)
+    m = torch.rand((n2, m_rows), generator=gen, device="cuda") < 0.05
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F_, iu), m, 1)
+    a_full = F_.T @ F_ + 1e-15 * torch.eye(k, device="cuda")
+    B2 = torch.where(m, 0.0, torch.rand((n2, m_rows), generator=gen,
+                                        device="cuda")) @ F_
+    X02 = (torch.rand((n2, k), generator=gen, device="cuda")
+           * (torch.rand((n2, k), generator=gen, device="cuda") < 0.5))
+    mask2 = torch.rand(n2, generator=gen, device="cuda") >= 0.05
+    kw2 = dict(L1=0.01, L2=0.001, update_mask=mask2, sweep_cap=cap)
+    (at, Xk, (Xp, sweeps)), _, n_k = _counted(torch, lambda: _b2_check(
+        torch, f"k={k}", a_full, packed_t, iu, B2, X02, kw2))
+    if n_k != _launches(B2=2, B2w=2, plain=1):
+        raise AssertionError(f"B2 at k={k}: launches {n_k}")
+    _, plain_ms = timed(lambda: nnls.nnls_batch(at.permute(2, 1, 0), B2, X02,
+                                                **kw2))
+    rows["B2"] = dict(kernel="B2", n=n2, k=k, sweep_cap=cap,
+                      max_abs_err=float((Xk - Xp).abs().max()),
+                      ms=_median_ms(torch, lambda:
+                                    nnls_batch_cuda_batched_packed_t(
+                                        a_full, packed_t, iu, B2, X02, **kw2),
+                                    runs=5),
+                      plain_ms=plain_ms, library_ms=None,
+                      **_nnls_bound(sweeps, n2, k,
+                                    k * k + packed_t.shape[0] * n2))
+    del at, m, F_, packed_t, Xk, Xp
+
+    # B7 on the bench planes
+    G, li, lv = data.gene_block, data.b_li, data.b_val
+    genes, cells = data.genes_pad, data.cells_pad
+    gen = torch.Generator(device="cuda").manual_seed(k + 1)
+    Wd = torch.rand((genes, k), generator=gen, device="cuda") / k
+    H = torch.rand((cells, k), generator=gen, device="cuda")
+
+    def b7(f):
+        return f(li, lv, words, Wd, H, gene_block=G)
+
+    got, _, n_k = _counted(torch, lambda: b7(bell_cuda.bell_mse_bits_cuda))
+    if n_k != _launches(B7=1, B7w=1):
+        raise AssertionError(f"B7 at k={k}: launches {n_k}")
+    want, plain_ms = timed(lambda: b7(bell.bell_mse_bits_plain))
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"B7 at k={k}: counts differ")
+    held = float(got[1].sum())
+    rows["B7"] = dict(kernel="B7", cells=cells, k=k,
+                      max_abs_err=float((got[0] - want[0]).abs().max()),
+                      ms=_median_ms(torch, lambda: b7(
+                          bell_cuda.bell_mse_bits_cuda), runs=5),
+                      plain_ms=plain_ms, library_ms=None, held_out=held,
+                      **_bound(2 * li.numel() * 4 + words.numel() * 4
+                               + (genes + cells) * k * 4 + 2 * cells * 4,
+                               2 * k * held, F32_OPS_S))
+    del Wd, H
+    for name, r in rows.items():
+        print(f"kernel {name} wide-k route at k={k}: max|err|="
+              f"{r['max_abs_err']:.3e}, kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) ({card})", flush=True)
+
+    # run_nmf at k=600, card against CPU, from one w_init, on a planted
+    # block operand (``_block_operand``: every half-update's Gram diagonal,
+    # the fit well posed)
+    R = WIDE600_RUN_NMF
+    A, w_init = _block_operand(R["genes"], R["cells"], k, seed=6)
+    kw = dict(rank=k, tol=0.0, maxit=R["maxit"], w_init=w_init)
+    m_gpu, secs, n_run = _counted(torch, lambda: stt.run_nmf(
+        A, device="cuda", **kw))
+    t0 = time.perf_counter()
+    m_cpu = stt.run_nmf(A, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    if n_run != _launches(B1=2 * R["maxit"], B1w=2 * R["maxit"]):
+        raise AssertionError(f"run_nmf at k={k}: launches {n_run}")
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(m_gpu, f), getattr(m_cpu, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=f)
+    print(f"run_nmf {R['genes']}x{R['cells']} k={k} maxit={R['maxit']}: "
+          f"{secs:.3f} s on the "
+          f"card, {cpu_s:.1f} s on the CPU, launches {n_run}; cuda vs cpu "
+          f"within rtol={FIT_RTOL} atol={FIT_ATOL} ({card})", flush=True)
+    out = dict(kernels=rows, run_nmf=dict(wall_s=secs, cpu_s=cpu_s,
+                                          launches=n_run))
+
+    # the ELL engine's bits route at k=600 against the dense masked fit, on
+    # a planted block operand of ones started at its W, one iteration:
+    # both fits stay on the planted factors, whose packed products every
+    # column of the route's int8 quantization holds exactly (at U(0.5,
+    # 1.5) values a column's smallest products lose up to 3.5% and the
+    # test MSE 1.5%); a second iteration's tol is 0 or not by a rounding,
+    # which ends one fit and not the other
+    E = WIDE600_ELL
+    A, w0 = _block_operand(E["genes"], E["cells"], k, seed=8, ones=True)
+    A = sp.csc_matrix(A)
+    ard_kw = dict(w_init=w0, mask_seed=2, inv_density=10, tol=0.0,
+                  maxit=E["maxit"], trace_test_mse=1, overfit_threshold=1.0)
+    eng = ShardedEllEngine(A, device="cuda", cell_block=E["cell_block"],
+                           gene_block=E["gene_block"])
+    g_ard, ard_s, n_ard = _counted(torch, lambda: eng.ard_fit(k, **ard_kw))
+    Ap, Atp = make_dense_providers(A.toarray(), device="cuda")
+    d_ard, dense_s, n_dense = _counted(torch, lambda: stt.ard_nmf_fit(
+        Ap, k, At=Atp, **ard_kw))
+    del eng, Ap, Atp
+    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+            or n_ard["B2w"] != n_ard["B2"] or n_ard["B7w"] != n_ard["B7"] \
+            or any(n_ard[key] for key in (
+                "B1", "B3", "B4", "plain", "plain_bell", "plain_maskgram",
+                "plain_maskbits")):
+        raise AssertionError(f"ELL ard_fit at k={k}: launches {n_ard}")
+    if n_dense != _launches(B2=n_dense["B2"], B2w=n_dense["B2"]) \
+            or not n_dense["B2"]:
+        raise AssertionError(f"dense ard_nmf_fit at k={k}: launches "
+                             f"{n_dense}")
+    if g_ard.iter != d_ard.iter:
+        raise AssertionError(f"ELL ard_fit at k={k}: iter {g_ard.iter}, the "
+                             f"dense masked fit {d_ard.iter}")
+    # the test MSE near 0 where the planted factors predict the held-out
+    # entries, else that of the cells whose factor's genes are all held
+    # out (their coordinate clamps to 0 on both routes)
+    np.testing.assert_allclose(g_ard.test_mse, d_ard.test_mse, rtol=1e-3,
+                               atol=1e-9)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(g_ard, f), getattr(d_ard, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL,
+                                   err_msg=f"ELL ard_fit at k={k}: {f}")
+    rel = float(np.max(np.abs(np.subtract(g_ard.test_mse, d_ard.test_mse))
+                       / np.maximum(np.abs(d_ard.test_mse), 1e-30)))
+    out["ell_ard"] = dict(wall_s=ard_s, launches=n_ard, dense_s=dense_s,
+                          launches_dense=n_dense, test_mse=g_ard.test_mse,
+                          test_mse_dense=d_ard.test_mse, max_rel=rel)
+    print(f"ELL masked ard_fit at k={k} on the bits route (int8), "
+          f"{E['genes']}x{E['cells']}: {ard_s:.3f} s, iter {g_ard.iter}, "
+          f"launches {n_ard}; the dense masked fit {dense_s:.3f} s, launches "
+          f"{n_dense}; test mse within {rel:.2e} relative (rtol 1e-3) "
+          f"({card})", flush=True)
+    return out
+
+
+def _by_cells(torch, fn, cells: int, step: int, dim: int = 0):
+    """fn(cell slice, its first cell) over slices of ``step`` cells,
+    concatenated along ``dim``: a plain version whose dense tile of all
+    the cells would not fit on the card, slice by slice."""
+    return torch.cat([fn(slice(c0, min(c0 + step, cells)), c0)
+                      for c0 in range(0, cells, step)], dim=dim)
+
+
+def phase_wide_block(torch, card):
+    """Gene blocks past the tiles of B3 (7,168 genes) and B5 (5,632): the
+    large config's 16,384 genes and 824 nonzeros a cell at 4,096 cells, in
+    two gene blocks of 8,192. B3 (plain and with the hashed keep) and B5
+    on their wide-block route against their plain versions (taken 256
+    cells at a time) within BELL_TOL, B5 the bits of masked B3, and B7 on
+    its plan against its plain version (rtol 2e-4, equal counts), with
+    times, bounds and torch.sparse.mm beside B3 and B5; then the ELL
+    engine on these planes against the dense providers from one W0: the
+    plain fit (3 iterations) and the masked ``ard_fit`` on the f32 route
+    (2, B3 on the wide-block route with the hashed keep) within
+    FIT_RTOL/FIT_ATOL, and the default bits route's fit (2, B5 on the
+    wide-block route) against the f32 route's test MSE within rtol
+    1e-3."""
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch.ops import bell, bell_cuda
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+    from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllData,
+                                                        ShardedEllEngine)
+    from singlet_tpu_torch.solvers.als import make_dense_providers
+
+    P = WIDE_BLOCK
+    genes, cells, G, k = P["genes"], P["cells"], P["gene_block"], P["k"]
+    n_gb = genes // G
+    li, lv, width = synth_bell_planes_torch(genes, cells, P["nnz"], G)
+    nnz = int((li >= 0).sum())
+    words = _slice_words(torch, 0, cells, genes, G)
+    for bits in (False, True):
+        if not isinstance(bell_cuda.b3_plan(cells, n_gb, G, width, k, bits),
+                          bell_cuda.B3WidePlan):
+            raise AssertionError(f"B{5 if bits else 3} at gene block {G}: "
+                                 "the plan does not take the wide-block "
+                                 "route")
+    b7_wide = isinstance(bell_cuda.b7_plan(cells, n_gb, G, width, k),
+                         bell_cuda.B7WidePlan)
+    gen = torch.Generator(device="cuda").manual_seed(G)
+    W = torch.rand((genes, k), generator=gen, device="cuda")
+    H = torch.rand((cells, k), generator=gen, device="cuda")
+    seed = seed_pair(MASKED["mask_seed"])
+    kw = dict(gene_block=G, inv_density=MASKED["inv_density"])
+    step = P["plain_cells"]
+    csr = {False: _csr_pair(torch, li, lv, G, n_gb),
+           True: _csr_pair(torch, li, lv, G, n_gb, words)}
+    cases = (
+        ("B3", False, lambda: bell_cuda.bell_spmm_cuda(li, lv, W, **kw),
+         lambda s, c0: bell.bell_spmm_plain(li[:, s], lv[:, s], W, **kw)),
+        ("B3 masked", True,
+         lambda: bell_cuda.bell_spmm_cuda(li, lv, W, seed, 0, **kw),
+         lambda s, c0: bell.bell_spmm_plain(li[:, s], lv[:, s], W, seed, c0,
+                                            **kw)),
+        ("B5", True, lambda: bell_cuda.bell_spmm_bits_cuda(
+            li, lv, W, words, gene_block=G),
+         lambda s, c0: bell.bell_spmm_bits_plain(
+             li[:, s], lv[:, s], W, words[s], gene_block=G)))
+    rows, out = {}, {}
+    for name, masked, kern, plain in cases:
+        key = name.split()[0]
+        got, _, n_k = _counted(torch, kern)
+        want_n = (_launches(B5=1, B5w=1) if key == "B5"
+                  else _launches(B3=1, B3w=1))
+        if n_k != want_n:
+            raise AssertionError(f"{name} at gene block {G}: launches {n_k}")
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"{name} at gene block {G}: two runs differ")
+        t0 = time.perf_counter()
+        want = _by_cells(torch, plain, cells, step)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= BELL_TOL * scale:
+            raise AssertionError(f"{name} at gene block {G}: max abs err "
+                                 f"{err} > {BELL_TOL} x {scale}")
+        if key == "B5":
+            out["B5_equals_masked_B3"] = bool(torch.equal(
+                got, bell_cuda.bell_spmm_cuda(li, lv, W, seed, 0, **kw)))
+            if not out["B5_equals_masked_B3"]:
+                raise AssertionError(f"B5 at gene block {G}: differs from "
+                                     "masked B3")
+        library_ms, lib_nnz, lib_err, _ = _spmm_library(torch, csr[masked],
+                                                        key, W, got)
+        if not lib_err <= BELL_TOL * scale:
+            raise AssertionError(f"{name} at gene block {G}: the library "
+                                 f"call differs by {lib_err}")
+        rows[name] = dict(kernel=key, masked=masked, cells=cells, k=k,
+                          width=width, gene_block=G, max_abs_err=err,
+                          max_abs_out=scale,
+                          ms=_median_ms(torch, kern, runs=5),
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          **_bound(2 * li.numel() * 4 + (genes + cells) * k * 4
+                                   + (words.numel() * 4 if key == "B5" else 0),
+                                   2 * nnz * k, F32_OPS_S))
+    Wd = W / k
+    got, _, n_k = _counted(torch, lambda: bell_cuda.bell_mse_bits_cuda(
+        li, lv, words, Wd, H, gene_block=G))
+    if n_k != _launches(B7=1, B7w=int(b7_wide)):
+        raise AssertionError(f"B7 at gene block {G}: launches {n_k}")
+    t0 = time.perf_counter()
+    want = bell.bell_mse_bits_plain(li, lv, words, Wd, H, gene_block=G)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"B7 at gene block {G}: counts differ")
+    held = float(got[1].sum())
+    rows["B7"] = dict(kernel="B7", cells=cells, k=k, width=width,
+                      gene_block=G, wide=bool(b7_wide),
+                      max_abs_err=float((got[0] - want[0]).abs().max()),
+                      ms=_median_ms(torch, lambda: bell_cuda.bell_mse_bits_cuda(
+                          li, lv, words, Wd, H, gene_block=G), runs=5),
+                      plain_ms=plain_ms, library_ms=None, held_out=held,
+                      **_bound(2 * li.numel() * 4 + words.numel() * 4
+                               + (genes + cells) * k * 4 + 2 * cells * 4,
+                               2 * k * held, F32_OPS_S))
+    for name, r in rows.items():
+        lib = ("" if r["library_ms"] is None
+               else f", torch.sparse.mm {r['library_ms']:.3f} ms")
+        print(f"kernel {name} at gene block {G} ({cells} cells, width "
+              f"{width}, k={k}): max|err|={r['max_abs_err']:.3e}, kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (by slices "
+              f"of {step} cells for B3/B5){lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({card})", flush=True)
+    del W, H, Wd, csr
+
+    # the engine on these planes against the dense providers
+    data = ShardedEllData(
+        b_li=li, b_val=lv, b_width=width,
+        nonempty=torch.ones(cells, dtype=torch.bool, device="cuda"),
+        gene_nonempty=torch.ones(genes, dtype=torch.bool, device="cuda"),
+        device=torch.device("cuda"), genes_true=genes, cells_true=cells,
+        genes_pad=genes, cells_pad=cells, cell_block=P["cell_block"],
+        gene_block=G)
+    eng = ShardedEllEngine(None, data=data)
+    A = bell.densify_planes(li, lv, G, n_gb).T.cpu().numpy()
+    Ap, Atp = make_dense_providers(A, device="cuda")
+    del A
+    W0 = np.random.default_rng(9).random((genes, k)).astype(np.float32)
+    M = P["maxit"]
+    res_e, secs_e, n_e = _counted(torch, lambda: eng.fit(
+        k, w_init=W0, tol=0.0, maxit=M))
+    if n_e != _launches(B1=2 * M, B3=M, B3w=M, B4=M):
+        raise AssertionError(f"wide-block plain fit: launches {n_e}")
+    res_d = stt.nmf_fit(Ap, k, At=Atp, w_init=W0, tol=0.0, maxit=M)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(res_e[f], getattr(res_d, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=f)
+    blocks = cells // P["cell_block"]
+    Mm = P["masked_maxit"]
+    fit_kw = dict(w_init=W0, mask_seed=MASKED["mask_seed"],
+                  inv_density=MASKED["inv_density"], tol=0.0, maxit=Mm,
+                  trace_test_mse=1, overfit_threshold=1.0)
+    with _env(SINGLET_TPU_MASKGRAM="xla"):
+        r_f, secs_f, n_f = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
+    if n_f != _launches(B2=Mm * (blocks + 1), B3=Mm * blocks,
+                        B3w=Mm * blocks, B4=Mm * blocks):
+        raise AssertionError(f"wide-block f32 masked fit: launches {n_f}")
+    r_d = stt.ard_nmf_fit(Ap, k, At=Atp, **fit_kw)
+    if r_f.iter != r_d.iter:
+        raise AssertionError(f"wide-block masked fit: iter {r_f.iter} vs "
+                             f"{r_d.iter}")
+    np.testing.assert_allclose(r_f.test_mse, r_d.test_mse, rtol=FIT_RTOL)
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(getattr(r_f, f), getattr(r_d, f),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL,
+                                   err_msg=f"masked {f}")
+    r_b, secs_b, n_b = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
+    want = _launches(B2=Mm * (blocks + 1), B5=Mm * blocks,
+                     B5w=Mm * blocks, B6=Mm * blocks, B7=Mm,
+                     B7w=Mm * int(b7_wide), B8=Mm * blocks, B9=Mm)
+    if n_b != want:
+        raise AssertionError(f"wide-block bits-route fit: launches {n_b}, "
+                             f"want {want}")
+    if r_b.iter != r_f.iter:
+        raise AssertionError(f"wide-block bits route: iter {r_b.iter}, the "
+                             f"f32 route {r_f.iter}")
+    np.testing.assert_allclose(r_b.test_mse, r_f.test_mse, rtol=1e-3)
+    rel = float(np.max(np.abs(np.subtract(r_b.test_mse, r_f.test_mse))
+                       / np.abs(r_f.test_mse)))
+    print(f"ELL engine at gene block {G} ({genes}x{cells}, k={k}): plain fit "
+          f"{M} iterations {secs_e:.3f} s, launches {n_e}; f32-route masked "
+          f"fit {secs_f:.3f} s, launches {n_f}; both within rtol={FIT_RTOL} "
+          f"atol={FIT_ATOL} of the dense providers; bits-route fit "
+          f"{secs_b:.3f} s, launches {n_b}, test mse within {rel:.2e} of the "
+          f"f32 route's (rtol 1e-3) ({card})", flush=True)
+    out.update(kernels=rows, plain=dict(wall_s=secs_e, launches=n_e),
+               f32=dict(wall_s=secs_f, launches=n_f,
+                        test_mse=r_f.test_mse),
+               bits=dict(wall_s=secs_b, launches=n_b, test_mse=r_b.test_mse,
+                         max_rel=rel))
+    return out
+
+
+@contextlib.contextmanager
+def _stage_clock(torch, stages):
+    """The pipeline's stages timed from outside, each up to a device sync,
+    into ``stages`` (seconds by name): ``load_any`` (read),
+    ``Experiment.preprocess_data`` (normalize), ``Experiment.run_nmf``
+    (nmf), ``Experiment.annotate_nmf`` (annotate) and ``NMFModel.save``
+    (save); restored after the block."""
+    import singlet_tpu_torch.pipeline as pipe
+    from singlet_tpu_torch.experiment import Experiment
+    from singlet_tpu_torch.model import NMFModel
+
+    targets = ((pipe, "load_any", "read"),
+               (Experiment, "preprocess_data", "normalize"),
+               (Experiment, "run_nmf", "nmf"),
+               (Experiment, "annotate_nmf", "annotate"),
+               (NMFModel, "save", "save"))
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in
+             targets]
+
+    def clocked(fn, name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    for (owner, attr, fn), (_, _, name) in zip(saved, targets):
+        setattr(owner, attr, clocked(fn, name))
+    try:
+        yield stages
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def phase_pipeline(torch, card, root):
+    """The front end a user runs: a 10x directory of the large config's
+    width (16,384 genes x 8,192 cells, 824 requested nonzeros a cell, raw
+    counts 1 + Poisson(0.6), made as phase 15's chunks are) written under
+    ``root``; ``cellxgene_pipeline`` on it in this process with k=10 and
+    with k=[5, 10, 15] (reps=1), each stage timed (read, normalize, NMF,
+    annotate, save); each model bit for bit what
+    ``Experiment.from_dataset(read_10x_mtx(dir)).preprocess_data()
+    .run_nmf(...)`` gives on the card from the same seed; B1 launched (B2
+    too for the list) and no plain version; the .npz, .json and
+    .summary.json written. Then ``annotate_nmf`` with synthetic categorical
+    metadata and ``run_gsea`` with a small gene-set dict on the k=10
+    model (each cell's group that of its largest factor), each timed."""
+    import scipy.io
+
+    import singlet_tpu_torch as stt
+    import singlet_tpu_torch.pipeline as pipe
+    from singlet_tpu_torch.data import read_10x_mtx
+    from singlet_tpu_torch.experiment import Experiment
+
+    P = PIPELINE
+    genes, cells = P["genes"], P["cells"]
+    tenx = os.path.join(root, "tenx")
+    os.makedirs(tenx)
+    t0 = time.perf_counter()
+    M = _stream_chunk(P["seed"], genes, cells, P["nnz"])
+    scipy.io.mmwrite(os.path.join(tenx, "matrix.mtx"), M)
+    gene_names = [f"GENE{i}" for i in range(genes)]
+    with open(os.path.join(tenx, "features.tsv"), "w") as f:
+        f.writelines(f"ENSG{i:08d}\t{g}\tGene Expression\n"
+                     for i, g in enumerate(gene_names))
+    with open(os.path.join(tenx, "barcodes.tsv"), "w") as f:
+        f.writelines(f"CELL{i}-1\n" for i in range(cells))
+    write_s = time.perf_counter() - t0
+    nnz = M.nnz
+    del M
+    print(f"pipeline input: a 10x directory of {genes} genes x {cells} "
+          f"cells, {nnz} nonzeros, written in {write_s:.2f} s ({card})",
+          flush=True)
+    out = dict(write_s=write_s, nnz=nnz)
+    for label, k in (("k10", P["k"]), ("k_list", list(P["ks"]))):
+        stem = os.path.join(root, label)
+        stages = {}
+        with _stage_clock(torch, stages):
+            model, secs, n = _counted(torch, lambda: pipe.cellxgene_pipeline(
+                tenx, out=stem, k=k, reps=1, verbose=0, device="cuda"))
+        for suffix in (".npz", ".json", ".summary.json"):
+            if not os.path.isfile(stem + suffix):
+                raise AssertionError(f"pipeline {label}: no {stem}{suffix}")
+        if not n["B1"] or (label == "k_list" and not n["B2"]) or any(
+                n[key] for key in ("plain", "plain_bell", "plain_maskgram",
+                                   "plain_maskbits")):
+            raise AssertionError(f"pipeline {label}: launches {n}")
+        direct = Experiment.from_dataset(read_10x_mtx(tenx)) \
+            .preprocess_data().run_nmf(k=k, reps=1, L1=0.05, verbose=0,
+                                       seed=0, device="cuda") \
+            .reductions["nmf"]
+        for f in ("w", "d", "h"):
+            if not np.array_equal(getattr(model, f), getattr(direct, f)):
+                raise AssertionError(f"pipeline {label}: {f} differs from "
+                                     "the direct Experiment fit")
+        summary = json.loads(open(stem + ".summary.json").read())
+        out[label] = dict(wall_s=secs, stages_s=stages, launches=n,
+                          k=model.k, summary=summary)
+        print(f"pipeline {label} (k={k}): {secs:.2f} s in all; read "
+              f"{stages['read']:.2f} s, normalize {stages['normalize']:.2f} "
+              f"s, NMF {stages['nmf']:.2f} s, annotate "
+              f"{stages['annotate']:.3f} s, save {stages['save']:.3f} s; "
+              f"rank {model.k}; launches {n}; the model bit for bit the "
+              f"direct Experiment fit ({card})", flush=True)
+        if label == "k10":
+            model10 = model
+    # categorical metadata tied to the model: a cell's group is that of its
+    # largest factor (mod the groups), so that associations exist to find
+    labels = np.array([f"group{i % P['groups']}"
+                       for i in np.argmax(model10.h, axis=0)], dtype=object)
+    t0 = time.perf_counter()
+    ann = stt.annotate_nmf(model10, {"group": labels})
+    ann_s = time.perf_counter() - t0
+    frame = ann["group"]
+    if set(frame.columns) != {"group", "factor", "fc", "p"} or \
+            not len(frame) or \
+            not np.isfinite(frame["p"].to_numpy(float)).all():
+        raise AssertionError(f"annotate_nmf: {frame.shape} "
+                             f"{list(frame.columns)}")
+    order = np.argsort(-model10.w[:, 0])
+    sets = {"TOP_NMF_1": [gene_names[i] for i in order[:40]],
+            "EVERY_50TH": gene_names[::50][:60],
+            "MIDDLE": [gene_names[i] for i in order[4000:4050]]}
+    t0 = time.perf_counter()
+    gsea = stt.run_gsea(model10, sets, min_size=10, max_size=500, seed=1)
+    gsea_s = time.perf_counter() - t0
+    if set(gsea) != {"pval", "padj", "es", "nes"} or \
+            gsea["padj"].shape != (len(sets), model10.k):
+        raise AssertionError(f"run_gsea: {sorted(gsea)} "
+                             f"{gsea['padj'].shape}")
+    out.update(annotate_s=ann_s, gsea_s=gsea_s)
+    print(f"annotate_nmf on the k=10 model with {P['groups']} groups: "
+          f"{ann_s:.3f} s; run_gsea with 3 gene sets: {gsea_s:.3f} s "
+          f"(host) ({card})", flush=True)
     return out
 
 
@@ -3502,6 +4121,7 @@ def _phases(torch, card, results, ckdir):
                                                  W0)
     results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
     results["wide_k"] = phase_wide_k(torch, card, data)
+    results["wide_block"] = phase_wide_block(torch, card)
     results["resume_ell_bench"] = phase_resume_ell_bench(
         torch, card, eng, W0, results["bits_vs_f32"]["int8"], ckdir)
     del A, Ap, Atp, eng, data
@@ -3528,6 +4148,17 @@ def _phases(torch, card, results, ckdir):
                                      m_dir)
     finally:
         shutil.rmtree(stage_root, ignore_errors=True)
+    del eng, W0, G
+    # the last phase: the pipeline, its input and outputs in a temporary
+    # directory under build/, removed at the end
+    pipe_root = tempfile.mkdtemp(prefix="smoke_pipeline_",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        results["pipeline"] = phase_pipeline(torch, card, pipe_root)
+        results["pipeline"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(pipe_root, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -3615,6 +4246,16 @@ def main(argv=None) -> int:
                       mesh_res["one"][name]["launches_no_mesh"],
                       *mesh_res["two"][name]["launches"]]
     new_runs += mesh_runs
+    # the wide routes' runs: run_nmf and the ELL and dense masked fits at
+    # k=600, the ELL fits at a gene block of 8192; and the pipeline's
+    k600, wblock = wide["k600"], results["wide_block"]
+    pipe_res = results["pipeline"]
+    wide_runs = [k600["run_nmf"]["launches"], k600["ell_ard"]["launches"],
+                 k600["ell_ard"]["launches_dense"],
+                 wblock["plain"]["launches"], wblock["f32"]["launches"],
+                 wblock["bits"]["launches"]]
+    pipe_runs = [pipe_res["k10"]["launches"], pipe_res["k_list"]["launches"]]
+    new_runs += wide_runs + pipe_runs
     ell_runs += new_runs
     print(f"chip_smoke total {results['wall_s']:.1f} s, the build "
           f"{build_wall_s:.1f} s of it ({card})")
@@ -3630,7 +4271,12 @@ def main(argv=None) -> int:
           "counted runs of phases 15-17 (phase 17: both ranks of the two "
           "processes), B2 over the bench-scale ard_nmf_fit, "
           "cross_validate_nmf and ard_nmf runs and phase 17's, B3-B14 over "
-          "the ELL engine's counted runs; bound_ms: the larger of the bytes over "
+          "the ELL engine's counted runs, the wide routes' runs and the "
+          "pipeline's; the wide routes (launches of their own runs): B1 "
+          "at n=2048, B2 at n=512 (packed entry), both k=600 sweep_cap=8, "
+          "B7 at k=600 on the bench planes, B3 (unmasked) and B5 at k=50 "
+          "on 4096 cells of 16384 genes in gene blocks of 8192 (plain_ms "
+          "by slices of 256 cells); bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
           "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s, bf16 "
           "989 TFLOP/s)")
@@ -3666,7 +4312,8 @@ def main(argv=None) -> int:
               + results["ard"]["launches"]["B2"]
               + sum(dense_resume["ard_nmf_fit"][key]["B2"] for key in (
                   "launches_full", "launches_resumed"))
-              + sum(n["B2"] for n in mesh_runs), b2_row,
+              + sum(n["B2"] for n in mesh_runs + wide_runs + pipe_runs),
+              b2_row,
               max(r["max_abs_err"] for r in results["kernel_b2"]
                   + wide["kernels"] if r.get("kernel", "B2") == "B2")),
         ell_entry("bell_spmm", "B3", "bell_spmm.cu", "pallas_bell.py:162"),
@@ -3691,6 +4338,22 @@ def main(argv=None) -> int:
                   "pallas_maskgram.py:566"),
         ell_entry("mask_packed_h_t_m8", "B14", "maskgram_gemm.cu",
                   "pallas_maskgram.py:652"),
+        entry("B1-wide", "nnls_wide.cuh", "pallas_nnls.py:266",
+              sum(n["B1w"] for n in wide_runs), k600["kernels"]["B1"],
+              k600["kernels"]["B1"]["max_abs_err"]),
+        entry("B2-wide", "nnls_wide.cuh", "pallas_nnls.py:195",
+              sum(n["B2w"] for n in wide_runs), k600["kernels"]["B2"],
+              k600["kernels"]["B2"]["max_abs_err"]),
+        entry("B3-wideblock", "bell_spmm.cu", "pallas_bell.py:162",
+              sum(n["B3w"] for n in wide_runs), wblock["kernels"]["B3"],
+              max(wblock["kernels"][key]["max_abs_err"]
+                  for key in ("B3", "B3 masked"))),
+        entry("B5-wideblock", "bell_spmm.cu", "pallas_bell.py:260",
+              sum(n["B5w"] for n in wide_runs), wblock["kernels"]["B5"],
+              wblock["kernels"]["B5"]["max_abs_err"]),
+        entry("B7-wide", "bell_mse_bits.cu", "pallas_bell.py:370",
+              sum(n["B7w"] for n in wide_runs), k600["kernels"]["B7"],
+              k600["kernels"]["B7"]["max_abs_err"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

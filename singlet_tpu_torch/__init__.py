@@ -12,8 +12,9 @@ This package imports ``torch`` and never ``jax``, and nothing from
 ``singlet_tpu/__init__.py``, which imports jax. The few host-only pieces it
 needs (``model``, ``config``) are copied here.
 
-Ported so far: the plain ALS fit ``run_nmf`` with its shared-Gram CD-NNLS
-kernel B1, and the masked rank search ``cross_validate_nmf``,
+Every module of ``singlet_tpu`` has a twin here. The plain ALS fit
+``run_nmf`` with its shared-Gram CD-NNLS kernel B1, and the masked rank
+search ``cross_validate_nmf``,
 ``GetBestRank`` and ``ard_nmf`` (``ard_nmf_fit`` for one masked fit), whose
 half-updates run the per-column-Gram CD-NNLS kernel B2 (both in
 ``ops/nnls_cuda.py``), on a dense in-memory matrix (numpy, or scipy up to
@@ -42,12 +43,16 @@ The counter-RNG test mask (``ops/rngmask.py``) is bit-exact with the JAX
 package's, in PyTorch, in the packed words and in B3/B4/B10/B11. Every
 one of the JAX package's 14 Pallas kernels has a Hopper counterpart.
 
-Ranks: on the card a fit takes k <= 512, the limit of kernels B1, B2 and
-B7 (their register tiles; ``ops/nnls_cuda.py`` ``MAX_K`` and
-``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``), which raise past
-it; B3/B5 take any k in one launch (and gene blocks of up to 7,168 and
-5,632 genes), the other kernels any k.
-The JAX package has no such limit.
+Ranks: every rank runs on the card. Kernels B1, B2 and B7 hold a column's
+coordinates in registers up to k = 512 (``ops/nnls_cuda.py`` ``MAX_K``
+and ``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``) and take their
+wide-k routes past it (``csrc/nnls_wide.cuh``: a warp a column, its state
+in shared memory or device scratch, the Gram from device memory;
+``bell_mse_bits_wide``), which raise only where device memory cannot hold
+their state; B3/B5 take any k in one launch, and gene blocks their tiles
+cannot hold (past 7,168 and 5,632 genes) on the wide-block route
+(``bell_spmm_wide``); the other kernels take any k. As in the JAX
+package, no rank or gene block is refused.
 
 Resumable fits: ``checkpoint=`` of ``nmf_fit``, ``ard_nmf_fit``,
 ``ard_nmf`` (the search state), ``ShardedEllEngine.fit``/``ard_fit`` and
@@ -92,6 +97,21 @@ on the device; ``spatial_graph``, ``rescale_spatial`` numpy). As in JAX,
 ``gcnmf`` and ``nmf_batch`` are the dense solvers and the engine's fits
 their scale routes.
 
+The front ends: ``Experiment`` (``experiment.py``: RunNMF's dispatch,
+linked NMF, projection, GCNMF, the spatial graphs, annotation, GSEA and
+the summaries, each fit taking ``device=`` beside ``mesh=``),
+``cellxgene_pipeline`` and its CLI (``python -m
+singlet_tpu_torch.pipeline``; a world of N ranks under ``torchrun`` with
+``--devices N``), the readers (``data.py``: ``CellDataset``,
+``read_10x_mtx``, ``read_h5ad``/``write_h5ad``, ``read_seurat_rds``,
+``load_pbmc3k``; ``sparse/rdata.py``, the R serialization reader),
+``annotate_nmf``, ``run_gsea`` with ``read_gmt`` and
+``msigdb_gene_sets``, the summaries, the preprocessing helpers and the
+plots, copies of the JAX package's host modules. ``h5py`` is imported by
+the h5ad functions and ``matplotlib`` by the plots when first used (the
+plot names resolve lazily), so importing the package needs neither; a
+machine with a card may lack both. ``__version__`` is the JAX package's.
+
 Multi-device (``parallel/``): the port runs one process per device, as
 ``torchrun`` starts them, and the JAX package's single-process mesh of N
 devices is here a world of N ranks with a 1-D ``DeviceMesh`` named
@@ -109,16 +129,24 @@ and the chunk-list and staged-directory ingest on a mesh). A world of one
 mesh.
 """
 
+from singlet_tpu_torch.annotate import annotate_nmf
 from singlet_tpu_torch.checkpoint import CheckpointManager
 from singlet_tpu_torch.config import NMFConfig
+from singlet_tpu_torch.data import (CellDataset, load_pbmc3k, read_10x_mtx,
+                                    read_h5ad, read_seurat_rds)
+from singlet_tpu_torch.experiment import Experiment
 from singlet_tpu_torch.graphs.spatial import (local_knn, rescale_spatial,
                                               snn_graph, spatial_graph)
+from singlet_tpu_torch.gsea import msigdb_gene_sets, read_gmt, run_gsea
 from singlet_tpu_torch.model import NMFModel
 from singlet_tpu_torch.parallel import (ShardedEllEngine, global_mesh,
                                         initialize, make_mesh,
                                         process_cell_range,
                                         shard_cells_from_local, shard_data,
                                         sharded_ell_nmf_fit, sharded_nmf_fit)
+from singlet_tpu_torch.pipeline import cellxgene_pipeline
+from singlet_tpu_torch.preprocess import (log_normalize, normit,
+                                          rasterize_rowwise, weight_by_split)
 from singlet_tpu_torch.solvers.als import nmf_fit
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
 from singlet_tpu_torch.solvers.batch import nmf_batch
@@ -130,10 +158,35 @@ from singlet_tpu_torch.solvers.gcnmf import (assign_cells_to_edge_clusters,
 from singlet_tpu_torch.solvers.linked import build_link_matrix, run_linked_nmf
 from singlet_tpu_torch.solvers.mu import mu_nmf
 from singlet_tpu_torch.solvers.project import project_model
+from singlet_tpu_torch.summary import (get_shared_factors,
+                                       get_unique_factors, metadata_summary)
 from singlet_tpu_torch.tracing import MetricLogger, metric_logging, profile
 
-__all__ = ["NMFConfig", "NMFModel", "nmf_fit", "run_nmf",
-           "cross_validate_nmf", "GetBestRank", "get_best_rank", "ard_nmf",
+__version__ = "0.1.0"
+
+# the plots import matplotlib, which a machine with a card may lack: their
+# names resolve at first use (``__getattr__``), so importing the package
+# needs no matplotlib and a plot called without it raises its ImportError
+_PLOTS = ("rank_plot", "annotation_plot", "metadata_plot",
+          "metadata_heatmap", "gsea_heatmap", "factor_weights_ranges",
+          "plot_factor_weights")
+
+
+def __getattr__(name):
+    if name in _PLOTS:
+        from singlet_tpu_torch import plots
+
+        return getattr(plots, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["CellDataset", "Experiment", "load_pbmc3k", "read_10x_mtx",
+           "read_h5ad", "read_seurat_rds", "annotate_nmf",
+           "cellxgene_pipeline", "run_gsea", "read_gmt", "msigdb_gene_sets",
+           *_PLOTS, "log_normalize", "weight_by_split", "rasterize_rowwise",
+           "normit", "metadata_summary", "get_shared_factors",
+           "get_unique_factors", "__version__", "NMFConfig", "NMFModel",
+           "nmf_fit", "run_nmf", "cross_validate_nmf", "GetBestRank", "get_best_rank", "ard_nmf",
            "ard_nmf_fit", "ShardedEllEngine", "sharded_ell_nmf_fit",
            "CheckpointManager", "MetricLogger", "metric_logging", "profile",
            "run_linked_nmf", "build_link_matrix", "project_model", "gcnmf",

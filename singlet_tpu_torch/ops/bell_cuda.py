@@ -10,7 +10,12 @@ keep factor read from the packed test-mask words. Their source is
 ``csrc/bell_spmm.cu``. B7 (``bell_mse_bits_cuda``) replaces
 ``bell_mse_bits``; its source is ``csrc/bell_mse_bits.cu`` (a pass into
 test bits by gene block, then tiles of cells that read Wd's rows from
-shared memory, ``b7_plan``). Each source's
+shared memory, ``b7_plan``). Wide routes take what those tiles cannot
+hold: B3 and B5 on gene blocks whose two slices of W do not fit in shared
+memory (``bell_spmm_wide``: a warp per cell, W's rows from device memory),
+B7 past k = 512 or where no tile fits (``bell_mse_bits_wide``: a warp per
+cell, sub-blocks of 512 genes); each keeps the order of the sums its plan
+documents. Each source's
 header note gives the design and what bounds it on the card; ``_build.py``
 compiles them with nvcc at first use and this module binds them with
 ctypes.
@@ -44,6 +49,12 @@ LAUNCHES_SPMM_T = 0
 LAUNCHES_SPMM_BITS = 0
 LAUNCHES_SPMM_T_BITS = 0
 LAUNCHES_MSE_BITS = 0
+# the launches of those counts that took a wide route: B3's and B5's
+# wide-block route, and B7's wide route (k > 512 or a gene block whose
+# tile does not fit)
+LAUNCHES_SPMM_WIDE = 0
+LAUNCHES_SPMM_BITS_WIDE = 0
+LAUNCHES_MSE_BITS_WIDE = 0
 
 # B3's plan (csrc/bell_spmm.cu): one block an SM of 16 warps that walk, a
 # quarter-warp per cell, 64 cells at once, 1, 2 or 4 times (64 to 256
@@ -62,11 +73,19 @@ _B3_COLS = 32
 _B3_ROUNDS = (4, 2, 1)
 _B3_WIN_ROWS = 72
 _B3_CLUSTER = 2
+# B3's wide-block route (bell_spmm.cu ``bell_spmm_wide``): 8 warps a block,
+# a cell each, and column chunks of 256 (8 columns a lane)
+_B3_WIDE_CELLS = 8
+_B3_WIDE_COLS = 256
 # B7 (csrc/bell_mse_bits.cu) keeps its cells' H rows in registers, up to
 # 16 columns a lane; a block of up to 15 walker warps (16 where their H
 # rows take at most 16 floats a lane) and a producer, Wd's slice of a
-# sub-block of 128, 64 or 32 genes in two buffers
+# sub-block of 128, 64 or 32 genes in two buffers; past k = 512, or where
+# no such tile fits, the wide route: 8 warps a block, a cell each, their
+# tagged rows of 512 genes in static shared memory
 MAX_K_MSE = 512
+_B7_WIDE_CELLS = 8
+_B7_WIDE_ROWS = 512
 _B7_WALKERS = 15
 _B7_ROWS = (128, 64, 32)
 _B7_NPL = (1, 2, 4, 8, 12, 16)
@@ -102,6 +121,15 @@ class B3Plan(NamedTuple):
     smem: int          # dynamic shared memory a block, bytes
 
 
+class B3WidePlan(NamedTuple):
+    """B3's wide-block route (``bell_spmm_wide``, see ``b3_plan``): a warp
+    per cell and column chunk, W's rows read from device memory."""
+    cols: int          # columns a chunk (256: 8 a lane)
+    n_kt: int          # column chunks
+    cells: int         # cells a block (8 warps)
+    n_ct: int          # cell tiles (blocks along the cells)
+
+
 def b3_bm_words(gene_block: int) -> int:
     """Words of a cell's test bits of one gene block in B5 (bell_spmm.cu
     ``b3_bm_words``): ceil(gene_block / 32)."""
@@ -127,7 +155,7 @@ def b3_smem(gene_block: int, win: int, kt: int, rounds: int, cs: int,
 
 @functools.lru_cache(maxsize=256)
 def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
-            bits: bool = False) -> B3Plan:
+            bits: bool = False):
     """B3's plan, from the shapes alone: the fewest column tiles of at
     most 32 columns, split evenly in multiples of 4, in clusters of two
     where the tiles pair up (narrower tiles where two slices of W would not
@@ -135,7 +163,10 @@ def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
     the most cells a block (1, 2 or 4 passes of 64) whose window holds all
     the slot rows and that gives at least one block per SM, else 64; planes
     too wide for that are walked in windows of what fits; with ``bits``
-    (B5) the blocks also hold their cells' test bits of a gene block. Each
+    (B5) the blocks also hold their cells' test bits of a gene block.
+    Where even two slices of W of 4 columns do not fit (gene blocks past
+    7,168 genes, or 5,632 with ``bits``), the wide-block route's
+    ``B3WidePlan``. Each
     output is one thread's sum over its cell's gene blocks in order and, in
     each, its kept slots in slot order, whatever the plan: the plan does not
     change the bits. ``n_gb`` does not enter it."""
@@ -145,9 +176,10 @@ def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
         return b3_smem(gene_block, win, kt, rounds, cs, bits)
 
     if smem(1, 4, 1, 1) > _SMEM_BLOCK:
-        raise NotImplementedError(
-            f"kernel B3: two slices of W of a gene block of {gene_block} "
-            f"genes do not fit in shared memory")
+        # two slices of W of the gene block do not fit: the wide-block
+        # route, a warp per cell and chunk of 256 columns
+        return B3WidePlan(_B3_WIDE_COLS, -(-k // _B3_WIDE_COLS),
+                          _B3_WIDE_CELLS, -(-cells // _B3_WIDE_CELLS))
     for kt_max in range(_B3_COLS, 0, -4):
         n_kt = -(-k // kt_max)
         kt = -(-(-(-k // n_kt)) // 4) * 4
@@ -237,6 +269,18 @@ class B7Plan(NamedTuple):
     smem: int          # dynamic shared memory a block, bytes
 
 
+class B7WidePlan(NamedTuple):
+    """B7's wide route (``bell_mse_bits_wide``, see ``b7_wide_plan``): a
+    warp a cell, sub-blocks of 512 genes, H's and Wd's rows read from
+    device memory."""
+    npl: int           # columns of a lane's dot chain, ceil(k / 32)
+    cells: int         # cells a block (8 warps)
+    n_ct: int          # cell tiles (blocks)
+    rows: int          # genes a sub-block (512)
+    n_sb: int          # sub-blocks a gene block
+    smem: int          # static shared memory a block, bytes
+
+
 def b7_npl(k: int) -> int:
     """H columns a lane of B7: ceil(k / 32) rounded up to 1, 2, 4, 8, 12
     or 16."""
@@ -280,8 +324,7 @@ def b7_smem(rows: int, npl: int, cells: int, bm_pitch: int, walkers: int,
 
 
 @functools.lru_cache(maxsize=256)
-def b7_plan(cells: int, n_gb: int, gene_block: int, width: int,
-            k: int) -> B7Plan:
+def b7_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int):
     """B7's plan, from the shapes alone: H columns a lane from k;
     sub-blocks of 128 genes, or 64 or 32 where Wd's slices would not fit;
     of the (cells a walker in ``b7_cpws``, walkers up to
@@ -291,10 +334,12 @@ def b7_plan(cells: int, n_gb: int, gene_block: int, width: int,
     the walk's latency) and streaming Wd through L2 once per tile; then
     the most walkers. Every cell's squared errors are summed over its
     held-out genes in ascending order whatever the plan: the plan does not
-    change the bits. ``n_gb`` does not enter it."""
-    if not 1 <= k <= MAX_K_MSE:
-        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K_MSE}, got "
-                                  f"{k}")
+    change the bits. ``n_gb`` does not enter it. Past k = 512, or where no
+    tile fits in shared memory, the wide route (``b7_wide_plan``)."""
+    if k < 1:
+        raise ValueError(f"kernel B7 takes k >= 1, got {k}")
+    if k > MAX_K_MSE:
+        return b7_wide_plan(cells, gene_block, k)
     npl = b7_npl(k)
     bm_pitch = b7_bm_pitch(gene_block)
     for rows in _B7_ROWS:
@@ -322,9 +367,17 @@ def b7_plan(cells: int, n_gb: int, gene_block: int, width: int,
         return B7Plan(npl, cpw, walkers, c, -(-max(cells, 1) // c), rows,
                       -(-gene_block // rows), bm_pitch,
                       b7_smem(rows, npl, c, bm_pitch, walkers, width))
-    raise NotImplementedError(
-        f"kernel B7: gene blocks of {gene_block} genes at width {width} and "
-        f"k = {k} do not fit in shared memory")
+    return b7_wide_plan(cells, gene_block, k)
+
+
+def b7_wide_plan(cells: int, gene_block: int, k: int) -> B7WidePlan:
+    """B7's wide route: a warp a cell, 8 a block, each gene block walked in
+    sub-blocks of 512 genes. No scratch and 32 KB of static shared
+    memory."""
+    return B7WidePlan(-(-k // 32), _B7_WIDE_CELLS,
+                      -(-max(cells, 1) // _B7_WIDE_CELLS), _B7_WIDE_ROWS,
+                      -(-gene_block // _B7_WIDE_ROWS),
+                      _B7_WIDE_CELLS * _B7_WIDE_ROWS * 8)
 
 
 def b7_wd_operand(Wd: torch.Tensor, npl: int) -> torch.Tensor:
@@ -352,6 +405,10 @@ _KEEP_ARGTYPES = [_CI, ctypes.c_uint64, _CL, _CI, _VP, _CL, _VP]
 # bits' scratch before the stream
 ARGTYPES_B3 = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI, _VP, _CI,
                _CI, _CI, _CI] + _KEEP_ARGTYPES[:-1] + [_VP, _VP]
+# bell_spmm_wide: planes, ld, n_gb, width, cells, gene_block, W, its row
+# stride, k, B, then the keep arguments
+ARGTYPES_B3_WIDE = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI,
+                    _VP] + _KEEP_ARGTYPES
 # bell_spmm_t: planes, ld, n_gb, width, cells, gene_block, H, k, Bw,
 # partials, counters, rows, chunk_tiles, n_chunks, h_vec, p_vec, then the
 # keep arguments
@@ -368,6 +425,8 @@ def _lib():
         lib = _build.load("bell_spmm")
         lib.bell_spmm.argtypes = ARGTYPES_B3
         lib.bell_spmm.restype = ctypes.c_int
+        lib.bell_spmm_wide.argtypes = ARGTYPES_B3_WIDE
+        lib.bell_spmm_wide.restype = ctypes.c_int
         lib.bell_spmm_t.argtypes = ARGTYPES_B4
         lib.bell_spmm_t.restype = ctypes.c_int
         lib.bell_spmm_error_string.argtypes = [ctypes.c_int]
@@ -386,6 +445,9 @@ def _mse_lib():
                                       vp, ci, ci, ci, ci, ci, vp, ci, ci, vp,
                                       vp]
         lib.bell_mse_bits.restype = ci
+        lib.bell_mse_bits_wide.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp,
+                                           cl, vp, vp, ci, vp, vp]
+        lib.bell_mse_bits_wide.restype = ci
         lib.bell_mse_bits_error_string.argtypes = [ci]
         lib.bell_mse_bits_error_string.restype = ctypes.c_char_p
         _LIB["mse"] = lib
@@ -457,13 +519,14 @@ def _padded(X: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
-               words, *, gene_block: int) -> tuple[torch.Tensor, int]:
+               words, *,
+               gene_block: int) -> tuple[torch.Tensor, int, int]:
     """One launch of bell_spmm.cu's ``bell_spmm`` (B3 with keep mode 0 or
-    1, B5 with mode 2) on ``b3_plan``, for any k; checks its
-    arguments and returns B (cells, k) and the number of launches (0
-    without cells or columns). The kernel reads W and the planes by TMA:
-    where their addresses or row strides do not allow it, it reads
-    padded copies."""
+    1, B5 with mode 2) on ``b3_plan``, for any k, or of ``bell_spmm_wide``
+    where the plan takes the wide-block route; checks its arguments and
+    returns B (cells, k), the number of launches (0 without cells or
+    columns) and of them on the wide-block route. The tiled kernel reads W and the planes by TMA: where their
+    addresses or row strides do not allow it, it reads padded copies."""
     rows_w, k = W.shape
     if rows_w % gene_block:
         raise ValueError(f"W has {rows_w} rows, not a multiple of "
@@ -476,9 +539,20 @@ def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
         _check_words(words, cells, n_gb, gene_block, W.device)
     B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
     if cells == 0 or k == 0:
-        return B, 0
+        return B, 0, 0
     width = b_li.shape[0] // n_gb
     plan = b3_plan(cells, n_gb, gene_block, width, k, mode == 2)
+    if isinstance(plan, B3WidePlan):
+        with torch.cuda.device(W.device):
+            stream = torch.cuda.current_stream(W.device).cuda_stream
+            err = _lib().bell_spmm_wide(
+                b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
+                width, cells, gene_block, W.data_ptr(), W.stride(0), k,
+                B.data_ptr(), mode, seed64, int(cell_offset),
+                int(inv_density), None if words is None else words.data_ptr(),
+                0 if words is None else words.stride(0), stream)
+        _raise_on(err, "bell_spmm_wide")
+        return B, 1, 1
     # mode 2: scratch for the test bits by gene block that the kernel's
     # first pass writes
     bm = (torch.empty(n_gb * b3_bm_words(gene_block) * (-(-cells // 4) * 4),
@@ -498,7 +572,7 @@ def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
             0 if words is None else words.stride(0),
             None if bm is None else bm.data_ptr(), stream)
     _raise_on(err, "bell_spmm")
-    return B, 1
+    return B, 1, 0
 
 
 def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
@@ -510,11 +584,13 @@ def bell_spmm_cuda(b_li, b_val, W, seed=None, cell_offset: int = 0, *,
         return bell_spmm_plain(b_li, b_val, W, seed, cell_offset,
                                gene_block=gene_block,
                                inv_density=inv_density)
-    global LAUNCHES_SPMM
+    global LAUNCHES_SPMM, LAUNCHES_SPMM_WIDE
     masked, seed64 = _seed_args(seed, inv_density)
-    B, launches = _launch_b3(b_li, b_val, W, masked, seed64, cell_offset,
-                             inv_density, None, gene_block=gene_block)
+    B, launches, wide = _launch_b3(b_li, b_val, W, masked, seed64,
+                                   cell_offset, inv_density, None,
+                                   gene_block=gene_block)
     LAUNCHES_SPMM += launches
+    LAUNCHES_SPMM_WIDE += wide
     return B
 
 
@@ -528,10 +604,11 @@ def bell_spmm_bits_cuda(b_li, b_val, W, words, *,
     if W.device.type != "cuda":
         return bell_spmm_bits_plain(b_li, b_val, W, words,
                                     gene_block=gene_block)
-    global LAUNCHES_SPMM_BITS
-    B, launches = _launch_b3(b_li, b_val, W, 2, 0, 0, 1, words,
-                             gene_block=gene_block)
+    global LAUNCHES_SPMM_BITS, LAUNCHES_SPMM_BITS_WIDE
+    B, launches, wide = _launch_b3(b_li, b_val, W, 2, 0, 0, 1, words,
+                                   gene_block=gene_block)
     LAUNCHES_SPMM_BITS += launches
+    LAUNCHES_SPMM_BITS_WIDE += wide
     return B
 
 
@@ -635,19 +712,17 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     over its held-out genes (row 0) and their count (row 1), the mask read
     from ``words``; Wd (n_gb * gene_block, k), H (cells, k). A pass that
     transposes the words into test bits by gene block, then the kernel on
-    ``b7_plan``, counted as one launch. On CPU tensors, the plain
-    version."""
+    ``b7_plan``, counted as one launch; or, where the plan takes the wide
+    route (k > 512, or no tile fits), the wide kernel alone, on the words
+    as they are. On CPU tensors, the plain version."""
     if H.device.type != "cuda":
         return bell_mse_bits_plain(b_li, b_val, words, Wd, H,
                                    gene_block=gene_block)
-    global LAUNCHES_MSE_BITS
+    global LAUNCHES_MSE_BITS, LAUNCHES_MSE_BITS_WIDE
     rows_w, k = Wd.shape
     if rows_w % gene_block:
         raise ValueError(f"Wd has {rows_w} rows, not a multiple of "
                          f"gene_block {gene_block}")
-    if k > MAX_K_MSE:
-        raise NotImplementedError(f"kernel B7 takes k <= {MAX_K_MSE}, got "
-                                  f"{k}")
     n_gb = rows_w // gene_block
     cells = b_li.shape[1]
     dev = H.device
@@ -660,11 +735,22 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
         return out
     width = b_li.shape[0] // n_gb
     plan = b7_plan(cells, n_gb, gene_block, width, k)
+    lib = _mse_lib()
+    if isinstance(plan, B7WidePlan):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.bell_mse_bits_wide(
+                b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
+                width, cells, gene_block, words.data_ptr(), words.stride(0),
+                Wd.data_ptr(), H.data_ptr(), k, out.data_ptr(), stream)
+        _raise_on(err, "bell_mse_bits_wide", lib.bell_mse_bits_error_string)
+        LAUNCHES_MSE_BITS += 1
+        LAUNCHES_MSE_BITS_WIDE += 1
+        return out
     wp = b7_wd_operand(Wd, plan.npl)
     cells_pad = plan.n_ct * plan.cells
     bm = torch.empty(n_gb * cells_pad * plan.bm_pitch, dtype=torch.int32,
                      device=dev)
-    lib = _mse_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bell_mse_bits(

@@ -19,8 +19,11 @@ them from, ``a_full`` (k, k) and the packed corrections ``packed_t``
 (npairs, n), and forms each entry on the card with the bits of
 ``linalg.unpack_sym_from_t``. Each source's header note gives its design
 and what bounds it on the card. ``_build.py`` compiles them with nvcc at
-first use and this module binds them with ctypes. Both kernels take k <=
-512 (``MAX_K``, ``MAX_K_BATCHED``) and raise past it.
+first use and this module binds them with ctypes. Their tuned routes
+take k <= 512 (``MAX_K``, ``MAX_K_BATCHED``); past it both take the wide-k
+route of ``csrc/nnls_wide.cuh`` (``nnls_wide_plan``: a warp a column, its x
+and residual in shared memory, the Gram read from device memory), which
+raises only where device memory cannot hold its state.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
@@ -44,6 +47,9 @@ from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS, nnls_batch
 # chip_smoke.py to show that a fit went through the kernels
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
+# the launches of those that took the wide-k route (k > 512)
+LAUNCHES_WIDE = 0
+LAUNCHES_BATCHED_WIDE = 0
 
 # B1: a column over G lanes, up to 8 coordinates a lane in registers (16
 # past k = 224); up to k = 224 the transposed Gram is staged in shared
@@ -65,6 +71,12 @@ _B1_TERM_BYTES = 17 * 32 * 4
 # registers; the same limit as B1, which the final plain fit of a rank
 # search runs at the chosen rank
 MAX_K_BATCHED = 512
+# the wide-k route (csrc/nnls_wide.cuh): up to 8 warps a block, a column
+# each, 2 k floats of state a column; where one column's state exceeds a
+# block's shared memory, device scratch for the grid's warps, a grid of at
+# most this many blocks (two an SM of an H100)
+_WIDE_WARPS = 8
+_WIDE_SCRATCH_BLOCKS = 264
 
 # the C entry points of B2 take six pointers, n, k, L1, L2, k_div, cap,
 # max_sweeps and the stream
@@ -75,6 +87,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 6
 # B2's packed entry: a_full, packed_t and the row-start table in place of
 # the tile and 1/diag, then the arguments above
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
+# the wide entries: B1's aT, l1 or B2's (at, 1/diag) or (a_full, packed_t,
+# row starts), then B, X0, mask, X, scratch, n, k, warps, blocks, L1, L2,
+# k_div, cap, max_sweeps and the stream
+_WIDE_TAIL = ([ctypes.c_void_p] * 5
+              + [ctypes.c_int] * 4
+              + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 2 + _WIDE_TAIL
+ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 2 + _WIDE_TAIL
+ARGTYPES_B2_PACKED_WIDE = [ctypes.c_void_p] * 3 + _WIDE_TAIL
 # B1's entry: a, aT, l1, B, X0, mask, X, then n, k, g, L1, L2, k_div, cap,
 # max_sweeps and the stream
 ARGTYPES_B1 = ([ctypes.c_void_p] * 7
@@ -133,8 +154,60 @@ class B1Plan(NamedTuple):
                    # Gram, the warps' sweep terms and L1, and 1/diag
 
 
+class WidePlan(NamedTuple):
+    """The wide-k route's split of one call of B1 or B2 (see
+    ``nnls_wide_plan``)."""
+    warps: int      # columns (warps) a block
+    blocks: int     # blocks of the grid
+    shared: bool    # x and the residual in shared memory, else in scratch
+    smem: int       # dynamic shared memory a block, bytes
+    scratch: int    # bytes of device scratch (0 on the shared route)
+
+
 @functools.lru_cache(maxsize=256)
-def b1_plan(n: int, k: int) -> B1Plan:
+def nnls_wide_plan(n: int, k: int) -> WidePlan:
+    """The wide-k route of B1 and B2 (k > 512): a warp a column, as many
+    columns a block (up to 8) as their state fits in shared memory, 2 k
+    floats each, a block for every group of them; where one column's state
+    does not fit (k > 29,056), 8 columns a block in device scratch, at
+    most ``_WIDE_SCRATCH_BLOCKS`` blocks that take the columns in turn. The
+    plan does not change the bits."""
+    col = 8 * k
+    warps = min(_WIDE_WARPS, _SMEM_BLOCK // col)
+    if warps >= 1:
+        return WidePlan(warps, max(1, -(-n // warps)), True, warps * col, 0)
+    blocks = max(1, min(_WIDE_SCRATCH_BLOCKS, -(-n // _WIDE_WARPS)))
+    return WidePlan(_WIDE_WARPS, blocks, False, 0,
+                    blocks * _WIDE_WARPS * col)
+
+
+def b2_plan(n: int, k: int):
+    """B2's host plan: None for k <= 512, where the kernel picks its own
+    mode from k (nnls_cd_batched.cu's table), else the wide-k route's
+    ``nnls_wide_plan``."""
+    if k < 1:
+        raise ValueError(f"kernel B2 takes k >= 1, got {k}")
+    return None if k <= MAX_K_BATCHED else nnls_wide_plan(n, k)
+
+
+def _wide_state(plan: WidePlan, extra: int, name: str, device):
+    """The wide route's device scratch (None on the shared route), after
+    checking that device memory holds it and ``extra`` bytes more (B1's
+    transposed Gram): a RuntimeError names the bytes where it does not."""
+    need = plan.scratch + extra
+    free, _ = torch.cuda.mem_get_info(device)
+    if need > free:
+        raise RuntimeError(
+            f"kernel {name}'s wide-k route needs {need} bytes of device "
+            f"memory for its state ({plan.scratch} of scratch, {extra} of "
+            f"Gram), {free} are free")
+    if plan.shared:
+        return None
+    return torch.empty(plan.scratch // 4, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def b1_plan(n: int, k: int):
     """B1's plan, from the shapes alone: the fewest lanes a column G (a
     power of two, at least 2) whose staged Gram fits in shared memory,
     with up to 16 coordinates a lane where the lane runs take 16-byte
@@ -145,9 +218,12 @@ def b1_plan(n: int, k: int) -> B1Plan:
     holds coordinates p, p + G, ...; the staged Gram row i holds column i
     of a, lane p's entries at p * pitch. The plan does not change the
     bits: every step rounds alike and the sweep tolerance is summed in one
-    order for every G (the kernel's note)."""
-    if not 1 <= k <= MAX_K:
-        raise NotImplementedError(f"kernel B1 takes k <= {MAX_K}, got {k}")
+    order for every G (the kernel's note). Past k = 512, the wide-k route's
+    ``nnls_wide_plan``."""
+    if k < 1:
+        raise ValueError(f"kernel B1 takes k >= 1, got {k}")
+    if k > MAX_K:
+        return nnls_wide_plan(n, k)
     if k > MAX_K_SHARED:
         npl = -(-k // 32)
         npl += npl & 1
@@ -200,10 +276,8 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
         return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
                           max_sweeps=max_sweeps, n_coord=n_coord,
                           sweep_cap=sweep_cap)
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_WIDE
     n, k = B.shape
-    if k > MAX_K:
-        raise NotImplementedError(f"kernel B1 takes k <= {MAX_K}, got {k}")
     _check("a", a, (k, k), torch.float32, B.device)
     l1 = None
     if isinstance(L1, torch.Tensor) and L1.dim() > 0:
@@ -214,7 +288,26 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     X = torch.empty_like(B)
     if n == 0:
         return X
-    plan = b1_plan(n, k)
+    plan = nnls_wide_plan(n, k) if k > MAX_K else b1_plan(n, k)
+    if isinstance(plan, WidePlan):
+        scratch = _wide_state(plan, 4 * k * k, "B1", B.device)
+        aT = a.t().contiguous()
+        fn, err_str = _kernel("nnls_cd", "nnls_cd_wide", ARGTYPES_B1_WIDE)
+        with torch.cuda.device(B.device):
+            stream = torch.cuda.current_stream(B.device).cuda_stream
+            err = fn(aT.data_ptr(), None if l1 is None else l1.data_ptr(),
+                     B.data_ptr(), X0.data_ptr(),
+                     None if update_mask is None else update_mask.data_ptr(),
+                     X.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(), n, k,
+                     plan.warps, plan.blocks, float(L1), float(L2), k_div,
+                     _cap(max_sweeps, sweep_cap), int(max_sweeps), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"nnls_cd_wide launch failed: {err_str(err).decode()} ({err})")
+        LAUNCHES += 1
+        LAUNCHES_WIDE += 1
+        return X
     aT = None
     if not plan.shared:
         # column i of a as row i of a transposed copy, rows of 32 npl
@@ -269,6 +362,29 @@ def _launch(bound, symbol, grams, B, X0, update_mask, X, L1, L2, k_div, cap,
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
 
 
+def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, X, L1,
+                 L2, k_div, cap, max_sweeps):
+    """Launch B2's wide-k route (``symbol`` of nnls_cd_batched.cu) on
+    ``plan`` (``nnls_wide_plan``); ``grams`` as ``_launch``'s."""
+    global LAUNCHES_BATCHED, LAUNCHES_BATCHED_WIDE
+    n, k = B.shape
+    scratch = _wide_state(plan, 0, "B2", B.device)
+    fn, err_str = _kernel("nnls_cd_batched", symbol, argtypes)
+    mask_ptr = None if update_mask is None else update_mask.data_ptr()
+    with torch.cuda.device(B.device):
+        stream = torch.cuda.current_stream(B.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in grams), B.data_ptr(), X0.data_ptr(),
+                 mask_ptr, X.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n, k,
+                 plan.warps, plan.blocks, float(L1), float(L2), k_div, cap,
+                 int(max_sweeps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} launch failed: {err_str(err).decode()} ({err})")
+    LAUNCHES_BATCHED += 1
+    LAUNCHES_BATCHED_WIDE += 1
+
+
 def _cap(max_sweeps, sweep_cap) -> float:
     """The kernels' cap: the adaptive sweep cap clamped to max_sweeps."""
     if sweep_cap is None:
@@ -292,9 +408,6 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
                           n_coord=n_coord, sweep_cap=sweep_cap)
     global LAUNCHES_BATCHED
     n, k = B.shape
-    if k > MAX_K_BATCHED:
-        raise NotImplementedError(
-            f"kernel B2 takes k <= {MAX_K_BATCHED}, got {k}")
     _check("at", at, (k, k, n), torch.float32, B.device)
     _check_common(B, X0, update_mask, L1, "B2")
     k_div = float(k if n_coord is None else n_coord)
@@ -303,6 +416,12 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
     inv_diag = 1.0 / at.reshape(k * k, n)[:: k + 1]
     X = torch.empty_like(B)
     if n == 0:
+        return X
+    plan = b2_plan(n, k)
+    if plan is not None:
+        _launch_wide(plan, "nnls_cd_batched_wide", ARGTYPES_B2_WIDE,
+                     (at, inv_diag), B, X0, update_mask, X, L1, L2, k_div,
+                     _cap(max_sweeps, sweep_cap), max_sweeps)
         return X
     _launch(_kernel_batched(), "nnls_cd_batched", (at, inv_diag), B, X0,
             update_mask, X, L1, L2, k_div, _cap(max_sweeps, sweep_cap),
@@ -379,9 +498,6 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
                           update_mask=update_mask, max_sweeps=max_sweeps,
                           n_coord=n_coord, sweep_cap=sweep_cap)
     global LAUNCHES_BATCHED
-    if k > MAX_K_BATCHED:
-        raise NotImplementedError(
-            f"kernel B2 takes k <= {MAX_K_BATCHED}, got {k}")
     _check("a_full", a_full, (k, k), torch.float32, B.device)
     _check("packed_t", packed_t, (k * (k + 1) // 2, n), torch.float32,
            B.device)
@@ -390,6 +506,12 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
     k_div = float(k if n_coord is None else n_coord)
     X = torch.empty_like(B)
     if n == 0:
+        return X
+    plan = b2_plan(n, k)
+    if plan is not None:
+        _launch_wide(plan, "nnls_cd_batched_packed_wide",
+                     ARGTYPES_B2_PACKED_WIDE, (a_full, packed_t, starts), B, X0, update_mask, X, L1,
+                     L2, k_div, _cap(max_sweeps, sweep_cap), max_sweeps)
         return X
     _launch(_kernel("nnls_cd_batched", "nnls_cd_batched_packed",
                     _ARGTYPES_PACKED), "nnls_cd_batched_packed",

@@ -20,11 +20,11 @@ each rank packing only its own cells, and every rank gets the whole model.
 The CV trace frame (columns k, rep, test_error, iter, tol[,
 overfit_score]) is the JAX package's.
 
-Ranks: on the card every fit takes k <= 512. The CD-NNLS kernels B1 and B2
-and the fused test MSE B7 hold a column's k coordinates in registers and
-raise past 512 (``ops/nnls_cuda.py`` ``MAX_K``, ``MAX_K_BATCHED``,
-``ops/bell_cuda.py`` ``MAX_K_MSE``); the JAX package has no such limit.
-On the CPU any rank runs.
+Ranks: every rank runs, on the card as on the CPU. The CD-NNLS kernels B1
+and B2 and the fused test MSE B7 hold a column's k coordinates in
+registers up to k = 512 (``ops/nnls_cuda.py`` ``MAX_K``,
+``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``) and take their
+wide-k routes past it, as the JAX package has no limit.
 """
 
 from __future__ import annotations
@@ -171,9 +171,8 @@ def run_nmf(
     fits any input but a provider pair on the engine with the cells split
     over the mesh's ranks, each rank on its own device (``device``, or
     ``cuda:{LOCAL_RANK}``); every rank calls ``run_nmf`` with the same
-    arguments and gets the whole model. On the card ``rank`` may be at
-    most 512 (the limit of kernels B1, B2 and B7); past it the first
-    launch raises.
+    arguments and gets the whole model. Any ``rank`` runs on the card:
+    past 512 kernels B1, B2 and B7 take their wide-k routes.
     """
     if config is not None:
         tol, maxit, L1, L2, seed = (config.tol, config.maxit, config.L1,
@@ -269,8 +268,7 @@ def cross_validate_nmf(
     and staged directories included), ``mesh`` and ``device`` are taken as
     ``run_nmf`` takes them. ``config`` (an
     NMFConfig) supplies the hyperparameters, taking precedence over the
-    per-argument defaults. On the card each of ``ranks`` may be at most
-    512, as in ``run_nmf``.
+    per-argument defaults.
     """
     if config is not None:
         n_replicates, maxit, verbose = (config.reps, config.maxit,
@@ -356,8 +354,7 @@ def ard_nmf(
     pathological search oscillation. ``config`` (an NMFConfig) supplies the
     hyperparameters, taking precedence over per-argument defaults. ``A``
     (chunk lists and staged directories included), ``mesh`` and
-    ``device`` are taken as ``run_nmf`` takes them. On the card ``k_max``
-    may be at most 512, as ``run_nmf``'s rank.
+    ``device`` are taken as ``run_nmf`` takes them.
 
     ``checkpoint`` (a ``CheckpointManager`` or directory path) saves the
     SEARCH state after every completed rank fit: the CV rows and the

@@ -383,10 +383,6 @@ def test_wrappers_refuse(cuda):
     with pytest.raises(TypeError, match="int8 or bfloat16"):
         maskgram_cuda.mask_packed_w_t_bits_cuda(op.float(), s, words,
                                                 gene_block=256)
-    with pytest.raises(NotImplementedError, match="B7 takes k <= 512"):
-        bell_cuda.bell_mse_bits_cuda(
-            li, lv, words, torch.rand((768, 513), device=cuda),
-            torch.rand((300, 513), device=cuda), gene_block=256)
     # 2000 cells in groups of 1000 sum sub-blocks of 16 cells, which would
     # straddle the groups
     with pytest.raises(ValueError, match="straddle"):

@@ -237,19 +237,42 @@ def test_batched_kernel_n_coord_and_no_mask(cuda):
                                rtol=5e-3, atol=1e-6)
 
 
-def test_kernel_refuses_large_k(cuda):
+def _scratch_plan(n, k):
+    """The wide-k route with its state in device scratch: two blocks of 8
+    warps that take the columns in turn."""
+    return nnls_cuda.WidePlan(8, 2, False, 0, 2 * 8 * 8 * k)
+
+
+def test_kernel_refuses_large_k(cuda, monkeypatch):
+    """Past k = 512 B1 takes its wide-k route; it refuses only where device
+    memory cannot hold the route's state, naming the bytes."""
     k = nnls_cuda.MAX_K + 1
     a = torch.eye(k, device=cuda)
     B = torch.ones((4, k), device=cuda)
-    with pytest.raises(NotImplementedError, match="B1 takes k <= 512"):
+    wide = nnls_cuda.LAUNCHES_WIDE
+    X = nnls_cuda.nnls_batch_cuda(a, B, torch.zeros_like(B))
+    assert nnls_cuda.LAUNCHES_WIDE == wide + 1
+    assert torch.equal(X, nnls.nnls_batch(a, B, torch.zeros_like(B)))
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (0, 1))
+    with pytest.raises(RuntimeError, match="B1.*bytes"):
         nnls_cuda.nnls_batch_cuda(a, B, torch.zeros_like(B))
 
 
-def test_batched_kernel_refuses_large_k(cuda):
+def test_batched_kernel_refuses_large_k(cuda, monkeypatch):
+    """Past k = 512 B2 takes its wide-k route; it refuses only where device
+    memory cannot hold the route's state, naming the bytes."""
     k = nnls_cuda.MAX_K_BATCHED + 1
-    at = torch.ones((k, k, 4), device=cuda)
+    at = torch.eye(k, device=cuda)[:, :, None].repeat(1, 1, 4).contiguous()
     B = torch.ones((4, k), device=cuda)
-    with pytest.raises(NotImplementedError, match="B2"):
+    wide = nnls_cuda.LAUNCHES_BATCHED_WIDE
+    X = nnls_cuda.nnls_batch_cuda_batched_at(at, B, torch.zeros_like(B))
+    assert nnls_cuda.LAUNCHES_BATCHED_WIDE == wide + 1
+    assert torch.equal(X, nnls.nnls_batch(at.permute(2, 1, 0), B,
+                                          torch.zeros_like(B)))
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (0, 1))
+    with pytest.raises(RuntimeError, match="B2.*bytes"):
         nnls_cuda.nnls_batch_cuda_batched_at(at, B, torch.zeros_like(B))
 
 
@@ -367,7 +390,7 @@ def test_solve_packed_t_reads_the_packed_form(cuda, monkeypatch):
                                rtol=5e-3, atol=1e-6)
 
 
-def test_packed_entry_checks_inputs(cuda):
+def test_packed_entry_checks_inputs(cuda, monkeypatch):
     a_full, packed_t, iu, B, X0, _ = _masked_problem_packed(64, 6, 6, cuda)
     with pytest.raises(ValueError, match="shape"):
         nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t[:-1],
@@ -378,10 +401,16 @@ def test_packed_entry_checks_inputs(cuda):
     with pytest.raises(ValueError, match="triu_pairs"):
         nnls_cuda.nnls_batch_cuda_batched_packed_t(
             a_full, packed_t, (iu[1], iu[0]), B, X0)
+    # past k = 512 the wide-k route, which refuses only where device memory
+    # cannot hold its state
+    from singlet_tpu_torch.ops import linalg
+
     k = nnls_cuda.MAX_K_BATCHED + 1
-    with pytest.raises(NotImplementedError, match="B2"):
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (0, 1))
+    with pytest.raises(RuntimeError, match="B2.*bytes"):
         nnls_cuda.nnls_batch_cuda_batched_packed_t(
-            torch.eye(k, device=cuda), torch.ones((k * (k + 1) // 2, 4),
-                                                  device=cuda),
-            None, torch.ones((4, k), device=cuda),
+            torch.eye(k, device=cuda), torch.zeros((k * (k + 1) // 2, 4),
+                                                   device=cuda),
+            linalg.triu_pairs(k), torch.ones((4, k), device=cuda),
             torch.zeros((4, k), device=cuda))

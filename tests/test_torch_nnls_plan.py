@@ -23,7 +23,8 @@ import torch
 
 from singlet_tpu.ops import nnls as jnnls
 from singlet_tpu_torch.ops import nnls as tnnls
-from singlet_tpu_torch.ops.nnls_cuda import MAX_K, MAX_K_SHARED, b1_plan
+from singlet_tpu_torch.ops.nnls_cuda import (MAX_K, MAX_K_SHARED, WidePlan,
+                                             b1_plan)
 
 SMEM = 232448
 GS = (1, 2, 4, 8, 16, 32)
@@ -103,13 +104,13 @@ def test_b1_plan_device_memory_route_past_224(k):
 
 def test_b1_plan_fills_the_card():
     """The bench's and the 524k operand's calls get at least 1024 warps,
-    with the fewest lanes a column that allow it; past k = 512 it raises."""
+    with the fewest lanes a column that allow it; past k = 512 it takes
+    the wide-k route."""
     assert b1_plan(8192, 50).g == 4 and b1_plan(8192, 50).warps >= 1024
     assert b1_plan(16384, 50).g == 4
     assert b1_plan(524288, 100).g == 8 and b1_plan(16384, 100).g == 8
     assert b1_plan(1500, 10).warps >= 1024
-    with pytest.raises(NotImplementedError, match="B1"):
-        b1_plan(10, MAX_K + 1)
+    assert isinstance(b1_plan(10, MAX_K + 1), WidePlan)
 
 
 def _f32(x):

@@ -3,7 +3,8 @@ on the CPU unasked, imports its kernel modules without nvcc, dispatches CPU
 tensors to the plain version only, routes large scipy input, chunk lists
 and staged directories to the blocked-ELL engine, and refuses a ``mesh=``
 that is not a "cells" DeviceMesh; ``checkpoint=`` of the fits and of the
-``ard_nmf`` search saves."""
+``ard_nmf`` search saves; it exports every name of the JAX package's
+``__all__``, and importing it imports neither matplotlib nor h5py."""
 
 import os
 import subprocess
@@ -199,3 +200,41 @@ def test_big_scipy_reaches_the_ell_engine(rng, entry, monkeypatch):
     else:
         assert out.w.shape[0] == 30 and out.h.shape[1] == 20
         assert np.isfinite(out.w).all() and (np.diff(out.d) <= 0).all()
+
+
+def test_exports_the_jax_surface():
+    """Every name of ``singlet_tpu.__all__`` (read from the JAX package's
+    ``__init__.py``, without importing jax) is in the port's ``__all__``
+    and resolves, the plots through the lazy module ``__getattr__``."""
+    import ast
+
+    with open(os.path.join(ROOT, "singlet_tpu", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "__all__"
+                         for t in node.targets))
+    assert [n for n in names if n not in stt.__all__] == []
+    assert len(set(stt.__all__)) == len(stt.__all__)
+    for name in stt.__all__:
+        assert getattr(stt, name) is not None, name
+    assert stt.__version__ == "0.1.0"
+    with pytest.raises(AttributeError):
+        stt.not_a_name
+
+
+def test_import_leaves_matplotlib_and_h5py_out():
+    """A machine with a card may lack matplotlib and h5py: importing the
+    package imports neither (nor jax); a plot name imports matplotlib
+    where it is installed."""
+    import importlib.util
+
+    code = ("import sys, singlet_tpu_torch as stt\n"
+            "bad = [m for m in ('jax', 'matplotlib', 'h5py')\n"
+            "       if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    if importlib.util.find_spec("matplotlib") is not None:
+        code += ("assert callable(stt.rank_plot)\n"
+                 "assert 'matplotlib' in sys.modules\n")
+    out = _python(code)
+    assert out.returncode == 0, out.stderr

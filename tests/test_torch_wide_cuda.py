@@ -1,0 +1,254 @@
+"""The wide routes of kernels B1, B2, B3, B5 and B7 on the card against
+their plain PyTorch versions: ranks above 512 (B1, B2 and B7 hold a
+column's coordinates in registers up to 512) and gene blocks whose tiles
+do not fit in shared memory (B3 past 7,168 genes, B5 past 5,632).
+
+A CUDA kernel has no CPU mode, so every test here needs a card and skips
+without one. On a machine with a card (and without jax, which
+``tests/conftest.py`` imports), run:
+
+    python -m pytest --noconftest tests/test_torch_wide_cuda.py -q
+
+Tolerances are the tuned routes': rtol=5e-3, atol=1e-6 for B1/B2 (the
+sweep-end tol is summed in another order than the plain version's, so a
+borderline column may run one sweep more or fewer), 1e-5 x max |output|
+for B3/B5 (only the order of the sums differs) and rtol 2e-4 for B7's sums
+with equal counts. Where a wide route and a tuned one compute the same
+sums in the same order they must give the same bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from singlet_tpu_torch.ops import bell, bell_cuda, linalg, nnls, nnls_cuda
+from singlet_tpu_torch.ops.maskbits import pack_mask_words
+from singlet_tpu_torch.ops.rngmask import seed_pair
+
+pytestmark = pytest.mark.cuda
+
+OFFSET = 1000
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the wide routes are CUDA kernels "
+                    "with no CPU mode")
+    return torch.device("cuda")
+
+
+def _problem(n, k, seed, device):
+    rng = np.random.default_rng(seed)
+    F = rng.random((2 * k, k)).astype(np.float32)
+    a = (F.T @ F + 1e-15 * np.eye(k)).astype(np.float32)
+    B = (rng.random((n, 2 * k)) @ F).astype(np.float32)
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    return [torch.as_tensor(x, device=device) for x in (a, B, X0, mask)]
+
+
+def _scratch_plan(n, k):
+    """The wide-k route with its state in device scratch: two blocks of 8
+    warps that take the columns in turn."""
+    return nnls_cuda.WidePlan(8, 2, False, 0, 2 * 8 * 8 * k)
+
+
+@pytest.mark.parametrize("n,k,cap", [(300, 513, None), (257, 600, 8.0),
+                                     (64, 1024, 8.0)])
+@pytest.mark.parametrize("l1", ["scalar", "per_coordinate"])
+def test_b1_wide_matches_plain(cuda, n, k, cap, l1):
+    a, B, X0, mask = _problem(n, k, n + k, cuda)
+    L1 = (0.01 if l1 == "scalar" else
+          torch.rand((n, k), generator=torch.Generator(device=cuda)
+                     .manual_seed(k), device=cuda) * 0.02)
+    kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=cap)
+    before = (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_WIDE, nnls.PLAIN_CALLS)
+    Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+    torch.cuda.synchronize()
+    assert (nnls_cuda.LAUNCHES, nnls_cuda.LAUNCHES_WIDE,
+            nnls.PLAIN_CALLS) == (before[0] + 1, before[1] + 1, before[2])
+    Xp = nnls.nnls_batch(a, B, X0, **kw)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+    assert torch.equal(Xk, nnls_cuda.nnls_batch_cuda(a, B, X0, **kw))
+
+
+def test_b1_wide_scratch_route_same_bits(cuda, monkeypatch):
+    """The state in device scratch, two blocks taking 100 columns in turn:
+    the bits of the shared-memory route."""
+    a, B, X0, mask = _problem(100, 600, 5, cuda)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=8.0)
+    want = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    assert torch.equal(nnls_cuda.nnls_batch_cuda(a, B, X0, **kw), want)
+
+
+def _masked_problem_packed(n, k, seed, device):
+    """a_full, the packed corrections of each column's 5% masked rows,
+    iu, B, a warm X0 with zeros and a 90% update mask."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = 2 * k
+    F = torch.rand((rows, k), generator=g, device=device)
+    iu = linalg.triu_pairs(k)
+    m = torch.rand((n, rows), generator=g, device=device) < 0.05
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m, 1)
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device=device)
+    B = torch.where(m, 0.0, torch.rand((n, rows), generator=g,
+                                       device=device)) @ F
+    X0 = (torch.rand((n, k), generator=g, device=device)
+          * (torch.rand((n, k), generator=g, device=device) < 0.5))
+    mask = torch.rand(n, generator=g, device=device) < 0.9
+    return a_full, packed_t, iu, B, X0, mask
+
+
+@pytest.mark.parametrize("n,k", [(200, 513), (130, 600)])
+def test_b2_wide_entries_match_plain(cuda, monkeypatch, n, k):
+    """Both entries on the wide-k route: the same bits (the packed entry
+    forms the tile's entries and 1/diag with the same roundings), within
+    the gate of the plain version, the masked columns X0; the scratch
+    route the same bits."""
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(n, k, k,
+                                                               cuda)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=32.0)
+    before = (nnls_cuda.LAUNCHES_BATCHED, nnls_cuda.LAUNCHES_BATCHED_WIDE)
+    Xp_ = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu,
+                                                     B, X0, **kw)
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    torch.cuda.synchronize()
+    assert (nnls_cuda.LAUNCHES_BATCHED,
+            nnls_cuda.LAUNCHES_BATCHED_WIDE) == (before[0] + 2,
+                                                 before[1] + 2)
+    assert torch.equal(Xp_, Xt)
+    want = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    np.testing.assert_allclose(Xp_.cpu().numpy(), want.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xp_[~mask], X0[~mask])
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    assert torch.equal(nnls_cuda.nnls_batch_cuda_batched_packed_t(
+        a_full, packed_t, iu, B, X0, **kw), Xp_)
+
+
+def _planes(width, cells, gene_block, n_gb, seed, device):
+    """Random blocked-ELL planes (n_gb * width, cells): per (gene block,
+    cell) a random count of distinct local ids in random slot order."""
+    rng = np.random.default_rng(seed)
+    li = np.stack([np.stack([rng.choice(gene_block, width, replace=False)
+                             for _ in range(cells)]) for _ in range(n_gb)])
+    count = rng.integers(0, width + 1, (n_gb, cells, 1))
+    live = np.arange(width)[None, None, :] < count
+    li = np.where(live, li, -1).astype(np.int32)
+    lv = np.where(live, rng.random(li.shape) + 0.1, 0.0)
+    to2d = lambda x: np.ascontiguousarray(                     # noqa: E731
+        x.transpose(0, 2, 1)).reshape(n_gb * width, cells)
+    return (torch.as_tensor(to2d(li), device=device),
+            torch.as_tensor(to2d(lv).astype(np.float32), device=device))
+
+
+def _words(cells, gene_block, n_gb, device):
+    genes = gene_block * n_gb
+    return pack_mask_words(
+        seed_pair(77), torch.arange(OFFSET, OFFSET + cells, device=device),
+        genes_pad=genes, gene_block=gene_block, inv_density=20,
+        cells_true=OFFSET + cells, genes_true=genes)
+
+
+def _close(got, want, rel=1e-5):
+    err = float((got - want).abs().max())
+    assert err <= rel * float(want.abs().max()) + 1e-30, err
+
+
+@pytest.mark.parametrize("gene_block", [7200, 8192])
+@pytest.mark.parametrize("k", [5, 100, 300])
+def test_b3_b5_wide_block_match_plain(cuda, gene_block, k):
+    """B3 (plain and hashed keep) and B5 on gene blocks past their tiles'
+    reach: the wide-block route, within 1e-5 x max |output| of the plain
+    versions, B5 the bits of masked B3 on the same mask."""
+    n_gb, cells, width = 2, 150, 40
+    assert isinstance(bell_cuda.b3_plan(cells, n_gb, gene_block, width, k,
+                                        True), bell_cuda.B3WidePlan)
+    li, lv = _planes(width, cells, gene_block, n_gb, k, cuda)
+    W = torch.rand((gene_block * n_gb, k), device=cuda)
+    words = _words(cells, gene_block, n_gb, cuda)
+    kw = dict(gene_block=gene_block, inv_density=20)
+    seed = seed_pair(77)
+    before = (bell_cuda.LAUNCHES_SPMM_WIDE, bell_cuda.LAUNCHES_SPMM_BITS_WIDE)
+    got = bell_cuda.bell_spmm_cuda(li, lv, W, **kw)
+    _close(got, bell.bell_spmm_plain(li, lv, W, **kw))
+    masked = bell_cuda.bell_spmm_cuda(li, lv, W, seed, OFFSET, **kw)
+    _close(masked, bell.bell_spmm_plain(li, lv, W, seed, OFFSET, **kw))
+    bits = bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                         gene_block=gene_block)
+    assert torch.equal(bits, masked)
+    assert (bell_cuda.LAUNCHES_SPMM_WIDE,
+            bell_cuda.LAUNCHES_SPMM_BITS_WIDE) == (before[0] + 2,
+                                                   before[1] + 1)
+
+
+def test_b3_wide_block_takes_the_tiled_bits(cuda, monkeypatch):
+    """At a gene block the tiles take, the wide-block route forced by the
+    plan gives the tiled kernel's bits: one fmaf chain per output over the
+    gene blocks in order and each one's kept slots in slot order."""
+    li, lv = _planes(24, 300, 512, 3, 1, cuda)
+    W = torch.rand((1536, 100), device=cuda)
+    words = _words(300, 512, 3, cuda)
+    want = (bell_cuda.bell_spmm_cuda(li, lv, W, gene_block=512),
+            bell_cuda.bell_spmm_bits_cuda(li, lv, W, words, gene_block=512))
+    monkeypatch.setattr(bell_cuda, "b3_plan", lambda cells, n_gb, gb, w, k,
+                        bits: bell_cuda.B3WidePlan(256, -(-k // 256), 8,
+                                                   -(-cells // 8)))
+    assert torch.equal(bell_cuda.bell_spmm_cuda(li, lv, W, gene_block=512),
+                       want[0])
+    assert torch.equal(bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                                     gene_block=512),
+                       want[1])
+
+
+@pytest.mark.parametrize("gene_block,n_gb,k", [(256, 3, 513), (512, 2, 600),
+                                               (8192, 2, 100),
+                                               (8192, 2, 600)])
+def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k):
+    """B7 past k = 512 takes the wide route; at a gene block of 8192 the
+    wide route forced by the plan. Sums within rtol 2e-4 of the plain
+    version, counts equal, the same bits twice."""
+    cells = 150
+    li, lv = _planes(40, cells, gene_block, n_gb, k, cuda)
+    words = _words(cells, gene_block, n_gb, cuda)
+    Wd = torch.rand((gene_block * n_gb, k), device=cuda) / k
+    H = torch.rand((cells, k), device=cuda)
+    if k <= bell_cuda.MAX_K_MSE:
+        monkeypatch.setattr(
+            bell_cuda, "b7_plan",
+            lambda cells, n_gb, gene_block, width, k:
+            bell_cuda.b7_wide_plan(cells, gene_block, k))
+    before = bell_cuda.LAUNCHES_MSE_BITS_WIDE
+    got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
+                                       gene_block=gene_block)
+    assert bell_cuda.LAUNCHES_MSE_BITS_WIDE == before + 1
+    want = bell.bell_mse_bits_plain(li, lv, words, Wd, H,
+                                    gene_block=gene_block)
+    assert torch.equal(got[1], want[1])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    assert torch.equal(got, bell_cuda.bell_mse_bits_cuda(
+        li, lv, words, Wd, H, gene_block=gene_block))
+
+
+@pytest.mark.parametrize("k", [3, 100, 512])
+def test_b7_wide_takes_the_tiled_bits(cuda, monkeypatch, k):
+    """At k <= 512 the wide route gives the tiled kernel's bits: the same
+    dot (each lane's fmaf chain, the xor butterfly) and the same order of
+    the squared errors."""
+    li, lv = _planes(24, 300, 256, 3, k, cuda)
+    words = _words(300, 256, 3, cuda)
+    Wd = torch.rand((768, k), device=cuda) / k
+    H = torch.rand((300, k), device=cuda)
+    want = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H, gene_block=256)
+    monkeypatch.setattr(
+        bell_cuda, "b7_plan",
+        lambda cells, n_gb, gene_block, width, k:
+        bell_cuda.b7_wide_plan(cells, gene_block, k))
+    assert torch.equal(bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
+                                                    gene_block=256), want)

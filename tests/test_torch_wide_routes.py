@@ -1,0 +1,204 @@
+"""The host side of the wide routes of kernels B1, B2, B3/B5 and B7, on the
+CPU: ranks above 512 and gene blocks whose tiles do not fit in shared
+memory. (The kernels themselves run on a card: tests/test_torch_wide_cuda.py.)
+
+- ``b1_plan``, ``b2_plan`` and ``b7_plan`` take the wide route at k = 513,
+  600 and 1024 and, at k <= 512, return the plans they returned before the
+  wide routes existed (pinned below from that code);
+- ``b3_plan`` (plain and with the test bits) and ``b7_plan`` return a route
+  at gene blocks of 7,168, 8,192 and 16,384 genes instead of raising, the
+  tiled plans unchanged where they fit;
+- ``nnls_wide_plan`` fits its state in shared memory where a column's
+  2 k floats allow it and takes device scratch past that;
+- the plain versions at k = 600, which the card's wide routes are held
+  against, agree with the JAX package's ``solve_nnls`` (shared and
+  per-column Grams) at the tolerance of tests/test_pallas_nnls.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from singlet_tpu.ops import nnls as jnnls
+from singlet_tpu_torch.ops import nnls
+from singlet_tpu_torch.ops.bell_cuda import (B3Plan, B3WidePlan, B7Plan,
+                                             B7WidePlan, b3_plan, b7_plan,
+                                             b7_wide_plan)
+from singlet_tpu_torch.ops.nnls_cuda import (B1Plan, WidePlan, b1_plan,
+                                             b2_plan, nnls_wide_plan)
+
+SMEM = 232448
+
+# b1_plan(n, k) for k <= 512, as the code before the wide routes gave it
+B1_PINNED = {
+    (1, 1): (32, 1, 1, 1, True, 1, 2432),
+    (100, 10): (32, 1, 1, 100, True, 1, 3584),
+    (1500, 10): (32, 1, 1, 1500, True, 1, 3584),
+    (8192, 50): (4, 13, 8, 1024, True, 20, 44608),
+    (16384, 50): (4, 13, 8, 2048, True, 20, 44608),
+    (2048, 100): (16, 7, 2, 1024, True, 12, 92800),
+    (524288, 100): (8, 13, 4, 131072, True, 20, 92928),
+    (300, 200): (32, 7, 1, 300, True, 7, 195328),
+    (1000, 224): (32, 7, 1, 1000, True, 7, 216832),
+    (1000, 225): (32, 8, 1, 1000, False, 256, 17408),
+    (2048, 300): (32, 10, 1, 2048, False, 320, 21760),
+    (10, 512): (32, 16, 1, 10, False, 512, 34816),
+}
+# b7_plan(cells, 32, gene_block, width, k) likewise
+B7_PINNED = {
+    (524288, 512, 32, 100): (4, 4, 16, 64, 8192, 128, 4, 16, 198176),
+    (8192, 512, 32, 100): (4, 4, 16, 64, 128, 128, 4, 16, 198176),
+    (8192, 512, 72, 50): (2, 4, 16, 64, 128, 128, 4, 16, 174240),
+    (2049, 1720, 72, 512): (16, 2, 15, 30, 69, 32, 54, 56, 186976),
+    (45, 64, 6, 300): (12, 1, 16, 16, 3, 64, 1, 8, 212608),
+    (4096, 8192, 416, 100): (4, 1, 9, 9, 456, 128, 64, 256, 230496),
+    (4096, 16384, 832, 100): (4, 1, 4, 4, 1024, 128, 128, 512, 220448),
+}
+# b3_plan(cells, 32, gene_block, width, k, bits) likewise
+B3_PINNED = {
+    (524288, 512, 32, 100, False): (28, 4, 2, 128, 4096, 32, 2, 196904),
+    (8192, 512, 32, 100, True): (28, 4, 2, 128, 64, 32, 2, 205096),
+    (8192, 1720, 72, 512, True): (8, 64, 1, 64, 128, 72, 2, 220968),
+    (2048, 2048, 1000, 5, False): (4, 2, 1, 64, 32, 130, 2, 232232),
+    (4096, 5632, 100, 100, True): (4, 25, 1, 64, 64, 4, 1, 231720),
+    (4096, 7168, 100, 100, False): (4, 25, 1, 64, 64, 1, 1, 231208),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread in this module: the suite runs one worker
+    process per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("n,k", sorted(B1_PINNED))
+def test_b1_plan_unchanged_to_512(n, k):
+    plan = b1_plan.__wrapped__(n, k)
+    assert isinstance(plan, B1Plan) and tuple(plan) == B1_PINNED[n, k]
+
+
+@pytest.mark.parametrize("k", [513, 600, 1024])
+@pytest.mark.parametrize("n", [1, 130, 2048, 524288])
+def test_b1_b2_plans_take_the_wide_route(n, k):
+    plan = nnls_wide_plan(n, k)
+    assert b1_plan(n, k) == plan and b2_plan(n, k) == plan
+    assert isinstance(plan, WidePlan) and plan.shared
+    assert plan.warps == 8 and plan.smem == 8 * 8 * k <= SMEM
+    assert plan.blocks * plan.warps >= n and plan.scratch == 0
+
+
+def test_b2_plan_leaves_the_kernel_its_modes_to_512():
+    assert all(b2_plan(n, k) is None for n in (1, 512, 4096)
+               for k in (1, 50, 100, 224, 300, 511, 512))
+
+
+@pytest.mark.parametrize("k", [3000, 14528, 29056, 29057, 50000])
+def test_wide_plan_state_in_shared_memory_or_scratch(k):
+    """As many columns a block as their 8 k bytes fit, down to one; past
+    one column's fit, 8 a block in device scratch, at most 264 blocks."""
+    plan = nnls_wide_plan(10000, k)
+    if 8 * k <= SMEM:
+        assert plan.shared and plan.warps == min(8, SMEM // (8 * k))
+        assert plan.smem == plan.warps * 8 * k <= SMEM
+        assert plan.blocks == -(-10000 // plan.warps)
+    else:
+        assert not plan.shared and plan.smem == 0 and plan.warps == 8
+        assert plan.blocks == 264
+        assert plan.scratch == 264 * 8 * 8 * k
+
+
+@pytest.mark.parametrize("key", sorted(B7_PINNED))
+def test_b7_plan_unchanged_where_tiles_fit(key):
+    cells, gene_block, width, k = key
+    plan = b7_plan.__wrapped__(cells, 32, gene_block, width, k)
+    assert isinstance(plan, B7Plan) and tuple(plan) == B7_PINNED[key]
+
+
+@pytest.mark.parametrize("k", [513, 600, 1024])
+def test_b7_plan_takes_the_wide_route_past_512(k):
+    plan = b7_plan(8192, 32, 512, 32, k)
+    assert isinstance(plan, B7WidePlan)
+    assert plan == b7_wide_plan(8192, 512, k)
+    assert plan.npl == -(-k // 32) and plan.cells == 8
+    assert plan.n_ct == 1024 and plan.rows == 512 and plan.n_sb == 1
+
+
+@pytest.mark.parametrize("gene_block", [7168, 8192, 16384])
+@pytest.mark.parametrize("width", [72, 416, 8000])
+def test_b7_plan_routes_wide_gene_blocks(gene_block, width):
+    """A route for every gene block: the tiled plan where its tile fits,
+    else the wide route walking the block in sub-blocks of 512 genes."""
+    plan = b7_plan(4096, 2, gene_block, width, 100)
+    assert plan.smem <= SMEM
+    assert plan.n_sb * plan.rows >= gene_block
+    if isinstance(plan, B7WidePlan):
+        assert plan == b7_wide_plan(4096, gene_block, 100)
+    else:
+        assert isinstance(plan, B7Plan) and 32 * plan.bm_pitch >= gene_block
+    if width == 8000:   # the slot rows alone pass shared memory
+        assert isinstance(plan, B7WidePlan)
+
+
+@pytest.mark.parametrize("key", sorted(B3_PINNED))
+def test_b3_plan_unchanged_where_tiles_fit(key):
+    cells, gene_block, width, k, bits = key
+    plan = b3_plan.__wrapped__(cells, 32, gene_block, width, k, bits)
+    assert isinstance(plan, B3Plan) and tuple(plan) == B3_PINNED[key]
+
+
+@pytest.mark.parametrize("gene_block", [7168, 8192, 16384])
+@pytest.mark.parametrize("bits", [False, True])
+@pytest.mark.parametrize("k", [5, 100, 600])
+def test_b3_plan_routes_wide_gene_blocks(gene_block, bits, k):
+    """Where two slices of W do not fit (B3 past 7,168 genes, B5 past
+    5,632), the wide-block route: a block of 8 cells, column chunks of
+    256."""
+    plan = b3_plan(4096, 2, gene_block, 416, k, bits)
+    if gene_block == 7168 and not bits:
+        assert isinstance(plan, B3Plan) and plan.smem <= SMEM
+    else:
+        assert plan == B3WidePlan(256, -(-k // 256), 8, 512)
+
+
+def _problem(n, k, seed):
+    rng = np.random.default_rng(seed)
+    F = rng.random((2 * k, k)).astype(np.float32)
+    a = (F.T @ F + 1e-15 * np.eye(k)).astype(np.float32)
+    B = (rng.random((n, 2 * k)) @ F).astype(np.float32)
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) < 0.8
+    return a, B, X0, mask
+
+
+def test_plain_b1_at_600_matches_jax():
+    a, B, X0, mask = _problem(6, 600, 1)
+    kw = dict(L1=0.01, L2=0.001, max_sweeps=3)
+    got = nnls.solve_nnls(torch.as_tensor(a), torch.as_tensor(B),
+                          torch.as_tensor(X0),
+                          update_mask=torch.as_tensor(mask), **kw)
+    want = jnnls.solve_nnls(jnp.asarray(a), jnp.asarray(B), jnp.asarray(X0),
+                            update_mask=jnp.asarray(mask), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[~mask], X0[~mask])
+
+
+def test_plain_b2_at_600_matches_jax():
+    """Per-column Grams: a shared Gram minus a column's own correction."""
+    a, B, X0, mask = _problem(4, 600, 2)
+    rng = np.random.default_rng(3)
+    corr = rng.random((4, 40, 600)).astype(np.float32) * 0.1
+    at = (a[None] - np.einsum("nri,nrj->nij", corr, corr)).astype(np.float32)
+    kw = dict(L1=0.01, L2=0.0, max_sweeps=3)
+    got = nnls.solve_nnls(torch.as_tensor(at), torch.as_tensor(B),
+                          torch.as_tensor(X0),
+                          update_mask=torch.as_tensor(mask), **kw)
+    want = jnnls.solve_nnls(jnp.asarray(at), jnp.asarray(B), jnp.asarray(X0),
+                            update_mask=jnp.asarray(mask), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=1e-6)
