@@ -14,14 +14,19 @@ Phases; any failure raises and the script exits non-zero:
 2. kernel B1 (``ops/nnls_cuda.py``) against its plain PyTorch version on the
    card, at the half-update shapes of the bench config and at edge shapes,
    with both sweep caps the fit uses, and with a per-coordinate (n, k) L1
-   at the fast cap; times both with CUDA events;
+   at the fast cap; times both with CUDA events; then on Grams with a
+   zero diagonal (a factor zero on every row) on both of its routes: the
+   plain version's NaN columns, the rest within the gate;
 3. kernel B2 likewise, on the solve inputs of real masked half-updates
    of the bench operand (h-side and w-side blocks at k=50 and 100, the
    large config's call shapes 2048 x 100 and 16384 x 100, an edge shape),
    at the masked fast cap 32 and at 100: its packed entry (a_full and the
    packed corrections, the fits' route) the same bits as its tile entry
    on the unpacked Grams; times of both entries, of the unpack alone and
-   of the plain version;
+   of the plain version; both entries with a per-coordinate (n, k) L1 at
+   three of those shapes, and on masked Grams with a zero diagonal (a
+   factor held out on every one of its rows) in three layouts, against
+   the plain version (its NaN columns);
 4. ``run_nmf`` on the card against ``run_nmf`` on the CPU at a small size;
 5. the masked fit ``ard_nmf_fit`` on the card against the CPU at the same
    small size;
@@ -87,10 +92,15 @@ Phases; any failure raises and the script exits non-zero:
 10c. gene blocks past the tiles of B3 and B5: 16,384 genes in two gene
    blocks of 8,192 at 4,096 cells (824 requested nonzeros a cell): B3
    (plain and masked) and B5 on their wide-block route, and B7, against
-   their plain versions, B5 the bits of masked B3; the engine's plain
-   fit and f32-route masked fit on these planes against the dense
-   providers within the fit tolerance, and its bits-route fit against
-   the f32 route's test MSE within rtol 1e-3;
+   their plain versions, B5 the bits of masked B3; B3 and B5 at k = 50
+   and 100 in 5 rounds of turns with the one-warp-per-cell kernel the
+   route replaced (``csrc/bell_spmm_wide_warp.cu``, the same bits) and
+   torch.sparse.mm (new, old, library, library, old, new; a sample the
+   mean of 5 calls back to back); the route
+   forced by the plan at a gene block of 512 the tiled kernel's bits;
+   the engine's plain fit and f32-route masked fit on these planes
+   against the dense providers within the fit tolerance, and its
+   bits-route fit against the f32 route's test MSE within rtol 1e-3;
 11. the large operand of benchmarks/largescale.py generated on the card
    (524,288 cells x 16,384 genes, 824 nonzeros per cell, k=100): the plain
    ELL fit for 10 iterations at tol=0 (ms per iteration, cells/s, B1, B3
@@ -166,6 +176,11 @@ Phases; any failure raises and the script exits non-zero:
    from the concatenated matrix's engine, B1, B3 and B4 alone; and
    ``cross_validate_nmf`` on the v1 directory at one rank for 2 iterations
    on the default bits route (B2, B5-B9); the directory removed at the end;
+   then (15b) the v2 directory ingested at gene block 8,192, where B3 and
+   B5 take their wide-block route, beside the monolithic engine at 512:
+   per gene block 3 plain iterations from W0 (ms each, B3 by CUDA events
+   inside them) and one bits-route masked step (B5 by CUDA events inside
+   it), the two plain fits within the fit tolerance of each other;
 16. the remaining solvers: each entry point on the card against the same
    call on the CPU at a small size (``run_linked_nmf``, ``project_model``,
    ``nmf_batch`` dense and ``batch_fit``, ``gcnmf`` dense and
@@ -250,6 +265,13 @@ B1_L1_CAP = 8
 B2_SHAPES = [(2048, 50, "h"), (4096, 50, "w"), (4096, 100, "w"),
              (2048, 100, "h"), (16384, 100, "w"), (1500, 10, "h")]
 B2_SWEEP_CAPS = [32, 100]
+# kernel B2 with a per-coordinate (n, k) L1 (batch mode) at these shapes of
+# B2_SHAPES, at the masked fast cap
+B2_L1_SHAPES = [(4096, 50, "w"), (2048, 100, "h"), (1500, 10, "h")]
+# a zero Gram diagonal (n, k, coordinate): B1 on its shared-memory and
+# device-memory routes, B2 on its shared-memory and streamed layouts
+ZERO_DIAG_B1 = [(16384, 50, 17), (4096, 100, 0), (2048, 300, 299)]
+ZERO_DIAG_B2 = [(4096, 50, 17), (2048, 100, 99), (512, 300, 0)]
 # (n, k, cap) whose times the kernels line reports: the w-side
 # half-update of the bench config in the fast phase, for each kernel
 B1_REPORTED = (16384, 50, 8)
@@ -261,7 +283,7 @@ MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "bell_mse_bits",
-           "maskgram_m8", "maskgram_gemm")
+           "maskgram_m8", "maskgram_gemm", "bell_spmm_wide_warp")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -317,7 +339,12 @@ WIDE600_ELL = dict(genes=1800, cells=1800, maxit=1, cell_block=256,
 # not fit on the card)
 WIDE_BLOCK = dict(genes=16384, cells=4096, nnz=824, gene_block=8192,
                   cell_block=2048, k=50, maxit=3, masked_maxit=2,
-                  plain_cells=256)
+                  plain_cells=256, turn_ks=(50, 100), rounds=5,
+                  tiled_block=512)
+# phase 15's operand on the engine at the wide-block route's gene block and
+# at the default 512 (B3/B5's tiles), k=100: plain iterations and one
+# bits-route masked step each
+WIDE_STREAM = dict(gene_blocks=(8192, 512), maxit=3)
 # the last phase, the pipeline on a 10x directory at the large config's
 # width: 16,384 genes x 8,192 cells, 824 requested nonzeros a cell
 PIPELINE = dict(genes=16384, cells=8192, nnz=824, seed=19, k=10,
@@ -402,17 +429,21 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _median_ms(torch, fn, runs: int) -> float:
-    """Median over ``runs`` of one call's device time (CUDA events)."""
+def _median_ms(torch, fn, runs: int, reps: int = 1) -> float:
+    """Median over ``runs`` of one call's device time (CUDA events): with
+    ``reps`` > 1 a sample is the mean of that many calls launched back to
+    back, so that a call's host work overlaps the one before on the card,
+    as in a fit."""
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -542,7 +573,86 @@ def phase_kernel(torch, card):
                   f"{' (n, k) L1' if l1_array else ''}: max|err|={err:.3e} "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms "
                   f"({card})", flush=True)
+    # a zero Gram diagonal: the plain version's NaN columns
+    for n, k, z in ZERO_DIAG_B1:
+        a, B, X0, mask = _zero_diag_shared(torch, n, k, z, seed=n + z)
+        kw = dict(L1=0.01, L2=0.001, update_mask=mask,
+                  sweep_cap=float(B1_L1_CAP))
+        _nan_gate(torch, f"B1 n={n} k={k} zero diagonal at {z}",
+                  nnls_batch_cuda(a, B, X0, **kw),
+                  nnls.nnls_batch(a, B, X0, **kw), mask, X0, card)
     return rows
+
+
+def _zero_diag_shared(torch, n, k, z, seed):
+    """``_nnls_problem``'s geometry with factor z zero on every row: the
+    Gram's row, column and diagonal z exactly 0 and B's column z exactly
+    0 (those columns turn NaN in the plain version), but b_z < 0 for a
+    third of the columns (x_z clamps to 0, finite)."""
+    rng = np.random.default_rng(seed)
+    m = max(64, 2 * k)
+    F = rng.random((m, k)).astype(np.float32)
+    F[:, z] = 0.0
+    eye = np.eye(k, dtype=np.float32)
+    eye[z, z] = 0.0
+    a = (F.T @ F + 1e-15 * eye).astype(np.float32)
+    B = (rng.random((n, m), dtype=np.float32) @ F).astype(np.float32)
+    B[::3, z] = -0.5
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) >= 0.05
+    return [torch.as_tensor(x, device="cuda") for x in (a, B, X0, mask)]
+
+
+def _zero_diag_packed(torch, n, k, z, seed):
+    """A masked half-update's solve inputs (a_full, packed_t, iu, B, X0,
+    mask) where factor z is nonzero on one row alone, held out for the
+    even columns: their Grams have row, column and diagonal z exactly 0
+    and their b_z is exactly 0 (NaN in the plain version); the odd columns
+    keep the row and stay finite."""
+    from singlet_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(seed)
+    m = max(64, 2 * k)
+    F = rng.random((m, k)).astype(np.float32)
+    F[:, z] = 0.0
+    F[3, z] = 0.75
+    held = rng.random((n, m)) < 0.05
+    held[:, 3] = np.arange(n) % 2 == 0
+    Ft = torch.as_tensor(F, device="cuda")
+    ht = torch.as_tensor(held, device="cuda")
+    iu = linalg.triu_pairs(k)
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(Ft, iu), ht,
+                                 1).contiguous()
+    a_full = Ft.T @ Ft + 1e-15 * torch.eye(k, device="cuda")
+    a_full[z, z] = float(np.float32(0.75) * np.float32(0.75))
+    kept = torch.as_tensor(np.where(held, 0.0, rng.random((n, m))),
+                           dtype=torch.float32, device="cuda")
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) >= 0.05
+    return (a_full.contiguous(), packed_t, iu, (kept @ Ft).contiguous(),
+            torch.as_tensor(X0, device="cuda"),
+            torch.as_tensor(mask, device="cuda"))
+
+
+def _nan_gate(torch, label, got, want, mask, X0, card):
+    """A kernel's result on a zero-diagonal problem: the plain version's NaN
+    positions and, elsewhere, its values within KERNEL_RTOL/KERNEL_ATOL;
+    held columns X0 bit for bit. Prints and returns the NaN columns'
+    count."""
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                               equal_nan=True, err_msg=label)
+    if not torch.equal(got[~mask], X0[~mask]):
+        raise AssertionError(f"{label}: held columns differ from X0")
+    nan_cols = int(torch.isnan(want).any(dim=1).sum())
+    if not 0 < nan_cols < want.shape[0]:
+        raise AssertionError(f"{label}: {nan_cols} NaN columns of "
+                             f"{want.shape[0]}")
+    print(f"kernel {label}: the plain version's {nan_cols} NaN columns, the "
+          f"rest within rtol={KERNEL_RTOL} atol={KERNEL_ATOL} ({card})",
+          flush=True)
+    return nan_cols
 
 
 def _masked_solve_inputs(torch, P, X, n, seed):
@@ -567,6 +677,15 @@ def _masked_solve_inputs(torch, P, X, n, seed):
         torch.as_tensor(X0, device=dev), torch.as_tensor(mask, device=dev)
 
 
+def _nan_to_zero(x):
+    """x with its NaNs (and only those) as 0: with equal NaN masks, two
+    results are the same bits where they are numbers."""
+    import torch
+
+    return torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                            neginf=float("-inf"))
+
+
 def _b2_check(torch, label, a_full, packed_t, iu, B, X0, kw, plain=True):
     """Kernel B2 on one problem: the packed entry (the masked
     half-updates' route) the same bits as the tile entry on the unpacked
@@ -582,7 +701,8 @@ def _b2_check(torch, label, a_full, packed_t, iu, B, X0, kw, plain=True):
     Xk = nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, **kw)
     Xt = nnls_batch_cuda_batched_at(at, B, X0, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(Xk, Xt):
+    if not (torch.equal(torch.isnan(Xk), torch.isnan(Xt))
+            and torch.equal(_nan_to_zero(Xk), _nan_to_zero(Xt))):
         raise AssertionError(f"B2 {label}: the packed entry differs from "
                              "the tile entry")
     if not torch.equal(Xk[~mask], X0[~mask]):
@@ -651,6 +771,37 @@ def phase_kernel_b2(torch, card, Ap, Atp, W0):
                   f"bound {rows[-1]['bound_ms']:.4f} ms ({card})",
                   flush=True)
             del at
+        if (n, k, side) in B2_L1_SHAPES:
+            # a per-coordinate (n, k) L1 (batch mode) on both entries
+            L1 = 0.005 + 0.01 * torch.rand(
+                (n, k), generator=torch.Generator(device="cuda")
+                .manual_seed(k), device="cuda")
+            kw = dict(L1=L1, L2=0.001, update_mask=mask,
+                      sweep_cap=float(B2_SWEEP_CAPS[0]))
+            at, Xk, (Xp, _) = _b2_check(
+                torch, f"n={n} k={k} (n, k) L1", a_full, packed_t, iu, B, X0,
+                kw)
+            err = float((Xk - Xp).abs().max())
+            ms = _median_ms(torch, lambda: nnls_batch_cuda_batched_packed_t(
+                a_full, packed_t, iu, B, X0, **kw), runs=10)
+            rows.append(dict(n=n, k=k, side=side, sweep_cap=kw["sweep_cap"],
+                             l1_array=True, max_abs_err=err, ms=ms))
+            print(f"kernel B2 n={n} k={k} cap={kw['sweep_cap']:g} (n, k) "
+                  f"L1: max|err|={err:.3e}, packed entry {ms:.4f} ms, the "
+                  f"tile entry's bits ({card})", flush=True)
+            del at
+    # a zero Gram diagonal: the plain version's NaN columns, both entries
+    for n, k, z in ZERO_DIAG_B2:
+        a_full, packed_t, iu, B, X0, mask = _zero_diag_packed(torch, n, k, z,
+                                                              seed=n + z)
+        kw = dict(L1=0.01, L2=0.001, update_mask=mask,
+                  sweep_cap=float(B2_SWEEP_CAPS[0]))
+        at, Xk, _ = _b2_check(torch, f"n={n} k={k} zero diagonal", a_full,
+                              packed_t, iu, B, X0, kw, plain=False)
+        _nan_gate(torch, f"B2 n={n} k={k} zero diagonal at {z}", Xk,
+                  nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw), mask,
+                  X0, card)
+        del at
     return rows
 
 
@@ -2323,6 +2474,130 @@ def _by_cells(torch, fn, cells: int, step: int, dim: int = 0):
                       for c0 in range(0, cells, step)], dim=dim)
 
 
+def _wide_block_turns(torch, card, li, lv, words, csr, nnz):
+    """B3 (unmasked) and B5 on the wide-block route in turns with the
+    one-warp-per-cell kernel it replaced (``ab_bell_spmm.wide_warp``, the
+    same bits) and with torch.sparse.mm on the CSR copy, at each k of
+    WIDE_BLOCK's ``turn_ks``: per round new, old, library, library, old,
+    new, each turn the median of 10 samples by CUDA events, a sample the
+    mean of 5 calls back to back (each side's host work off the card's
+    clock, as in a fit); the medians, the spread (every turn) and the
+    bound."""
+    from singlet_tpu_torch.ab_bell_spmm import wide_warp
+    from singlet_tpu_torch.ops import bell_cuda
+
+    P = WIDE_BLOCK
+    G, genes, cells = P["gene_block"], P["genes"], P["cells"]
+    old = wide_warp(torch)
+    rows = []
+    for k in P["turn_ks"]:
+        W = torch.rand((genes, k), generator=torch.Generator(
+            device="cuda").manual_seed(G + k), device="cuda")
+        for key, masked in (("B3", False), ("B5", True)):
+            if masked:
+                def new():
+                    return bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                                         gene_block=G)
+                args = (2, 0, 0, 1, words)
+            else:
+                def new():
+                    return bell_cuda.bell_spmm_cuda(li, lv, W, gene_block=G)
+                args = (0, 0, 0, 1, None)
+            mat = csr[masked][0]
+            calls = {"new": new,
+                     "old": lambda a=args: old(li, lv, W, *a, G),
+                     "library": lambda m=mat: torch.sparse.mm(m, W)}
+            got = new()
+            if not torch.equal(got, calls["old"]()):
+                raise AssertionError(f"{key} at gene block {G}, k={k}: the "
+                                     "wide-block route differs from the "
+                                     "one-warp-per-cell kernel")
+            lib_err = float((calls["library"]() - got).abs().max())
+            if not lib_err <= BELL_TOL * float(got.abs().max()):
+                raise AssertionError(f"{key} k={k}: torch.sparse.mm "
+                                     f"differs by {lib_err}")
+            turns = {name: [] for name in calls}
+            for _ in range(P["rounds"]):
+                for name in ("new", "old", "library", "library", "old",
+                             "new"):
+                    turns[name].append(_median_ms(torch, calls[name],
+                                                  runs=10, reps=5))
+            med = {name: statistics.median(ts) for name, ts in turns.items()}
+            kept = csr[masked][2]
+            row = dict(kernel=key, k=k, cells=cells, gene_block=G,
+                       plan=bell_cuda.b3_plan(cells, genes // G, G,
+                                              li.shape[0] * G // genes, k,
+                                              masked)._asdict(),
+                       turns_ms=turns, median_ms=med,
+                       new_over_old=med["new"] / med["old"],
+                       new_over_library=med["new"] / med["library"],
+                       **_bound(2 * li.numel() * 4 + (genes + cells) * k * 4
+                                + (words.numel() * 4 if masked else 0),
+                                2 * kept * k, F32_OPS_S))
+            row["bound_share"] = row["bound_ms"] / med["new"]
+            rows.append(row)
+            print(f"kernel {key} at gene block {G} k={k} ({cells} cells, "
+                  f"{kept} kept of {nnz} nonzeros), {P['rounds']} rounds of "
+                  f"turns: new {med['new']:.4f} ms "
+                  f"({min(turns['new']):.4f}-{max(turns['new']):.4f}), "
+                  f"one-warp-per-cell {med['old']:.4f} ms "
+                  f"({min(turns['old']):.4f}-{max(turns['old']):.4f}), "
+                  f"torch.sparse.mm {med['library']:.4f} ms "
+                  f"({min(turns['library']):.4f}-"
+                  f"{max(turns['library']):.4f}); new/old "
+                  f"{row['new_over_old']:.3f}, new/library "
+                  f"{row['new_over_library']:.3f}, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{100 * row['bound_share']:.1f}% of it; the same bits "
+                  f"({card})", flush=True)
+        del W
+    return rows
+
+
+def _wide_block_forced(torch, card):
+    """At a gene block the tiles take (WIDE_BLOCK's ``tiled_block``), the
+    wide-block route forced by the plan gives the tiled kernel's bits, B3
+    and B5, at each k of ``turn_ks``."""
+    from singlet_tpu_torch.ops import bell_cuda
+
+    P = WIDE_BLOCK
+    G, genes, cells = P["tiled_block"], P["genes"], P["cells"]
+    li, lv, _ = synth_bell_planes_torch(genes, cells, P["nnz"], G)
+    words = _slice_words(torch, 0, cells, genes, G)
+    out = {}
+    for k in P["turn_ks"]:
+        W = torch.rand((genes, k), generator=torch.Generator(
+            device="cuda").manual_seed(k), device="cuda")
+
+        def both():
+            return (bell_cuda.bell_spmm_cuda(li, lv, W, gene_block=G),
+                    bell_cuda.bell_spmm_bits_cuda(li, lv, W, words,
+                                                  gene_block=G))
+
+        tiled, (_, _, n_t) = both(), _counted(torch, both)
+        saved = bell_cuda.b3_plan
+        bell_cuda.b3_plan = lambda c, n_gb, gb, w, kk, bits: \
+            bell_cuda.b3_wide_plan(c, kk)
+        try:
+            wide, _, n_w = _counted(torch, both)
+        finally:
+            bell_cuda.b3_plan = saved
+        if n_t != _launches(B3=1, B5=1) or \
+                n_w != _launches(B3=1, B3w=1, B5=1, B5w=1):
+            raise AssertionError(f"forced wide plan k={k}: launches "
+                                 f"{n_t}, {n_w}")
+        for name, t, w in zip(("B3", "B5"), tiled, wide):
+            if not torch.equal(t, w):
+                raise AssertionError(f"{name} k={k} at gene block {G}: the "
+                                     "forced wide-block route differs from "
+                                     "the tiles")
+        out[k] = True
+        print(f"kernels B3 and B5 at gene block {G} ({cells} cells) k={k}: "
+              f"the wide-block route forced by the plan gives the tiled "
+              f"kernel's bits ({card})", flush=True)
+    return out
+
+
 def phase_wide_block(torch, card):
     """Gene blocks past the tiles of B3 (7,168 genes) and B5 (5,632): the
     large config's 16,384 genes and 824 nonzeros a cell at 4,096 cells, in
@@ -2445,7 +2720,10 @@ def phase_wide_block(torch, card):
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (by slices "
               f"of {step} cells for B3/B5){lib}, bound "
               f"{r['bound_ms']:.4f} ms ({card})", flush=True)
-    del W, H, Wd, csr
+    del W, H, Wd
+    out["turns"] = _wide_block_turns(torch, card, li, lv, words, csr, nnz)
+    del csr
+    out["forced_wide"] = _wide_block_forced(torch, card)
 
     # the engine on these planes against the dense providers
     data = ShardedEllData(
@@ -3462,6 +3740,91 @@ def phase_stream(torch, card, stage_root):
         m_dir
 
 
+def phase_wide_block_stream(torch, card, staged_dir, eng512, W0):
+    """Phase 15's operand (131,072 x 16,384, k = 100) on the ELL engine
+    ingested from its staged directory at gene block 8,192 (B3 and B5 on
+    the wide-block route) and, for comparison, phase 15's monolithic
+    engine at 512 (their tiles): per gene block 3 plain iterations from
+    W0 (ms each, B3 by CUDA events inside them) and one bits-route masked
+    step from their factors (B5 by CUDA events inside it); the two plain
+    fits within FIT_RTOL/FIT_ATOL of each other."""
+    from singlet_tpu_torch.ops import bell_cuda
+    from singlet_tpu_torch.ops.nnls import SweepSettings
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+    from singlet_tpu_torch.parallel import sharded_ell as tell
+
+    S, M = STREAM, WIDE_STREAM["maxit"]
+    k = S["k"]
+    seed = seed_pair(MASKED["mask_seed"])
+    fast = float(SweepSettings.from_env().fast_masked)
+    out, fits = {}, {}
+    for G in WIDE_STREAM["gene_blocks"]:
+        if G == eng512.data.gene_block:
+            eng, ingest_s = eng512, None
+        else:
+            data, ingest_s = _synced(torch, lambda: tell.shard_ell_from_staged(
+                staged_dir, "cuda", gene_block=G))
+            eng = tell.ShardedEllEngine(None, data=data)
+        data = eng.data
+        cells, blocks = data.cells_pad, data.cells_pad // data.cell_block
+        wide = {bits: isinstance(bell_cuda.b3_plan(
+            cells, data.n_gb, G, data.b_width, k, bits), bell_cuda.B3WidePlan)
+            for bits in (False, True)}
+        with _event_timed(torch, (("bell_spmm_cuda", "B3"),)) as ev3:
+            res, secs, n_fit = _counted(torch, lambda: eng.fit(
+                k, w_init=W0, tol=0.0, maxit=M))
+        _check_launches(f"gene block {G} plain fit", n_fit, _launches(
+            B1=2 * M, B3=M, B3w=M * wide[False], B4=M))
+        _check_fit(res["w"], res["d"], res["h"], (S["genes"], k),
+                   (k, S["cells"]))
+        fits[G] = res
+        fns = tell._build_local_fns(data, MASKED["inv_density"])
+        bits = fns["prepare_bits"](seed)
+        W = torch.as_tensor(res["w"], device="cuda")
+        H = torch.zeros((cells, k), device="cuda")
+        H[:S["cells"]] = torch.as_tensor(res["h"].T.copy(), device="cuda")
+
+        def step():
+            return fns["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
+                                 sweep_cap=fast, bits=bits)
+
+        step()   # its lazily built buffers
+        with _event_timed(torch, (("bell_spmm_bits_cuda", "B5"),)) as ev5:
+            _, step_s, n_step = _counted(torch, step)
+        _check_launches(f"gene block {G} bits step", n_step, _launches(
+            B2=blocks + 1, B5=blocks, B5w=blocks * wide[True], B6=blocks,
+            B8=blocks, B9=-(-blocks // 16)))
+        del bits, fns
+        out[G] = dict(width=data.b_width, n_gb=data.n_gb, ingest_s=ingest_s,
+                      wide_b3=wide[False], wide_b5=wide[True],
+                      plain_ms_per_iter=secs * 1e3 / M, launches=n_fit,
+                      b3_ms=ev3["B3"][0] / ev3["B3"][1],
+                      b3_calls=ev3["B3"][1], step_ms=step_s * 1e3,
+                      step_launches=n_step,
+                      b5_ms=ev5["B5"][0] / ev5["B5"][1],
+                      b5_calls=ev5["B5"][1])
+        o = out[G]
+        print(f"stream operand at gene block {G} (width {o['width']}, "
+              f"{o['n_gb']} gene blocks, B3/B5 "
+              f"{'wide-block route' if wide[False] else 'tiles'}"
+              f"{'' if ingest_s is None else f', staged ingest {ingest_s:.3f} s'}"
+              f"): {M} plain iterations {o['plain_ms_per_iter']:.2f} ms "
+              f"each, B3 {o['b3_ms']:.3f} ms a call by CUDA events; one "
+              f"bits-route masked step (sweep cap {fast:g}) "
+              f"{o['step_ms']:.1f} ms, B5 {o['b5_ms']:.4f} ms a call "
+              f"({o['b5_calls']} calls) ({card})", flush=True)
+        if eng is not eng512:
+            del eng, data
+    a, b = (fits[G] for G in WIDE_STREAM["gene_blocks"])
+    for f in ("w", "h", "d"):
+        np.testing.assert_allclose(a[f], b[f], rtol=FIT_RTOL, atol=FIT_ATOL,
+                                   err_msg=f"gene blocks {f}")
+    print(f"stream operand: the plain fits at gene blocks "
+          f"{WIDE_STREAM['gene_blocks']} from one W0 within rtol={FIT_RTOL} "
+          f"atol={FIT_ATOL} ({card})", flush=True)
+    return out
+
+
 def _logged(torch, fn):
     """``_counted`` with the metric log on: (result, wall seconds, launch
     counts, the median of the fit's logged iteration times in ms, host
@@ -4143,6 +4506,8 @@ def _phases(torch, card, results, ckdir):
     try:
         results["stream"], eng, W0, m_dir = phase_stream(torch, card,
                                                          stage_root)
+        results["wide_block_stream"] = phase_wide_block_stream(
+            torch, card, os.path.join(stage_root, "v2"), eng, W0)
         results["solvers"], G = phase_solvers(torch, card, eng, W0)
         results["mesh"] = phase_mesh(torch, card, stage_root, eng, W0, G,
                                      m_dir)
@@ -4194,7 +4559,8 @@ def main(argv=None) -> int:
                   if (r["n"], r["k"], r["sweep_cap"]) == B1_REPORTED
                   and not r["l1_array"])
     b2_row = next(r for r in results["kernel_b2"]
-                  if (r["n"], r["k"], r["sweep_cap"]) == B2_REPORTED)
+                  if (r["n"], r["k"], r["sweep_cap"]) == B2_REPORTED
+                  and not r.get("l1_array"))
     bell_row = {r["kernel"]: r for r in results["bell_kernels"]
                 if r["shape"] == "large slice" and not r["masked"]}
     bell_row.update({r["kernel"]: r for r in results["bits_kernels"]
@@ -4254,6 +4620,9 @@ def main(argv=None) -> int:
                  k600["ell_ard"]["launches_dense"],
                  wblock["plain"]["launches"], wblock["f32"]["launches"],
                  wblock["bits"]["launches"]]
+    # phase 15b's runs on the streaming operand, both gene blocks
+    for run in results["wide_block_stream"].values():
+        wide_runs += [run["launches"], run["step_launches"]]
     pipe_runs = [pipe_res["k10"]["launches"], pipe_res["k_list"]["launches"]]
     new_runs += wide_runs + pipe_runs
     ell_runs += new_runs
@@ -4272,7 +4641,8 @@ def main(argv=None) -> int:
           "processes), B2 over the bench-scale ard_nmf_fit, "
           "cross_validate_nmf and ard_nmf runs and phase 17's, B3-B14 over "
           "the ELL engine's counted runs, the wide routes' runs and the "
-          "pipeline's; the wide routes (launches of their own runs): B1 "
+          "pipeline's; the wide routes (launches of their own runs, "
+          "phase 15b's at 131072 cells included): B1 "
           "at n=2048, B2 at n=512 (packed entry), both k=600 sweep_cap=8, "
           "B7 at k=600 on the bench planes, B3 (unmasked) and B5 at k=50 "
           "on 4096 cells of 16384 genes in gene blocks of 8192 (plain_ms "

@@ -51,8 +51,11 @@ in shared memory or device scratch, the Gram from device memory;
 ``bell_mse_bits_wide``), which raise only where device memory cannot hold
 their state; B3/B5 take any k in one launch, and gene blocks their tiles
 cannot hold (past 7,168 and 5,632 genes) on the wide-block route
-(``bell_spmm_wide``); the other kernels take any k. As in the JAX
-package, no rank or gene block is refused.
+(``bell_spmm_wide``: lanes a cell sized to k, W's rows from L2 sixteen at a
+time); the other kernels take any k. As in the JAX package, no rank or
+gene block is refused, B1 and B2 both take a scalar or a per-coordinate
+(n, k) L1, and a zero Gram diagonal turns a column NaN on every route as
+it does in JAX.
 
 Resumable fits: ``checkpoint=`` of ``nmf_fit``, ``ard_nmf_fit``,
 ``ard_nmf`` (the search state), ``ShardedEllEngine.fit``/``ard_fit`` and
@@ -73,7 +76,14 @@ execution time, and the port's loop runs on the host),
 the transposed copy of the prebuilt int8 mask (``m8.T``) and the pair axis
 padded to a lane multiple. ``SINGLET_TPU_MPH_NOALIAS``
 and ``SINGLET_TPU_I8_DIRECT`` choose how the TPU lays out memory, not what
-is computed, and are not read.
+is computed, and are not read. ``SINGLET_TPU_MM_PRECISION`` is not read:
+it picks the TPU's bf16 passes a product (6 or 3), and on the card every
+product other than the mask products already runs in full float32 (TF32
+off), JAX's default ``highest``, which the CD recurrence needs.
+``SINGLET_TPU_BELL_KERNELS`` is not read: it opts the TPU out of its
+blocked-ELL Pallas kernels into XLA's dense tiles of the same sums, and
+on the card B3/B4 are the only route (a plain PyTorch version on the card
+would be the fallback this package never takes).
 
 Streaming ingest: the drivers (and ``run_linked_nmf``, ``project_model``)
 take a chunk list (scipy matrices, ``.svc``/``.npz``/``.mtx`` paths or

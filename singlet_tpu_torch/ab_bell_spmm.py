@@ -3,6 +3,14 @@
 inputs.
 
     python3 -m singlet_tpu_torch.ab_bell_spmm OLD.cu [NEW.cu]
+    python3 -m singlet_tpu_torch.ab_bell_spmm --wide
+
+With ``--wide``: the wide-block route (``bell_spmm_wide``, through
+``ops/bell_cuda.py``'s wrapper) against the one-warp-per-cell kernel it
+replaced (``csrc/bell_spmm_wide_warp.cu``, ``wide_warp``), on
+``chip_smoke.py``'s phase 10c planes (16,384 genes in two gene blocks of
+8,192, 4,096 cells, width 416) at k = 50 and 100 in keep modes 0, 1 and 2,
+the same bits on every row, turns as below.
 
 OLD.cu is the one-warp-per-cell source of commit b779cfe
 (``git show b779cfe:singlet_tpu_torch/csrc/bell_spmm.cu >
@@ -61,6 +69,94 @@ OLD_K_CHUNK = 224
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _OLD_ARGTYPES = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CI, _VP, _CI,
                  ctypes.c_uint64, _CL, _CI, _VP, _CL, _VP]
+
+
+# csrc/bell_spmm_wide_warp.cu's bell_spmm_wide: planes, ld, n_gb, width,
+# cells, gene_block, W, its row stride, k, B, keep mode, seed, cell
+# offset, inv_density, words, words' row stride, stream
+WARP_ARGTYPES = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI, _VP,
+                 _CI, ctypes.c_uint64, _CL, _CI, _VP, _CL, _VP]
+# --wide: phase 10c's planes, (k, keep modes)
+WIDE_KS = (50, 100)
+
+
+def wide_warp(torch):
+    """The one-warp-per-cell wide-block kernel of B3/B5
+    (``csrc/bell_spmm_wide_warp.cu``), built at first use and bound: a
+    function ``(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
+    words, gene_block) -> B`` that launches it once on the current
+    stream."""
+    from singlet_tpu_torch import _build
+
+    fn = _build.load("bell_spmm_wide_warp").bell_spmm_wide
+    fn.argtypes = WARP_ARGTYPES
+    fn.restype = _CI
+
+    def call(li, lv, W, mode, seed64, cell_offset, inv_density, words,
+             gene_block):
+        n_gb, k = W.shape[0] // gene_block, W.shape[1]
+        cells = li.shape[1]
+        B = torch.empty((cells, k), dtype=torch.float32, device=W.device)
+        err = fn(li.data_ptr(), lv.data_ptr(), li.stride(0), n_gb,
+                 li.shape[0] // n_gb, cells, gene_block, W.data_ptr(),
+                 W.stride(0), k, B.data_ptr(), mode, seed64,
+                 int(cell_offset), int(inv_density),
+                 None if words is None else words.data_ptr(),
+                 0 if words is None else words.stride(0),
+                 torch.cuda.current_stream(W.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"bell_spmm_wide_warp launch failed ({err})")
+        return B
+
+    return call
+
+
+def main_wide(torch, card) -> int:
+    """``--wide``: the wide-block route against ``wide_warp`` in turns."""
+    import chip_smoke
+
+    from singlet_tpu_torch.ops import bell_cuda
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+
+    P = chip_smoke.WIDE_BLOCK
+    G, cells = P["gene_block"], P["cells"]
+    li, lv, width = chip_smoke.synth_bell_planes_torch(
+        P["genes"], cells, P["nnz"], G)
+    words = chip_smoke._slice_words(torch, 0, cells, P["genes"], G)
+    old = wide_warp(torch)
+    seed = seed_pair(MASK_SEED)
+    _, seed64 = bell_cuda._seed_args(seed, INV_DENSITY)
+    for k in WIDE_KS:
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        W = torch.rand((P["genes"], k), generator=gen, device="cuda")
+        outs = {}
+        for mode in (0, 1, 2):
+            new = {0: lambda: bell_cuda.bell_spmm_cuda(li, lv, W,
+                                                       gene_block=G),
+                   1: lambda: bell_cuda.bell_spmm_cuda(
+                       li, lv, W, seed, 0, gene_block=G,
+                       inv_density=INV_DENSITY),
+                   2: lambda: bell_cuda.bell_spmm_bits_cuda(
+                       li, lv, W, words, gene_block=G)}[mode]
+            args = ((0, 0, 0, 1, None), (1, seed64, 0, INV_DENSITY, None),
+                    (2, 0, 0, 1, words))[mode]
+            calls = {"old": lambda a=args: old(li, lv, W, *a, G),
+                     "new": new}
+            if not torch.equal(calls["old"](), calls["new"]()):
+                raise AssertionError(f"wide k={k} mode={mode}: the two "
+                                     "versions differ")
+            outs[mode] = calls["new"]()
+            row = {"shape": "wide block", "cells": cells, "k": k,
+                   "width": width, "gene_block": G, "mode": mode,
+                   "kernel": "B5" if mode == 2 else "B3",
+                   "plan": bell_cuda.b3_plan(cells, 2, G, width, k,
+                                             mode == 2)._asdict(),
+                   "same_bits": True, "card": card,
+                   **_turns(torch, lambda name: calls[name]())}
+            print(json.dumps(row), flush=True)
+        if not torch.equal(outs[1], outs[2]):
+            raise AssertionError(f"wide k={k}: B5 differs from masked B3")
+    return 0
 
 
 def _bind(lib, new: bool):
@@ -125,9 +221,11 @@ def main() -> int:
     from singlet_tpu_torch.ops.rngmask import seed_pair
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path)
+    ap.add_argument("old", type=Path, nargs="?")
     ap.add_argument("new", type=Path, nargs="?",
                     default=_build.CSRC_DIR / "bell_spmm.cu")
+    ap.add_argument("--wide", action="store_true",
+                    help="the wide-block route against wide_warp")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_bell_spmm needs a CUDA device")
@@ -135,6 +233,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if args.wide:
+        return main_wide(torch, card)
+    if args.old is None:
+        ap.error("OLD.cu is required without --wide")
     with ThreadPoolExecutor(2) as pool:
         old_lib, new_lib = pool.map(_compile, (args.old, args.new))
     fns = {"old": _bind(old_lib, False), "new": _bind(new_lib, True)}

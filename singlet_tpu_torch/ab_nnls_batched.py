@@ -123,18 +123,27 @@ def _compile(src: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def _bind(lib):
-    """(tile entry, packed entry or None) of a built source."""
+def takes_l1(src: Path) -> bool:
+    """Whether a source's entries take the (n, k) L1 pointer after the
+    mask (ops/nnls_cuda.py's argument types); older sources do not."""
+    return b"const uint8_t* mask, const float* l1" in src.read_bytes()
+
+
+def _bind(lib, l1: bool):
+    """(tile entry, packed entry or None, whether they take the L1
+    pointer) of a built source."""
     from singlet_tpu_torch.ops.nnls_cuda import _ARGTYPES, _ARGTYPES_PACKED
 
+    # without the L1 pointer: one pointer fewer before the 8 scalars
+    drop = (lambda t: t) if l1 else (lambda t: t[:-9] + t[-8:])
     fn = lib.nnls_cd_batched
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = drop(_ARGTYPES)
     fn.restype = ctypes.c_int
     packed = getattr(lib, "nnls_cd_batched_packed", None)
     if packed is not None:
-        packed.argtypes = _ARGTYPES_PACKED
+        packed.argtypes = drop(_ARGTYPES_PACKED)
         packed.restype = ctypes.c_int
-    return fn, packed
+    return fn, packed, l1
 
 
 def _inputs(torch, n: int, k: int, seed: int):
@@ -196,8 +205,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     with ThreadPoolExecutor(2) as pool:
-        fns = {name: _bind(lib) for name, lib in zip(
-            ("old", "new"), pool.map(_compile, (args.old, args.new)))}
+        fns = {name: _bind(lib, takes_l1(src)) for name, lib, src in zip(
+            ("old", "new"), pool.map(_compile, (args.old, args.new)),
+            (args.old, args.new))}
     if fns["new"][1] is None:
         raise SystemExit(f"{args.new} has no nnls_cd_batched_packed")
     print(json.dumps({"chain": _chain_cycles(torch), "card": card}),
@@ -216,10 +226,16 @@ def main() -> int:
                    stream)
         outs = {name: torch.empty_like(B) for name in fns}
 
+        def ptrs(name):
+            """The mask, the scalar L1's null L1 pointer where the entry
+            takes one, and the output."""
+            return ((mask.data_ptr(),) + ((None,) if fns[name][2] else ())
+                    + (outs[name].data_ptr(),))
+
         def tile(name, at, inv_diag):
             check(fns[name][0](at.data_ptr(), inv_diag.data_ptr(),
-                               B.data_ptr(), X0.data_ptr(), mask.data_ptr(),
-                               outs[name].data_ptr(), *scalars),
+                               B.data_ptr(), X0.data_ptr(), *ptrs(name),
+                               *scalars),
                   f"nnls_cd_batched ({name})")
 
         def solve(name):
@@ -231,8 +247,7 @@ def main() -> int:
                 return
             check(fns[name][1](a_full.data_ptr(), packed_t.data_ptr(),
                                starts.data_ptr(), B.data_ptr(), X0.data_ptr(),
-                               mask.data_ptr(), outs[name].data_ptr(),
-                               *scalars),
+                               *ptrs(name), *scalars),
                   "nnls_cd_batched_packed (new)")
 
         at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full).contiguous()

@@ -129,18 +129,36 @@
 // route, `bell_spmm_wide`): where two buffers of a gene block's slice of W
 // do not fit beside the windows (gene blocks past 7,168 genes for B3 and
 // 5,632 for B5 at k = 100; ops/bell_cuda.py `b3_plan` takes this route
-// there), a warp owns a cell and a column chunk of up to 256 columns and
-// reads W's rows from device memory (through L1 and L2), as the
-// one-warp-per-cell kernel the tiled design replaced did: lane l reads
-// slot w0 + l of the cell, keep-tests it (the hash, or the bit of the
-// packed words read in place), and the warp walks the kept slots in slot
-// order, each broadcast by shuffle, every lane adding v * W[g, j] into its
-// 8 columns j = j0 + l + 32 s. Every output is one lane's fmaf chain over
-// the cell's gene blocks in order and, in each, its kept slots in slot
-// order: the bits of the tiled kernel (whose skipped slots add -0 times a
-// zero row, which leaves a sum as it is). What bounds it: W's rows from
-// L2, k floats for every kept slot, with no reuse between the cells of a
-// block beyond what L1 holds.
+// there), W's rows come from device memory (L2 holds W: 3.3 MB at 16,384
+// genes and k = 50). What bounds it is L2: every kept slot brings W's row
+// once, k floats in whole 32-byte sectors (about 0.74 GB at 4,096 cells,
+// 16,384 genes, 800 slots a cell and k = 50), and B5 also the slots' test
+// words from device memory, one random sector a slot. The one-warp-per-
+// cell kernel this design replaced (csrc/bell_spmm_wide_warp.cu) walked a
+// cell's kept slots one after the other, so each W row's trip to L2 waited
+// on the last one; here a lane has 16 of them in flight:
+// - L = 4, 8, 16 or 32 lanes a cell, the fewest whose loads of VW = 4
+//   adjacent columns (for B5 2 where k is 2 mod 4: no padded copy of W,
+//   and twice the warps to hide the test words) cover k, or 32 loads of
+//   it, two loads a lane past that; a warp holds 32 / L cells and few
+//   lanes idle (k = 50: 13 of 16, or 25 of 32), a block of 8 warps 256 / L
+//   cells;
+// - the block stages each window of 32 slot rows of its cells (loads of
+//   the planes with neighbouring threads on neighbouring cells) and
+//   keep-tests it once, into shared memory as (W row, value) pairs, a
+//   skipped slot as row -1; the ids of the window after next and the test
+//   words of the next one are in flight meanwhile, so the words'
+//   device-memory latency is paid behind a walk;
+// - a lane reads 16 pairs of its cell (8 at two loads a lane), issues
+//   their loads of W's rows, then adds them in slot order.
+// Every output is one lane's fmaf chain over its cell's gene blocks in
+// order and, in each, its kept slots in slot order: the bits of the tiled
+// kernel (whose skipped slots add -0 times a zero row, which leaves a sum
+// as it is), and B5's are masked B3's. W's address and row stride are
+// multiples of VW floats (the wrapper pads a copy where they are not).
+// On an H100 (700 W) at 4,096 cells and gene blocks of 8,192 this moves
+// 6-7 TB/s of W's sectors from L2 (PERF.md); B5's random test words cost
+// about 0.08 ms more at k = 50, which the walk does not hide.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
@@ -1126,9 +1144,9 @@ OddDivisor odd_divisor(uint64_t d) {
 
 // ---- B3 and B5 on wide gene blocks ------------------------------------------
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWideWarps = 8;     // cells a block of the wide-block route
-constexpr int kWideNpl = 8;       // columns a lane: chunks of 256 columns
+constexpr int kWideThreads = 256;   // a block of the wide-block route
+constexpr int kWideRows = 32;       // slot rows a window
+constexpr int kWideLoads = 16;      // loads of W's rows a lane has in flight
 
 // the fields `slot_kept` reads, and the route's own
 struct B3WideArgs {
@@ -1136,10 +1154,10 @@ struct B3WideArgs {
   const float* lv;
   long long ld;
   int n_gb, width, cells, gene_block;
-  const float* W;
-  long long ldw;
+  const float* W;      // (n_gb * gene_block, k), row stride ldw
+  long long ldw;       // a multiple of VW, W aligned to VW floats
   int k;
-  float* B;
+  float* B;            // (cells, k)
   uint64_t seed;
   long long cell_offset;
   int shift;
@@ -1149,55 +1167,212 @@ struct B3WideArgs {
   long long wld;
 };
 
-template <int MODE>
-__global__ void __launch_bounds__(kWideWarps * 32)
+// VW adjacent floats of W a load: float4 or float2
+template <int VW>
+struct WideVec;
+template <>
+struct WideVec<4> {
+  using T = float4;
+  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static void fma(float s, const T& x, T& acc) {
+    acc.x = fmaf(s, x.x, acc.x);
+    acc.y = fmaf(s, x.y, acc.y);
+    acc.z = fmaf(s, x.z, acc.z);
+    acc.w = fmaf(s, x.w, acc.w);
+  }
+  __device__ static void store(float* out, const T& acc, int n) {
+    out[0] = acc.x;
+    if (n > 1) out[1] = acc.y;
+    if (n > 2) out[2] = acc.z;
+    if (n > 3) out[3] = acc.w;
+  }
+};
+template <>
+struct WideVec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.f, 0.f); }
+  __device__ static void fma(float s, const T& x, T& acc) {
+    acc.x = fmaf(s, x.x, acc.x);
+    acc.y = fmaf(s, x.y, acc.y);
+  }
+  __device__ static void store(float* out, const T& acc, int n) {
+    out[0] = acc.x;
+    if (n > 1) out[1] = acc.y;
+  }
+};
+
+// keep mode MODE; L lanes a cell, C = 256 / L cells a block (blockIdx.x
+// their tile); V vectors of VW floats of W a lane: lane q holds the
+// columns j0 + VW (q + L v) .. + VW - 1, v < V, of the column chunk j0 =
+// blockIdx.y * VW L V
+template <int MODE, int L, int V, int VW>
+__global__ void __launch_bounds__(kWideThreads)
 bell_spmm_wide_kernel(const B3WideArgs a) {
-  const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * kWideWarps + (threadIdx.x >> 5);
-  if (c >= a.cells) return;   // whole warps only
-  const int j0 = blockIdx.y * 32 * kWideNpl;
-  const uint64_t xi = MODE == 1 ? cell_hash(a.seed, a.cell_offset + c) : 0;
-  const uint32_t* wrow = MODE == 2 ? a.words + c * a.wld : nullptr;
-  float acc[kWideNpl];
+  using Vec = WideVec<VW>;
+  using VT = typename Vec::T;
+  constexpr int C = kWideThreads / L;
+  constexpr int NS = kWideRows / L;      // slots a thread stages a window
+  constexpr int U = kWideLoads / V;      // slots a lane walks at once
+  // rows padded to C + 1 pairs (measured faster for B5 at k = 100)
+  __shared__ int2 s_win[2][kWideRows][C + 1];
+  const int tid = threadIdx.x;
+  const long long c0 = (long long)blockIdx.x * C;
+  const int n_win = (a.width + kWideRows - 1) / kWideRows;
+  const int steps = a.n_gb * n_win;    // gene blocks in order, in windows
+
+  // staging: thread tid stages cell sc's slot rows sr + L i of a window,
+  // neighbouring threads on neighbouring cells
+  const int sc = tid % C;
+  const int sr = tid / C;
+  const long long scell = c0 + sc;
+  const bool s_in = scell < a.cells;
+  const uint64_t xi =
+      MODE == 1 && s_in ? cell_hash(a.seed, a.cell_offset + scell) : 0;
+  auto load_ids = [&](int step, int (&l)[NS], float (&v)[NS]) {
+    const int gb = step / n_win;
+    const int w0 = (step - gb * n_win) * kWideRows;
 #pragma unroll
-  for (int s = 0; s < kWideNpl; ++s) acc[s] = 0.f;
-  for (int gb = 0; gb < a.n_gb; ++gb) {
-    for (int w0 = 0; w0 < a.width; w0 += 32) {
-      const int w = w0 + lane;
-      int g = -1;
-      float v = 0.f;
-      if (w < a.width) {
-        const long long off = (long long)(gb * a.width + w) * a.ld + c;
-        const int l = a.li[off];
-        if (l >= 0) {
-          const uint32_t word =
-              MODE == 2 ? wrow[(gb >> 5) * a.gene_block + l] : 0u;
-          if (slot_kept<MODE>(a, gb, xi, l, word)) {
-            g = gb * a.gene_block + l;
-            v = a.lv[off];
-          }
-        }
-      }
-      unsigned live = __ballot_sync(kFull, g >= 0);
-      while (live) {
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const int gj = __shfl_sync(kFull, g, j);
-        const float vj = __shfl_sync(kFull, v, j);
-        const float* w_row = a.W + (long long)gj * a.ldw;
-#pragma unroll
-        for (int s = 0; s < kWideNpl; ++s) {
-          const int col = j0 + s * 32 + lane;
-          if (col < a.k) acc[s] = fmaf(vj, __ldg(w_row + col), acc[s]);
-        }
+    for (int i = 0; i < NS; ++i) {
+      const int w = w0 + sr + L * i;
+      l[i] = -1;
+      v[i] = 0.f;
+      if (step < steps && s_in && w < a.width) {
+        const long long off = (long long)(gb * a.width + w) * a.ld + scell;
+        l[i] = __ldg(a.li + off);
+        v[i] = __ldg(a.lv + off);
       }
     }
-  }
-  float* b_row = a.B + c * a.k;
+  };
+  auto load_words = [&](int step, const int (&l)[NS], uint32_t (&wd)[NS]) {
+    const long long t = step / n_win >> 5;
 #pragma unroll
-  for (int s = 0; s < kWideNpl; ++s) {
-    const int col = j0 + s * 32 + lane;
-    if (col < a.k) b_row[col] = acc[s];
+    for (int i = 0; i < NS; ++i) {
+      wd[i] = MODE == 2 && l[i] >= 0
+                  ? __ldg(a.words + scell * a.wld + t * a.gene_block + l[i])
+                  : 0u;
+    }
+  };
+  // the window's (W row, value) pairs, a pad or held-out slot row -1
+  auto stage = [&](int step, const int (&l)[NS], const float (&v)[NS],
+                   const uint32_t (&wd)[NS]) {
+    const int gb = step / n_win;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const bool kept = l[i] >= 0 && slot_kept<MODE>(a, gb, xi, l[i], wd[i]);
+      s_win[step & 1][sr + L * i][sc] =
+          kept ? make_int2(gb * a.gene_block + l[i], __float_as_int(v[i]))
+               : make_int2(-1, 0);
+    }
+  };
+
+  // walking: cell cw of the block, lane q of it
+  const int cw = tid / L;
+  const int q = tid % L;
+  const int j0 = blockIdx.y * VW * L * V;
+  const float* wq = a.W + j0 + VW * q;
+  bool col[V];
+  VT acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    col[v] = j0 + VW * (q + L * v) < a.k;
+    acc[v] = Vec::zero();
+  }
+  auto walk = [&](int step) {
+    const int w0 = (step - step / n_win * n_win) * kWideRows;
+    const int wn = min(kWideRows, a.width - w0);
+    const int2* win = &s_win[step & 1][0][cw];
+    for (int w = 0; w < wn; w += U) {
+      int2 e[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        e[u] = w + u < wn ? win[(w + u) * (C + 1)] : make_int2(-1, 0);
+      }
+      VT x[U][V];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          x[u][v] = e[u].x >= 0 && col[v]
+                        ? __ldg(reinterpret_cast<const VT*>(
+                              wq + (long long)e[u].x * a.ldw + VW * L * v))
+                        : Vec::zero();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (e[u].x < 0) continue;   // a skipped slot adds nothing
+        const float sv = __int_as_float(e[u].y);
+#pragma unroll
+        for (int v = 0; v < V; ++v) Vec::fma(sv, x[u][v], acc[v]);
+      }
+    }
+  };
+
+  // window `step` staged; the next one's ids with their words, and the
+  // ids of the one after, in flight
+  int l_next[NS], l_far[NS];
+  float v_next[NS], v_far[NS];
+  uint32_t wd_next[NS];
+  if (steps > 0) {
+    load_ids(0, l_next, v_next);
+    load_words(0, l_next, wd_next);
+    stage(0, l_next, v_next, wd_next);
+    load_ids(1, l_next, v_next);
+    load_words(1, l_next, wd_next);
+    load_ids(2, l_far, v_far);
+  }
+  __syncthreads();
+  for (int step = 0; step < steps; ++step) {
+    walk(step);
+    if (step + 1 < steps) stage(step + 1, l_next, v_next, wd_next);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      l_next[i] = l_far[i];
+      v_next[i] = v_far[i];
+    }
+    load_words(step + 2, l_next, wd_next);
+    load_ids(step + 3, l_far, v_far);
+    __syncthreads();   // the next window staged, this one walked
+  }
+
+  const long long cell = c0 + cw;
+  if (cell >= a.cells) return;
+  float* out = a.B + cell * a.k;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = j0 + VW * (q + L * v);
+    if (col[v]) Vec::store(out + j, acc[v], min(VW, a.k - j));
+  }
+}
+
+template <int MODE, int L, int V, int VW>
+cudaError_t launch_wide_lv(const B3WideArgs& a, dim3 grid, cudaStream_t s) {
+  bell_spmm_wide_kernel<MODE, L, V, VW><<<grid, kWideThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the instantiation of (lanes a cell, vectors a lane, floats a vector)
+template <int MODE>
+cudaError_t launch_wide(const B3WideArgs& a, int lanes, int vec, int vw,
+                        dim3 grid, cudaStream_t s) {
+  switch ((lanes * 4 + vec) * 8 + vw) {
+    case (4 * 4 + 1) * 8 + 4: return launch_wide_lv<MODE, 4, 1, 4>(a, grid, s);
+    case (8 * 4 + 1) * 8 + 4: return launch_wide_lv<MODE, 8, 1, 4>(a, grid, s);
+    case (16 * 4 + 1) * 8 + 4:
+      return launch_wide_lv<MODE, 16, 1, 4>(a, grid, s);
+    case (32 * 4 + 1) * 8 + 4:
+      return launch_wide_lv<MODE, 32, 1, 4>(a, grid, s);
+    case (32 * 4 + 2) * 8 + 4:
+      return launch_wide_lv<MODE, 32, 2, 4>(a, grid, s);
+    case (4 * 4 + 1) * 8 + 2: return launch_wide_lv<MODE, 4, 1, 2>(a, grid, s);
+    case (8 * 4 + 1) * 8 + 2: return launch_wide_lv<MODE, 8, 1, 2>(a, grid, s);
+    case (16 * 4 + 1) * 8 + 2:
+      return launch_wide_lv<MODE, 16, 1, 2>(a, grid, s);
+    case (32 * 4 + 1) * 8 + 2:
+      return launch_wide_lv<MODE, 32, 1, 2>(a, grid, s);
+    case (32 * 4 + 2) * 8 + 2:
+      return launch_wide_lv<MODE, 32, 2, 2>(a, grid, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1309,22 +1484,33 @@ int bell_spmm(const int32_t* li, const float* lv, long long ld, int n_gb,
 }
 
 // The wide-block route of B3 (keep mode 0 or 1) and B5 (mode 2), for any
-// gene block and any k: a warp per cell and column chunk of 256, W's rows
-// read from device memory (W (n_gb * gene_block, k), row stride ldw), the
-// words read in place (no pass). The other arguments as bell_spmm's.
-// Returns the cudaError_t of the launch (0 on success).
+// gene block and any k, on the host plan of ops/bell_cuda.py `b3_plan`
+// (`B3WidePlan`): column chunks of `cols` columns and blocks of
+// `cell_tile` cells (256 / lanes a cell: 64, 32, 16 or 8), each lane
+// `vw` adjacent floats of W a load (4 or 2) and cols / (vw lanes) loads
+// a row (1 or 2), W's rows read from device memory (W aligned to vw
+// floats, row stride ldw a multiple of vw), the words read in place (no
+// pass). The other arguments as bell_spmm's. Returns the cudaError_t of
+// the launch (0 on success).
 int bell_spmm_wide(const int32_t* li, const float* lv, long long ld,
                    int n_gb, int width, int cells, int gene_block,
-                   const float* W, long long ldw, int k, float* B,
-                   int masked, uint64_t seed, long long cell_offset,
-                   int inv_density, const uint32_t* words, long long wld,
-                   void* stream) {
+                   const float* W, long long ldw, int k, float* B, int cols,
+                   int cell_tile, int vw, int masked, uint64_t seed,
+                   long long cell_offset, int inv_density,
+                   const uint32_t* words, long long wld, void* stream) {
   if (cells <= 0 || k <= 0) return cudaSuccess;
-  const long long blocks = (cells + kWideWarps - 1) / kWideWarps;
-  const long long chunks = (k + 32 * kWideNpl - 1) / (32 * kWideNpl);
+  const int lanes = cell_tile > 0 ? kWideThreads / cell_tile : 0;
+  const int vec = lanes > 0 && vw > 0 ? cols / (vw * lanes) : 0;
+  const long long blocks = cell_tile > 0 ? (cells + cell_tile - 1) / cell_tile
+                                         : 0;
+  const long long chunks = cols > 0 ? (k + cols - 1) / cols : 0;
   if (inv_density < 1 || masked < 0 || masked > 2 ||
       (masked == 2 && words == nullptr) || n_gb < 0 || width < 0 ||
-      gene_block < 1 || ldw < k || blocks > 0x7fffffffLL || chunks > 65535) {
+      gene_block < 1 || ldw < k || (vw != 2 && vw != 4) || ldw % vw != 0 ||
+      reinterpret_cast<uintptr_t>(W) % (4 * vw) != 0 ||
+      lanes * cell_tile != kWideThreads || cols != vw * lanes * vec ||
+      blocks < 1 || blocks > 0x7fffffffLL || chunks < 1 || chunks > 65535 ||
+      (long long)n_gb * gene_block > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   const OddDivisor d = odd_divisor((uint64_t)inv_density);
@@ -1334,16 +1520,10 @@ int bell_spmm_wide(const int32_t* li, const float* lv, long long ld,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)blocks, (unsigned)chunks);
   switch (masked) {
-    case 0:
-      bell_spmm_wide_kernel<0><<<grid, kWideWarps * 32, 0, s>>>(a);
-      break;
-    case 1:
-      bell_spmm_wide_kernel<1><<<grid, kWideWarps * 32, 0, s>>>(a);
-      break;
-    default:
-      bell_spmm_wide_kernel<2><<<grid, kWideWarps * 32, 0, s>>>(a);
+    case 0: return launch_wide<0>(a, lanes, vec, vw, grid, s);
+    case 1: return launch_wide<1>(a, lanes, vec, vw, grid, s);
+    default: return launch_wide<2>(a, lanes, vec, vw, grid, s);
   }
-  return cudaGetLastError();
 }
 
 // As bell_spmm, with H (cells, k) and Bw (n_gb * gene_block, k), on the

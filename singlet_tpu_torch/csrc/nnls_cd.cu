@@ -8,7 +8,7 @@
 //
 //   repeat sweeps:  for i in 0..k-1:
 //     diff  = b_i * inv_diag_i - L1[c, i] + L2 * x_i
-//     delta = max(diff, -x_i)                 (clamp at zero)
+//     delta = max(diff, -x_i)    (clamp at zero; a NaN kept, `cd_clamp`)
 //     x_i  += delta;  b -= a[:, i] * delta    (incremental residual downdate)
 //   tol = sum_i |x_i - x_prev_i| / (x_i + 1e-15)
 //   stop when tol / k_div <= 1e-8, or sweep >= max_sweeps, or sweep >= cap
@@ -315,7 +315,7 @@ nnls_cd_kernel(const Args p) {
         const float x_i = x[q];
         const float diff = __fadd_rn(
             __fsub_rn(__fmul_rn(b[q], inv_q), l1_q), __fmul_rn(p.L2, x_i));
-        const float delta = __shfl_sync(kFull, fmaxf(diff, -x_i), o, G);
+        const float delta = __shfl_sync(kFull, cd_clamp(diff, -x_i), o, G);
         if (pl == o && active) x[q] = __fadd_rn(x_i, delta);
 #pragma unroll
         for (int t = 0; t < NPL; ++t) {

@@ -8,8 +8,8 @@
 // (n, k, k) Gram a_c:
 //
 //   repeat sweeps:  for i in 0..k-1:
-//     diff  = b_i * inv_c[i] - L1 + L2 * x_i
-//     delta = max(diff, -x_i)                    (clamp at zero)
+//     diff  = b_i * inv_c[i] - L1[c, i] + L2 * x_i   (L1 scalar or (n, k))
+//     delta = max(diff, -x_i)       (clamp at zero; a NaN kept, `cd_clamp`)
 //     x_i  += delta;  b_j -= a_c[j, i] * delta   for all j
 //   tol = sum_i |x_i - x_prev_i| / (x_i + 1e-15)
 //   stop when tol / k_div <= 1e-8, or sweep >= max_sweeps, or sweep >= cap
@@ -211,6 +211,7 @@ struct Args {
   const float* B;          // (n, k)
   const float* X0;         // (n, k)
   const uint8_t* mask;     // (n,) or null
+  const float* l1;         // (n, k) per-coordinate L1, or null for L1
   float* X;                // (n, k)
   int n, k, cols, groups, max_sweeps;
   float L1, L2, k_div, cap;
@@ -249,8 +250,9 @@ __device__ __forceinline__ void stage_columns(float* dst, const float* src,
 
 // W lanes per column (16: two columns a warp, one per half, sharing the
 // loads of a_full; 32: one), NPT coordinates per lane in registers
-// (k <= W NPT); a block of C neighbouring columns
-template <int M, int W, int NPT>
+// (k <= W NPT); a block of C neighbouring columns; L1V: a per-coordinate
+// L1 (p.l1, NPT more registers a lane), else the scalar p.L1
+template <int M, int W, int NPT, bool L1V>
 __global__ void __launch_bounds__(W * kMaxCols,
                                   W == 16 || NPT <= 2 ? 4 : 1)
 nnls_cd_col_kernel(const Args p) {
@@ -313,6 +315,7 @@ nnls_cd_col_kernel(const Args p) {
   // coordinate j = W q + lane of this column, in registers; lanes past k
   // hold zeros and are never owners
   float b[NPT], x[NPT], inv[NPT];
+  float l1v[L1V ? NPT : 1];
   int lo[NPT];   // packed: pos(j, s) = lo + s for j < s
 #pragma unroll
   for (int q = 0; q < NPT; ++q) {
@@ -320,6 +323,7 @@ nnls_cd_col_kernel(const Args p) {
     const bool own = valid && j < k;
     b[q] = own ? p.B[(size_t)col * k + j] : 0.f;
     x[q] = own ? p.X0[(size_t)col * k + j] : 0.f;
+    if constexpr (L1V) l1v[q] = own ? p.l1[(size_t)col * k + j] : 0.f;
     inv[q] = 0.f;
     lo[q] = kPacked && j < k ? rs_s[j] - j : 0;
     if (own && active) {
@@ -430,9 +434,11 @@ nnls_cd_col_kernel(const Args p) {
       const int i = q * W + l;
       b[q] = __fsub_rn(b[q], __fmul_rn(g_prev[q], d_prev));
       const float x_i = x[q];
+      float l1_q = p.L1;
+      if constexpr (L1V) l1_q = l1v[q];
       const float diff = __fadd_rn(
-          __fsub_rn(__fmul_rn(b[q], inv[q]), p.L1), __fmul_rn(p.L2, x_i));
-      const float delta = __shfl_sync(kFullMask, fmaxf(diff, -x_i), l, W);
+          __fsub_rn(__fmul_rn(b[q], inv[q]), l1_q), __fmul_rn(p.L2, x_i));
+      const float delta = __shfl_sync(kFullMask, cd_clamp(diff, -x_i), l, W);
       if (lane == l && active) x[q] = __fadd_rn(x_i, delta);
 #pragma unroll
       for (int t = 0; t < NPT; ++t) {
@@ -595,12 +601,12 @@ int fit_cols(int m, int k) {
   return 0;
 }
 
-template <int M, int W, int NPT>
+template <int M, int W, int NPT, bool L1V>
 cudaError_t launch(Args p, int cols, cudaStream_t stream) {
   const size_t smem =
       make_layout(M, p.k, cols, W * NPT).total * sizeof(float);
   if (cols < 1 || smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = nnls_cd_col_kernel<M, W, NPT>;
+  auto kernel = nnls_cd_col_kernel<M, W, NPT, L1V>;
   static bool configured = false;   // per instantiation, on first launch
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -639,7 +645,8 @@ cudaError_t launch_npt(const Args& p, int cols, int npt, cudaStream_t s) {
     constexpr int NPT = npt_at<W>(I);
     if (npt == NPT) {
       if constexpr (instantiated<M, W>(NPT)) {
-        return launch<M, W, NPT>(p, cols, s);
+        return p.l1 != nullptr ? launch<M, W, NPT, true>(p, cols, s)
+                               : launch<M, W, NPT, false>(p, cols, s);
       }
       return cudaErrorNotSupported;
     }
@@ -657,12 +664,13 @@ cudaError_t launch_mode(const Args& p, int cols, cudaStream_t s) {
 }
 
 Args make_args(const float* B, const float* X0, const uint8_t* mask,
-               float* X, int n, int k, float L1, float L2, float k_div,
-               float cap, int max_sweeps) {
+               const float* l1, float* X, int n, int k, float L1, float L2,
+               float k_div, float cap, int max_sweeps) {
   Args p{};
   p.B = B;
   p.X0 = X0;
   p.mask = mask;
+  p.l1 = l1;
   p.X = X;
   p.n = n;
   p.k = k;
@@ -711,13 +719,14 @@ struct PackedGram {
 };
 
 nnls_wide::Args wide_args(const float* B, const float* X0,
-                          const uint8_t* mask, float* X, float* scratch,
-                          int n, int k, int warps, float L1, float L2,
-                          float k_div, float cap, int max_sweeps) {
+                          const uint8_t* mask, const float* l1, float* X,
+                          float* scratch, int n, int k, int warps, float L1,
+                          float L2, float k_div, float cap, int max_sweeps) {
   nnls_wide::Args p{};
   p.B = B;
   p.X0 = X0;
   p.mask = mask;
+  p.l1 = l1;
   p.X = X;
   p.scratch = scratch;
   p.n = n;
@@ -737,17 +746,20 @@ extern "C" {
 
 // All pointers are device pointers to contiguous float32 (mask: uint8, or
 // null for all columns active); at (k, k, n) with at[i, j, c] = a_c[j, i],
-// inv_diag (k, n), B / X0 / X (n, k). Takes k <= 512 (past it the wrapper
-// calls nnls_cd_batched_wide). Returns the
-// cudaError_t of the launch (0 on success).
+// inv_diag (k, n), B / X0 / X (n, k), l1 (n, k) per-coordinate L1 or null
+// for the scalar L1 (each is its own instantiation: the scalar one's code
+// is that of a kernel without l1). Takes k <= 512 (past it the wrapper
+// calls nnls_cd_batched_wide). Returns the cudaError_t of the launch (0 on
+// success).
 int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
-                    const float* X0, const uint8_t* mask, float* X, int n,
-                    int k, float L1, float L2, float k_div, float cap,
-                    int max_sweeps, void* stream) {
+                    const float* X0, const uint8_t* mask, const float* l1,
+                    float* X, int n, int k, float L1, float L2, float k_div,
+                    float cap, int max_sweeps, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || k > 512) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args p = make_args(B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps);
+  Args p = make_args(B, X0, mask, l1, X, n, k, L1, L2, k_div, cap,
+                     max_sweeps);
   p.gram = at;
   p.inv_diag = inv_diag;
   const int cols = fit_cols(kFullSmem, k);
@@ -762,14 +774,15 @@ int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
 // 1 / a_c[i, i] is formed here. The other arguments as above.
 int nnls_cd_batched_packed(const float* a_full, const float* packed_t,
                            const int* row_start, const float* B,
-                           const float* X0,
-                           const uint8_t* mask, float* X, int n, int k,
+                           const float* X0, const uint8_t* mask,
+                           const float* l1, float* X, int n, int k,
                            float L1, float L2, float k_div, float cap,
                            int max_sweeps, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || k > 512) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args p = make_args(B, X0, mask, X, n, k, L1, L2, k_div, cap, max_sweeps);
+  Args p = make_args(B, X0, mask, l1, X, n, k, L1, L2, k_div, cap,
+                     max_sweeps);
   p.gram = a_full;
   p.packed_t = packed_t;
   p.row_start = row_start;
@@ -783,18 +796,18 @@ int nnls_cd_batched_packed(const float* a_full, const float* packed_t,
 
 // The wide-k route of both entries (k > 512, ops/nnls_cuda.py
 // `nnls_wide_plan`): the tile entry's at and inv_diag, or the packed
-// entry's a_full, packed_t and row_start, as above; scratch null (x and the
-// residual in shared memory, `warps` columns a block) or 2 k floats for
-// each of the grid's blocks * warps warps. Returns the cudaError_t of the
-// launch (0 on success).
+// entry's a_full, packed_t and row_start, and l1, as above; scratch null
+// (x and the residual in shared memory, `warps` columns a block) or 2 k
+// floats for each of the grid's blocks * warps warps. Returns the
+// cudaError_t of the launch (0 on success).
 int nnls_cd_batched_wide(const float* at, const float* inv_diag,
                          const float* B, const float* X0,
-                         const uint8_t* mask, float* X, float* scratch,
-                         int n, int k, int warps, int blocks, float L1,
-                         float L2, float k_div, float cap, int max_sweeps,
-                         void* stream) {
+                         const uint8_t* mask, const float* l1, float* X,
+                         float* scratch, int n, int k, int warps, int blocks,
+                         float L1, float L2, float k_div, float cap,
+                         int max_sweeps, void* stream) {
   return nnls_wide::launch(
-      wide_args(B, X0, mask, X, scratch, n, k, warps, L1, L2, k_div, cap,
+      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, L1, L2, k_div, cap,
                 max_sweeps),
       TileGram{at, inv_diag, n, k}, blocks,
       static_cast<cudaStream_t>(stream));
@@ -803,12 +816,12 @@ int nnls_cd_batched_wide(const float* at, const float* inv_diag,
 int nnls_cd_batched_packed_wide(const float* a_full, const float* packed_t,
                                 const int* row_start, const float* B,
                                 const float* X0, const uint8_t* mask,
-                                float* X, float* scratch, int n, int k,
-                                int warps, int blocks, float L1, float L2,
-                                float k_div, float cap, int max_sweeps,
-                                void* stream) {
+                                const float* l1, float* X, float* scratch,
+                                int n, int k, int warps, int blocks, float L1,
+                                float L2, float k_div, float cap,
+                                int max_sweeps, void* stream) {
   return nnls_wide::launch(
-      wide_args(B, X0, mask, X, scratch, n, k, warps, L1, L2, k_div, cap,
+      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, L1, L2, k_div, cap,
                 max_sweeps),
       PackedGram{a_full, packed_t, row_start, n, k}, blocks,
       static_cast<cudaStream_t>(stream));

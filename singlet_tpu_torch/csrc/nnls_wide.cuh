@@ -11,6 +11,7 @@
 // 32 reads its own b_i and x_i (it wrote them), computes
 //
 //   diff  = b_i * inv_i - L1_i + L2 * x_i,  delta = max(diff, -x_i)
+//                                          (a NaN kept, `cd_clamp`)
 //   x_i  += delta
 //
 // and its sweep term |x_i - x_start| / (x_i + 1e-15), broadcasts delta by
@@ -34,6 +35,17 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// max(diff, -x_i) of the CD step, as torch.maximum and jnp.maximum take
+// it: a NaN in either operand gives NaN (PTX max.NaN, sm_80+). fmaxf
+// would return the other operand, so a zero Gram diagonal (1/diag inf,
+// b_i * inf NaN) would clamp x_i to 0 where the plain version's column
+// turns NaN. Wherever neither operand is NaN it equals fmaxf, bit for bit.
+__device__ __forceinline__ float cd_clamp(float diff, float neg_x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(diff), "f"(neg_x));
+  return r;
+}
 
 namespace nnls_wide {
 
@@ -93,7 +105,7 @@ wide_kernel(const Args p, const GRAM gram) {
           const float diff =
               __fadd_rn(__fsub_rn(__fmul_rn(b[i], gram.inv(col, i)), l1),
                         __fmul_rn(p.L2, xi));
-          d = fmaxf(diff, -xi);
+          d = cd_clamp(diff, -xi);
           const float xn = __fadd_rn(xi, d);
           x[i] = xn;
           part = __fadd_rn(part, __fdiv_rn(fabsf(__fsub_rn(xn, xi)),

@@ -12,7 +12,9 @@ keep factor read from the packed test-mask words. Their source is
 test bits by gene block, then tiles of cells that read Wd's rows from
 shared memory, ``b7_plan``). Wide routes take what those tiles cannot
 hold: B3 and B5 on gene blocks whose two slices of W do not fit in shared
-memory (``bell_spmm_wide``: a warp per cell, W's rows from device memory),
+memory (``bell_spmm_wide``: 4 to 32 lanes a cell sized to k, a window of
+slot rows keep-tested once in shared memory, 16 of a lane's W rows in
+flight from L2, ``b3_wide_plan``),
 B7 past k = 512 or where no tile fits (``bell_mse_bits_wide``: a warp per
 cell, sub-blocks of 512 genes); each keeps the order of the sums its plan
 documents. Each source's
@@ -73,10 +75,11 @@ _B3_COLS = 32
 _B3_ROUNDS = (4, 2, 1)
 _B3_WIN_ROWS = 72
 _B3_CLUSTER = 2
-# B3's wide-block route (bell_spmm.cu ``bell_spmm_wide``): 8 warps a block,
-# a cell each, and column chunks of 256 (8 columns a lane)
-_B3_WIDE_CELLS = 8
-_B3_WIDE_COLS = 256
+# B3's wide-block route (bell_spmm.cu ``bell_spmm_wide``): blocks of 256
+# threads, 4, 8, 16 or 32 lanes a cell, each lane one load of VW adjacent
+# columns (4; for B5 2 where k is 2 mod 4), or two past 32 VW columns
+_B3_WIDE_THREADS = 256
+_B3_WIDE_LANES = (4, 8, 16, 32)
 # B7 (csrc/bell_mse_bits.cu) keeps its cells' H rows in registers, up to
 # 16 columns a lane; a block of up to 15 walker warps (16 where their H
 # rows take at most 16 floats a lane) and a producer, Wd's slice of a
@@ -122,12 +125,14 @@ class B3Plan(NamedTuple):
 
 
 class B3WidePlan(NamedTuple):
-    """B3's wide-block route (``bell_spmm_wide``, see ``b3_plan``): a warp
-    per cell and column chunk, W's rows read from device memory."""
-    cols: int          # columns a chunk (256: 8 a lane)
+    """B3's wide-block route (``bell_spmm_wide``, see ``b3_wide_plan``):
+    256 / cells lanes a cell, a column chunk of ``cols`` a block, W's rows
+    read from device memory ``vw`` floats a load."""
+    cols: int          # columns a chunk: vw or 2 vw a lane (8 to 256)
     n_kt: int          # column chunks
-    cells: int         # cells a block (8 warps)
+    cells: int         # cells a block: 64, 32, 16 or 8 (4 to 32 lanes each)
     n_ct: int          # cell tiles (blocks along the cells)
+    vw: int = 4        # adjacent floats of W a load: 4 or 2
 
 
 def b3_bm_words(gene_block: int) -> int:
@@ -166,7 +171,7 @@ def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
     (B5) the blocks also hold their cells' test bits of a gene block.
     Where even two slices of W of 4 columns do not fit (gene blocks past
     7,168 genes, or 5,632 with ``bits``), the wide-block route's
-    ``B3WidePlan``. Each
+    ``b3_wide_plan``. Each
     output is one thread's sum over its cell's gene blocks in order and, in
     each, its kept slots in slot order, whatever the plan: the plan does not
     change the bits. ``n_gb`` does not enter it."""
@@ -177,9 +182,8 @@ def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
 
     if smem(1, 4, 1, 1) > _SMEM_BLOCK:
         # two slices of W of the gene block do not fit: the wide-block
-        # route, a warp per cell and chunk of 256 columns
-        return B3WidePlan(_B3_WIDE_COLS, -(-k // _B3_WIDE_COLS),
-                          _B3_WIDE_CELLS, -(-cells // _B3_WIDE_CELLS))
+        # route
+        return b3_wide_plan(cells, k, bits)
     for kt_max in range(_B3_COLS, 0, -4):
         n_kt = -(-k // kt_max)
         kt = -(-(-(-k // n_kt)) // 4) * 4
@@ -204,6 +208,23 @@ def b3_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int,
     return B3Plan(kt, n_kt, rounds, _B3_CELLS_PASS * rounds,
                   -(-cells // (_B3_CELLS_PASS * rounds)), win(rounds), cs,
                   smem(win(rounds), kt, rounds, cs))
+
+
+def b3_wide_plan(cells: int, k: int, bits: bool = False) -> B3WidePlan:
+    """B3's wide-block route: loads of vw = 4 adjacent columns of W, or
+    for B5 (``bits``) 2 where k is 2 mod 4 (no padded copy of W, and twice
+    the lanes and blocks to hide the test words' latency: 12% faster than
+    4 at k = 50 on an H100, where B3 is 3-10% faster with 4); the fewest
+    lanes a cell (4, 8, 16 or 32) whose loads cover k, or 32 vw of it;
+    past 32 vw columns 32 lanes of two loads (chunks of 64 vw); a block of
+    256 threads holds 256 / lanes cells. Every output is one lane's fmaf
+    chain over its cell's kept slots in order, whatever the plan: it does
+    not change the bits."""
+    vw = 2 if bits and k % 4 == 2 else 4
+    lanes = next(n for n in _B3_WIDE_LANES if vw * n >= min(k, 32 * vw))
+    cols = vw * lanes * (2 if k > 32 * vw else 1)
+    tile = _B3_WIDE_THREADS // lanes
+    return B3WidePlan(cols, -(-k // cols), tile, -(-cells // tile), vw)
 
 
 class B4Plan(NamedTuple):
@@ -406,9 +427,10 @@ _KEEP_ARGTYPES = [_CI, ctypes.c_uint64, _CL, _CI, _VP, _CL, _VP]
 ARGTYPES_B3 = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI, _VP, _CI,
                _CI, _CI, _CI] + _KEEP_ARGTYPES[:-1] + [_VP, _VP]
 # bell_spmm_wide: planes, ld, n_gb, width, cells, gene_block, W, its row
-# stride, k, B, then the keep arguments
+# stride, k, B, the plan's cols, cells a block and floats a load, then the
+# keep arguments
 ARGTYPES_B3_WIDE = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _CI,
-                    _VP] + _KEEP_ARGTYPES
+                    _VP, _CI, _CI, _CI] + _KEEP_ARGTYPES
 # bell_spmm_t: planes, ld, n_gb, width, cells, gene_block, H, k, Bw,
 # partials, counters, rows, chunk_tiles, n_chunks, h_vec, p_vec, then the
 # keep arguments
@@ -543,12 +565,17 @@ def _launch_b3(b_li, b_val, W, mode, seed64, cell_offset, inv_density,
     width = b_li.shape[0] // n_gb
     plan = b3_plan(cells, n_gb, gene_block, width, k, mode == 2)
     if isinstance(plan, B3WidePlan):
+        # W's rows vw floats a load: a padded copy where W does not allow it
+        aligned = (W.data_ptr() % (4 * plan.vw) == 0
+                   and W.stride(0) % plan.vw == 0)
+        Wt = W if aligned else _padded(W)
         with torch.cuda.device(W.device):
             stream = torch.cuda.current_stream(W.device).cuda_stream
             err = _lib().bell_spmm_wide(
                 b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb,
-                width, cells, gene_block, W.data_ptr(), W.stride(0), k,
-                B.data_ptr(), mode, seed64, int(cell_offset),
+                width, cells, gene_block, Wt.data_ptr(), Wt.stride(0), k,
+                B.data_ptr(), plan.cols, plan.cells, plan.vw, mode, seed64,
+                int(cell_offset),
                 int(inv_density), None if words is None else words.data_ptr(),
                 0 if words is None else words.stride(0), stream)
         _raise_on(err, "bell_spmm_wide")

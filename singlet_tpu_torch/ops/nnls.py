@@ -9,8 +9,10 @@ send CUDA calls to the hand-written kernels of ``ops/nnls_cuda.py``: B1 for
 a shared Gram, B2 for one Gram per column (the masked fit).
 
 Exact reference semantics per column, as in the JAX package:
-  - ``diff = b_i / a_ii - L1 + L2 * x_i``, ``delta = max(diff, -x_i)``,
-    full residual downdate ``b -= a[:, i] * delta``;
+  - ``diff = b_i / a_ii - L1 + L2 * x_i``, ``delta = max(diff, -x_i)``
+    (a NaN kept: a zero Gram diagonal with b_i = 0 turns the column NaN),
+    full residual downdate ``b -= a[:, i] * delta``; a stopped or held
+    column takes no step, as JAX's compiled loop;
   - the residual starts at the RAW B (not ``B - a X0``);
   - the sweep-end tol is ``sum_i |dx_i| / (x_i + 1e-15)`` (a clamp from x_i
     contributes x_i / 1e-15, which forces another sweep);
@@ -133,10 +135,10 @@ def nnls_batch(
                          dtype=torch.float32, device=B.device)
     col_sweeps = torch.zeros(n, dtype=torch.int32, device=B.device)
 
+    zero = torch.zeros((), dtype=dtype, device=B.device)
     sweep = 0
     while bool(active.any()):
         X_prev = X.clone()
-        active_f = active.to(dtype)
         for i in range(k):  # sequential Gauss-Seidel recurrence
             if batched_a:
                 inv_aii = inv_diag[:, i]
@@ -148,7 +150,11 @@ def nnls_batch(
             diff = Bres[:, i] * inv_aii
             diff = diff - (L1[:, i] if l1_is_array else L1)
             diff = diff + L2 * x_i
-            delta = torch.maximum(diff, -x_i) * active_f
+            # a stopped or held column takes a zero step: JAX's
+            # ``maximum(...) * active_f`` compiles to this select (XLA
+            # rewrites a product with a converted predicate), so a NaN or
+            # inf step of such a column leaves it as it is
+            delta = torch.where(active, torch.maximum(diff, -x_i), zero)
             Bres = Bres - delta[:, None] * a_col
             X[:, i] = x_i + delta
         tol_sweep = torch.sum(torch.abs(X - X_prev) / (X + 1e-15), dim=1)
@@ -163,17 +169,17 @@ def nnls_batch(
     return X
 
 
-def _check_cuda_problem(B, L1, per_column_grams: bool):
-    """On CUDA the kernels take a float32 problem; (n, k) L1 (batch mode)
-    only with a shared Gram (B1): with per-column Grams (B2) it raises
-    rather than run the plain loop on the card."""
-    if per_column_grams and isinstance(L1, torch.Tensor) and L1.dim() == 2:
-        raise NotImplementedError(
-            "on CUDA kernel B2 (per-column Grams) takes a scalar L1; (n, k) "
-            "L1 (batch mode) is ported for a shared Gram only")
+def _cuda_problem(B, L1):
+    """On CUDA the kernels take a float32 problem, with a scalar or an
+    (n, k) L1 (batch mode), which goes over as float32; another dtype of B
+    raises rather than run the plain loop on the card. Returns the L1 to
+    hand over."""
     if B.dtype != torch.float32:
         raise NotImplementedError(
             f"on CUDA the CD-NNLS kernels take float32, got {B.dtype}")
+    if isinstance(L1, torch.Tensor) and L1.dim() == 2:
+        return L1.to(torch.float32).contiguous()
+    return L1
 
 
 def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
@@ -181,14 +187,14 @@ def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     """Dispatcher: the kernels for CUDA tensors, the plain version on the
     CPU.
 
-    On CUDA a shared (k, k) Gram goes to kernel B1, with a scalar or an
-    (n, k) L1, and per-column (n, k, k) Grams to kernel B2's tile entry
-    (in its (k, k, n) layout, as the JAX dispatcher sends them to
-    ``nnls_batch_pallas_batched_a``) with a scalar L1: (n, k) L1 there
-    raises rather than run the plain loop. Float32 only.
+    On CUDA a shared (k, k) Gram goes to kernel B1 and per-column (n, k, k)
+    Grams to kernel B2's tile entry (in its (k, k, n) layout, as the JAX
+    dispatcher sends them to ``nnls_batch_pallas_batched_a``), each with a
+    scalar or an (n, k) L1 (the JAX dispatcher runs the latter on its XLA
+    path, whose result the kernels give). Float32 only.
     """
     if B.device.type == "cuda":
-        _check_cuda_problem(B, L1, a.dim() == 3)
+        L1 = _cuda_problem(B, L1)
         from singlet_tpu_torch.ops import nnls_cuda
 
         if a.dim() == 3:
@@ -196,8 +202,6 @@ def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                 a.permute(2, 1, 0).contiguous(), B, X0, L1=L1, L2=L2,
                 update_mask=update_mask, max_sweeps=max_sweeps,
                 n_coord=n_coord, sweep_cap=sweep_cap)
-        if isinstance(L1, torch.Tensor) and L1.dim() == 2:
-            L1 = L1.to(torch.float32).contiguous()
         return nnls_cuda.nnls_batch_cuda(a, B, X0, L1=L1, L2=L2,
                                          update_mask=update_mask,
                                          max_sweeps=max_sweeps,
@@ -245,7 +249,7 @@ def solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.0, L2=0.0,
     from singlet_tpu_torch.ops.linalg import unpack_sym_from_t
 
     if B.device.type == "cuda":
-        _check_cuda_problem(B, L1, True)
+        L1 = _cuda_problem(B, L1)
         from singlet_tpu_torch.ops.nnls_cuda import \
             nnls_batch_cuda_batched_packed_t
 

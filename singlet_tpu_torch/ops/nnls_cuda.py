@@ -4,9 +4,8 @@ B1 (``nnls_batch_cuda``) solves against one shared Gram and replaces
 ``singlet_tpu/ops/pallas_nnls.py`` ``nnls_batch_pallas`` (body
 ``_nnls_kernel``), the kernel of both plain ALS half-updates; its source is
 ``csrc/nnls_cd.cu`` (G lanes a column, 32 / G columns a warp, the Gram
-staged transposed in shared memory; ``b1_plan`` picks G). It takes a
-scalar L1 or a per-coordinate (n, k) one. B2 solves against one Gram per
-column and replaces
+staged transposed in shared memory; ``b1_plan`` picks G). B2 solves
+against one Gram per column and replaces
 ``nnls_batch_pallas_batched_at`` (body ``_nnls_kernel_batched``), the
 kernel of the masked half-updates; its source is ``csrc/nnls_cd_batched.cu``
 (a warp or half-warp per column, its coordinates over the lanes, each
@@ -17,7 +16,9 @@ coordinate tiles ``at`` (k, k, n), the layout of the JAX kernel, and
 ``nnls_batch_cuda_batched_packed_t`` takes what a masked half-update makes
 them from, ``a_full`` (k, k) and the packed corrections ``packed_t``
 (npairs, n), and forms each entry on the card with the bits of
-``linalg.unpack_sym_from_t``. Each source's header note gives its design
+``linalg.unpack_sym_from_t``. Both kernels take a scalar L1 or a
+per-coordinate (n, k) one (batch mode). Each source's header note gives
+its design
 and what bounds it on the card. ``_build.py`` compiles them with nvcc at
 first use and this module binds them with ctypes. Their tuned routes
 take k <= 512 (``MAX_K``, ``MAX_K_BATCHED``); past it both take the wide-k
@@ -78,24 +79,24 @@ MAX_K_BATCHED = 512
 _WIDE_WARPS = 8
 _WIDE_SCRATCH_BLOCKS = 264
 
-# the C entry points of B2 take six pointers, n, k, L1, L2, k_div, cap,
-# max_sweeps and the stream
-_ARGTYPES = ([ctypes.c_void_p] * 6
+# the C entry points of B2 take seven pointers (the tile, 1/diag, B, X0,
+# mask, the (n, k) L1 or null, X), n, k, L1, L2, k_div, cap, max_sweeps
+# and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p])
 # B2's packed entry: a_full, packed_t and the row-start table in place of
 # the tile and 1/diag, then the arguments above
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
-# the wide entries: B1's aT, l1 or B2's (at, 1/diag) or (a_full, packed_t,
-# row starts), then B, X0, mask, X, scratch, n, k, warps, blocks, L1, L2,
-# k_div, cap, max_sweeps and the stream
-_WIDE_TAIL = ([ctypes.c_void_p] * 5
-              + [ctypes.c_int] * 4
+# the wide entries: B1's (aT, l1) or B2's (at, 1/diag) or (a_full,
+# packed_t, row starts), then B, X0, mask (B2: then l1), X, scratch, n, k,
+# warps, blocks, L1, L2, k_div, cap, max_sweeps and the stream
+_WIDE_TAIL = ([ctypes.c_int] * 4
               + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
-ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 2 + _WIDE_TAIL
-ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 2 + _WIDE_TAIL
-ARGTYPES_B2_PACKED_WIDE = [ctypes.c_void_p] * 3 + _WIDE_TAIL
+ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 7 + _WIDE_TAIL
+ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 8 + _WIDE_TAIL
+ARGTYPES_B2_PACKED_WIDE = [ctypes.c_void_p] * 9 + _WIDE_TAIL
 # B1's entry: a, aT, l1, B, X0, mask, X, then n, k, g, L1, L2, k_div, cap,
 # max_sweeps and the stream
 ARGTYPES_B1 = ([ctypes.c_void_p] * 7
@@ -279,11 +280,7 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     global LAUNCHES, LAUNCHES_WIDE
     n, k = B.shape
     _check("a", a, (k, k), torch.float32, B.device)
-    l1 = None
-    if isinstance(L1, torch.Tensor) and L1.dim() > 0:
-        _check("L1", L1, (n, k), torch.float32, B.device)
-        l1, L1 = L1, 0.0
-    _check_common(B, X0, update_mask, L1, "B1")
+    l1, L1 = _check_common(B, X0, update_mask, L1)
     k_div = float(k if n_coord is None else n_coord)
     X = torch.empty_like(B)
     if n == 0:
@@ -332,7 +329,10 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     return X
 
 
-def _check_common(B, X0, update_mask, L1, name):
+def _check_common(B, X0, update_mask, L1):
+    """Check the arguments every kernel of this module takes; returns
+    (the (n, k) float32 L1 tensor or None, the scalar L1: 0 beside a
+    tensor)."""
     n, k = B.shape
     dev = B.device
     _check("B", B, (n, k), torch.float32, dev)
@@ -340,30 +340,33 @@ def _check_common(B, X0, update_mask, L1, name):
     if update_mask is not None:
         _check("update_mask", update_mask, (n,), torch.bool, dev)
     if isinstance(L1, torch.Tensor) and L1.dim() > 0:
-        raise TypeError(f"kernel {name} takes a scalar L1")
+        _check("L1", L1, (n, k), torch.float32, dev)
+        return L1, 0.0
+    return None, L1
 
 
-def _launch(bound, symbol, grams, B, X0, update_mask, X, L1, L2, k_div, cap,
-            max_sweeps):
+def _launch(bound, symbol, grams, B, X0, update_mask, l1, X, L1, L2, k_div,
+            cap, max_sweeps):
     """Launch a bound entry of B2 on the current stream of B's device;
     raise if the launch was refused. ``grams``: the tensors passed before
     B, the tile entry's (at, 1/diag) or the packed entry's (a_full,
-    packed_t, row starts)."""
+    packed_t, row starts); ``l1`` the (n, k) L1 or None."""
     fn, err_str = bound
     n, k = B.shape
     mask_ptr = None if update_mask is None else update_mask.data_ptr()
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = fn(*(t.data_ptr() for t in grams), B.data_ptr(), X0.data_ptr(),
-                 mask_ptr, X.data_ptr(), n, k, float(L1), float(L2), k_div,
-                 cap, int(max_sweeps), stream)
+                 mask_ptr, None if l1 is None else l1.data_ptr(),
+                 X.data_ptr(), n, k, float(L1), float(L2), k_div, cap,
+                 int(max_sweeps), stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
 
 
-def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, X, L1,
-                 L2, k_div, cap, max_sweeps):
+def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, l1, X,
+                 L1, L2, k_div, cap, max_sweeps):
     """Launch B2's wide-k route (``symbol`` of nnls_cd_batched.cu) on
     ``plan`` (``nnls_wide_plan``); ``grams`` as ``_launch``'s."""
     global LAUNCHES_BATCHED, LAUNCHES_BATCHED_WIDE
@@ -374,7 +377,8 @@ def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, X, L1,
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
         err = fn(*(t.data_ptr() for t in grams), B.data_ptr(), X0.data_ptr(),
-                 mask_ptr, X.data_ptr(),
+                 mask_ptr, None if l1 is None else l1.data_ptr(),
+                 X.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, k,
                  plan.warps, plan.blocks, float(L1), float(L2), k_div, cap,
                  int(max_sweeps), stream)
@@ -396,7 +400,8 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
                                max_sweeps: int = CD_MAX_SWEEPS, n_coord=None,
                                sweep_cap=None) -> torch.Tensor:
     """``nnls_batch`` for per-column float32 Grams in the coordinate-tile
-    layout ``at`` (k, k, n), ``at[i, j, c] = a_c[j, i]``, and scalar L1/L2.
+    layout ``at`` (k, k, n), ``at[i, j, c] = a_c[j, i]``, a scalar L2 and
+    a scalar or (n, k) float32 L1.
 
     B, X0: (n, k); update_mask: bool (n,) or None. Returns X (n, k); rows
     with update_mask False equal X0 bit for bit. On the CPU this is the
@@ -409,7 +414,7 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
     global LAUNCHES_BATCHED
     n, k = B.shape
     _check("at", at, (k, k, n), torch.float32, B.device)
-    _check_common(B, X0, update_mask, L1, "B2")
+    l1, L1 = _check_common(B, X0, update_mask, L1)
     k_div = float(k if n_coord is None else n_coord)
     # 1 / a_c[i, i] as the plain version computes it: row i * (k + 1) of
     # the (k * k, n) view is at[i, i, :]
@@ -420,11 +425,11 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
     plan = b2_plan(n, k)
     if plan is not None:
         _launch_wide(plan, "nnls_cd_batched_wide", ARGTYPES_B2_WIDE,
-                     (at, inv_diag), B, X0, update_mask, X, L1, L2, k_div,
-                     _cap(max_sweeps, sweep_cap), max_sweeps)
+                     (at, inv_diag), B, X0, update_mask, l1, X, L1, L2,
+                     k_div, _cap(max_sweeps, sweep_cap), max_sweeps)
         return X
     _launch(_kernel_batched(), "nnls_cd_batched", (at, inv_diag), B, X0,
-            update_mask, X, L1, L2, k_div, _cap(max_sweeps, sweep_cap),
+            update_mask, l1, X, L1, L2, k_div, _cap(max_sweeps, sweep_cap),
             max_sweeps)
     LAUNCHES_BATCHED += 1
     return X
@@ -482,7 +487,8 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
     """``nnls_batch`` for per-column float32 Grams ``a_c[j, i] = a_full[i,
     j] - packed_t[pos(i, j), c]`` (``linalg.unpack_sym_from_t``'s), from
     a_full (k, k) and the packed corrections packed_t (npairs, n) in the
-    order of ``iu`` (``linalg.triu_pairs(k)``), and scalar L1/L2.
+    order of ``iu`` (``linalg.triu_pairs(k)``), a scalar L2 and a scalar or
+    (n, k) float32 L1.
 
     B, X0: (n, k); update_mask: bool (n,) or None. Returns X (n, k); rows
     with update_mask False equal X0 bit for bit. On a CUDA tensor kernel
@@ -501,7 +507,7 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
     _check("a_full", a_full, (k, k), torch.float32, B.device)
     _check("packed_t", packed_t, (k * (k + 1) // 2, n), torch.float32,
            B.device)
-    _check_common(B, X0, update_mask, L1, "B2")
+    l1, L1 = _check_common(B, X0, update_mask, L1)
     starts = _row_starts_on(k, iu, B.device)
     k_div = float(k if n_coord is None else n_coord)
     X = torch.empty_like(B)
@@ -510,12 +516,13 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
     plan = b2_plan(n, k)
     if plan is not None:
         _launch_wide(plan, "nnls_cd_batched_packed_wide",
-                     ARGTYPES_B2_PACKED_WIDE, (a_full, packed_t, starts), B, X0, update_mask, X, L1,
-                     L2, k_div, _cap(max_sweeps, sweep_cap), max_sweeps)
+                     ARGTYPES_B2_PACKED_WIDE, (a_full, packed_t, starts), B,
+                     X0, update_mask, l1, X, L1, L2, k_div,
+                     _cap(max_sweeps, sweep_cap), max_sweeps)
         return X
     _launch(_kernel("nnls_cd_batched", "nnls_cd_batched_packed",
                     _ARGTYPES_PACKED), "nnls_cd_batched_packed",
-            (a_full, packed_t, starts), B, X0, update_mask, X, L1, L2, k_div,
-            _cap(max_sweeps, sweep_cap), max_sweeps)
+            (a_full, packed_t, starts), B, X0, update_mask, l1, X, L1, L2,
+            k_div, _cap(max_sweeps, sweep_cap), max_sweeps)
     LAUNCHES_BATCHED += 1
     return X

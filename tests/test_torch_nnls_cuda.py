@@ -10,8 +10,10 @@ without one. On a machine with a card (and without jax, which
 Tolerance rtol=5e-3, atol=1e-6, that of tests/test_pallas_nnls.py: kernel and
 plain version round every coordinate step alike, but sum the sweep-end tol in
 another order, so a borderline column may run one sweep more or fewer.
-B1 also takes an (n, k) L1 (the plain version's per-coordinate branch); a
-run gives the same bits every time.
+B1 and B2 also take an (n, k) L1 (the plain version's per-coordinate
+branch); a run gives the same bits every time. A zero Gram diagonal with a
+zero right-hand side turns a column NaN on every route, as in the plain
+version (the same NaN positions: ``assert_allclose``'s ``equal_nan``).
 """
 
 import numpy as np
@@ -77,19 +79,23 @@ def test_solve_nnls_launches_kernel_only(cuda):
 
 
 def test_solve_nnls_raises_off_the_kernel(cuda):
-    """Per-column Grams with (n, k) L1 (B2 takes a scalar L1) and float64
-    raise rather than run the plain loop on the card; a shared Gram with
-    (n, k) L1 goes to B1."""
+    """Float64 raises rather than run the plain loop on the card; an (n, k)
+    L1 goes to B1 with a shared Gram and to B2 with per-column Grams, each
+    within the tolerance of the plain version."""
     a, B, X0, _ = _problem(64, 5, 4, cuda)
-    with pytest.raises(NotImplementedError, match="batch"):
-        nnls.solve_nnls(a.expand(64, 5, 5).contiguous(), B, X0,
-                        L1=torch.full_like(B, 0.01))
     with pytest.raises(NotImplementedError):
         nnls.solve_nnls(a.double(), B.double(), X0.double())
-    counts = (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS)
-    nnls.solve_nnls(a, B, X0, L1=torch.full_like(B, 0.01))
-    assert (nnls_cuda.LAUNCHES, nnls.PLAIN_CALLS) == (counts[0] + 1,
-                                                      counts[1])
+    L1 = torch.rand((64, 5), generator=torch.Generator(device=cuda)
+                    .manual_seed(4), device=cuda) * 0.05
+    grams = a.expand(64, 5, 5).contiguous()
+    for g, launches in ((a, "LAUNCHES"), (grams, "LAUNCHES_BATCHED")):
+        counts = (getattr(nnls_cuda, launches), nnls.PLAIN_CALLS)
+        X = nnls.solve_nnls(g, B, X0, L1=L1)
+        assert (getattr(nnls_cuda, launches), nnls.PLAIN_CALLS) == (
+            counts[0] + 1, counts[1])
+        np.testing.assert_allclose(
+            X.cpu().numpy(), nnls.nnls_batch(g, B, X0, L1=L1).cpu().numpy(),
+            rtol=5e-3, atol=1e-6)
 
 
 @pytest.mark.parametrize("n,k", [(333, 7), (1500, 10), (2048, 50),
@@ -414,3 +420,153 @@ def test_packed_entry_checks_inputs(cuda, monkeypatch):
                                                    device=cuda),
             linalg.triu_pairs(k), torch.ones((4, k), device=cuda),
             torch.zeros((4, k), device=cuda))
+
+
+def _nan_to_zero(x):
+    """x with its NaNs (and only those) as 0: with equal NaN masks, two
+    results are the same bits where they are numbers."""
+    return torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                            neginf=float("-inf"))
+
+
+# ---------------------------------------- zero Gram diagonals, (n, k) L1
+
+def _zero_diag_shared(n, k, z, seed, device):
+    """A shared Gram whose factor z is zero on every row (row, column and
+    diagonal z exactly 0) and B = G F (column z exactly 0: those columns
+    turn NaN), but a third of the columns with b_z < 0 (x_z clamps to 0,
+    finite); 10% of the columns held."""
+    rng = np.random.default_rng(seed)
+    m = 2 * k + 8
+    F = rng.random((m, k)).astype(np.float32)
+    F[:, z] = 0.0
+    eye = np.eye(k, dtype=np.float32)
+    eye[z, z] = 0.0
+    a = (F.T @ F + 1e-15 * eye).astype(np.float32)
+    B = (rng.random((n, m)).astype(np.float32) @ F).astype(np.float32)
+    B[::3, z] = -0.5
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    return [torch.as_tensor(x, device=device) for x in (a, B, X0, mask)]
+
+
+def _zero_diag_packed(n, k, z, seed, device):
+    """A masked half-update's inputs (a_full, packed_t, iu, B, X0, mask)
+    where factor z is nonzero on one row alone, held out for the even
+    columns: their Grams have row, column and diagonal z exactly 0 and
+    their b_z is exactly 0 (NaN columns); the odd columns stay finite."""
+    from singlet_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(seed)
+    m = 2 * k + 8
+    F = rng.random((m, k)).astype(np.float32)
+    F[:, z] = 0.0
+    F[3, z] = 0.75
+    held = rng.random((n, m)) < 0.05
+    held[:, 3] = np.arange(n) % 2 == 0
+    Ft = torch.as_tensor(F, device=device)
+    mt = torch.as_tensor(held, device=device)
+    iu = linalg.triu_pairs(k)
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(Ft, iu), mt,
+                                 1).contiguous()
+    a_full = Ft.T @ Ft + 1e-15 * torch.eye(k, device=device)
+    a_full[z, z] = float(np.float32(0.75) * np.float32(0.75))
+    kept = torch.as_tensor(np.where(held, 0.0, rng.random((n, m))),
+                           dtype=torch.float32, device=device)
+    B = kept @ Ft
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    mask = rng.random(n) < 0.9
+    return (a_full.contiguous(), packed_t, iu, B.contiguous(),
+            torch.as_tensor(X0, device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def _nan_close(got, want, mask, X0):
+    """The plain version's NaN positions and, elsewhere, its values within
+    the tolerance; held columns X0 bit for bit."""
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6, equal_nan=True)
+    assert torch.equal(got[~mask], X0[~mask])
+
+
+@pytest.mark.parametrize("n,k,z", [(300, 9, 4), (1500, 10, 0), (2048, 50, 17),
+                                   (1024, 100, 99), (300, 224, 100),
+                                   (200, 300, 150)])
+def test_b1_zero_diagonal_gives_the_plain_nans(cuda, n, k, z):
+    """B1 on its shared-memory (k <= 224) and device-memory routes: the
+    columns whose b_z is 0 turn NaN from coordinate z on, as the plain
+    version's, the others clamp x_z to 0; with a scalar and an (n, k)
+    L1."""
+    a, B, X0, mask = _zero_diag_shared(n, k, z, n + k, cuda)
+    L1s = (0.01, torch.rand((n, k), generator=torch.Generator(device=cuda)
+                            .manual_seed(k), device=cuda) * 0.05)
+    for L1 in L1s:
+        kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=8.0)
+        Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+        Xp = nnls.nnls_batch(a, B, X0, **kw)
+        torch.cuda.synchronize()
+        assert torch.isnan(Xp[mask]).any(dim=1).sum() > 0
+        assert torch.isfinite(Xp[::3]).all()
+        _nan_close(Xk, Xp, mask, X0)
+
+
+@pytest.mark.parametrize("n,k,z", [(256, 9, 3), (1500, 10, 9), (2048, 50, 0),
+                                   (1024, 100, 42), (130, 224, 200),
+                                   (130, 256, 255), (96, 300, 7),
+                                   (64, 400, 321)])
+def test_b2_zero_diagonal_gives_the_plain_nans(cuda, n, k, z):
+    """B2's packed and tile entries (every layout of the tuned route): the
+    columns that hold factor z's only row out turn NaN, as the plain
+    version's, the others stay finite; the two entries give the same
+    bits."""
+    from singlet_tpu_torch.ops import linalg
+
+    a_full, packed_t, iu, B, X0, mask = _zero_diag_packed(n, k, z, n + k,
+                                                          cuda)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=32.0)
+    Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(Xp[0::2][mask[0::2]]).any(dim=1).all()
+    assert torch.isfinite(Xp[1::2]).all()
+    assert torch.equal(torch.isnan(Xk), torch.isnan(Xt))
+    assert torch.equal(_nan_to_zero(Xk), _nan_to_zero(Xt))
+    _nan_close(Xk, Xp, mask, X0)
+
+
+@pytest.mark.parametrize("n,k", [(256, 9), (1500, 10), (2048, 50),
+                                 (1024, 100), (130, 224), (130, 256),
+                                 (96, 300), (64, 400)])
+@pytest.mark.parametrize("sweep_cap", [None, 32.0])
+def test_b2_l1_array_matches_plain(cuda, n, k, sweep_cap):
+    """B2's packed and tile entries with a per-coordinate (n, k) L1: the
+    same bits as each other, within the tolerance of the plain version's
+    (n, k) branch, masked columns X0; through solve_nnls_packed_t one
+    launch and no plain call."""
+    from singlet_tpu_torch.ops import linalg
+
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(
+        n, k, n + k + 3, cuda)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    L1 = torch.rand((n, k), generator=torch.Generator(device=cuda)
+                    .manual_seed(k), device=cuda) * 0.05
+    kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=sweep_cap)
+    counts = (nnls_cuda.LAUNCHES_BATCHED, nnls.PLAIN_CALLS)
+    Xk = nnls.solve_nnls_packed_t(a_full, packed_t, iu, B, X0, **kw)
+    assert (nnls_cuda.LAUNCHES_BATCHED, nnls.PLAIN_CALLS) == (
+        counts[0] + 1, counts[1])
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(Xk, Xt)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+    # a scalar L1 spread over (n, k) gives the scalar route's bits
+    full = dict(kw, L1=torch.full_like(B, 0.01))
+    assert torch.equal(
+        nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **full),
+        nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **dict(kw, L1=0.01)))

@@ -14,7 +14,10 @@ sweep-end tol is summed in another order than the plain version's, so a
 borderline column may run one sweep more or fewer), 1e-5 x max |output|
 for B3/B5 (only the order of the sums differs) and rtol 2e-4 for B7's sums
 with equal counts. Where a wide route and a tuned one compute the same
-sums in the same order they must give the same bits.
+sums in the same order they must give the same bits. A zero Gram diagonal
+with a zero right-hand side turns a column NaN on the wide routes as in
+the plain version (the same NaN positions, ``equal_nan``), and B2's wide
+route takes an (n, k) L1 as B1's does.
 """
 
 import numpy as np
@@ -161,7 +164,7 @@ def _close(got, want, rel=1e-5):
 
 
 @pytest.mark.parametrize("gene_block", [7200, 8192])
-@pytest.mark.parametrize("k", [5, 100, 300])
+@pytest.mark.parametrize("k", [5, 50, 100, 300])
 def test_b3_b5_wide_block_match_plain(cuda, gene_block, k):
     """B3 (plain and hashed keep) and B5 on gene blocks past their tiles'
     reach: the wide-block route, within 1e-5 x max |output| of the plain
@@ -252,3 +255,114 @@ def test_b7_wide_takes_the_tiled_bits(cuda, monkeypatch, k):
         bell_cuda.b7_wide_plan(cells, gene_block, k))
     assert torch.equal(bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
                                                     gene_block=256), want)
+
+
+def _nan_to_zero(x):
+    """x with its NaNs (and only those) as 0: with equal NaN masks, two
+    results are the same bits where they are numbers."""
+    return torch.nan_to_num(x, nan=0.0, posinf=float("inf"),
+                            neginf=float("-inf"))
+
+
+# ---------------------------------------- zero Gram diagonals, (n, k) L1
+
+def _zero_factor(k, z, rows, rng):
+    """F (rows, k) whose factor z is nonzero on row 3 alone."""
+    F = rng.random((rows, k)).astype(np.float32)
+    F[:, z] = 0.0
+    F[3, z] = 0.75
+    return F
+
+
+@pytest.mark.parametrize("n,k,z", [(130, 600, 0), (70, 1024, 513)])
+def test_b1_wide_zero_diagonal_gives_the_plain_nans(cuda, n, k, z):
+    """B1's wide route on a shared Gram whose factor z is zero on every row
+    but where b_z < 0 for a third of the columns: the others turn NaN from
+    coordinate z on, as the plain version's; with an (n, k) L1 too."""
+    rng = np.random.default_rng(k + z)
+    F = _zero_factor(k, z, 2 * k, rng)
+    F[3, z] = 0.0
+    eye = np.eye(k, dtype=np.float32)
+    eye[z, z] = 0.0
+    a = torch.as_tensor(F.T @ F + 1e-15 * eye, device=cuda)
+    B = torch.as_tensor(rng.random((n, 2 * k)).astype(np.float32) @ F,
+                        device=cuda)
+    B[::3, z] = -0.5
+    X0 = torch.as_tensor((rng.random((n, k)) * (rng.random((n, k)) < 0.5))
+                         .astype(np.float32), device=cuda)
+    mask = torch.as_tensor(rng.random(n) < 0.9, device=cuda)
+    for L1 in (0.01, torch.full_like(B, 0.02)):
+        kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=8.0)
+        wide = nnls_cuda.LAUNCHES_WIDE
+        Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+        assert nnls_cuda.LAUNCHES_WIDE == wide + 1
+        Xp = nnls.nnls_batch(a, B, X0, **kw)
+        torch.cuda.synchronize()
+        assert torch.isnan(Xp[mask]).any(dim=1).sum() > 0
+        assert torch.isfinite(Xp[::3]).all()
+        np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                   rtol=5e-3, atol=1e-6, equal_nan=True)
+        assert torch.equal(Xk[~mask], X0[~mask])
+
+
+@pytest.mark.parametrize("n,k,z", [(66, 600, 599), (40, 700, 31)])
+def test_b2_wide_zero_diagonal_gives_the_plain_nans(cuda, monkeypatch, n, k,
+                                                    z):
+    """B2's wide route, both entries and the scratch route: the columns
+    that hold factor z's only row out have a zero diagonal there and turn
+    NaN, as the plain version's; the others stay finite."""
+    rng = np.random.default_rng(k + z)
+    F = torch.as_tensor(_zero_factor(k, z, 2 * k, rng), device=cuda)
+    held = rng.random((n, 2 * k)) < 0.05
+    held[:, 3] = np.arange(n) % 2 == 0
+    m = torch.as_tensor(held, device=cuda)
+    iu = linalg.triu_pairs(k)
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
+                                 1).contiguous()
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device=cuda)
+    a_full[z, z] = float(np.float32(0.75) * np.float32(0.75))
+    B = (torch.where(m, 0.0, torch.rand((n, 2 * k), device=cuda))
+         @ F).contiguous()
+    X0 = torch.rand((n, k), device=cuda) * (torch.rand((n, k),
+                                                       device=cuda) < 0.5)
+    mask = torch.rand(n, device=cuda) < 0.9
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=8.0)
+    Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(Xp[0::2][mask[0::2]]).any(dim=1).all()
+    assert torch.isfinite(Xp[1::2]).all()
+    assert torch.equal(torch.isnan(Xk), torch.isnan(Xt))
+    assert torch.equal(_nan_to_zero(Xk), _nan_to_zero(Xt))
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6, equal_nan=True)
+    assert torch.equal(Xk[~mask], X0[~mask])
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _scratch_plan)
+    Xs = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    assert torch.equal(_nan_to_zero(Xs), _nan_to_zero(Xk))
+
+
+@pytest.mark.parametrize("n,k", [(200, 513), (130, 600)])
+def test_b2_wide_l1_array_matches_plain(cuda, n, k):
+    """B2's wide route with a per-coordinate (n, k) L1: both entries the
+    same bits, within the gate of the plain version, masked columns X0."""
+    a_full, packed_t, iu, B, X0, mask = _masked_problem_packed(n, k, k + 1,
+                                                               cuda)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    L1 = torch.rand((n, k), generator=torch.Generator(device=cuda)
+                    .manual_seed(k), device=cuda) * 0.02
+    kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=8.0)
+    wide = nnls_cuda.LAUNCHES_BATCHED_WIDE
+    Xk = nnls.solve_nnls_packed_t(a_full, packed_t, iu, B, X0, **kw)
+    Xt = nnls.solve_nnls(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert nnls_cuda.LAUNCHES_BATCHED_WIDE == wide + 2
+    assert torch.equal(Xk, Xt)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])

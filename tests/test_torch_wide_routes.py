@@ -7,7 +7,8 @@ memory. (The kernels themselves run on a card: tests/test_torch_wide_cuda.py.)
   wide routes existed (pinned below from that code);
 - ``b3_plan`` (plain and with the test bits) and ``b7_plan`` return a route
   at gene blocks of 7,168, 8,192 and 16,384 genes instead of raising, the
-  tiled plans unchanged where they fit;
+  tiled plans unchanged where they fit; B3/B5's wide-block plan sizes the
+  lanes a cell to k (pinned below);
 - ``nnls_wide_plan`` fits its state in shared memory where a column's
   2 k floats allow it and takes device scratch past that;
 - the plain versions at k = 600, which the card's wide routes are held
@@ -23,7 +24,8 @@ import torch
 from singlet_tpu.ops import nnls as jnnls
 from singlet_tpu_torch.ops import nnls
 from singlet_tpu_torch.ops.bell_cuda import (B3Plan, B3WidePlan, B7Plan,
-                                             B7WidePlan, b3_plan, b7_plan,
+                                             B7WidePlan, b3_plan,
+                                             b3_wide_plan, b7_plan,
                                              b7_wide_plan)
 from singlet_tpu_torch.ops.nnls_cuda import (B1Plan, WidePlan, b1_plan,
                                              b2_plan, nnls_wide_plan)
@@ -63,6 +65,29 @@ B3_PINNED = {
     (2048, 2048, 1000, 5, False): (4, 2, 1, 64, 32, 130, 2, 232232),
     (4096, 5632, 100, 100, True): (4, 25, 1, 64, 64, 4, 1, 231720),
     (4096, 7168, 100, 100, False): (4, 25, 1, 64, 64, 1, 1, 231208),
+}
+# b3_wide_plan(4096, k, bits): (columns a chunk, chunks, cells a block,
+# blocks, floats a load); 256 / cells lanes a cell, each one load of 4
+# columns (for B5 of 2 where k is 2 mod 4), two loads past 32 of them
+B3_WIDE_PINNED = {
+    (5, False): (16, 1, 64, 64, 4),
+    (5, True): (16, 1, 64, 64, 4),
+    (6, False): (16, 1, 64, 64, 4),
+    (6, True): (8, 1, 64, 64, 2),
+    (16, False): (16, 1, 64, 64, 4),
+    (17, True): (32, 1, 32, 128, 4),
+    (50, False): (64, 1, 16, 256, 4),
+    (50, True): (64, 1, 8, 512, 2),
+    (62, True): (64, 1, 8, 512, 2),
+    (66, True): (128, 1, 8, 512, 2),
+    (100, False): (128, 1, 8, 512, 4),
+    (100, True): (128, 1, 8, 512, 4),
+    (128, False): (128, 1, 8, 512, 4),
+    (129, False): (256, 1, 8, 512, 4),
+    (130, True): (128, 2, 8, 512, 2),
+    (300, False): (256, 2, 8, 512, 4),
+    (600, False): (256, 3, 8, 512, 4),
+    (600, True): (256, 3, 8, 512, 4),
 }
 
 
@@ -153,16 +178,35 @@ def test_b3_plan_unchanged_where_tiles_fit(key):
 
 @pytest.mark.parametrize("gene_block", [7168, 8192, 16384])
 @pytest.mark.parametrize("bits", [False, True])
-@pytest.mark.parametrize("k", [5, 100, 600])
+@pytest.mark.parametrize("k", [5, 50, 100, 600])
 def test_b3_plan_routes_wide_gene_blocks(gene_block, bits, k):
     """Where two slices of W do not fit (B3 past 7,168 genes, B5 past
-    5,632), the wide-block route: a block of 8 cells, column chunks of
-    256."""
+    5,632), the wide-block route, its plan pinned."""
     plan = b3_plan(4096, 2, gene_block, 416, k, bits)
     if gene_block == 7168 and not bits:
         assert isinstance(plan, B3Plan) and plan.smem <= SMEM
     else:
-        assert plan == B3WidePlan(256, -(-k // 256), 8, 512)
+        assert plan == B3WidePlan(*B3_WIDE_PINNED[k, bits])
+
+
+@pytest.mark.parametrize("k,bits", sorted(B3_WIDE_PINNED))
+def test_b3_wide_plan_sizes_lanes_to_k(k, bits):
+    """Loads of 4 columns, for B5 of 2 where k is 2 mod 4 (a contiguous W
+    then needs no padded copy); the fewest lanes a cell (4, 8, 16 or 32)
+    whose loads cover k (or 32 loads of it), two loads a lane past that; a
+    block of 256 threads; the chunks cover k once, and the kernel's entry
+    takes (cols, cells, vw)."""
+    plan = b3_wide_plan(4096, k, bits)
+    assert tuple(plan) == B3_WIDE_PINNED[k, bits]
+    vw = plan.vw
+    assert vw == (2 if bits and k % 4 == 2 else 4)
+    lanes = 256 // plan.cells
+    assert lanes in (4, 8, 16, 32) and lanes * plan.cells == 256
+    assert plan.cols == vw * lanes * (2 if k > 32 * vw else 1)
+    assert (plan.n_kt - 1) * plan.cols < k <= plan.n_kt * plan.cols
+    assert (plan.n_ct - 1) * plan.cells < 4096 <= plan.n_ct * plan.cells
+    if lanes > 4:   # no fewer lanes would cover min(k, 32 vw)
+        assert vw * lanes // 2 < min(k, 32 * vw)
 
 
 def _problem(n, k, seed):
