@@ -88,7 +88,15 @@ Phases; any failure raises and the script exits non-zero:
    bits-route ``ard_fit`` at k=600 against the dense masked fit on a
    1800 x 1800 planted block operand (the same traced iterations, the
    factors within the fit gate, test MSE within rtol 1e-3), each wide
-   route's launches counted;
+   route's launches counted; B1 (2048 columns) and B2's packed entry (512)
+   at k=600, cap 8, in turns with the warp-a-column kernel the staged
+   kernel replaced (``csrc/nnls_wide_warp.cu``; the same bits);
+   then the wide routes at the bench config's size, k=600: the dense fit
+   loop of ``run_nmf`` for 3 plain iterations (B1-wide's calls by CUDA
+   events), one bits-route masked step of the ELL engine (its state
+   reckoned first; B2-wide's h-side and w-side calls by CUDA events), and
+   the same calls' shapes in turns with the warp-a-column kernel, the
+   first 512 columns of each within the B1/B2 gate of the plain version;
 10c. gene blocks past the tiles of B3 and B5: 16,384 genes in two gene
    blocks of 8,192 at 4,096 cells (824 requested nonzeros a cell): B3
    (plain and masked) and B5 on their wide-block route, and B7, against
@@ -282,8 +290,9 @@ BENCH = dict(genes=16384, cells=8192, k=50, density=0.07, seed=42)
 MASKED = dict(k=50, inv_density=20, mask_seed=1, maxit=10)
 CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
-SOURCES = ("nnls_cd", "nnls_cd_batched", "bell_spmm", "bell_mse_bits",
-           "maskgram_m8", "maskgram_gemm", "bell_spmm_wide_warp")
+SOURCES = ("nnls_cd", "nnls_cd_batched", "nnls_wide", "bell_spmm",
+           "bell_mse_bits", "maskgram_m8", "maskgram_gemm",
+           "bell_spmm_wide_warp")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -332,6 +341,19 @@ WIDE600 = dict(k=600, sweep_cap=8, b1_n=2048, b2_n=512)
 WIDE600_RUN_NMF = dict(genes=4096, cells=2048, maxit=2)
 WIDE600_ELL = dict(genes=1800, cells=1800, maxit=1, cell_block=256,
                    gene_block=256)
+# the wide routes at the bench config's size (16,384 genes x 8,192 cells)
+# and k = 600: run_nmf's dense fit loop for 3 plain iterations (B1-wide at
+# n = 8,192 and 16,384), one bits-route masked step of the ELL engine
+# (B2-wide on each 2,048-cell block and once over all genes), both from W
+# and H drawn U(0, 1) with numpy; then the same calls' shapes in turns
+# with the warp-a-column kernel (ab_nnls, ab_nnls_batched), each output's
+# first 512 columns within the B1/B2 gate of the plain version
+WIDE600_BENCH = dict(k=600, maxit=3, seed=600, plain_cols=512,
+                     b1_turns=((8192, 600), (16384, 600)),
+                     b2_turns=((2048, 600), (16384, 600)))
+WIDE_TURN_NOTE = ("old, new, new, old: 5 rounds, a turn the median of 3 "
+                  "single calls by CUDA events (one round of single calls "
+                  "where the old one takes over 0.1 s)")
 # gene blocks past the tiles of B3 (7,168 genes) and B5 (5,632): the large
 # config's 16,384 genes and 824 requested nonzeros a cell in two gene
 # blocks of 8,192, at 4,096 cells; the plain versions of B3 and B5 by
@@ -2279,7 +2301,9 @@ def _wide_k600(torch, card, data, words):
     traces within rtol 1e-3, the gate of the bits route against the f32
     route, and the factors within FIT_RTOL/FIT_ATOL. Both fits run on
     planted block operands (``_block_operand``); the ELL one has 3 genes
-    and 3 cells a factor, as WIDE_ELL's at k=256."""
+    and 3 cells a factor, as WIDE_ELL's at k=256. B1 and B2's packed entry
+    also in turns with the warp-a-column kernel (``ab_nnls.run_wide``,
+    ``ab_nnls_batched.run_wide``) at their shapes."""
     import scipy.sparse as sp
 
     import singlet_tpu_torch as stt
@@ -2383,11 +2407,28 @@ def _wide_k600(torch, card, data, words):
                                + (genes + cells) * k * 4 + 2 * cells * 4,
                                2 * k * held, F32_OPS_S))
     del Wd, H
+    # B1 and B2's packed entry in turns with the warp-a-column kernel they
+    # replaced (csrc/nnls_wide_warp.cu), on the ab scripts' inputs at these
+    # shapes: the same bits
+    from singlet_tpu_torch import ab_nnls, ab_nnls_batched
+
+    rows["B1"]["turns"] = ab_nnls.run_wide(
+        torch, shapes=((n1, k),), card=card)[0]
+    rows["B2"]["turns"] = ab_nnls_batched.run_wide(
+        torch, shapes=((n2, k),), card=card)[0]
     for name, r in rows.items():
         print(f"kernel {name} wide-k route at k={k}: max|err|="
               f"{r['max_abs_err']:.3e}, kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) ({card})", flush=True)
+        if "turns" in r:
+            t = r["turns"]
+            print(f"  {name} in turns with the warp-a-column kernel, "
+                  f"{WIDE_TURN_NOTE}: {t['new_median_ms']:.4f} ms "
+                  f"({t['new_range_ms'][0]:.4f}-{t['new_range_ms'][1]:.4f}) "
+                  f"against {t['old_median_ms']:.4f} ms "
+                  f"({t['old_range_ms'][0]:.4f}-{t['old_range_ms'][1]:.4f}), "
+                  f"the same bits ({card})", flush=True)
 
     # run_nmf at k=600, card against CPU, from one w_init, on a planted
     # block operand (``_block_operand``: every half-update's Gram diagonal,
@@ -2463,6 +2504,161 @@ def _wide_k600(torch, card, data, words):
           f"launches {n_ard}; the dense masked fit {dense_s:.3f} s, launches "
           f"{n_dense}; test mse within {rel:.2e} relative (rtol 1e-3) "
           f"({card})", flush=True)
+    return out
+
+
+def _ell_masked_state_gib(genes: int, cells: int, block: int,
+                          k: int) -> float:
+    """The device state of one bits-route masked step of the ELL engine
+    at rank k, GiB, reckoned from ``sharded_ell._masked``: W's packed
+    products (float32, and their int8 K-major copy), the w-side carry of
+    packed corrections and its rescaled copy (float32, pairs x genes), the
+    group operand (int8, up to 16 blocks of H's packed products), and for
+    one block its packed corrections and H's packed products (float32)
+    with their int8 copy."""
+    npairs = k * (k + 1) // 2
+    n_blk = cells // block
+    group = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
+    per_pair = (4 * genes + genes + 2 * 4 * genes + group * block
+                + 2 * 4 * block + block)
+    return npairs * per_pair / 2**30
+
+
+def phase_wide_k600_bench(torch, card, A, Ap, Atp, data):
+    """Ranks above 512 at the bench config's size (WIDE600_BENCH, k = 600,
+    16,384 genes x 8,192 cells): (a) the dense fit loop ``run_nmf`` runs
+    (``nmf_fit`` on the dense providers) for 3 plain iterations from a
+    drawn W, ms each, B1-wide's two calls a iteration (8,192 cells, 16,384
+    genes) timed by CUDA events inside them; (b) one bits-route masked
+    step of the ELL engine on the operand as scipy (``data``), its state
+    reckoned and printed first (the cells halved until it fits the card,
+    the cut listed), B2-wide's h-side calls (one a 2,048-cell block) and
+    its w-side call (all genes) timed apart by CUDA events, after one
+    step that builds the lazy buffers; (c) the same calls' shapes in turns
+    with the warp-a-column kernel (``ab_nnls.run_wide``,
+    ``ab_nnls_batched.run_wide``: the same bits, the first 512 columns
+    within the B1/B2 gate of the plain version). A fit of noise at k =
+    600 is ill posed for card-against-CPU parity (``_block_operand``), so
+    (a) and (b) are timed and their outputs checked finite. The
+    warp-a-column kernel is ``csrc/nnls_wide_warp.cu``."""
+    import scipy.sparse as sp
+
+    import singlet_tpu_torch as stt
+    from singlet_tpu_torch import ab_nnls, ab_nnls_batched
+    from singlet_tpu_torch.ops import nnls_cuda
+    from singlet_tpu_torch.ops.nnls import SweepSettings
+    from singlet_tpu_torch.ops.rngmask import seed_pair
+    from singlet_tpu_torch.parallel import sharded_ell as tell
+
+    P = WIDE600_BENCH
+    k, M = P["k"], P["maxit"]
+    g, c = BENCH["genes"], BENCH["cells"]
+    rng = np.random.default_rng(P["seed"])
+    out = {}
+
+    # (a) the dense fit loop, B1-wide by CUDA events, by n
+    W0 = rng.random((g, k), dtype=np.float32)
+    with _event_timed(torch, (("nnls_batch_cuda",
+                               lambda a, B, *r, **kw: B.shape[0]),),
+                      module=nnls_cuda) as ev1:
+        res, secs, n_fit = _counted(torch, lambda: stt.nmf_fit(
+            Ap, k, At=Atp, w_init=W0, tol=0.0, maxit=M))
+    _check_launches(f"run_nmf's fit loop at k={k}", n_fit,
+                    _launches(B1=2 * M, B1w=2 * M))
+    _check_fit(res.w, res.d, res.h, (g, k), (k, c))
+    b1 = {f"n{n}": dict(ms=v[0] / v[1], calls=v[1])
+          for n, v in ev1.items()}
+    out["run_nmf"] = dict(genes=g, cells=c, k=k, maxit=M, wall_s=secs,
+                          ms_per_iter=secs * 1e3 / M, launches=n_fit,
+                          b1w=b1, b1w_share=sum(
+                              v[0] for v in ev1.values()) / (secs * 1e3))
+    print(f"run_nmf's dense fit loop {g}x{c} k={k}: {M} plain iterations "
+          f"{secs * 1e3 / M:.1f} ms each; B1-wide by CUDA events "
+          + ", ".join(f"n={n} {v[0] / v[1]:.3f} ms a call ({v[1]} calls)"
+                      for n, v in sorted(ev1.items()))
+          + f", {100 * out['run_nmf']['b1w_share']:.1f}% of the fit's wall "
+          f"time ({card})", flush=True)
+    del res, W0
+
+    # (b) one bits-route masked step of the ELL engine
+    dd, cut = data, None
+    while True:
+        need = _ell_masked_state_gib(dd.genes_pad, dd.cells_pad,
+                                     dd.cell_block, k)
+        free = torch.cuda.mem_get_info()[0] / 2**30
+        print(f"ELL bits-route masked step at k={k}, {dd.genes_pad} genes x "
+              f"{dd.cells_pad} cells: state reckoned {need:.2f} GiB, "
+              f"{free:.2f} GiB free ({card})", flush=True)
+        if need <= 0.9 * free or dd.cells_pad <= dd.cell_block:
+            break
+        half = dd.cells_pad // 2
+        cut = f"cells halved to {half}: {need:.2f} GiB of state"
+        dd = tell.ShardedEllEngine(sp.csc_matrix(A[:, :half]),
+                                   device="cuda").data
+    fns = tell._build_local_fns(dd, MASKED["inv_density"])
+    seed = seed_pair(MASKED["mask_seed"])
+    bits = fns["prepare_bits"](seed)
+    W = torch.as_tensor(rng.random((dd.genes_pad, k), dtype=np.float32),
+                        device="cuda")
+    H = torch.as_tensor(rng.random((dd.cells_pad, k), dtype=np.float32),
+                        device="cuda")
+    fast = float(SweepSettings.from_env().fast_masked)
+    blocks = dd.cells_pad // dd.cell_block
+
+    def step():
+        return fns["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
+                             sweep_cap=fast, bits=bits)
+
+    step()   # its lazily built buffers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    side = (lambda a_full, packed_t, iu, B, *r, **kw:
+            "w" if B.shape[0] == dd.genes_pad else "h")
+    with _event_timed(torch, (("nnls_batch_cuda_batched_packed_t", side),),
+                      module=nnls_cuda) as ev2:
+        (W_new, H_new, d_w, tol), step_s, n_step = _counted(torch, step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_launches(f"ELL bits step at k={k}", n_step, _launches(
+        B2=blocks + 1, B2w=blocks + 1, B5=blocks, B6=blocks, B8=blocks,
+        B9=-(-blocks // 16)))
+    if not all(bool(torch.isfinite(x).all()) for x in (W_new, H_new, d_w)) \
+            or not np.isfinite(float(tol)):
+        raise AssertionError(f"ELL bits step at k={k}: non-finite output")
+    h_ms, w_ms = ev2["h"][0], ev2["w"][0]
+    out["ell_step"] = dict(
+        genes=dd.genes_pad, cells=dd.cells_pad, k=k, sweep_cap=fast,
+        cut=cut, state_gib=need, peak_gib=peak, step_ms=step_s * 1e3,
+        launches=n_step, b2w_h_ms=h_ms / ev2["h"][1],
+        b2w_h_calls=ev2["h"][1], b2w_w_ms=w_ms,
+        b2w_share=(h_ms + w_ms) / (step_s * 1e3))
+    o = out["ell_step"]
+    print(f"ELL bits-route masked step at k={k} (sweep cap {fast:g}"
+          f"{'' if cut is None else '; ' + cut}): {o['step_ms']:.1f} ms, "
+          f"peak {peak:.2f} GiB; B2-wide h-side {o['b2w_h_ms']:.3f} ms a "
+          f"{dd.cell_block}-cell block ({o['b2w_h_calls']} calls), w-side "
+          f"{w_ms:.3f} ms over {dd.genes_pad} genes, "
+          f"{100 * o['b2w_share']:.1f}% of the step ({card})", flush=True)
+    del fns, bits, W, H, W_new, H_new, d_w, dd
+    torch.cuda.empty_cache()
+
+    # (c) the same calls' shapes in turns with the warp-a-column kernel
+    out["b1_turns"] = ab_nnls.run_wide(torch, shapes=P["b1_turns"],
+                                       card=card,
+                                       plain_cols=P["plain_cols"])
+    out["b2_turns"] = ab_nnls_batched.run_wide(
+        torch, shapes=P["b2_turns"], card=card,
+        plain_cols=P["plain_cols"])
+    for t in out["b1_turns"] + out["b2_turns"]:
+        print(f"{t['kernel']} n={t['n']} k={t['k']} cap {t['sweep_cap']:g} "
+              f"in turns with the warp-a-column kernel ({t['rounds']} "
+              f"rounds of {t['runs']}): {t['new_median_ms']:.3f} ms "
+              f"({t['new_range_ms'][0]:.3f}-{t['new_range_ms'][1]:.3f}) "
+              f"against {t['old_median_ms']:.3f} ms "
+              f"({t['old_range_ms'][0]:.3f}-{t['old_range_ms'][1]:.3f}), "
+              f"the same bits, first {t['plain_cols']} columns within the "
+              f"gate of the plain version (max|err| "
+              f"{t['max_abs_err']:.3e}) ({card})", flush=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3436,16 +3632,19 @@ def phase_ell_entry(torch, card):
 
 
 @contextlib.contextmanager
-def _event_timed(torch, names):
-    """Within the block, each wrapper of ``ops/bell_cuda.py`` named in
-    ``names`` (its attribute name and a label) records a CUDA event before
-    and after each call, on the current stream; yields a dict that, after
-    the block, maps each label to [ms, calls]: the device time between the
-    events, which bracket the wrapper's one kernel launch."""
+def _event_timed(torch, names, module=None):
+    """Within the block, each wrapper of ``module`` (default
+    ``ops/bell_cuda.py``) named in ``names`` (its attribute name and a
+    label, or a function of the call's arguments that gives one) records a
+    CUDA event before and after each call, on the current stream; yields a
+    dict that, after the block, maps each label to [ms, calls]: the device
+    time between the events, which bracket the wrapper's one kernel
+    launch."""
     from singlet_tpu_torch.ops import bell_cuda
 
-    spans = {label: [] for _, label in names}
-    saved = {attr: getattr(bell_cuda, attr) for attr, _ in names}
+    module = module or bell_cuda
+    spans = {label: [] for _, label in names if not callable(label)}
+    saved = {attr: getattr(module, attr) for attr, _ in names}
 
     def timed(fn, label):
         def wrapper(*args, **kwargs):
@@ -3454,18 +3653,19 @@ def _event_timed(torch, names):
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            spans[label].append((start, end))
+            key = label(*args, **kwargs) if callable(label) else label
+            spans.setdefault(key, []).append((start, end))
             return out
         return wrapper
 
     totals = {}
     for attr, label in names:
-        setattr(bell_cuda, attr, timed(saved[attr], label))
+        setattr(module, attr, timed(saved[attr], label))
     try:
         yield totals
     finally:
         for attr, fn in saved.items():
-            setattr(bell_cuda, attr, fn)
+            setattr(module, attr, fn)
     torch.cuda.synchronize()
     for label, pairs in spans.items():
         totals[label] = [sum(a.elapsed_time(b) for a, b in pairs), len(pairs)]
@@ -4413,6 +4613,7 @@ def phase_build():
           f"{os.path.relpath(io_lib, ROOT)}", flush=True)
     nnls_cuda._kernel()
     nnls_cuda._kernel_batched()
+    nnls_cuda._kernel("nnls_wide", "nnls_wide_b1", nnls_cuda.ARGTYPES_B1_WIDE)
     bell_cuda._lib()
     bell_cuda._mse_lib()
     maskgram_cuda._m8_lib()
@@ -4484,6 +4685,8 @@ def _phases(torch, card, results, ckdir):
                                                  W0)
     results["bits_vs_f32"] = phase_bits_vs_f32(torch, card, eng, W0)
     results["wide_k"] = phase_wide_k(torch, card, data)
+    results["wide_k600_bench"] = phase_wide_k600_bench(torch, card, A, Ap,
+                                                       Atp, data)
     results["wide_block"] = phase_wide_block(torch, card)
     results["resume_ell_bench"] = phase_resume_ell_bench(
         torch, card, eng, W0, results["bits_vs_f32"]["int8"], ckdir)
@@ -4616,8 +4819,10 @@ def main(argv=None) -> int:
     # k=600, the ELL fits at a gene block of 8192; and the pipeline's
     k600, wblock = wide["k600"], results["wide_block"]
     pipe_res = results["pipeline"]
+    k600b = results["wide_k600_bench"]
     wide_runs = [k600["run_nmf"]["launches"], k600["ell_ard"]["launches"],
                  k600["ell_ard"]["launches_dense"],
+                 k600b["run_nmf"]["launches"], k600b["ell_step"]["launches"],
                  wblock["plain"]["launches"], wblock["f32"]["launches"],
                  wblock["bits"]["launches"]]
     # phase 15b's runs on the streaming operand, both gene blocks

@@ -46,8 +46,10 @@ one of the JAX package's 14 Pallas kernels has a Hopper counterpart.
 Ranks: every rank runs on the card. Kernels B1, B2 and B7 hold a column's
 coordinates in registers up to k = 512 (``ops/nnls_cuda.py`` ``MAX_K``
 and ``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``) and take their
-wide-k routes past it (``csrc/nnls_wide.cuh``: a warp a column, its state
-in shared memory or device scratch, the Gram from device memory;
+wide-k routes past it (``csrc/nnls_wide.cu``: up to k = 2048 blocks of 4
+or 8 columns in lockstep with their residuals in registers and each
+step's Gram rows staged in shared memory ahead of the chain, past it a
+warp a column with its state in shared memory or device scratch;
 ``bell_mse_bits_wide``), which raise only where device memory cannot hold
 their state; B3/B5 take any k in one launch, and gene blocks their tiles
 cannot hold (past 7,168 and 5,632 genes) on the wide-block route

@@ -2,6 +2,19 @@
 on one CUDA card, in turns, on the same inputs.
 
     python3 -m singlet_tpu_torch.ab_nnls OLD.cu [NEW.cu]
+    python3 -m singlet_tpu_torch.ab_nnls --wide [OLD.cu]
+
+``--wide`` times B1's wide-k route (k > 512) instead: the checkout's
+staged kernel (``csrc/nnls_wide.cu`` ``nnls_wide_b1`` on the plan of
+``ops/nnls_cuda.py`` ``nnls_wide_plan``) against OLD.cu's
+``nnls_cd_wide``, the warp-a-column kernel it replaced: by default
+``csrc/nnls_wide_warp.cu``, that kernel kept as it was compiled, or a
+source of an earlier commit (``git show 7249670:singlet_tpu_torch/csrc/
+nnls_cd.cu`` with that commit's ``nnls_wide.cuh`` beside it): per (n, k)
+in ``WIDE_SHAPES`` at sweep cap 8, in turns as
+``ab_nnls_batched.wide_turns`` takes them, the outputs equal bit for bit
+and the first 512 columns within the B1 gate of the plain version; one
+JSON line per shape with the card's name and power limit.
 
 OLD.cu is the one-warp-per-column source of commit fb6bcee (``git show
 fb6bcee:singlet_tpu_torch/csrc/nnls_cd.cu > build/old_nnls_cd.cu``): its
@@ -38,11 +51,14 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-from singlet_tpu_torch.ab_nnls_batched import _compile
+import numpy as np
+
+from singlet_tpu_torch.ab_nnls_batched import (WIDE_OLD, _compile,
+                                               card_line, timed_once,
+                                               warp_plan, wide_turns)
 
 RUNS = 10
 REPS = 5
@@ -55,6 +71,10 @@ SHAPES = ((8192, 50, 8, False), (16384, 50, 8, False), (1500, 10, 8, False),
           (16384, 100, 8, False), (2048, 256, 8, False),
           (2048, 300, 8, False), (4096, 100, 8, True))
 L1, L2 = 0.01, 0.001
+# --wide: phase 10b's B1 row (2048 columns) and the two half-updates of
+# run_nmf on the bench config (8,192 cells, 16,384 genes) at k = 600
+WIDE_SHAPES = ((2048, 600), (8192, 600), (16384, 600))
+WIDE_CAP = 8.0
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the old entries: six pointers, n, k, L1, L2, k_div, cap, max_sweeps, stream
@@ -130,6 +150,83 @@ def _lockstep(torch, sweeps, mask, cols: int) -> float:
     return float((s.max(dim=1).values[keep] / mean).mean())
 
 
+# B1's wide entry of a source before the staged kernel: aT, l1, B, X0,
+# mask, X, scratch, then n, k, warps, blocks, L1, L2, k_div, cap,
+# max_sweeps and the stream
+_OLD_WIDE_ARGTYPES = [_VP] * 7 + [_CI] * 4 + [_CF] * 4 + [_CI, _VP]
+
+
+def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
+             plain_cols: int = 0) -> list:
+    """B1's wide entry, the checkout's staged kernel against ``old_src``'s
+    warp-a-column kernel (default ``ab_nnls_batched.WIDE_OLD``), per (n,
+    k) of ``shapes`` in turns on ``_problem``'s inputs, the same bits;
+    with ``plain_cols``, the output's first columns also within the B1
+    gate (rtol 5e-3, atol 1e-6) of the plain version. Returns one dict a
+    shape, each printed as a JSON line."""
+    from singlet_tpu_torch.ops import nnls, nnls_cuda
+    from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
+
+    card = card or card_line()
+    old_src = Path(old_src or WIDE_OLD)
+    new_fn, _ = nnls_cuda._kernel("nnls_wide", "nnls_wide_b1",
+                                  nnls_cuda.ARGTYPES_B1_WIDE)
+    old_fn = _compile(old_src).nnls_cd_wide
+    old_fn.argtypes = _OLD_WIDE_ARGTYPES
+    old_fn.restype = _CI
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for n, k in shapes:
+        a, B, X0, mask = _problem(torch, n, k, seed=n + k)
+        aT = a.t().contiguous()
+        aT_pad = nnls_cuda._padded_rows(a.t())
+        plan = nnls_cuda.nnls_wide_plan(n, k)
+        warps, blocks = warp_plan(n, k)
+        tail = (L1, L2, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
+        outs = {name: torch.empty_like(B) for name in ("old", "new")}
+
+        def call(name):
+            X = outs[name]
+            head = (None, B.data_ptr(), X0.data_ptr(), mask.data_ptr(),
+                    X.data_ptr(), None, n, k)
+            if name == "new":
+                err = new_fn(aT_pad.data_ptr(), *head, plan.warps,
+                             plan.blocks, plan.depth, *tail)
+            else:
+                err = old_fn(aT.data_ptr(), *head, warps, blocks, *tail)
+            if err:
+                raise RuntimeError(f"B1 wide ({name}) n={n} k={k}: {err}")
+
+        for name in outs:
+            outs[name].fill_(float("nan"))
+        old_first = timed_once(torch, lambda: call("old"))
+        call("new")
+        torch.cuda.synchronize()
+        if not torch.equal(outs["old"], outs["new"]):
+            bad = int((outs["old"] != outs["new"]).any(dim=1).sum())
+            raise AssertionError(f"B1 wide n={n} k={k}: {bad} columns "
+                                 "differ")
+        row = {"kernel": "B1-wide", "n": n, "k": k, "sweep_cap": WIDE_CAP,
+               "old": old_src.name,
+               "plan": plan._asdict(), "card": card, "same_bits": True,
+               **wide_turns(torch, call, old_first)}
+        if plain_cols:
+            c = min(n, plain_cols)
+            want = nnls.nnls_batch(a, B[:c], X0[:c], L1=L1, L2=L2,
+                                   update_mask=mask[:c], sweep_cap=WIDE_CAP)
+            got = outs["new"][:c]
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=5e-3,
+                                       atol=1e-6)
+            row["plain_cols"] = c
+            row["max_abs_err"] = float((got - want).abs().max())
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del a, aT, aT_pad, B, X0, mask, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -139,16 +236,21 @@ def main() -> int:
     from singlet_tpu_torch.ops.nnls_cuda import b1_plan
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path)
+    ap.add_argument("--wide", action="store_true",
+                    help="B1's wide-k route against OLD's (default "
+                         "csrc/nnls_wide_warp.cu)")
+    ap.add_argument("old", type=Path, nargs="?")
     ap.add_argument("new", type=Path, nargs="?",
                     default=_build.CSRC_DIR / "nnls_cd.cu")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_nnls needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
+    if args.wide:
+        run_wide(torch, args.old, card=card, plain_cols=512)
+        return 0
+    if args.old is None:
+        ap.error("OLD.cu is needed without --wide")
     with ThreadPoolExecutor(2) as pool:
         old_lib, new_lib = pool.map(_compile, (args.old, args.new))
     old_fns, new_fn = _bind(old_lib, False), _bind(new_lib, True)

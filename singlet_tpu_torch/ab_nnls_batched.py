@@ -2,6 +2,24 @@
 each other on one CUDA card, in turns, on the same inputs.
 
     python3 -m singlet_tpu_torch.ab_nnls_batched OLD.cu NEW.cu
+    python3 -m singlet_tpu_torch.ab_nnls_batched --wide [OLD.cu]
+
+``--wide`` times B2's wide-k route (k > 512) instead: the checkout's
+staged kernel (``csrc/nnls_wide.cu`` ``nnls_wide_b2_packed`` on the plan
+of ``ops/nnls_cuda.py`` ``nnls_wide_plan``) against OLD.cu's
+``nnls_cd_batched_packed_wide``, the warp-a-column kernel it replaced:
+by default ``csrc/nnls_wide_warp.cu``, that kernel kept as it was
+compiled, or a source of an earlier commit (``git show
+7249670:singlet_tpu_torch/csrc/nnls_cd_batched.cu`` with that commit's
+``nnls_wide.cuh`` beside it). Per (n, k) in ``WIDE_SHAPES`` the packed
+entry at sweep cap 8, in the order old, new, new, old for
+``WIDE_ROUNDS`` rounds, a turn the median of ``WIDE_RUNS`` single calls
+by CUDA events (one round of single calls where the old route's first
+call took longer than ``WIDE_SLOW_MS``); the outputs must be equal bit
+for bit, and the first 512 columns within the B2 gate of the plain
+version. One JSON line per shape with every turn's time,
+the medians, each side's range over its turns, and the card's name and
+power limit.
 
 Both sources are compiled with ``_build``'s nvcc flags, started together,
 into the git-ignored ``build/``. Per (n, k) in ``SHAPES`` the inputs are
@@ -28,12 +46,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import numpy as np
 
 # the bench config's w-side block at k = 50 and 100, the engine's h-side
 # block at k = 100, a wide rank, and ranks above 224
@@ -42,6 +61,16 @@ SHAPES = ((4096, 50), (4096, 100), (2048, 100), (4096, 200), (512, 256),
 SWEEP_CAP = 32.0
 RUNS = 10
 ROUNDS = 5
+# --wide: B2's packed entry past k = 512 at the sweep cap of phase 10b
+# (chip_smoke.py): its 512-column row, the ELL engine's 2,048-cell blocks
+# and the bench config's 16,384 genes at k = 600
+WIDE_SHAPES = ((512, 600), (2048, 600), (16384, 600))
+WIDE_CAP = 8.0
+WIDE_ROUNDS = 5
+WIDE_RUNS = 3
+WIDE_SLOW_MS = 100.0
+# the warp-a-column kernel the staged kernel replaced, kept as it was
+WIDE_OLD = Path(__file__).resolve().parent / "csrc" / "nnls_wide_warp.cu"
 
 
 # the CD step's chain on one warp, timed with clock64: variant 0 without
@@ -113,9 +142,7 @@ def _chain_cycles(torch) -> dict:
 def _compile(src: Path) -> ctypes.CDLL:
     from singlet_tpu_torch import _build
 
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_build.NVCC_FLAGS).encode())
-    lib = _build.BUILD_DIR / f"ab_{digest.hexdigest()[:16]}.so"
+    lib = _build.BUILD_DIR / f"ab_{_build.source_digest(src)[:16]}.so"
     if not lib.is_file():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
@@ -188,6 +215,148 @@ def _turns(torch, fns, call):
             "new_median_ms": statistics.median(turns["new"])}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def wide_turns(torch, call, old_first_ms: float) -> dict:
+    """``call(name)`` timed in turns old, new, new, old: WIDE_ROUNDS
+    rounds, a turn the median of WIDE_RUNS single calls by CUDA events;
+    one round of single calls where the old side's first call took longer
+    than WIDE_SLOW_MS. Every turn's time, the medians over the turns, each
+    side's range (min, max) over them and new over old."""
+    slow = old_first_ms > WIDE_SLOW_MS
+    rounds, runs = (1, 1) if slow else (WIDE_ROUNDS, WIDE_RUNS)
+    turns = {"old": [], "new": []}
+    for _ in range(rounds):
+        for name in ("old", "new", "new", "old"):
+            times = []
+            for _ in range(runs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                call(name)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            turns[name].append(statistics.median(times))
+    old, new = (statistics.median(turns[v]) for v in ("old", "new"))
+    return {"old_ms": turns["old"], "new_ms": turns["new"],
+            "old_median_ms": old, "new_median_ms": new,
+            "old_range_ms": [min(turns["old"]), max(turns["old"])],
+            "new_range_ms": [min(turns["new"]), max(turns["new"])],
+            "ratio": new / old, "rounds": rounds, "runs": runs}
+
+
+def timed_once(torch, fn) -> float:
+    """One call of fn by CUDA events, ms."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def warp_plan(n: int, k: int):
+    """(warps, blocks) of the warp-a-column kernel's shared-memory route,
+    as its plan gave them before the staged kernel (csrc/nnls_wide_warp.cu
+    takes them)."""
+    warps = min(8, 232448 // (8 * k))
+    return warps, -(-n // warps)
+
+
+# the packed wide entry of a source before the staged kernel: a_full,
+# packed_t, row starts, B, X0, mask, l1, X, scratch, then n, k, warps,
+# blocks, L1, L2, k_div, cap, max_sweeps and the stream
+_OLD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                      + [ctypes.c_float] * 4
+                      + [ctypes.c_int, ctypes.c_void_p])
+
+
+def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
+             plain_cols: int = 0) -> list:
+    """B2's packed wide entry, the checkout's staged kernel against
+    ``old_src``'s warp-a-column kernel (default ``WIDE_OLD``), per (n, k)
+    of ``shapes`` in turns (``wide_turns``) on a masked half-update's
+    inputs (``_inputs``), the same bits; with ``plain_cols``, the output's
+    first columns also within the B2 gate (rtol 5e-3, atol 1e-6) of the
+    plain version on their unpacked Grams. Returns one dict a shape, each
+    printed as a JSON line."""
+    from singlet_tpu_torch.ops import linalg, nnls, nnls_cuda
+    from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
+
+    card = card or card_line()
+    old_src = Path(old_src or WIDE_OLD)
+    new_fn, _ = nnls_cuda._kernel("nnls_wide", "nnls_wide_b2_packed",
+                                  nnls_cuda.ARGTYPES_B2_PACKED_WIDE)
+    old_fn = _compile(old_src).nnls_cd_batched_packed_wide
+    old_fn.argtypes = _OLD_WIDE_ARGTYPES
+    old_fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for n, k in shapes:
+        a_full, packed_t, iu, B, X0, mask = _inputs(torch, n, k, seed=n + k)
+        a_pad = nnls_cuda._padded_rows(a_full)
+        starts = torch.as_tensor(nnls_cuda.packed_row_starts(k, iu),
+                                 device="cuda")
+        plan = nnls_cuda.nnls_wide_plan(n, k)
+        warps, blocks = warp_plan(n, k)
+        tail = (0.01, 0.001, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
+        outs = {name: torch.empty_like(B) for name in ("old", "new")}
+
+        def call(name):
+            X = outs[name]
+            head = (B.data_ptr(), X0.data_ptr(), mask.data_ptr(), None,
+                    X.data_ptr(), None, n, k)
+            if name == "new":
+                err = new_fn(a_pad.data_ptr(), packed_t.data_ptr(),
+                             starts.data_ptr(), *head, plan.warps,
+                             plan.blocks, plan.depth, *tail)
+            else:
+                err = old_fn(a_full.data_ptr(), packed_t.data_ptr(),
+                             starts.data_ptr(), *head, warps, blocks, *tail)
+            if err:
+                raise RuntimeError(f"B2 wide ({name}) n={n} k={k}: {err}")
+
+        for name in outs:
+            outs[name].fill_(float("nan"))
+        old_first = timed_once(torch, lambda: call("old"))
+        call("new")
+        torch.cuda.synchronize()
+        if not torch.equal(outs["old"], outs["new"]):
+            raise AssertionError(f"B2 wide n={n} k={k}: the two versions "
+                                 "differ")
+        row = {"kernel": "B2-wide", "entry": "packed", "n": n, "k": k,
+               "sweep_cap": WIDE_CAP, "old": old_src.name,
+               "plan": plan._asdict(), "card": card, "same_bits": True,
+               **wide_turns(torch, call, old_first)}
+        if plain_cols:
+            c = min(n, plain_cols)
+            at = linalg.unpack_sym_from_t(packed_t[:, :c].contiguous(), k,
+                                          iu, a_full)
+            want = nnls.nnls_batch(at.permute(2, 1, 0), B[:c], X0[:c],
+                                   L1=0.01, L2=0.001, update_mask=mask[:c],
+                                   sweep_cap=WIDE_CAP)
+            got = outs["new"][:c]
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=5e-3,
+                                       atol=1e-6)
+            row["plain_cols"] = c
+            row["max_abs_err"] = float((got - want).abs().max())
+            del at, want
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del a_full, a_pad, packed_t, B, X0, mask, outs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -195,15 +364,20 @@ def main() -> int:
     from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path)
-    ap.add_argument("new", type=Path)
+    ap.add_argument("--wide", action="store_true",
+                    help="B2's wide-k route against OLD's (default "
+                         "csrc/nnls_wide_warp.cu)")
+    ap.add_argument("old", type=Path, nargs="?")
+    ap.add_argument("new", type=Path, nargs="?")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_nnls_batched needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
+    if args.wide:
+        run_wide(torch, args.old, card=card, plain_cols=512)
+        return 0
+    if args.old is None or args.new is None:
+        ap.error("OLD.cu and NEW.cu are needed without --wide")
     with ThreadPoolExecutor(2) as pool:
         fns = {name: _bind(lib, takes_l1(src)) for name, lib, src in zip(
             ("old", "new"), pool.map(_compile, (args.old, args.new)),

@@ -90,9 +90,8 @@
 // = 8, 10, 12, 14 or 16: one launch for every k <= 512, the same
 // arithmetic.
 //
-// Ranks above 512 (`nnls_cd_wide`): a warp a column, its x and residual in
-// shared memory (or device scratch), the transposed Gram from device
-// memory; nnls_wide.cuh holds its note.
+// Ranks above 512: nnls_wide.cu (`nnls_wide_b1`), whose note is in
+// nnls_wide.cuh; this source takes `cd_clamp` from there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -446,20 +445,6 @@ cudaError_t launch_npl(const Args& p, int npl, cudaStream_t s) {
   return cudaErrorNotSupported;
 }
 
-// the wide route's Gram: one (k, k) for every column, transposed (row i
-// holds column i of a), its diagonal's reciprocal correctly rounded as
-// the plain version's division
-struct SharedGram {
-  const float* aT;
-  int k;
-  __device__ __forceinline__ float entry(long long, int i, int t) const {
-    return __ldg(aT + (size_t)i * k + t);
-  }
-  __device__ __forceinline__ float inv(long long, int i) const {
-    return __frcp_rn(__ldg(aT + (size_t)i * k + i));
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -517,35 +502,6 @@ int nnls_cd(const float* a, const float* aT, const float* l1, const float* B,
   npl += npl & 1;
   p.pitch = 32 * npl;
   return launch_npl<kDevice>(p, npl, s);
-}
-
-// The wide-k route (k > 512, ops/nnls_cuda.py `nnls_wide_plan`): aT (k, k)
-// the transposed shared Gram, aT[i, t] = a[t, i]; l1 (n, k) or null for
-// the scalar L1; scratch null (x and the residual in shared memory, `warps`
-// columns a block) or 2 k floats for each of the grid's blocks * warps
-// warps. Returns the cudaError_t of the launch (0 on success).
-int nnls_cd_wide(const float* aT, const float* l1, const float* B,
-                 const float* X0, const uint8_t* mask, float* X,
-                 float* scratch, int n, int k, int warps, int blocks,
-                 float L1, float L2, float k_div, float cap, int max_sweeps,
-                 void* stream) {
-  nnls_wide::Args p{};
-  p.B = B;
-  p.X0 = X0;
-  p.mask = mask;
-  p.l1 = l1;
-  p.X = X;
-  p.scratch = scratch;
-  p.n = n;
-  p.k = k;
-  p.max_sweeps = max_sweeps;
-  p.warps = warps;
-  p.L1 = L1;
-  p.L2 = L2;
-  p.k_div = k_div;
-  p.cap = cap;
-  return nnls_wide::launch(p, SharedGram{aT, k}, blocks,
-                           static_cast<cudaStream_t>(stream));
 }
 
 const char* nnls_cd_error_string(int err) {

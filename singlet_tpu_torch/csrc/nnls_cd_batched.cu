@@ -85,11 +85,9 @@
 // x_i / 1e-15 and the tol / k <= 1e-8 exit need IEEE division and
 // denormals kept.
 //
-// Ranks above 512 (`nnls_cd_batched_wide`, `nnls_cd_batched_packed_wide`):
-// a warp a column, its x and residual in shared memory (or device
-// scratch), the column's Gram entries from device memory (the tiles, or
-// a_full and the packed corrections with the packed entry's bits);
-// nnls_wide.cuh holds its note.
+// Ranks above 512: nnls_wide.cu (`nnls_wide_b2`, `nnls_wide_b2_packed`),
+// whose note is in nnls_wide.cuh; this source takes `cd_clamp` from
+// there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -683,63 +681,6 @@ Args make_args(const float* B, const float* X0, const uint8_t* mask,
   return p;
 }
 
-// the wide route's Grams: the tiles at (k, k, n) with 1/diag (k, n) from
-// the wrapper
-struct TileGram {
-  const float* at;
-  const float* inv_diag;
-  int n, k;
-  __device__ __forceinline__ float entry(long long c, int i, int t) const {
-    return __ldg(at + ((size_t)i * k + t) * n + c);
-  }
-  __device__ __forceinline__ float inv(long long c, int i) const {
-    return __ldg(inv_diag + (size_t)i * n + c);
-  }
-};
-
-// and the packed entry's: a_c[t, i] = a_full[i, t] - packed_t[pos(i, t),
-// c], pos(r, j >= r) = row_start[r] + j - r, 1/diag formed as the tuned
-// route forms it
-struct PackedGram {
-  const float* a_full;
-  const float* packed_t;
-  const int* row_start;
-  int n, k;
-  __device__ __forceinline__ float entry(long long c, int i, int t) const {
-    const int lo = i < t ? i : t;
-    const int pos = __ldg(row_start + lo) + (i < t ? t - i : i - t);
-    return __fsub_rn(__ldg(a_full + (size_t)i * k + t),
-                     __ldg(packed_t + (size_t)pos * n + c));
-  }
-  __device__ __forceinline__ float inv(long long c, int i) const {
-    const int pos = __ldg(row_start + i);
-    return __frcp_rn(__fsub_rn(__ldg(a_full + (size_t)i * k + i),
-                               __ldg(packed_t + (size_t)pos * n + c)));
-  }
-};
-
-nnls_wide::Args wide_args(const float* B, const float* X0,
-                          const uint8_t* mask, const float* l1, float* X,
-                          float* scratch, int n, int k, int warps, float L1,
-                          float L2, float k_div, float cap, int max_sweeps) {
-  nnls_wide::Args p{};
-  p.B = B;
-  p.X0 = X0;
-  p.mask = mask;
-  p.l1 = l1;
-  p.X = X;
-  p.scratch = scratch;
-  p.n = n;
-  p.k = k;
-  p.warps = warps;
-  p.max_sweeps = max_sweeps;
-  p.L1 = L1;
-  p.L2 = L2;
-  p.k_div = k_div;
-  p.cap = cap;
-  return p;
-}
-
 }  // namespace
 
 extern "C" {
@@ -749,7 +690,7 @@ extern "C" {
 // inv_diag (k, n), B / X0 / X (n, k), l1 (n, k) per-coordinate L1 or null
 // for the scalar L1 (each is its own instantiation: the scalar one's code
 // is that of a kernel without l1). Takes k <= 512 (past it the wrapper
-// calls nnls_cd_batched_wide). Returns the cudaError_t of the launch (0 on
+// calls nnls_wide_b2). Returns the cudaError_t of the launch (0 on
 // success).
 int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
                     const float* X0, const uint8_t* mask, const float* l1,
@@ -792,39 +733,6 @@ int nnls_cd_batched_packed(const float* a_full, const float* packed_t,
   const int cols = fit_cols(kPackedRingA, k);
   if (k <= 320 && cols >= 1) return launch_mode<kPackedRingA>(p, cols, s);
   return launch_mode<kPackedRing>(p, fit_cols(kPackedRing, k), s);
-}
-
-// The wide-k route of both entries (k > 512, ops/nnls_cuda.py
-// `nnls_wide_plan`): the tile entry's at and inv_diag, or the packed
-// entry's a_full, packed_t and row_start, and l1, as above; scratch null
-// (x and the residual in shared memory, `warps` columns a block) or 2 k
-// floats for each of the grid's blocks * warps warps. Returns the
-// cudaError_t of the launch (0 on success).
-int nnls_cd_batched_wide(const float* at, const float* inv_diag,
-                         const float* B, const float* X0,
-                         const uint8_t* mask, const float* l1, float* X,
-                         float* scratch, int n, int k, int warps, int blocks,
-                         float L1, float L2, float k_div, float cap,
-                         int max_sweeps, void* stream) {
-  return nnls_wide::launch(
-      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, L1, L2, k_div, cap,
-                max_sweeps),
-      TileGram{at, inv_diag, n, k}, blocks,
-      static_cast<cudaStream_t>(stream));
-}
-
-int nnls_cd_batched_packed_wide(const float* a_full, const float* packed_t,
-                                const int* row_start, const float* B,
-                                const float* X0, const uint8_t* mask,
-                                const float* l1, float* X, float* scratch,
-                                int n, int k, int warps, int blocks, float L1,
-                                float L2, float k_div, float cap,
-                                int max_sweeps, void* stream) {
-  return nnls_wide::launch(
-      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, L1, L2, k_div, cap,
-                max_sweeps),
-      PackedGram{a_full, packed_t, row_start, n, k}, blocks,
-      static_cast<cudaStream_t>(stream));
 }
 
 const char* nnls_cd_batched_error_string(int err) {

@@ -22,9 +22,11 @@ its design
 and what bounds it on the card. ``_build.py`` compiles them with nvcc at
 first use and this module binds them with ctypes. Their tuned routes
 take k <= 512 (``MAX_K``, ``MAX_K_BATCHED``); past it both take the wide-k
-route of ``csrc/nnls_wide.cuh`` (``nnls_wide_plan``: a warp a column, its x
-and residual in shared memory, the Gram read from device memory), which
-raises only where device memory cannot hold its state.
+route, ``csrc/nnls_wide.cu`` (``nnls_wide_plan``: up to k = 2048 a block of
+4 or 8 columns in lockstep, their residuals in registers, the Gram rows of
+each step staged in shared memory ahead of the chain, B1 four steps to a
+barrier; past it a warp a column, its state in shared memory or device
+scratch), which raises only where device memory cannot hold its state.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
@@ -72,12 +74,20 @@ _B1_TERM_BYTES = 17 * 32 * 4
 # registers; the same limit as B1, which the final plain fit of a rank
 # search runs at the chosen rank
 MAX_K_BATCHED = 512
-# the wide-k route (csrc/nnls_wide.cuh): up to 8 warps a block, a column
-# each, 2 k floats of state a column; where one column's state exceeds a
-# block's shared memory, device scratch for the grid's warps, a grid of at
-# most this many blocks (two an SM of an H100)
+# the wide-k route (csrc/nnls_wide.cu). Up to k = 2048 the staged kernel:
+# C = 4 columns a block where ceil(n / 4) blocks fit one wave on an H100's
+# 132 multiprocessors, else 8 (blocks of 4 share sectors with their
+# neighbours, which then run in other waves); a ring of 4 slots of the
+# steps' Gram rows, 3 where 4 do not fit (rings of 4 to 8 time alike at k =
+# 600 on an H100). Past k = 2048 a warp a column, up to 8 a block, 2 k
+# floats of state each; where one column's state exceeds a block's shared
+# memory, device scratch for the grid's warps, a grid of at most this many
+# blocks (two an SM of an H100)
 _WIDE_WARPS = 8
 _WIDE_SCRATCH_BLOCKS = 264
+_WIDE_SMS = 132
+_WIDE_MAX_DEPTH = 4
+_WIDE_MAX_STAGED_K = 2048
 
 # the C entry points of B2 take seven pointers (the tile, 1/diag, B, X0,
 # mask, the (n, k) L1 or null, X), n, k, L1, L2, k_div, cap, max_sweeps
@@ -89,10 +99,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 7
 # B2's packed entry: a_full, packed_t and the row-start table in place of
 # the tile and 1/diag, then the arguments above
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
-# the wide entries: B1's (aT, l1) or B2's (at, 1/diag) or (a_full,
-# packed_t, row starts), then B, X0, mask (B2: then l1), X, scratch, n, k,
-# warps, blocks, L1, L2, k_div, cap, max_sweeps and the stream
-_WIDE_TAIL = ([ctypes.c_int] * 4
+# the wide entries (csrc/nnls_wide.cu): B1's (aT, l1) or B2's (at, 1/diag)
+# or (a_full, packed_t, row starts), then B, X0, mask (B2: then l1), X,
+# scratch, n, k, warps, blocks, depth, L1, L2, k_div, cap, max_sweeps and
+# the stream
+_WIDE_TAIL = ([ctypes.c_int] * 5
               + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
 ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 7 + _WIDE_TAIL
 ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 8 + _WIDE_TAIL
@@ -160,19 +171,71 @@ class WidePlan(NamedTuple):
     ``nnls_wide_plan``)."""
     warps: int      # columns (warps) a block
     blocks: int     # blocks of the grid
-    shared: bool    # x and the residual in shared memory, else in scratch
-    smem: int       # dynamic shared memory a block, bytes
+    shared: bool    # x (and, without a depth, the residual) in shared
+                    # memory, else in scratch
+    smem: int       # dynamic shared memory a block, bytes (with a depth,
+                    # the packed entry's, the larger of B2's two)
     scratch: int    # bytes of device scratch (0 on the shared route)
+    depth: int = 0  # ring slots of B2's staged kernel (B1's quad kernel
+                    # sizes its own); 0: a warp a column
+
+
+def _r4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def wide_slab(k: int, cols: int, gram: str) -> int:
+    """Floats of one ring slot of B2's staged kernel (nnls_wide.cuh's
+    ``slab``): C floats of each tile row ("tile"), or of each packed
+    correction and a_full's row ("packed")."""
+    return {"tile": k * cols, "packed": k * cols + _r4(k)}[gram]
+
+
+def wide_quad_smem(k: int, cols: int) -> int:
+    """Bytes of B1's quad kernel's shared memory (nnls_wide.cuh
+    ``quad_floats`` at ``quad_depth``): a ring of 16 rows of the
+    transposed Gram (12 where 16 do not fit), x and x_start (C k each),
+    the sweep-term sums (C rows of 33) and two intervals' deltas (8 C)."""
+    def floats(depth):
+        return (depth * _r4(k) + 2 * _r4(cols * k) + _r4(33 * cols)
+                + _r4(8 * cols))
+    return 4 * (floats(16) if 4 * floats(16) <= _SMEM_BLOCK else floats(12))
+
+
+def wide_smem(k: int, cols: int, depth: int, gram: str) -> int:
+    """Bytes of the staged kernel's shared memory (nnls_wide.cuh
+    ``staged_floats``): the ring, x and each step's x_start (C k each),
+    the sweep-term sums (C rows of 33), delta (2 C) and, for the packed
+    entry, the row starts (k)."""
+    return 4 * (depth * wide_slab(k, cols, gram) + 2 * _r4(cols * k)
+                + _r4(33 * cols) + _r4(2 * cols)
+                + (_r4(k) if gram == "packed" else 0))
 
 
 @functools.lru_cache(maxsize=256)
 def nnls_wide_plan(n: int, k: int) -> WidePlan:
-    """The wide-k route of B1 and B2 (k > 512): a warp a column, as many
-    columns a block (up to 8) as their state fits in shared memory, 2 k
-    floats each, a block for every group of them; where one column's state
-    does not fit (k > 29,056), 8 columns a block in device scratch, at
-    most ``_WIDE_SCRATCH_BLOCKS`` blocks that take the columns in turn. The
-    plan does not change the bits."""
+    """The wide-k route of B1 and B2 (k > 512). Up to k = 2048 the staged
+    kernel: C = 4 columns a block where ceil(n / 4) blocks fit one wave of
+    an H100's 132 multiprocessors (at n = 512 a block on 128 of them), else
+    8; the deepest ring (at most 4 slots) whose packed-entry slabs fit a
+    block's shared memory beside x, at least 3, else C = 4. The plan is
+    the same for B1 and both entries of B2 (the packed entry's slab is the
+    larger; B1's quad kernel takes C and the blocks and sizes its own
+    ring, ``wide_quad_smem``). Past k = 2048, or where no ring of 3 fits, a warp a column:
+    as many columns a block (up to 8) as their state fits in shared
+    memory, 2 k floats each, a block for every group of them; where one
+    column's state does not fit (k > 29,056), 8 columns a block in device
+    scratch, at most ``_WIDE_SCRATCH_BLOCKS`` blocks that take the columns
+    in turn. The plan does not change the bits."""
+    if k <= _WIDE_MAX_STAGED_K:
+        for cols in ((4,) if -(-n // 4) <= _WIDE_SMS else (8, 4)):
+            slab = 4 * wide_slab(k, cols, "packed")
+            depth = min(_WIDE_MAX_DEPTH, (_SMEM_BLOCK - wide_smem(
+                k, cols, 0, "packed")) // slab)
+            if depth >= 3:
+                return WidePlan(cols, max(1, -(-n // cols)), True,
+                                wide_smem(k, cols, depth, "packed"), 0,
+                                depth)
     col = 8 * k
     warps = min(_WIDE_WARPS, _SMEM_BLOCK // col)
     if warps >= 1:
@@ -194,7 +257,11 @@ def b2_plan(n: int, k: int):
 def _wide_state(plan: WidePlan, extra: int, name: str, device):
     """The wide route's device scratch (None on the shared route), after
     checking that device memory holds it and ``extra`` bytes more (B1's
-    transposed Gram): a RuntimeError names the bytes where it does not."""
+    transposed Gram, B2's padded a_full): a RuntimeError names the bytes
+    where it does not. The shared route allocates ``extra`` alone, as any
+    tensor, and asks the driver nothing (its query costs a call)."""
+    if plan.shared:
+        return None
     need = plan.scratch + extra
     free, _ = torch.cuda.mem_get_info(device)
     if need > free:
@@ -202,8 +269,6 @@ def _wide_state(plan: WidePlan, extra: int, name: str, device):
             f"kernel {name}'s wide-k route needs {need} bytes of device "
             f"memory for its state ({plan.scratch} of scratch, {extra} of "
             f"Gram), {free} are free")
-    if plan.shared:
-        return None
     return torch.empty(plan.scratch // 4, dtype=torch.float32, device=device)
 
 
@@ -287,9 +352,9 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
         return X
     plan = nnls_wide_plan(n, k) if k > MAX_K else b1_plan(n, k)
     if isinstance(plan, WidePlan):
-        scratch = _wide_state(plan, 4 * k * k, "B1", B.device)
-        aT = a.t().contiguous()
-        fn, err_str = _kernel("nnls_cd", "nnls_cd_wide", ARGTYPES_B1_WIDE)
+        scratch = _wide_state(plan, 4 * k * _r4(k), "B1", B.device)
+        aT = _padded_rows(a.t())
+        fn, err_str = _kernel("nnls_wide", "nnls_wide_b1", ARGTYPES_B1_WIDE)
         with torch.cuda.device(B.device):
             stream = torch.cuda.current_stream(B.device).cuda_stream
             err = fn(aT.data_ptr(), None if l1 is None else l1.data_ptr(),
@@ -297,11 +362,12 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                      None if update_mask is None else update_mask.data_ptr(),
                      X.data_ptr(),
                      None if scratch is None else scratch.data_ptr(), n, k,
-                     plan.warps, plan.blocks, float(L1), float(L2), k_div,
-                     _cap(max_sweeps, sweep_cap), int(max_sweeps), stream)
+                     plan.warps, plan.blocks, plan.depth, float(L1),
+                     float(L2), k_div, _cap(max_sweeps, sweep_cap),
+                     int(max_sweeps), stream)
         if err != 0:
             raise RuntimeError(
-                f"nnls_cd_wide launch failed: {err_str(err).decode()} ({err})")
+                f"nnls_wide_b1 launch failed: {err_str(err).decode()} ({err})")
         LAUNCHES += 1
         LAUNCHES_WIDE += 1
         return X
@@ -365,14 +431,24 @@ def _launch(bound, symbol, grams, B, X0, update_mask, l1, X, L1, L2, k_div,
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
 
 
+def _padded_rows(m) -> torch.Tensor:
+    """A (k, k) matrix as the wide entries take it: rows of round4(k)
+    floats, zero past k, in a new 16-byte aligned tensor."""
+    k = m.shape[0]
+    out = torch.zeros((k, _r4(k)), dtype=torch.float32, device=m.device)
+    out[:, :k] = m
+    return out
+
+
 def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, l1, X,
-                 L1, L2, k_div, cap, max_sweeps):
-    """Launch B2's wide-k route (``symbol`` of nnls_cd_batched.cu) on
-    ``plan`` (``nnls_wide_plan``); ``grams`` as ``_launch``'s."""
+                 L1, L2, k_div, cap, max_sweeps, extra=0):
+    """Launch B2's wide-k route (``symbol`` of nnls_wide.cu) on ``plan``
+    (``nnls_wide_plan``); ``grams`` as ``_launch``'s, ``extra`` the bytes
+    they were given beyond the caller's."""
     global LAUNCHES_BATCHED, LAUNCHES_BATCHED_WIDE
     n, k = B.shape
-    scratch = _wide_state(plan, 0, "B2", B.device)
-    fn, err_str = _kernel("nnls_cd_batched", symbol, argtypes)
+    scratch = _wide_state(plan, extra, "B2", B.device)
+    fn, err_str = _kernel("nnls_wide", symbol, argtypes)
     mask_ptr = None if update_mask is None else update_mask.data_ptr()
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream(B.device).cuda_stream
@@ -380,8 +456,8 @@ def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, l1, X,
                  mask_ptr, None if l1 is None else l1.data_ptr(),
                  X.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, k,
-                 plan.warps, plan.blocks, float(L1), float(L2), k_div, cap,
-                 int(max_sweeps), stream)
+                 plan.warps, plan.blocks, plan.depth, float(L1), float(L2),
+                 k_div, cap, int(max_sweeps), stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
@@ -424,7 +500,7 @@ def nnls_batch_cuda_batched_at(at, B, X0, L1=0.0, L2=0.0, update_mask=None,
         return X
     plan = b2_plan(n, k)
     if plan is not None:
-        _launch_wide(plan, "nnls_cd_batched_wide", ARGTYPES_B2_WIDE,
+        _launch_wide(plan, "nnls_wide_b2", ARGTYPES_B2_WIDE,
                      (at, inv_diag), B, X0, update_mask, l1, X, L1, L2,
                      k_div, _cap(max_sweeps, sweep_cap), max_sweeps)
         return X
@@ -515,10 +591,11 @@ def nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B, X0, L1=0.0,
         return X
     plan = b2_plan(n, k)
     if plan is not None:
-        _launch_wide(plan, "nnls_cd_batched_packed_wide",
-                     ARGTYPES_B2_PACKED_WIDE, (a_full, packed_t, starts), B,
-                     X0, update_mask, l1, X, L1, L2, k_div,
-                     _cap(max_sweeps, sweep_cap), max_sweeps)
+        _launch_wide(plan, "nnls_wide_b2_packed", ARGTYPES_B2_PACKED_WIDE,
+                     (_padded_rows(a_full), packed_t, starts), B, X0,
+                     update_mask, l1, X, L1, L2, k_div,
+                     _cap(max_sweeps, sweep_cap), max_sweeps,
+                     extra=4 * k * _r4(k))
         return X
     _launch(_kernel("nnls_cd_batched", "nnls_cd_batched_packed",
                     _ARGTYPES_PACKED), "nnls_cd_batched_packed",

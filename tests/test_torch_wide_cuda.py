@@ -17,7 +17,14 @@ with equal counts. Where a wide route and a tuned one compute the same
 sums in the same order they must give the same bits. A zero Gram diagonal
 with a zero right-hand side turns a column NaN on the wide routes as in
 the plain version (the same NaN positions, ``equal_nan``), and B2's wide
-route takes an (n, k) L1 as B1's does.
+route takes an (n, k) L1 as B1's does. Up to k = 2048 B2 runs the staged
+kernel (csrc/nnls_wide.cuh ``staged_kernel``) and B1 its form in quads
+(``quad_kernel``), whose outputs must be the bits of the warp-a-column
+kernel they replaced (``wide_kernel``, kept for k > 2048 and the scratch
+route, forced here by the plan), NaN for NaN:
+at k = 513, 600, 1024 and 2048, column counts that are no multiple of a
+block's 4 or 8 columns, masked columns, columns that stop at different
+sweeps in one block, an (n, k) L1, a zero diagonal, both entries of B2.
 """
 
 import numpy as np
@@ -366,3 +373,181 @@ def test_b2_wide_l1_array_matches_plain(cuda, n, k):
     np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
                                rtol=5e-3, atol=1e-6)
     assert torch.equal(Xk[~mask], X0[~mask])
+
+
+# ------------------------------- the staged kernel against the warp kernel
+
+def _warp_plan(n, k):
+    """The warp-a-column kernel (the route of every k > 512 before the
+    staged kernel) with its state in shared memory, as its plan gave it."""
+    warps = min(8, 232448 // (8 * k))
+    return nnls_cuda.WidePlan(warps, -(-n // warps), True, warps * 8 * k, 0)
+
+
+def _mixed_stops(B, X0, cols):
+    """(B, X0, mask) whose columns stop at different sweeps within each
+    block of ``cols`` (or pair of blocks of 2): one with B = X0 = 0 (tol 0 after sweep 1), one with
+    B = 0 and X0 = 0.005 at coordinate 5 alone (with an L1 of at least
+    0.01 sweep 1 clamps it to 0 and leaves every other coordinate at 0:
+    tol 0 after sweep 2), the others as drawn (the sweep cap); columns
+    3, 8, 13, ... masked out."""
+    B, X0 = B.clone(), X0.clone()
+    period = max(cols, 4)
+    B[1::period] = 0.0
+    X0[1::period] = 0.0
+    B[2::period] = 0.0
+    X0[2::period] = 0.0
+    X0[2::period, 5] = 0.005
+    mask = torch.ones(B.shape[0], dtype=torch.bool, device=B.device)
+    mask[3::5] = False
+    return B, X0, mask
+
+
+def _same_bits(got, want):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(_nan_to_zero(got), _nan_to_zero(want))
+
+
+def _l1_of(l1, n, k, device):
+    """0.01, or an (n, k) L1 drawn from U(0.01, 0.02)."""
+    if l1 == "scalar":
+        return 0.01
+    return 0.01 + torch.rand((n, k), generator=torch.Generator(
+        device=device).manual_seed(n + k), device=device) * 0.01
+
+
+STAGED_SHAPES = [(n, k) for k in (513, 600, 1024, 2048) for n in (1, 7, 515)]
+
+
+@pytest.mark.parametrize("n,k", STAGED_SHAPES)
+@pytest.mark.parametrize("l1", ["scalar", "per_coordinate"])
+def test_b1_staged_same_bits_as_warp_kernel(cuda, monkeypatch, n, k, l1):
+    """B1 on the staged kernel: the warp kernel's bits, within the gate of
+    the plain version, masked columns X0, stops at sweeps 1, 2 and the cap
+    in the first block (its first two at k > 1024, two columns a block)."""
+    plan = nnls_cuda.nnls_wide_plan(n, k)
+    assert plan.depth >= 3
+    a, B, X0, _ = _problem(n, k, n + k, cuda)
+    B, X0, mask = _mixed_stops(B, X0, plan.warps)
+    kw = dict(L1=_l1_of(l1, n, k, cuda), L2=0.001, update_mask=mask,
+              sweep_cap=8.0)
+    wide = nnls_cuda.LAUNCHES_WIDE
+    Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+    torch.cuda.synchronize()
+    assert nnls_cuda.LAUNCHES_WIDE == wide + 1
+    Xp, sweeps = nnls.nnls_batch(a, B, X0, return_sweeps=True, **kw)
+    if n > 2:   # columns 0, 1 and 2: the cap, sweep 1, sweep 2
+        assert sweeps[:3].tolist() == [8, 1, 2]
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _warp_plan)
+    _same_bits(Xk, nnls_cuda.nnls_batch_cuda(a, B, X0, **kw))
+
+
+@pytest.mark.parametrize("n,k", STAGED_SHAPES)
+@pytest.mark.parametrize("l1", ["scalar", "per_coordinate"])
+def test_b2_staged_same_bits_as_warp_kernel(cuda, monkeypatch, n, k, l1):
+    """Both entries of B2 on the staged kernel: the same bits, the warp
+    kernel's, within the gate of the plain version, masked columns X0,
+    stops at sweeps 1, 2 and the cap in the first block (its first two at
+    k > 1024). The corrections are drawn (0.05 U(0, 1) a pair), a_full
+    that of a 2 k-row factor."""
+    plan = nnls_cuda.nnls_wide_plan(n, k)
+    assert plan.depth >= 3
+    g = torch.Generator(device=cuda).manual_seed(n * k)
+    F = torch.rand((2 * k, k), generator=g, device=cuda)
+    iu = linalg.triu_pairs(k)
+    packed_t = 0.05 * torch.rand((k * (k + 1) // 2, n), generator=g,
+                                 device=cuda)
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device=cuda)
+    B = torch.rand((n, 2 * k), generator=g, device=cuda) @ F
+    X0 = (torch.rand((n, k), generator=g, device=cuda)
+          * (torch.rand((n, k), generator=g, device=cuda) < 0.5))
+    B, X0, mask = _mixed_stops(B, X0, plan.warps)
+    kw = dict(L1=_l1_of(l1, n, k, cuda), L2=0.001, update_mask=mask,
+              sweep_cap=8.0)
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    wide = nnls_cuda.LAUNCHES_BATCHED_WIDE
+    Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    Xt = nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw)
+    torch.cuda.synchronize()
+    assert nnls_cuda.LAUNCHES_BATCHED_WIDE == wide + 2
+    _same_bits(Xk, Xt)
+    Xp, sweeps = nnls.nnls_batch(at.permute(2, 1, 0), B, X0,
+                                 return_sweeps=True, **kw)
+    if n > 2:   # columns 0, 1 and 2: the cap, sweep 1, sweep 2
+        assert sweeps[:3].tolist() == [8, 1, 2]
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6)
+    assert torch.equal(Xk[~mask], X0[~mask])
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _warp_plan)
+    _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_packed_t(
+        a_full, packed_t, iu, B, X0, **kw))
+    _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw))
+
+
+@pytest.mark.parametrize("n,k,z", [(7, 600, 0), (515, 1024, 513)])
+def test_b1_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
+    """A shared Gram whose factor z is zero on every row (b_z < 0 for a
+    third of the columns): the staged kernel's NaNs and numbers are the
+    warp kernel's and the plain version's, with an (n, k) L1 too."""
+    rng = np.random.default_rng(k + z)
+    F = _zero_factor(k, z, 2 * k, rng)
+    F[3, z] = 0.0
+    eye = np.eye(k, dtype=np.float32)
+    eye[z, z] = 0.0
+    a = torch.as_tensor(F.T @ F + 1e-15 * eye, device=cuda)
+    B = torch.as_tensor(rng.random((n, 2 * k)).astype(np.float32) @ F,
+                        device=cuda)
+    B[::3, z] = -0.5
+    X0 = torch.as_tensor((rng.random((n, k)) * (rng.random((n, k)) < 0.5))
+                         .astype(np.float32), device=cuda)
+    mask = torch.as_tensor(rng.random(n) < 0.9, device=cuda)
+    for L1 in (0.01, torch.full_like(B, 0.02)):
+        kw = dict(L1=L1, L2=0.001, update_mask=mask, sweep_cap=8.0)
+        Xk = nnls_cuda.nnls_batch_cuda(a, B, X0, **kw)
+        Xp = nnls.nnls_batch(a, B, X0, **kw)
+        torch.cuda.synchronize()
+        assert torch.isnan(Xp[mask]).any(dim=1).sum() > 0
+        np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                                   rtol=5e-3, atol=1e-6, equal_nan=True)
+        with monkeypatch.context() as m:
+            m.setattr(nnls_cuda, "nnls_wide_plan", _warp_plan)
+            _same_bits(Xk, nnls_cuda.nnls_batch_cuda(a, B, X0, **kw))
+
+
+@pytest.mark.parametrize("n,k,z", [(7, 600, 599), (515, 1024, 31)])
+def test_b2_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
+    """B2's entries on the staged kernel where the columns that hold
+    factor z's only row out have a zero diagonal: the warp kernel's NaNs
+    and numbers, within the plain version's gate."""
+    rng = np.random.default_rng(k + z)
+    F = torch.as_tensor(_zero_factor(k, z, 2 * k, rng), device=cuda)
+    held = rng.random((n, 2 * k)) < 0.05
+    held[:, 3] = np.arange(n) % 2 == 0
+    m = torch.as_tensor(held, device=cuda)
+    iu = linalg.triu_pairs(k)
+    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
+                                 1).contiguous()
+    a_full = F.T @ F + 1e-15 * torch.eye(k, device=cuda)
+    a_full[z, z] = float(np.float32(0.75) * np.float32(0.75))
+    B = (torch.where(m, 0.0, torch.rand((n, 2 * k), device=cuda))
+         @ F).contiguous()
+    X0 = torch.rand((n, k), device=cuda) * (torch.rand((n, k),
+                                                       device=cuda) < 0.5)
+    mask = torch.rand(n, device=cuda) < 0.9
+    at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full)
+    kw = dict(L1=0.01, L2=0.001, update_mask=mask, sweep_cap=8.0)
+    Xk = nnls_cuda.nnls_batch_cuda_batched_packed_t(a_full, packed_t, iu, B,
+                                                    X0, **kw)
+    Xp = nnls.nnls_batch(at.permute(2, 1, 0), B, X0, **kw)
+    torch.cuda.synchronize()
+    assert torch.isnan(Xp[mask]).any(dim=1).sum() > 0
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=5e-3, atol=1e-6, equal_nan=True)
+    _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw))
+    monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _warp_plan)
+    _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_packed_t(
+        a_full, packed_t, iu, B, X0, **kw))

@@ -9,11 +9,15 @@ memory. (The kernels themselves run on a card: tests/test_torch_wide_cuda.py.)
   at gene blocks of 7,168, 8,192 and 16,384 genes instead of raising, the
   tiled plans unchanged where they fit; B3/B5's wide-block plan sizes the
   lanes a cell to k (pinned below);
-- ``nnls_wide_plan`` fits its state in shared memory where a column's
-  2 k floats allow it and takes device scratch past that;
-- the plain versions at k = 600, which the card's wide routes are held
-  against, agree with the JAX package's ``solve_nnls`` (shared and
-  per-column Grams) at the tolerance of tests/test_pallas_nnls.py.
+- ``nnls_wide_plan`` gives the staged kernel up to k = 2048 (4 or 8
+  columns a block, a ring that fits shared memory), a warp a column in
+  shared memory past it and device scratch where one column's state does
+  not fit;
+- the plain versions at k = 600 and 1024, which the card's wide routes
+  are held against, agree with the JAX package's ``solve_nnls`` (shared
+  and per-column Grams) and, at 1024, its ``solve_nnls_packed_t``, at the
+  tolerance of tests/test_pallas_nnls.py, with masked columns and columns
+  that stop at different sweeps in one of the staged kernel's blocks.
 """
 
 import jax.numpy as jnp
@@ -27,8 +31,11 @@ from singlet_tpu_torch.ops.bell_cuda import (B3Plan, B3WidePlan, B7Plan,
                                              B7WidePlan, b3_plan,
                                              b3_wide_plan, b7_plan,
                                              b7_wide_plan)
+from singlet_tpu_torch.ops import linalg as tlinalg
+from singlet_tpu_torch.ops import nnls_cuda
 from singlet_tpu_torch.ops.nnls_cuda import (B1Plan, WidePlan, b1_plan,
-                                             b2_plan, nnls_wide_plan)
+                                             b2_plan, nnls_wide_plan,
+                                             wide_quad_smem, wide_smem)
 
 SMEM = 232448
 
@@ -107,34 +114,50 @@ def test_b1_plan_unchanged_to_512(n, k):
     assert isinstance(plan, B1Plan) and tuple(plan) == B1_PINNED[n, k]
 
 
-@pytest.mark.parametrize("k", [513, 600, 1024])
-@pytest.mark.parametrize("n", [1, 130, 2048, 524288])
+@pytest.mark.parametrize("k", [513, 600, 768, 1024, 2048, 4096, 29056,
+                               29057])
+@pytest.mark.parametrize("n", [1, 7, 512, 515, 2048, 16384])
 def test_b1_b2_plans_take_the_wide_route(n, k):
+    """B1 and B2 share one wide plan past k = 512. Up to k = 2048 the
+    staged kernel: C = 4 columns a block where ceil(n / 4) blocks fit one
+    wave of an H100's 132 multiprocessors, else 8 where a ring of 3 fits;
+    the deepest ring (3 or 4 slots) whose shared memory, for both of B2's
+    slabs, fits a block; B1's quad kernel's own ring fits too.
+    Past it a warp a column, as many a block as their 8 k bytes fit; past
+    one column's fit (k > 29,056, where the scratch route started before
+    the staged kernel), 8 a block in device scratch, at most 264 blocks.
+    Shared memory within 232,448 bytes, every column in a block."""
     plan = nnls_wide_plan(n, k)
     assert b1_plan(n, k) == plan and b2_plan(n, k) == plan
-    assert isinstance(plan, WidePlan) and plan.shared
-    assert plan.warps == 8 and plan.smem == 8 * 8 * k <= SMEM
-    assert plan.blocks * plan.warps >= n and plan.scratch == 0
+    assert isinstance(plan, WidePlan) and plan.smem <= SMEM
+    if k <= 2048:
+        cols, depth = plan.warps, plan.depth
+        assert plan.shared and plan.scratch == 0 and 3 <= depth <= 4
+        assert cols in (4, 8)
+        assert (cols == 8) == (-(-n // 4) > 132 and wide_smem(
+            k, 8, 3, "packed") <= SMEM)
+        assert plan.blocks == -(-n // cols) and plan.blocks * cols >= n
+        assert plan.smem == wide_smem(k, cols, depth, "packed")
+        assert wide_smem(k, cols, depth, "tile") <= plan.smem
+        assert wide_quad_smem(k, cols) <= SMEM   # B1's own ring
+        assert depth == 4 or wide_smem(k, cols, depth + 1, "packed") > SMEM
+        if n >= 512:   # a block on (nearly) every multiprocessor
+            assert plan.blocks >= 128
+    elif 8 * k <= SMEM:
+        assert plan.shared and plan.depth == 0
+        assert plan.warps == min(8, SMEM // (8 * k))
+        assert plan.smem == plan.warps * 8 * k <= SMEM
+        assert plan.blocks == -(-n // plan.warps) and plan.scratch == 0
+    else:
+        assert not plan.shared and plan.smem == 0 and plan.warps == 8
+        assert plan.depth == 0
+        assert plan.blocks == max(1, min(264, -(-n // 8)))
+        assert plan.scratch == plan.blocks * 8 * 8 * k
 
 
 def test_b2_plan_leaves_the_kernel_its_modes_to_512():
     assert all(b2_plan(n, k) is None for n in (1, 512, 4096)
                for k in (1, 50, 100, 224, 300, 511, 512))
-
-
-@pytest.mark.parametrize("k", [3000, 14528, 29056, 29057, 50000])
-def test_wide_plan_state_in_shared_memory_or_scratch(k):
-    """As many columns a block as their 8 k bytes fit, down to one; past
-    one column's fit, 8 a block in device scratch, at most 264 blocks."""
-    plan = nnls_wide_plan(10000, k)
-    if 8 * k <= SMEM:
-        assert plan.shared and plan.warps == min(8, SMEM // (8 * k))
-        assert plan.smem == plan.warps * 8 * k <= SMEM
-        assert plan.blocks == -(-10000 // plan.warps)
-    else:
-        assert not plan.shared and plan.smem == 0 and plan.warps == 8
-        assert plan.blocks == 264
-        assert plan.scratch == 264 * 8 * 8 * k
 
 
 @pytest.mark.parametrize("key", sorted(B7_PINNED))
@@ -246,3 +269,85 @@ def test_plain_b2_at_600_matches_jax():
                             update_mask=jnp.asarray(mask), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
                                atol=1e-6)
+
+
+def _mixed_stops(B, X0, cols):
+    """(B, X0, mask) whose columns stop at different sweeps within each
+    block of ``cols``: in every block one with B = X0 = 0 (no step moves
+    it: tol 0 after sweep 1), one with B = 0 and X0 = 0.005 at coordinate
+    5 alone (sweep 1 clamps that coordinate to 0, the residual it leaves
+    stays below the L1 of 0.01: tol 0 after sweep 2), the others as
+    drawn; the first column of every other block masked out."""
+    B, X0 = B.copy(), X0.copy()
+    B[1::cols] = 0.0
+    X0[1::cols] = 0.0
+    B[2::cols] = 0.0
+    X0[2::cols] = 0.0
+    X0[2::cols, 5] = 0.005
+    mask = np.ones(B.shape[0], dtype=bool)
+    mask[::2 * cols] = False
+    return B, X0, mask
+
+
+def test_plain_b1_at_1024_matches_jax():
+    """B1's plain version at k = 1024 (the staged kernel's C = 4, U = 32)
+    against JAX's solve_nnls, masked columns and stops at sweeps 1, 2 and
+    the cap within one block of 4; the card's kernel is held against this
+    plain version (tests/test_torch_wide_cuda.py)."""
+    k, n = 1024, 12
+    cols = nnls_wide_plan(n, k).warps
+    a, B, X0, mask = _problem(n, k, 11)
+    B, X0, mask = _mixed_stops(B, X0, cols)
+    kw = dict(L1=0.01, L2=0.001, sweep_cap=4.0)
+    got, sweeps = nnls.nnls_batch(torch.as_tensor(a), torch.as_tensor(B),
+                                  torch.as_tensor(X0),
+                                  update_mask=torch.as_tensor(mask),
+                                  return_sweeps=True, **kw)
+    assert len(set(sweeps[mask][:cols - 1].tolist())) == 3
+    entry = nnls_cuda.nnls_batch_cuda(torch.as_tensor(a), torch.as_tensor(B),
+                                      torch.as_tensor(X0),
+                                      update_mask=torch.as_tensor(mask),
+                                      **kw)
+    assert torch.equal(entry, got)
+    want = jnnls.solve_nnls(jnp.asarray(a), jnp.asarray(B), jnp.asarray(X0),
+                            update_mask=jnp.asarray(mask),
+                            sweep_cap=jnp.float32(4.0), L1=0.01, L2=0.001)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[~mask], X0[~mask])
+
+
+def test_plain_b2_packed_at_1024_matches_jax():
+    """B2's packed entry at k = 1024 on the CPU (its plain version on the
+    unpacked Grams) against JAX's solve_nnls_packed_t: a_full and each
+    column's packed corrections of its 5% held-out rows, masked columns
+    and stops at sweeps 1, 2 and the cap within one block of 4."""
+    k, n = 1024, 12
+    cols = nnls_wide_plan(n, k).warps
+    rng = np.random.default_rng(12)
+    F = rng.random((2 * k, k)).astype(np.float32)
+    held = rng.random((n, 2 * k)) < 0.05
+    iu = tlinalg.triu_pairs(k)
+    packed_t = np.stack([(F[h].T @ F[h])[iu] for h in held],
+                        axis=1).astype(np.float32)
+    a_full = (F.T @ F + 1e-15 * np.eye(k)).astype(np.float32)
+    B = (np.where(held, 0.0, rng.random((n, 2 * k))) @ F).astype(np.float32)
+    X0 = (rng.random((n, k)) * (rng.random((n, k)) < 0.5)).astype(np.float32)
+    B, X0, mask = _mixed_stops(B, X0, cols)
+    kw = dict(L1=0.01, L2=0.001)
+    tt = [torch.as_tensor(x) for x in (a_full, packed_t, B, X0)]
+    got = nnls_cuda.nnls_batch_cuda_batched_packed_t(
+        *tt[:2], iu, *tt[2:], update_mask=torch.as_tensor(mask),
+        sweep_cap=4.0, **kw)
+    at = tlinalg.unpack_sym_from_t(tt[1], k, iu, tt[0])
+    _, sweeps = nnls.nnls_batch(at.permute(2, 1, 0), tt[2], tt[3],
+                                update_mask=torch.as_tensor(mask),
+                                sweep_cap=4.0, return_sweeps=True, **kw)
+    assert len(set(sweeps[mask][:cols - 1].tolist())) == 3
+    want = jnnls.solve_nnls_packed_t(
+        jnp.asarray(a_full), jnp.asarray(packed_t), iu, jnp.asarray(B),
+        jnp.asarray(X0), update_mask=jnp.asarray(mask),
+        sweep_cap=jnp.float32(4.0), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[~mask], X0[~mask])
