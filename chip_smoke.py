@@ -90,13 +90,18 @@ Phases; any failure raises and the script exits non-zero:
    factors within the fit gate, test MSE within rtol 1e-3), each wide
    route's launches counted; B1 (2048 columns) and B2's packed entry (512)
    at k=600, cap 8, in turns with the warp-a-column kernel the staged
-   kernel replaced (``csrc/nnls_wide_warp.cu``; the same bits);
+   kernel replaced (``csrc/nnls_wide_warp.cu``; the same bits); B7 (its
+   tiles of cells) the bits of the warp-a-cell kernel it replaced
+   (``csrc/bell_mse_bits_wide_warp.cu``) and in turns with it, and at
+   k=1100 (past the tiles) the warp-a-cell route against its plain
+   version, timed;
    then the wide routes at the bench config's size, k=600: the dense fit
    loop of ``run_nmf`` for 3 plain iterations (B1-wide's calls by CUDA
    events), one bits-route masked step of the ELL engine (its state
-   reckoned first; B2-wide's h-side and w-side calls by CUDA events), and
-   the same calls' shapes in turns with the warp-a-column kernel, the
-   first 512 columns of each within the B1/B2 gate of the plain version;
+   reckoned first; B2-wide's h-side and w-side calls by CUDA events), one
+   test MSE on its output (B7-wide's call by CUDA events), and the same
+   calls' shapes in turns with the warp-a-column kernel, the first 512
+   columns of each within the B1/B2 gate of the plain version;
 10c. gene blocks past the tiles of B3 and B5: 16,384 genes in two gene
    blocks of 8,192 at 4,096 cells (824 requested nonzeros a cell): B3
    (plain and masked) and B5 on their wide-block route, and B7, against
@@ -292,7 +297,7 @@ CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "nnls_wide", "bell_spmm",
            "bell_mse_bits", "maskgram_m8", "maskgram_gemm",
-           "bell_spmm_wide_warp")
+           "bell_spmm_wide_warp", "bell_mse_bits_wide_warp")
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -351,6 +356,9 @@ WIDE600_ELL = dict(genes=1800, cells=1800, maxit=1, cell_block=256,
 WIDE600_BENCH = dict(k=600, maxit=3, seed=600, plain_cols=512,
                      b1_turns=((8192, 600), (16384, 600)),
                      b2_turns=((2048, 600), (16384, 600)))
+# past the last k of B7's tiles of cells (ops/bell_cuda.py MAX_K_MSE_WIDE):
+# the warp-a-cell route on the bench planes, once against its plain version
+B7_PAST_K = 1100
 WIDE_TURN_NOTE = ("old, new, new, old: 5 rounds, a turn the median of 3 "
                   "single calls by CUDA events (one round of single calls "
                   "where the old one takes over 0.1 s)")
@@ -2303,7 +2311,12 @@ def _wide_k600(torch, card, data, words):
     planted block operands (``_block_operand``); the ELL one has 3 genes
     and 3 cells a factor, as WIDE_ELL's at k=256. B1 and B2's packed entry
     also in turns with the warp-a-column kernel (``ab_nnls.run_wide``,
-    ``ab_nnls_batched.run_wide``) at their shapes."""
+    ``ab_nnls_batched.run_wide``) at their shapes; B7 (its tiles of cells)
+    the bits of the warp-a-cell kernel it replaced
+    (csrc/bell_mse_bits_wide_warp.cu) and in turns with it
+    (``ab_bell_mse.run_wide``), and past the tiles' last k (B7_PAST_K) the
+    warp-a-cell route once against its plain version, timed, the kept
+    kernel's bits."""
     import scipy.sparse as sp
 
     import singlet_tpu_torch as stt
@@ -2379,34 +2392,67 @@ def _wide_k600(torch, card, data, words):
                                     k * k + packed_t.shape[0] * n2))
     del at, m, F_, packed_t, Xk, Xp
 
-    # B7 on the bench planes
+    # B7 on the bench planes: the tiles of cells at k, the warp-a-cell
+    # route past their last k
+    from singlet_tpu_torch import ab_bell_mse
+
     G, li, lv = data.gene_block, data.b_li, data.b_val
     genes, cells = data.genes_pad, data.cells_pad
-    gen = torch.Generator(device="cuda").manual_seed(k + 1)
-    Wd = torch.rand((genes, k), generator=gen, device="cuda") / k
-    H = torch.rand((cells, k), generator=gen, device="cuda")
+    warp = ab_bell_mse.warp_kernel()
 
-    def b7(f):
-        return f(li, lv, words, Wd, H, gene_block=G)
+    def b7_warp(Wd, H):
+        """The warp-a-cell kernel kept in csrc/bell_mse_bits_wide_warp.cu,
+        on the same inputs."""
+        out = torch.full((2, cells), float("nan"), device="cuda")
+        err = warp(li.data_ptr(), lv.data_ptr(), li.stride(0), data.n_gb,
+                   li.shape[0] // data.n_gb, cells, G, words.data_ptr(),
+                   words.stride(0), Wd.data_ptr(), H.data_ptr(), Wd.shape[1],
+                   out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the kept warp-a-cell kernel: {err}")
+        return out
 
-    got, _, n_k = _counted(torch, lambda: b7(bell_cuda.bell_mse_bits_cuda))
-    if n_k != _launches(B7=1, B7w=1):
-        raise AssertionError(f"B7 at k={k}: launches {n_k}")
-    want, plain_ms = timed(lambda: b7(bell.bell_mse_bits_plain))
-    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
-                               rtol=2e-4, atol=1e-5)
-    if not torch.equal(got[1], want[1]):
-        raise AssertionError(f"B7 at k={k}: counts differ")
-    held = float(got[1].sum())
-    rows["B7"] = dict(kernel="B7", cells=cells, k=k,
-                      max_abs_err=float((got[0] - want[0]).abs().max()),
-                      ms=_median_ms(torch, lambda: b7(
-                          bell_cuda.bell_mse_bits_cuda), runs=5),
-                      plain_ms=plain_ms, library_ms=None, held_out=held,
-                      **_bound(2 * li.numel() * 4 + words.numel() * 4
-                               + (genes + cells) * k * 4 + 2 * cells * 4,
-                               2 * k * held, F32_OPS_S))
-    del Wd, H
+    def b7_row(name, k, route, n_want):
+        """B7 at rank k on the bench planes: the route's plan, its launches,
+        the plain version's gate and counts, the kept kernel's bits."""
+        gen = torch.Generator(device="cuda").manual_seed(k + 1)
+        Wd = torch.rand((genes, k), generator=gen, device="cuda") / k
+        H = torch.rand((cells, k), generator=gen, device="cuda")
+
+        def b7(f):
+            return f(li, lv, words, Wd, H, gene_block=G)
+
+        width = li.shape[0] // data.n_gb
+        if not isinstance(bell_cuda.b7_plan(cells, data.n_gb, G, width, k),
+                          route):
+            raise AssertionError(f"B7 at k={k}: not the {route.__name__}")
+        got, _, n_k = _counted(torch, lambda: b7(
+            bell_cuda.bell_mse_bits_cuda))
+        if n_k != n_want:
+            raise AssertionError(f"B7 at k={k}: launches {n_k}")
+        want, plain_ms = timed(lambda: b7(bell.bell_mse_bits_plain))
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), rtol=2e-4,
+                                   atol=1e-5)
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"B7 at k={k}: counts differ")
+        if not torch.equal(got, b7_warp(Wd, H)):
+            raise AssertionError(f"B7 at k={k}: not the bits of the kept "
+                                 "warp-a-cell kernel")
+        held = float(got[1].sum())
+        rows[name] = dict(kernel="B7", cells=cells, k=k, launches=n_k,
+                          max_abs_err=float((got[0] - want[0]).abs().max()),
+                          ms=_median_ms(torch, lambda: b7(
+                              bell_cuda.bell_mse_bits_cuda), runs=5),
+                          plain_ms=plain_ms, library_ms=None, held_out=held,
+                          same_bits_as_warp=True,
+                          **_bound(2 * li.numel() * 4 + words.numel() * 4
+                                   + (genes + cells) * k * 4 + 2 * cells * 4,
+                                   2 * k * held, F32_OPS_S))
+
+    b7_row("B7", k, bell_cuda.B7WidePlan, _launches(B7=1, B7w=1))
+    b7_row("B7 past", B7_PAST_K, bell_cuda.B7WarpPlan,
+           _launches(B7=1, B7w=1))
     # B1 and B2's packed entry in turns with the warp-a-column kernel they
     # replaced (csrc/nnls_wide_warp.cu), on the ab scripts' inputs at these
     # shapes: the same bits
@@ -2416,14 +2462,18 @@ def _wide_k600(torch, card, data, words):
         torch, shapes=((n1, k),), card=card)[0]
     rows["B2"]["turns"] = ab_nnls_batched.run_wide(
         torch, shapes=((n2, k),), card=card)[0]
+    rows["B7"]["turns"] = ab_bell_mse.run_wide(
+        torch, shapes=(("bench", "bench", 0, None, k, "warp"),), card=card,
+        planes=(li, lv, G, data.n_gb))[0]
     for name, r in rows.items():
-        print(f"kernel {name} wide-k route at k={k}: max|err|="
+        print(f"kernel {name} wide-k route at k={r['k']}: max|err|="
               f"{r['max_abs_err']:.3e}, kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) ({card})", flush=True)
         if "turns" in r:
             t = r["turns"]
-            print(f"  {name} in turns with the warp-a-column kernel, "
+            print(f"  {name} in turns with the kernel it replaced "
+                  f"({t['old']}), "
                   f"{WIDE_TURN_NOTE}: {t['new_median_ms']:.4f} ms "
                   f"({t['new_range_ms'][0]:.4f}-{t['new_range_ms'][1]:.4f}) "
                   f"against {t['old_median_ms']:.4f} ms "
@@ -2534,7 +2584,10 @@ def phase_wide_k600_bench(torch, card, A, Ap, Atp, data):
     reckoned and printed first (the cells halved until it fits the card,
     the cut listed), B2-wide's h-side calls (one a 2,048-cell block) and
     its w-side call (all genes) timed apart by CUDA events, after one
-    step that builds the lazy buffers; (c) the same calls' shapes in turns
+    step that builds the lazy buffers, then one test MSE on the step's
+    output (the engine's ``_mse``: B7-wide once over all cells), its wall
+    time and B7-wide's call by CUDA events; (c) the same calls' shapes in
+    turns
     with the warp-a-column kernel (``ab_nnls.run_wide``,
     ``ab_nnls_batched.run_wide``: the same bits, the first 512 columns
     within the B1/B2 gate of the plain version). A fit of noise at k =
@@ -2638,6 +2691,23 @@ def phase_wide_k600_bench(torch, card, A, Ap, Atp, data):
           f"{dd.cell_block}-cell block ({o['b2w_h_calls']} calls), w-side "
           f"{w_ms:.3f} ms over {dd.genes_pad} genes, "
           f"{100 * o['b2w_share']:.1f}% of the step ({card})", flush=True)
+
+    def mse():
+        return fns["mse"](W_new, d_w, H_new, seed, bits=bits)
+
+    mse()   # a first call
+    with _event_timed(torch, (("bell_mse_bits_cuda", "B7"),)) as ev3:
+        test_mse, mse_s, n_mse = _counted(torch, mse)
+    _check_launches(f"ELL test MSE at k={k}", n_mse, _launches(B7=1, B7w=1))
+    if not np.isfinite(float(test_mse)):
+        raise AssertionError(f"ELL test MSE at k={k}: {float(test_mse)}")
+    out["test_mse"] = dict(cells=dd.cells_pad, k=k, ms=mse_s * 1e3,
+                           b7w_ms=ev3["B7"][0], launches=n_mse,
+                           test_mse=float(test_mse))
+    print(f"ELL test MSE at k={k} over {dd.cells_pad} cells: "
+          f"{mse_s * 1e3:.3f} ms, B7-wide {ev3['B7'][0]:.3f} ms of it by "
+          f"CUDA events, test MSE {float(test_mse):.6g} ({card})",
+          flush=True)
     del fns, bits, W, H, W_new, H_new, d_w, dd
     torch.cuda.empty_cache()
 
@@ -2827,8 +2897,8 @@ def phase_wide_block(torch, card):
             raise AssertionError(f"B{5 if bits else 3} at gene block {G}: "
                                  "the plan does not take the wide-block "
                                  "route")
-    b7_wide = isinstance(bell_cuda.b7_plan(cells, n_gb, G, width, k),
-                         bell_cuda.B7WidePlan)
+    b7_wide = not isinstance(bell_cuda.b7_plan(cells, n_gb, G, width, k),
+                             bell_cuda.B7Plan)
     gen = torch.Generator(device="cuda").manual_seed(G)
     W = torch.rand((genes, k), generator=gen, device="cuda")
     H = torch.rand((cells, k), generator=gen, device="cuda")
@@ -4823,6 +4893,7 @@ def main(argv=None) -> int:
     wide_runs = [k600["run_nmf"]["launches"], k600["ell_ard"]["launches"],
                  k600["ell_ard"]["launches_dense"],
                  k600b["run_nmf"]["launches"], k600b["ell_step"]["launches"],
+                 k600b["test_mse"]["launches"],
                  wblock["plain"]["launches"], wblock["f32"]["launches"],
                  wblock["bits"]["launches"]]
     # phase 15b's runs on the streaming operand, both gene blocks
@@ -4849,7 +4920,9 @@ def main(argv=None) -> int:
           "pipeline's; the wide routes (launches of their own runs, "
           "phase 15b's at 131072 cells included): B1 "
           "at n=2048, B2 at n=512 (packed entry), both k=600 sweep_cap=8, "
-          "B7 at k=600 on the bench planes, B3 (unmasked) and B5 at k=50 "
+          "B7 at k=600 on the bench planes (its tiles of cells; "
+          "B7-wide-warp, the warp-a-cell route past k=1024, at k=1100 "
+          "there, launches of its one check), B3 (unmasked) and B5 at k=50 "
           "on 4096 cells of 16384 genes in gene blocks of 8192 (plain_ms "
           "by slices of 256 cells); bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
@@ -4929,6 +5002,10 @@ def main(argv=None) -> int:
         entry("B7-wide", "bell_mse_bits.cu", "pallas_bell.py:370",
               sum(n["B7w"] for n in wide_runs), k600["kernels"]["B7"],
               k600["kernels"]["B7"]["max_abs_err"]),
+        entry("B7-wide-warp", "bell_mse_bits.cu", "pallas_bell.py:370",
+              k600["kernels"]["B7 past"]["launches"]["B7w"],
+              k600["kernels"]["B7 past"],
+              k600["kernels"]["B7 past"]["max_abs_err"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

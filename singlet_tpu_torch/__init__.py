@@ -50,7 +50,9 @@ wide-k routes past it (``csrc/nnls_wide.cu``: up to k = 2048 blocks of 4
 or 8 columns in lockstep with their residuals in registers and each
 step's Gram rows staged in shared memory ahead of the chain, past it a
 warp a column with its state in shared memory or device scratch;
-``bell_mse_bits_wide``), which raise only where device memory cannot hold
+``bell_mse_bits_wide``: up to k = 1024 tiles of 32 or 64 cells whose H
+rows sit in shared memory and warps that hold Wd's rows in registers,
+past it a warp a cell), which raise only where device memory cannot hold
 their state; B3/B5 take any k in one launch, and gene blocks their tiles
 cannot hold (past 7,168 and 5,632 genes) on the wide-block route
 (``bell_spmm_wide``: lanes a cell sized to k, W's rows from L2 sixteen at a

@@ -77,21 +77,60 @@
 // The wide route (`bell_mse_bits_wide`), where the tiled kernel cannot
 // run: k > 512 (its H rows live in registers, at most 16 floats a lane),
 // or a gene block whose tile of bits and slot rows does not fit in shared
-// memory (ops/bell_cuda.py `b7_plan` takes it there). A warp owns a cell
-// and walks its gene blocks in order and each one's sub-blocks of 512
-// genes in order: it writes the cell's live slots of the sub-block into a
-// tagged row of (tag, value) pairs in shared memory (a stale tag reads as
-// 0), reads the cell's words in place (a lane per gene, the held-out genes
-// of 32 by one ballot), and for each held-out gene in ascending order
-// forms the dot of H's row with Wd's row, both read from device memory
-// (through L1 and L2): lane l's fmaf chain over its columns l, l + 32, ...
-// in order, for any k, then the xor butterfly 16, 8, 4, 2, 1. For k <= 512
-// that is the tiled kernel's dot, bit for bit, and the squared errors are
-// summed per cell in the same order (gene blocks, genes ascending), so the
-// wide-block route gives the tiled kernel's bits; above 512 the chain runs
-// on over the wider row. What bounds it: Wd's row and H's row from L1/L2
-// for every held-out entry, 2 k floats, with one lane-wide fmaf per 32 of
-// them.
+// memory (ops/bell_cuda.py `b7_plan` takes it there; `b7_wide_plan` picks
+// its tile). Here the H rows of a tile of C = 32 or 64 cells sit in shared
+// memory for the whole call, and the warps own genes: each of Wd's rows is
+// read from L2 once per tile, into the registers of the warp that owns the
+// gene, and serves every cell of the tile that holds the gene out (the
+// parent, a warp a cell, read it once per held-out entry). The block walks
+// the gene blocks in order and each one's sub-blocks of R genes in order,
+// after the test-bit pass the tiled kernel runs (`b7_bits_kernel`); per
+// sub-block, between barriers:
+//
+// - scatter: each cell's live slots of the sub-block go into a row of R
+//   64-bit keys (tag of the sub-block, the slot's rank, value) by
+//   atomicMax, so that a stale tag reads as 0 and of two slots of one gene
+//   the one the parent kept wins: the parent's warp stored a cell's slots
+//   32 at a time, a lane a slot, as (tag, value) pairs of 8 bytes, groups
+//   in slot order, so a later group's store overwrote an earlier one; in
+//   one instruction the card stores the lanes a half-warp after the other,
+//   the upper half's store over the lower's, and of two lanes of one half
+//   that store one pair keeps the lower lane's (measured on the H100:
+//   tests/test_torch_wide_cuda.py); so slot w ranks by its group, its
+//   half, then 15 - w % 16;
+//   a thread holds its share of its cell's slots of the gene block in
+//   registers (T = 512 / C threads a cell, slots w = p + T i, at most 10
+//   each), loaded once per gene block while the block works on the one
+//   before;
+// - dots: warp w takes the sub-block's genes w, w + 16, ... one at a
+//   time, with the next one's Wd row in flight in a second set of
+//   registers; for each it lists the tile's cells that hold the gene out
+//   (two ballots over the bits) and forms their dots four, two or one at
+//   a time with H's rows from shared memory, each
+//   lane's fmaf chain over its columns l, l + 32, ... in order, summed by
+//   the parent's butterfly as the tiled kernel sums them (a reduce-scatter
+//   over offsets 16 (and 8), then the rest); the diff (prediction - A)
+//   replaces the key's value;
+// - sums: the cell's owner thread walks its held-out genes of the
+//   sub-block in ascending order, s = fmaf(diff, diff, s), and counts them.
+//
+// So every cell's squared errors are summed in the parent's order (gene
+// blocks, sub-blocks, genes ascending) from the parent's dots: its bits.
+// What bounds it (H100, k = 600, a 5% test set, 8192 cells): not the two
+// streams it was designed around, H's rows from shared memory (2400 bytes
+// an entry, 16 GB, about 0.55 ms at 128 bytes a cycle an SM) and Wd's
+// through L2 (39 MB a tile of 64 cells, 5 GB): versions of it that skipped
+// either ran little faster. The time goes to what a gene and an entry cost
+// in instructions and latency on 16 warps (the ballots, a batch's cells,
+// its reduce-scatter and diff), and to the three barriers, the scatter and
+// the owners' sums of each sub-block; a shared gene counter in place of
+// the fixed assignment, a batch of up to 8 entries a gene, and 16-byte
+// loads of permuted rows (which spill) were each slower. Past k = 1024
+// (its two Wd rows take 64 registers a lane), or where a gene block's
+// slots do not fit the threads' registers, the warp-a-cell kernel
+// (`b7_warp_kernel`, entry `bell_mse_bits_warp`): a warp a cell that reads
+// Wd's row and H's row from L1/L2 for every held-out entry, sub-blocks of
+// 512 genes, the same sums in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -601,12 +640,12 @@ b7_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------------------- the wide route
+// ------------------------------------------- the warp-a-cell route, k > 1024
 
-constexpr int kWideWarps = 8;     // cells a block of the wide route
-constexpr int kWideRows = 512;    // genes a sub-block of the wide route
+constexpr int kWarpCells = 8;     // cells (warps) a block
+constexpr int kWarpRows = 512;    // genes a sub-block
 
-struct WideArgs {
+struct WarpArgs {
   const int32_t* li;     // planes, row r at r * ld
   const float* lv;
   long long ld;
@@ -619,23 +658,23 @@ struct WideArgs {
   float* out;            // (2, cells)
 };
 
-__global__ void __launch_bounds__(kWideWarps * 32)
-b7_wide_kernel(const WideArgs a) {
-  __shared__ uint2 rows_s[kWideWarps * kWideRows];
+__global__ void __launch_bounds__(kWarpCells * 32)
+b7_warp_kernel(const WarpArgs a) {
+  __shared__ uint2 rows_s[kWarpCells * kWarpRows];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * kWideWarps + warp;
+  const long long c = (long long)blockIdx.x * kWarpCells + warp;
   if (c >= a.cells) return;   // whole warps only
-  uint2* dense = rows_s + warp * kWideRows;
-  for (int i = lane; i < kWideRows; i += 32) dense[i] = make_uint2(0u, 0u);
+  uint2* dense = rows_s + warp * kWarpRows;
+  for (int i = lane; i < kWarpRows; i += 32) dense[i] = make_uint2(0u, 0u);
   __syncwarp();
   const float* h = a.H + c * a.k;
   const uint32_t* wrow = a.words + c * a.wld;
   unsigned tag = 0;
   float s = 0.f, n = 0.f;
   for (int gb = 0; gb < a.n_gb; ++gb) {
-    for (int g0 = 0; g0 < a.gene_block; g0 += kWideRows) {
-      const int rows = min(kWideRows, a.gene_block - g0);
+    for (int g0 = 0; g0 < a.gene_block; g0 += kWarpRows) {
+      const int rows = min(kWarpRows, a.gene_block - g0);
       ++tag;
       // the cell's live slots of the sub-block into the tagged row
       for (int w = lane; w < a.width; w += 32) {
@@ -679,6 +718,288 @@ b7_wide_kernel(const WideArgs a) {
     a.out[c] = s;
     a.out[a.cells + c] = n;
   }
+}
+
+// ------------------------------------------ the wide route: tiles of cells
+
+constexpr int kTileWarps = 16;                 // warps a block
+constexpr int kTileThreads = kTileWarps * 32;
+constexpr int kShare = 10;   // a thread's slots of a gene block in registers:
+                             // width <= kShare * 512 / C
+constexpr int kMaxSteps = 65536;   // sub-blocks a call: the keys' 16-bit tag
+
+struct TileArgs {
+  const int32_t* li;     // planes, row r at r * ld
+  const float* lv;
+  long long ld;
+  int n_gb, width, cells, gene_block;
+  const uint32_t* bm;    // the pass's bits: (n_gb, cells_pad, bm_pitch)
+  int cells_pad, bm_pitch;
+  const float* Wd;       // (n_gb * gene_block, k)
+  const float* H;        // (cells, k)
+  int k;
+  float* out;            // (2, cells)
+  int tile, rows_sb, n_sb;   // C, R, sub-blocks a gene block
+};
+
+// shared memory of a block (ops/bell_cuda.py `b7_wide_smem` is the same):
+// the tile's H rows (C rows of kp = 32 npl floats, zeros past k and past
+// the cells), a row of R keys a cell and the tile's bits of a sub-block
+// (R / 32 words a cell, word-major)
+__host__ __device__ inline size_t b7_wide_smem(int npl, int tile,
+                                               int rows_sb) {
+  return (size_t)tile * 32 * npl * 4 + (size_t)tile * rows_sb * 8 +
+         (size_t)(rows_sb / 32) * tile * 4;
+}
+
+// the key of slot w of a cell in the sub-block of tag `tag`: a later tag
+// wins, then the slot of a later group of 32, of a later half of it, then
+// of a half the lower slot (the parent's stores); the value in the low
+// word
+__device__ __forceinline__ unsigned long long slot_key(unsigned tag, int w,
+                                                       float v) {
+  const unsigned rank = (unsigned)(w | 15) - (unsigned)(w & 15);
+  return static_cast<unsigned long long>((tag << 16) | (rank + 1)) << 32 |
+         __float_as_uint(v);
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(kTileThreads, 1)
+b7_wide_kernel(const TileArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kp = 32 * NPL;
+  const int C = a.tile;
+  const int R = a.rows_sb;
+  const int RW = R >> 5;
+  float* h_s = reinterpret_cast<float*>(smem);
+  unsigned long long* key_s =
+      reinterpret_cast<unsigned long long*>(smem + (size_t)C * kp * 4);
+  uint32_t* bits_s = reinterpret_cast<uint32_t*>(key_s + (size_t)C * R);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const long long c0 = (long long)blockIdx.x * C;
+  const int T = kTileThreads / C;   // threads a cell
+  const int cl = tid % C;           // this thread's cell, and its part of
+  const int part = tid / C;         // the cell's slots: p + T i
+  const bool cell_live = c0 + cl < a.cells;
+  const int steps = a.n_gb * a.n_sb;
+
+  for (int e = tid; e < C * kp; e += kTileThreads) {
+    const int c = e / kp;
+    const int col = e - c * kp;
+    h_s[e] = c0 + c < a.cells && col < a.k
+                 ? __ldcg(a.H + (c0 + c) * a.k + col)
+                 : 0.f;
+  }
+  for (int e = tid; e < C * R; e += kTileThreads) key_s[e] = 0ull;
+
+  // this thread's share of its cell's slots of gene block gb
+  int sl[kShare];
+  float sv[kShare];
+  auto load_share = [&](int gb) {
+#pragma unroll
+    for (int i = 0; i < kShare; ++i) {
+      const int w = part + T * i;
+      const bool ok = cell_live && w < a.width;
+      const long long r = ((long long)gb * a.width + w) * a.ld + c0 + cl;
+      sl[i] = ok ? __ldcg(a.li + r) : -1;
+      sv[i] = ok ? __ldcg(a.lv + r) : 0.f;
+    }
+  };
+  // word `part` of this thread's cell's bits of step t's sub-block
+  auto load_bits = [&](int t) -> uint32_t {
+    const int gb = t / a.n_sb;
+    const int sb = t - gb * a.n_sb;
+    return part < RW ? __ldcg(a.bm +
+                              ((long long)gb * a.cells_pad + c0 + cl) *
+                                  a.bm_pitch +
+                              sb * RW + part)
+                     : 0u;
+  };
+  // Wd's row of gene j of step t's sub-block, lane l's columns l + 32 q
+  auto load_row = [&](float(&w)[NPL], int t, int j) {
+    const int gb = t / a.n_sb;
+    const float* src =
+        a.Wd + ((long long)gb * a.gene_block + (t - gb * a.n_sb) * R + j) *
+                   a.k;
+#pragma unroll
+    for (int q = 0; q < NPL; ++q) {
+      const int col = 32 * q + lane;
+      w[q] = col < a.k ? __ldcg(src + col) : 0.f;
+    }
+  };
+
+  // M (4, 2 or 1) cells popped from m, which hold gene j out: their dots
+  // with Wd's row w, each lane's fmaf chain over its columns in order (the
+  // zeros past k leave it as it is), the reduce-scatter over offsets 16
+  // (and 8 for M = 4), a lane keeping the half of its entries whose index
+  // bit matches its lane bit, then the rest of the butterfly: lane l ends
+  // with entry (l >> (5 - log2 M)) & (M - 1), whose first lane writes the
+  // entry's diff over its key's value
+  auto batch = [&](auto mc, unsigned long long& m, const float(&w)[NPL],
+                   int j, unsigned tag) {
+    constexpr int M = decltype(mc)::value;
+    constexpr int kLog = M == 4 ? 2 : M == 2 ? 1 : 0;
+    int cell[M];
+#pragma unroll
+    for (int e = 0; e < M; ++e) {
+      cell[e] = __ffsll(m) - 1;
+      m &= m - 1;
+    }
+    float p[M];
+#pragma unroll
+    for (int e = 0; e < M; ++e) {
+      const float* hr = h_s + cell[e] * kp + lane;
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < NPL; ++q) acc = fmaf(hr[32 * q], w[q], acc);
+      p[e] = acc;
+    }
+#pragma unroll
+    for (int lvl = 0; lvl < kLog; ++lvl) {
+      const int off = 16 >> lvl;
+      const int half = M >> (lvl + 1);
+      const bool up = (lane & off) != 0;
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float send = up ? p[i] : p[i + half];
+        const float keep = up ? p[i + half] : p[i];
+        p[i] = keep + __shfl_xor_sync(kFull, send, off);
+      }
+    }
+    float v = p[0];
+#pragma unroll
+    for (int off = 16 >> kLog; off >= 1; off >>= 1) {
+      v += __shfl_xor_sync(kFull, v, off);
+    }
+    if ((lane & ((32 >> kLog) - 1)) == 0) {
+      const int e_m = lane >> (5 - kLog);
+      int c = cell[0];
+#pragma unroll
+      for (int e = 1; e < M; ++e) {
+        if (e == e_m) c = cell[e];
+      }
+      unsigned long long* kq = key_s + (size_t)c * R + j;
+      const unsigned long long kv = *kq;
+      const float a_l =
+          (unsigned)(kv >> 48) == tag ? __uint_as_float((unsigned)kv) : 0.f;
+      reinterpret_cast<float*>(kq)[0] = v - a_l;   // the key's low word
+    }
+  };
+  // gene j of the sub-block: the tile's cells that hold it out, their
+  // entries four, two or one at a time
+  auto gene = [&](const float(&w)[NPL], int j, unsigned tag) {
+    const uint32_t* col = bits_s + (j >> 5) * C;
+    const int b = j & 31;
+    unsigned long long m = __ballot_sync(kFull, (col[lane] >> b) & 1u);
+    if (C > 32) {
+      m |= (unsigned long long)__ballot_sync(kFull,
+                                             (col[32 + lane] >> b) & 1u)
+           << 32;
+    }
+    int cnt = __popcll(m);
+    for (; cnt >= 4; cnt -= 4) {
+      batch(std::integral_constant<int, 4>{}, m, w, j, tag);
+    }
+    if (cnt >= 2) {
+      batch(std::integral_constant<int, 2>{}, m, w, j, tag);
+      cnt -= 2;
+    }
+    if (cnt) batch(std::integral_constant<int, 1>{}, m, w, j, tag);
+  };
+
+  float s = 0.f, n = 0.f;   // the owner's (tid < C) sums
+  float wa[NPL], wb[NPL];
+  load_share(0);
+  uint32_t bw = load_bits(0);
+  if (warp < min(R, a.gene_block)) load_row(wa, 0, warp);
+  __syncthreads();
+  for (int t = 0; t < steps; ++t) {
+    const int gb = t / a.n_sb;
+    const int sb = t - gb * a.n_sb;
+    const int g0 = sb * R;
+    const int rows = min(R, a.gene_block - g0);
+    const unsigned tag = (unsigned)(t + 1);
+    // the sub-block's bits, and its slots into the keys (of two slots of a
+    // gene the parent's)
+    if (part < RW) bits_s[part * C + cl] = bw;
+    unsigned long long* krow = key_s + (size_t)cl * R;
+#pragma unroll
+    for (int i = 0; i < kShare; ++i) {
+      const int l = sl[i] - g0;
+      if (l >= 0 && l < rows) {
+        atomicMax(krow + l, slot_key(tag, part + T * i, sv[i]));
+      }
+    }
+    if (sb == a.n_sb - 1 && gb + 1 < a.n_gb) load_share(gb + 1);
+    if (t + 1 < steps) bw = load_bits(t + 1);
+    __syncthreads();
+    // the dots: warp w takes genes w, w + 16, ..., the next one's row
+    // loaded while this one's entries run
+    int j = warp;
+    while (j < rows) {
+      int jn = j + kTileWarps;
+      if (jn < rows) load_row(wb, t, jn);
+      gene(wa, j, tag);
+      j = jn;
+      if (j >= rows) break;
+      jn = j + kTileWarps;
+      if (jn < rows) load_row(wa, t, jn);
+      gene(wb, j, tag);
+      j = jn;
+    }
+    if (t + 1 < steps) {   // the next sub-block's first gene
+      const int sb1 = (t + 1) % a.n_sb;
+      if (warp < min(R, a.gene_block - sb1 * R)) load_row(wa, t + 1, warp);
+    }
+    __syncthreads();
+    // each owner's squared errors, its held-out genes in ascending order
+    if (tid < C) {
+      const unsigned long long* row = key_s + (size_t)tid * R;
+      for (int q = 0; q < RW; ++q) {
+        uint32_t m = bits_s[q * C + tid];
+        n += (float)__popc(m);   // counts below 2^24: exact
+        while (m) {
+          const int b = __ffs(m) - 1;
+          m &= m - 1;
+          const float d = __uint_as_float((unsigned)row[32 * q + b]);
+          s = fmaf(d, d, s);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < C && c0 + tid < a.cells) {
+    a.out[c0 + tid] = s;
+    a.out[a.cells + c0 + tid] = n;
+  }
+}
+
+// NPL instantiated: the tiled kernel's 1, 2, 4, 8, 12 and 16 (for gene
+// blocks past its tiles at k <= 512, ops/bell_cuda.py `b7_npl`) and
+// ceil(k / 32) for k = 513 to 1024
+constexpr int kWideNpls[] = {1,  2,  4,  8,  12, 16, 17, 18, 19, 20, 21,
+                             22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32};
+
+template <int I = 0>
+cudaError_t launch_wide(const TileArgs& a, int npl, size_t smem, int blocks,
+                        cudaStream_t s) {
+  if constexpr (I < (int)(sizeof(kWideNpls) / sizeof(int))) {
+    constexpr int NPL = kWideNpls[I];
+    if (npl != NPL) return launch_wide<I + 1>(a, npl, smem, blocks, s);
+    auto kernel = b7_wide_kernel<NPL>;
+    static bool configured = false;   // per instantiation, on first launch
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+      if (err != cudaSuccess) return err;
+      configured = true;
+    }
+    kernel<<<blocks, kTileThreads, smem, s>>>(a);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 // (NPL, CPW) instantiated: NPL = ceil(k / 32) rounded up to 1, 2, 4, 8,
@@ -737,6 +1058,19 @@ cudaError_t launch_npl(const Args& a, int npl, int cpw, size_t smem,
   return cudaErrorInvalidValue;
 }
 
+// the test-bit pass over cells_pad cells into bm
+cudaError_t launch_bits_pass(const uint32_t* words, long long wld, int cells,
+                             int cells_pad, int n_gb, int gene_block,
+                             int bm_pitch, uint32_t* bm, cudaStream_t s) {
+  const int n_t = (n_gb + 31) / 32;
+  const long long pass_blocks = (long long)((cells_pad + kBmCells - 1) /
+                                            kBmCells) * n_t *
+                                (bm_pitch / kBmWords);
+  b7_bits_kernel<<<(unsigned)pass_blocks, 256, 0, s>>>(
+      words, wld, cells, cells_pad, n_gb, gene_block, bm_pitch, bm);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -771,13 +1105,8 @@ int bell_mse_bits(const int32_t* li, const float* lv, long long ld, int n_gb,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_t = (n_gb + 31) / 32;
-  const long long pass_blocks = (long long)((cells_pad + kBmCells - 1) /
-                                            kBmCells) * n_t *
-                                (bm_pitch / kBmWords);
-  b7_bits_kernel<<<(unsigned)pass_blocks, 256, 0, s>>>(
-      words, wld, cells, cells_pad, n_gb, gene_block, bm_pitch, bm);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_bits_pass(words, wld, cells, cells_pad, n_gb,
+                                           gene_block, bm_pitch, bm, s);
   if (err != cudaSuccess) return err;
 
   Args a{};
@@ -805,21 +1134,76 @@ int bell_mse_bits(const int32_t* li, const float* lv, long long ld, int n_gb,
   return launch_npl(a, npl, cpw, smem, cells_pad / C, s);
 }
 
-// The wide route, for any k and any gene block: words (cells rows of
-// stride wld) read in place (no pass, no scratch), Wd (n_gb * gene_block,
-// k) and H (cells, k) contiguous float32 as they are; the other arguments
-// as bell_mse_bits'. Returns the cudaError_t of the launch (0 on success).
+// The wide route (k > 512, or a gene block past the tiles), on tiles of
+// cells: the pass into bm as bell_mse_bits' (bm_pitch: ceil(gene_block /
+// 32) rounded up to 8, at least n_sb rows_sb / 32), then the kernel; Wd
+// (n_gb * gene_block, k) and H (cells, k) contiguous float32 as they are;
+// npl, tile (C: 32 or 64), rows_sb (R: 32, 64 or 128) from `b7_wide_plan`
+// (ops/bell_cuda.py), cells_pad the cells rounded up to C, width at most
+// 10 * 512 / C, n_gb * ceil(gene_block / R) below 65,536; the other
+// arguments as bell_mse_bits'. Returns the cudaError_t of the first failed launch (0
+// on success).
 int bell_mse_bits_wide(const int32_t* li, const float* lv, long long ld,
+                       int n_gb, int width, int cells, int gene_block,
+                       const uint32_t* words, long long wld, const float* Wd,
+                       const float* H, int k, int npl, int tile, int rows_sb,
+                       uint32_t* bm, int cells_pad, int bm_pitch, float* out,
+                       void* stream) {
+  if (cells <= 0) return cudaSuccess;
+  if (k <= 0 || gene_block <= 0 || n_gb <= 0 || width <= 0 ||
+      (tile != 32 && tile != 64) || width > kShare * (kTileThreads / tile) ||
+      (rows_sb != 32 && rows_sb != 64 && rows_sb != 128) || 32 * npl < k ||
+      cells_pad % tile != 0 || cells_pad < cells ||
+      bm_pitch % kBmWords != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int n_sb = (gene_block + rows_sb - 1) / rows_sb;
+  const size_t smem = b7_wide_smem(npl, tile, rows_sb);
+  if ((long long)bm_pitch * 32 < (long long)n_sb * rows_sb ||
+      (long long)n_gb * n_sb >= kMaxSteps || smem > kSmemMax) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_bits_pass(words, wld, cells, cells_pad, n_gb,
+                                           gene_block, bm_pitch, bm, s);
+  if (err != cudaSuccess) return err;
+  TileArgs a{};
+  a.li = li;
+  a.lv = lv;
+  a.ld = ld;
+  a.n_gb = n_gb;
+  a.width = width;
+  a.cells = cells;
+  a.gene_block = gene_block;
+  a.bm = bm;
+  a.cells_pad = cells_pad;
+  a.bm_pitch = bm_pitch;
+  a.Wd = Wd;
+  a.H = H;
+  a.k = k;
+  a.out = out;
+  a.tile = tile;
+  a.rows_sb = rows_sb;
+  a.n_sb = n_sb;
+  return launch_wide(a, npl, smem, cells_pad / tile, s);
+}
+
+// The warp-a-cell route (k > 1024), for any k and any gene block: words
+// (cells rows of stride wld) read in place (no pass, no scratch), Wd (n_gb
+// * gene_block, k) and H (cells, k) contiguous float32 as they are; the
+// other arguments as bell_mse_bits'. Returns the cudaError_t of the launch
+// (0 on success).
+int bell_mse_bits_warp(const int32_t* li, const float* lv, long long ld,
                        int n_gb, int width, int cells, int gene_block,
                        const uint32_t* words, long long wld, const float* Wd,
                        const float* H, int k, float* out, void* stream) {
   if (cells <= 0) return cudaSuccess;
-  const long long blocks = (cells + kWideWarps - 1) / kWideWarps;
+  const long long blocks = (cells + kWarpCells - 1) / kWarpCells;
   if (k <= 0 || gene_block <= 0 || n_gb <= 0 || width <= 0 ||
       blocks > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  WideArgs a{};
+  WarpArgs a{};
   a.li = li;
   a.lv = lv;
   a.ld = ld;
@@ -833,7 +1217,7 @@ int bell_mse_bits_wide(const int32_t* li, const float* lv, long long ld,
   a.H = H;
   a.k = k;
   a.out = out;
-  b7_wide_kernel<<<(unsigned)blocks, kWideWarps * 32, 0,
+  b7_warp_kernel<<<(unsigned)blocks, kWarpCells * 32, 0,
                    static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }

@@ -31,9 +31,10 @@ from singlet_tpu.ops import maskbits as jmb
 from singlet_tpu.ops import pallas_bell as jpb
 from singlet_tpu.ops.rngmask import seed_pair as jax_seed_pair
 from singlet_tpu_torch.ops import bell, maskbits
-from singlet_tpu_torch.ops.bell_cuda import (b3_bm_words, b3_plan, b3_smem,
-                                            b7_cpws, b7_max_walkers, b7_plan,
-                                            b7_smem)
+from singlet_tpu_torch.ops.bell_cuda import (B7WidePlan, b3_bm_words,
+                                            b3_plan, b3_smem, b7_cpws,
+                                            b7_max_walkers, b7_plan, b7_smem,
+                                            b7_wide_plan)
 from singlet_tpu_torch.ops.rngmask import seed_pair
 from singlet_tpu_torch.parallel import sharded_ell as tell
 
@@ -450,15 +451,16 @@ def _butterfly(parts):
     return v
 
 
-def _reduce_scatter(parts):
-    """The kernel's batch of 8 entries: parts[l][e] the lane parts; levels
-    16, 8, 4 keep the half of a lane's entries whose index bit matches its
-    lane bit and add the partner's parts of them, then the butterfly's
-    offsets 2 and 1. Returns each lane's value; lane l's is entry (l >> 2)
-    & 7's."""
+def _reduce_scatter(parts, m=8):
+    """The kernels' batch of m (8, 4 or 2) entries: parts[l][e] the lane
+    parts; levels 16, 8, ... (log2 m of them) keep the half of a lane's
+    entries whose index bit matches its lane bit and add the partner's
+    parts of them, then the rest of the butterfly's offsets. Returns each
+    lane's value; lane l's is entry (l >> (5 - log2 m)) & (m - 1)'s."""
+    log = m.bit_length() - 1
     p = [[_f32(x) for x in row] for row in parts]
-    for lvl in range(3):
-        off, half = 16 >> lvl, 8 >> (lvl + 1)
+    for lvl in range(log):
+        off, half = 16 >> lvl, m >> (lvl + 1)
         new = []
         for l in range(32):
             up = bool(l & off)
@@ -472,8 +474,10 @@ def _reduce_scatter(parts):
             new.append(q)
         p = new
     v = [row[0] for row in p]
-    for off in (2, 1):
+    off = 16 >> log
+    while off:
         v = [_f32(v[l] + v[l ^ off]) for l in range(32)]
+        off //= 2
     return v
 
 
@@ -485,18 +489,21 @@ def _parts(rng, shape):
     return x.astype(np.float32)
 
 
-def test_b7_reduce_scatter_is_the_parents_butterfly():
-    """Each entry's total after the reduce-scatter has the bits of the
-    parent's per-entry butterfly, on parts with zeros, denormals and
-    mixed signs and scales."""
+@pytest.mark.parametrize("m", [8, 4, 2])
+def test_b7_reduce_scatter_is_the_parents_butterfly(m):
+    """Each entry's total after the reduce-scatter of 8 (the tiled kernel),
+    4 or 2 entries (the wide route's) has the bits of the parent's
+    per-entry butterfly, on parts with zeros, denormals and mixed signs and
+    scales."""
     rng = np.random.default_rng(17)
+    log = m.bit_length() - 1
     for _ in range(40):
-        parts = _parts(rng, (32, 8))
-        got = _reduce_scatter(parts)
-        for e in range(8):
+        parts = _parts(rng, (32, m))
+        got = _reduce_scatter(parts, m)
+        for e in range(m):
             want = _butterfly(parts[:, e])[0]
             for l in range(32):
-                if (l >> 2) & 7 == e:
+                if (l >> (5 - log)) & (m - 1) == e:
                     assert got[l].tobytes() == want.tobytes(), (e, l)
 
 
@@ -618,6 +625,157 @@ def test_b7_schedule_matches_parent_and_plain(cells, n_gb, gene_block, width,
     assert got.tobytes() == want.tobytes()
     plain = bell.bell_mse_bits_plain(
         torch.as_tensor(li), torch.as_tensor(lv),
+        torch.as_tensor(words.view(np.int32)), torch.as_tensor(Wd),
+        torch.as_tensor(H), gene_block=gene_block).numpy()
+    np.testing.assert_array_equal(got[1], plain[1])
+    assert plain[1].sum() > 0
+    np.testing.assert_allclose(got[0], plain[0], rtol=2e-4, atol=1e-5)
+
+
+# ------------------------------------------------------ B7's wide route
+
+def _lane_parts(h, w, npl):
+    """Each lane's fmaf chain over its columns l, l + 32, ... in order (the
+    32 lanes at once), from +0."""
+    acc = np.zeros(32, np.float32)
+    for q in range(npl):
+        sl = slice(32 * q, 32 * q + 32)
+        acc = (h[sl].astype(np.float64) * w[sl].astype(np.float64)
+               + acc.astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def _model_b7_wide(li, lv, words, Wd, H, gene_block, plan, seed=None):
+    """numpy model of B7's wide route on ``plan`` (csrc/bell_mse_bits.cu
+    ``b7_wide_kernel``): the pass's bits; per tile of ``plan.cells`` cells,
+    gene block and sub-block of ``plan.rows`` genes, each cell's live slots
+    of the sub-block into keys (of two slots of one gene the one of the
+    later group of 32, of a group the later half, of a half the lower
+    slot: the parent's stores as the card resolves them);
+    then the sub-block's genes in the order of a random permutation (the
+    warps take them in any order), for each the tile's cells that hold it
+    out in ascending order, four, two or one at a time, each dot one fmaf
+    chain a lane and the reduce-scatter, the diff (total - A) in the
+    cell's row; then per cell its diffs of the sub-block in ascending gene
+    order, ``s = fmaf(diff, diff, s)``, the count by words. With ``seed``
+    None, the parent's order instead (per cell, gene blocks and genes in
+    order, the butterfly per entry, the same slot's value). Returns (2,
+    cells) and each cell's genes in summing order."""
+    cells, k = H.shape
+    n_gb = Wd.shape[0] // gene_block
+    width = li.shape[0] // n_gb
+    C, R = plan.cells, plan.rows
+    bm = _b7_bits(words, n_gb, gene_block, plan.n_ct * C, plan.bm_pitch)
+    kp = 32 * plan.npl
+    h = np.zeros((cells, kp), np.float32)
+    h[:, :k] = H
+    w = np.zeros((Wd.shape[0], kp), np.float32)
+    w[:, :k] = Wd
+    out = np.zeros((2, cells), np.float32)
+    order = {c: [] for c in range(cells)}
+
+    def held(c, gb, l):
+        return (int(bm[gb, c, l >> 5]) >> (l & 31)) & 1
+
+    def value(c, gb, l):
+        """A(c, g): the value of the slot of highest rank 16 (s / 16) + 15
+        - s % 16 that holds gene l, or 0."""
+        ranks = [((s | 15) - (s & 15), s) for s in range(width)
+                 if li[gb * width + s, c] == l]
+        return lv[gb * width + max(ranks)[1], c] if ranks else _f32(0)
+
+    def add(c, g, d):
+        out[0, c] = _fma(d, d, out[0, c])
+        order[c].append(g)
+
+    if seed is None:
+        for c in range(cells):
+            for gb in range(n_gb):
+                for l in range(gene_block):
+                    if held(c, gb, l):
+                        g = gb * gene_block + l
+                        tot = _butterfly(_lane_parts(h[c], w[g],
+                                                     plan.npl))[0]
+                        add(c, g, _f32(tot - value(c, gb, l)))
+                        out[1, c] = _f32(out[1, c] + 1)
+        return out, order
+    rng = np.random.default_rng(seed)
+    for t in range(plan.n_ct):
+        tile = range(t * C, min((t + 1) * C, cells))
+        for gb in range(n_gb):
+            for sb in range(plan.n_sb):
+                lo, hi = sb * R, min((sb + 1) * R, gene_block)
+                diff = {}
+                for l in rng.permutation(np.arange(lo, hi)):
+                    g = gb * gene_block + l
+                    cs = [c for c in tile if held(c, gb, l)]
+                    b = 0
+                    while b < len(cs):
+                        m = 4 if len(cs) - b >= 4 else min(2, len(cs) - b)
+                        log = m.bit_length() - 1
+                        parts = np.stack([_lane_parts(h[c], w[g], plan.npl)
+                                          for c in cs[b:b + m]], axis=1)
+                        tot = (_reduce_scatter(parts, m) if m > 1
+                               else _butterfly(parts[:, 0]))
+                        for e, c in enumerate(cs[b:b + m]):
+                            diff[c, l] = _f32(tot[e << (5 - log)]
+                                              - value(c, gb, l))
+                        b += m
+                for c in tile:
+                    for q in range(lo >> 5, (hi + 31) >> 5):
+                        word = int(bm[gb, c, q])
+                        out[1, c] = _f32(out[1, c] + bin(word).count("1"))
+                        for b in range(32):
+                            if word >> b & 1:
+                                add(c, gb * gene_block + 32 * q + b,
+                                    diff[c, 32 * q + b])
+    return out, order
+
+
+@pytest.mark.parametrize("cells,n_gb,gene_block,width,k,inv,tile,rows", [
+    (70, 2, 100, 8, 600, 5, 64, 32), (37, 3, 160, 8, 40, 5, 32, 64),
+    (33, 2, 96, 6, 1024, 3, 32, 128), (16, 33, 8, 4, 513, 2, 64, 32),
+    (40, 1, 64, 6, 64, 2, 64, 64)])
+def test_b7_wide_schedule_matches_parent_and_plain(cells, n_gb, gene_block,
+                                                   width, k, inv, tile,
+                                                   rows):
+    """B7's wide route's schedule (tiles of 64 or 32 cells, sub-blocks of
+    32, 64 or 128 genes, the genes in any order, a gene's entries four,
+    two or one at a time) sums each cell's held-out genes once in ascending order and gives
+    the parent's bits; both within rtol 2e-4 of the plain version with the
+    same counts. A cell that holds one gene in slots 0 and 1 (slot 0's
+    value), a cell with no live slot, gene blocks that are no multiple of
+    the sub-block, a second word group (33 gene blocks) and tiles past the
+    cells included."""
+    li, lv = _planes(n_gb, width, cells, gene_block, cells + k, dup_cell=1,
+                     empty_cell=2)
+    genes = n_gb * gene_block
+    rng = np.random.default_rng(k)
+    Wd = (rng.random((genes, k)) / k).astype(np.float32)
+    H = rng.random((cells, k)).astype(np.float32)
+    words = maskbits.pack_mask_words(
+        seed_pair(3), torch.arange(100, 100 + cells), genes_pad=genes,
+        gene_block=gene_block, inv_density=inv, cells_true=100 + cells,
+        genes_true=genes).numpy().view(np.uint32)
+    plan = b7_wide_plan(cells, n_gb, gene_block, width, k)
+    assert isinstance(plan, B7WidePlan)
+    plan = plan._replace(cells=tile, n_ct=-(-cells // tile), rows=rows,
+                         n_sb=-(-gene_block // rows))
+    got, order = _model_b7_wide(li, lv, words, Wd, H, gene_block, plan,
+                                seed=k)
+    want, want_order = _model_b7_wide(li, lv, words, Wd, H, gene_block,
+                                      plan)
+    assert order == want_order
+    for c in range(cells):
+        assert order[c] == sorted(set(order[c]))
+    assert got.tobytes() == want.tobytes()
+    # the plain version sums a gene's two slots: it is given cell 1's
+    # slot 0 alone, the value the kernel keeps
+    one_li, one_lv = li.copy(), lv.copy()
+    one_li[np.arange(n_gb) * width + 1, 1] = -1
+    one_lv[np.arange(n_gb) * width + 1, 1] = 0.0
+    plain = bell.bell_mse_bits_plain(
+        torch.as_tensor(one_li), torch.as_tensor(one_lv),
         torch.as_tensor(words.view(np.int32)), torch.as_tensor(Wd),
         torch.as_tensor(H), gene_block=gene_block).numpy()
     np.testing.assert_array_equal(got[1], plain[1])

@@ -25,12 +25,24 @@ route, forced here by the plan), NaN for NaN:
 at k = 513, 600, 1024 and 2048, column counts that are no multiple of a
 block's 4 or 8 columns, masked columns, columns that stop at different
 sweeps in one block, an (n, k) L1, a zero diagonal, both entries of B2.
+Up to k = 1024 B7 runs tiles of cells (csrc/bell_mse_bits.cu
+``b7_wide_kernel``), whose outputs must be the bits of the warp-a-cell
+kernel they replaced (csrc/bell_mse_bits_wide_warp.cu, kept as it was),
+and past it the route is that kernel: at k = 513, 600, 1024 (the tiles'
+last k) and 1100, gene blocks of 256, 512 and 8,192, 150 and 2,050 cells
+(no multiple of a tile), test sets of 1/10 and 1/20, a cell with no
+held-out gene and cells holding one held-out gene in two slots: where the
+kept kernel's warp stored both in one instruction (a lane a slot, 32 at
+a time) the card keeps the upper half-warp's store, and of one half the
+lower lane's; else the later store (1,024 pairs of slots of 64 in one
+test).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from singlet_tpu_torch import ab_bell_mse
 from singlet_tpu_torch.ops import bell, bell_cuda, linalg, nnls, nnls_cuda
 from singlet_tpu_torch.ops.maskbits import pack_mask_words
 from singlet_tpu_torch.ops.rngmask import seed_pair
@@ -157,11 +169,11 @@ def _planes(width, cells, gene_block, n_gb, seed, device):
             torch.as_tensor(to2d(lv).astype(np.float32), device=device))
 
 
-def _words(cells, gene_block, n_gb, device):
+def _words(cells, gene_block, n_gb, device, inv_density=20):
     genes = gene_block * n_gb
     return pack_mask_words(
         seed_pair(77), torch.arange(OFFSET, OFFSET + cells, device=device),
-        genes_pad=genes, gene_block=gene_block, inv_density=20,
+        genes_pad=genes, gene_block=gene_block, inv_density=inv_density,
         cells_true=OFFSET + cells, genes_true=genes)
 
 
@@ -218,11 +230,14 @@ def test_b3_wide_block_takes_the_tiled_bits(cuda, monkeypatch):
 
 @pytest.mark.parametrize("gene_block,n_gb,k", [(256, 3, 513), (512, 2, 600),
                                                (8192, 2, 100),
-                                               (8192, 2, 600)])
+                                               (8192, 2, 600),
+                                               (512, 2, 1100),
+                                               (8192, 2, 2048)])
 def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k):
-    """B7 past k = 512 takes the wide route; at a gene block of 8192 the
-    wide route forced by the plan. Sums within rtol 2e-4 of the plain
-    version, counts equal, the same bits twice."""
+    """B7 past k = 512 takes a wide route (past k = 1024 the warp-a-cell
+    kernel); at a gene block of 8192 and k = 100 the wide route forced by
+    the plan. Sums within rtol 2e-4 of the plain version, counts equal,
+    the same bits twice."""
     cells = 150
     li, lv = _planes(40, cells, gene_block, n_gb, k, cuda)
     words = _words(cells, gene_block, n_gb, cuda)
@@ -232,7 +247,7 @@ def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k):
         monkeypatch.setattr(
             bell_cuda, "b7_plan",
             lambda cells, n_gb, gene_block, width, k:
-            bell_cuda.b7_wide_plan(cells, gene_block, k))
+            bell_cuda.b7_wide_plan(cells, n_gb, gene_block, width, k))
     before = bell_cuda.LAUNCHES_MSE_BITS_WIDE
     got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
                                        gene_block=gene_block)
@@ -248,9 +263,9 @@ def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k):
 
 @pytest.mark.parametrize("k", [3, 100, 512])
 def test_b7_wide_takes_the_tiled_bits(cuda, monkeypatch, k):
-    """At k <= 512 the wide route gives the tiled kernel's bits: the same
-    dot (each lane's fmaf chain, the xor butterfly) and the same order of
-    the squared errors."""
+    """At k <= 512 the wide route (its tiles of cells) gives the tiled
+    kernel's bits: the same dot (each lane's fmaf chain, the xor butterfly)
+    and the same order of the squared errors."""
     li, lv = _planes(24, 300, 256, 3, k, cuda)
     words = _words(300, 256, 3, cuda)
     Wd = torch.rand((768, k), device=cuda) / k
@@ -259,9 +274,74 @@ def test_b7_wide_takes_the_tiled_bits(cuda, monkeypatch, k):
     monkeypatch.setattr(
         bell_cuda, "b7_plan",
         lambda cells, n_gb, gene_block, width, k:
-        bell_cuda.b7_wide_plan(cells, gene_block, k))
+        bell_cuda.b7_wide_plan(cells, n_gb, gene_block, width, k))
+    assert isinstance(bell_cuda.b7_plan(300, 3, 256, 24, k),
+                      bell_cuda.B7WidePlan)
     assert torch.equal(bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
                                                     gene_block=256), want)
+
+
+def _held_out(words, gene_block, n_gb):
+    """(cells, n_gb * gene_block) bool, the test mask of ``words``: bit (gb
+    & 31) of words[c, (gb >> 5) gene_block + l] (ops/maskbits.py)."""
+    w = words.cpu().numpy().view(np.uint32)
+    held = np.zeros((w.shape[0], n_gb * gene_block), bool)
+    for gb in range(n_gb):
+        base = (gb >> 5) * gene_block
+        held[:, gb * gene_block:(gb + 1) * gene_block] = (
+            w[:, base:base + gene_block] >> np.uint32(gb & 31)) & 1
+    return held
+
+
+@pytest.mark.parametrize("inv_density", [10, 20])
+@pytest.mark.parametrize("cells", [150, 2050])
+@pytest.mark.parametrize("gene_block", [256, 512, 8192])
+@pytest.mark.parametrize("k", [513, 600, 1024, 1100])
+def test_b7_tiles_same_bits_as_warp_kernel(cuda, k, gene_block, cells,
+                                           inv_density):
+    """B7's wide route, the tiles of cells up to k = 1024 and the
+    warp-a-cell kernel past it: the bits of the warp-a-cell kernel kept in
+    csrc/bell_mse_bits_wide_warp.cu, one launch counted; cell 3 holds no
+    gene out (sum and count 0); cells hold a held-out gene in two slots
+    with different values: of one half-warp of the kept kernel's lanes
+    (slots 1 and 3, 17 and 29, 33 and 39, 12 and 15), of its two halves (4
+    and 30, 40 and 60), of two groups of 32 (2 and 35); counts those of
+    the mask."""
+    n_gb, width = 2, 64
+    plan = bell_cuda.b7_plan(cells, n_gb, gene_block, width, k)
+    assert isinstance(plan, bell_cuda.B7WidePlan
+                      if k <= bell_cuda.MAX_K_MSE_WIDE
+                      else bell_cuda.B7WarpPlan)
+    li, lv = _planes(width, cells, gene_block, n_gb, k + cells, cuda)
+    words = _words(cells, gene_block, n_gb, cuda, inv_density)
+    words[3] = 0
+    held = _held_out(words, gene_block, n_gb)
+    for c, (s0, s1) in ((5, (1, 3)), (7, (2, 35)), (9, (4, 30)),
+                        (11, (33, 39)), (13, (17, 29)), (15, (40, 60)),
+                        (17, (12, 15))):
+        g = int(np.flatnonzero(held[c, :gene_block])[0])
+        li[s0, c] = li[s1, c] = g
+        lv[s0, c], lv[s1, c] = 0.25, 4.0
+    gen = torch.Generator(device=cuda).manual_seed(k + gene_block + cells)
+    Wd = torch.rand((gene_block * n_gb, k), generator=gen, device=cuda) / k
+    H = torch.rand((cells, k), generator=gen, device=cuda)
+    before = (bell_cuda.LAUNCHES_MSE_BITS, bell_cuda.LAUNCHES_MSE_BITS_WIDE)
+    got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H,
+                                       gene_block=gene_block)
+    assert (bell_cuda.LAUNCHES_MSE_BITS,
+            bell_cuda.LAUNCHES_MSE_BITS_WIDE) == (before[0] + 1,
+                                                  before[1] + 1)
+    want = torch.full_like(got, float("nan"))
+    err = ab_bell_mse.warp_kernel()(
+        li.data_ptr(), lv.data_ptr(), li.stride(0), n_gb, width, cells,
+        gene_block, words.data_ptr(), words.stride(0), Wd.data_ptr(),
+        H.data_ptr(), k, want.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got[0, 3]) == 0.0 and float(got[1, 3]) == 0.0
+    np.testing.assert_array_equal(got[1].cpu().numpy(), held.sum(axis=1))
 
 
 def _nan_to_zero(x):
@@ -551,3 +631,43 @@ def test_b2_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
     monkeypatch.setattr(nnls_cuda, "nnls_wide_plan", _warp_plan)
     _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_packed_t(
         a_full, packed_t, iu, B, X0, **kw))
+
+
+def test_b7_tiles_keep_the_warp_kernels_slot_of_a_gene_held_twice(cuda):
+    """1,024 cells, each holding its one held-out gene in two slots of 64
+    (a pair drawn without repeats from all 2,016) with values 0.25 and 4:
+    the tiles give the kept warp-a-cell kernel's bits, so they keep the
+    slot its stores kept, for every pair; that slot is the one of the
+    later group of 32, of a group the later half-warp, of a half the lower
+    lane."""
+    rng = np.random.default_rng(5)
+    pairs = [(a, b) for a in range(64) for b in range(a + 1, 64)]
+    sel = [pairs[i] for i in rng.choice(len(pairs), 1024, replace=False)]
+    cells, G, width, k, g = len(sel), 256, 64, 600, 7
+    li = np.tile(np.arange(100, 100 + width, dtype=np.int32)[:, None],
+                 (1, cells))
+    lv = np.ones((width, cells), np.float32)
+    for c, (a, b) in enumerate(sel):
+        li[a, c] = li[b, c] = g
+        lv[a, c], lv[b, c] = 0.25, 4.0
+    words = np.zeros((cells, G), np.uint32)
+    words[:, g] = 1
+    Wd = (rng.random((G, k)) / k).astype(np.float32)
+    H = rng.random((cells, k)).astype(np.float32)
+    li, lv, words, Wd, H = (torch.as_tensor(x, device=cuda) for x in (
+        li, lv, words.view(np.int32), Wd, H))
+    assert isinstance(bell_cuda.b7_plan(cells, 1, G, width, k),
+                      bell_cuda.B7WidePlan)
+    got = bell_cuda.bell_mse_bits_cuda(li, lv, words, Wd, H, gene_block=G)
+    want = torch.full_like(got, float("nan"))
+    assert ab_bell_mse.warp_kernel()(
+        li.data_ptr(), lv.data_ptr(), li.stride(0), 1, width, cells, G,
+        words.data_ptr(), words.stride(0), Wd.data_ptr(), H.data_ptr(), k,
+        want.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    pred = (H.double() @ Wd[g].double()).cpu().numpy()
+    s = got[0].cpu().numpy()
+    kept4 = np.abs(s - (pred - 4.0) ** 2) < np.abs(s - (pred - 0.25) ** 2)
+    rank = [((a | 15) - (a & 15), (b | 15) - (b & 15)) for a, b in sel]
+    np.testing.assert_array_equal(kept4, [rb > ra for ra, rb in rank])

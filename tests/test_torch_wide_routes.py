@@ -5,6 +5,10 @@ memory. (The kernels themselves run on a card: tests/test_torch_wide_cuda.py.)
 - ``b1_plan``, ``b2_plan`` and ``b7_plan`` take the wide route at k = 513,
   600 and 1024 and, at k <= 512, return the plans they returned before the
   wide routes existed (pinned below from that code);
+- ``b7_wide_plan`` gives tiles of 64 or 32 cells up to k = 1024 (its
+  tile and sub-block pinned below by k, its shared memory within a
+  block's for every k it takes), the warp-a-cell kernel past it and where
+  a gene block's slots pass the threads' registers;
 - ``b3_plan`` (plain and with the test bits) and ``b7_plan`` return a route
   at gene blocks of 7,168, 8,192 and 16,384 genes instead of raising, the
   tiled plans unchanged where they fit; B3/B5's wide-block plan sizes the
@@ -27,10 +31,12 @@ import torch
 
 from singlet_tpu.ops import nnls as jnnls
 from singlet_tpu_torch.ops import nnls
-from singlet_tpu_torch.ops.bell_cuda import (B3Plan, B3WidePlan, B7Plan,
+from singlet_tpu_torch.ops.bell_cuda import (MAX_K_MSE_WIDE, B3Plan,
+                                             B3WidePlan, B7Plan, B7WarpPlan,
                                              B7WidePlan, b3_plan,
-                                             b3_wide_plan, b7_plan,
-                                             b7_wide_plan)
+                                             b3_wide_plan, b7_bm_pitch,
+                                             b7_plan, b7_wide_plan,
+                                             b7_wide_smem)
 from singlet_tpu_torch.ops import linalg as tlinalg
 from singlet_tpu_torch.ops import nnls_cuda
 from singlet_tpu_torch.ops.nnls_cuda import (B1Plan, WidePlan, b1_plan,
@@ -63,6 +69,17 @@ B7_PINNED = {
     (45, 64, 6, 300): (12, 1, 16, 16, 3, 64, 1, 8, 212608),
     (4096, 8192, 416, 100): (4, 1, 9, 9, 456, 128, 64, 256, 230496),
     (4096, 16384, 832, 100): (4, 1, 4, 4, 1024, 128, 128, 512, 220448),
+}
+# b7_wide_plan(8192, 32, 512, 72, k), the bench planes: (columns a lane,
+# cells a tile, sub-block) by k; 64 cells a tile while their H rows fit
+# beside a sub-block of 32 genes
+B7_WIDE_PINNED = {
+    1: (1, 64, 128), 100: (4, 64, 128), 256: (8, 64, 128),
+    384: (12, 64, 128), 512: (16, 64, 128), 513: (17, 64, 128),
+    600: (19, 64, 128), 640: (20, 64, 128), 672: (21, 64, 64),
+    736: (23, 64, 64), 768: (24, 64, 64), 800: (25, 64, 32),
+    832: (26, 64, 32),
+    833: (27, 32, 128), 1000: (32, 32, 128), 1024: (32, 32, 128),
 }
 # b3_plan(cells, 32, gene_block, width, k, bits) likewise
 B3_PINNED = {
@@ -167,29 +184,81 @@ def test_b7_plan_unchanged_where_tiles_fit(key):
     assert isinstance(plan, B7Plan) and tuple(plan) == B7_PINNED[key]
 
 
-@pytest.mark.parametrize("k", [513, 600, 1024])
+@pytest.mark.parametrize("k", [513, 600, 1024, 1025, 2048])
 def test_b7_plan_takes_the_wide_route_past_512(k):
+    """Tiles of 64 (32 past k = 832) cells to k = 1024, one wave of them
+    over the 8192 cells; the warp-a-cell kernel past it."""
     plan = b7_plan(8192, 32, 512, 32, k)
+    assert plan == b7_wide_plan(8192, 32, 512, 32, k)
+    assert plan.npl == -(-k // 32)
+    if k <= MAX_K_MSE_WIDE:
+        assert isinstance(plan, B7WidePlan)
+        assert plan.n_ct * plan.cells == 8192 and plan.n_ct in (128, 256)
+        assert plan.bm_pitch == 16 and plan.n_sb * plan.rows == 512
+    else:
+        assert isinstance(plan, B7WarpPlan)
+        assert plan.cells == 8 and plan.n_ct == 1024
+        assert plan.rows == 512 and plan.n_sb == 1
+
+
+@pytest.mark.parametrize("k", sorted(B7_WIDE_PINNED))
+def test_b7_wide_plan_pinned_by_k(k):
+    plan = b7_wide_plan(8192, 32, 512, 72, k)
     assert isinstance(plan, B7WidePlan)
-    assert plan == b7_wide_plan(8192, 512, k)
-    assert plan.npl == -(-k // 32) and plan.cells == 8
-    assert plan.n_ct == 1024 and plan.rows == 512 and plan.n_sb == 1
+    assert (plan.npl, plan.cells, plan.rows) == B7_WIDE_PINNED[k]
+    assert plan.smem == b7_wide_smem(plan.npl, plan.cells, plan.rows)
+
+
+def test_b7_wide_plan_fits_and_covers():
+    """For every k up to 1024, at a few cells, gene blocks and widths: a
+    tile of 64 or 32 cells (32 where 32-cell tiles make one wave over 132
+    SMs) whose block fits 232,448 bytes, the tiles and sub-blocks cover
+    the cells and genes once, the sub-blocks' bits lie in the pitch, at
+    most 65,535 sub-blocks a call, a thread's slots at most 10; the
+    warp-a-cell kernel past k = 1024 or where the slots do not fit."""
+    for k in range(1, 1100):
+        for cells, n_gb, gene_block, width in (
+                (1, 1, 1, 1), (2050, 2, 8192, 40), (8192, 32, 512, 72),
+                (524288, 32, 512, 32), (4096, 2, 16384, 160),
+                (4225, 3, 100, 81), (100, 3000, 700, 8)):
+            plan = b7_wide_plan.__wrapped__(cells, n_gb, gene_block, width,
+                                            k)
+            if isinstance(plan, B7WarpPlan):
+                assert k > MAX_K_MSE_WIDE or width > 80, (k, cells, width)
+                continue
+            assert k <= MAX_K_MSE_WIDE
+            assert plan.cells in (64, 32) and plan.rows in (128, 64, 32)
+            if -(-cells // 32) <= 132:
+                assert plan.cells == 32
+            assert width <= 10 * 512 // plan.cells
+            assert plan.smem == b7_wide_smem(plan.npl, plan.cells,
+                                             plan.rows) <= SMEM
+            assert 32 * plan.npl >= k > 32 * plan.npl - 128
+            assert plan.n_ct * plan.cells >= cells > (plan.n_ct - 1) \
+                * plan.cells
+            assert plan.n_sb * plan.rows >= gene_block > (plan.n_sb - 1) \
+                * plan.rows
+            assert plan.bm_pitch == b7_bm_pitch(gene_block)
+            assert 32 * plan.bm_pitch >= plan.n_sb * plan.rows
+            assert n_gb * plan.n_sb < 65536
 
 
 @pytest.mark.parametrize("gene_block", [7168, 8192, 16384])
 @pytest.mark.parametrize("width", [72, 416, 8000])
 def test_b7_plan_routes_wide_gene_blocks(gene_block, width):
     """A route for every gene block: the tiled plan where its tile fits,
-    else the wide route walking the block in sub-blocks of 512 genes."""
+    else the wide route walking the block in sub-blocks: tiles of cells
+    where a gene block's slots fit the threads' registers, else the
+    warp-a-cell kernel's sub-blocks of 512 genes."""
     plan = b7_plan(4096, 2, gene_block, width, 100)
     assert plan.smem <= SMEM
     assert plan.n_sb * plan.rows >= gene_block
-    if isinstance(plan, B7WidePlan):
-        assert plan == b7_wide_plan(4096, gene_block, 100)
+    if isinstance(plan, (B7WidePlan, B7WarpPlan)):
+        assert plan == b7_wide_plan(4096, 2, gene_block, width, 100)
     else:
         assert isinstance(plan, B7Plan) and 32 * plan.bm_pitch >= gene_block
     if width == 8000:   # the slot rows alone pass shared memory
-        assert isinstance(plan, B7WidePlan)
+        assert isinstance(plan, B7WarpPlan)
 
 
 @pytest.mark.parametrize("key", sorted(B3_PINNED))
