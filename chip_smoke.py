@@ -90,11 +90,15 @@ Phases; any failure raises and the script exits non-zero:
    factors within the fit gate, test MSE within rtol 1e-3), each wide
    route's launches counted; B1 (2048 columns) and B2's packed entry (512)
    at k=600, cap 8, in turns with the warp-a-column kernel the staged
-   kernel replaced (``csrc/nnls_wide_warp.cu``; the same bits); B7 (its
-   tiles of cells) the bits of the warp-a-cell kernel it replaced
-   (``csrc/bell_mse_bits_wide_warp.cu``) and in turns with it, and at
-   k=1100 (past the tiles) the warp-a-cell route against its plain
-   version, timed;
+   kernel replaced (``csrc/nnls_wide_warp.cu``; the same bits); past k =
+   2048, B1 (2048 columns) and B2 (512, both entries) at k=2560 on the
+   staged kernels at 64 threads a column against their plain versions and
+   in turns with the warp-a-column kernel they replaced there
+   (``nnls_wide.cuh``'s own, forced); B7 (its tiles of cells) the bits of
+   the warp-a-cell kernel it replaced (``csrc/bell_mse_bits_wide_warp.cu``)
+   and in turns with it at k=600, and past the last k of Wd's rows in
+   registers (Wd's rows streamed) at k=1100 and 2560, against its plain
+   version, the same bits, in turns;
    then the wide routes at the bench config's size, k=600: the dense fit
    loop of ``run_nmf`` for 3 plain iterations (B1-wide's calls by CUDA
    events), one bits-route masked step of the ELL engine (its state
@@ -111,6 +115,11 @@ Phases; any failure raises and the script exits non-zero:
    torch.sparse.mm (new, old, library, library, old, new; a sample the
    mean of 5 calls back to back); the route
    forced by the plan at a gene block of 512 the tiled kernel's bits;
+   B7's wide route at k=600 on these planes (a cell's 416 slots of a gene
+   block walked in passes) against its plain version and the bits of the
+   warp-a-cell kernel it replaced, in turns with that kernel at k=600 and,
+   forced, at k=50 and 100, where also in turns with the tiled kernel the
+   plan takes there;
    the engine's plain fit and f32-route masked fit on these planes
    against the dense providers within the fit tolerance, and its
    bits-route fit against the f32 route's test MSE within rtol 1e-3;
@@ -356,12 +365,18 @@ WIDE600_ELL = dict(genes=1800, cells=1800, maxit=1, cell_block=256,
 WIDE600_BENCH = dict(k=600, maxit=3, seed=600, plain_cols=512,
                      b1_turns=((8192, 600), (16384, 600)),
                      b2_turns=((2048, 600), (16384, 600)))
-# past the last k of B7's tiles of cells (ops/bell_cuda.py MAX_K_MSE_WIDE):
-# the warp-a-cell route on the bench planes, once against its plain version
+# past the last k of B7's Wd rows in registers (ops/bell_cuda.py
+# MAX_K_MSE_WIDE): the wide route's streamed form on the bench planes at
+# B7_PAST_K and 2560, each against its plain version, the bits of the
+# warp-a-cell kernel it replaced and in turns with it; past the staged
+# kernels' last k at 32 threads a column (2048): B1 (2048 columns) and B2
+# (512, both entries) at k = 2560, sweep cap 8, against their plain
+# versions and in turns with the warp-a-column kernel they replaced
 B7_PAST_K = 1100
+WIDE_PAST = dict(k=2560, b7_ks=(B7_PAST_K, 2560))
 WIDE_TURN_NOTE = ("old, new, new, old: 5 rounds, a turn the median of 3 "
-                  "single calls by CUDA events (one round of single calls "
-                  "where the old one takes over 0.1 s)")
+                  "single calls by CUDA events (of one call where the old "
+                  "one takes over 0.1 s)")
 # gene blocks past the tiles of B3 (7,168 genes) and B5 (5,632): the large
 # config's 16,384 genes and 824 requested nonzeros a cell in two gene
 # blocks of 8,192, at 4,096 cells; the plain versions of B3 and B5 by
@@ -370,7 +385,7 @@ WIDE_TURN_NOTE = ("old, new, new, old: 5 rounds, a turn the median of 3 "
 WIDE_BLOCK = dict(genes=16384, cells=4096, nnz=824, gene_block=8192,
                   cell_block=2048, k=50, maxit=3, masked_maxit=2,
                   plain_cells=256, turn_ks=(50, 100), rounds=5,
-                  tiled_block=512)
+                  tiled_block=512, b7_k=600)
 # phase 15's operand on the engine at the wide-block route's gene block and
 # at the default 512 (B3/B5's tiles), k=100: plain iterations and one
 # bits-route masked step each
@@ -2311,12 +2326,14 @@ def _wide_k600(torch, card, data, words):
     planted block operands (``_block_operand``); the ELL one has 3 genes
     and 3 cells a factor, as WIDE_ELL's at k=256. B1 and B2's packed entry
     also in turns with the warp-a-column kernel (``ab_nnls.run_wide``,
-    ``ab_nnls_batched.run_wide``) at their shapes; B7 (its tiles of cells)
-    the bits of the warp-a-cell kernel it replaced
-    (csrc/bell_mse_bits_wide_warp.cu) and in turns with it
-    (``ab_bell_mse.run_wide``), and past the tiles' last k (B7_PAST_K) the
-    warp-a-cell route once against its plain version, timed, the kept
-    kernel's bits."""
+    ``ab_nnls_batched.run_wide``) at their shapes; past k = 2048
+    (WIDE_PAST) B1 and both entries of B2 on the staged kernels at more
+    threads a column, against their plain versions and in turns with the
+    warp-a-column kernel; B7 (its tiles of cells) the bits of the
+    warp-a-cell kernel it replaced (csrc/bell_mse_bits_wide_warp.cu) and in
+    turns with it (``ab_bell_mse.run_wide``) at k = 600 and, past the last
+    k of Wd's rows in registers, at B7_PAST_K and 2560 (Wd's rows
+    streamed)."""
     import scipy.sparse as sp
 
     import singlet_tpu_torch as stt
@@ -2392,8 +2409,66 @@ def _wide_k600(torch, card, data, words):
                                     k * k + packed_t.shape[0] * n2))
     del at, m, F_, packed_t, Xk, Xp
 
-    # B7 on the bench planes: the tiles of cells at k, the warp-a-cell
-    # route past their last k
+    # past k = 2048: B1 on the quad kernel at 64 threads a column, B2 on the
+    # staged kernel at 2 columns a block of 64 threads each (both entries),
+    # on the ab scripts' inputs (made on the card)
+    from singlet_tpu_torch import ab_nnls, ab_nnls_batched
+    from singlet_tpu_torch.ops.nnls_cuda import nnls_wide_plan
+
+    kp_ = WIDE_PAST["k"]
+    a, B, X0, mask = ab_nnls._problem(torch, n1, kp_, seed=n1 + kp_)
+    plan = nnls_wide_plan(n1, kp_, "shared")
+    if not plan.depth or plan.lanes <= 32:
+        raise AssertionError(f"B1 at k={kp_}: plan {plan}")
+    kw = dict(L1=ab_nnls.L1, L2=ab_nnls.L2, update_mask=mask, sweep_cap=cap)
+    Xk, _, n_k = _counted(torch, lambda: nnls_batch_cuda(a, B, X0, **kw))
+    if n_k != _launches(B1=1, B1w=1):
+        raise AssertionError(f"B1 at k={kp_}: launches {n_k}")
+    (Xp, sweeps), plain_ms = timed(lambda: nnls.nnls_batch(
+        a, B, X0, return_sweeps=True, **kw))
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    if not torch.equal(Xk[~mask], X0[~mask]):
+        raise AssertionError(f"B1 at k={kp_}: masked rows differ from X0")
+    rows["B1 past"] = dict(kernel="B1", n=n1, k=kp_, sweep_cap=cap,
+                           launches=n_k, plan=plan._asdict(),
+                           max_abs_err=float((Xk - Xp).abs().max()),
+                           ms=_median_ms(torch, lambda: nnls_batch_cuda(
+                               a, B, X0, **kw), runs=5),
+                           plain_ms=plain_ms, library_ms=None,
+                           **_nnls_bound(sweeps, n1, kp_, kp_ * kp_))
+    del a, B, X0, Xk, Xp
+    torch.cuda.empty_cache()
+    a_full, packed_t, iu, B2, X02, mask2 = ab_nnls_batched._inputs(
+        torch, n2, kp_, seed=n2 + kp_)
+    plan = nnls_wide_plan(n2, kp_)
+    if not plan.depth or plan.lanes <= 32:
+        raise AssertionError(f"B2 at k={kp_}: plan {plan}")
+    kw2 = dict(L1=0.01, L2=0.001, update_mask=mask2, sweep_cap=cap)
+    (at, Xk, _), _, n_k = _counted(torch, lambda: _b2_check(
+        torch, f"k={kp_}", a_full, packed_t, iu, B2, X02, kw2, plain=False))
+    if n_k != _launches(B2=2, B2w=2):
+        raise AssertionError(f"B2 at k={kp_}: launches {n_k}")
+    (Xp, sweeps), plain_ms = timed(lambda: nnls.nnls_batch(
+        at.permute(2, 1, 0), B2, X02, return_sweeps=True, **kw2))
+    np.testing.assert_allclose(Xk.cpu().numpy(), Xp.cpu().numpy(),
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    del at
+    rows["B2 past"] = dict(kernel="B2", n=n2, k=kp_, sweep_cap=cap,
+                           launches=n_k, plan=plan._asdict(),
+                           max_abs_err=float((Xk - Xp).abs().max()),
+                           ms=_median_ms(torch, lambda:
+                                         nnls_batch_cuda_batched_packed_t(
+                                             a_full, packed_t, iu, B2, X02,
+                                             **kw2), runs=5),
+                           plain_ms=plain_ms, library_ms=None,
+                           **_nnls_bound(sweeps, n2, kp_,
+                                         kp_ * kp_ + packed_t.shape[0] * n2))
+    del packed_t, a_full, B2, X02, Xk, Xp
+    torch.cuda.empty_cache()
+
+    # B7 on the bench planes: the tiles of cells at k, and past the last k
+    # of Wd's rows in registers their streamed form
     from singlet_tpu_torch import ab_bell_mse
 
     G, li, lv = data.gene_block, data.b_li, data.b_val
@@ -2423,9 +2498,11 @@ def _wide_k600(torch, card, data, words):
             return f(li, lv, words, Wd, H, gene_block=G)
 
         width = li.shape[0] // data.n_gb
-        if not isinstance(bell_cuda.b7_plan(cells, data.n_gb, G, width, k),
-                          route):
-            raise AssertionError(f"B7 at k={k}: not the {route.__name__}")
+        plan = bell_cuda.b7_plan(cells, data.n_gb, G, width, k)
+        if not isinstance(plan, route) or (
+                plan.npl > 32) != (k > bell_cuda.MAX_K_MSE_WIDE):
+            raise AssertionError(f"B7 at k={k}: not the {route.__name__} "
+                                 f"({plan})")
         got, _, n_k = _counted(torch, lambda: b7(
             bell_cuda.bell_mse_bits_cuda))
         if n_k != n_want:
@@ -2451,28 +2528,38 @@ def _wide_k600(torch, card, data, words):
                                    2 * k * held, F32_OPS_S))
 
     b7_row("B7", k, bell_cuda.B7WidePlan, _launches(B7=1, B7w=1))
-    b7_row("B7 past", B7_PAST_K, bell_cuda.B7WarpPlan,
-           _launches(B7=1, B7w=1))
-    # B1 and B2's packed entry in turns with the warp-a-column kernel they
-    # replaced (csrc/nnls_wide_warp.cu), on the ab scripts' inputs at these
-    # shapes: the same bits
-    from singlet_tpu_torch import ab_nnls, ab_nnls_batched
-
-    rows["B1"]["turns"] = ab_nnls.run_wide(
-        torch, shapes=((n1, k),), card=card)[0]
+    for kk in WIDE_PAST["b7_ks"]:
+        b7_row(f"B7 past {kk}", kk, bell_cuda.B7WidePlan,
+               _launches(B7=1, B7w=1))
+    # B1 and B2's packed entry (past k = 2048 its tile entry too) in turns
+    # with the warp-a-column kernel they replaced (csrc/nnls_wide_warp.cu;
+    # past k = 2048 nnls_wide.cuh's own, forced), on the ab scripts' inputs
+    # at these shapes: the same bits; B7 in turns with the warp-a-cell
+    # kernel it replaced (csrc/bell_mse_bits_wide_warp.cu)
+    rows["B1"]["turns"], rows["B1 past"]["turns"] = ab_nnls.run_wide(
+        torch, shapes=((n1, k), (n1, kp_)), card=card)
     rows["B2"]["turns"] = ab_nnls_batched.run_wide(
         torch, shapes=((n2, k),), card=card)[0]
-    rows["B7"]["turns"] = ab_bell_mse.run_wide(
-        torch, shapes=(("bench", "bench", 0, None, k, "warp"),), card=card,
-        planes=(li, lv, G, data.n_gb))[0]
+    rows["B2 past"]["turns"], rows["B2 past"]["turns_tile"] = \
+        ab_nnls_batched.run_wide(torch, shapes=((n2, kp_),), card=card)
+    b7_turns = ab_bell_mse.run_wide(
+        torch, shapes=tuple(("bench", "bench", 0, None, kk, "warp")
+                            for kk in (k,) + WIDE_PAST["b7_ks"]),
+        card=card, planes=(li, lv, G, data.n_gb))
+    rows["B7"]["turns"] = b7_turns[0]
+    for kk, t in zip(WIDE_PAST["b7_ks"], b7_turns[1:]):
+        rows[f"B7 past {kk}"]["turns"] = t
     for name, r in rows.items():
         print(f"kernel {name} wide-k route at k={r['k']}: max|err|="
               f"{r['max_abs_err']:.3e}, kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) ({card})", flush=True)
-        if "turns" in r:
-            t = r["turns"]
-            print(f"  {name} in turns with the kernel it replaced "
+        for key in ("turns", "turns_tile"):
+            if key not in r:
+                continue
+            t = r[key]
+            entry = f" ({t['entry']} entry)" if "entry" in t else ""
+            print(f"  {name}{entry} in turns with the kernel it replaced "
                   f"({t['old']}), "
                   f"{WIDE_TURN_NOTE}: {t['new_median_ms']:.4f} ms "
                   f"({t['new_range_ms'][0]:.4f}-{t['new_range_ms'][1]:.4f}) "
@@ -2978,11 +3065,78 @@ def phase_wide_block(torch, card):
                       **_bound(2 * li.numel() * 4 + words.numel() * 4
                                + (genes + cells) * k * 4 + 2 * cells * 4,
                                2 * k * held, F32_OPS_S))
+    # B7's wide route on these planes, where a cell's 416 slots of a gene
+    # block pass a thread's registers (10 * 512 / 32): at k = 600 the plan
+    # takes it, against the plain version and the bits of the warp-a-cell
+    # kernel it replaced; then in turns with that kernel there and, forced
+    # at k = 50 and 100, with it and with the tiled kernel the plan takes
+    from singlet_tpu_torch import ab_bell_mse
+
+    kw_ = WIDE_BLOCK["b7_k"]
+    plan = bell_cuda.b7_plan(cells, n_gb, G, width, kw_)
+    if not (isinstance(plan, bell_cuda.B7WidePlan)
+            and width > 10 * 512 // plan.cells):
+        raise AssertionError(f"B7 at gene block {G}, k={kw_}: plan {plan}")
+    gen = torch.Generator(device="cuda").manual_seed(kw_ + 1)
+    Wd7 = torch.rand((genes, kw_), generator=gen, device="cuda") / kw_
+    H7 = torch.rand((cells, kw_), generator=gen, device="cuda")
+    got, _, n_k = _counted(torch, lambda: bell_cuda.bell_mse_bits_cuda(
+        li, lv, words, Wd7, H7, gene_block=G))
+    if n_k != _launches(B7=1, B7w=1):
+        raise AssertionError(f"B7 at gene block {G}, k={kw_}: launches "
+                             f"{n_k}")
+    t0 = time.perf_counter()
+    want = bell.bell_mse_bits_plain(li, lv, words, Wd7, H7, gene_block=G)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"B7 at gene block {G}, k={kw_}: counts differ")
+    old = torch.full_like(got, float("nan"))
+    if ab_bell_mse.warp_kernel()(
+            li.data_ptr(), lv.data_ptr(), li.stride(0), n_gb, width, cells,
+            G, words.data_ptr(), words.stride(0), Wd7.data_ptr(),
+            H7.data_ptr(), kw_, old.data_ptr(),
+            torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("the kept warp-a-cell kernel failed")
+    torch.cuda.synchronize()
+    if not torch.equal(got, old):
+        raise AssertionError(f"B7 at gene block {G}, k={kw_}: not the bits "
+                             "of the warp-a-cell kernel")
+    held = float(got[1].sum())
+    rows["B7 passes"] = dict(
+        kernel="B7", cells=cells, k=kw_, width=width, gene_block=G,
+        wide=True, launches=n_k, plan=plan._asdict(),
+        same_bits_as_warp=True,
+        max_abs_err=float((got[0] - want[0]).abs().max()),
+        ms=_median_ms(torch, lambda: bell_cuda.bell_mse_bits_cuda(
+            li, lv, words, Wd7, H7, gene_block=G), runs=5),
+        plain_ms=plain_ms, library_ms=None, held_out=held,
+        **_bound(2 * li.numel() * 4 + words.numel() * 4
+                 + (genes + cells) * kw_ * 4 + 2 * cells * 4,
+                 2 * kw_ * held, F32_OPS_S))
+    del Wd7, H7, got, want, old
+    rows["B7 passes"]["turns"] = ab_bell_mse.run_wide(
+        torch, shapes=tuple(("wide block", "bench", 0, None, kk, against)
+                            for kk in P["turn_ks"]
+                            for against in ("warp", "tiled"))
+        + (("wide block", "bench", 0, None, kw_, "warp"),),
+        card=card, planes=(li, lv, G, n_gb))
+    for t in rows["B7 passes"]["turns"]:
+        print(f"  B7 wide route at gene block {G} (width {width}), k="
+              f"{t['k']}{' (forced)' if t['k'] <= 512 else ''}, in turns "
+              f"with {t['old']}, {WIDE_TURN_NOTE}: "
+              f"{t['new_median_ms']:.4f} ms ({t['new_range_ms'][0]:.4f}-"
+              f"{t['new_range_ms'][1]:.4f}) against "
+              f"{t['old_median_ms']:.4f} ms ({t['old_range_ms'][0]:.4f}-"
+              f"{t['old_range_ms'][1]:.4f}), the same bits ({card})",
+              flush=True)
     for name, r in rows.items():
         lib = ("" if r["library_ms"] is None
                else f", torch.sparse.mm {r['library_ms']:.3f} ms")
         print(f"kernel {name} at gene block {G} ({cells} cells, width "
-              f"{width}, k={k}): max|err|={r['max_abs_err']:.3e}, kernel "
+              f"{width}, k={r['k']}): max|err|={r['max_abs_err']:.3e}, kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms (by slices "
               f"of {step} cells for B3/B5){lib}, bound "
               f"{r['bound_ms']:.4f} ms ({card})", flush=True)
@@ -4920,11 +5074,15 @@ def main(argv=None) -> int:
           "pipeline's; the wide routes (launches of their own runs, "
           "phase 15b's at 131072 cells included): B1 "
           "at n=2048, B2 at n=512 (packed entry), both k=600 sweep_cap=8, "
-          "B7 at k=600 on the bench planes (its tiles of cells; "
-          "B7-wide-warp, the warp-a-cell route past k=1024, at k=1100 "
-          "there, launches of its one check), B3 (unmasked) and B5 at k=50 "
-          "on 4096 cells of 16384 genes in gene blocks of 8192 (plain_ms "
-          "by slices of 256 cells); bound_ms: the larger of the bytes over "
+          "B7 at k=600 on the bench planes (its tiles of cells), B3 "
+          "(unmasked) and B5 at k=50 on 4096 cells of 16384 genes in gene "
+          "blocks of 8192 (plain_ms by slices of 256 cells); past k=2048 "
+          "(launches of their one check each): B1-wide-past2048 at n=2048 "
+          "and B2-wide-past2048 at n=512 (packed entry), k=2560 "
+          "sweep_cap=8; B7-wide-streamed at k=1100 on the bench planes "
+          "(Wd's rows streamed, max_abs_err over k=1100 and 2560); "
+          "B7-wide-passes at k=600 on those gene blocks of 8192 (416 slots "
+          "a cell walked in passes); bound_ms: the larger of the bytes over "
           "3.35 TB/s and the operations this run's data needs over the "
           "peak of their type (float32 67 TFLOP/s, int8 1979 TOP/s, bf16 "
           "989 TFLOP/s)")
@@ -5002,10 +5160,23 @@ def main(argv=None) -> int:
         entry("B7-wide", "bell_mse_bits.cu", "pallas_bell.py:370",
               sum(n["B7w"] for n in wide_runs), k600["kernels"]["B7"],
               k600["kernels"]["B7"]["max_abs_err"]),
-        entry("B7-wide-warp", "bell_mse_bits.cu", "pallas_bell.py:370",
-              k600["kernels"]["B7 past"]["launches"]["B7w"],
-              k600["kernels"]["B7 past"],
-              k600["kernels"]["B7 past"]["max_abs_err"]),
+        entry("B1-wide-past2048", "nnls_wide.cuh", "pallas_nnls.py:266",
+              k600["kernels"]["B1 past"]["launches"]["B1w"],
+              k600["kernels"]["B1 past"],
+              k600["kernels"]["B1 past"]["max_abs_err"]),
+        entry("B2-wide-past2048", "nnls_wide.cuh", "pallas_nnls.py:195",
+              k600["kernels"]["B2 past"]["launches"]["B2w"],
+              k600["kernels"]["B2 past"],
+              k600["kernels"]["B2 past"]["max_abs_err"]),
+        entry("B7-wide-streamed", "bell_mse_bits.cu", "pallas_bell.py:370",
+              k600["kernels"][f"B7 past {B7_PAST_K}"]["launches"]["B7w"],
+              k600["kernels"][f"B7 past {B7_PAST_K}"],
+              max(k600["kernels"][f"B7 past {kk}"]["max_abs_err"]
+                  for kk in WIDE_PAST["b7_ks"])),
+        entry("B7-wide-passes", "bell_mse_bits.cu", "pallas_bell.py:370",
+              wblock["kernels"]["B7 passes"]["launches"]["B7w"],
+              wblock["kernels"]["B7 passes"],
+              wblock["kernels"]["B7 passes"]["max_abs_err"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

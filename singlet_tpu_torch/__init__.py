@@ -46,13 +46,15 @@ one of the JAX package's 14 Pallas kernels has a Hopper counterpart.
 Ranks: every rank runs on the card. Kernels B1, B2 and B7 hold a column's
 coordinates in registers up to k = 512 (``ops/nnls_cuda.py`` ``MAX_K``
 and ``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``) and take their
-wide-k routes past it (``csrc/nnls_wide.cu``: up to k = 2048 blocks of 4
-or 8 columns in lockstep with their residuals in registers and each
-step's Gram rows staged in shared memory ahead of the chain, past it a
-warp a column with its state in shared memory or device scratch;
-``bell_mse_bits_wide``: up to k = 1024 tiles of 32 or 64 cells whose H
-rows sit in shared memory and warps that hold Wd's rows in registers,
-past it a warp a cell), which raise only where device memory cannot hold
+wide-k routes past it (``csrc/nnls_wide.cu``: blocks of 8, 4, 2 or 1
+columns in lockstep, 32 to 256 threads a column, with their residuals in
+registers and each step's Gram rows staged in shared memory ahead of the
+chain, up to k = 6,452 for B2 and 11,612 for B1, past that a warp a
+column with its state in shared memory or, past k = 29,056, device
+scratch; ``bell_mse_bits_wide``: tiles of cells whose H rows sit in
+shared memory and warps that own genes, Wd's rows in registers up to k =
+1024 and streamed through L1 past it, a cell's slots of a wide gene block
+walked in passes), which raise only where device memory cannot hold
 their state; B3/B5 take any k in one launch, and gene blocks their tiles
 cannot hold (past 7,168 and 5,632 genes) on the wide-block route
 (``bell_spmm_wide``: lanes a cell sized to k, W's rows from L2 sixteen at a

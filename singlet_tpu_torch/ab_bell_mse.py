@@ -6,12 +6,12 @@ other on one CUDA card, in turns, on the same inputs.
 
 ``--wide`` times B7's wide route instead (``run_wide``): the checkout's
 tiles of cells (``bell_mse_bits_wide`` on the plan of ``ops/bell_cuda.py``
-``b7_wide_plan``, the test-bit pass included) against OLD.cu's
-``bell_mse_bits_wide``, the warp-a-cell kernel it replaced (default
-``csrc/bell_mse_bits_wide_warp.cu``, that kernel kept as it was), at the
-``WIDE_SHAPES`` past k = 512; and, forced at k <= 512, against the tiled
-kernel (``bell_mse_bits`` on ``b7_plan``, Wd permuted in each call as the
-wrapper does). Each in 5 rounds of turns old, new, new, old, a turn the
+``b7_wide_plan``, the test-bit pass included; past k = 1024 Wd's rows
+streamed) against OLD.cu's ``bell_mse_bits_wide``, the warp-a-cell kernel
+it replaced (default ``csrc/bell_mse_bits_wide_warp.cu``, that kernel
+kept as it was), at the ``WIDE_SHAPES`` past k = 512; and, forced at k <=
+512, against the tiled kernel (``bell_mse_bits`` on ``b7_plan``, Wd
+permuted in each call as the wrapper does). Each in 5 rounds of turns old, new, new, old, a turn the
 median of 3 single calls by CUDA events (``ab_nnls_batched.wide_turns``),
 the outputs equal bit for bit; one JSON line per shape with the card's
 name and power limit.
@@ -62,13 +62,15 @@ SHAPES = (("slice", "large", 262144, 8192, 100),
           ("bench", "bench", 0, None, 300))
 
 # --wide: (label, operand, first cell, cells or None for all, k, the old
-# side): the bench planes at k = 600 and at the route's last k, 1024,
-# against the warp-a-cell kernel; the bench planes at k = 256, 384 and
-# 512, the wide route forced, against the tiled kernel; all 524,288 cells
-# of the large operand at k = 600 (H 1.17 GiB) against the warp-a-cell
-# kernel
+# side): the bench planes at k = 600 and at the last k of Wd's rows in
+# registers, 1024, and past it (streamed) at 1100 and 2560, against the
+# warp-a-cell kernel; the bench planes at k = 256, 384 and 512, the wide
+# route forced, against the tiled kernel; all 524,288 cells of the large
+# operand at k = 600 (H 1.17 GiB) against the warp-a-cell kernel
 WIDE_SHAPES = (("bench", "bench", 0, None, 600, "warp"),
                ("bench", "bench", 0, None, 1024, "warp"),
+               ("bench", "bench", 0, None, 1100, "warp"),
+               ("bench", "bench", 0, None, 2560, "warp"),
                ("bench", "bench", 0, None, 256, "tiled"),
                ("bench", "bench", 0, None, 384, "tiled"),
                ("bench", "bench", 0, None, 512, "tiled"),
@@ -169,8 +171,6 @@ def run_wide(torch, shapes=WIDE_SHAPES, card=None, old_src=None,
             gene_block=G, inv_density=INV_DENSITY, cells_true=c0 + n,
             genes_true=genes)
         plan = bell_cuda.b7_wide_plan(n, n_gb, G, width, k)
-        if not isinstance(plan, bell_cuda.B7WidePlan):
-            raise ValueError(f"{label} k={k}: no tile of the wide route")
         bm = torch.empty(n_gb * plan.n_ct * plan.cells * plan.bm_pitch,
                          dtype=torch.int32, device="cuda")
         if against == "tiled":
@@ -188,7 +188,7 @@ def run_wide(torch, shapes=WIDE_SHAPES, card=None, old_src=None,
             if name == "new":
                 err = lib.bell_mse_bits_wide(
                     *head, Wd.data_ptr(), H.data_ptr(), k, plan.npl,
-                    plan.cells, plan.rows, bm.data_ptr(),
+                    plan.cells, plan.rows, int(plan.h_shared), bm.data_ptr(),
                     plan.n_ct * plan.cells, plan.bm_pitch, out.data_ptr(),
                     stream)
             elif against == "warp":

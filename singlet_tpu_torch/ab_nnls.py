@@ -5,16 +5,20 @@ on one CUDA card, in turns, on the same inputs.
     python3 -m singlet_tpu_torch.ab_nnls --wide [OLD.cu]
 
 ``--wide`` times B1's wide-k route (k > 512) instead: the checkout's
-staged kernel (``csrc/nnls_wide.cu`` ``nnls_wide_b1`` on the plan of
-``ops/nnls_cuda.py`` ``nnls_wide_plan``) against OLD.cu's
-``nnls_cd_wide``, the warp-a-column kernel it replaced: by default
+staged kernels (``csrc/nnls_wide.cu`` ``nnls_wide_b1`` on the plan of
+``ops/nnls_cuda.py`` ``nnls_wide_plan``) against the warp-a-column kernel
+they replaced: up to k = 2048 OLD.cu's ``nnls_cd_wide``, by default
 ``csrc/nnls_wide_warp.cu``, that kernel kept as it was compiled, or a
 source of an earlier commit (``git show 7249670:singlet_tpu_torch/csrc/
-nnls_cd.cu`` with that commit's ``nnls_wide.cuh`` beside it): per (n, k)
-in ``WIDE_SHAPES`` at sweep cap 8, in turns as
+nnls_cd.cu`` with that commit's ``nnls_wide.cuh`` beside it); past k =
+2048 the checkout's own ``wide_kernel`` forced by its plan: per (n, k) in
+``WIDE_SHAPES`` at sweep cap 8, in turns as
 ``ab_nnls_batched.wide_turns`` takes them, the outputs equal bit for bit
 and the first 512 columns within the B1 gate of the plain version; one
-JSON line per shape with the card's name and power limit.
+JSON line per shape with the card's name and power limit. Then, per
+(n, k) in ``WIDE_SAME_KERNEL``, the checkout's ``wide_kernel`` forced
+against the kept source's (the same kernel, compiled in two sources) in
+turns.
 
 OLD.cu is the one-warp-per-column source of commit fb6bcee (``git show
 fb6bcee:singlet_tpu_torch/csrc/nnls_cd.cu > build/old_nnls_cd.cu``): its
@@ -56,9 +60,10 @@ from pathlib import Path
 
 import numpy as np
 
-from singlet_tpu_torch.ab_nnls_batched import (WIDE_OLD, _compile,
-                                               card_line, timed_once,
-                                               warp_plan, wide_turns)
+from singlet_tpu_torch.ab_nnls_batched import (WIDE_OLD, WIDE_OWN_OLD_K,
+                                               _compile, card_line,
+                                               timed_once, warp_plan,
+                                               wide_turns)
 
 RUNS = 10
 REPS = 5
@@ -72,8 +77,13 @@ SHAPES = ((8192, 50, 8, False), (16384, 50, 8, False), (1500, 10, 8, False),
           (2048, 300, 8, False), (4096, 100, 8, True))
 L1, L2 = 0.01, 0.001
 # --wide: phase 10b's B1 row (2048 columns) and the two half-updates of
-# run_nmf on the bench config (8,192 cells, 16,384 genes) at k = 600
-WIDE_SHAPES = ((2048, 600), (8192, 600), (16384, 600))
+# run_nmf on the bench config (8,192 cells, 16,384 genes) at k = 600;
+# 2048 columns at k = 2048 (the quad kernel's last k at 32 threads a
+# column), 2560 (64 a column, its own ring) and 4096 (the staged kernel on
+# the Gram's rows)
+WIDE_SHAPES = ((2048, 600), (8192, 600), (16384, 600), (2048, 2048),
+               (2048, 2560), (2048, 4096))
+WIDE_SAME_KERNEL = ((2048, 600),)
 WIDE_CAP = 8.0
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -157,13 +167,16 @@ _OLD_WIDE_ARGTYPES = [_VP] * 7 + [_CI] * 4 + [_CF] * 4 + [_CI, _VP]
 
 
 def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
-             plain_cols: int = 0) -> list:
-    """B1's wide entry, the checkout's staged kernel against ``old_src``'s
-    warp-a-column kernel (default ``ab_nnls_batched.WIDE_OLD``), per (n,
-    k) of ``shapes`` in turns on ``_problem``'s inputs, the same bits;
-    with ``plain_cols``, the output's first columns also within the B1
-    gate (rtol 5e-3, atol 1e-6) of the plain version. Returns one dict a
-    shape, each printed as a JSON line."""
+             plain_cols: int = 0, same_kernel=()) -> list:
+    """B1's wide entry, the checkout's staged kernels against the
+    warp-a-column kernel they replaced (up to k = 2048 ``old_src``'s,
+    default ``ab_nnls_batched.WIDE_OLD``; past it the checkout's
+    ``wide_kernel`` forced by its plan), per (n, k) of ``shapes`` in turns
+    on ``_problem``'s inputs, the same bits; with ``plain_cols``, the
+    output's first columns also within the B1 gate (rtol 5e-3, atol 1e-6)
+    of the plain version; per (n, k) of ``same_kernel`` the checkout's
+    ``wide_kernel`` forced (as "new") against ``old_src``'s. Returns one
+    dict a shape, each printed as a JSON line."""
     from singlet_tpu_torch.ops import nnls, nnls_cuda
     from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
 
@@ -176,12 +189,15 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
     old_fn.restype = _CI
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
-    for n, k in shapes:
+    runs = [(n, k, False) for n, k in shapes]
+    runs += [(n, k, True) for n, k in same_kernel]
+    for n, k, same in runs:
         a, B, X0, mask = _problem(torch, n, k, seed=n + k)
         aT = a.t().contiguous()
         aT_pad = nnls_cuda._padded_rows(a.t())
-        plan = nnls_cuda.nnls_wide_plan(n, k)
+        plan = nnls_cuda.nnls_wide_plan(n, k, "shared")
         warps, blocks = warp_plan(n, k)
+        own_old = k > WIDE_OWN_OLD_K and not same
         tail = (L1, L2, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
         outs = {name: torch.empty_like(B) for name in ("old", "new")}
 
@@ -189,9 +205,12 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
             X = outs[name]
             head = (None, B.data_ptr(), X0.data_ptr(), mask.data_ptr(),
                     X.data_ptr(), None, n, k)
-            if name == "new":
+            if name == "new" and not same:
                 err = new_fn(aT_pad.data_ptr(), *head, plan.warps,
-                             plan.blocks, plan.depth, *tail)
+                             plan.blocks, plan.depth, plan.lanes, *tail)
+            elif name == "new" or own_old:
+                err = new_fn(aT_pad.data_ptr(), *head, warps, blocks, 0, 32,
+                             *tail)
             else:
                 err = old_fn(aT.data_ptr(), *head, warps, blocks, *tail)
             if err:
@@ -207,10 +226,15 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
             raise AssertionError(f"B1 wide n={n} k={k}: {bad} columns "
                                  "differ")
         row = {"kernel": "B1-wide", "n": n, "k": k, "sweep_cap": WIDE_CAP,
-               "old": old_src.name,
+               "old": ("nnls_wide.cuh wide_kernel" if own_old
+                       else old_src.name),
+               "new": ("nnls_wide.cuh wide_kernel" if same
+                       else "nnls_wide.cuh staged"),
+               "quad": (plan.lanes <= 64
+                        and nnls_cuda.quad_fits(k, plan.warps)),
                "plan": plan._asdict(), "card": card, "same_bits": True,
                **wide_turns(torch, call, old_first)}
-        if plain_cols:
+        if plain_cols and not same:
             c = min(n, plain_cols)
             want = nnls.nnls_batch(a, B[:c], X0[:c], L1=L1, L2=L2,
                                    update_mask=mask[:c], sweep_cap=WIDE_CAP)
@@ -247,7 +271,8 @@ def main() -> int:
         raise SystemExit("ab_nnls needs a CUDA device")
     card = card_line()
     if args.wide:
-        run_wide(torch, args.old, card=card, plain_cols=512)
+        run_wide(torch, args.old, card=card, plain_cols=512,
+                 same_kernel=WIDE_SAME_KERNEL)
         return 0
     if args.old is None:
         ap.error("OLD.cu is needed without --wide")

@@ -6,20 +6,23 @@ each other on one CUDA card, in turns, on the same inputs.
 
 ``--wide`` times B2's wide-k route (k > 512) instead: the checkout's
 staged kernel (``csrc/nnls_wide.cu`` ``nnls_wide_b2_packed`` on the plan
-of ``ops/nnls_cuda.py`` ``nnls_wide_plan``) against OLD.cu's
-``nnls_cd_batched_packed_wide``, the warp-a-column kernel it replaced:
-by default ``csrc/nnls_wide_warp.cu``, that kernel kept as it was
-compiled, or a source of an earlier commit (``git show
-7249670:singlet_tpu_torch/csrc/nnls_cd_batched.cu`` with that commit's
-``nnls_wide.cuh`` beside it). Per (n, k) in ``WIDE_SHAPES`` the packed
-entry at sweep cap 8, in the order old, new, new, old for
-``WIDE_ROUNDS`` rounds, a turn the median of ``WIDE_RUNS`` single calls
-by CUDA events (one round of single calls where the old route's first
-call took longer than ``WIDE_SLOW_MS``); the outputs must be equal bit
-for bit, and the first 512 columns within the B2 gate of the plain
-version. One JSON line per shape with every turn's time,
-the medians, each side's range over its turns, and the card's name and
-power limit.
+of ``ops/nnls_cuda.py`` ``nnls_wide_plan``) against the warp-a-column
+kernel it replaced: up to k = 2048 OLD.cu's
+``nnls_cd_batched_packed_wide``, by default ``csrc/nnls_wide_warp.cu``,
+that kernel kept as it was compiled, or a source of an earlier commit
+(``git show 7249670:singlet_tpu_torch/csrc/nnls_cd_batched.cu`` with that
+commit's ``nnls_wide.cuh`` beside it); past k = 2048 the checkout's own
+warp-a-column kernel (``nnls_wide.cuh`` ``wide_kernel``, the route there
+before the staged kernels took more threads a column, still the route
+past their reach), forced through the same entry by its plan. Per (n, k)
+in ``WIDE_SHAPES`` the packed entry (past k = 2048 the tile entry too) at
+sweep cap 8, in the order old, new, new, old for ``WIDE_ROUNDS`` rounds,
+a turn the median of ``WIDE_RUNS`` single calls by CUDA events (one call
+where the old route's first call took longer than ``WIDE_SLOW_MS``); the
+outputs must be equal bit for bit, and the first 512 columns (64 past k
+= 2048) within the B2 gate of the plain version. One JSON line per shape
+with every turn's time, the medians, each side's range over its turns,
+and the card's name and power limit.
 
 Both sources are compiled with ``_build``'s nvcc flags, started together,
 into the git-ignored ``build/``. Per (n, k) in ``SHAPES`` the inputs are
@@ -63,8 +66,11 @@ RUNS = 10
 ROUNDS = 5
 # --wide: B2's packed entry past k = 512 at the sweep cap of phase 10b
 # (chip_smoke.py): its 512-column row, the ELL engine's 2,048-cell blocks
-# and the bench config's 16,384 genes at k = 600
-WIDE_SHAPES = ((512, 600), (2048, 600), (16384, 600))
+# and the bench config's 16,384 genes at k = 600; its 512-column row at k
+# = 2,560 (both entries)
+WIDE_SHAPES = ((512, 600), (2048, 600), (16384, 600), (512, 2560))
+# past this k the old side is the checkout's own warp-a-column kernel
+WIDE_OWN_OLD_K = 2048
 WIDE_CAP = 8.0
 WIDE_ROUNDS = 5
 WIDE_RUNS = 3
@@ -173,6 +179,19 @@ def _bind(lib, l1: bool):
     return fn, packed, l1
 
 
+def packed_corrections(torch, F, m, iu):
+    """(npairs, n) packed corrections of each column's held-out rows m[c]
+    of F, a column at a time: what a masked half-update's ``mask_dot_t``
+    of the packed outer products holds, summed in another order (past k =
+    2048 the outer products of 2 k rows would take tens of GB)."""
+    i, j = (torch.as_tensor(x, device=F.device) for x in iu)
+    out = torch.empty((i.numel(), m.shape[0]), device=F.device)
+    for c in range(m.shape[0]):
+        Fh = F[m[c]]
+        out[:, c] = (Fh.T @ Fh)[i, j]
+    return out
+
+
 def _inputs(torch, n: int, k: int, seed: int):
     """(a_full, packed_t, iu, B, X0, mask): a masked half-update's
     solve inputs."""
@@ -183,8 +202,11 @@ def _inputs(torch, n: int, k: int, seed: int):
     F = torch.rand((m_rows, k), generator=gen, device="cuda")
     iu = linalg.triu_pairs(k)
     m = torch.rand((n, m_rows), generator=gen, device="cuda") < 0.05
-    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
-                                 1).contiguous()
+    if k > WIDE_OWN_OLD_K:
+        packed_t = packed_corrections(torch, F, m, iu)
+    else:
+        packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
+                                     1).contiguous()
     a_full = F.T @ F + 1e-15 * torch.eye(k, device="cuda")
     B = torch.where(m, 0.0, torch.rand((n, m_rows), generator=gen,
                                        device="cuda")) @ F
@@ -225,12 +247,12 @@ def card_line() -> str:
 
 def wide_turns(torch, call, old_first_ms: float) -> dict:
     """``call(name)`` timed in turns old, new, new, old: WIDE_ROUNDS
-    rounds, a turn the median of WIDE_RUNS single calls by CUDA events;
-    one round of single calls where the old side's first call took longer
-    than WIDE_SLOW_MS. Every turn's time, the medians over the turns, each
+    rounds, a turn the median of WIDE_RUNS single calls by CUDA events
+    (one call where the old side's first call took longer than
+    WIDE_SLOW_MS). Every turn's time, the medians over the turns, each
     side's range (min, max) over them and new over old."""
     slow = old_first_ms > WIDE_SLOW_MS
-    rounds, runs = (1, 1) if slow else (WIDE_ROUNDS, WIDE_RUNS)
+    rounds, runs = WIDE_ROUNDS, (1 if slow else WIDE_RUNS)
     turns = {"old": [], "new": []}
     for _ in range(rounds):
         for name in ("old", "new", "new", "old"):
@@ -281,13 +303,16 @@ _OLD_WIDE_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
 
 def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
              plain_cols: int = 0) -> list:
-    """B2's packed wide entry, the checkout's staged kernel against
-    ``old_src``'s warp-a-column kernel (default ``WIDE_OLD``), per (n, k)
-    of ``shapes`` in turns (``wide_turns``) on a masked half-update's
-    inputs (``_inputs``), the same bits; with ``plain_cols``, the output's
-    first columns also within the B2 gate (rtol 5e-3, atol 1e-6) of the
-    plain version on their unpacked Grams. Returns one dict a shape, each
-    printed as a JSON line."""
+    """B2's wide entries, the checkout's staged kernel against the
+    warp-a-column kernel it replaced (up to k = 2048 ``old_src``'s,
+    default ``WIDE_OLD``; past it the checkout's ``wide_kernel`` forced by
+    its plan), per (n, k) of ``shapes`` in turns (``wide_turns``) on a
+    masked half-update's inputs (``_inputs``): the packed entry, and past
+    k = 2048 the tile entry on the unpacked Grams too, the same bits; with
+    ``plain_cols``, the output's first columns (at most 64 past k = 2048)
+    also within the B2 gate (rtol 5e-3, atol 1e-6) of the plain version on
+    their unpacked Grams. Returns one dict a shape and entry, each printed
+    as a JSON line."""
     from singlet_tpu_torch.ops import linalg, nnls, nnls_cuda
     from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS
 
@@ -295,6 +320,8 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
     old_src = Path(old_src or WIDE_OLD)
     new_fn, _ = nnls_cuda._kernel("nnls_wide", "nnls_wide_b2_packed",
                                   nnls_cuda.ARGTYPES_B2_PACKED_WIDE)
+    tile_fn, _ = nnls_cuda._kernel("nnls_wide", "nnls_wide_b2",
+                                   nnls_cuda.ARGTYPES_B2_WIDE)
     old_fn = _compile(old_src).nnls_cd_batched_packed_wide
     old_fn.argtypes = _OLD_WIDE_ARGTYPES
     old_fn.restype = ctypes.c_int
@@ -307,52 +334,77 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
                                  device="cuda")
         plan = nnls_cuda.nnls_wide_plan(n, k)
         warps, blocks = warp_plan(n, k)
+        own_old = k > WIDE_OWN_OLD_K
         tail = (0.01, 0.001, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
+        entries = {"packed": (new_fn, (a_pad, packed_t, starts))}
+        if own_old:
+            at = linalg.unpack_sym_from_t(packed_t, k, iu,
+                                          a_full).contiguous()
+            inv_diag = (1.0 / at.reshape(k * k, n)[:: k + 1]).contiguous()
+            entries["tile"] = (tile_fn, (at, inv_diag))
         outs = {name: torch.empty_like(B) for name in ("old", "new")}
+        bits = None
+        for entry, (fn, grams) in entries.items():
 
-        def call(name):
-            X = outs[name]
-            head = (B.data_ptr(), X0.data_ptr(), mask.data_ptr(), None,
-                    X.data_ptr(), None, n, k)
-            if name == "new":
-                err = new_fn(a_pad.data_ptr(), packed_t.data_ptr(),
-                             starts.data_ptr(), *head, plan.warps,
-                             plan.blocks, plan.depth, *tail)
-            else:
-                err = old_fn(a_full.data_ptr(), packed_t.data_ptr(),
-                             starts.data_ptr(), *head, warps, blocks, *tail)
-            if err:
-                raise RuntimeError(f"B2 wide ({name}) n={n} k={k}: {err}")
+            def call(name, fn=fn, grams=grams):
+                X = outs[name]
+                head = (B.data_ptr(), X0.data_ptr(), mask.data_ptr(), None,
+                        X.data_ptr(), None, n, k)
+                ptrs = tuple(t.data_ptr() for t in grams)
+                if name == "new":
+                    err = fn(*ptrs, *head, plan.warps, plan.blocks,
+                             plan.depth, plan.lanes, *tail)
+                elif own_old:
+                    err = fn(*ptrs, *head, warps, blocks, 0, 32, *tail)
+                else:
+                    err = old_fn(a_full.data_ptr(), packed_t.data_ptr(),
+                                 starts.data_ptr(), *head, warps, blocks,
+                                 *tail)
+                if err:
+                    raise RuntimeError(f"B2 wide {entry} ({name}) n={n} "
+                                       f"k={k}: {err}")
 
-        for name in outs:
-            outs[name].fill_(float("nan"))
-        old_first = timed_once(torch, lambda: call("old"))
-        call("new")
-        torch.cuda.synchronize()
-        if not torch.equal(outs["old"], outs["new"]):
-            raise AssertionError(f"B2 wide n={n} k={k}: the two versions "
-                                 "differ")
-        row = {"kernel": "B2-wide", "entry": "packed", "n": n, "k": k,
-               "sweep_cap": WIDE_CAP, "old": old_src.name,
-               "plan": plan._asdict(), "card": card, "same_bits": True,
-               **wide_turns(torch, call, old_first)}
+            for name in outs:
+                outs[name].fill_(float("nan"))
+            old_first = timed_once(torch, lambda: call("old"))
+            call("new")
+            torch.cuda.synchronize()
+            if not torch.equal(outs["old"], outs["new"]):
+                raise AssertionError(f"B2 wide {entry} n={n} k={k}: the two "
+                                     "versions differ")
+            if bits is None:
+                bits = outs["new"].clone()
+            elif not torch.equal(bits, outs["new"]):
+                raise AssertionError(f"B2 wide n={n} k={k}: the entries "
+                                     "differ")
+            row = {"kernel": "B2-wide", "entry": entry, "n": n, "k": k,
+                   "sweep_cap": WIDE_CAP,
+                   "old": ("nnls_wide.cuh wide_kernel" if own_old
+                           else old_src.name),
+                   "plan": plan._asdict(), "card": card, "same_bits": True,
+                   **wide_turns(torch, call, old_first)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
         if plain_cols:
-            c = min(n, plain_cols)
-            at = linalg.unpack_sym_from_t(packed_t[:, :c].contiguous(), k,
-                                          iu, a_full)
-            want = nnls.nnls_batch(at.permute(2, 1, 0), B[:c], X0[:c],
+            c = min(n, plain_cols, 64 if own_old else plain_cols)
+            at_c = linalg.unpack_sym_from_t(packed_t[:, :c].contiguous(), k,
+                                            iu, a_full)
+            want = nnls.nnls_batch(at_c.permute(2, 1, 0), B[:c], X0[:c],
                                    L1=0.01, L2=0.001, update_mask=mask[:c],
                                    sweep_cap=WIDE_CAP)
-            got = outs["new"][:c]
+            got = bits[:c]
             np.testing.assert_allclose(got.cpu().numpy(),
                                        want.cpu().numpy(), rtol=5e-3,
                                        atol=1e-6)
-            row["plain_cols"] = c
-            row["max_abs_err"] = float((got - want).abs().max())
-            del at, want
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-        del a_full, a_pad, packed_t, B, X0, mask, outs
+            for row in rows[-len(entries):]:
+                row["plain_cols"] = c
+                row["max_abs_err"] = float((got - want).abs().max())
+            print(json.dumps({"kernel": "B2-wide", "n": n, "k": k,
+                              "plain_cols": c,
+                              "max_abs_err": rows[-1]["max_abs_err"]}),
+                  flush=True)
+            del at_c, want
+        del a_full, a_pad, packed_t, B, X0, mask, outs, entries, bits
         torch.cuda.empty_cache()
     return rows
 

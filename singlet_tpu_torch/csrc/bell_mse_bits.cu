@@ -78,14 +78,14 @@
 // run: k > 512 (its H rows live in registers, at most 16 floats a lane),
 // or a gene block whose tile of bits and slot rows does not fit in shared
 // memory (ops/bell_cuda.py `b7_plan` takes it there; `b7_wide_plan` picks
-// its tile). Here the H rows of a tile of C = 32 or 64 cells sit in shared
-// memory for the whole call, and the warps own genes: each of Wd's rows is
-// read from L2 once per tile, into the registers of the warp that owns the
-// gene, and serves every cell of the tile that holds the gene out (the
-// parent, a warp a cell, read it once per held-out entry). The block walks
-// the gene blocks in order and each one's sub-blocks of R genes in order,
-// after the test-bit pass the tiled kernel runs (`b7_bits_kernel`); per
-// sub-block, between barriers:
+// its tile). Here the H rows of a tile of C cells sit in shared memory for
+// the whole call, and the warps own genes: each of Wd's rows is read from
+// L2 once per tile, into the registers of the warp that owns the gene,
+// and serves every cell of the tile that holds the gene out (the parent, a
+// warp a cell, read it once per held-out entry). The block walks the gene
+// blocks in order and each one's sub-blocks of R genes in order, after the
+// test-bit pass the tiled kernel runs (`b7_bits_kernel`); per sub-block,
+// between barriers:
 //
 // - scatter: each cell's live slots of the sub-block go into a row of R
 //   64-bit keys (tag of the sub-block, the slot's rank, value) by
@@ -101,21 +101,36 @@
 //   a thread holds its share of its cell's slots of the gene block in
 //   registers (T = 512 / C threads a cell, slots w = p + T i, at most 10
 //   each), loaded once per gene block while the block works on the one
-//   before;
+//   before; where a gene block holds more slots a cell than that (width >
+//   10 T: at gene blocks of 8,192 the large config's 416), the thread
+//   walks its slots in passes of 10 each sub-block, read from device
+//   memory through L1, which keeps the tile's slot rows of the gene block
+//   for its later sub-blocks;
 // - dots: warp w takes the sub-block's genes w, w + 16, ... one at a
-//   time, with the next one's Wd row in flight in a second set of
-//   registers; for each it lists the tile's cells that hold the gene out
-//   (two ballots over the bits) and forms their dots four, two or one at
-//   a time with H's rows from shared memory, each
-//   lane's fmaf chain over its columns l, l + 32, ... in order, summed by
-//   the parent's butterfly as the tiled kernel sums them (a reduce-scatter
-//   over offsets 16 (and 8), then the rest); the diff (prediction - A)
-//   replaces the key's value;
+//   time; for each it lists the tile's cells that hold the gene out
+//   (ballots over the bits) and forms their dots four, two or one at a
+//   time with H's rows from shared memory, each lane's fmaf chain over its
+//   columns l, l + 32, ... in order, summed by the parent's butterfly as
+//   the tiled kernel sums them (a reduce-scatter over offsets 16 (and 8),
+//   then the rest); the diff (prediction - A) replaces the key's value.
+//   Up to k = 1024 (C = 64 or 32) the warp holds Wd's row in registers,
+//   the next gene's in flight beside it. Past it (two rows would take more
+//   than 64 registers a lane, and 64 H rows no longer fit) the streamed
+//   form: C = 32, 16 or 8, the largest whose H rows fit, and the warp
+//   reads a gene's row inside the dot, 16 columns a lane at a time with
+//   the next 16 in flight, only for genes some cell of the tile holds out,
+//   through L1, so that the gene's later batches of cells find it there;
+//   the chain is the same, so are the bits. Where not even 8 H rows fit (k
+//   > 7,168), tiles of 32 read H's rows from device memory too: device
+//   memory alone bounds k;
 // - sums: the cell's owner thread walks its held-out genes of the
 //   sub-block in ascending order, s = fmaf(diff, diff, s), and counts them.
 //
 // So every cell's squared errors are summed in the parent's order (gene
-// blocks, sub-blocks, genes ascending) from the parent's dots: its bits.
+// blocks, sub-blocks, genes ascending) from the parent's dots: its bits,
+// at every k and width (the warp-a-cell kernel this route replaced past k
+// = 1024 and on wide gene blocks is kept as bell_mse_bits_wide_warp.cu,
+// for the card tests' bits and timing in turns).
 // What bounds it (H100, k = 600, a 5% test set, 8192 cells): not the two
 // streams it was designed around, H's rows from shared memory (2400 bytes
 // an entry, 16 GB, about 0.55 ms at 128 bytes a cycle an SM) and Wd's
@@ -125,12 +140,11 @@
 // its reduce-scatter and diff), and to the three barriers, the scatter and
 // the owners' sums of each sub-block; a shared gene counter in place of
 // the fixed assignment, a batch of up to 8 entries a gene, and 16-byte
-// loads of permuted rows (which spill) were each slower. Past k = 1024
-// (its two Wd rows take 64 registers a lane), or where a gene block's
-// slots do not fit the threads' registers, the warp-a-cell kernel
-// (`b7_warp_kernel`, entry `bell_mse_bits_warp`): a warp a cell that reads
-// Wd's row and H's row from L1/L2 for every held-out entry, sub-blocks of
-// 512 genes, the same sums in the same order.
+// loads of permuted rows (which spill) were each slower. The streamed form
+// adds the trips to L2 for Wd's rows (at k = 1100, 32 cells a tile, the
+// rows of the 81% of (tile, gene) pairs some cell holds out: 15 GB) and a
+// load beside every entry's multiply-add, served by L1 after a gene's
+// first batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -640,93 +654,14 @@ b7_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------- the warp-a-cell route, k > 1024
-
-constexpr int kWarpCells = 8;     // cells (warps) a block
-constexpr int kWarpRows = 512;    // genes a sub-block
-
-struct WarpArgs {
-  const int32_t* li;     // planes, row r at r * ld
-  const float* lv;
-  long long ld;
-  int n_gb, width, cells, gene_block;
-  const uint32_t* words; // (cells, n_t gene_block), rows of stride wld
-  long long wld;
-  const float* Wd;       // (n_gb * gene_block, k)
-  const float* H;        // (cells, k)
-  int k;
-  float* out;            // (2, cells)
-};
-
-__global__ void __launch_bounds__(kWarpCells * 32)
-b7_warp_kernel(const WarpArgs a) {
-  __shared__ uint2 rows_s[kWarpCells * kWarpRows];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * kWarpCells + warp;
-  if (c >= a.cells) return;   // whole warps only
-  uint2* dense = rows_s + warp * kWarpRows;
-  for (int i = lane; i < kWarpRows; i += 32) dense[i] = make_uint2(0u, 0u);
-  __syncwarp();
-  const float* h = a.H + c * a.k;
-  const uint32_t* wrow = a.words + c * a.wld;
-  unsigned tag = 0;
-  float s = 0.f, n = 0.f;
-  for (int gb = 0; gb < a.n_gb; ++gb) {
-    for (int g0 = 0; g0 < a.gene_block; g0 += kWarpRows) {
-      const int rows = min(kWarpRows, a.gene_block - g0);
-      ++tag;
-      // the cell's live slots of the sub-block into the tagged row
-      for (int w = lane; w < a.width; w += 32) {
-        const long long off = (long long)(gb * a.width + w) * a.ld + c;
-        const int l = a.li[off] - g0;
-        if (l >= 0 && l < rows) {
-          dense[l] = make_uint2(tag, __float_as_uint(a.lv[off]));
-        }
-      }
-      __syncwarp();
-      for (int w0 = 0; w0 < rows; w0 += 32) {
-        const int l = g0 + w0 + lane;
-        const bool held =
-            w0 + lane < rows &&
-            ((__ldg(wrow + (gb >> 5) * a.gene_block + l) >> (gb & 31)) & 1u);
-        unsigned m = __ballot_sync(kFull, held);
-        while (m) {
-          const int j = __ffs(m) - 1;
-          m &= m - 1;
-          const float* wd = a.Wd + ((long long)gb * a.gene_block + g0 + w0 +
-                                    j) * a.k;
-          float acc = 0.f;
-          for (int col = lane; col < a.k; col += 32) {
-            acc = fmaf(__ldg(h + col), __ldg(wd + col), acc);
-          }
-#pragma unroll
-          for (int off = 16; off >= 1; off >>= 1) {
-            acc += __shfl_xor_sync(kFull, acc, off);
-          }
-          const uint2 at = dense[w0 + j];
-          const float a_l = at.x == tag ? __uint_as_float(at.y) : 0.f;
-          const float diff = acc - a_l;
-          s = fmaf(diff, diff, s);
-          n += 1.f;   // counts below 2^24: exact
-        }
-      }
-      __syncwarp();   // the row is read before the next sub-block's writes
-    }
-  }
-  if (lane == 0) {
-    a.out[c] = s;
-    a.out[a.cells + c] = n;
-  }
-}
-
 // ------------------------------------------ the wide route: tiles of cells
 
 constexpr int kTileWarps = 16;                 // warps a block
 constexpr int kTileThreads = kTileWarps * 32;
-constexpr int kShare = 10;   // a thread's slots of a gene block in registers:
-                             // width <= kShare * 512 / C
+constexpr int kShare = 10;   // a thread's slots of a gene block in registers
+                             // a pass: kShare * 512 / C slots a cell
 constexpr int kMaxSteps = 65536;   // sub-blocks a call: the keys' 16-bit tag
+constexpr int kQ = 16;       // columns a lane of the streamed dot at a time
 
 struct TileArgs {
   const int32_t* li;     // planes, row r at r * ld
@@ -737,19 +672,20 @@ struct TileArgs {
   int cells_pad, bm_pitch;
   const float* Wd;       // (n_gb * gene_block, k)
   const float* H;        // (cells, k)
-  int k;
+  int k, npl;            // npl: columns of a lane's chain, ceil(k / 32)
   float* out;            // (2, cells)
   int tile, rows_sb, n_sb;   // C, R, sub-blocks a gene block
 };
 
 // shared memory of a block (ops/bell_cuda.py `b7_wide_smem` is the same):
 // the tile's H rows (C rows of kp = 32 npl floats, zeros past k and past
-// the cells), a row of R keys a cell and the tile's bits of a sub-block
-// (R / 32 words a cell, word-major)
+// the cells; none where they are read from device memory), a row of R
+// keys a cell and the tile's bits of a sub-block (R / 32 words a cell,
+// word-major)
 __host__ __device__ inline size_t b7_wide_smem(int npl, int tile,
-                                               int rows_sb) {
-  return (size_t)tile * 32 * npl * 4 + (size_t)tile * rows_sb * 8 +
-         (size_t)(rows_sb / 32) * tile * 4;
+                                               int rows_sb, bool h_shared) {
+  return (h_shared ? (size_t)tile * 32 * npl * 4 : 0) +
+         (size_t)tile * rows_sb * 8 + (size_t)(rows_sb / 32) * tile * 4;
 }
 
 // the key of slot w of a cell in the sub-block of tag `tag`: a later tag
@@ -763,17 +699,53 @@ __device__ __forceinline__ unsigned long long slot_key(unsigned tag, int w,
          __float_as_uint(v);
 }
 
-template <int NPL>
+// where a cell's slots of a gene block pass its threads' registers: the
+// slots w = part, part + T, ... of gene block gb of the cell at column col
+// of the planes, read from device memory through L1 (which keeps the
+// tile's slot rows for the gene block's later sub-blocks), into the keys
+// krow (in shared memory) of the sub-block of `rows` genes from g0 of tag
+// `tag`. Kept out of line, so that the registers of its loads do not
+// weigh on the kernel's path where one pass holds the slots.
+__device__ __noinline__ void scatter_slots(const int32_t* li, const float* lv,
+                                           long long ld, int width,
+                                           long long col, int gb, int g0,
+                                           int rows, unsigned tag, int part,
+                                           int T, unsigned long long* krow) {
+  for (int w0 = part; w0 < width; w0 += kShare * T) {
+#pragma unroll
+    for (int i = 0; i < kShare; ++i) {
+      const int w = w0 + T * i;
+      if (w < width) {
+        const long long r = ((long long)gb * width + w) * ld + col;
+        const int l = __ldg(li + r) - g0;
+        if (l >= 0 && l < rows) {
+          atomicMax(krow + l, slot_key(tag, w, __ldg(lv + r)));
+        }
+      }
+    }
+  }
+}
+
+// NPL > 0: each of Wd's rows in NPL registers a lane (k <= 32 NPL <=
+// 1024), the next gene's in flight while a gene's entries run. NPL = 0,
+// the streamed form (k > 1024): a gene's row read from device memory
+// (through L1, so a gene's later batches find it there) inside the dot, kQ
+// columns a lane at a time with the next kQ in flight, for the genes some
+// cell of the tile holds out only; HS: the tile's H rows in shared memory,
+// else (no tile of 8 fits) read from device memory.
+template <int NPL, bool HS>
 __global__ void __launch_bounds__(kTileThreads, 1)
 b7_wide_kernel(const TileArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kp = 32 * NPL;
+  constexpr bool kStream = NPL == 0;
+  const int npl = kStream ? a.npl : NPL;
+  const int kp = 32 * npl;
   const int C = a.tile;
   const int R = a.rows_sb;
   const int RW = R >> 5;
   float* h_s = reinterpret_cast<float*>(smem);
-  unsigned long long* key_s =
-      reinterpret_cast<unsigned long long*>(smem + (size_t)C * kp * 4);
+  unsigned long long* key_s = reinterpret_cast<unsigned long long*>(
+      smem + (HS ? (size_t)C * kp * 4 : 0));
   uint32_t* bits_s = reinterpret_cast<uint32_t*>(key_s + (size_t)C * R);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -784,17 +756,30 @@ b7_wide_kernel(const TileArgs a) {
   const int part = tid / C;         // the cell's slots: p + T i
   const bool cell_live = c0 + cl < a.cells;
   const int steps = a.n_gb * a.n_sb;
+  // passes over a cell's slots of a gene block, kShare T slots each
+  const int passes = (a.width + kShare * T - 1) / (kShare * T);
 
-  for (int e = tid; e < C * kp; e += kTileThreads) {
-    const int c = e / kp;
-    const int col = e - c * kp;
-    h_s[e] = c0 + c < a.cells && col < a.k
-                 ? __ldcg(a.H + (c0 + c) * a.k + col)
-                 : 0.f;
+  if constexpr (HS) {
+    for (int e = tid; e < C * kp; e += kTileThreads) {
+      const int c = e / kp;
+      const int col = e - c * kp;
+      h_s[e] = c0 + c < a.cells && col < a.k
+                   ? __ldcg(a.H + (c0 + c) * a.k + col)
+                   : 0.f;
+    }
   }
   for (int e = tid; e < C * R; e += kTileThreads) key_s[e] = 0ull;
+  // column col of the H row of the tile's cell c (c referenced only where
+  // its bits hold a gene out, so c0 + c < cells)
+  auto h_at = [&](int c, int col) -> float {
+    if constexpr (HS) {
+      return h_s[c * kp + col];
+    } else {
+      return col < a.k ? __ldg(a.H + (c0 + c) * a.k + col) : 0.f;
+    }
+  };
 
-  // this thread's share of its cell's slots of gene block gb
+  // this thread's share of its cell's slots of gene block gb (one pass)
   int sl[kShare];
   float sv[kShare];
   auto load_share = [&](int gb) {
@@ -817,27 +802,43 @@ b7_wide_kernel(const TileArgs a) {
                               sb * RW + part)
                      : 0u;
   };
-  // Wd's row of gene j of step t's sub-block, lane l's columns l + 32 q
-  auto load_row = [&](float(&w)[NPL], int t, int j) {
+  // Wd's row of gene j of step t's sub-block
+  auto wd_row = [&](int t, int j) -> const float* {
     const int gb = t / a.n_sb;
-    const float* src =
-        a.Wd + ((long long)gb * a.gene_block + (t - gb * a.n_sb) * R + j) *
-                   a.k;
+    return a.Wd + ((long long)gb * a.gene_block + (t - gb * a.n_sb) * R + j) *
+                      a.k;
+  };
+  // lane l's columns l + 32 q of Wd's row of gene j of step t's sub-block
+  auto load_row = [&](float(&w)[NPL > 0 ? NPL : 1], int t, int j) {
+    if constexpr (NPL > 0) {
+      const float* src = wd_row(t, j);
 #pragma unroll
-    for (int q = 0; q < NPL; ++q) {
-      const int col = 32 * q + lane;
-      w[q] = col < a.k ? __ldcg(src + col) : 0.f;
+      for (int q = 0; q < NPL; ++q) {
+        const int col = 32 * q + lane;
+        w[q] = col < a.k ? __ldcg(src + col) : 0.f;
+      }
+    }
+  };
+  // the streamed form's kQ columns a lane from q0 of row src (zeros past
+  // k and past npl)
+  auto load_chunk = [&](float(&w)[kQ], const float* src, int q0) {
+#pragma unroll
+    for (int u = 0; u < kQ; ++u) {
+      const int col = 32 * (q0 + u) + lane;
+      w[u] = q0 + u < npl && col < a.k ? __ldg(src + col) : 0.f;
     }
   };
 
   // M (4, 2 or 1) cells popped from m, which hold gene j out: their dots
-  // with Wd's row w, each lane's fmaf chain over its columns in order (the
-  // zeros past k leave it as it is), the reduce-scatter over offsets 16
-  // (and 8 for M = 4), a lane keeping the half of its entries whose index
-  // bit matches its lane bit, then the rest of the butterfly: lane l ends
-  // with entry (l >> (5 - log2 M)) & (M - 1), whose first lane writes the
-  // entry's diff over its key's value
-  auto batch = [&](auto mc, unsigned long long& m, const float(&w)[NPL],
+  // with Wd's row (in registers, w, or streamed from src), each lane's
+  // fmaf chain over its columns in order (the zeros past k leave it as it
+  // is), the reduce-scatter over offsets 16 (and 8 for M = 4), a lane
+  // keeping the half of its entries whose index bit matches its lane bit,
+  // then the rest of the butterfly: lane l ends with entry (l >> (5 -
+  // log2 M)) & (M - 1), whose first lane writes the entry's diff over its
+  // key's value
+  auto batch = [&](auto mc, unsigned long long& m,
+                   const float(&w)[NPL > 0 ? NPL : 1], const float* src,
                    int j, unsigned tag) {
     constexpr int M = decltype(mc)::value;
     constexpr int kLog = M == 4 ? 2 : M == 2 ? 1 : 0;
@@ -849,12 +850,33 @@ b7_wide_kernel(const TileArgs a) {
     }
     float p[M];
 #pragma unroll
-    for (int e = 0; e < M; ++e) {
-      const float* hr = h_s + cell[e] * kp + lane;
-      float acc = 0.f;
+    for (int e = 0; e < M; ++e) p[e] = 0.f;
+    if constexpr (NPL == 0) {
+      float wc[kQ], wn[kQ];
+      load_chunk(wc, src, 0);
+      for (int q0 = 0; q0 < npl; q0 += kQ) {
+        if (q0 + kQ < npl) load_chunk(wn, src, q0 + kQ);
 #pragma unroll
-      for (int q = 0; q < NPL; ++q) acc = fmaf(hr[32 * q], w[q], acc);
-      p[e] = acc;
+        for (int u = 0; u < kQ; ++u) {
+          if (q0 + u < npl) {
+            const int col = 32 * (q0 + u) + lane;
+#pragma unroll
+            for (int e = 0; e < M; ++e) {
+              p[e] = fmaf(h_at(cell[e], col), wc[u], p[e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kQ; ++u) wc[u] = wn[u];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < M; ++e) {
+#pragma unroll
+        for (int q = 0; q < NPL; ++q) {
+          p[e] = fmaf(h_at(cell[e], 32 * q + lane), w[q], p[e]);
+        }
+      }
     }
 #pragma unroll
     for (int lvl = 0; lvl < kLog; ++lvl) {
@@ -887,12 +909,14 @@ b7_wide_kernel(const TileArgs a) {
       reinterpret_cast<float*>(kq)[0] = v - a_l;   // the key's low word
     }
   };
-  // gene j of the sub-block: the tile's cells that hold it out, their
-  // entries four, two or one at a time
-  auto gene = [&](const float(&w)[NPL], int j, unsigned tag) {
+  // gene j of the sub-block: the tile's cells that hold it out (C <= 64),
+  // their entries four, two or one at a time
+  auto gene = [&](const float(&w)[NPL > 0 ? NPL : 1], const float* src,
+                  int j, unsigned tag) {
     const uint32_t* col = bits_s + (j >> 5) * C;
     const int b = j & 31;
-    unsigned long long m = __ballot_sync(kFull, (col[lane] >> b) & 1u);
+    unsigned long long m =
+        __ballot_sync(kFull, lane < C && ((col[lane] >> b) & 1u));
     if (C > 32) {
       m |= (unsigned long long)__ballot_sync(kFull,
                                              (col[32 + lane] >> b) & 1u)
@@ -900,20 +924,20 @@ b7_wide_kernel(const TileArgs a) {
     }
     int cnt = __popcll(m);
     for (; cnt >= 4; cnt -= 4) {
-      batch(std::integral_constant<int, 4>{}, m, w, j, tag);
+      batch(std::integral_constant<int, 4>{}, m, w, src, j, tag);
     }
     if (cnt >= 2) {
-      batch(std::integral_constant<int, 2>{}, m, w, j, tag);
+      batch(std::integral_constant<int, 2>{}, m, w, src, j, tag);
       cnt -= 2;
     }
-    if (cnt) batch(std::integral_constant<int, 1>{}, m, w, j, tag);
+    if (cnt) batch(std::integral_constant<int, 1>{}, m, w, src, j, tag);
   };
 
   float s = 0.f, n = 0.f;   // the owner's (tid < C) sums
-  float wa[NPL], wb[NPL];
-  load_share(0);
+  float wa[NPL > 0 ? NPL : 1], wb[NPL > 0 ? NPL : 1];
+  if (passes == 1) load_share(0);
   uint32_t bw = load_bits(0);
-  if (warp < min(R, a.gene_block)) load_row(wa, 0, warp);
+  if (!kStream && warp < min(R, a.gene_block)) load_row(wa, 0, warp);
   __syncthreads();
   for (int t = 0; t < steps; ++t) {
     const int gb = t / a.n_sb;
@@ -922,36 +946,49 @@ b7_wide_kernel(const TileArgs a) {
     const int rows = min(R, a.gene_block - g0);
     const unsigned tag = (unsigned)(t + 1);
     // the sub-block's bits, and its slots into the keys (of two slots of a
-    // gene the parent's)
+    // gene the parent's): from the registers where one pass holds a cell's
+    // slots of the gene block, else pass by pass from device memory
+    // (through L1, which serves the gene block's later sub-blocks)
     if (part < RW) bits_s[part * C + cl] = bw;
     unsigned long long* krow = key_s + (size_t)cl * R;
+    if (passes == 1) {
 #pragma unroll
-    for (int i = 0; i < kShare; ++i) {
-      const int l = sl[i] - g0;
-      if (l >= 0 && l < rows) {
-        atomicMax(krow + l, slot_key(tag, part + T * i, sv[i]));
+      for (int i = 0; i < kShare; ++i) {
+        const int l = sl[i] - g0;
+        if (l >= 0 && l < rows) {
+          atomicMax(krow + l, slot_key(tag, part + T * i, sv[i]));
+        }
       }
+      if (sb == a.n_sb - 1 && gb + 1 < a.n_gb) load_share(gb + 1);
+    } else if (cell_live) {
+      scatter_slots(a.li, a.lv, a.ld, a.width, c0 + cl, gb, g0, rows, tag,
+                    part, T, krow);
     }
-    if (sb == a.n_sb - 1 && gb + 1 < a.n_gb) load_share(gb + 1);
     if (t + 1 < steps) bw = load_bits(t + 1);
     __syncthreads();
-    // the dots: warp w takes genes w, w + 16, ..., the next one's row
-    // loaded while this one's entries run
-    int j = warp;
-    while (j < rows) {
-      int jn = j + kTileWarps;
-      if (jn < rows) load_row(wb, t, jn);
-      gene(wa, j, tag);
-      j = jn;
-      if (j >= rows) break;
-      jn = j + kTileWarps;
-      if (jn < rows) load_row(wa, t, jn);
-      gene(wb, j, tag);
-      j = jn;
-    }
-    if (t + 1 < steps) {   // the next sub-block's first gene
-      const int sb1 = (t + 1) % a.n_sb;
-      if (warp < min(R, a.gene_block - sb1 * R)) load_row(wa, t + 1, warp);
+    // the dots: warp w takes genes w, w + 16, ...; with rows in registers
+    // the next one's row loaded while this one's entries run
+    if constexpr (kStream) {
+      for (int j = warp; j < rows; j += kTileWarps) {
+        gene(wa, wd_row(t, j), j, tag);
+      }
+    } else {
+      int j = warp;
+      while (j < rows) {
+        int jn = j + kTileWarps;
+        if (jn < rows) load_row(wb, t, jn);
+        gene(wa, nullptr, j, tag);
+        j = jn;
+        if (j >= rows) break;
+        jn = j + kTileWarps;
+        if (jn < rows) load_row(wa, t, jn);
+        gene(wb, nullptr, j, tag);
+        j = jn;
+      }
+      if (t + 1 < steps) {   // the next sub-block's first gene
+        const int sb1 = (t + 1) % a.n_sb;
+        if (warp < min(R, a.gene_block - sb1 * R)) load_row(wa, t + 1, warp);
+      }
     }
     __syncthreads();
     // each owner's squared errors, its held-out genes in ascending order
@@ -978,26 +1015,39 @@ b7_wide_kernel(const TileArgs a) {
 
 // NPL instantiated: the tiled kernel's 1, 2, 4, 8, 12 and 16 (for gene
 // blocks past its tiles at k <= 512, ops/bell_cuda.py `b7_npl`) and
-// ceil(k / 32) for k = 513 to 1024
+// ceil(k / 32) for k = 513 to 1024; past 32, the streamed form (NPL 0)
 constexpr int kWideNpls[] = {1,  2,  4,  8,  12, 16, 17, 18, 19, 20, 21,
                              22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32};
 
+template <int NPL, bool HS>
+cudaError_t launch_wide_kernel(const TileArgs& a, size_t smem, int blocks,
+                               cudaStream_t s) {
+  auto kernel = b7_wide_kernel<NPL, HS>;
+  static bool configured = false;   // per instantiation, on first launch
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  kernel<<<blocks, kTileThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <int I = 0>
-cudaError_t launch_wide(const TileArgs& a, int npl, size_t smem, int blocks,
-                        cudaStream_t s) {
+cudaError_t launch_wide(const TileArgs& a, bool h_shared, size_t smem,
+                        int blocks, cudaStream_t s) {
+  if (a.npl > 32) {
+    return h_shared ? launch_wide_kernel<0, true>(a, smem, blocks, s)
+                    : launch_wide_kernel<0, false>(a, smem, blocks, s);
+  }
   if constexpr (I < (int)(sizeof(kWideNpls) / sizeof(int))) {
     constexpr int NPL = kWideNpls[I];
-    if (npl != NPL) return launch_wide<I + 1>(a, npl, smem, blocks, s);
-    auto kernel = b7_wide_kernel<NPL>;
-    static bool configured = false;   // per instantiation, on first launch
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
-      if (err != cudaSuccess) return err;
-      configured = true;
+    if (a.npl != NPL) {
+      return launch_wide<I + 1>(a, h_shared, smem, blocks, s);
     }
-    kernel<<<blocks, kTileThreads, smem, s>>>(a);
-    return cudaGetLastError();
+    if (!h_shared) return cudaErrorInvalidValue;
+    return launch_wide_kernel<NPL, true>(a, smem, blocks, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1138,27 +1188,33 @@ int bell_mse_bits(const int32_t* li, const float* lv, long long ld, int n_gb,
 // cells: the pass into bm as bell_mse_bits' (bm_pitch: ceil(gene_block /
 // 32) rounded up to 8, at least n_sb rows_sb / 32), then the kernel; Wd
 // (n_gb * gene_block, k) and H (cells, k) contiguous float32 as they are;
-// npl, tile (C: 32 or 64), rows_sb (R: 32, 64 or 128) from `b7_wide_plan`
-// (ops/bell_cuda.py), cells_pad the cells rounded up to C, width at most
-// 10 * 512 / C, n_gb * ceil(gene_block / R) below 65,536; the other
-// arguments as bell_mse_bits'. Returns the cudaError_t of the first failed launch (0
+// npl (ceil(k / 32), or the tiled kernel's size at k <= 512), tile (C:
+// 64 or 32 where npl <= 32; 32, 16 or 8 past it), rows_sb (R: 32, 64 or
+// 128) and h_shared (the tile's H rows in shared memory, else read from
+// device memory: past npl = 32 only) from `b7_wide_plan`
+// (ops/bell_cuda.py), cells_pad the cells rounded up to C, n_gb *
+// ceil(gene_block / R) below 65,536; any width; the other arguments as
+// bell_mse_bits'. Returns the cudaError_t of the first failed launch (0
 // on success).
 int bell_mse_bits_wide(const int32_t* li, const float* lv, long long ld,
                        int n_gb, int width, int cells, int gene_block,
                        const uint32_t* words, long long wld, const float* Wd,
                        const float* H, int k, int npl, int tile, int rows_sb,
-                       uint32_t* bm, int cells_pad, int bm_pitch, float* out,
-                       void* stream) {
+                       int h_shared, uint32_t* bm, int cells_pad,
+                       int bm_pitch, float* out, void* stream) {
   if (cells <= 0) return cudaSuccess;
+  const bool streamed = npl > 32;
   if (k <= 0 || gene_block <= 0 || n_gb <= 0 || width <= 0 ||
-      (tile != 32 && tile != 64) || width > kShare * (kTileThreads / tile) ||
+      (streamed ? (tile != 32 && tile != 16 && tile != 8)
+                : (tile != 32 && tile != 64)) ||
+      (!h_shared && !streamed) ||
       (rows_sb != 32 && rows_sb != 64 && rows_sb != 128) || 32 * npl < k ||
-      cells_pad % tile != 0 || cells_pad < cells ||
-      bm_pitch % kBmWords != 0) {
+      (streamed && 32 * (npl - 1) >= k) || cells_pad % tile != 0 ||
+      cells_pad < cells || bm_pitch % kBmWords != 0) {
     return cudaErrorInvalidValue;
   }
   const int n_sb = (gene_block + rows_sb - 1) / rows_sb;
-  const size_t smem = b7_wide_smem(npl, tile, rows_sb);
+  const size_t smem = b7_wide_smem(npl, tile, rows_sb, h_shared != 0);
   if ((long long)bm_pitch * 32 < (long long)n_sb * rows_sb ||
       (long long)n_gb * n_sb >= kMaxSteps || smem > kSmemMax) {
     return cudaErrorInvalidValue;
@@ -1181,45 +1237,12 @@ int bell_mse_bits_wide(const int32_t* li, const float* lv, long long ld,
   a.Wd = Wd;
   a.H = H;
   a.k = k;
+  a.npl = npl;
   a.out = out;
   a.tile = tile;
   a.rows_sb = rows_sb;
   a.n_sb = n_sb;
-  return launch_wide(a, npl, smem, cells_pad / tile, s);
-}
-
-// The warp-a-cell route (k > 1024), for any k and any gene block: words
-// (cells rows of stride wld) read in place (no pass, no scratch), Wd (n_gb
-// * gene_block, k) and H (cells, k) contiguous float32 as they are; the
-// other arguments as bell_mse_bits'. Returns the cudaError_t of the launch
-// (0 on success).
-int bell_mse_bits_warp(const int32_t* li, const float* lv, long long ld,
-                       int n_gb, int width, int cells, int gene_block,
-                       const uint32_t* words, long long wld, const float* Wd,
-                       const float* H, int k, float* out, void* stream) {
-  if (cells <= 0) return cudaSuccess;
-  const long long blocks = (cells + kWarpCells - 1) / kWarpCells;
-  if (k <= 0 || gene_block <= 0 || n_gb <= 0 || width <= 0 ||
-      blocks > 0x7fffffffLL) {
-    return cudaErrorInvalidValue;
-  }
-  WarpArgs a{};
-  a.li = li;
-  a.lv = lv;
-  a.ld = ld;
-  a.n_gb = n_gb;
-  a.width = width;
-  a.cells = cells;
-  a.gene_block = gene_block;
-  a.words = words;
-  a.wld = wld;
-  a.Wd = Wd;
-  a.H = H;
-  a.k = k;
-  a.out = out;
-  b7_warp_kernel<<<(unsigned)blocks, kWarpCells * 32, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return launch_wide(a, h_shared != 0, smem, cells_pad / tile, s);
 }
 
 const char* bell_mse_bits_error_string(int err) {

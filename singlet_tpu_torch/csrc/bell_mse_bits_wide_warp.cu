@@ -1,11 +1,13 @@
 // The warp-a-cell kernel of B7's wide route as it was before the tiles
 // of cells (csrc/bell_mse_bits.cu `b7_wide_kernel`) replaced it up to k =
-// 1024: its kernel and its entry, from bell_mse_bits.cu. No route of the
-// package calls it: ab_bell_mse.py (`--wide`, and chip_smoke.py phase 10b
-// through it) times the tiles against it in turns on the same inputs and
-// holds the two to the same bits. bell_mse_bits.cu keeps the same kernel
-// (`b7_warp_kernel`, entry `bell_mse_bits_warp`) for k > 1024; this copy
-// keeps the code as it was compiled before, in one source of its own.
+// 1024 (and, with Wd's rows streamed and the slots walked in passes, past
+// k = 1024 and on wide gene blocks, where bell_mse_bits.cu kept the same
+// kernel until then): its kernel and its entry, from bell_mse_bits.cu. No
+// route of the package calls it: ab_bell_mse.py (`--wide`, and
+// chip_smoke.py phases 10b and 10c through it) times the tiles against it
+// in turns on the same inputs, and the card tests hold the two to the same
+// bits; this copy keeps the code as it was compiled before, in one source
+// of its own.
 //
 // A warp owns a cell and walks its gene blocks in order and each one's
 // sub-blocks of 512 genes in order: it writes the cell's live slots of the

@@ -6,11 +6,13 @@
 //
 // All pointers are device pointers to contiguous float32 (mask: uint8, or
 // null for all columns active; row_start: int32): B / X0 / X (n, k), l1
-// (n, k) per-coordinate L1 or null for the scalar L1. warps, blocks and
-// depth are the plan's: with depth > 0 the staged kernel (`warps` = C
-// columns a block, 4 or 8, `blocks` = ceil(n / C), scratch null), else
-// the warp-a-column kernel, its state in shared memory (scratch null) or
-// in scratch, 2 k floats for each of the grid's blocks * warps warps.
+// (n, k) per-coordinate L1 or null for the scalar L1. warps, blocks, depth
+// and lanes are the plan's: with depth > 0 a staged kernel (`warps` = C
+// columns a block, 8, 4, 2 or 1, `lanes` = P threads a column, 32, 64,
+// 128 or 256, C P <= 256, ceil(k / P) <= 64, `blocks` = ceil(n / C),
+// scratch null), else the warp-a-column kernel, its state in shared
+// memory (scratch null) or in scratch, 2 k floats for each of the grid's
+// blocks * warps warps.
 // Each returns the cudaError_t of the launch (0 on success).
 
 #include <cuda_runtime.h>
@@ -23,8 +25,8 @@ namespace {
 nnls_wide::Args wide_args(const float* B, const float* X0,
                           const uint8_t* mask, const float* l1, float* X,
                           float* scratch, int n, int k, int warps, int depth,
-                          float L1, float L2, float k_div, float cap,
-                          int max_sweeps) {
+                          int lanes, float L1, float L2, float k_div,
+                          float cap, int max_sweeps) {
   nnls_wide::Args p{};
   p.B = B;
   p.X0 = X0;
@@ -36,6 +38,7 @@ nnls_wide::Args wide_args(const float* B, const float* X0,
   p.k = k;
   p.warps = warps;
   p.depth = depth;
+  p.lanes = lanes;
   p.max_sweeps = max_sweeps;
   p.L1 = L1;
   p.L2 = L2;
@@ -48,9 +51,13 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// whether the staged kernel may copy a row's columns 16 bytes at a time
-bool rows_whole(const void* ptr, int n) {
-  return n % 4 == 0 && aligned16(ptr);
+// the floats a copy of the staged kernel may take from a row's columns: 4
+// (16 bytes) where every row starts 16-byte aligned, 2 where 8-byte, else 1
+int rows_vec(const void* ptr, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  if (n % 4 == 0 && a % 16 == 0) return 4;
+  if (n % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
 }
 
 }  // namespace
@@ -59,16 +66,17 @@ extern "C" {
 
 // B1: aT (k, round4(k)) the transposed shared Gram, aT[i, t] = a[t, i],
 // its rows zero past k and 16-byte aligned. With a depth, the quad kernel
-// on a ring of its own (the plan's depth is the packed entry's).
+// on a ring of its own where it fits (nnls_wide.cuh `quad_fits`), else
+// the staged kernel on the plan's depth.
 int nnls_wide_b1(const float* aT, const float* l1, const float* B,
                  const float* X0, const uint8_t* mask, float* X,
                  float* scratch, int n, int k, int warps, int blocks,
-                 int depth, float L1, float L2, float k_div, float cap,
-                 int max_sweeps, void* stream) {
+                 int depth, int lanes, float L1, float L2, float k_div,
+                 float cap, int max_sweeps, void* stream) {
   if (!aligned16(aT)) return cudaErrorInvalidValue;
   return nnls_wide::launch(
-      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, L1, L2,
-                k_div, cap, max_sweeps),
+      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
+                L2, k_div, cap, max_sweeps),
       nnls_wide::SharedGram{aT, k, nnls_wide::round4(k)}, blocks,
       static_cast<cudaStream_t>(stream));
 }
@@ -78,12 +86,12 @@ int nnls_wide_b1(const float* aT, const float* l1, const float* B,
 int nnls_wide_b2(const float* at, const float* inv_diag, const float* B,
                  const float* X0, const uint8_t* mask, const float* l1,
                  float* X, float* scratch, int n, int k, int warps,
-                 int blocks, int depth, float L1, float L2, float k_div,
-                 float cap, int max_sweeps, void* stream) {
+                 int blocks, int depth, int lanes, float L1, float L2,
+                 float k_div, float cap, int max_sweeps, void* stream) {
   return nnls_wide::launch(
-      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, L1, L2,
-                k_div, cap, max_sweeps),
-      nnls_wide::TileGram{at, inv_diag, n, k, rows_whole(at, n)},
+      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
+                L2, k_div, cap, max_sweeps),
+      nnls_wide::TileGram{at, inv_diag, n, k, rows_vec(at, n)},
       blocks, static_cast<cudaStream_t>(stream));
 }
 
@@ -95,16 +103,16 @@ int nnls_wide_b2_packed(const float* a_full, const float* packed_t,
                         const int* row_start, const float* B,
                         const float* X0, const uint8_t* mask,
                         const float* l1, float* X, float* scratch, int n,
-                        int k, int warps, int blocks, int depth, float L1,
-                        float L2, float k_div, float cap, int max_sweeps,
-                        void* stream) {
+                        int k, int warps, int blocks, int depth, int lanes,
+                        float L1, float L2, float k_div, float cap,
+                        int max_sweeps, void* stream) {
   if (!aligned16(a_full)) return cudaErrorInvalidValue;
   return nnls_wide::launch(
-      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, L1, L2,
-                k_div, cap, max_sweeps),
+      wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
+                L2, k_div, cap, max_sweeps),
       nnls_wide::PackedGram{a_full, packed_t, row_start, n, k,
                             nnls_wide::round4(k),
-                            rows_whole(packed_t, n)},
+                            rows_vec(packed_t, n)},
       blocks, static_cast<cudaStream_t>(stream));
 }
 

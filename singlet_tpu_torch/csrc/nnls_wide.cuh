@@ -4,31 +4,35 @@
 // B1 and B2 hold a column's coordinates in registers, at most 16 a lane,
 // so their tuned routes end at k = 512. Past it, three kernels:
 //
-// `staged_kernel` (B2, k <= 2048, ops/nnls_cuda.py `nnls_wide_plan` with a
-// depth; `quad_kernel` below is B1's form of it): a block takes C = 4 or 8
-// neighbouring columns that sweep in
-// lockstep, 32 C threads. Thread (l, c) = (tid / C, tid % C) holds
-// coordinates l, l + 32, ... of column c: their residual b (the gradient
-// the CD steps downdate) in registers, x in shared memory. The Gram
-// entries step i needs, a_c[t, i] for every t, do not depend on x, so the
-// block copies them (`cp.async`, 16 bytes where the rows allow it) into a
-// ring of D slots in shared memory, D - 2 steps ahead of the chain, and
-// the chain reads only shared memory:
+// `staged_kernel` (B2, and B1 where its quad ring does not fit;
+// ops/nnls_cuda.py `nnls_wide_plan` with a depth; `quad_kernel` below is
+// B1's form of it): a block takes C = 8, 4, 2 or 1 neighbouring columns
+// that sweep in lockstep, P = 32, 64, 128 or 256 threads a column (C P <=
+// 256), so that a thread holds at most 64 of a column's coordinates.
+// Thread (l, c) = (tid / C, tid % C) holds coordinates l, l + P, ... of
+// column c: their residual b (the gradient the CD steps downdate) in
+// registers, x in shared memory. The Gram entries step i needs, a_c[t, i]
+// for every t, do not depend on x, so the block copies them (`cp.async`,
+// 16 or 8 bytes where the rows allow it) into a ring of D slots in shared
+// memory, D - 2 steps ahead of the chain, and the chain reads only shared
+// memory:
 //
 //   B2 (`TileGram`, `PackedGram`): C consecutive floats of row (i, t) of
 //     the tiles, or of the packed corrections at pos(i, t) beside a_full's
-//     row i: whole sectors (or halves), where the old route read one float
+//     row i: whole sectors (or parts), where the old route read one float
 //     of a sector a column;
 //   B1 (`SharedGram`, `quad_kernel`): row i of the transposed Gram, k
 //     floats shared by every column of the block, so a block reads the
 //     Gram from L2 once for C columns; thread (l, c) holds coordinates
-//     4 l + e + 128 v, so that one thread owns four consecutive steps and
+//     4 l + e + 4 P v, so that one thread owns four consecutive steps and
 //     takes them by itself, the block meeting once every four steps, and
-//     each thread reads the staged row 16 bytes at a time.
+//     each thread reads the staged row 16 bytes at a time. Its ring holds
+//     12 or 16 rows; where they do not fit beside x (k > about 2,900 at
+//     four columns a block), B1 runs `staged_kernel` on the Gram's rows.
 //
 // Step g of the block: issue the copy of the slab of step g + D - 2; each
 // live column's threads downdate their coordinates by the previous step's
-// delta (b_t -= a_c[t, i - 1] delta), the owner thread (i mod 32, c)
+// delta (b_t -= a_c[t, i - 1] delta), the owner thread (i mod P, c)
 // first its own coordinate i (kept beside b, so that it need not index b
 // at run time); the owner then computes
 //
@@ -38,38 +42,45 @@
 //
 // writes delta to shared memory, and the block waits for the slab of step
 // g + 1 and meets at one barrier. 1/diag and the (n, k) L1 of the owner's
-// next coordinate are loaded a window of 32 steps ahead. The sweep terms
+// next coordinate are loaded a window of P steps ahead. The sweep terms
 // |x_i - x_start| / (x_i + 1e-15), off the chain, are summed at the
-// sweep's end from x and the x_start each owner kept: each thread its
-// steps i = l mod 32 in step order, the column's 32 partials as the xor
-// butterfly 16, 8, 4, 2, 1 sums the lanes'. A column that stops takes no
-// more steps; the block runs until its last column stops. Every b_t is
-// downdated in step order with the same _rn operations as the old
-// route's and the tol is summed in its order, so the bits are
-// `wide_kernel`'s, NaN for NaN.
+// sweep's end from x and the x_start each owner kept: each of the first
+// 32 threads of a column its steps i = l mod 32 in step order, the
+// column's 32 partials as the xor butterfly 16, 8, 4, 2, 1 sums the
+// lanes'. A column that stops takes no more steps; the block runs until
+// its last column stops. Every b_t is downdated in step order with the
+// same _rn operations as the old route's and the tol is summed in its
+// order, so the bits are `wide_kernel`'s, NaN for NaN, whatever C and P.
 //
-// `wide_kernel` (k > 2048, where b does not fit in registers, and the
-// device-scratch route past k = 29,056): a warp a column, x and b in
-// shared memory (8 k bytes a column, as many columns a block as fit, 8 at
-// most), or in a scratch buffer in device memory that the caller
-// allocates. Lane l owns coordinates l, l + 32, ...; the owner lane of
-// step i computes delta as above, broadcasts it by shuffle, and every lane
-// downdates its coordinates with the Gram's column i read from device
-// memory (the GRAM accessor's `entry`), 8 entries a lane loaded before any
-// is used. Its steps wait on trips to L2 or device memory; it was the
-// route of every k > 512 before the staged kernel (nnls_wide_warp.cu keeps
-// that route's source as it was, for timing the two in turns).
+// `wide_kernel` (past the staged kernels' reach: k > 6,452 for B2, whose
+// packed slab and row starts then leave no ring of 3 slots beside one
+// column's x and x_start, k > 11,612 for B1; and the device-scratch route
+// past k = 29,056): a warp a column, x and b in shared memory (8 k bytes
+// a column, as many columns a block as fit, 8 at most), or in a scratch
+// buffer in device memory that the caller allocates. Lane l owns
+// coordinates l, l + 32, ...; the owner lane of step i computes delta as
+// above, broadcasts it by shuffle, and every lane downdates its
+// coordinates with the Gram's column i read from device memory (the GRAM
+// accessor's `entry`), 8 entries a lane loaded before any is used. Its
+// steps wait on trips to L2 or device memory; it was the route of every k
+// > 512 before the staged kernel (nnls_wide_warp.cu keeps that route's
+// source as it was, for timing the two in turns) and of every k > 2048
+// before the staged kernels took more threads a column.
 //
 // Every step rounds as the plain version does (the _rn intrinsics, no
 // contraction into FMAs).
 //
 // What bounds the staged kernels: B2 reads every packed correction twice a
 // sweep (as (i, t) and as (t, i)), 738 MB a sweep at 512 columns of k =
-// 600, in 16- or 32-byte pieces scattered over device memory (a floor of
-// about 0.22 ms a sweep at 3.35 TB/s; scattered pieces move at a fraction
-// of it). B1's Gram sits in L2; its floor is the chain: k dependent steps
-// a sweep, each six dependent float operations of the owner and, every
-// four steps, a barrier and a shared-memory load of the deltas.
+// 600 and 13.4 GB at k = 2,560, in 8- to 32-byte pieces scattered over
+// device memory (a floor of about 0.22 and 4.0 ms a sweep at 3.35 TB/s;
+// scattered pieces move at a fraction of it). B1's Gram sits in L2 to k =
+// 3,600; its floor is the downdates, n k^2 multiply-adds a sweep (at k =
+// 2,560 and 2,048 columns 0.4 ms a sweep at 67 TFLOP/s), and the chain: k
+// dependent steps a sweep, each six dependent float operations of the
+// owner and, every four steps, a barrier and a shared-memory load of the
+// deltas. More threads a column keep the downdates of a wide column on as
+// many warps as at k <= 2,048.
 
 #pragma once
 
@@ -93,11 +104,13 @@ namespace nnls_wide {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kCdTol = 1e-8f;        // CD_TOL of ops/nnls.py
-constexpr int kMaxWarps = 8;           // columns (warps) a block
+constexpr int kMaxWarps = 8;           // columns a block
+constexpr int kMaxThreads = 256;       // threads a block of the staged
+                                       // kernels, C P
 constexpr int kBatch = 8;              // Gram entries a lane loads at once
 constexpr size_t kSmemMax = 232448;    // a Hopper block's shared memory
 constexpr int kMaxDepth = 8;           // ring slots of the staged kernel
-constexpr int kMaxStagedK = 2048;      // b in registers: 64 a thread
+constexpr int kMaxU = 64;              // b in registers: 64 a thread
 
 struct Args {
   const float* B;         // (n, k)
@@ -110,6 +123,7 @@ struct Args {
   int n, k, max_sweeps;
   int warps;              // columns a block
   int depth;              // ring slots of the staged kernel, 0 otherwise
+  int lanes;              // threads a column of the staged kernels (P)
   float L1, L2, k_div, cap;
 };
 
@@ -127,13 +141,16 @@ __host__ __device__ inline size_t staged_floats(int k, int C, int depth,
 
 // --------------------------------------------------------------- copies
 
-// BYTES (4 or 16) from global to shared memory: 16 bytes bypassing L1
-// (.cg), 4 through it (.ca)
+// BYTES (4, 8 or 16) from global to shared memory: 16 bytes bypassing L1
+// (.cg), 4 or 8 through it (.ca)
 template <int BYTES>
 __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (BYTES == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+  } else if constexpr (BYTES == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                  :: "r"(d), "l"(src) : "memory");
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
@@ -163,25 +180,35 @@ __device__ __forceinline__ void copy_wait_upto(int pending) {
   }
 }
 
-// C floats of each of k rows, row t at src(t) + c0, into slot[t C ...]:
-// 16 bytes at a time where `vec` (n % 4 == 0 and a 16-byte aligned base,
-// so a chunk of 4 columns is wholly in or out of range), else 4; the
+__device__ __forceinline__ int log2_of(int pow2) { return __ffs(pow2) - 1; }
+
+// C floats (1, 2, 4 or 8) of each of k rows, row t at src(t) + c0, into
+// slot[t C ...]: `vec` floats at a time at most (4 where n % 4 == 0 and
+// the base is 16-byte aligned, 2 where n is even and it is 8-byte
+// aligned, else 1), so that a piece is wholly in or out of range; the
 // columns past n are not read
 template <class ROW>
 __device__ __forceinline__ void stage_rows(float* slot, int k, int C,
-                                           long long c0, int n, bool vec,
+                                           long long c0, int n, int vec,
                                            const ROW& src, int tid,
                                            int nt) {
-  if (vec) {
+  if (vec == 4 && C >= 4) {
     const int half = C >> 3;            // C = 8: two chunks a row
     for (int j = tid; j < k * (C >> 2); j += nt) {
       const int t = j >> half;
       const int q = (j & half) << 2;
       if (c0 + q < n) copy_async<16>(slot + t * C + q, src(t) + c0 + q);
     }
+  } else if (vec >= 2 && C >= 2) {
+    const int sh = log2_of(C >> 1);     // 8-byte pieces a row, as a shift
+    for (int j = tid; j < (k << sh); j += nt) {
+      const int t = j >> sh;
+      const int q = (j & ((1 << sh) - 1)) << 1;
+      if (c0 + q < n) copy_async<8>(slot + t * C + q, src(t) + c0 + q);
+    }
   } else {
-    const int sh = C == 8 ? 3 : 2;
-    for (int j = tid; j < k * C; j += nt) {
+    const int sh = log2_of(C);
+    for (int j = tid; j < (k << sh); j += nt) {
       const int t = j >> sh;
       const int c = j & (C - 1);
       if (c0 + c < n) copy_async<4>(slot + t * C + c, src(t) + c0 + c);
@@ -226,6 +253,24 @@ struct SharedGram {
   __device__ __forceinline__ float diag(int t) const {
     return __ldg(aT + (size_t)t * kp + t);
   }
+  // staged_kernel's, where the quad ring does not fit: a slot is step
+  // s's row, read by every column of the block
+  __host__ __device__ int slab(int) const { return kp; }
+  __device__ __forceinline__ void stage(float* slot, int s, long long, int,
+                                        const int*, int tid, int nt) const {
+    stage(slot, s, tid, nt);
+  }
+  __device__ __forceinline__ float at(const float* slot, int t, int,
+                                      int) const {
+    return slot[t];
+  }
+  __device__ __forceinline__ float2 diag(long long, int t,
+                                         const int*) const {
+    return make_float2(diag(t), 0.f);
+  }
+  __device__ __forceinline__ float inv_of(float2 d) const {
+    return __frcp_rn(d.x);
+  }
 };
 
 // B2's tile entry: the tiles at (k, k, n), at[i, t, c] = a_c[t, i], with
@@ -235,7 +280,7 @@ struct TileGram {
   const float* at_;
   const float* inv_diag;
   int n, k;
-  bool vec;
+  int vec;     // floats a copy the rows allow (stage_rows)
   __device__ __forceinline__ float entry(long long c, int i, int t) const {
     return __ldg(at_ + ((size_t)i * k + t) * n + c);
   }
@@ -271,7 +316,7 @@ struct PackedGram {
   const float* packed_t;
   const int* row_start;
   int n, k, kp;
-  bool vec;
+  int vec;     // floats a copy the rows allow (stage_rows)
   __device__ __forceinline__ float entry(long long c, int i, int t) const {
     const int lo = i < t ? i : t;
     const int pos = __ldg(row_start + lo) + (i < t ? t - i : i - t);
@@ -315,15 +360,55 @@ struct PackedGram {
 
 // ------------------------------------------------------- staged kernel
 
-// U: coordinates a thread, ceil(k / 32) rounded up to an instantiated size
-template <int U, class GRAM>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+// the sweep's end of a staged kernel's column c: each of its first 32
+// threads its terms |x_i - x_start| / (x_i + 1e-15) of steps i = l, l +
+// 32, ... in step order, then the column's tol as the xor butterfly sums
+// the 32 lanes' partials (lane 0's operand order); `live` goes false where
+// the column stops. Ends with the block's barrier before the partials are
+// read.
+__device__ __forceinline__ void sweep_end(const Args& p, bool& live,
+                                          const float* xs, const float* x0s,
+                                          float* ps, int c, int tl,
+                                          int sweep) {
+  if (live && tl < 32) {
+    float part = 0.f;
+    for (int t = tl; t < p.k; t += 32) {
+      const float xn = xs[t];
+      part = __fadd_rn(part, __fdiv_rn(fabsf(__fsub_rn(xn, x0s[t])),
+                                       __fadd_rn(xn, 1e-15f)));
+    }
+    ps[c * 33 + tl] = part;
+  }
+  __syncthreads();
+  if (live) {
+    float s[16];
+#pragma unroll
+    for (int l = 0; l < 16; ++l) {
+      s[l] = __fadd_rn(ps[c * 33 + l], ps[c * 33 + l + 16]);
+    }
+#pragma unroll
+    for (int off = 8; off >= 1; off >>= 1) {
+#pragma unroll
+      for (int l = 0; l < off; ++l) s[l] = __fadd_rn(s[l], s[l + off]);
+    }
+    if (!(__fdiv_rn(s[0], p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
+        !((float)sweep < p.cap)) {
+      live = false;
+    }
+  }
+}
+
+// U: coordinates a thread, ceil(k / P) rounded up to an instantiated size;
+// P: threads a column (p.lanes), a constant so that a thread's offsets
+// fold into its loads
+template <int U, int P, class GRAM>
+__global__ void __launch_bounds__(kMaxThreads)
 staged_kernel(const Args p, const GRAM gram) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.warps;
   const int k = p.k;
   const int D = p.depth;
-  const int nt = C * 32;
+  const int nt = C * P;
   const int tid = threadIdx.x;
   const int c = tid % C;
   const int tl = tid / C;
@@ -340,7 +425,7 @@ staged_kernel(const Args p, const GRAM gram) {
   const bool in = col < p.n;
   const bool active = in && (p.mask == nullptr || p.mask[col] != 0);
   const size_t row = (size_t)(in ? col : 0) * k;
-  for (int t = tl; t < k; t += 32) {
+  for (int t = tl; t < k; t += P) {
     if (active) {
       xs[t] = p.X0[row + t];
     } else if (in) {
@@ -352,7 +437,7 @@ staged_kernel(const Args p, const GRAM gram) {
   float b[U];
 #pragma unroll
   for (int v = 0; v < U; ++v) {
-    const int t = tl + 32 * v;
+    const int t = tl + P * v;
     b[v] = active && t < k ? p.B[row + t] : 0.f;
   }
   if constexpr (GRAM::kRowStarts) {
@@ -371,7 +456,7 @@ staged_kernel(const Args p, const GRAM gram) {
   int slot_issue = D - 2;
   int slot_prev = D - 1;
 
-  const int windows = (k + 31) / 32;
+  const int windows = (k + P - 1) / P;
   // the owner's next coordinate: its 1/diag (raw) and L1, a window ahead
   float2 dnext = make_float2(0.f, 0.f);
   float l1next = p.L1;
@@ -382,8 +467,8 @@ staged_kernel(const Args p, const GRAM gram) {
   long long g = 0;       // the block's step
   for (int sweep = 1;; ++sweep) {
     for (int u = 0; u < windows; ++u) {
-      // window u: steps 32 u .. 32 u + 31, thread l owns step 32 u + l
-      const int to = tl + 32 * u;
+      // window u: steps P u .. P u + P - 1, thread l owns step P u + l
+      const int to = tl + P * u;
       const bool own = live && to < k;
       float bo = 0.f;    // b[u], downdated beside it
 #pragma unroll
@@ -395,12 +480,12 @@ staged_kernel(const Args p, const GRAM gram) {
       const float x_o = own ? xs[to] : 0.f;
       if (own) x0s[to] = x_o;
       const float l2x_o = __fmul_rn(p.L2, x_o);
-      const int tn = u + 1 < windows ? to + 32 : tl;
+      const int tn = u + 1 < windows ? to + P : tl;
       if (live && tn < k) {
         dnext = gram.diag(col, tn, rs);
         if (p.l1 != nullptr) l1next = __ldg(p.l1 + row + tn);
       }
-      const int steps = k - 32 * u < 32 ? k - 32 * u : 32;
+      const int steps = k - P * u < P ? k - P * u : P;
       for (int r = 0; r < steps; ++r, ++g) {
         gram.stage(ring + (size_t)slot_issue * slab, s_issue, c0, C, rs,
                    tid, nt);
@@ -418,7 +503,7 @@ staged_kernel(const Args p, const GRAM gram) {
           }
 #pragma unroll
           for (int v = 0; v < U; ++v) {
-            const int t = tl + 32 * v;
+            const int t = tl + P * v;
             if (t < k) {
               b[v] = __fsub_rn(b[v], __fmul_rn(gram.at(prev, t, c, C), d));
             }
@@ -437,40 +522,12 @@ staged_kernel(const Args p, const GRAM gram) {
         s_issue = s_issue + 1 == k ? 0 : s_issue + 1;
       }
     }
-    // the sweep's end: this thread's terms |x_i - x_start| / (x_i +
-    // 1e-15) in step order, then the column's tol as the xor butterfly
-    // sums the 32 lanes' partials (lane 0's operand order)
-    if (live) {
-      float part = 0.f;
-      for (int t = tl; t < k; t += 32) {
-        const float xn = xs[t];
-        part = __fadd_rn(part, __fdiv_rn(fabsf(__fsub_rn(xn, x0s[t])),
-                                         __fadd_rn(xn, 1e-15f)));
-      }
-      ps[c * 33 + tl] = part;
-    }
-    __syncthreads();
-    if (live) {
-      float s[16];
-#pragma unroll
-      for (int l = 0; l < 16; ++l) {
-        s[l] = __fadd_rn(ps[c * 33 + l], ps[c * 33 + l + 16]);
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1) {
-#pragma unroll
-        for (int l = 0; l < off; ++l) s[l] = __fadd_rn(s[l], s[l + off]);
-      }
-      if (!(__fdiv_rn(s[0], p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
-          !((float)sweep < p.cap)) {
-        live = false;
-      }
-    }
+    sweep_end(p, live, xs, x0s, ps, c, tl, sweep);
     if (!__syncthreads_or(live)) break;
   }
   copy_wait<0>();
   if (active) {
-    for (int t = tl; t < k; t += 32) p.X[row + t] = xs[t];
+    for (int t = tl; t < k; t += P) p.X[row + t] = xs[t];
   }
 }
 
@@ -565,24 +622,31 @@ __host__ __device__ inline int quad_depth(int k, int C) {
   return quad_floats(k, C, 16) * 4 <= kSmemMax ? 16 : 12;
 }
 
+// whether the quad kernel's ring of at least 12 rows fits beside x; where
+// it does not, B1 runs staged_kernel on the Gram's rows
+__host__ __device__ inline bool quad_fits(int k, int C) {
+  return quad_floats(k, C, 12) * 4 <= kSmemMax;
+}
+
 // B1 (one Gram for every column) on the staged kernel's ring, with thread
-// (l, c) holding coordinates 4 l + e + 128 v (e = 0..3) of column c: the
+// (l, c) holding coordinates 4 l + e + 4 P v (e = 0..3) of column c: the
 // owner of steps 4 q .. 4 q + 3 is one thread, which takes the four
 // steps by itself (each delta downdating its later coordinates at once),
 // so the block meets once every four steps; each thread then downdates
 // its coordinates by the four deltas, reading the staged row 16 bytes at
 // a time. The sweep terms are summed at the sweep's end by the threads
-// of the lane order (thread l the steps l, l + 32, ...), so the bits are
-// `staged_kernel`'s and `wide_kernel`'s. V: quads a thread.
-template <int V>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+// of the lane order (thread l < 32 the steps l, l + 32, ...), so the bits
+// are `staged_kernel`'s and `wide_kernel`'s. V: quads a thread, P:
+// threads a column (32 or 64).
+template <int V, int P>
+__global__ void __launch_bounds__(kMaxThreads)
 quad_kernel(const Args p, const SharedGram gram) {
   extern __shared__ __align__(16) float smem[];
   const int C = p.warps;
   const int k = p.k;
   const int kp = gram.kp;
   const int D = p.depth;
-  const int nt = C * 32;
+  const int nt = C * P;
   const int tid = threadIdx.x;
   const int c = tid % C;
   const int tl = tid / C;
@@ -596,7 +660,7 @@ quad_kernel(const Args p, const SharedGram gram) {
   const bool in = col < p.n;
   const bool active = in && (p.mask == nullptr || p.mask[col] != 0);
   const size_t row = (size_t)(in ? col : 0) * k;
-  for (int t = tl; t < k; t += 32) {
+  for (int t = tl; t < k; t += P) {
     if (active) {
       xs[t] = p.X0[row + t];
     } else if (in) {
@@ -610,7 +674,7 @@ quad_kernel(const Args p, const SharedGram gram) {
   for (int v = 0; v < V; ++v) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int t = 4 * tl + e + 128 * v;
+      const int t = 4 * tl + e + 4 * P * v;
       b[v][e] = active && t < k ? p.B[row + t] : 0.f;
     }
   }
@@ -629,7 +693,7 @@ quad_kernel(const Args p, const SharedGram gram) {
   copy_wait<0>();
   __syncthreads();
 
-  const int windows = (k + 127) / 128;
+  const int windows = (k + 4 * P - 1) / (4 * P);
   // the owner's next quad: its 1/diag (raw) and L1, a window ahead
   float dnext[4], l1next[4];
 #pragma unroll
@@ -648,9 +712,9 @@ quad_kernel(const Args p, const SharedGram gram) {
   int buf = 0;           // its deltas in dl[buf ^ 1], this one's in dl[buf]
   for (int sweep = 1;; ++sweep) {
     for (int u = 0; u < windows; ++u) {
-      // window u: intervals q = 0 .. 31 of steps 128 u + 4 q + j; thread
-      // l owns interval l, its quad to + e
-      const int to = 4 * tl + 128 * u;
+      // window u: intervals q = 0 .. P - 1 of steps 4 P u + 4 q + j;
+      // thread l owns interval l, its quad to + e
+      const int to = 4 * tl + 4 * P * u;
       float bo[4], inv_o[4], l1_o[4], x_o[4], l2x_o[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -666,7 +730,7 @@ quad_kernel(const Args p, const SharedGram gram) {
         if (own) x0s[to + e] = x_o[e];
         l2x_o[e] = __fmul_rn(p.L2, x_o[e]);
       }
-      const int tn = u + 1 < windows ? to + 128 : 4 * tl;
+      const int tn = u + 1 < windows ? to + 4 * P : 4 * tl;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (live && tn + e < k) {
@@ -674,13 +738,13 @@ quad_kernel(const Args p, const SharedGram gram) {
           if (p.l1 != nullptr) l1next[e] = __ldg(p.l1 + row + tn + e);
         }
       }
-      const int steps = k - 128 * u < 128 ? k - 128 * u : 128;
+      const int steps = k - 4 * P * u < 4 * P ? k - 4 * P * u : 4 * P;
       for (int r = 0; r < steps; r += 4) {
         const int lc = steps - r < 4 ? steps - r : 4;
         const int rest = steps - r - lc;
         const int ln = rest > 0 ? (rest < 4 ? rest : 4)
-                                : (u + 1 < windows && k - 128 * (u + 1) < 4
-                                       ? k - 128 * (u + 1) : 4);
+                                : (u + 1 < windows && k - 4 * P * (u + 1) < 4
+                                       ? k - 4 * P * (u + 1) : 4);
         for (; s_next < g0 - lp + D; ++s_next) {
           gram.stage(ring + (size_t)slot_next * kp, step_next, tid, nt);
           copy_commit();
@@ -731,7 +795,7 @@ quad_kernel(const Args p, const SharedGram gram) {
             const float d = dprev[j * C + c];
 #pragma unroll
             for (int v = 0; v < V; ++v) {
-              const int t = 4 * tl + 128 * v;
+              const int t = 4 * tl + 4 * P * v;
               if (t < kp) {
                 const float4 a = *reinterpret_cast<const float4*>(sl + t);
                 b[v][0] = __fsub_rn(b[v][0], __fmul_rn(a.x, d));
@@ -751,89 +815,90 @@ quad_kernel(const Args p, const SharedGram gram) {
         buf ^= 1;
       }
     }
-    // the sweep's end: thread l's terms of steps l, l + 32, ... in step
-    // order, then the column's tol as the xor butterfly sums the lanes'
-    if (live) {
-      float part = 0.f;
-      for (int t = tl; t < k; t += 32) {
-        const float xn = xs[t];
-        part = __fadd_rn(part, __fdiv_rn(fabsf(__fsub_rn(xn, x0s[t])),
-                                         __fadd_rn(xn, 1e-15f)));
-      }
-      ps[c * 33 + tl] = part;
-    }
-    __syncthreads();
-    if (live) {
-      float s[16];
-#pragma unroll
-      for (int l = 0; l < 16; ++l) {
-        s[l] = __fadd_rn(ps[c * 33 + l], ps[c * 33 + l + 16]);
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1) {
-#pragma unroll
-        for (int l = 0; l < off; ++l) s[l] = __fadd_rn(s[l], s[l + off]);
-      }
-      if (!(__fdiv_rn(s[0], p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
-          !((float)sweep < p.cap)) {
-        live = false;
-      }
-    }
+    sweep_end(p, live, xs, x0s, ps, c, tl, sweep);
     if (!__syncthreads_or(live)) break;
   }
   copy_wait<0>();
   if (active) {
-    for (int t = tl; t < k; t += 32) p.X[row + t] = xs[t];
+    for (int t = tl; t < k; t += P) p.X[row + t] = xs[t];
   }
 }
 
-template <int V>
+template <int V, int P>
 cudaError_t launch_quad_v(const Args& p, const SharedGram& gram, int blocks,
                           size_t smem, cudaStream_t s) {
-  auto kernel = quad_kernel<V>;
+  auto kernel = quad_kernel<V, P>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, p.warps * 32, smem, s>>>(p, gram);
+  kernel<<<blocks, p.warps * P, smem, s>>>(p, gram);
   return cudaGetLastError();
 }
 
-// B1's staged route: the quad kernel on its own ring (p.depth set here);
-// the caller has checked C, k, the scratch and the blocks
+// B1's staged route where its ring fits (P = 32 or 64): the quad kernel on
+// its own ring (p.depth set here); the caller has checked C, P, k, the
+// scratch and the blocks
 inline cudaError_t launch_quad(Args p, const SharedGram& gram, int blocks,
                                cudaStream_t s) {
   p.depth = quad_depth(p.k, p.warps);
   const size_t smem = 4 * quad_floats(p.k, p.warps, p.depth);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  const int v = (p.k + 127) / 128;
-  if (v <= 5) return launch_quad_v<5>(p, gram, blocks, smem, s);
-  if (v <= 6) return launch_quad_v<6>(p, gram, blocks, smem, s);
-  if (v <= 8) return launch_quad_v<8>(p, gram, blocks, smem, s);
-  if (v <= 10) return launch_quad_v<10>(p, gram, blocks, smem, s);
-  if (v <= 12) return launch_quad_v<12>(p, gram, blocks, smem, s);
-  return launch_quad_v<16>(p, gram, blocks, smem, s);
+  const int v = (p.k + 4 * p.lanes - 1) / (4 * p.lanes);
+  if (p.lanes == 64) {   // k > 2048: v > 8
+    if (v <= 10) return launch_quad_v<10, 64>(p, gram, blocks, smem, s);
+    if (v <= 12) return launch_quad_v<12, 64>(p, gram, blocks, smem, s);
+    return launch_quad_v<16, 64>(p, gram, blocks, smem, s);
+  }
+  if (v <= 5) return launch_quad_v<5, 32>(p, gram, blocks, smem, s);
+  if (v <= 6) return launch_quad_v<6, 32>(p, gram, blocks, smem, s);
+  if (v <= 8) return launch_quad_v<8, 32>(p, gram, blocks, smem, s);
+  if (v <= 10) return launch_quad_v<10, 32>(p, gram, blocks, smem, s);
+  if (v <= 12) return launch_quad_v<12, 32>(p, gram, blocks, smem, s);
+  return launch_quad_v<16, 32>(p, gram, blocks, smem, s);
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int U, class GRAM>
+template <int U, int P, class GRAM>
 cudaError_t launch_staged_u(const Args& p, const GRAM& gram, int blocks,
                             size_t smem, cudaStream_t s) {
-  auto kernel = staged_kernel<U, GRAM>;
+  auto kernel = staged_kernel<U, P, GRAM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, p.warps * 32, smem, s>>>(p, gram);
+  kernel<<<blocks, p.warps * P, smem, s>>>(p, gram);
   return cudaGetLastError();
 }
 
-// the launch of a plan: with a depth, the staged kernel (C = p.warps
-// columns a block, `blocks` = ceil(n / C)); else wide_kernel, `blocks`
-// blocks of `warps` columns, with scratch null each block holding
+// the staged kernel at P threads a column: U the instantiated size at or
+// above ceil(k / P) (past P = 32, where the plan takes the fewest threads
+// that fit, ceil(k / P) > 32; B1 runs it from k = 2049 only)
+template <int P, class GRAM>
+cudaError_t launch_staged_p(const Args& p, const GRAM& gram, int blocks,
+                            size_t smem, cudaStream_t s) {
+  const int u = (p.k + P - 1) / P;
+  if constexpr (P == 32 && std::is_same_v<GRAM, SharedGram>) {
+    return cudaErrorInvalidValue;   // B1 takes the quad kernel there
+  } else {
+    if constexpr (P == 32) {
+      if (u <= 20) return launch_staged_u<20, P>(p, gram, blocks, smem, s);
+      if (u <= 24) return launch_staged_u<24, P>(p, gram, blocks, smem, s);
+      if (u <= 32) return launch_staged_u<32, P>(p, gram, blocks, smem, s);
+    }
+    if (u <= 40) return launch_staged_u<40, P>(p, gram, blocks, smem, s);
+    if (u <= 48) return launch_staged_u<48, P>(p, gram, blocks, smem, s);
+    return launch_staged_u<64, P>(p, gram, blocks, smem, s);
+  }
+}
+
+// the launch of a plan: with a depth, a staged kernel (C = p.warps columns
+// a block of P = p.lanes threads each, `blocks` = ceil(n / C); B1 the
+// quad kernel where its ring fits); else wide_kernel, `blocks` blocks of
+// `warps` columns (a warp each), with scratch null each block holding
 // warps * 2 k floats of dynamic shared memory
 template <class GRAM>
 cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
@@ -842,25 +907,27 @@ cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
     return cudaErrorInvalidValue;
   }
   if (p.depth > 0) {
-    if ((p.warps != 4 && p.warps != 8) || p.depth < 3 ||
-        p.depth > kMaxDepth || p.k > kMaxStagedK || p.scratch != nullptr ||
-        (long long)blocks * p.warps < p.n) {
+    const int C = p.warps;
+    const int P = p.lanes;
+    if ((C != 1 && C != 2 && C != 4 && C != 8) ||
+        (P != 32 && P != 64 && P != 128 && P != 256) || C * P > kMaxThreads ||
+        (p.k + P - 1) / P > kMaxU || p.depth < 3 || p.depth > kMaxDepth ||
+        p.scratch != nullptr || (long long)blocks * C < p.n) {
       return cudaErrorInvalidValue;
     }
     if constexpr (std::is_same_v<GRAM, SharedGram>) {
-      return launch_quad(p, gram, blocks, s);
-    } else {
-      const size_t smem = 4 * staged_floats(p.k, p.warps, p.depth,
-                                            gram.slab(p.warps),
-                                            GRAM::kRowStarts);
-      if (smem > kSmemMax) return cudaErrorInvalidValue;
-      const int u = (p.k + 31) / 32;
-      if (u <= 20) return launch_staged_u<20>(p, gram, blocks, smem, s);
-      if (u <= 24) return launch_staged_u<24>(p, gram, blocks, smem, s);
-      if (u <= 32) return launch_staged_u<32>(p, gram, blocks, smem, s);
-      if (u <= 40) return launch_staged_u<40>(p, gram, blocks, smem, s);
-      if (u <= 48) return launch_staged_u<48>(p, gram, blocks, smem, s);
-      return launch_staged_u<64>(p, gram, blocks, smem, s);
+      if (P <= 64 && quad_fits(p.k, C)) {
+        return launch_quad(p, gram, blocks, s);
+      }
+    }
+    const size_t smem = 4 * staged_floats(p.k, C, p.depth, gram.slab(C),
+                                          GRAM::kRowStarts);
+    if (smem > kSmemMax) return cudaErrorInvalidValue;
+    switch (P) {
+      case 32: return launch_staged_p<32>(p, gram, blocks, smem, s);
+      case 64: return launch_staged_p<64>(p, gram, blocks, smem, s);
+      case 128: return launch_staged_p<128>(p, gram, blocks, smem, s);
+      default: return launch_staged_p<256>(p, gram, blocks, smem, s);
     }
   }
   const size_t smem =

@@ -5,9 +5,10 @@
 // package calls it: ab_nnls.py and ab_nnls_batched.py (`--wide`, and
 // chip_smoke.py phase 10b through them) time the staged kernel against it
 // in turns on the same inputs and hold the two to the same bits.
-// nnls_wide.cuh keeps the same kernel for k > 2048 and the scratch route;
-// this copy keeps the code as it was compiled before, in one source of its
-// own.
+// nnls_wide.cuh keeps the same kernel (`wide_kernel`) past the staged
+// kernels' reach (k > 6,452 for B2, 11,612 for B1) and for the scratch
+// route; this copy keeps the code as it was compiled before, in one source
+// of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

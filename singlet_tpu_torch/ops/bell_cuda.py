@@ -16,13 +16,13 @@ memory (``bell_spmm_wide``: 4 to 32 lanes a cell sized to k, a window of
 slot rows keep-tested once in shared memory, 16 of a lane's W rows in
 flight from L2, ``b3_wide_plan``),
 B7 past k = 512 or where no tile fits (``bell_mse_bits_wide``: the H rows
-of a tile of 32 or 64 cells in shared memory, warps that own genes and
-hold each of Wd's rows in registers, ``b7_wide_plan``; past k = 1024 a
-warp per cell, ``bell_mse_bits_warp``); each keeps the order of the sums
-its plan documents. Each source's
-header note gives the design and what bounds it on the card; ``_build.py``
-compiles them with nvcc at first use and this module binds them with
-ctypes.
+of a tile of cells in shared memory, warps that own genes and hold each of
+Wd's rows in registers, up to k = 1024; past it Wd's rows streamed through
+L1 inside the dot; a cell's slots of a wide gene block walked in passes;
+``b7_wide_plan``); each keeps the order of the sums its plan documents.
+Each source's header note gives the design and what bounds it on the
+card; ``_build.py`` compiles them with nvcc at first use and this module
+binds them with ctypes.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version (``ops/bell.py``), because there is no
@@ -89,18 +89,16 @@ _B3_WIDE_LANES = (4, 8, 16, 32)
 # no such tile fits, the wide route: 16 warps a block, the H rows of a
 # tile of 64 or 32 cells in shared memory beside a row of keys a cell for
 # a sub-block of 128, 64 or 32 genes, a thread's share of its cell's slots
-# of a gene block (at most 10) in registers; past k = 1024, or where the
-# slots do not fit, the warp-a-cell kernel: 8 warps a block, a cell each,
-# their tagged rows of 512 genes in static shared memory
+# of a gene block (at most 10 a pass) in registers, Wd's rows in registers
+# up to k = 1024 (MAX_K_MSE_WIDE); past it streamed from L1/L2 inside the
+# dot, tiles of 32, 16 or 8 cells whose H rows fit (else 32 whose H rows
+# are read from device memory)
 MAX_K_MSE = 512
 MAX_K_MSE_WIDE = 1024
-_B7_TILE_THREADS = 512
 _B7_TILES = (64, 32)
+_B7_STREAM_TILES = (32, 16, 8)
 _B7_WIDE_ROWS = (128, 64, 32)
-_B7_SHARE = 10
 _B7_MAX_STEPS = 65536
-_B7_WARP_CELLS = 8
-_B7_WARP_ROWS = 512
 _B7_WALKERS = 15
 _B7_ROWS = (128, 64, 32)
 _B7_NPL = (1, 2, 4, 8, 12, 16)
@@ -306,25 +304,17 @@ class B7WidePlan(NamedTuple):
     """B7's wide route (``bell_mse_bits_wide``, see ``b7_wide_plan``): the
     test-bit pass, then tiles of cells whose H rows sit in shared memory,
     warps that own genes."""
-    npl: int           # columns of a lane's dot chain (k <= 32 npl)
-    cells: int         # cells a tile (block): 64 or 32
+    npl: int           # columns of a lane's dot chain (k <= 32 npl); past
+                       # 32 Wd's rows streamed inside the dot
+    cells: int         # cells a tile (block): 64 or 32; past npl 32, 32,
+                       # 16 or 8
     n_ct: int          # cell tiles (blocks)
     rows: int          # genes a sub-block: 128, 64 or 32
     n_sb: int          # sub-blocks a gene block
     bm_pitch: int      # words of a cell's test bits of a gene block
     smem: int          # dynamic shared memory a block, bytes
-
-
-class B7WarpPlan(NamedTuple):
-    """B7's warp-a-cell route (``bell_mse_bits_warp``, see
-    ``b7_wide_plan``): sub-blocks of 512 genes, H's and Wd's rows read
-    from device memory."""
-    npl: int           # columns of a lane's dot chain, ceil(k / 32)
-    cells: int         # cells a block (8 warps)
-    n_ct: int          # cell tiles (blocks)
-    rows: int          # genes a sub-block (512)
-    n_sb: int          # sub-blocks a gene block
-    smem: int          # static shared memory a block, bytes
+    h_shared: bool = True   # H's rows in shared memory, else read from
+                            # device memory (no tile of 8 fits)
 
 
 def b7_npl(k: int) -> int:
@@ -416,45 +406,56 @@ def b7_plan(cells: int, n_gb: int, gene_block: int, width: int, k: int):
     return b7_wide_plan(cells, n_gb, gene_block, width, k)
 
 
-def b7_wide_smem(npl: int, cells: int, rows: int) -> int:
+def b7_wide_smem(npl: int, cells: int, rows: int,
+                 h_shared: bool = True) -> int:
     """Bytes of the wide route's dynamic shared memory (bell_mse_bits.cu
-    ``b7_wide_smem``): the tile's H rows of 32 npl floats, a row of
-    ``rows`` 8-byte keys a cell and the tile's bits of a sub-block."""
-    return cells * 32 * npl * 4 + cells * rows * 8 + rows // 32 * cells * 4
+    ``b7_wide_smem``): the tile's H rows of 32 npl floats (none where they
+    are read from device memory), a row of ``rows`` 8-byte keys a cell and
+    the tile's bits of a sub-block."""
+    return ((cells * 32 * npl * 4 if h_shared else 0) + cells * rows * 8
+            + rows // 32 * cells * 4)
 
 
 @functools.lru_cache(maxsize=256)
 def b7_wide_plan(cells: int, n_gb: int, gene_block: int, width: int,
-                 k: int):
-    """B7's route where the tiled kernel cannot run, from the shapes alone.
-    Up to k = 1024 the tiles of cells (``B7WidePlan``): 64 cells a tile,
-    or 32 where 32-cell tiles make one wave over the card's 132 SMs (or
-    where 64 H rows do not fit); of those whose slots of a gene block fit
-    the threads' registers (width <= 10 * 512 / cells), the first that
-    fits 232,448 bytes with sub-blocks of 128, 64 or 32 genes (the largest
-    that fits). Past k = 1024, or where no tile fits, the warp-a-cell
-    kernel (``B7WarpPlan``): 8 cells a block, sub-blocks of 512 genes, no
-    scratch and 32 KB of static shared memory. Every cell's squared errors
-    are summed over its held-out genes in ascending order whatever the
-    plan."""
+                 k: int) -> B7WidePlan:
+    """B7's route where the tiled kernel cannot run, from the shapes alone:
+    tiles of cells (``B7WidePlan``) for every k, gene block and width. Up
+    to k = 1024 (Wd's rows in registers) 64 cells a tile, or 32 where
+    32-cell tiles make one wave over the card's 132 SMs (or where 64 H rows
+    do not fit); past it (Wd's rows streamed) the largest of 32, 16 and 8
+    cells whose H rows fit; then the first that fits 232,448 bytes with
+    sub-blocks of 128, 64 or 32 genes (the largest that fits) and at most
+    65,535 sub-blocks a call. Where not even 8 H rows fit (k > 7,168),
+    tiles of 32 read H's rows from device memory. A gene block's slots
+    past a thread's 10 registers (width > 10 * 512 / cells) are walked in
+    passes. Every cell's squared errors are summed over its held-out genes
+    in ascending order whatever the plan. Raises where the sub-blocks
+    exceed the keys' 16-bit tag (more than about 8.4M genes)."""
     if k < 1:
         raise ValueError(f"kernel B7 takes k >= 1, got {k}")
     n_ct = lambda c: -(-max(cells, 1) // c)                 # noqa: E731
     if k <= MAX_K_MSE_WIDE:
         npl = b7_npl(k) if k <= MAX_K_MSE else -(-k // 32)
         tiles = (32,) if n_ct(32) <= _SMS else _B7_TILES
+    else:
+        npl = -(-k // 32)
+        tiles = _B7_STREAM_TILES
+    routes = [(True, tiles)]
+    if k > MAX_K_MSE_WIDE:   # no tile's H rows fit: read from device memory
+        routes.append((False, (32,)))
+    for h_shared, tiles in routes:
         for tile in tiles:
-            if width > _B7_SHARE * (_B7_TILE_THREADS // tile):
-                continue
             for rows in _B7_WIDE_ROWS:
-                smem = b7_wide_smem(npl, tile, rows)
+                smem = b7_wide_smem(npl, tile, rows, h_shared)
                 n_sb = -(-gene_block // rows)
                 if smem <= _SMEM_BLOCK and n_gb * n_sb < _B7_MAX_STEPS:
                     return B7WidePlan(npl, tile, n_ct(tile), rows, n_sb,
-                                      b7_bm_pitch(gene_block), smem)
-    return B7WarpPlan(-(-k // 32), _B7_WARP_CELLS, n_ct(_B7_WARP_CELLS),
-                      _B7_WARP_ROWS, -(-gene_block // _B7_WARP_ROWS),
-                      _B7_WARP_CELLS * _B7_WARP_ROWS * 8)
+                                      b7_bm_pitch(gene_block), smem,
+                                      h_shared)
+    raise ValueError(f"kernel B7 takes fewer than {_B7_MAX_STEPS} "
+                     f"sub-blocks of 128 genes a call, got {n_gb} gene "
+                     f"blocks of {gene_block}")
 
 
 def b7_wd_operand(Wd: torch.Tensor, npl: int) -> torch.Tensor:
@@ -494,13 +495,15 @@ ARGTYPES_B4 = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CI, _VP, _VP, _VP,
                _CI, _CI, _CI, _CI, _CI] + _KEEP_ARGTYPES
 
 # bell_mse_bits_wide: planes, ld, n_gb, width, cells, gene_block, words,
-# their row stride, Wd, H, k, npl, cells a tile, rows a sub-block, the
-# bits' scratch, cells_pad, bm_pitch, out, stream
+# their row stride, Wd, H, k, npl, cells a tile, rows a sub-block, H's rows
+# in shared memory or not, the bits' scratch, cells_pad, bm_pitch, out,
+# stream
 ARGTYPES_B7_WIDE = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _VP, _VP,
-                    _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _VP]
-# bell_mse_bits_warp (and the entry of csrc/bell_mse_bits_wide_warp.cu):
-# planes, ld, n_gb, width, cells, gene_block, words, their row stride, Wd,
-# H, k, out, stream
+                    _CI, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _VP]
+# the entry of csrc/bell_mse_bits_wide_warp.cu, the warp-a-cell kernel the
+# wide route replaced (timed in turns, the card tests' bits): planes, ld,
+# n_gb, width, cells, gene_block, words, their row stride, Wd, H, k, out,
+# stream
 ARGTYPES_B7_WARP = [_VP, _VP, _CL, _CI, _CI, _CI, _CI, _VP, _CL, _VP, _VP,
                     _CI, _VP, _VP]
 
@@ -536,8 +539,6 @@ def _mse_lib():
         lib.bell_mse_bits.restype = ci
         lib.bell_mse_bits_wide.argtypes = ARGTYPES_B7_WIDE
         lib.bell_mse_bits_wide.restype = ci
-        lib.bell_mse_bits_warp.argtypes = ARGTYPES_B7_WARP
-        lib.bell_mse_bits_warp.restype = ci
         lib.bell_mse_bits_error_string.argtypes = [ci]
         lib.bell_mse_bits_error_string.restype = ctypes.c_char_p
         _LIB["mse"] = lib
@@ -809,9 +810,9 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     transposes the words into test bits by gene block, then the kernel on
     ``b7_plan``, counted as one launch: the tiles (k <= 512), else the wide
     route (``b7_wide_plan``: the same pass, then tiles of cells whose H
-    rows sit in shared memory, up to k = 1024; past it the warp-a-cell
-    kernel alone, on the words as they are), counted in
-    ``LAUNCHES_MSE_BITS_WIDE`` too. On CPU tensors, the plain version."""
+    rows sit in shared memory, Wd's rows in registers up to k = 1024 and
+    streamed past it), counted in ``LAUNCHES_MSE_BITS_WIDE`` too. On CPU
+    tensors, the plain version."""
     if H.device.type != "cuda":
         return bell_mse_bits_plain(b_li, b_val, words, Wd, H,
                                    gene_block=gene_block)
@@ -835,15 +836,6 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
     lib = _mse_lib()
     head = (b_li.data_ptr(), b_val.data_ptr(), b_li.stride(0), n_gb, width,
             cells, gene_block, words.data_ptr(), words.stride(0))
-    if isinstance(plan, B7WarpPlan):
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.bell_mse_bits_warp(*head, Wd.data_ptr(), H.data_ptr(),
-                                         k, out.data_ptr(), stream)
-        _raise_on(err, "bell_mse_bits_warp", lib.bell_mse_bits_error_string)
-        LAUNCHES_MSE_BITS += 1
-        LAUNCHES_MSE_BITS_WIDE += 1
-        return out
     cells_pad = plan.n_ct * plan.cells
     bm = torch.empty(n_gb * cells_pad * plan.bm_pitch, dtype=torch.int32,
                      device=dev)
@@ -852,8 +844,8 @@ def bell_mse_bits_cuda(b_li, b_val, words, Wd, H, *,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.bell_mse_bits_wide(
                 *head, Wd.data_ptr(), H.data_ptr(), k, plan.npl, plan.cells,
-                plan.rows, bm.data_ptr(), cells_pad, plan.bm_pitch,
-                out.data_ptr(), stream)
+                plan.rows, int(plan.h_shared), bm.data_ptr(), cells_pad,
+                plan.bm_pitch, out.data_ptr(), stream)
         _raise_on(err, "bell_mse_bits_wide", lib.bell_mse_bits_error_string)
         LAUNCHES_MSE_BITS += 1
         LAUNCHES_MSE_BITS_WIDE += 1

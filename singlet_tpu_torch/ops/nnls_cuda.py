@@ -22,11 +22,14 @@ its design
 and what bounds it on the card. ``_build.py`` compiles them with nvcc at
 first use and this module binds them with ctypes. Their tuned routes
 take k <= 512 (``MAX_K``, ``MAX_K_BATCHED``); past it both take the wide-k
-route, ``csrc/nnls_wide.cu`` (``nnls_wide_plan``: up to k = 2048 a block of
-4 or 8 columns in lockstep, their residuals in registers, the Gram rows of
-each step staged in shared memory ahead of the chain, B1 four steps to a
-barrier; past it a warp a column, its state in shared memory or device
-scratch), which raises only where device memory cannot hold its state.
+route, ``csrc/nnls_wide.cu`` (``nnls_wide_plan``: a block of 8, 4, 2 or 1
+columns in lockstep, 32 to 256 threads a column, their residuals in
+registers, the Gram rows of each step staged in shared memory ahead of the
+chain, B1 four steps to a barrier where its ring fits; where no ring of
+three steps fits beside a column's x, past k = 6,452 for B2 and 11,612
+for B1, a warp a column, its state in shared memory or, past k = 29,056,
+device scratch), which raises only where device memory cannot hold its
+state.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
@@ -74,20 +77,27 @@ _B1_TERM_BYTES = 17 * 32 * 4
 # registers; the same limit as B1, which the final plain fit of a rank
 # search runs at the chosen rank
 MAX_K_BATCHED = 512
-# the wide-k route (csrc/nnls_wide.cu). Up to k = 2048 the staged kernel:
-# C = 4 columns a block where ceil(n / 4) blocks fit one wave on an H100's
-# 132 multiprocessors, else 8 (blocks of 4 share sectors with their
-# neighbours, which then run in other waves); a ring of 4 slots of the
-# steps' Gram rows, 3 where 4 do not fit (rings of 4 to 8 time alike at k =
-# 600 on an H100). Past k = 2048 a warp a column, up to 8 a block, 2 k
-# floats of state each; where one column's state exceeds a block's shared
-# memory, device scratch for the grid's warps, a grid of at most this many
-# blocks (two an SM of an H100)
+# the wide-k route (csrc/nnls_wide.cu). The staged kernels: P = 32, 64,
+# 128 or 256 threads a column, the fewest that hold a column's residual in
+# 64 registers a thread, C = 4 columns a block where ceil(n / 4) blocks fit
+# one wave on an H100's 132 multiprocessors, else 8 (blocks of 4 share
+# sectors with their neighbours, which then run in other waves), then 2
+# and 1 where a ring does not fit, at most 256 threads a block; a ring of 4
+# slots of the steps' Gram rows, 3 where 4 do not fit (rings of 4 to 8 time
+# alike at k = 600 on an H100). Where no ring of 3 fits a warp a column,
+# up to 8 a block, 2 k floats of state each; where one column's state
+# exceeds a block's shared memory, device scratch for the grid's warps, a
+# grid of at most this many blocks (two an SM of an H100)
 _WIDE_WARPS = 8
 _WIDE_SCRATCH_BLOCKS = 264
 _WIDE_SMS = 132
 _WIDE_MAX_DEPTH = 4
-_WIDE_MAX_STAGED_K = 2048
+_WIDE_LANES = (32, 64, 128, 256)
+_WIDE_MAX_THREADS = 256
+_WIDE_MAX_U = 64
+# past this k B1 takes a plan of its own (its Gram rows are one slab for
+# every column; up to it B2's, as before more threads a column)
+_WIDE_B1_OWN_K = 2048
 
 # the C entry points of B2 take seven pointers (the tile, 1/diag, B, X0,
 # mask, the (n, k) L1 or null, X), n, k, L1, L2, k_div, cap, max_sweeps
@@ -101,9 +111,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 7
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
 # the wide entries (csrc/nnls_wide.cu): B1's (aT, l1) or B2's (at, 1/diag)
 # or (a_full, packed_t, row starts), then B, X0, mask (B2: then l1), X,
-# scratch, n, k, warps, blocks, depth, L1, L2, k_div, cap, max_sweeps and
-# the stream
-_WIDE_TAIL = ([ctypes.c_int] * 5
+# scratch, n, k, warps, blocks, depth, lanes, L1, L2, k_div, cap,
+# max_sweeps and the stream
+_WIDE_TAIL = ([ctypes.c_int] * 6
               + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
 ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 7 + _WIDE_TAIL
 ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 8 + _WIDE_TAIL
@@ -169,15 +179,16 @@ class B1Plan(NamedTuple):
 class WidePlan(NamedTuple):
     """The wide-k route's split of one call of B1 or B2 (see
     ``nnls_wide_plan``)."""
-    warps: int      # columns (warps) a block
+    warps: int      # columns a block (a warp each without a depth)
     blocks: int     # blocks of the grid
     shared: bool    # x (and, without a depth, the residual) in shared
                     # memory, else in scratch
-    smem: int       # dynamic shared memory a block, bytes (with a depth,
-                    # the packed entry's, the larger of B2's two)
+    smem: int       # dynamic shared memory a block, bytes (B2: the packed
+                    # entry's, the larger of its two; B1: its kernel's)
     scratch: int    # bytes of device scratch (0 on the shared route)
-    depth: int = 0  # ring slots of B2's staged kernel (B1's quad kernel
-                    # sizes its own); 0: a warp a column
+    depth: int = 0  # ring slots of the staged kernel (B1's quad kernel
+                    # sizes its own where it fits); 0: a warp a column
+    lanes: int = 32  # threads a column of the staged kernels
 
 
 def _r4(x: int) -> int:
@@ -185,57 +196,88 @@ def _r4(x: int) -> int:
 
 
 def wide_slab(k: int, cols: int, gram: str) -> int:
-    """Floats of one ring slot of B2's staged kernel (nnls_wide.cuh's
-    ``slab``): C floats of each tile row ("tile"), or of each packed
-    correction and a_full's row ("packed")."""
-    return {"tile": k * cols, "packed": k * cols + _r4(k)}[gram]
+    """Floats of one ring slot of the staged kernel (nnls_wide.cuh's
+    ``slab``): C floats of each tile row ("tile"), of each packed
+    correction and a_full's row ("packed"), or B1's Gram row ("shared")."""
+    return {"tile": k * cols, "packed": k * cols + _r4(k),
+            "shared": _r4(k)}[gram]
 
 
 def wide_quad_smem(k: int, cols: int) -> int:
     """Bytes of B1's quad kernel's shared memory (nnls_wide.cuh
     ``quad_floats`` at ``quad_depth``): a ring of 16 rows of the
     transposed Gram (12 where 16 do not fit), x and x_start (C k each),
-    the sweep-term sums (C rows of 33) and two intervals' deltas (8 C)."""
+    the sweep-term sums (C rows of 33) and two intervals' deltas (8 C).
+    Where even 12 rows do not fit (``quad_fits``), B1 runs the staged
+    kernel on its Gram's rows."""
     def floats(depth):
         return (depth * _r4(k) + 2 * _r4(cols * k) + _r4(33 * cols)
                 + _r4(8 * cols))
     return 4 * (floats(16) if 4 * floats(16) <= _SMEM_BLOCK else floats(12))
 
 
+def quad_fits(k: int, cols: int) -> bool:
+    """Whether B1's quad kernel's ring of 12 rows fits beside x
+    (nnls_wide.cuh ``quad_fits``)."""
+    return 4 * (12 * _r4(k) + 2 * _r4(cols * k) + _r4(33 * cols)
+                + _r4(8 * cols)) <= _SMEM_BLOCK
+
+
+def wide_lanes(k: int):
+    """Threads a column of the staged kernels: the fewest of 32, 64, 128
+    and 256 that hold a column's residual in 64 registers a thread
+    (ceil(k / P) <= 64), or None past k = 16,384."""
+    return next((p for p in _WIDE_LANES if -(-k // p) <= _WIDE_MAX_U), None)
+
+
 def wide_smem(k: int, cols: int, depth: int, gram: str) -> int:
     """Bytes of the staged kernel's shared memory (nnls_wide.cuh
-    ``staged_floats``): the ring, x and each step's x_start (C k each),
-    the sweep-term sums (C rows of 33), delta (2 C) and, for the packed
-    entry, the row starts (k)."""
+    ``staged_floats``): the ring (slots of ``wide_slab``), x and each
+    step's x_start (C k each), the sweep-term sums (C rows of 33), delta
+    (2 C) and, for the packed entry, the row starts (k)."""
     return 4 * (depth * wide_slab(k, cols, gram) + 2 * _r4(cols * k)
                 + _r4(33 * cols) + _r4(2 * cols)
                 + (_r4(k) if gram == "packed" else 0))
 
 
 @functools.lru_cache(maxsize=256)
-def nnls_wide_plan(n: int, k: int) -> WidePlan:
-    """The wide-k route of B1 and B2 (k > 512). Up to k = 2048 the staged
-    kernel: C = 4 columns a block where ceil(n / 4) blocks fit one wave of
-    an H100's 132 multiprocessors (at n = 512 a block on 128 of them), else
-    8; the deepest ring (at most 4 slots) whose packed-entry slabs fit a
-    block's shared memory beside x, at least 3, else C = 4. The plan is
-    the same for B1 and both entries of B2 (the packed entry's slab is the
-    larger; B1's quad kernel takes C and the blocks and sizes its own
-    ring, ``wide_quad_smem``). Past k = 2048, or where no ring of 3 fits, a warp a column:
-    as many columns a block (up to 8) as their state fits in shared
-    memory, 2 k floats each, a block for every group of them; where one
-    column's state does not fit (k > 29,056), 8 columns a block in device
-    scratch, at most ``_WIDE_SCRATCH_BLOCKS`` blocks that take the columns
-    in turn. The plan does not change the bits."""
-    if k <= _WIDE_MAX_STAGED_K:
-        for cols in ((4,) if -(-n // 4) <= _WIDE_SMS else (8, 4)):
-            slab = 4 * wide_slab(k, cols, "packed")
+def nnls_wide_plan(n: int, k: int, gram: str = "packed") -> WidePlan:
+    """The wide-k route of B1 and B2 (k > 512). The staged kernels: P
+    threads a column (``wide_lanes``); C = 4 columns a block where ceil(n /
+    4) blocks fit one wave of an H100's 132 multiprocessors (at n = 512 a
+    block on 128 of them), else 8, then 2 and 1, at most 256 threads a
+    block: the first C whose ring of at least 3 slots fits a block's shared
+    memory beside x, the deepest such ring (at most 4 slots). ``gram``
+    sizes the slots: B2's "packed" slab (its tile entry's is smaller, so
+    both entries take this plan); B1's "shared" Gram rows past k = 2048,
+    where the quad kernel's own ring of 12 or 16 rows must fit too unless
+    the kernel runs its staged form (past ``quad_fits`` or 64 threads a
+    column; up to k = 2048 B1 takes B2's plan, as the quad kernel was
+    sized). Where no ring fits (k >
+    6,452 for B2, 11,612 for B1), a warp a column: as many columns a block
+    (up to 8) as their state fits in shared memory, 2 k floats each, a
+    block for every group of them; where one column's state does not fit
+    (k > 29,056), 8 columns a block in device scratch, at most
+    ``_WIDE_SCRATCH_BLOCKS`` blocks that take the columns in turn. The
+    plan does not change the bits."""
+    if gram == "shared" and k <= _WIDE_B1_OWN_K:
+        gram = "packed"
+    lanes = wide_lanes(k)
+    if lanes is not None:
+        first = (4,) if -(-n // 4) <= _WIDE_SMS else (8, 4)
+        for cols in first + (2, 1):
+            if cols * lanes > _WIDE_MAX_THREADS:
+                continue
+            slab = 4 * wide_slab(k, cols, gram)
             depth = min(_WIDE_MAX_DEPTH, (_SMEM_BLOCK - wide_smem(
-                k, cols, 0, "packed")) // slab)
-            if depth >= 3:
-                return WidePlan(cols, max(1, -(-n // cols)), True,
-                                wide_smem(k, cols, depth, "packed"), 0,
-                                depth)
+                k, cols, 0, gram)) // slab)
+            if depth < 3:
+                continue
+            smem = wide_smem(k, cols, depth, gram)
+            if gram == "shared" and lanes <= 64 and quad_fits(k, cols):
+                smem = wide_quad_smem(k, cols)
+            return WidePlan(cols, max(1, -(-n // cols)), True, smem, 0,
+                            depth, lanes)
     col = 8 * k
     warps = min(_WIDE_WARPS, _SMEM_BLOCK // col)
     if warps >= 1:
@@ -285,11 +327,11 @@ def b1_plan(n: int, k: int):
     of a, lane p's entries at p * pitch. The plan does not change the
     bits: every step rounds alike and the sweep tolerance is summed in one
     order for every G (the kernel's note). Past k = 512, the wide-k route's
-    ``nnls_wide_plan``."""
+    ``nnls_wide_plan`` on its Gram's rows."""
     if k < 1:
         raise ValueError(f"kernel B1 takes k >= 1, got {k}")
     if k > MAX_K:
-        return nnls_wide_plan(n, k)
+        return nnls_wide_plan(n, k, "shared")
     if k > MAX_K_SHARED:
         npl = -(-k // 32)
         npl += npl & 1
@@ -350,7 +392,8 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
     X = torch.empty_like(B)
     if n == 0:
         return X
-    plan = nnls_wide_plan(n, k) if k > MAX_K else b1_plan(n, k)
+    plan = (nnls_wide_plan(n, k, "shared") if k > MAX_K
+            else b1_plan(n, k))
     if isinstance(plan, WidePlan):
         scratch = _wide_state(plan, 4 * k * _r4(k), "B1", B.device)
         aT = _padded_rows(a.t())
@@ -362,9 +405,9 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                      None if update_mask is None else update_mask.data_ptr(),
                      X.data_ptr(),
                      None if scratch is None else scratch.data_ptr(), n, k,
-                     plan.warps, plan.blocks, plan.depth, float(L1),
-                     float(L2), k_div, _cap(max_sweeps, sweep_cap),
-                     int(max_sweeps), stream)
+                     plan.warps, plan.blocks, plan.depth, plan.lanes,
+                     float(L1), float(L2), k_div,
+                     _cap(max_sweeps, sweep_cap), int(max_sweeps), stream)
         if err != 0:
             raise RuntimeError(
                 f"nnls_wide_b1 launch failed: {err_str(err).decode()} ({err})")
@@ -456,8 +499,8 @@ def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, l1, X,
                  mask_ptr, None if l1 is None else l1.data_ptr(),
                  X.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, k,
-                 plan.warps, plan.blocks, plan.depth, float(L1), float(L2),
-                 k_div, cap, int(max_sweeps), stream)
+                 plan.warps, plan.blocks, plan.depth, plan.lanes, float(L1),
+                 float(L2), k_div, cap, int(max_sweeps), stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")

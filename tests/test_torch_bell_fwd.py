@@ -735,13 +735,15 @@ def _model_b7_wide(li, lv, words, Wd, H, gene_block, plan, seed=None):
 @pytest.mark.parametrize("cells,n_gb,gene_block,width,k,inv,tile,rows", [
     (70, 2, 100, 8, 600, 5, 64, 32), (37, 3, 160, 8, 40, 5, 32, 64),
     (33, 2, 96, 6, 1024, 3, 32, 128), (16, 33, 8, 4, 513, 2, 64, 32),
-    (40, 1, 64, 6, 64, 2, 64, 64)])
+    (40, 1, 64, 6, 64, 2, 64, 64), (20, 2, 64, 6, 1100, 3, 16, 32),
+    (19, 1, 96, 8, 2100, 2, 8, 64)])
 def test_b7_wide_schedule_matches_parent_and_plain(cells, n_gb, gene_block,
                                                    width, k, inv, tile,
                                                    rows):
-    """B7's wide route's schedule (tiles of 64 or 32 cells, sub-blocks of
-    32, 64 or 128 genes, the genes in any order, a gene's entries four,
-    two or one at a time) sums each cell's held-out genes once in ascending order and gives
+    """B7's wide route's schedule (tiles of 64 or 32 cells, past k = 1024
+    of 16 or 8, sub-blocks of 32, 64 or 128 genes, the genes in any
+    order, a gene's entries four, two or one at a time) sums each cell's
+    held-out genes once in ascending order and gives
     the parent's bits; both within rtol 2e-4 of the plain version with the
     same counts. A cell that holds one gene in slots 0 and 1 (slot 0's
     value), a cell with no live slot, gene blocks that are no multiple of

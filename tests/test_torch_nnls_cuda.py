@@ -243,7 +243,7 @@ def test_batched_kernel_n_coord_and_no_mask(cuda):
                                rtol=5e-3, atol=1e-6)
 
 
-def _scratch_plan(n, k):
+def _scratch_plan(n, k, gram="packed"):
     """The wide-k route with its state in device scratch: two blocks of 8
     warps that take the columns in turn."""
     return nnls_cuda.WidePlan(8, 2, False, 0, 2 * 8 * 8 * k)

@@ -25,12 +25,21 @@ route, forced here by the plan), NaN for NaN:
 at k = 513, 600, 1024 and 2048, column counts that are no multiple of a
 block's 4 or 8 columns, masked columns, columns that stop at different
 sweeps in one block, an (n, k) L1, a zero diagonal, both entries of B2.
-Up to k = 1024 B7 runs tiles of cells (csrc/bell_mse_bits.cu
+Past k = 2048 the staged kernels take 64, 128 or 256 threads a column and
+2 or 1 columns a block where a ring of 4 no longer fits, and B1 runs
+``staged_kernel`` on its Gram's rows where its quad ring does not fit (or
+past 64 threads a column):
+the same bits, at k = 2049, 2560, 4100 and 5000 (no multiple of 32 but
+2560). Past the staged kernels' reach (k > 6,452 for B2) the warp kernel
+remains, and the scratch route past k = 29,056.
+B7's wide route runs tiles of cells (csrc/bell_mse_bits.cu
 ``b7_wide_kernel``), whose outputs must be the bits of the warp-a-cell
-kernel they replaced (csrc/bell_mse_bits_wide_warp.cu, kept as it was),
-and past it the route is that kernel: at k = 513, 600, 1024 (the tiles'
-last k) and 1100, gene blocks of 256, 512 and 8,192, 150 and 2,050 cells
-(no multiple of a tile), test sets of 1/10 and 1/20, a cell with no
+kernel they replaced (csrc/bell_mse_bits_wide_warp.cu, kept as it was):
+up to k = 1024 with Wd's rows in registers, past it streamed inside the
+dot, and on gene blocks whose slots pass a thread's registers with the
+slots walked in passes: at k = 513, 600, 1024, 1025, 1100 and 2560, gene
+blocks of 256, 512 and 8,192, 150 and 2,050 cells (no multiple of a
+tile), widths 64 and 416, test sets of 1/10 and 1/20, a cell with no
 held-out gene and cells holding one held-out gene in two slots: where the
 kept kernel's warp stored both in one instruction (a lane a slot, 32 at
 a time) the card keeps the upper half-warp's store, and of one half the
@@ -70,14 +79,14 @@ def _problem(n, k, seed, device):
     return [torch.as_tensor(x, device=device) for x in (a, B, X0, mask)]
 
 
-def _scratch_plan(n, k):
+def _scratch_plan(n, k, gram="packed"):
     """The wide-k route with its state in device scratch: two blocks of 8
     warps that take the columns in turn."""
     return nnls_cuda.WidePlan(8, 2, False, 0, 2 * 8 * 8 * k)
 
 
 @pytest.mark.parametrize("n,k,cap", [(300, 513, None), (257, 600, 8.0),
-                                     (64, 1024, 8.0)])
+                                     (64, 1024, 8.0), (70, 2560, 8.0)])
 @pytest.mark.parametrize("l1", ["scalar", "per_coordinate"])
 def test_b1_wide_matches_plain(cuda, n, k, cap, l1):
     a, B, X0, mask = _problem(n, k, n + k, cuda)
@@ -107,6 +116,27 @@ def test_b1_wide_scratch_route_same_bits(cuda, monkeypatch):
     assert torch.equal(nnls_cuda.nnls_batch_cuda(a, B, X0, **kw), want)
 
 
+def _corrections(F, m, iu):
+    """(npairs, n) packed corrections of each column's held-out rows m[c],
+    a column at a time: what ``linalg.mask_dot_t`` of
+    ``linalg.packed_outer_products(F, iu)`` holds, summed in another order
+    (past k = 2048 the outer products of 2 k rows would take tens of
+    GB)."""
+    i, j = (torch.as_tensor(x, device=F.device) for x in iu)
+    out = torch.empty((i.numel(), m.shape[0]), device=F.device)
+    for c in range(m.shape[0]):
+        Fh = F[m[c]]
+        out[:, c] = (Fh.T @ Fh)[i, j]
+    return out
+
+
+def _packed(F, m, iu, k):
+    if k > 2048:
+        return _corrections(F, m, iu)
+    return linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
+                             1).contiguous()
+
+
 def _masked_problem_packed(n, k, seed, device):
     """a_full, the packed corrections of each column's 5% masked rows,
     iu, B, a warm X0 with zeros and a 90% update mask."""
@@ -115,7 +145,7 @@ def _masked_problem_packed(n, k, seed, device):
     F = torch.rand((rows, k), generator=g, device=device)
     iu = linalg.triu_pairs(k)
     m = torch.rand((n, rows), generator=g, device=device) < 0.05
-    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m, 1)
+    packed_t = _packed(F, m, iu, k)
     a_full = F.T @ F + 1e-15 * torch.eye(k, device=device)
     B = torch.where(m, 0.0, torch.rand((n, rows), generator=g,
                                        device=device)) @ F
@@ -125,7 +155,7 @@ def _masked_problem_packed(n, k, seed, device):
     return a_full, packed_t, iu, B, X0, mask
 
 
-@pytest.mark.parametrize("n,k", [(200, 513), (130, 600)])
+@pytest.mark.parametrize("n,k", [(200, 513), (130, 600), (66, 2600)])
 def test_b2_wide_entries_match_plain(cuda, monkeypatch, n, k):
     """Both entries on the wide-k route: the same bits (the packed entry
     forms the tile's entries and 1/diag with the same roundings), within
@@ -228,18 +258,19 @@ def test_b3_wide_block_takes_the_tiled_bits(cuda, monkeypatch):
                        want[1])
 
 
-@pytest.mark.parametrize("gene_block,n_gb,k", [(256, 3, 513), (512, 2, 600),
-                                               (8192, 2, 100),
-                                               (8192, 2, 600),
-                                               (512, 2, 1100),
-                                               (8192, 2, 2048)])
-def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k):
-    """B7 past k = 512 takes a wide route (past k = 1024 the warp-a-cell
-    kernel); at a gene block of 8192 and k = 100 the wide route forced by
-    the plan. Sums within rtol 2e-4 of the plain version, counts equal,
-    the same bits twice."""
+@pytest.mark.parametrize("gene_block,n_gb,k,width", [
+    (256, 3, 513, 40), (512, 2, 600, 40), (8192, 2, 100, 40),
+    (8192, 2, 600, 40), (512, 2, 1100, 40), (8192, 2, 2048, 40),
+    (512, 2, 2560, 40), (8192, 2, 100, 416), (8192, 2, 1100, 416)])
+def test_b7_wide_matches_plain(cuda, monkeypatch, gene_block, n_gb, k,
+                               width):
+    """B7 past k = 512 takes the wide route (past k = 1024 Wd's rows
+    streamed); at a gene block of 8192 and k = 100 the wide route forced by
+    the plan; at width 416 a cell's slots of a gene block walked in
+    passes. Sums within rtol 2e-4 of the plain version, counts equal, the
+    same bits twice."""
     cells = 150
-    li, lv = _planes(40, cells, gene_block, n_gb, k, cuda)
+    li, lv = _planes(width, cells, gene_block, n_gb, k, cuda)
     words = _words(cells, gene_block, n_gb, cuda)
     Wd = torch.rand((gene_block * n_gb, k), device=cuda) / k
     H = torch.rand((cells, k), device=cuda)
@@ -296,11 +327,11 @@ def _held_out(words, gene_block, n_gb):
 @pytest.mark.parametrize("inv_density", [10, 20])
 @pytest.mark.parametrize("cells", [150, 2050])
 @pytest.mark.parametrize("gene_block", [256, 512, 8192])
-@pytest.mark.parametrize("k", [513, 600, 1024, 1100])
+@pytest.mark.parametrize("k", [513, 600, 1024, 1025, 1100, 2560])
 def test_b7_tiles_same_bits_as_warp_kernel(cuda, k, gene_block, cells,
                                            inv_density):
-    """B7's wide route, the tiles of cells up to k = 1024 and the
-    warp-a-cell kernel past it: the bits of the warp-a-cell kernel kept in
+    """B7's wide route, the tiles of cells (Wd's rows in registers up to k
+    = 1024, streamed past it): the bits of the warp-a-cell kernel kept in
     csrc/bell_mse_bits_wide_warp.cu, one launch counted; cell 3 holds no
     gene out (sum and count 0); cells hold a held-out gene in two slots
     with different values: of one half-warp of the kept kernel's lanes
@@ -309,16 +340,50 @@ def test_b7_tiles_same_bits_as_warp_kernel(cuda, k, gene_block, cells,
     the mask."""
     n_gb, width = 2, 64
     plan = bell_cuda.b7_plan(cells, n_gb, gene_block, width, k)
-    assert isinstance(plan, bell_cuda.B7WidePlan
-                      if k <= bell_cuda.MAX_K_MSE_WIDE
-                      else bell_cuda.B7WarpPlan)
+    assert isinstance(plan, bell_cuda.B7WidePlan)
+    assert (plan.npl > 32) == (k > bell_cuda.MAX_K_MSE_WIDE)
+    _b7_against_warp_kernel(cuda, k, gene_block, cells, inv_density, width,
+                            ((5, (1, 3)), (7, (2, 35)), (9, (4, 30)),
+                             (11, (33, 39)), (13, (17, 29)), (15, (40, 60)),
+                             (17, (12, 15))))
+
+
+@pytest.mark.parametrize("cells", [150, 2050])
+@pytest.mark.parametrize("k", [100, 600, 1100])
+def test_b7_slot_passes_same_bits_as_warp_kernel(cuda, monkeypatch, k,
+                                                 cells):
+    """Gene blocks of 8,192 at width 416 (the large config's slots a cell
+    of a gene block), past a thread's 10 registers of slots (160 at 32
+    cells a tile, 80 at 64): the wide route walks each cell's slots in
+    passes, forced by the plan at k = 100 (where the tiled kernel fits);
+    the kept warp-a-cell kernel's bits, with genes held twice in slots of
+    one pass and of two (5 and 300, 170 and 171, 161 and 415)."""
+    if k <= bell_cuda.MAX_K_MSE:
+        monkeypatch.setattr(
+            bell_cuda, "b7_plan",
+            lambda cells, n_gb, gene_block, width, k:
+            bell_cuda.b7_wide_plan(cells, n_gb, gene_block, width, k))
+    plan = bell_cuda.b7_plan(cells, 2, 8192, 416, k)
+    assert isinstance(plan, bell_cuda.B7WidePlan)
+    assert 416 > 10 * 512 // plan.cells
+    _b7_against_warp_kernel(cuda, k, 8192, cells, 20, 416,
+                            ((5, (5, 300)), (7, (170, 171)),
+                             (9, (161, 415)), (11, (1, 3))))
+
+
+def _b7_against_warp_kernel(cuda, k, gene_block, cells, inv_density, width,
+                            pairs):
+    """B7 on random planes of ``width`` against the kept warp-a-cell
+    kernel: the same bits, one launch counted (the wide route's too); cell
+    3 holds no gene out; each (cell, (s0, s1)) of ``pairs`` holds its first
+    held-out gene in slots s0 and s1 with values 0.25 and 4; counts those
+    of the mask."""
+    n_gb = 2
     li, lv = _planes(width, cells, gene_block, n_gb, k + cells, cuda)
     words = _words(cells, gene_block, n_gb, cuda, inv_density)
     words[3] = 0
     held = _held_out(words, gene_block, n_gb)
-    for c, (s0, s1) in ((5, (1, 3)), (7, (2, 35)), (9, (4, 30)),
-                        (11, (33, 39)), (13, (17, 29)), (15, (40, 60)),
-                        (17, (12, 15))):
+    for c, (s0, s1) in pairs:
         g = int(np.flatnonzero(held[c, :gene_block])[0])
         li[s0, c] = li[s1, c] = g
         lv[s0, c], lv[s1, c] = 0.25, 4.0
@@ -457,9 +522,11 @@ def test_b2_wide_l1_array_matches_plain(cuda, n, k):
 
 # ------------------------------- the staged kernel against the warp kernel
 
-def _warp_plan(n, k):
+def _warp_plan(n, k, gram="packed"):
     """The warp-a-column kernel (the route of every k > 512 before the
-    staged kernel) with its state in shared memory, as its plan gave it."""
+    staged kernel, and of every k > 2048 before the staged kernels took
+    more threads a column) with its state in shared memory, as its plan
+    gave it."""
     warps = min(8, 232448 // (8 * k))
     return nnls_cuda.WidePlan(warps, -(-n // warps), True, warps * 8 * k, 0)
 
@@ -496,16 +563,19 @@ def _l1_of(l1, n, k, device):
         device=device).manual_seed(n + k), device=device) * 0.01
 
 
-STAGED_SHAPES = [(n, k) for k in (513, 600, 1024, 2048) for n in (1, 7, 515)]
+STAGED_SHAPES = ([(n, k) for k in (513, 600, 1024, 2048) for n in (1, 7, 515)]
+                 + [(n, k) for k in (2049, 2560, 4100) for n in (1, 7, 133)]
+                 + [(7, 5000)])
 
 
 @pytest.mark.parametrize("n,k", STAGED_SHAPES)
 @pytest.mark.parametrize("l1", ["scalar", "per_coordinate"])
 def test_b1_staged_same_bits_as_warp_kernel(cuda, monkeypatch, n, k, l1):
-    """B1 on the staged kernel: the warp kernel's bits, within the gate of
-    the plain version, masked columns X0, stops at sweeps 1, 2 and the cap
-    in the first block (its first two at k > 1024, two columns a block)."""
-    plan = nnls_cuda.nnls_wide_plan(n, k)
+    """B1 on the staged kernels (the quad kernel, or past its ring's fit
+    the staged kernel on the Gram's rows): the warp kernel's bits, within
+    the gate of the plain version, masked columns X0, stops at sweeps 1, 2
+    and the cap in the first columns."""
+    plan = nnls_cuda.nnls_wide_plan(n, k, "shared")
     assert plan.depth >= 3
     a, B, X0, _ = _problem(n, k, n + k, cuda)
     B, X0, mask = _mixed_stops(B, X0, plan.warps)
@@ -568,7 +638,8 @@ def test_b2_staged_same_bits_as_warp_kernel(cuda, monkeypatch, n, k, l1):
     _same_bits(Xk, nnls_cuda.nnls_batch_cuda_batched_at(at, B, X0, **kw))
 
 
-@pytest.mark.parametrize("n,k,z", [(7, 600, 0), (515, 1024, 513)])
+@pytest.mark.parametrize("n,k,z", [(7, 600, 0), (515, 1024, 513),
+                                   (133, 2560, 2049), (7, 4100, 31)])
 def test_b1_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
     """A shared Gram whose factor z is zero on every row (b_z < 0 for a
     third of the columns): the staged kernel's NaNs and numbers are the
@@ -598,7 +669,8 @@ def test_b1_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
             _same_bits(Xk, nnls_cuda.nnls_batch_cuda(a, B, X0, **kw))
 
 
-@pytest.mark.parametrize("n,k,z", [(7, 600, 599), (515, 1024, 31)])
+@pytest.mark.parametrize("n,k,z", [(7, 600, 599), (515, 1024, 31),
+                                   (70, 2600, 2599)])
 def test_b2_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
     """B2's entries on the staged kernel where the columns that hold
     factor z's only row out have a zero diagonal: the warp kernel's NaNs
@@ -609,8 +681,7 @@ def test_b2_staged_zero_diagonal_same_bits(cuda, monkeypatch, n, k, z):
     held[:, 3] = np.arange(n) % 2 == 0
     m = torch.as_tensor(held, device=cuda)
     iu = linalg.triu_pairs(k)
-    packed_t = linalg.mask_dot_t(linalg.packed_outer_products(F, iu), m,
-                                 1).contiguous()
+    packed_t = _packed(F, m, iu, k)
     a_full = F.T @ F + 1e-15 * torch.eye(k, device=cuda)
     a_full[z, z] = float(np.float32(0.75) * np.float32(0.75))
     B = (torch.where(m, 0.0, torch.rand((n, 2 * k), device=cuda))
