@@ -198,7 +198,7 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
         plan = nnls_cuda.nnls_wide_plan(n, k, "shared")
         warps, blocks = warp_plan(n, k)
         own_old = k > WIDE_OWN_OLD_K and not same
-        tail = (L1, L2, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
+        tail = (L1, L2, float(k), WIDE_CAP, CD_MAX_SWEEPS)
         outs = {name: torch.empty_like(B) for name in ("old", "new")}
 
         def call(name):
@@ -207,12 +207,14 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
                     X.data_ptr(), None, n, k)
             if name == "new" and not same:
                 err = new_fn(aT_pad.data_ptr(), *head, plan.warps,
-                             plan.blocks, plan.depth, plan.lanes, *tail)
+                             plan.blocks, plan.depth, plan.lanes, *tail,
+                             None, stream)
             elif name == "new" or own_old:
                 err = new_fn(aT_pad.data_ptr(), *head, warps, blocks, 0, 32,
-                             *tail)
+                             *tail, None, stream)
             else:
-                err = old_fn(aT.data_ptr(), *head, warps, blocks, *tail)
+                err = old_fn(aT.data_ptr(), *head, warps, blocks, *tail,
+                             stream)
             if err:
                 raise RuntimeError(f"B1 wide ({name}) n={n} k={k}: {err}")
 
@@ -297,7 +299,7 @@ def main() -> int:
             new_aT[k] = new_aT[0]
         l1 = torch.full_like(B, L1) if l1_array else None
         outs = {v: torch.empty_like(B) for v in ("old", "new")}
-        scalars = (float(k), float(cap), CD_MAX_SWEEPS, stream)
+        scalars = (float(k), float(cap), CD_MAX_SWEEPS)
 
         def call(name):
             X = outs[name]
@@ -306,19 +308,22 @@ def main() -> int:
                     check(old_fns[0](a.data_ptr(), inv_diag.data_ptr(),
                                      B.data_ptr(), X0.data_ptr(),
                                      mask.data_ptr(), X.data_ptr(), n, k,
-                                     L1, L2, *scalars), "nnls_cd_shared")
+                                     L1, L2, *scalars, stream),
+                          "nnls_cd_shared")
                 else:
                     check(old_fns[1](old_aT.data_ptr(), inv_diag.data_ptr(),
                                      B.data_ptr(), X0.data_ptr(),
                                      mask.data_ptr(), X.data_ptr(), n, k,
-                                     L1, L2, *scalars), "nnls_cd_global")
+                                     L1, L2, *scalars, stream),
+                          "nnls_cd_global")
                 return
             check(new_fn(a.data_ptr(),
                          None if new_aT is None else new_aT.data_ptr(),
                          None if l1 is None else l1.data_ptr(),
                          B.data_ptr(), X0.data_ptr(), mask.data_ptr(),
                          X.data_ptr(), n, k, plan.g,
-                         0.0 if l1_array else L1, L2, *scalars), "nnls_cd")
+                         0.0 if l1_array else L1, L2, *scalars, None,
+                         stream), "nnls_cd")
 
         for name in outs:
             outs[name].fill_(float("nan"))

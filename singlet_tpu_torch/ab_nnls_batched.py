@@ -162,13 +162,23 @@ def takes_l1(src: Path) -> bool:
     return b"const uint8_t* mask, const float* l1" in src.read_bytes()
 
 
-def _bind(lib, l1: bool):
+def takes_counts(src: Path) -> bool:
+    """Whether a source's entries take the counters' pointer before the
+    stream (ops/nnls_cuda.py's argument types); older sources do not."""
+    return b"unsigned long long* counts" in src.read_bytes()
+
+
+def _bind(lib, l1: bool, counts: bool = True):
     """(tile entry, packed entry or None, whether they take the L1
-    pointer) of a built source."""
+    pointer, whether they take the counters' pointer) of a built
+    source."""
     from singlet_tpu_torch.ops.nnls_cuda import _ARGTYPES, _ARGTYPES_PACKED
 
+    # without the counters' pointer: one pointer fewer before the stream;
     # without the L1 pointer: one pointer fewer before the 8 scalars
-    drop = (lambda t: t) if l1 else (lambda t: t[:-9] + t[-8:])
+    def drop(t):
+        t = t if counts else t[:-2] + t[-1:]
+        return t if l1 else t[:-9 - counts] + t[-8 - counts:]
     fn = lib.nnls_cd_batched
     fn.argtypes = drop(_ARGTYPES)
     fn.restype = ctypes.c_int
@@ -176,7 +186,7 @@ def _bind(lib, l1: bool):
     if packed is not None:
         packed.argtypes = drop(_ARGTYPES_PACKED)
         packed.restype = ctypes.c_int
-    return fn, packed, l1
+    return fn, packed, l1, counts
 
 
 def packed_corrections(torch, F, m, iu):
@@ -335,7 +345,7 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
         plan = nnls_cuda.nnls_wide_plan(n, k)
         warps, blocks = warp_plan(n, k)
         own_old = k > WIDE_OWN_OLD_K
-        tail = (0.01, 0.001, float(k), WIDE_CAP, CD_MAX_SWEEPS, stream)
+        tail = (0.01, 0.001, float(k), WIDE_CAP, CD_MAX_SWEEPS)
         entries = {"packed": (new_fn, (a_pad, packed_t, starts))}
         if own_old:
             at = linalg.unpack_sym_from_t(packed_t, k, iu,
@@ -353,13 +363,14 @@ def run_wide(torch, old_src=None, shapes=WIDE_SHAPES, card=None,
                 ptrs = tuple(t.data_ptr() for t in grams)
                 if name == "new":
                     err = fn(*ptrs, *head, plan.warps, plan.blocks,
-                             plan.depth, plan.lanes, *tail)
+                             plan.depth, plan.lanes, *tail, None, stream)
                 elif own_old:
-                    err = fn(*ptrs, *head, warps, blocks, 0, 32, *tail)
+                    err = fn(*ptrs, *head, warps, blocks, 0, 32, *tail,
+                             None, stream)
                 else:
                     err = old_fn(a_full.data_ptr(), packed_t.data_ptr(),
                                  starts.data_ptr(), *head, warps, blocks,
-                                 *tail)
+                                 *tail, stream)
                 if err:
                     raise RuntimeError(f"B2 wide {entry} ({name}) n={n} "
                                        f"k={k}: {err}")
@@ -431,9 +442,10 @@ def main() -> int:
     if args.old is None or args.new is None:
         ap.error("OLD.cu and NEW.cu are needed without --wide")
     with ThreadPoolExecutor(2) as pool:
-        fns = {name: _bind(lib, takes_l1(src)) for name, lib, src in zip(
-            ("old", "new"), pool.map(_compile, (args.old, args.new)),
-            (args.old, args.new))}
+        libs = list(pool.map(_compile, (args.old, args.new)))
+    fns = {name: _bind(lib, takes_l1(src), takes_counts(src))
+           for name, lib, src in zip(("old", "new"), libs,
+                                     (args.old, args.new))}
     if fns["new"][1] is None:
         raise SystemExit(f"{args.new} has no nnls_cd_batched_packed")
     print(json.dumps({"chain": _chain_cycles(torch), "card": card}),
@@ -448,9 +460,13 @@ def main() -> int:
         a_full, packed_t, iu, B, X0, mask = _inputs(torch, n, k, seed=n + k)
         starts = torch.as_tensor(nnls_cuda.packed_row_starts(k, iu),
                                  device="cuda")
-        scalars = (n, k, 0.01, 0.001, float(k), SWEEP_CAP, CD_MAX_SWEEPS,
-                   stream)
+        scalars = (n, k, 0.01, 0.001, float(k), SWEEP_CAP, CD_MAX_SWEEPS)
         outs = {name: torch.empty_like(B) for name in fns}
+
+        def tail(name):
+            """The scalars, the null counters' pointer where the entry
+            takes one, and the stream."""
+            return scalars + ((None,) if fns[name][3] else ()) + (stream,)
 
         def ptrs(name):
             """The mask, the scalar L1's null L1 pointer where the entry
@@ -461,7 +477,7 @@ def main() -> int:
         def tile(name, at, inv_diag):
             check(fns[name][0](at.data_ptr(), inv_diag.data_ptr(),
                                B.data_ptr(), X0.data_ptr(), *ptrs(name),
-                               *scalars),
+                               *tail(name)),
                   f"nnls_cd_batched ({name})")
 
         def solve(name):
@@ -473,7 +489,7 @@ def main() -> int:
                 return
             check(fns[name][1](a_full.data_ptr(), packed_t.data_ptr(),
                                starts.data_ptr(), B.data_ptr(), X0.data_ptr(),
-                               *ptrs(name), *scalars),
+                               *ptrs(name), *tail(name)),
                   "nnls_cd_batched_packed (new)")
 
         at = linalg.unpack_sym_from_t(packed_t, k, iu, a_full).contiguous()

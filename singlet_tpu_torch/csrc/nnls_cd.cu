@@ -92,6 +92,16 @@
 //
 // Ranks above 512: nnls_wide.cu (`nnls_wide_b1`), whose note is in
 // nnls_wide.cuh; this source takes `cd_clamp` from there.
+//
+// The counters. Given a (sweeps, columns) pair in device memory (the
+// wrapper passes one while the port's tracing is on, else null), each
+// column whose mask lets it move adds the sweeps it ran before it stopped,
+// and 1: a lane per column keeps them over its warp's column sets, and at
+// the end each warp adds its sums with one atomicAdd each (`count_cd`,
+// nnls_wide.cuh). That takes registers, which the kernels at NPL = 11 to
+// 13 do not have to spare, so the counting kernel is an instantiation of
+// its own (COUNT), launched only with a counter: null, the launch runs
+// the kernel as it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,6 +139,7 @@ struct Args {
   const float* X0;       // (n, k)
   const uint8_t* mask;   // (n,) or null
   float* X;              // (n, k)
+  unsigned long long* counts;   // (sweeps, columns) to add to, or null
   int n, k, g, max_sweeps;
   int pitch;             // floats of a lane's run of a staged row
   int sets;              // column sets of 32 / g columns
@@ -211,7 +222,7 @@ __host__ __device__ constexpr int min_blocks(int npl, int route) {
   return route != kDevice && npl <= 13 ? 2 : 1;
 }
 
-template <int NPL, int ROUTE>
+template <int NPL, int ROUTE, bool COUNT>
 __global__ void __launch_bounds__(kThreads, min_blocks(NPL, ROUTE))
 nnls_cd_kernel(const Args p) {
   constexpr bool kGlobal = ROUTE == kDevice;
@@ -281,11 +292,15 @@ nnls_cd_kernel(const Args p) {
 
   const int per_warp = 32 / G;
   const int total_warps = gridDim.x * kWarps;
+  // the sweeps and columns of this lane's columns (group lane 0 of each)
+  unsigned cd_sweeps = 0, cd_cols = 0;
   for (int set = blockIdx.x * kWarps + warp; set < p.sets;
        set += total_warps) {
     const int col = set * per_warp + grp;
     const bool valid = col < p.n;
     bool active = valid && (p.mask == nullptr || p.mask[col] != 0);
+    const bool counted = COUNT && active && pl == 0;
+    int ran = 0;   // sweeps the column ran (COUNT)
     float b[NPL], x[NPL];
 #pragma unroll
     for (int t = 0; t < NPL; ++t) {
@@ -369,11 +384,18 @@ nnls_cd_kernel(const Args p) {
           }
         }
         const float tol = column_tol<NPL>(term, G);
+        if (COUNT && active) ran = sweep;
         if (!(__fdiv_rn(tol, p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
             !((float)sweep < p.cap)) {
           active = false;
         }
         if (!__any_sync(kFull, active)) break;
+      }
+    }
+    if constexpr (COUNT) {
+      if (counted) {
+        cd_sweeps += ran;
+        cd_cols += 1;
       }
     }
 
@@ -385,12 +407,13 @@ nnls_cd_kernel(const Args p) {
       }
     }
   }
+  if constexpr (COUNT) count_cd(p.counts, cd_sweeps, cd_cols);
 }
 
-template <int NPL, int ROUTE>
+template <int NPL, int ROUTE, bool COUNT>
 cudaError_t launch(Args p, cudaStream_t stream) {
   constexpr bool kGlobal = ROUTE == kDevice;
-  auto kernel = nnls_cd_kernel<NPL, ROUTE>;
+  auto kernel = nnls_cd_kernel<NPL, ROUTE, COUNT>;
   const size_t smem =
       (kGlobal ? 0 : (size_t)(p.k + 1) * p.g * p.pitch * sizeof(float)) +
       term_bytes(NPL);
@@ -437,7 +460,10 @@ template <int ROUTE, int I = 1>
 cudaError_t launch_npl(const Args& p, int npl, cudaStream_t s) {
   if constexpr (I <= 16) {
     if (npl == I) {
-      if constexpr (instantiated<ROUTE>(I)) return launch<I, ROUTE>(p, s);
+      if constexpr (instantiated<ROUTE>(I)) {
+        return p.counts != nullptr ? launch<I, ROUTE, true>(p, s)
+                                   : launch<I, ROUTE, false>(p, s);
+      }
       return cudaErrorNotSupported;
     }
     return launch_npl<ROUTE, I + 1>(p, npl, s);
@@ -455,12 +481,13 @@ extern "C" {
 // ceil(k / g) <= 16). For k <= 224 the Gram is staged in shared memory and
 // aT is not read; for 224 < k <= 512, g = 32 and aT is the transposed Gram
 // (aT[i, c] = a[c, i]) with rows of 32 npl floats, npl = ceil(k / 32)
-// rounded up to even, zero past k. Returns the cudaError_t of the launch
-// (0 on success).
+// rounded up to even, zero past k. counts: null, or two uint64 that the
+// call adds its columns' sweeps and its columns to. Returns the cudaError_t
+// of the launch (0 on success).
 int nnls_cd(const float* a, const float* aT, const float* l1, const float* B,
             const float* X0, const uint8_t* mask, float* X, int n, int k,
             int g, float L1, float L2, float k_div, float cap, int max_sweeps,
-            void* stream) {
+            unsigned long long* counts, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || k > kMaxK || g < 2 || g > 32 || (g & (g - 1)) != 0) {
     return cudaErrorInvalidValue;
@@ -474,6 +501,7 @@ int nnls_cd(const float* a, const float* aT, const float* l1, const float* B,
   p.X0 = X0;
   p.mask = mask;
   p.X = X;
+  p.counts = counts;
   p.n = n;
   p.k = k;
   p.g = g;

@@ -88,6 +88,12 @@
 // Ranks above 512: nnls_wide.cu (`nnls_wide_b2`, `nnls_wide_b2_packed`),
 // whose note is in nnls_wide.cuh; this source takes `cd_clamp` from
 // there.
+//
+// The counters, as in nnls_cd.cu: given a (sweeps, columns) pair, lane 0
+// of each column whose mask lets it move adds the sweeps it ran, and 1,
+// each warp with one atomicAdd each (`count_cd`, nnls_wide.cuh), in
+// instantiations of their own (COUNT) that only a launch with a counter
+// runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -211,6 +217,7 @@ struct Args {
   const uint8_t* mask;     // (n,) or null
   const float* l1;         // (n, k) per-coordinate L1, or null for L1
   float* X;                // (n, k)
+  unsigned long long* counts;   // (sweeps, columns) to add to, or null
   int n, k, cols, groups, max_sweeps;
   float L1, L2, k_div, cap;
 };
@@ -249,8 +256,9 @@ __device__ __forceinline__ void stage_columns(float* dst, const float* src,
 // W lanes per column (16: two columns a warp, one per half, sharing the
 // loads of a_full; 32: one), NPT coordinates per lane in registers
 // (k <= W NPT); a block of C neighbouring columns; L1V: a per-coordinate
-// L1 (p.l1, NPT more registers a lane), else the scalar p.L1
-template <int M, int W, int NPT, bool L1V>
+// L1 (p.l1, NPT more registers a lane), else the scalar p.L1; COUNT: add
+// the columns' sweeps and the columns to p.counts
+template <int M, int W, int NPT, bool L1V, bool COUNT>
 __global__ void __launch_bounds__(W * kMaxCols,
                                   W == 16 || NPT <= 2 ? 4 : 1)
 nnls_cd_col_kernel(const Args p) {
@@ -308,6 +316,8 @@ nnls_cd_col_kernel(const Args p) {
   // cleared when the column stops: its x is frozen, and its b no longer
   // read; the warp runs while one of its columns is active
   bool active = valid && (p.mask == nullptr || p.mask[col] != 0);
+  const bool counted = COUNT && active && lane == 0;
+  int ran = 0;   // sweeps the column ran (COUNT)
   const int rs0 = kPacked ? rs_s[0] : 0;
 
   // coordinate j = W q + lane of this column, in registers; lanes past k
@@ -529,6 +539,7 @@ nnls_cd_col_kernel(const Args p) {
       for (int v = 0; v < p.groups; ++v) {
         total = __fadd_rn(total, __shfl_sync(kFullMask, part, v, W));
       }
+      if (COUNT && active) ran = sweep;
       if (!(__fdiv_rn(total, p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
           !((float)sweep < p.cap)) {
         active = false;
@@ -547,6 +558,7 @@ nnls_cd_col_kernel(const Args p) {
       if (j < k) p.X[(size_t)col * k + j] = x[q];
     }
   }
+  if constexpr (COUNT) count_cd(p.counts, counted ? ran : 0, counted);
 }
 
 // coordinates per lane: the instantiated NPT of the fewest slots of W
@@ -599,12 +611,12 @@ int fit_cols(int m, int k) {
   return 0;
 }
 
-template <int M, int W, int NPT, bool L1V>
+template <int M, int W, int NPT, bool L1V, bool COUNT>
 cudaError_t launch(Args p, int cols, cudaStream_t stream) {
   const size_t smem =
       make_layout(M, p.k, cols, W * NPT).total * sizeof(float);
   if (cols < 1 || smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = nnls_cd_col_kernel<M, W, NPT, L1V>;
+  auto kernel = nnls_cd_col_kernel<M, W, NPT, L1V, COUNT>;
   static bool configured = false;   // per instantiation, on first launch
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -643,8 +655,12 @@ cudaError_t launch_npt(const Args& p, int cols, int npt, cudaStream_t s) {
     constexpr int NPT = npt_at<W>(I);
     if (npt == NPT) {
       if constexpr (instantiated<M, W>(NPT)) {
-        return p.l1 != nullptr ? launch<M, W, NPT, true>(p, cols, s)
-                               : launch<M, W, NPT, false>(p, cols, s);
+        if (p.counts != nullptr) {
+          return p.l1 != nullptr ? launch<M, W, NPT, true, true>(p, cols, s)
+                                 : launch<M, W, NPT, false, true>(p, cols, s);
+        }
+        return p.l1 != nullptr ? launch<M, W, NPT, true, false>(p, cols, s)
+                               : launch<M, W, NPT, false, false>(p, cols, s);
       }
       return cudaErrorNotSupported;
     }
@@ -663,8 +679,10 @@ cudaError_t launch_mode(const Args& p, int cols, cudaStream_t s) {
 
 Args make_args(const float* B, const float* X0, const uint8_t* mask,
                const float* l1, float* X, int n, int k, float L1, float L2,
-               float k_div, float cap, int max_sweeps) {
+               float k_div, float cap, int max_sweeps,
+               unsigned long long* counts) {
   Args p{};
+  p.counts = counts;
   p.B = B;
   p.X0 = X0;
   p.mask = mask;
@@ -689,18 +707,20 @@ extern "C" {
 // null for all columns active); at (k, k, n) with at[i, j, c] = a_c[j, i],
 // inv_diag (k, n), B / X0 / X (n, k), l1 (n, k) per-coordinate L1 or null
 // for the scalar L1 (each is its own instantiation: the scalar one's code
-// is that of a kernel without l1). Takes k <= 512 (past it the wrapper
-// calls nnls_wide_b2). Returns the cudaError_t of the launch (0 on
-// success).
+// is that of a kernel without l1); counts null, or two uint64 that the
+// call adds its columns' sweeps and its columns to. Takes k <= 512 (past
+// it the wrapper calls nnls_wide_b2). Returns the cudaError_t of the
+// launch (0 on success).
 int nnls_cd_batched(const float* at, const float* inv_diag, const float* B,
                     const float* X0, const uint8_t* mask, const float* l1,
                     float* X, int n, int k, float L1, float L2, float k_div,
-                    float cap, int max_sweeps, void* stream) {
+                    float cap, int max_sweeps, unsigned long long* counts,
+                    void* stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || k > 512) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args p = make_args(B, X0, mask, l1, X, n, k, L1, L2, k_div, cap,
-                     max_sweeps);
+                     max_sweeps, counts);
   p.gram = at;
   p.inv_diag = inv_diag;
   const int cols = fit_cols(kFullSmem, k);
@@ -718,12 +738,13 @@ int nnls_cd_batched_packed(const float* a_full, const float* packed_t,
                            const float* X0, const uint8_t* mask,
                            const float* l1, float* X, int n, int k,
                            float L1, float L2, float k_div, float cap,
-                           int max_sweeps, void* stream) {
+                           int max_sweeps, unsigned long long* counts,
+                           void* stream) {
   if (n <= 0) return cudaSuccess;
   if (k <= 0 || k > 512) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Args p = make_args(B, X0, mask, l1, X, n, k, L1, L2, k_div, cap,
-                     max_sweeps);
+                     max_sweeps, counts);
   p.gram = a_full;
   p.packed_t = packed_t;
   p.row_start = row_start;

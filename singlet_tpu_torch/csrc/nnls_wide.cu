@@ -12,7 +12,8 @@
 // 128 or 256, C P <= 256, ceil(k / P) <= 64, `blocks` = ceil(n / C),
 // scratch null), else the warp-a-column kernel, its state in shared
 // memory (scratch null) or in scratch, 2 k floats for each of the grid's
-// blocks * warps warps.
+// blocks * warps warps. counts: null, or two uint64 that the call adds its
+// columns' sweeps and its columns to.
 // Each returns the cudaError_t of the launch (0 on success).
 
 #include <cuda_runtime.h>
@@ -26,7 +27,8 @@ nnls_wide::Args wide_args(const float* B, const float* X0,
                           const uint8_t* mask, const float* l1, float* X,
                           float* scratch, int n, int k, int warps, int depth,
                           int lanes, float L1, float L2, float k_div,
-                          float cap, int max_sweeps) {
+                          float cap, int max_sweeps,
+                          unsigned long long* counts) {
   nnls_wide::Args p{};
   p.B = B;
   p.X0 = X0;
@@ -34,6 +36,7 @@ nnls_wide::Args wide_args(const float* B, const float* X0,
   p.l1 = l1;
   p.X = X;
   p.scratch = scratch;
+  p.counts = counts;
   p.n = n;
   p.k = k;
   p.warps = warps;
@@ -72,11 +75,12 @@ int nnls_wide_b1(const float* aT, const float* l1, const float* B,
                  const float* X0, const uint8_t* mask, float* X,
                  float* scratch, int n, int k, int warps, int blocks,
                  int depth, int lanes, float L1, float L2, float k_div,
-                 float cap, int max_sweeps, void* stream) {
+                 float cap, int max_sweeps, unsigned long long* counts,
+                 void* stream) {
   if (!aligned16(aT)) return cudaErrorInvalidValue;
   return nnls_wide::launch(
       wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
-                L2, k_div, cap, max_sweeps),
+                L2, k_div, cap, max_sweeps, counts),
       nnls_wide::SharedGram{aT, k, nnls_wide::round4(k)}, blocks,
       static_cast<cudaStream_t>(stream));
 }
@@ -87,10 +91,11 @@ int nnls_wide_b2(const float* at, const float* inv_diag, const float* B,
                  const float* X0, const uint8_t* mask, const float* l1,
                  float* X, float* scratch, int n, int k, int warps,
                  int blocks, int depth, int lanes, float L1, float L2,
-                 float k_div, float cap, int max_sweeps, void* stream) {
+                 float k_div, float cap, int max_sweeps,
+                 unsigned long long* counts, void* stream) {
   return nnls_wide::launch(
       wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
-                L2, k_div, cap, max_sweeps),
+                L2, k_div, cap, max_sweeps, counts),
       nnls_wide::TileGram{at, inv_diag, n, k, rows_vec(at, n)},
       blocks, static_cast<cudaStream_t>(stream));
 }
@@ -105,11 +110,12 @@ int nnls_wide_b2_packed(const float* a_full, const float* packed_t,
                         const float* l1, float* X, float* scratch, int n,
                         int k, int warps, int blocks, int depth, int lanes,
                         float L1, float L2, float k_div, float cap,
-                        int max_sweeps, void* stream) {
+                        int max_sweeps, unsigned long long* counts,
+                        void* stream) {
   if (!aligned16(a_full)) return cudaErrorInvalidValue;
   return nnls_wide::launch(
       wide_args(B, X0, mask, l1, X, scratch, n, k, warps, depth, lanes, L1,
-                L2, k_div, cap, max_sweeps),
+                L2, k_div, cap, max_sweeps, counts),
       nnls_wide::PackedGram{a_full, packed_t, row_start, n, k,
                             nnls_wide::round4(k),
                             rows_vec(packed_t, n)},

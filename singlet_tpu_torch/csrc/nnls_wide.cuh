@@ -100,6 +100,19 @@ __device__ __forceinline__ float cd_clamp(float diff, float neg_x) {
   return r;
 }
 
+// Add a warp's CD-NNLS counts to counts[0] (sweeps) and counts[1]
+// (columns): the lanes' sums, reduced over the warp, one atomicAdd each
+// from lane 0. Every lane of the warp calls it.
+__device__ __forceinline__ void count_cd(unsigned long long* counts,
+                                         unsigned sweeps, unsigned cols) {
+  sweeps = __reduce_add_sync(0xffffffffu, sweeps);
+  cols = __reduce_add_sync(0xffffffffu, cols);
+  if ((threadIdx.x & 31) == 0 && cols != 0) {
+    atomicAdd(counts, (unsigned long long)sweeps);
+    atomicAdd(counts + 1, (unsigned long long)cols);
+  }
+}
+
 namespace nnls_wide {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -120,6 +133,7 @@ struct Args {
   float* X;               // (n, k)
   float* scratch;         // device-memory state: 2 k floats a warp slot of
                           // the grid, or null for shared memory
+  unsigned long long* counts;   // (sweeps, columns) to add to, or null
   int n, k, max_sweeps;
   int warps;              // columns a block
   int depth;              // ring slots of the staged kernel, 0 otherwise
@@ -360,12 +374,27 @@ struct PackedGram {
 
 // ------------------------------------------------------- staged kernel
 
+// the counts of a counting staged kernel's block: the sweeps each active
+// column ran, which `sweep_end` left in the spare 33rd float of its row
+// of sums (so that no register holds them through the sweeps), read by
+// thread c < C; warp 0 adds them (`count_cd`)
+__device__ __forceinline__ void count_block(const Args& p, const float* ps,
+                                            int tid, int C, bool active) {
+  if (tid < 32) {
+    const bool mine = tid < C && active;
+    count_cd(p.counts, mine ? __float_as_int(ps[tid * 33 + 32]) : 0,
+             mine ? 1 : 0);
+  }
+}
+
 // the sweep's end of a staged kernel's column c: each of its first 32
 // threads its terms |x_i - x_start| / (x_i + 1e-15) of steps i = l, l +
 // 32, ... in step order, then the column's tol as the xor butterfly sums
 // the 32 lanes' partials (lane 0's operand order); `live` goes false where
-// the column stops. Ends with the block's barrier before the partials are
-// read.
+// the column stops, and, COUNT, thread tl = 0 leaves the sweep it stopped
+// at in the row's spare float (`count_block`). Ends with the block's
+// barrier before the partials are read.
+template <bool COUNT>
 __device__ __forceinline__ void sweep_end(const Args& p, bool& live,
                                           const float* xs, const float* x0s,
                                           float* ps, int c, int tl,
@@ -394,6 +423,7 @@ __device__ __forceinline__ void sweep_end(const Args& p, bool& live,
     if (!(__fdiv_rn(s[0], p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
         !((float)sweep < p.cap)) {
       live = false;
+      if (COUNT && tl == 0) ps[c * 33 + 32] = __int_as_float(sweep);
     }
   }
 }
@@ -401,7 +431,7 @@ __device__ __forceinline__ void sweep_end(const Args& p, bool& live,
 // U: coordinates a thread, ceil(k / P) rounded up to an instantiated size;
 // P: threads a column (p.lanes), a constant so that a thread's offsets
 // fold into its loads
-template <int U, int P, class GRAM>
+template <int U, int P, bool COUNT, class GRAM>
 __global__ void __launch_bounds__(kMaxThreads)
 staged_kernel(const Args p, const GRAM gram) {
   extern __shared__ __align__(16) float smem[];
@@ -522,20 +552,21 @@ staged_kernel(const Args p, const GRAM gram) {
         s_issue = s_issue + 1 == k ? 0 : s_issue + 1;
       }
     }
-    sweep_end(p, live, xs, x0s, ps, c, tl, sweep);
+    sweep_end<COUNT>(p, live, xs, x0s, ps, c, tl, sweep);
     if (!__syncthreads_or(live)) break;
   }
   copy_wait<0>();
   if (active) {
     for (int t = tl; t < k; t += P) p.X[row + t] = xs[t];
   }
+  if constexpr (COUNT) count_block(p, ps, tid, C, active);
 }
 
 // ------------------------------------------------ the warp-a-column kernel
 
 // GRAM: float entry(col, i, t) = a_col[t, i] and float inv(col, i) =
 // 1 / a_col[i, i], both as the plain version rounds them
-template <class GRAM>
+template <class GRAM, bool COUNT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 wide_kernel(const Args p, const GRAM gram) {
   extern __shared__ __align__(16) float smem[];
@@ -601,6 +632,11 @@ wide_kernel(const Args p, const GRAM gram) {
       }
       if (!(__fdiv_rn(tol, p.k_div) > kCdTol) || sweep >= p.max_sweeps ||
           !((float)sweep < p.cap)) {
+        if (COUNT && lane == 0) {
+          // a column's solve outlasts its two atomics by far
+          atomicAdd(p.counts, (unsigned long long)sweep);
+          atomicAdd(p.counts + 1, 1ull);
+        }
         break;
       }
     }
@@ -638,7 +674,7 @@ __host__ __device__ inline bool quad_fits(int k, int C) {
 // of the lane order (thread l < 32 the steps l, l + 32, ...), so the bits
 // are `staged_kernel`'s and `wide_kernel`'s. V: quads a thread, P:
 // threads a column (32 or 64).
-template <int V, int P>
+template <int V, int P, bool COUNT>
 __global__ void __launch_bounds__(kMaxThreads)
 quad_kernel(const Args p, const SharedGram gram) {
   extern __shared__ __align__(16) float smem[];
@@ -815,19 +851,20 @@ quad_kernel(const Args p, const SharedGram gram) {
         buf ^= 1;
       }
     }
-    sweep_end(p, live, xs, x0s, ps, c, tl, sweep);
+    sweep_end<COUNT>(p, live, xs, x0s, ps, c, tl, sweep);
     if (!__syncthreads_or(live)) break;
   }
   copy_wait<0>();
   if (active) {
     for (int t = tl; t < k; t += P) p.X[row + t] = xs[t];
   }
+  if constexpr (COUNT) count_block(p, ps, tid, C, active);
 }
 
-template <int V, int P>
+template <int V, int P, bool COUNT>
 cudaError_t launch_quad_v(const Args& p, const SharedGram& gram, int blocks,
                           size_t smem, cudaStream_t s) {
-  auto kernel = quad_kernel<V, P>;
+  auto kernel = quad_kernel<V, P, COUNT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -840,31 +877,32 @@ cudaError_t launch_quad_v(const Args& p, const SharedGram& gram, int blocks,
 // B1's staged route where its ring fits (P = 32 or 64): the quad kernel on
 // its own ring (p.depth set here); the caller has checked C, P, k, the
 // scratch and the blocks
-inline cudaError_t launch_quad(Args p, const SharedGram& gram, int blocks,
+template <bool COUNT>
+cudaError_t launch_quad(Args p, const SharedGram& gram, int blocks,
                                cudaStream_t s) {
   p.depth = quad_depth(p.k, p.warps);
   const size_t smem = 4 * quad_floats(p.k, p.warps, p.depth);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   const int v = (p.k + 4 * p.lanes - 1) / (4 * p.lanes);
   if (p.lanes == 64) {   // k > 2048: v > 8
-    if (v <= 10) return launch_quad_v<10, 64>(p, gram, blocks, smem, s);
-    if (v <= 12) return launch_quad_v<12, 64>(p, gram, blocks, smem, s);
-    return launch_quad_v<16, 64>(p, gram, blocks, smem, s);
+    if (v <= 10) return launch_quad_v<10, 64, COUNT>(p, gram, blocks, smem, s);
+    if (v <= 12) return launch_quad_v<12, 64, COUNT>(p, gram, blocks, smem, s);
+    return launch_quad_v<16, 64, COUNT>(p, gram, blocks, smem, s);
   }
-  if (v <= 5) return launch_quad_v<5, 32>(p, gram, blocks, smem, s);
-  if (v <= 6) return launch_quad_v<6, 32>(p, gram, blocks, smem, s);
-  if (v <= 8) return launch_quad_v<8, 32>(p, gram, blocks, smem, s);
-  if (v <= 10) return launch_quad_v<10, 32>(p, gram, blocks, smem, s);
-  if (v <= 12) return launch_quad_v<12, 32>(p, gram, blocks, smem, s);
-  return launch_quad_v<16, 32>(p, gram, blocks, smem, s);
+  if (v <= 5) return launch_quad_v<5, 32, COUNT>(p, gram, blocks, smem, s);
+  if (v <= 6) return launch_quad_v<6, 32, COUNT>(p, gram, blocks, smem, s);
+  if (v <= 8) return launch_quad_v<8, 32, COUNT>(p, gram, blocks, smem, s);
+  if (v <= 10) return launch_quad_v<10, 32, COUNT>(p, gram, blocks, smem, s);
+  if (v <= 12) return launch_quad_v<12, 32, COUNT>(p, gram, blocks, smem, s);
+  return launch_quad_v<16, 32, COUNT>(p, gram, blocks, smem, s);
 }
 
 // ---------------------------------------------------------------- launch
 
-template <int U, int P, class GRAM>
+template <int U, int P, bool COUNT, class GRAM>
 cudaError_t launch_staged_u(const Args& p, const GRAM& gram, int blocks,
                             size_t smem, cudaStream_t s) {
-  auto kernel = staged_kernel<U, P, GRAM>;
+  auto kernel = staged_kernel<U, P, COUNT, GRAM>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -877,21 +915,22 @@ cudaError_t launch_staged_u(const Args& p, const GRAM& gram, int blocks,
 // the staged kernel at P threads a column: U the instantiated size at or
 // above ceil(k / P) (past P = 32, where the plan takes the fewest threads
 // that fit, ceil(k / P) > 32; B1 runs it from k = 2049 only)
-template <int P, class GRAM>
+template <int P, bool COUNT, class GRAM>
 cudaError_t launch_staged_p(const Args& p, const GRAM& gram, int blocks,
                             size_t smem, cudaStream_t s) {
   const int u = (p.k + P - 1) / P;
   if constexpr (P == 32 && std::is_same_v<GRAM, SharedGram>) {
     return cudaErrorInvalidValue;   // B1 takes the quad kernel there
   } else {
+    const int b = blocks;
     if constexpr (P == 32) {
-      if (u <= 20) return launch_staged_u<20, P>(p, gram, blocks, smem, s);
-      if (u <= 24) return launch_staged_u<24, P>(p, gram, blocks, smem, s);
-      if (u <= 32) return launch_staged_u<32, P>(p, gram, blocks, smem, s);
+      if (u <= 20) return launch_staged_u<20, P, COUNT>(p, gram, b, smem, s);
+      if (u <= 24) return launch_staged_u<24, P, COUNT>(p, gram, b, smem, s);
+      if (u <= 32) return launch_staged_u<32, P, COUNT>(p, gram, b, smem, s);
     }
-    if (u <= 40) return launch_staged_u<40, P>(p, gram, blocks, smem, s);
-    if (u <= 48) return launch_staged_u<48, P>(p, gram, blocks, smem, s);
-    return launch_staged_u<64, P>(p, gram, blocks, smem, s);
+    if (u <= 40) return launch_staged_u<40, P, COUNT>(p, gram, b, smem, s);
+    if (u <= 48) return launch_staged_u<48, P, COUNT>(p, gram, b, smem, s);
+    return launch_staged_u<64, P, COUNT>(p, gram, b, smem, s);
   }
 }
 
@@ -899,9 +938,11 @@ cudaError_t launch_staged_p(const Args& p, const GRAM& gram, int blocks,
 // a block of P = p.lanes threads each, `blocks` = ceil(n / C); B1 the
 // quad kernel where its ring fits); else wide_kernel, `blocks` blocks of
 // `warps` columns (a warp each), with scratch null each block holding
-// warps * 2 k floats of dynamic shared memory
-template <class GRAM>
-cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
+// warps * 2 k floats of dynamic shared memory. COUNT: the kernels that add
+// to p.counts, instantiations of their own (`launch`)
+template <bool COUNT, class GRAM>
+cudaError_t launch_route(Args p, const GRAM& gram, int blocks,
+                         cudaStream_t s) {
   if (p.n <= 0) return cudaSuccess;
   if (p.k <= 0 || p.warps < 1 || p.warps > kMaxWarps || blocks < 1) {
     return cudaErrorInvalidValue;
@@ -917,23 +958,25 @@ cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
     }
     if constexpr (std::is_same_v<GRAM, SharedGram>) {
       if (P <= 64 && quad_fits(p.k, C)) {
-        return launch_quad(p, gram, blocks, s);
+        return launch_quad<COUNT>(p, gram, blocks, s);
       }
     }
     const size_t smem = 4 * staged_floats(p.k, C, p.depth, gram.slab(C),
                                           GRAM::kRowStarts);
     if (smem > kSmemMax) return cudaErrorInvalidValue;
     switch (P) {
-      case 32: return launch_staged_p<32>(p, gram, blocks, smem, s);
-      case 64: return launch_staged_p<64>(p, gram, blocks, smem, s);
-      case 128: return launch_staged_p<128>(p, gram, blocks, smem, s);
-      default: return launch_staged_p<256>(p, gram, blocks, smem, s);
+      case 32: return launch_staged_p<32, COUNT>(p, gram, blocks, smem, s);
+      case 64: return launch_staged_p<64, COUNT>(p, gram, blocks, smem, s);
+      case 128:
+        return launch_staged_p<128, COUNT>(p, gram, blocks, smem, s);
+      default:
+        return launch_staged_p<256, COUNT>(p, gram, blocks, smem, s);
     }
   }
   const size_t smem =
       p.scratch != nullptr ? 0 : (size_t)p.warps * 2 * p.k * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  auto kernel = wide_kernel<GRAM>;
+  auto kernel = wide_kernel<GRAM, COUNT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -941,6 +984,14 @@ cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
   }
   kernel<<<blocks, p.warps * 32, smem, s>>>(p, gram);
   return cudaGetLastError();
+}
+
+// a plan's launch: with a counter the counting kernels, else the kernels
+// with no counting code at all
+template <class GRAM>
+cudaError_t launch(Args p, const GRAM& gram, int blocks, cudaStream_t s) {
+  return p.counts != nullptr ? launch_route<true>(p, gram, blocks, s)
+                             : launch_route<false>(p, gram, blocks, s);
 }
 
 }  // namespace nnls_wide

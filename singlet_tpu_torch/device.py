@@ -9,8 +9,6 @@ matmuls and convolutions and keeps float32 products at "highest".
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 
@@ -44,18 +42,6 @@ def is_scipy_sparse(A) -> bool:
         return sp.issparse(A)
     except ImportError:
         return False
-
-
-class Timer:
-    """Wall seconds of a ``with`` block in ``elapsed`` (a copy of
-    ``singlet_tpu.utils.Timer``; it does not wait for the card)."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *a):
-        self.elapsed = time.perf_counter() - self.t0
 
 
 def vprint(verbose: int, level: int, *args) -> None:

@@ -23,6 +23,11 @@ The sweep-schedule environment variables (``SINGLET_TPU_SWEEPS``,
 ``SINGLET_TPU_MAX_SWEEPS``, ``SINGLET_TPU_FAST_SWEEPS``,
 ``SINGLET_TPU_FAST_SWEEPS_MASKED``) keep their names and defaults; they are
 read when a fit is built (``SweepSettings.from_env``), not at import.
+
+While a fit loop has armed the port's CD-NNLS counters
+(``tracing.cd_counter``), the plain version adds its columns' sweeps and
+its solved columns to them, as the kernels do on the card: route B1 for a
+shared Gram, B2 for one Gram per column.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from singlet_tpu_torch import tracing
 
 CD_TOL = 1e-8
 # the reference's cap of 100 sweeps per solve (reference:src/singlet.cpp:233)
@@ -113,7 +120,8 @@ def nnls_batch(
     (n,), False rows come back unchanged; n_coord: overrides k in the exit
     test ``tol / k <= 1e-8``; sweep_cap: caps the sweep count below
     ``max_sweeps``. Returns X (n, k), and per-column sweep counts (n,)
-    int32 with ``return_sweeps``.
+    int32 with ``return_sweeps``. Adds to the armed CD-NNLS counters of
+    its route (``tracing.cd_counter``).
     """
     global PLAIN_CALLS
     PLAIN_CALLS += 1
@@ -164,6 +172,9 @@ def nnls_batch(
         if sweep >= max_sweeps or (sweep_cap is not None
                                    and not float(sweep) < float(sweep_cap)):
             active = torch.zeros_like(active)
+    counts = tracing.cd_counter("B2" if batched_a else "B1", B.device)
+    if counts is not None:
+        counts += torch.stack([col_sweeps.sum(), (col_sweeps > 0).sum()])
     if return_sweeps:
         return X, col_sweeps
     return X

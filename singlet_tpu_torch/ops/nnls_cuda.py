@@ -35,6 +35,12 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version ``ops.nnls.nnls_batch``, because there is
 no card to launch on. Importing this module needs neither nvcc nor a card:
 the libraries are built and loaded at the first launch.
+
+While the port's tracing is on (``tracing.enabled``) and a fit loop has
+armed its counters for the step, each wrapper hands its kernel the
+route's (sweeps, columns) accumulator (``tracing.cd_counter``), to which
+the kernel adds each column's sweeps and the columns it solved; else a
+null pointer, and the kernel counts nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from singlet_tpu_torch import tracing
 from singlet_tpu_torch.ops import linalg
 from singlet_tpu_torch.ops.nnls import CD_MAX_SWEEPS, nnls_batch
 
@@ -100,30 +107,30 @@ _WIDE_MAX_U = 64
 _WIDE_B1_OWN_K = 2048
 
 # the C entry points of B2 take seven pointers (the tile, 1/diag, B, X0,
-# mask, the (n, k) L1 or null, X), n, k, L1, L2, k_div, cap, max_sweeps
-# and the stream
+# mask, the (n, k) L1 or null, X), n, k, L1, L2, k_div, cap, max_sweeps,
+# the counters or null, and the stream
 _ARGTYPES = ([ctypes.c_void_p] * 7
              + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p])
+                ctypes.c_void_p, ctypes.c_void_p])
 # B2's packed entry: a_full, packed_t and the row-start table in place of
 # the tile and 1/diag, then the arguments above
 _ARGTYPES_PACKED = [ctypes.c_void_p] + _ARGTYPES
 # the wide entries (csrc/nnls_wide.cu): B1's (aT, l1) or B2's (at, 1/diag)
 # or (a_full, packed_t, row starts), then B, X0, mask (B2: then l1), X,
 # scratch, n, k, warps, blocks, depth, lanes, L1, L2, k_div, cap,
-# max_sweeps and the stream
-_WIDE_TAIL = ([ctypes.c_int] * 6
-              + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+# max_sweeps, the counters or null, and the stream
+_WIDE_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_float] * 4
+              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 ARGTYPES_B1_WIDE = [ctypes.c_void_p] * 7 + _WIDE_TAIL
 ARGTYPES_B2_WIDE = [ctypes.c_void_p] * 8 + _WIDE_TAIL
 ARGTYPES_B2_PACKED_WIDE = [ctypes.c_void_p] * 9 + _WIDE_TAIL
 # B1's entry: a, aT, l1, B, X0, mask, X, then n, k, g, L1, L2, k_div, cap,
-# max_sweeps and the stream
+# max_sweeps, the counters or null, and the stream
 ARGTYPES_B1 = ([ctypes.c_void_p] * 7
                + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                  ctypes.c_int, ctypes.c_void_p])
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 _BOUND: dict = {}
 
 
@@ -407,7 +414,8 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                      None if scratch is None else scratch.data_ptr(), n, k,
                      plan.warps, plan.blocks, plan.depth, plan.lanes,
                      float(L1), float(L2), k_div,
-                     _cap(max_sweeps, sweep_cap), int(max_sweeps), stream)
+                     _cap(max_sweeps, sweep_cap), int(max_sweeps),
+                     _counts("B1", B), stream)
         if err != 0:
             raise RuntimeError(
                 f"nnls_wide_b1 launch failed: {err_str(err).decode()} ({err})")
@@ -430,7 +438,7 @@ def nnls_batch_cuda(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
                  None if l1 is None else l1.data_ptr(), B.data_ptr(),
                  X0.data_ptr(), mask_ptr, X.data_ptr(), n, k, plan.g,
                  float(L1), float(L2), k_div, _cap(max_sweeps, sweep_cap),
-                 int(max_sweeps), stream)
+                 int(max_sweeps), _counts("B1", B), stream)
     if err != 0:
         raise RuntimeError(
             f"nnls_cd launch failed: {err_str(err).decode()} ({err})")
@@ -468,7 +476,7 @@ def _launch(bound, symbol, grams, B, X0, update_mask, l1, X, L1, L2, k_div,
         err = fn(*(t.data_ptr() for t in grams), B.data_ptr(), X0.data_ptr(),
                  mask_ptr, None if l1 is None else l1.data_ptr(),
                  X.data_ptr(), n, k, float(L1), float(L2), k_div, cap,
-                 int(max_sweeps), stream)
+                 int(max_sweeps), _counts("B2", B), stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
@@ -500,12 +508,20 @@ def _launch_wide(plan, symbol, argtypes, grams, B, X0, update_mask, l1, X,
                  X.data_ptr(),
                  None if scratch is None else scratch.data_ptr(), n, k,
                  plan.warps, plan.blocks, plan.depth, plan.lanes, float(L1),
-                 float(L2), k_div, cap, int(max_sweeps), stream)
+                 float(L2), k_div, cap, int(max_sweeps), _counts("B2", B),
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"{symbol} launch failed: {err_str(err).decode()} ({err})")
     LAUNCHES_BATCHED += 1
     LAUNCHES_BATCHED_WIDE += 1
+
+
+def _counts(route: str, B):
+    """The device pointer of ``route``'s (sweeps, columns) counters for a
+    call on B's device, or None while they are off."""
+    c = tracing.cd_counter(route, B.device)
+    return None if c is None else c.data_ptr()
 
 
 def _cap(max_sweeps, sweep_cap) -> float:

@@ -133,7 +133,8 @@ from singlet_tpu_torch.solvers.als import (_as_pair, _fit_loop, _padded,
                                            restore_fit_state)
 from singlet_tpu_torch.solvers.ard import ArdFitResult, run_ard
 from singlet_tpu_torch.sparse.chunked import _load_chunk, read_manifest
-from singlet_tpu_torch.tracing import get_metric_logger
+from singlet_tpu_torch.tracing import (call_fields, get_metric_logger,
+                                       output_span, span)
 
 __all__ = ["ShardedEllData", "ShardedEllEngine", "shard_ell_data",
            "shard_ell_from_local", "shard_ell_from_chunks",
@@ -556,12 +557,14 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
     def prepare_bits(seed):
         """The fit-invariant test mask of the rank's cells (their GLOBAL
         ids) as bitplane words, packed once per fit: the steps and every
-        test MSE of the fit read it."""
-        words = pack_mask_words(
-            seed, torch.arange(off, off + cells_local, device=dev),
-            genes_pad=genes_pad, gene_block=gene_block,
-            inv_density=inv_density, cells_true=cells_true,
-            genes_true=genes_true, cell_block=cell_block)
+        test MSE of the fit read it. The ``singlet.pack`` span, timed on the
+        card too."""
+        with span("singlet.pack", device=dev):
+            words = pack_mask_words(
+                seed, torch.arange(off, off + cells_local, device=dev),
+                genes_pad=genes_pad, gene_block=gene_block,
+                inv_density=inv_density, cells_true=cells_true,
+                genes_true=genes_true, cell_block=cell_block)
         return (words,)
 
     def planes(start: int, size: int):
@@ -994,56 +997,57 @@ class ShardedEllEngine:
         if linked and masked:
             raise ValueError("linked NMF has no masked (CV) variant "
                              "(reference c_ard_nmf takes no link matrices)")
-        fns = _build_local_fns(data, int(inv_density))
-        W, H = self._state(k, w_init, seed)
-        sp_ = seed_pair(mask_seed)
-        L1_w, L1_h = _as_pair(L1)
-        L2_w, L2_h = _as_pair(L2)
-        settings = SweepSettings.from_env()
-        mgr = resolve_manager(checkpoint)
-        ckpt_config = CheckpointManager.config_of(
-            algo="sharded_ell_fit", k=k, masked=bool(masked),
-            genes_pad=int(data.genes_pad), cells_pad=int(data.cells_pad),
-            L1=[L1_w, L1_h], L2=[L2_w, L2_h], seed=int(seed),
-            mask_seed=int(mask_seed), inv_density=int(inv_density),
-            linked=[link_h is not None, link_w is not None])
-        d, traces = None, []
-        st = self._restored(mgr, ckpt_config, verbose)
-        if st is not None:
-            W, H, d = st["W"], st["H"], st["d"]
-            traces = list(st["tol_trace"])
-        bits = None
-        if masked:
-            # the fit-invariant test mask, packed once for the steps and
-            # the final test MSE (not on the checkpointed per-step path)
-            if mgr is None and fns["use_bits"]():
-                bits = fns["prepare_bits"](sp_)
+        with span("singlet.setup"):
+            fns = _build_local_fns(data, int(inv_density))
+            W, H = self._state(k, w_init, seed)
+            sp_ = seed_pair(mask_seed)
+            L1_w, L1_h = _as_pair(L1)
+            L2_w, L2_h = _as_pair(L2)
+            settings = SweepSettings.from_env()
+            mgr = resolve_manager(checkpoint)
+            ckpt_config = CheckpointManager.config_of(
+                algo="sharded_ell_fit", k=k, masked=bool(masked),
+                genes_pad=int(data.genes_pad), cells_pad=int(data.cells_pad),
+                L1=[L1_w, L1_h], L2=[L2_w, L2_h], seed=int(seed),
+                mask_seed=int(mask_seed), inv_density=int(inv_density),
+                linked=[link_h is not None, link_w is not None])
+            d, traces = None, []
+            st = self._restored(mgr, ckpt_config, verbose)
+            if st is not None:
+                W, H, d = st["W"], st["H"], st["d"]
+                traces = list(st["tol_trace"])
+            bits = None
+            if masked:
+                # the fit-invariant test mask, packed once for the steps and
+                # the final test MSE (not on the checkpointed per-step path)
+                if mgr is None and fns["use_bits"]():
+                    bits = fns["prepare_bits"](sp_)
 
-            def step(W, H, cap):
-                return fns["masked"](W, H, sp_, L1_h, L1_w, L2_h, L2_w, k,
-                                     sweep_cap=cap,
-                                     max_sweeps=settings.max_sweeps,
-                                     bits=bits)
-        else:
-            lh = lw = None
-            if linked:
-                lh = self._link(link_h, data.cells_true, data.cells_pad, k,
-                                "link_h")
-                lw = self._link(link_w, data.genes_true, data.genes_pad, k,
-                                "link_w")
+                def step(W, H, cap):
+                    return fns["masked"](W, H, sp_, L1_h, L1_w, L2_h, L2_w, k,
+                                         sweep_cap=cap,
+                                         max_sweeps=settings.max_sweeps,
+                                         bits=bits)
+            else:
+                lh = lw = None
+                if linked:
+                    lh = self._link(link_h, data.cells_true, data.cells_pad,
+                                    k, "link_h")
+                    lw = self._link(link_w, data.genes_true, data.genes_pad,
+                                    k, "link_w")
 
-            def step(W, H, cap):
-                return fns["plain"](W, H, L1_h, L1_w, L2_h, L2_w, link_h=lh,
-                                    link_w=lw, sweep_cap=cap,
-                                    max_sweeps=settings.max_sweeps)
+                def step(W, H, cap):
+                    return fns["plain"](W, H, L1_h, L1_w, L2_h, L2_w,
+                                        link_h=lh, link_w=lw, sweep_cap=cap,
+                                        max_sweeps=settings.max_sweeps)
 
-        logger = get_metric_logger()
-        fit_id = logger.new_fit_id("sharded_ell")
-        logger.log("fit_start", fit=fit_id, algo="sharded_ell_fit", k=k,
-                   genes=int(data.genes_true), cells=int(data.cells_true),
-                   n_devices=int(data.n_dev), masked=bool(masked),
-                   linked=bool(linked), maxit=maxit,
-                   resumed_at=len(traces) or None)
+            logger = get_metric_logger()
+            fit_id = logger.new_fit_id("sharded_ell")
+            logger.log("fit_start", fit=fit_id, algo="sharded_ell_fit", k=k,
+                       genes=int(data.genes_true), cells=int(data.cells_true),
+                       n_devices=int(data.n_dev), masked=bool(masked),
+                       linked=bool(linked), maxit=maxit,
+                       resumed_at=len(traces) or None, **call_fields())
         W, H, d, traces = _fit_loop(
             step, W, H, tol, maxit, settings, masked=bool(masked),
             verbose=verbose, d=d, tols=traces,
@@ -1051,10 +1055,14 @@ class ShardedEllEngine:
             fit_id=fit_id)
         logger.log("fit_end", fit=fit_id, n_iter=len(traces),
                    tol=traces[-1] if traces else None)
-        out = dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
-                   h=self._h_out(H), tol_trace=traces)
+        with output_span():
+            out = dict(w=W[:data.genes_true].cpu().numpy(),
+                       d=d.cpu().numpy(), h=self._h_out(H), tol_trace=traces)
         if masked:
-            out["test_mse"] = float(fns["mse"](W, d, H, sp_, bits=bits))
+            with span("singlet.test_mse"):
+                err = fns["mse"](W, d, H, sp_, bits=bits)
+            with span("singlet.sync"):
+                out["test_mse"] = float(err)
         return out
 
     def graph_data(self, G) -> ShardedEllData:
@@ -1142,13 +1150,16 @@ class ShardedEllEngine:
         engine's start state, logged as ``algo``; returns the dict of
         ``fit``."""
         data = self.data
-        W, H = self._state(k, w_init, seed)
+        with span("singlet.setup"):
+            W, H = self._state(k, w_init, seed)
         W, H, d, traces = logged_fit_loop(
             algo, step, W, H, tol, maxit, settings, verbose=verbose,
             genes=int(data.genes_true), cells=int(data.cells_true),
             n_devices=int(data.n_dev))
-        return dict(w=W[:data.genes_true].cpu().numpy(), d=d.cpu().numpy(),
-                    h=self._h_out(H), tol_trace=traces)
+        with output_span():
+            return dict(w=W[:data.genes_true].cpu().numpy(),
+                        d=d.cpu().numpy(), h=self._h_out(H),
+                        tol_trace=traces)
 
     def ard_fit(self, k: int, w_init=None, mask_seed: int = 0,
                 inv_density: int = 20, tol: float = 1e-4, maxit: int = 100,
@@ -1169,38 +1180,43 @@ class ShardedEllEngine:
         every test MSE is the hashed one."""
         k = int(k)
         data = self.data
-        fns = _build_local_fns(data, int(inv_density))
-        W, H = self._state(k, w_init, init_seed)
-        sp_ = seed_pair(mask_seed)
-        settings = SweepSettings.from_env()
-        L1, L2 = float(L1), float(L2)
-        mgr = resolve_manager(checkpoint)
-        ckpt_config = CheckpointManager.config_of(
-            algo="sharded_ell_ard", k=k, genes_pad=int(data.genes_pad),
-            cells_pad=int(data.cells_pad), L1=L1, L2=L2,
-            mask_seed=int(mask_seed), inv_density=int(inv_density),
-            trace=int(trace_test_mse))
-        start = self._restored(mgr, ckpt_config, verbose)
-        if start is not None:
-            W, H = start["W"], start["H"]
-        # packed once: every masked step and every traced test MSE read it
-        # (the checkpointed per-step path packs nothing)
-        bits = fns["prepare_bits"](sp_) \
-            if mgr is None and fns["use_bits"]() else None
+        with span("singlet.setup"):
+            fns = _build_local_fns(data, int(inv_density))
+            W, H = self._state(k, w_init, init_seed)
+            sp_ = seed_pair(mask_seed)
+            settings = SweepSettings.from_env()
+            L1, L2 = float(L1), float(L2)
+            mgr = resolve_manager(checkpoint)
+            ckpt_config = CheckpointManager.config_of(
+                algo="sharded_ell_ard", k=k, genes_pad=int(data.genes_pad),
+                cells_pad=int(data.cells_pad), L1=L1, L2=L2,
+                mask_seed=int(mask_seed), inv_density=int(inv_density),
+                trace=int(trace_test_mse))
+            start = self._restored(mgr, ckpt_config, verbose)
+            if start is not None:
+                W, H = start["W"], start["H"]
+            # packed once: every masked step and every traced test MSE read
+            # it (the checkpointed per-step path packs nothing)
+            bits = fns["prepare_bits"](sp_) \
+                if mgr is None and fns["use_bits"]() else None
 
-        def step(W, H, cap):
-            return fns["masked"](W, H, sp_, L1, L1, L2, L2, k, sweep_cap=cap,
-                                 max_sweeps=settings.max_sweeps, bits=bits)
+            def step(W, H, cap):
+                return fns["masked"](W, H, sp_, L1, L1, L2, L2, k,
+                                     sweep_cap=cap,
+                                     max_sweeps=settings.max_sweeps,
+                                     bits=bits)
 
-        def mse(W, d, H):
-            return fns["mse"](W, d, H, sp_, bits=bits)
+            def mse(W, d, H):
+                return fns["mse"](W, d, H, sp_, bits=bits)
 
-        logger = get_metric_logger()
-        fit_id = logger.new_fit_id("sharded_ell_ard")
-        logger.log("fit_start", fit=fit_id, algo="sharded_ell_ard", k=k,
-                   genes=int(data.genes_true), cells=int(data.cells_true),
-                   n_devices=int(data.n_dev), inv_density=int(inv_density),
-                   maxit=maxit, resumed_at=(start or {}).get("it") or None)
+            logger = get_metric_logger()
+            fit_id = logger.new_fit_id("sharded_ell_ard")
+            logger.log("fit_start", fit=fit_id, algo="sharded_ell_ard", k=k,
+                       genes=int(data.genes_true), cells=int(data.cells_true),
+                       n_devices=int(data.n_dev), inv_density=int(inv_density),
+                       maxit=maxit,
+                       resumed_at=(start or {}).get("it") or None,
+                       **call_fields())
         return run_ard(step, mse, W, H, k, data.genes_true, data.cells_true,
                        tol, overfit_threshold, maxit, trace_test_mse,
                        settings, verbose=verbose, start=start,

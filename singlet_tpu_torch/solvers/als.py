@@ -29,7 +29,9 @@ with a remote TPU. Here it is a host loop that syncs once per iteration,
 for the tol test; the checkpointed fit (``checkpoint=``, the JAX package's
 per-step path) runs the same loop with a save after each iteration, and
 every fit logs ``fit_start``, ``iteration`` and ``fit_end`` events
-(``tracing.py``).
+(``tracing.py``), and, while the tracing is on, its spans (``singlet.
+setup``, ``.iter``, ``.step``, ``.sync``, ``.output``) and the CD-NNLS
+counters of each iteration.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
 from singlet_tpu_torch.parallel.collectives import (all_gather_cells,
                                                     barrier, rank_of)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix, _round_up
-from singlet_tpu_torch.tracing import get_metric_logger
+from singlet_tpu_torch.tracing import (CdCounts, call_fields,
+                                       get_metric_logger, output_span, span)
 
 
 def pick_block(n_true: int, target: int, quantum: int = 256) -> int:
@@ -209,7 +212,8 @@ def _fit_loop(step, W, H, tol_target: float, maxit: int,
     crossed its threshold, as the JAX checkpoint path recovers it).
     ``on_step(it, W, H, d, {"tol_trace": tols})`` runs after each
     iteration (``checkpoint_saver``); with ``fit_id``, each iteration logs
-    an ``iteration`` event (tol and ms) to the metric logger."""
+    an ``iteration`` event (tol and ms, and while the tracing is on the
+    step's CD-NNLS counts) to the metric logger."""
     k = W.shape[1]
     if d is None:
         d = torch.ones(k, dtype=W.dtype, device=W.device)
@@ -221,21 +225,27 @@ def _fit_loop(step, W, H, tol_target: float, maxit: int,
         _, exact = sweep_cap_update(exact, t, target, masked=masked,
                                     settings=settings)
     logger = get_metric_logger()
+    counts = CdCounts(W.device)
     while len(tols) < maxit and tolv > target:
-        t0 = time.perf_counter()
-        cap, exact = sweep_cap_update(exact, tolv, target, masked=masked,
-                                      settings=settings)
-        W, H, d, t = step(W, H, cap)
-        tolv = np.float32(t.item())
-        tols.append(float(tolv))
-        if fit_id is not None:
-            logger.log("iteration", fit=fit_id, iter=len(tols),
-                       tol=float(tolv),
-                       ms=round((time.perf_counter() - t0) * 1e3, 3))
-        if verbose:
-            print(f"{len(tols):4d} | {tolv:8.2e}")
-        if on_step is not None:
-            on_step(len(tols), W, H, d, {"tol_trace": tols})
+        with span("singlet.iter"):
+            t0 = time.perf_counter()
+            cap, exact = sweep_cap_update(exact, tolv, target, masked=masked,
+                                          settings=settings)
+            with counts.armed(), span("singlet.step"):
+                W, H, d, t = step(W, H, cap)
+            with span("singlet.sync"):
+                (tv,), cd = counts.read(t)
+            tolv = np.float32(tv)
+            tols.append(float(tolv))
+            if fit_id is not None:
+                logger.log("iteration", fit=fit_id, iter=len(tols),
+                           tol=float(tolv),
+                           ms=round((time.perf_counter() - t0) * 1e3, 3),
+                           **cd)
+            if verbose:
+                print(f"{len(tols):4d} | {tolv:8.2e}")
+            if on_step is not None:
+                on_step(len(tols), W, H, d, {"tol_trace": tols})
     return W, H, d, tols
 
 
@@ -249,7 +259,7 @@ def logged_fit_loop(algo: str, step, W, H, tol_target: float, maxit: int,
     logger = get_metric_logger()
     fit_id = logger.new_fit_id(algo)
     logger.log("fit_start", fit=fit_id, algo=algo, k=int(W.shape[1]),
-               maxit=maxit, **fields)
+               maxit=maxit, **fields, **call_fields())
     W, H, d, tols = _fit_loop(step, W, H, tol_target, maxit, settings,
                               masked=masked, verbose=verbose, fit_id=fit_id)
     logger.log("fit_end", fit=fit_id, n_iter=len(tols),
@@ -390,47 +400,49 @@ def nmf_fit(
     the plain fit run the same host loop, so a resumed fit equals the
     uninterrupted one bit for bit.
     """
-    Ap, Atp, dev = fit_providers(A, At, device)
-    genes_pad = Ap.rows_pad
-    cells_pad = Ap.cols_pad
-    if w_init is None:
-        W = init_w(k, genes_pad, Ap.rows_true, seed, device=dev)
-    else:
-        W = _padded(w_init, genes_pad, k, dev)
-    H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
-    d = None
+    with span("singlet.setup"):
+        Ap, Atp, dev = fit_providers(A, At, device)
+        genes_pad = Ap.rows_pad
+        cells_pad = Ap.cols_pad
+        if w_init is None:
+            W = init_w(k, genes_pad, Ap.rows_true, seed, device=dev)
+        else:
+            W = _padded(w_init, genes_pad, k, dev)
+        H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
+        d = None
 
-    L1_w, L1_h = _as_pair(L1)
-    L2_w, L2_h = _as_pair(L2)
-    linked = [link_h is not None, link_w is not None]
-    if link_h is not None:
-        link_h = _padded(link_h, cells_pad, k, dev)
-    if link_w is not None:
-        link_w = _padded(link_w, genes_pad, k, dev)
+        L1_w, L1_h = _as_pair(L1)
+        L2_w, L2_h = _as_pair(L2)
+        linked = [link_h is not None, link_w is not None]
+        if link_h is not None:
+            link_h = _padded(link_h, cells_pad, k, dev)
+        if link_w is not None:
+            link_w = _padded(link_w, genes_pad, k, dev)
 
-    mgr = resolve_manager(checkpoint)
-    ckpt_config = CheckpointManager.config_of(
-        algo="als", k=int(k), genes_pad=int(genes_pad),
-        cells_pad=int(cells_pad), L1=[L1_w, L1_h], L2=[L2_w, L2_h],
-        seed=int(seed), linked=linked)
-    tol_trace = []
-    if mgr is not None:
-        st = restore_fit_state(mgr, ckpt_config, dev, verbose)
-        if st is not None:
-            W, H, d = st["W"], st["H"], st["d"]
-            tol_trace = list(st["tol_trace"])
+        mgr = resolve_manager(checkpoint)
+        ckpt_config = CheckpointManager.config_of(
+            algo="als", k=int(k), genes_pad=int(genes_pad),
+            cells_pad=int(cells_pad), L1=[L1_w, L1_h], L2=[L2_w, L2_h],
+            seed=int(seed), linked=linked)
+        tol_trace = []
+        if mgr is not None:
+            st = restore_fit_state(mgr, ckpt_config, dev, verbose)
+            if st is not None:
+                W, H, d = st["W"], st["H"], st["d"]
+                tol_trace = list(st["tol_trace"])
 
-    logger = get_metric_logger()
-    fit_id = logger.new_fit_id("als")
-    logger.log("fit_start", fit=fit_id, algo="als", k=int(k),
-               genes=int(Ap.rows_true), cells=int(Ap.cols_true),
-               maxit=maxit, resumed_at=len(tol_trace) or None)
-    settings = SweepSettings.from_env()
+        logger = get_metric_logger()
+        fit_id = logger.new_fit_id("als")
+        logger.log("fit_start", fit=fit_id, algo="als", k=int(k),
+                   genes=int(Ap.rows_true), cells=int(Ap.cols_true),
+                   maxit=maxit, resumed_at=len(tol_trace) or None,
+                   **call_fields())
+        settings = SweepSettings.from_env()
 
-    def step(W, H, cap):
-        return als_step(Ap, Atp, W, H, L1_h, L1_w, L2_h, L2_w, link_h,
-                        link_w, sweep_cap=cap,
-                        max_sweeps=settings.max_sweeps)
+        def step(W, H, cap):
+            return als_step(Ap, Atp, W, H, L1_h, L1_w, L2_h, L2_w, link_h,
+                            link_w, sweep_cap=cap,
+                            max_sweeps=settings.max_sweeps)
 
     W, H, d, tol_trace = _fit_loop(
         step, W, H, tol, maxit, settings, verbose=verbose, d=d,
@@ -438,11 +450,8 @@ def nmf_fit(
         fit_id=fit_id)
     tol_ = tol_trace[-1] if tol_trace else 1.0
     logger.log("fit_end", fit=fit_id, n_iter=len(tol_trace), tol=tol_)
-    return FitResult(
-        w=W[: Ap.rows_true].cpu().numpy(),
-        d=d.cpu().numpy(),
-        h=H[: Ap.cols_true].T.cpu().numpy(),
-        tol=tol_,
-        n_iter=len(tol_trace),
-        tol_trace=tol_trace,
-    )
+    with output_span():
+        w, d, h = (W[: Ap.rows_true].cpu().numpy(), d.cpu().numpy(),
+                   H[: Ap.cols_true].T.cpu().numpy())
+    return FitResult(w=w, d=d, h=h, tol=tol_, n_iter=len(tol_trace),
+                     tol_trace=tol_trace)

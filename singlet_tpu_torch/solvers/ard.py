@@ -17,7 +17,8 @@ before ``it++``). The checkpointed fit (``checkpoint=``, the JAX
 package's per-step path) runs the same loop with a save after each step
 that did not stop the fit; every fit logs ``fit_start``, ``iteration``
 (with ``test_mse`` and ``overfit_score`` on traced iterations) and
-``fit_end`` events.
+``fit_end`` events, and, while the tracing is on, the spans and the
+CD-NNLS counters of ``solvers/als.py``'s loop, with ``singlet.test_mse``.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from singlet_tpu_torch.solvers.als import (_padded, als_step_masked,
                                            init_w, mse_test,
                                            restore_fit_state)
 from singlet_tpu_torch.sparse.matrix import DenseMatrix
-from singlet_tpu_torch.tracing import get_metric_logger
+from singlet_tpu_torch.tracing import (CdCounts, call_fields,
+                                       get_metric_logger, output_span, span)
 
 
 @dataclasses.dataclass
@@ -93,39 +95,47 @@ def _ard_loop(step, mse, W, H, tol_target, overfit_threshold, maxit: int,
         _, exact = sweep_cap_update(exact, t, target, masked=True,
                                     settings=settings)
     logger = get_metric_logger()
+    counts = CdCounts(W.device)
     while not stopped and it < maxit and tolv > target:
-        t0 = time.perf_counter()
-        cap, exact = sweep_cap_update(exact, tolv, target, masked=True,
-                                      settings=settings)
-        W, H, d, t = step(W, H, cap)
-        traced = it % trace_every == 0
-        if traced:
-            err_t = mse(W, d, H)
-            tv, ev = torch.stack([t, err_t]).tolist()     # the one sync
-        else:
-            tv = t.item()
-        tolv = np.float32(tv)
-        event = dict(iter=it + 1, tol=float(tolv))
-        if traced:
-            err = np.float32(ev)
-            min_err = min(min_err, err)
-            score = _score(err, min_err)
-            for key, v in (("test_mse", float(err)), ("iter", it),
-                           ("tol", float(tolv)),
-                           ("score_overfit", float(score))):
-                traces[key].append(v)
-            event.update(test_mse=float(err), overfit_score=float(score))
-            stopped = bool(score > threshold)
-            vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} | {score:8.2e}")
-        else:
-            vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} |        -")
-        if fit_id is not None:
-            logger.log("iteration", fit=fit_id,
-                       ms=round((time.perf_counter() - t0) * 1e3, 3), **event)
-        if not stopped:
-            it += 1
-            if on_step is not None:
-                on_step(it, W, H, d, traces)
+        with span("singlet.iter"):
+            t0 = time.perf_counter()
+            cap, exact = sweep_cap_update(exact, tolv, target, masked=True,
+                                          settings=settings)
+            with counts.armed(), span("singlet.step"):
+                W, H, d, t = step(W, H, cap)
+            traced = it % trace_every == 0
+            if traced:
+                with span("singlet.test_mse"):
+                    err_t = mse(W, d, H)
+                with span("singlet.sync"):
+                    (tv, ev), cd = counts.read(t, err_t)    # the one sync
+            else:
+                with span("singlet.sync"):
+                    (tv,), cd = counts.read(t)
+            tolv = np.float32(tv)
+            event = dict(iter=it + 1, tol=float(tolv), **cd)
+            if traced:
+                err = np.float32(ev)
+                min_err = min(min_err, err)
+                score = _score(err, min_err)
+                for key, v in (("test_mse", float(err)), ("iter", it),
+                               ("tol", float(tolv)),
+                               ("score_overfit", float(score))):
+                    traces[key].append(v)
+                event.update(test_mse=float(err), overfit_score=float(score))
+                stopped = bool(score > threshold)
+                vprint(verbose, 3,
+                       f"{it + 1:4d} | {tolv:8.2e} | {score:8.2e}")
+            else:
+                vprint(verbose, 3, f"{it + 1:4d} | {tolv:8.2e} |        -")
+            if fit_id is not None:
+                logger.log("iteration", fit=fit_id,
+                           ms=round((time.perf_counter() - t0) * 1e3, 3),
+                           **event)
+            if not stopped:
+                it += 1
+                if on_step is not None:
+                    on_step(it, W, H, d, traces)
     return W, H, d, it, stopped, traces, float(tolv)
 
 
@@ -149,7 +159,10 @@ def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
 
     if (it % trace_test_mse != 0 and not stopped
             and (not iter_t or iter_t[-1] != it)):
-        err = float(mse(W, d, H))
+        with span("singlet.test_mse"):
+            err_t = mse(W, d, H)
+        with span("singlet.sync"):
+            err = float(err_t)
         test_mse_t.append(err)
         iter_t.append(it)
         tol_t.append(tol_)
@@ -163,10 +176,13 @@ def run_ard(step, mse, W, H, k: int, rows_true: int, cols_true: int,
             "fit_end", fit=fit_id, n_iter=it,
             test_mse=test_mse_t[-1] if test_mse_t else None,
             stopped_early=stopped)
+    with output_span():
+        w, d, h = (W[:rows_true, :k].cpu().numpy(), d[:k].cpu().numpy(),
+                   H[:cols_true, :k].T.cpu().numpy())
     return ArdFitResult(
-        w=W[:rows_true, :k].cpu().numpy(),
-        d=d[:k].cpu().numpy(),
-        h=H[:cols_true, :k].T.cpu().numpy(),
+        w=w,
+        d=d,
+        h=h,
         test_mse=test_mse_t,
         iter=iter_t,
         tol=tol_t,
@@ -214,40 +230,43 @@ def ard_nmf_fit(
     recovered from the traced tols as JAX recovers them (bit for bit the
     uninterrupted fit when every iteration is traced).
     """
-    Ap, Atp, dev = fit_providers(A, At, device)
-    genes_pad, cells_pad = Ap.rows_pad, Ap.cols_pad
-    sp = seed_pair(mask_seed)
-    if w_init is None:
-        W = init_w(k, genes_pad, Ap.rows_true, init_seed, device=dev)
-    else:
-        W = _padded(w_init, genes_pad, k, dev)
-    H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
+    with span("singlet.setup"):
+        Ap, Atp, dev = fit_providers(A, At, device)
+        genes_pad, cells_pad = Ap.rows_pad, Ap.cols_pad
+        sp = seed_pair(mask_seed)
+        if w_init is None:
+            W = init_w(k, genes_pad, Ap.rows_true, init_seed, device=dev)
+        else:
+            W = _padded(w_init, genes_pad, k, dev)
+        H = torch.zeros((cells_pad, k), dtype=torch.float32, device=dev)
 
-    mgr = resolve_manager(checkpoint)
-    ckpt_config = CheckpointManager.config_of(
-        algo="ard", k=int(k), k_pad=int(k), genes_pad=int(genes_pad),
-        cells_pad=int(cells_pad), L1=L1, L2=L2, mask_seed=int(mask_seed),
-        inv_density=int(inv_density), trace=int(trace_test_mse))
-    start = restore_fit_state(mgr, ckpt_config, dev, verbose)
-    if start is not None:
-        W, H = start["W"], start["H"]
+        mgr = resolve_manager(checkpoint)
+        ckpt_config = CheckpointManager.config_of(
+            algo="ard", k=int(k), k_pad=int(k), genes_pad=int(genes_pad),
+            cells_pad=int(cells_pad), L1=L1, L2=L2, mask_seed=int(mask_seed),
+            inv_density=int(inv_density), trace=int(trace_test_mse))
+        start = restore_fit_state(mgr, ckpt_config, dev, verbose)
+        if start is not None:
+            W, H = start["W"], start["H"]
 
-    logger = get_metric_logger()
-    fit_id = logger.new_fit_id("ard")
-    logger.log("fit_start", fit=fit_id, algo="ard_masked", k=int(k),
-               genes=int(Ap.rows_true), cells=int(Ap.cols_true),
-               inv_density=int(inv_density), maxit=maxit,
-               resumed_at=(start or {}).get("it") or None)
-    settings = SweepSettings.from_env()
-    cell_block, gene_block = Ap.block, Atp.block
+        logger = get_metric_logger()
+        fit_id = logger.new_fit_id("ard")
+        logger.log("fit_start", fit=fit_id, algo="ard_masked", k=int(k),
+                   genes=int(Ap.rows_true), cells=int(Ap.cols_true),
+                   inv_density=int(inv_density), maxit=maxit,
+                   resumed_at=(start or {}).get("it") or None,
+                   **call_fields())
+        settings = SweepSettings.from_env()
+        cell_block, gene_block = Ap.block, Atp.block
 
-    def step(W, H, cap):
-        return als_step_masked(Ap, Atp, W, H, sp, float(L1), float(L2),
-                               int(inv_density), cell_block, gene_block,
-                               sweep_cap=cap, max_sweeps=settings.max_sweeps)
+        def step(W, H, cap):
+            return als_step_masked(Ap, Atp, W, H, sp, float(L1), float(L2),
+                                   int(inv_density), cell_block, gene_block,
+                                   sweep_cap=cap,
+                                   max_sweeps=settings.max_sweeps)
 
-    def mse(W, d, H):
-        return mse_test(Ap, W, d, H, sp, int(inv_density), cell_block)
+        def mse(W, d, H):
+            return mse_test(Ap, W, d, H, sp, int(inv_density), cell_block)
 
     return run_ard(step, mse, W, H, k, Ap.rows_true, Ap.cols_true, tol,
                    overfit_threshold, maxit, trace_test_mse, settings,

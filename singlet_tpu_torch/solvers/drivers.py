@@ -25,10 +25,16 @@ and B2 and the fused test MSE B7 hold a column's k coordinates in
 registers up to k = 512 (``ops/nnls_cuda.py`` ``MAX_K``,
 ``MAX_K_BATCHED``, ``ops/bell_cuda.py`` ``MAX_K_MSE``) and take their
 wide-k routes past it, as the JAX package has no limit.
+
+While the port's tracing is on (``tracing.enabled``), each driver call is
+a ``singlet.driver`` span, which opens the call id that its fits' spans
+and ``fit_start`` events carry, with its routing and inits in
+``singlet.setup`` and its sort by d and CV frame in ``singlet.finalize``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Optional, Sequence, Tuple, Union
@@ -47,6 +53,7 @@ from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllEngine,
 from singlet_tpu_torch.solvers.als import (init_w, make_dense_providers,
                                            nmf_fit, save_once)
 from singlet_tpu_torch.solvers.ard import ard_nmf_fit
+from singlet_tpu_torch.tracing import span
 
 # scipy-sparse inputs with more dense entries than this go to the blocked-ELL
 # engine; smaller ones are densified
@@ -127,10 +134,20 @@ def _finalize(w, d, h, gene_names=None, cell_names=None, cv_data=None,
               reduction_key: str = "NMF_") -> NMFModel:
     """Sort factors by decreasing d and attach names
     (reference:R/run_nmf.R:65-76)."""
-    model = NMFModel(w=w, d=d, h=h, gene_names=gene_names,
-                     cell_names=cell_names, cv_data=cv_data,
-                     reduction_key=reduction_key)
-    return model.sorted_by_d()
+    with span("singlet.finalize"):
+        model = NMFModel(w=w, d=d, h=h, gene_names=gene_names,
+                         cell_names=cell_names, cv_data=cv_data,
+                         reduction_key=reduction_key)
+        return model.sorted_by_d()
+
+
+def _driver(fn):
+    """The driver ``fn`` as one ``singlet.driver`` span."""
+    @functools.wraps(fn)
+    def driver(*args, **kwargs):
+        with span("singlet.driver"):
+            return fn(*args, **kwargs)
+    return driver
 
 
 def _check_density(test_density: float) -> None:
@@ -139,6 +156,7 @@ def _check_density(test_density: float) -> None:
                       "than 0.01, as a general rule of thumb")
 
 
+@_driver
 def run_nmf(
     A,
     rank: int,
@@ -179,7 +197,8 @@ def run_nmf(
                                     config.L2, config.seed)
     if np.isscalar(L1) and L1 >= 1:
         raise ValueError("L1 penalty must be strictly in the range [0, 1)")
-    P = _engine_or_providers(A, mesh, device)
+    with span("singlet.setup"):
+        P = _engine_or_providers(A, mesh, device)
     w, d, h = _fit_plain(P, int(rank), w_init=w_init, tol=tol, maxit=maxit,
                          L1=L1, L2=L2, seed=seed, verbose=verbose)
     return _finalize(w, d, h, gene_names, cell_names)
@@ -242,6 +261,7 @@ GetBestRank = get_best_rank
 # cross_validate_nmf — fixed-grid CV
 # ---------------------------------------------------------------------------
 
+@_driver
 def cross_validate_nmf(
     A,
     ranks: Sequence[int],
@@ -281,17 +301,18 @@ def cross_validate_nmf(
     if L1 >= 1:
         raise ValueError("L1 penalty must be strictly in the range [0, 1)")
     _check_density(test_density)
-    P = _engine_or_providers(A, mesh, device)
-    genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
-                                  _device_of(P))
-    k_top = int(max(ranks))
-    inv_density = round(1.0 / test_density)
+    with span("singlet.setup"):
+        P = _engine_or_providers(A, mesh, device)
+        genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
+                                      _device_of(P))
+        k_top = int(max(ranks))
+        inv_density = round(1.0 / test_density)
 
-    w_inits = [
-        init_w(k_top, genes_pad, genes_true, seed=seed * 1000 + rep,
-               device=dev)
-        for rep in range(1, n_replicates + 1)
-    ]
+        w_inits = [
+            init_w(k_top, genes_pad, genes_true, seed=seed * 1000 + rep,
+                   device=dev)
+            for rep in range(1, n_replicates + 1)
+        ]
 
     rows = []
     # expand.grid(k, rep) varies k fastest: rep-major outer, k inner
@@ -308,8 +329,9 @@ def cross_validate_nmf(
             rows.append(dict(k=k, rep=rep, test_error=e, iter=i, tol=t))
         vprint(verbose, 2, f"test set error: {res.test_mse[-1]:.4e}\n")
 
-    df = pd.DataFrame(rows)
-    df.attrs["class"] = "cross_validate_nmf_data"
+    with span("singlet.finalize"):
+        df = pd.DataFrame(rows)
+        df.attrs["class"] = "cross_validate_nmf_data"
     return df
 
 
@@ -317,6 +339,7 @@ def cross_validate_nmf(
 # ard_nmf — adaptive rank search
 # ---------------------------------------------------------------------------
 
+@_driver
 def ard_nmf(
     A,
     k_init: Optional[int] = 2,
@@ -384,20 +407,21 @@ def ard_nmf(
     if k_min < 2:
         raise ValueError("k_min cannot be less than 2")
 
-    P = _engine_or_providers(A, mesh, device)
-    # the mesh the search state is saved on: the engine's, also when an
-    # engine on a mesh is passed in
-    mesh = getattr(P, "mesh", None)
-    genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
-                                  _device_of(P))
-    inv_density = round(1.0 / test_density)
-    test_seed = seed
+    with span("singlet.setup"):
+        P = _engine_or_providers(A, mesh, device)
+        # the mesh the search state is saved on: the engine's, also when
+        # an engine on a mesh is passed in
+        mesh = getattr(P, "mesh", None)
+        genes_pad, genes_true, dev = (_rows_pad_of(P), _rows_true_of(P),
+                                      _device_of(P))
+        inv_density = round(1.0 / test_density)
+        test_seed = seed
 
-    w_inits = [
-        init_w(k_max, genes_pad, genes_true, seed=seed * 1000 + rep,
-               device=dev)
-        for rep in range(1, n_replicates + 1)
-    ]
+        w_inits = [
+            init_w(k_max, genes_pad, genes_true, seed=seed * 1000 + rep,
+                   device=dev)
+            for rep in range(1, n_replicates + 1)
+        ]
 
     # the search state, saved after every completed fit
     ckpt = resolve_manager(checkpoint, default_every=1)
