@@ -27,6 +27,13 @@ Phases; any failure raises and the script exits non-zero:
    three of those shapes, and on masked Grams with a zero diagonal (a
    factor held out on every one of its rows) in three layouts, against
    the plain version (its NaN columns);
+3b. the bits route's pair operands (``quantized_pairs_cuda``,
+   ``csrc/quantized_pairs.cu``) at the 524k atlas's shapes, a 2048-cell
+   block and the w-side's 16,384 genes at k=100: int8 and bf16 the same
+   bits as the eager chain they replaced (``quantized_pairs_plain`` on the
+   card), in the engine's layouts; the kernel's device time (CUDA events
+   over 50 launches queued behind a wait, so the host's work is not in
+   it), its bound and the chain's time;
 4. ``run_nmf`` on the card against ``run_nmf`` on the CPU at a small size;
 5. the masked fit ``ard_nmf_fit`` on the card against the CPU at the same
    small size;
@@ -306,7 +313,11 @@ CV_RANKS = [5, 10, 20]
 PLANTED = dict(rank=10, seed=7, k_max=20)
 SOURCES = ("nnls_cd", "nnls_cd_batched", "nnls_wide", "bell_spmm",
            "bell_mse_bits", "maskgram_m8", "maskgram_gemm",
-           "bell_spmm_wide_warp", "bell_mse_bits_wide_warp")
+           "bell_spmm_wide_warp", "bell_mse_bits_wide_warp",
+           "quantized_pairs")
+# the bits route's pair operands at the 524k atlas's k = 100: a 2048-cell
+# block's H and the w-side's 16,384 genes of W
+PAIRS_SHAPES = ((2048, 100, "h-side block"), (16384, 100, "w-side"))
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet), for the
 # kernels' bounds: device memory, float32 outside the tensor cores, and the
 # dense int8 and bf16 tensor-core rates
@@ -492,9 +503,28 @@ def _median_ms(torch, fn, runs: int, reps: int = 1) -> float:
     return statistics.median(times)
 
 
+def _device_ms(torch, fn, calls: int = 50, runs: int = 5) -> float:
+    """Median over ``runs`` of one call's device time: ``calls`` calls
+    queued behind a wait on the card (``torch.cuda._sleep``), so that the
+    CUDA events bracket the kernels back to back and none of the host's
+    work between them."""
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 COUNTS = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9", "B10",
           "B11", "B12", "B13", "B14", "plain", "plain_bell", "plain_maskgram",
-          "plain_maskbits", "B1w", "B2w", "B3w", "B5w", "B7w")
+          "plain_maskbits", "B1w", "B2w", "B3w", "B5w", "B7w", "pairs")
 
 
 def _launches(**nonzero):
@@ -508,7 +538,8 @@ def _counted(torch, fn):
     (its result, wall seconds, the counts of COUNTS read just after: kernel
     launches of B1-B14, calls of the plain versions, and the launches of
     B1-B14 that took a wide route: B1w, B2w and B7w past k = 512, B3w and
-    B5w on gene blocks past their tiles, each counted in B1-B7 too)."""
+    B5w on gene blocks past their tiles, each counted in B1-B7 too, and of
+    the bits route's pair operands, ``pairs``)."""
     from singlet_tpu_torch.ops import (bell, bell_cuda, maskbits, maskgram,
                                        maskgram_cuda, nnls, nnls_cuda)
 
@@ -530,7 +561,8 @@ def _counted(torch, fn):
                 (nnls_cuda, "LAUNCHES_BATCHED_WIDE"),
                 (bell_cuda, "LAUNCHES_SPMM_WIDE"),
                 (bell_cuda, "LAUNCHES_SPMM_BITS_WIDE"),
-                (bell_cuda, "LAUNCHES_MSE_BITS_WIDE"))
+                (bell_cuda, "LAUNCHES_MSE_BITS_WIDE"),
+                (maskgram_cuda, "LAUNCHES_PAIRS"))
     for mod, attr in counters:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -1270,6 +1302,60 @@ def _int_mm_library(torch, m_i8, P_i8):
     return _median_ms(torch, lambda: torch._int_mm(m_i8, P_i8), runs=10)
 
 
+def phase_pairs(torch, card):
+    """Phase 3b: the bits route's pair operands (``quantized_pairs_cuda``)
+    at PAIRS_SHAPES, int8 and bf16, into a ``kmajor_buffer`` or a
+    ``pair_buffer``: the same bits as the eager chain (the plain version
+    on the card), one launch a call; the kernel's device time by
+    ``_device_ms``, its bound (X read, the operand and its scales written,
+    once each) and the chain's time by ``_median_ms``. One row a (shape,
+    dtype)."""
+    from singlet_tpu_torch.ops import maskgram, maskgram_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = []
+    for n, k, label in PAIRS_SHAPES:
+        X = torch.rand((n, k), generator=gen, device="cuda")
+        npairs = k * (k + 1) // 2
+        for dtype in ("int8", "bf16"):
+            make = maskgram.kmajor_buffer if dtype == "int8" \
+                else maskgram.pair_buffer
+            out, ref = make(n, npairs, "cuda"), make(n, npairs, "cuda")
+            s = torch.empty(npairs, device="cuda")
+            s_ref = torch.empty_like(s)
+            launches = maskgram_cuda.LAUNCHES_PAIRS
+            maskgram_cuda.quantized_pairs_cuda(X, out, s)
+            maskgram.quantized_pairs_plain(X, ref, s_ref)
+            torch.cuda.synchronize()
+            if maskgram_cuda.LAUNCHES_PAIRS != launches + 1:
+                raise AssertionError("quantized_pairs: not one launch")
+            err = max(float((out.float() - ref.float()).abs().max()),
+                      float((s - s_ref).abs().max()))
+            if not (torch.equal(out, ref) and torch.equal(s, s_ref)):
+                raise AssertionError(f"quantized_pairs {label} ({n} x {k}, "
+                                     f"{dtype}): differs from the chain by "
+                                     f"{err}")
+            ms = _device_ms(
+                torch, lambda: maskgram_cuda.quantized_pairs_cuda(X, out, s))
+            plain_ms = _median_ms(
+                torch, lambda: maskgram.quantized_pairs_plain(X, ref, s_ref),
+                runs=5)
+            width = 1 if dtype == "int8" else 2
+            row = dict(kernel="pairs", shape=label, n=n, k=k, dtype=dtype,
+                       ms=ms, plain_ms=plain_ms, library_ms=None,
+                       max_abs_err=err,
+                       **_bound(4 * n * k + width * n * npairs + 4 * npairs,
+                                n * npairs, F32_OPS_S))
+            rows.append(row)
+            print(f"quantized_pairs {label} {n} x {k} ({npairs} pairs, "
+                  f"{dtype}): {ms * 1e3:.1f} us on the card, bound "
+                  f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), the "
+                  f"eager chain {plain_ms:.3f} ms; the same bits ({card})",
+                  flush=True)
+            del out, ref
+    return rows
+
+
 def phase_bits_kernels(torch, card, label, li, lv, k, gene_block, n_gb,
                        cell_offset, block=2048, timed=True):
     """Kernels B5-B9 and B12-B14 against their plain versions on the card,
@@ -1975,7 +2061,7 @@ def phase_bits_vs_f32(torch, card, eng, W0):
                                         lambda: eng.ard_fit(k, **fit_kw))
         # F = the 4 blocks: one B9 flush per iteration
         want = _launches(B2=5 * (blocks + 1), B5=5 * blocks, B6=5 * blocks,
-                         B7=5, B8=5 * blocks, B9=5)
+                         B7=5, B8=5 * blocks, B9=5, pairs=5 * (blocks + 1))
         if n_b != want:
             raise AssertionError(f"bits route ({mode}) launches {n_b}, want "
                                  f"{want}")
@@ -2000,7 +2086,8 @@ def phase_bits_vs_f32(torch, card, eng, W0):
             r_8, secs_8, n_8 = _counted(torch,
                                         lambda: eng.ard_fit(k, **fit_kw))
         want = _launches(B2=5 * (blocks + 1), B5=5 * blocks, B6=5 * blocks,
-                         B7=5, B12=5, B13=5 * blocks, B14=5)
+                         B7=5, B12=5, B13=5 * blocks, B14=5,
+                         pairs=5 * (blocks + 1))
         if n_8 != want:
             raise AssertionError(f"MASK8 route ({mode}) launches {n_8}, want "
                                  f"{want}")
@@ -2260,7 +2347,8 @@ def phase_wide_k(torch, card, data):
     with _kernel_routes_on_cpu():
         c_ard = ShardedEllEngine(A, device="cpu", **geom).ard_fit(E["k"],
                                                                   **ard_kw)
-    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9",
+                                      "pairs")) \
             or any(n_ard[key] for key in (
                 "B1", "B3", "B4", "plain", "plain_bell", "plain_maskgram",
                 "plain_maskbits")):
@@ -2609,7 +2697,8 @@ def _wide_k600(torch, card, data, words):
     d_ard, dense_s, n_dense = _counted(torch, lambda: stt.ard_nmf_fit(
         Ap, k, At=Atp, **ard_kw))
     del eng, Ap, Atp
-    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+    if not all(n_ard[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9",
+                                      "pairs")) \
             or n_ard["B2w"] != n_ard["B2"] or n_ard["B7w"] != n_ard["B7"] \
             or any(n_ard[key] for key in (
                 "B1", "B3", "B4", "plain", "plain_bell", "plain_maskgram",
@@ -2760,7 +2849,7 @@ def phase_wide_k600_bench(torch, card, A, Ap, Atp, data):
     peak = torch.cuda.max_memory_allocated() / 2**30
     _check_launches(f"ELL bits step at k={k}", n_step, _launches(
         B2=blocks + 1, B2w=blocks + 1, B5=blocks, B6=blocks, B8=blocks,
-        B9=-(-blocks // 16)))
+        B9=-(-blocks // 16), pairs=blocks + 1))
     if not all(bool(torch.isfinite(x).all()) for x in (W_new, H_new, d_w)) \
             or not np.isfinite(float(tol)):
         raise AssertionError(f"ELL bits step at k={k}: non-finite output")
@@ -3189,7 +3278,8 @@ def phase_wide_block(torch, card):
     r_b, secs_b, n_b = _counted(torch, lambda: eng.ard_fit(k, **fit_kw))
     want = _launches(B2=Mm * (blocks + 1), B5=Mm * blocks,
                      B5w=Mm * blocks, B6=Mm * blocks, B7=Mm,
-                     B7w=Mm * int(b7_wide), B8=Mm * blocks, B9=Mm)
+                     B7w=Mm * int(b7_wide), B8=Mm * blocks, B9=Mm,
+                     pairs=Mm * (blocks + 1))
     if n_b != want:
         raise AssertionError(f"wide-block bits-route fit: launches {n_b}, "
                              f"want {want}")
@@ -3360,6 +3450,7 @@ def phase_large(torch, card, ckdir):
     project, one profiled plain step, the masked ard_fit on the f32 and the
     bits route, the resumable masked fit on the hash route; and the kernel
     checks of B3-B11 on a slice of its planes."""
+    from singlet_tpu_torch.ops import maskgram_cuda
     from singlet_tpu_torch.ops.nnls import SweepSettings
     from singlet_tpu_torch.ops.rngmask import seed_pair
     from singlet_tpu_torch.parallel.sharded_ell import (ShardedEllData,
@@ -3506,7 +3597,8 @@ def phase_large(torch, card, ckdir):
     bits_fit, (W, H, d) = masked_fit(
         "bits route, int8", L["masked_maxit"], lambda steps: _launches(
             B2=steps * (blocks + 1), B5=steps * blocks, B6=steps * blocks,
-            B7=steps, B8=steps * blocks, B9=steps * blocks // F))
+            B7=steps, B8=steps * blocks, B9=steps * blocks // F,
+            pairs=steps * (blocks + 1)))
 
     def step():
         return fns["masked"](W, H, seed, 0.01, 0.01, 0.0, 0.0, k,
@@ -3519,9 +3611,27 @@ def phase_large(torch, card, ckdir):
     _, step_s, n_step = _counted(torch, step)
     _, mse_s, n_mse = _counted(torch, mse)
     if n_step != _launches(B2=blocks + 1, B5=blocks, B6=blocks, B8=blocks,
-                           B9=blocks // F) or n_mse != _launches(B7=1):
+                           B9=blocks // F, pairs=blocks + 1) \
+            or n_mse != _launches(B7=1):
         raise AssertionError(f"large bits step launches {n_step}, test MSE "
                              f"{n_mse}")
+    # the pair operands of one more step, by side: a launch per cell block
+    # (h) and one for W (w), with their device time by CUDA events, and no
+    # call of the eager chain
+    side = (lambda X, out, scales:
+            "w" if X.shape[0] == data.genes_pad else "h")
+    with _event_timed(torch, (("quantized_pairs_cuda", side),),
+                      module=maskgram_cuda) as ev_pairs:
+        _, _, n_pairs = _counted(torch, step)
+    if {key: calls for key, (_, calls) in ev_pairs.items()} != dict(
+            h=blocks, w=1) or n_pairs["pairs"] != blocks + 1 \
+            or n_pairs["plain_maskgram"]:
+        raise AssertionError(f"large bits step: pair launches {ev_pairs}, "
+                             f"counted {n_pairs}")
+    print(f"large bits route: the pair operands of one step, {blocks} h-side "
+          f"launches {ev_pairs['h'][0]:.3f} ms, 1 w-side "
+          f"{ev_pairs['w'][0]:.3f} ms by CUDA events, no plain call "
+          f"({card})", flush=True)
     # B7 alone over all cells, by CUDA events (the profiler has shown no
     # device time for it: see PERF.md)
     from singlet_tpu_torch.ops.bell_cuda import bell_mse_bits_cuda
@@ -3535,7 +3645,7 @@ def phase_large(torch, card, ckdir):
           f"({card})", flush=True)
     bits_fit.update(
         pack_s=pack_s, words_gib=words_gib, step_ms=step_s * 1e3,
-        mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms,
+        mse_ms=mse_s * 1e3, b7_all_cells_ms=b7_ms, pairs=ev_pairs,
         profile=_profile(torch, card, step, label=f"large masked ELL step, "
                          f"bits route (sweep cap {settings.fast_masked})",
                          share=B8_SHARES + B9_SHARES + (
@@ -3598,9 +3708,11 @@ def phase_large_mask8(torch, card, data, bits, bits_step, bits_ms, state,
                               bits=bits)
 
     want = {step8: _launches(B2=blocks + 1, B5=blocks, B6=blocks,
-                             B12=blocks // F, B13=blocks, B14=blocks // F),
+                             B12=blocks // F, B13=blocks, B14=blocks // F,
+                             pairs=blocks + 1),
             bits_step: _launches(B2=blocks + 1, B5=blocks, B6=blocks,
-                                 B8=blocks, B9=blocks // F)}
+                                 B8=blocks, B9=blocks // F,
+                                 pairs=blocks + 1)}
     times = {step8: [], bits_step: [bits_ms]}
     peaks = {step8: [], bits_step: []}
     outs = {}
@@ -3825,7 +3937,7 @@ def phase_ell_entry(torch, card):
     # the masked fits of the search on the default bits route (B2, B5-B9),
     # the final fit at the chosen rank on the plain one (B1, B3, B4)
     if not all(n[key] for key in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
-                                  "B8", "B9")) \
+                                  "B8", "B9", "pairs")) \
             or n["plain"] or n["plain_bell"] or n["plain_maskgram"] \
             or n["plain_maskbits"]:
         raise AssertionError(f"ELL ard_nmf launches {n}")
@@ -3839,7 +3951,8 @@ def phase_ell_entry(torch, card):
     if sorted(df["k"].unique()) != CV_RANKS or \
             not np.isfinite(df["test_error"]).all():
         raise AssertionError(f"ELL cross_validate_nmf frame:\n{df}")
-    if not all(n_cv[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9")) \
+    if not all(n_cv[key] for key in ("B2", "B5", "B6", "B7", "B8", "B9",
+                                     "pairs")) \
             or any(n_cv[key] for key in ("B1", "B3", "B4", "plain",
                                          "plain_bell", "plain_maskgram",
                                          "plain_maskbits")):
@@ -4144,7 +4257,7 @@ def phase_stream(torch, card, stage_root):
             not np.isfinite(df["test_error"]).all():
         raise AssertionError(f"staged cross_validate_nmf frame:\n{df}")
     _check_only("staged cross_validate_nmf", n_cv,
-                ("B2", "B5", "B6", "B7", "B8", "B9"))
+                ("B2", "B5", "B6", "B7", "B8", "B9", "pairs"))
     print(f"run_nmf on the staged v2 directory k={k} maxit={S['maxit']}: "
           f"{dir_s:.3f} s with ingest, bit for bit the monolithic engine's "
           f"fit ({mono_fit_s:.3f} s), launches {n_dir}; cross_validate_nmf "
@@ -4217,7 +4330,7 @@ def phase_wide_block_stream(torch, card, staged_dir, eng512, W0):
             _, step_s, n_step = _counted(torch, step)
         _check_launches(f"gene block {G} bits step", n_step, _launches(
             B2=blocks + 1, B5=blocks, B5w=blocks * wide[True], B6=blocks,
-            B8=blocks, B9=-(-blocks // 16)))
+            B8=blocks, B9=-(-blocks // 16), pairs=blocks + 1))
         del bits, fns
         out[G] = dict(width=data.b_width, n_gb=data.n_gb, ingest_s=ingest_s,
                       wide_b3=wide[False], wide_b5=wide[True],
@@ -4719,7 +4832,8 @@ def phase_mesh(torch, card, stage_root, eng, W0, G, m_dir):
         _same_bits(f"{name} on a world of one", a[name][0], none[name][0])
         if a[name][5] != none[name][5]:
             raise AssertionError(f"{name}: iterations differ")
-    for name, want_keys in (("ard", ("B2", "B5", "B6", "B7", "B8", "B9")),
+    for name, want_keys in (("ard", ("B2", "B5", "B6", "B7", "B8", "B9",
+                                     "pairs")),
                             ("fit", ("B1", "B3", "B4")),
                             ("gcnmf", ("B1", "B3", "B4")),
                             ("dense", ("B1",)), ("dense_masked", ("B2",))):
@@ -4842,6 +4956,7 @@ def phase_build():
     bell_cuda._mse_lib()
     maskgram_cuda._m8_lib()
     maskgram_cuda._gemm_lib()
+    maskgram_cuda._pairs_lib()
     for name, (lib, secs, log) in builds.items():
         print(f"build {name}.cu: {secs:.2f} s -> {os.path.relpath(lib, ROOT)}")
         # ptxas -v: registers, and (on the line after) stack and spills
@@ -4867,6 +4982,7 @@ def _phases(torch, card, results, ckdir):
     setup_s = time.perf_counter() - t0
     results["kernel"] = phase_kernel(torch, card)
     results["kernel_b2"] = phase_kernel_b2(torch, card, Ap, Atp, W0)
+    results["pairs"] = phase_pairs(torch, card)
     results["parity"] = phase_parity(torch)
     results["masked_parity"] = phase_masked_parity(torch)
     results["bench"] = phase_bench(torch, card, A, W0, Ap, Atp, setup_s)
@@ -5104,6 +5220,21 @@ def main(argv=None) -> int:
                      max(r["max_abs_err"] for r in rows
                          if r["kernel"] == key))
 
+    def pairs_entry(name, shape, side):
+        # launches: those of one 524k bits step on that side (phase 11)
+        row = next(r for r in results["pairs"]
+                   if r["shape"] == shape and r["dtype"] == "int8")
+        return {"name": name, "route": "cuda",
+                "source": "singlet_tpu_torch/csrc/quantized_pairs.cu",
+                "replaces": "none (XLA fused the chain, singlet_tpu/parallel/"
+                            "sharded_ell.py:885-889, 997-999)",
+                "launches": large["bits"]["pairs"][side][1],
+                "max_abs_err": max(r["max_abs_err"] for r in results["pairs"]
+                                   if r["shape"] == shape),
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
         entry("nnls_cd", "nnls_cd.cu", "pallas_nnls.py:266",
               bench["fixed10"]["launches"] + bench["race"]["launches"]
@@ -5177,6 +5308,8 @@ def main(argv=None) -> int:
               wblock["kernels"]["B7 passes"]["launches"]["B7w"],
               wblock["kernels"]["B7 passes"],
               wblock["kernels"]["B7 passes"]["max_abs_err"]),
+        pairs_entry("quantized_pairs", "h-side block", "h"),
+        pairs_entry("quantized_pairs-wside", "w-side", "w"),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

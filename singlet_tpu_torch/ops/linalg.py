@@ -10,7 +10,8 @@ plain PyTorch. Float32 products run at full precision
 the JAX package computes on the CPU and under
 ``SINGLET_TPU_MASK_MM_PRECISION=highest``. Its TPU default for the dense
 path (single-pass bf16 with an f32 output) has no torch equivalent, since a
-bf16 ``torch.matmul`` rounds its output to bf16.
+bf16 ``torch.matmul`` rounds its output to bf16. ``triu_pairs_on`` keeps
+``triu_pairs``'s index tables on the device, once per (k, device).
 
 Layouts as in the JAX package: W (genes, k), H (cells, k).
 
@@ -78,6 +79,20 @@ def cor_distance(x: torch.Tensor, y: torch.Tensor,
 def triu_pairs(k: int):
     """Static upper-triangle index pair (i, j) arrays for k x k, i <= j."""
     return np.triu_indices(k)
+
+
+_PAIRS_ON: dict = {}
+
+
+def triu_pairs_on(k: int, device):
+    """``triu_pairs(k)`` as int64 tensors on ``device``, copied once per
+    (k, device) and reused: a copy from pageable host memory at each call
+    would stop the host until the device has drained its queue."""
+    key = (int(k), str(torch.device(device)))
+    if key not in _PAIRS_ON:
+        _PAIRS_ON[key] = tuple(torch.as_tensor(x, device=device)
+                               for x in triu_pairs(k))
+    return _PAIRS_ON[key]
 
 
 def _sym_pos(k: int, iu) -> np.ndarray:

@@ -27,7 +27,9 @@ GLOBAL cell ids (which need not start at 0) with the validity clamps:
 cells at or past ``cells_true`` and genes at or past ``genes_true`` are
 never held out. The bits route's operand P is either int8, quantized per
 pair by ``quantize_pairs`` (int32 sums, exact, then one dequantizing
-multiply per pair), or bf16 (f32 sums). B9's ``scale_block`` batches
+multiply per pair), or bf16 (f32 sums); the engine builds it from H or W
+with ``quantized_pairs``, whose plain version is that chain (on the card
+one kernel, ``csrc/quantized_pairs.cu``). B9's ``scale_block`` batches
 several independently quantized cell blocks into one call: the scales are
 then (np, block // scale_block), one column per block, and the int32
 partial of each cell sub-block is dequantized with its own block's column
@@ -66,11 +68,12 @@ from typing import Optional
 
 import torch
 
+from singlet_tpu_torch.ops.linalg import packed_outer_products, triu_pairs
 from singlet_tpu_torch.ops.maskbits import unpack_all
 from singlet_tpu_torch.ops.rngmask import mask_block
 
-# calls of the plain versions of B8-B11, B13 and B14 (the kernels count
-# their own launches)
+# calls of the plain versions of B8-B11, B13, B14 and the pair operands'
+# builder (the kernels count their own launches)
 PLAIN_CALLS = 0
 
 _MODES = ("int8", "bf16", "hash", "xla")
@@ -97,6 +100,44 @@ def quantize_pairs(P: torch.Tensor, axis: int = 0):
     sb = s[None, :] if axis == 0 else s[:, None]
     q = torch.clamp(torch.round(P / sb), -127, 127).to(torch.int8)
     return q, s.to(torch.float32)
+
+
+def quantized_pairs_plain(X: torch.Tensor, out: torch.Tensor,
+                          scales: torch.Tensor):
+    """The plain version of ``csrc/quantized_pairs.cu``: the bits route's
+    operand of the rows X (n, k), ``packed_outer_products(X, triu_pairs(k))``
+    quantized by ``quantize_pairs`` (``out`` int8) or rounded to bf16 with
+    unit scales (``out`` bf16), copied into ``out`` (n, npairs) and
+    ``scales`` (npairs,), views of any layout (the engine's: rows of a
+    ``kmajor_buffer`` or a ``pair_buffer``, a column of the scales of a
+    group). Returns (out, scales)."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    P = packed_outer_products(X, triu_pairs(X.shape[1]))
+    if out.dtype == torch.int8:
+        q, s = quantize_pairs(P, axis=0)
+    elif out.dtype == torch.bfloat16:
+        q, s = P.to(torch.bfloat16), torch.ones(P.shape[1],
+                                                dtype=torch.float32,
+                                                device=P.device)
+    else:
+        raise TypeError(f"the pair operand must be int8 or bfloat16, got "
+                        f"{out.dtype}")
+    out.copy_(q)
+    scales.copy_(s)
+    return out, scales
+
+
+def quantized_pairs(X: torch.Tensor, out: torch.Tensor,
+                    scales: torch.Tensor):
+    """Dispatcher of the bits route's pair operand (``out`` and ``scales``
+    written in place and returned): the kernel for CUDA tensors, the plain
+    version on the CPU."""
+    if X.device.type == "cuda":
+        from singlet_tpu_torch.ops import maskgram_cuda
+
+        return maskgram_cuda.quantized_pairs_cuda(X, out, scales)
+    return quantized_pairs_plain(X, out, scales)
 
 
 def _sub_block(block: int) -> int:

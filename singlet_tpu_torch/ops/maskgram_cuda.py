@@ -13,7 +13,9 @@ hashed from (seed, cell, gene) on the card and bf16 operands. B12
 ``mask_packed_w_t_m8`` and B14 (``mask_packed_h_t_m8_cuda``)
 ``mask_packed_h_t_m8``: the bits route under ``SINGLET_TPU_MASK8=1``, the
 mask unpacked once per group into a dense int8 array that the products
-read.
+read. ``quantized_pairs_cuda`` builds the bits route's operands of B8/B13
+and B9/B14 (``csrc/quantized_pairs.cu``): it replaces no TPU kernel, since
+XLA fused that chain in the JAX package.
 
 B8-B11, B13 and B14 are one GEMM with the mask as its A operand, packed
 along the product's K axis by a pass that runs first in the same call: a
@@ -35,7 +37,7 @@ card to launch on. Importing this module needs neither nvcc nor a card.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,7 +57,8 @@ from singlet_tpu_torch.ops.maskgram import (_check_m8, _is_int8,
                                             mask_packed_w_t_plain,
                                             pack_mask8_g, pack_mask8_k,
                                             pack_mask_k, pack_words_g,
-                                            pack_words_k, pair_buffer)
+                                            pack_words_k, pair_buffer,
+                                            quantized_pairs_plain)
 from singlet_tpu_torch.ops.nnls_cuda import _check
 
 # kernel launches (one per wrapper call on CUDA tensors) of B8, B9, B10 and
@@ -74,6 +77,9 @@ LAUNCHES_KPACK = 0
 LAUNCHES_UNPACK8 = 0
 LAUNCHES_MPW_M8 = 0
 LAUNCHES_MPH_M8 = 0
+# launches of ``quantized_pairs_cuda`` (the bits route's pair operands: per
+# step one for W and one per cell block)
+LAUNCHES_PAIRS = 0
 
 _LIB = {}
 
@@ -135,6 +141,21 @@ def _m8_lib():
     return _LIB["m8"]
 
 
+def _pairs_lib():
+    if "pairs" not in _LIB:
+        from singlet_tpu_torch import _build
+
+        lib = _build.load("quantized_pairs")
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.quantized_pairs.argtypes = [ci, vp, ll, ci, ci, vp, ll, vp, ll,
+                                        ci, ci, vp]
+        lib.quantized_pairs.restype = ci
+        lib.quantized_pairs_error_string.argtypes = [ci]
+        lib.quantized_pairs_error_string.restype = ctypes.c_char_p
+        _LIB["pairs"] = lib
+    return _LIB["pairs"]
+
+
 def _raise_on(err, symbol, error_string=None):
     if err != 0:
         error_string = error_string or _gemm_lib().maskgram_gemm_error_string
@@ -144,6 +165,87 @@ def _raise_on(err, symbol, error_string=None):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ``csrc/quantized_pairs.cu``'s tile of pairs (rows i x columns j of the
+# triangle), the rows of X a block stages at once (the plan gives each
+# block of a cluster one such chunk where there are rows enough), and its
+# largest cluster
+PAIRS_TILE = 16
+PAIRS_CHUNK = 256
+PAIRS_MAX_CLUSTER = 8
+
+
+class PairsPlan(NamedTuple):
+    """``quantized_pairs_cuda``'s split of one call (see ``pairs_plan``)."""
+    nt: int        # tiles a side of the pair triangle, ceil(k / 16)
+    tiles: int     # nt (nt + 1) / 2 tiles (ti <= tj), a cluster each
+    cs: int        # blocks of a cluster: the slices of a tile's rows
+    slice: int     # rows a slice, a multiple of 128
+
+
+def pairs_plan(n: int, k: int) -> PairsPlan:
+    """The launch of ``quantized_pairs_cuda`` on n rows and k columns: a
+    cluster per 16 x 16 tile of pairs, its blocks (one per 256 rows, at
+    most 8) on slices of the rows rounded up to 128, so that every row
+    lies in one slice and a 4-byte store starts on a multiple of 4."""
+    nt = -(-int(k) // PAIRS_TILE)
+    cs = max(1, min(PAIRS_MAX_CLUSTER, -(-int(n) // PAIRS_CHUNK)))
+    per = -(-int(n) // cs)
+    return PairsPlan(nt, nt * (nt + 1) // 2, cs, -(-per // 128) * 128)
+
+
+def quantized_pairs_cuda(X, out, scales):
+    """The bits route's pair operand of the rows X (n, k) float32, n >= 1:
+    ``packed_outer_products(X, triu_pairs(k))`` quantized per pair by
+    ``quantize_pairs`` into int8 ``out`` (n, npairs), the transpose of rows
+    of pairs (``out.stride(0) == 1``: rows of a ``kmajor_buffer``), or
+    rounded into bf16 ``out`` with unit scales (``out.stride(1) == 1``:
+    rows of a ``pair_buffer``); ``scales`` (npairs,) float32 at any stride
+    (a column of a group's scales). One launch of ``csrc/quantized_pairs.cu``,
+    which writes both in place (returned) with the bits of PyTorch's own
+    chain on the card, and reads the pair order from the indices, so no
+    table crosses from the host. On CPU tensors, the plain version."""
+    if X.device.type != "cuda":
+        return quantized_pairs_plain(X, out, scales)
+    global LAUNCHES_PAIRS
+    dev = X.device
+    if X.dim() != 2 or X.dtype != torch.float32 or X.stride(1) != 1:
+        raise ValueError(f"X must be 2-D float32 with unit column stride, "
+                         f"got {X.dtype} {tuple(X.shape)} strides "
+                         f"{X.stride()}")
+    n, k = X.shape
+    if n == 0 or k == 0:
+        raise ValueError(f"X has shape {tuple(X.shape)}: the per-pair max "
+                         "needs rows and columns")
+    npairs = k * (k + 1) // 2
+    if out.device != dev or tuple(out.shape) != (n, npairs):
+        raise ValueError(f"out must be ({n}, {npairs}) on {dev}, got "
+                         f"{tuple(out.shape)} on {out.device}")
+    if out.dtype == torch.int8 and out.stride(0) == 1:
+        int8, ld = 1, out.stride(1)
+    elif out.dtype == torch.bfloat16 and out.stride(1) == 1:
+        int8, ld = 0, out.stride(0)
+    else:
+        raise ValueError(
+            f"out must be int8 with its cells contiguous (a kmajor_buffer) "
+            f"or bf16 with its pairs contiguous (a pair_buffer), got "
+            f"{out.dtype} with strides {out.stride()}")
+    if (scales.device != dev or scales.dtype != torch.float32
+            or tuple(scales.shape) != (npairs,)):
+        raise ValueError(f"scales must be ({npairs},) float32 on {dev}, got "
+                         f"{scales.dtype} {tuple(scales.shape)} on "
+                         f"{scales.device}")
+    plan = pairs_plan(n, k)
+    lib = _pairs_lib()
+    with torch.cuda.device(dev):
+        err = lib.quantized_pairs(int8, X.data_ptr(), X.stride(0), n, k,
+                                  out.data_ptr(), ld, scales.data_ptr(),
+                                  scales.stride(0), plan.cs, plan.slice,
+                                  _stream(dev))
+    _raise_on(err, "quantized_pairs", lib.quantized_pairs_error_string)
+    LAUNCHES_PAIRS += 1
+    return out, scales
 
 
 def mask_packed_w_t_bits_cuda(P_op, scales, words, *,

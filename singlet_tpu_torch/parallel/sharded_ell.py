@@ -48,7 +48,8 @@ What differs from the JAX engine, and why:
     (int8 or bf16 operand), B2 the solves and B6 the w-side right-hand
     sides, while B9 flushes the block's quantized w-side products into the
     carry once per group of F blocks (the group's operand built in the
-    layout B9 reads in place: int8 K-major, bf16 pair-padded); the test
+    layout B9 reads in place: int8 K-major, bf16 pair-padded, each block's
+    rows and W's operand by one ``quantized_pairs`` launch); the test
     MSE is B7. A masked step
     given no packed mask there, as every step of a checkpointed fit is
     (the JAX per-step path), and every step under
@@ -109,7 +110,8 @@ from singlet_tpu_torch.ops.bell import (bell_mse_bits, bell_spmm,
 from singlet_tpu_torch.ops.linalg import (cor_distance, gram, mask_dot_t,
                                           mask_mm_precision,
                                           packed_outer_products,
-                                          scale_columns, triu_pairs)
+                                          scale_columns, triu_pairs,
+                                          triu_pairs_on)
 from singlet_tpu_torch.ops.maskbits import pack_mask_words, unpack_mask_bits
 from singlet_tpu_torch.ops.maskgram import (kmajor_buffer, mask_packed_h_t,
                                             mask_packed_h_t_bits,
@@ -118,7 +120,7 @@ from singlet_tpu_torch.ops.maskgram import (kmajor_buffer, mask_packed_h_t,
                                             mask_packed_w_t_bits,
                                             mask_packed_w_t_m8,
                                             maskgram_mode, pair_buffer,
-                                            quantize_pairs)
+                                            quantized_pairs)
 from singlet_tpu_torch.ops.nnls import (CD_MAX_SWEEPS, SweepSettings,
                                         solve_nnls, solve_nnls_packed_t)
 from singlet_tpu_torch.ops.rngmask import mask_block, seed_pair
@@ -510,25 +512,18 @@ def _masked_route(device, mode: str, precision: str) -> str:
     return mode
 
 
-def _quantized(P: torch.Tensor, mode: str):
-    """A packed-product operand of the bits route and its per-pair scales:
-    int8 from ``quantize_pairs``, or bf16 with unit scales."""
-    if mode == "int8":
-        return quantize_pairs(P, axis=0)
-    return P.to(torch.bfloat16), torch.ones(P.shape[1], dtype=torch.float32,
-                                            device=P.device)
-
-
-def _w_operand(Pw: torch.Tensor, mode: str):
-    """The bits route's w-side operand (genes_pad, npairs) and its per-pair
-    scales, built once per step in the layout B8 and B13 read in place:
-    int8 in a ``kmajor_buffer`` (genes contiguous per pair), bf16 in a
-    ``pair_buffer``."""
-    q, scales = _quantized(Pw, mode)
+def _w_operand(W: torch.Tensor, mode: str):
+    """The bits route's w-side operand (genes_pad, npairs) of W's packed
+    outer products and its per-pair scales, built once per step by
+    ``quantized_pairs`` in the layout B8 and B13 read in place: int8 in a
+    ``kmajor_buffer`` (genes contiguous per pair), bf16 in a
+    ``pair_buffer`` with unit scales."""
+    k = W.shape[1]
+    npairs = k * (k + 1) // 2
     op = (kmajor_buffer if mode == "int8" else pair_buffer)(
-        Pw.shape[0], Pw.shape[1], Pw.device)
-    op.copy_(q)
-    return op, scales
+        W.shape[0], npairs, W.device)
+    scales = torch.empty((npairs,), dtype=torch.float32, device=W.device)
+    return quantized_pairs(W, op, scales)
 
 
 def _build_local_fns(data: ShardedEllData, inv_density: int):
@@ -709,7 +704,6 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # hash route
             r = "hash"
         a_full = gram(W)
-        Pw = packed_outer_products(W, iu)              # (genes_pad, npairs)
         Bw = torch.zeros((genes_pad, k), dtype=W.dtype, device=dev)
         Pk_t = torch.zeros((npairs, genes_pad), dtype=W.dtype, device=dev)
         Hsum = torch.zeros((k,), dtype=W.dtype, device=dev)
@@ -732,6 +726,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         # corrections by 1/(d_i d_j) per pair. The hashed keep factor and
         # mask take the blocks' GLOBAL cell ids (off + start).
         if r == "xla":
+            Pw = packed_outer_products(W, iu)          # (genes_pad, npairs)
             for start in range(0, cells_local, mblock):
                 li, lv = planes(start, mblock)
                 m = mask_of(seed, start, mblock).to(W.dtype)
@@ -750,7 +745,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # axis is padded for TMA: Pw's built once per step, each
             # block's packed products written into one reused buffer.
             Pw_op = pair_buffer(genes_pad, npairs, dev)
-            Pw_op.copy_(Pw)
+            Pw_op.copy_(packed_outer_products(W, iu))
             Ph_op = pair_buffer(mblock, npairs, dev)
             ids_all = torch.arange(off, off + cells_local, dtype=torch.int32,
                                    device=dev)
@@ -777,12 +772,15 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
             # by block. The group operand is allocated once per step, and
             # Pw's built once per step, in the layout the kernels read in
             # place: int8 K-major (the transpose of (npairs, K) rows 16
-            # bytes apart), bf16 with its pair axis padded for TMA. Under
-            # MASK8 the group's words are first unpacked by B12 into one
-            # int8 mask buffer, likewise reused by every group, and B13
-            # and B14 read it in place of B8 and B9.
+            # bytes apart), bf16 with its pair axis padded for TMA; on the
+            # card one launch of ``quantized_pairs`` writes each, and no
+            # index table crosses from the host, so the step never waits
+            # for the card. Under MASK8 the group's words are first
+            # unpacked by B12 into one int8 mask buffer, likewise reused
+            # by every group, and B13 and B14 read it in place of B8 and
+            # B9.
             (words,) = bits
-            Pw_op, Pw_s = _w_operand(Pw, r)
+            Pw_op, Pw_s = _w_operand(W, r)
             n_blk = cells_local // mblock
             F = max(f for f in range(1, min(n_blk, 16) + 1) if n_blk % f == 0)
             Ph_grp = (kmajor_buffer if r == "int8" else pair_buffer)(
@@ -811,9 +809,8 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
                     Hb = h_block(start, B, packed_t)
                     Bw += bell_spmm_t_bits(li, lv, Hb, w_blk,
                                            gene_block=gene_block, n_gb=n_gb)
-                    q, qs = _quantized(packed_outer_products(Hb, iu), r)
-                    Ph_grp[start - g0:start - g0 + mblock] = q
-                    scales[:, f] = qs
+                    quantized_pairs(Hb, Ph_grp[start - g0:start - g0
+                                               + mblock], scales[:, f])
                 if mask8:
                     mask_packed_h_t_m8(Ph_grp, scales, m8, Pk_t,
                                        gene_block=gene_block,
@@ -829,8 +826,7 @@ def _build_local_fns(data: ShardedEllData, inv_density: int):
         d, a_h = reduced_scale(Hsum, Hgram, Bw)
         H_new = torch.cat(Hs) / d[None, :]
         Bw = Bw / d[None, :]
-        i0 = torch.as_tensor(iu[0], device=dev)
-        i1 = torch.as_tensor(iu[1], device=dev)
+        i0, i1 = triu_pairs_on(k, dev)
         Pk_t = Pk_t / (d[i0] * d[i1])[:, None]
         W_new = solve_nnls_packed_t(
             a_h, Pk_t, iu, Bw, W, L1=L1_w, L2=L2_w,

@@ -184,12 +184,14 @@ def test_w_products_on_engine_layout_match_jax(rng, geom, dtype, kernel):
 
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
 def test_engine_w_operand_layout(rng, mode):
-    """The engine's Pw operand: the values and scales of ``_quantized``, in
-    the layout B8/B13 read in place (int8 K-major, bf16 pair-padded)."""
+    """The engine's Pw operand, built from W: the values and scales of
+    ``quantize_pairs`` (int8) or bf16 with unit scales, in the layout
+    B8/B13 read in place (int8 K-major, bf16 pair-padded)."""
     W = torch.as_tensor(rng.random((96, 5)).astype(np.float32))
     Pw = packed_outer_products(W, triu_pairs(5))
-    op, s = tell._w_operand(Pw, mode)
-    q, qs = tell._quantized(Pw, mode)
+    op, s = tell._w_operand(W, mode)
+    q, qs = (maskgram.quantize_pairs(Pw, axis=0) if mode == "int8"
+             else (Pw.to(torch.bfloat16), torch.ones(Pw.shape[1])))
     assert op.shape == Pw.shape and op.dtype == q.dtype
     assert torch.equal(op, q) and torch.equal(s, qs)
     if mode == "int8":

@@ -100,8 +100,9 @@ def test_ard_fit_bits_route_matches_jax(rng, monkeypatch, bits_route, mode):
     b0, m0, u0 = _counts()
     got = te.ard_fit(K, **kw)
     # per iteration 2 blocks of B5, B6, B8 (bell and maskgram plain calls),
-    # one B9 flush and one B7 per traced test MSE
-    assert _counts() == (b0 + 4 * (2 * 2 + 1), m0 + 4 * (2 + 1), u0)
+    # one B9 flush and one B7 per traced test MSE; the pair operands of the
+    # 2 blocks and of W (maskgram plain calls)
+    assert _counts() == (b0 + 4 * (2 * 2 + 1), m0 + 4 * (2 + 1 + 3), u0)
     want = jell.ShardedEllEngine(A, mesh=make_mesh(1)).ard_fit(
         K, k_bucket=1, **kw)
     assert got.iter == want.iter == [0, 1, 2, 3]
@@ -129,7 +130,8 @@ def test_ard_fit_mask8_route_matches_jax(rng, monkeypatch, bits_route,
     te = tell.ShardedEllEngine(A, device="cpu")
     b0, m0, u0 = _counts()
     got = te.ard_fit(K, **kw)
-    assert _counts() == (b0 + 4 * (2 * 2 + 1), m0 + 4 * (2 + 1), u0 + 4)
+    # maskgram: per step 2 B13 and a B14, and the 3 pair operands
+    assert _counts() == (b0 + 4 * (2 * 2 + 1), m0 + 4 * (2 + 1 + 3), u0 + 4)
     called = []
     for mod, name in ((jmaskbits, "unpack_mask_bits"),
                       (pallas_maskgram, "mask_packed_w_t_m8"),
@@ -254,7 +256,8 @@ def test_unported_routes_raise(rng, monkeypatch, env):
         assert r.iter == [0, 1] and np.isfinite(r.test_mse).all()
         f = te.fit(3, maxit=2, tol=0.0, masked=True)
         assert len(f["tol_trace"]) == 2 and np.isfinite(f["test_mse"])
-        assert maskgram.PLAIN_CALLS == m0 + 2 * 2 * (2 + 1)
+        # per step 2 B13, a B14 and 3 pair operands (2 blocks and W)
+        assert maskgram.PLAIN_CALLS == m0 + 2 * 2 * (2 + 1 + 3)
         assert maskbits.PLAIN_CALLS == u0 + 2 * 2
     else:
         # 2 cell blocks of 256: per step a B10 and a B11 per block
